@@ -1,0 +1,132 @@
+"""Build ``csrc/*.cu`` with ``nvcc`` into one shared library, bind with ctypes.
+
+Every source is compiled for ``sm_90a`` into an object file (one ``nvcc``
+per source, all started together), and one more ``nvcc`` links them into
+``build/repro_torch_kernels/<hash of sources and flags>/libkernels.so``
+under the checkout.  A changed source gives a new hash and so a new build;
+an unchanged one loads the library already built.  The C entry points take
+``void*`` pointers, ``int`` sizes and the stream and return a
+``cudaError_t``; the Python wrappers raise when it is not 0.
+
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry point -> argtypes (every entry point returns a cudaError_t)
+SIGNATURES = {
+    # x, scale, y, rows, d, eps, dtype code, stream
+    "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # q, k, v, o, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal, window,
+    # q_offset, dtype code, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _I, _I, _I, _P],
+    # q, k_pages, v_pages, page_table, seq_lens, o, B, Hq, Hkv, D, Dv,
+    # page, maxp, scale, dtype code, stream
+    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _P],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+
+
+def default_nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        return os.path.join(home, "bin", "nvcc")
+    return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh", ".h"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run(cmd, log):
+    log.write(("$ " + " ".join(cmd) + "\n").encode())
+    log.flush()
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+
+
+def build(nvcc: Optional[str] = None) -> Path:
+    """Compile and link the library if this source hash has none yet;
+    return its path.  Raises ``RuntimeError`` when ``nvcc`` is missing or
+    fails (the log beside the library says why)."""
+    nvcc = nvcc or default_nvcc()
+    if not (os.path.isfile(nvcc) and os.access(nvcc, os.X_OK)):
+        raise RuntimeError(f"nvcc not found at {nvcc!r}: the CUDA kernels "
+                           f"cannot be built (set CUDA_HOME)")
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "libkernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log_path = out_dir / "build.log"
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp, \
+            open(log_path, "wb") as log:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(_run([nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src),
+                               "-o", obj], log))
+        rcs = [p.wait() for p in procs]
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed (rc {rcs}); see {log_path}:\n"
+                               + log_path.read_text()[-4000:])
+        part = os.path.join(tmp, "libkernels.so")
+        if _run([nvcc, *ARCH_FLAGS, "-shared", *objs, "-o", part],
+                log).wait():
+            raise RuntimeError(f"nvcc link failed; see {log_path}:\n"
+                               + log_path.read_text()[-4000:])
+        os.replace(part, lib)      # atomic: a half-written .so never loads
+    return lib
+
+
+def load(nvcc: Optional[str] = None) -> ctypes.CDLL:
+    """The kernels' shared library, built at first use and then cached
+    for the process, with every entry point's ``argtypes`` set."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build(nvcc)))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` from a C entry point."""
+    if err != 0:
+        name = _LIB.cuda_error_string(err) if _LIB is not None else b"?"
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({name.decode(errors='replace')})")

@@ -1,0 +1,281 @@
+"""Stack assembly for the dense family (the port of
+``repro.models.transformer``; the other families come with later slices).
+
+The stack is a repeated *group* of sublayers with every parameter leaf
+stacked ``(n_groups, ...)``, as in the JAX tree, so params move across
+leaf for leaf.  Where the reference scans the groups with ``lax.scan``,
+``forward`` loops over them in Python through views ``params[...][g]``
+(``remat`` does not apply to serving).  ``Transformer`` is the
+``nn.Module`` that owns one model's parameters on one device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (_randn, apply_norm, attention_fwd,
+                                       attention_init, mlp_fwd, mlp_init,
+                                       norm_init, paged_attention_fwd,
+                                       _he)
+
+PORTED_FAMILIES = ("dense",)
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not yet ported to repro_torch "
+            f"(ported: {PORTED_FAMILIES})")
+    if cfg.attention is not None and cfg.attention.is_mla:
+        raise NotImplementedError("MLA attention is not yet ported")
+
+
+# ---------------------------------------------------------------------------
+# group structure
+# ---------------------------------------------------------------------------
+
+def n_groups(cfg: ModelConfig) -> int:
+    """One [attn + mlp] sublayer per group in the dense family."""
+    _require_ported(cfg)
+    return cfg.n_layers
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _empty_stack(tree, n: int, device):
+    """Uninitialised (n, ...) leaves shaped like ``tree``'s."""
+    if isinstance(tree, dict):
+        return {k: _empty_stack(v, n, device) for k, v in tree.items()}
+    return torch.empty((n,) + tuple(tree.shape), dtype=tree.dtype,
+                       device=device)
+
+
+def _put(stack, tree, g: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stack[k], v, g)
+    else:
+        stack[g].copy_(tree)
+
+
+# ---------------------------------------------------------------------------
+# per-group init and forward
+# ---------------------------------------------------------------------------
+
+def group_init(gen, cfg: ModelConfig, dtype, device):
+    """One group's params: [ln1, attn, ln2, mlp]."""
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
+        "attn": attention_init(gen, cfg.d_model, cfg.attention, dtype,
+                               device),
+        "ln2": norm_init(cfg.d_model, cfg.norm, dtype, device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype,
+                        device),
+    }
+
+
+def _dense_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
+                        causal=None, page_table=None, seq_lens=None,
+                        impl: str = "auto"):
+    h = apply_norm(p["ln1"], x, cfg.norm, impl=impl)
+    # `is not None`: an all-zeros page table is a valid (trash-only) table
+    if page_table is not None:
+        a, new_cache = paged_attention_fwd(p["attn"], h, cfg.attention,
+                                           pages=cache,
+                                           page_table=page_table,
+                                           seq_lens=seq_lens, impl=impl)
+    else:
+        a, new_cache = attention_fwd(p["attn"], h, cfg.attention,
+                                     positions=positions, cache=cache,
+                                     cache_len=cache_len, causal=causal,
+                                     impl=impl)
+    x = x + a
+    h = apply_norm(p["ln2"], x, cfg.norm, impl=impl)
+    x = x + mlp_fwd(p["mlp"], h, cfg.act, cfg.mlp_gated)
+    return x, new_cache
+
+
+def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
+              page_table=None, seq_lens=None, impl: str = "auto"):
+    """Returns (x, aux, new_cache).  ``cache`` is this group's cache (or
+    None)."""
+    x, nc = _dense_sublayer_fwd(gp, x, cfg, positions=positions,
+                                cache=cache, cache_len=cache_len,
+                                page_table=page_table, seq_lens=seq_lens,
+                                impl=impl)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), nc
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
+    """Stacked (n_groups, ...) dense KV cache."""
+    a, dt, ng = cfg.attention, _dtype(cfg), n_groups(cfg)
+    return {"k": torch.zeros((ng, batch, smax, a.n_kv_heads, a.head_dim),
+                             dtype=dt, device=device),
+            "v": torch.zeros((ng, batch, smax, a.n_kv_heads, a.v_dim),
+                             dtype=dt, device=device)}
+
+
+def check_paged_support(cfg: ModelConfig) -> None:
+    """Paged decode covers the plain-GQA attention families; recurrent
+    states (xlstm/hybrid) and MLA's compressed cache page differently and
+    stay on the dense path."""
+    if cfg.family not in ("dense", "vlm", "moe") or cfg.attention is None:
+        raise ValueError(
+            f"paged decode unsupported for family {cfg.family!r}")
+    if cfg.attention.is_mla:
+        raise ValueError("paged decode does not support MLA caches")
+    if cfg.attention.sliding_window > 0:
+        raise ValueError("paged decode does not support sliding windows")
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, device):
+    """Stacked (n_groups, ...) page-pool tree shared by all live slots.
+    Page 0 is reserved as the trash page (never allocated to a session):
+    inactive slots' table rows point at it so their scatter writes and
+    gathered garbage stay masked out."""
+    check_paged_support(cfg)
+    a, dt, ng = cfg.attention, _dtype(cfg), n_groups(cfg)
+    return {"k": torch.zeros((ng, n_pages, page_size, a.n_kv_heads,
+                              a.head_dim), dtype=dt, device=device),
+            "v": torch.zeros((ng, n_pages, page_size, a.n_kv_heads,
+                              a.v_dim), dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# full-stack params + forward
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device="cpu") -> Dict[str, Any]:
+    """Random params from ``seed`` through one ``torch.Generator`` on
+    ``device`` (the ``meta`` device gives shapes only).  Not the JAX
+    package's numbers: to compare, move its params across with
+    ``repro_torch.interop``."""
+    _require_ported(cfg)
+    dtype = _dtype(cfg)
+    device = torch.device(device)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    # one group at a time into preallocated stacked leaves: neither the
+    # fp32 draw of the whole stack nor a second copy of it ever exists
+    ng = n_groups(cfg)
+    layers = _empty_stack(group_init(None, cfg, dtype, "meta"), ng, device)
+    if device.type != "meta":
+        for g in range(ng):
+            _put(layers, group_init(gen, cfg, dtype, device), g)
+    params: Dict[str, Any] = {
+        "layers": layers,
+        "embed": _randn((cfg.vocab_size, cfg.d_model), gen, device, dtype,
+                        0.02),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _he(gen, (cfg.d_model, cfg.vocab_size), dtype,
+                                device)
+    return params
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
+    """Build the (B, S, d) input activations from the batch dict."""
+    _require_ported(cfg)
+    return params["embed"][batch["tokens"].long()]
+
+
+def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
+            cache_len=None, page_table=None, seq_lens=None,
+            impl: str = "auto"):
+    """Run the stack on embedded inputs x: (B, S, d).
+
+    With ``page_table``/``seq_lens`` set, ``cache`` is the stacked paged
+    pool from ``init_paged_cache`` and decode runs the paged-attention path
+    (the table and lengths are shared across groups; each group works on
+    its own pool slice).  Returns (logits (B, S, V), aux_loss, cache); the
+    cache is updated in place.
+    """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(n_groups(cfg)):
+        gp = _index(params["layers"], g)
+        gc = None if cache is None else _index(cache, g)
+        x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=gc,
+                            cache_len=cache_len, page_table=page_table,
+                            seq_lens=seq_lens, impl=impl)
+        aux = aux + a
+    x = apply_norm(params["final_norm"], x, cfg.norm, impl=impl)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ head
+    if cfg.logits_softcap > 0:
+        logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
+    return logits, aux, cache
+
+
+def _index(tree, g: int):
+    """View of group ``g`` of a stacked tree (writes go to the stack)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+# ---------------------------------------------------------------------------
+# the module
+# ---------------------------------------------------------------------------
+
+def flatten(tree, prefix: str = ""):
+    """[(path, leaf)] of a nested dict, paths joined with '/'."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}/{k}" if prefix else k
+        out.extend(flatten(v, path) if isinstance(v, dict) else [(path, v)])
+    return out
+
+
+def unflatten(pairs) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in pairs:
+        *parents, last = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+class Transformer(nn.Module):
+    """One dense-family model on one device.  Holds the JAX-layout param
+    tree as buffers named by tree path (``layers/attn/wq``), so
+    ``state_dict()`` keys are the tree's paths; ``params`` rebuilds the
+    nested dict of the same tensors.  ``params=None`` draws random weights
+    from ``seed``."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        _require_ported(cfg)
+        self.cfg = cfg
+        self.device = resolve(device)
+        if params is None:
+            params = init_params(cfg, seed=seed, device=self.device)
+        for path, leaf in flatten(params):
+            self.register_buffer(path, leaf.to(self.device))
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return unflatten(self.named_buffers())
+
+    def forward(self, x, *, positions, cache=None, cache_len=None,
+                page_table=None, seq_lens=None, impl: str = "auto"):
+        return forward(self.params, self.cfg, x, positions=positions,
+                       cache=cache, cache_len=cache_len,
+                       page_table=page_table, seq_lens=seq_lens, impl=impl)
