@@ -12,8 +12,11 @@
 // so the least time is the live K/V bytes, sum_b seq_lens[b] * Hkv *
 // (D + Dv) * bytes, over 3.35 TB/s.
 //
-// Design: one thread block (8 warps) per (kv head h, slot b), holding the
-// G query heads of that kv head in registers.  The block reads seq_lens[b]
+// Design: one thread block (8 warps) per (kv head h, head chunk c, slot b),
+// holding GC query heads of that kv head in registers: GC is the largest
+// divisor of the group size G that is at most 8, and the G / GC chunks of
+// one kv head are separate blocks, so any G works (G = 12 runs as 2 chunks
+// of 6) while a block's registers stay bounded.  The block reads seq_lens[b]
 // and page_table[b, j] itself (Hopper has no scalar prefetch) and walks
 // only positions t < seq_lens[b], page by page: it never reads a row at or
 // past the slot's length, so the trash page and the unallocated tail cost
@@ -24,7 +27,7 @@
 // are fp32 warp-shuffle dot products; each warp keeps its own fp32 online
 // softmax (m, l, acc) per query head, and the 8 warps' partial results are
 // merged through shared memory at the end.  seq_lens[b] == 0 writes zeros
-// (l = 0 is divided by 1).  D and Dv up to 128, G up to 8.
+// (l = 0 is divided by 1).  D and Dv up to 128, any G.
 #include "common.cuh"
 
 namespace {
@@ -34,7 +37,7 @@ constexpr int TOK = 4;        // positions per warp per step
 constexpr int MAX_D = 128;
 constexpr int E = MAX_D / 32;  // elements per lane per row
 
-template <typename T, int G>
+template <typename T, int GC>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
@@ -42,20 +45,22 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const int* __restrict__ seq_lens, T* __restrict__ o,
                     int Hq, int Hkv, int D, int Dv, int page, int maxp,
                     float scale) {
-  __shared__ float s_m[WARPS][G];
-  __shared__ float s_l[WARPS][G];
-  __shared__ float s_acc[WARPS][G][MAX_D];
+  __shared__ float s_m[WARPS][GC];
+  __shared__ float s_l[WARPS][GC];
+  __shared__ float s_acc[WARPS][GC][MAX_D];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.z;
+  // first query head of this block: kv head h's group, chunk blockIdx.y
+  const int hq0 = h * (Hq / Hkv) + blockIdx.y * GC;
   int len = seq_lens[b];
   len = max(0, min(len, maxp * page));
   const int* pt = page_table + static_cast<size_t>(b) * maxp;
 
-  float qf[G][E];
+  float qf[GC][E];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const T* qg = q + (static_cast<size_t>(b) * Hq + h * G + g) * D;
+  for (int g = 0; g < GC; ++g) {
+    const T* qg = q + (static_cast<size_t>(b) * Hq + hq0 + g) * D;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int c = lane + 32 * e;
@@ -63,9 +68,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     }
   }
 
-  float m[G], l[G], acc[G][E];
+  float m[GC], l[GC], acc[GC][E];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
@@ -95,7 +100,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     }
 
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < GC; ++g) {
       float s[TOK];
       float mx = NEG_INF;
 #pragma unroll
@@ -127,7 +132,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < GC; ++g) {
     if (lane == 0) {
       s_m[warp][g] = m[g];
       s_l[warp][g] = l[g];
@@ -140,7 +145,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < G * Dv; idx += WARPS * 32) {
+  for (int idx = threadIdx.x; idx < GC * Dv; idx += WARPS * 32) {
     const int g = idx / Dv, c = idx - g * Dv;
     float M = NEG_INF;
 #pragma unroll
@@ -152,18 +157,18 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       L = fmaf(s_l[w][g], f, L);
       O = fmaf(s_acc[w][g][c], f, O);
     }
-    o[(static_cast<size_t>(b) * Hq + h * G + g) * Dv + c] =
+    o[(static_cast<size_t>(b) * Hq + hq0 + g) * Dv + c] =
         from_f32<T>(O / (L == 0.f ? 1.f : L));
   }
 }
 
-template <typename T, int G>
+template <typename T, int GC>
 cudaError_t launch_g(const void* q, const void* kp, const void* vp,
                      const int* pt, const int* sl, void* o, int B, int Hq,
                      int Hkv, int D, int Dv, int page, int maxp, float scale,
                      cudaStream_t stream) {
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<T, G><<<grid, WARPS * 32, 0, stream>>>(
+  dim3 grid(Hkv, Hq / Hkv / GC, B);
+  paged_decode_kernel<T, GC><<<grid, WARPS * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), pt, sl, static_cast<T*>(o), Hq, Hkv, D, Dv,
       page, maxp, scale);
@@ -179,7 +184,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   case G_:                                                                  \
     return launch_g<T, G_>(q, kp, vp, pt, sl, o, B, Hq, Hkv, D, Dv, page,   \
                            maxp, scale, stream);
-  switch (Hq / Hkv) {
+  const int G = Hq / Hkv;
+  int gc = 8;
+  while (G % gc) --gc;
+  switch (gc) {
     REPRO_PAGED_G(1)
     REPRO_PAGED_G(2)
     REPRO_PAGED_G(3)

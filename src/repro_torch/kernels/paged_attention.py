@@ -24,7 +24,6 @@ LAUNCHES = 0
 NEG_INF = -1.0e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-MAX_GROUP = 8
 
 
 def paged_attention_torch(q, k_pages, v_pages, page_table, seq_lens, *,
@@ -56,7 +55,7 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens, *,
                          scale: Optional[float] = None) -> torch.Tensor:
     """The kernel: same arguments and result as ``paged_attention_torch``.
     q and the pools contiguous bf16/f32, page_table and seq_lens contiguous
-    int32, all on one CUDA device; head dims <= 128, Hq / Hkv <= 8.  Table
+    int32, all on one CUDA device; head dims <= 128, any Hq / Hkv.  Table
     entries must be valid page ids: the kernel follows them unchecked."""
     global LAUNCHES
     B, Hq, D = q.shape
@@ -84,9 +83,9 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens, *,
             f"page_table {tuple(page_table.shape)} seq_lens "
             f"{tuple(seq_lens.shape)} disagree")
     if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM
-            and Hq // Hkv <= MAX_GROUP and maxp >= 1):
+            and maxp >= 1):
         raise ValueError(f"paged_attention_cuda: head dims {D}, {Dv} must be "
-                         f"in [1, {MAX_HEAD_DIM}] and Hq/Hkv <= {MAX_GROUP}")
+                         f"in [1, {MAX_HEAD_DIM}]")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_cuda needs contiguous inputs")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

@@ -178,42 +178,33 @@ class DecodeScheduler:
         self.finished = 0
         self.ttft_s: List[float] = []
 
-        self._decode = self._make_decode()
-        self._admit_fn = self._make_admit()
-
     # ---------------------------------------------------------- device fns
-    def _make_decode(self):
-        cfg, sample = self.cfg, self.sample
-
-        def fn(params, tokens, pool, page_table, seq_lens, gen=None):
-            logits, pool = model_lib.decode_step_paged(
-                params, cfg, tokens, pool, page_table, seq_lens)
-            return pick(logits, sample=sample, gen=gen)[:, None], pool
-
-        return fn
-
-    def _make_admit(self):
+    def _admit_prefill(self, tokens, pages: List[int], last_idx: int) -> int:
         """Admission: zero temp cache + dense prefill + page scatter +
         first-token pick, with one host sync for the token."""
-        cfg, page_size, sample = self.cfg, self.page_size, self.sample
+        # prompt padded to a page multiple: causal masking keeps logits at
+        # ``last_idx`` and cache rows [0, last_idx] identical to the
+        # unpadded run; pad-token rows land past the live length and are
+        # overwritten before the length mask ever exposes them
+        S = tokens.shape[1]
+        cache = model_lib.init_cache(self.cfg, 1, S, tokens.device)
+        x = model_lib.embed_inputs(self.params, self.cfg, {"tokens": tokens})
+        logits, _, cache = model_lib.forward(
+            self.params, self.cfg, x,
+            positions=torch.arange(S, device=x.device), cache=cache,
+            cache_len=0)
+        self.pool = model_lib.write_prefill_to_pages(self.pool, cache, pages,
+                                                     self.page_size)
+        return int(pick(logits[0, last_idx][None], sample=self.sample,
+                        gen=self._gen if self.sample else None)[0])
 
-        def fn(params, tokens, pool, ids, last_idx: int, gen=None):
-            # prompt padded to a page multiple: causal masking keeps logits
-            # at ``last_idx`` and cache rows [0, last_idx] identical to the
-            # unpadded run; pad-token rows land past the live length and
-            # are overwritten before the length mask ever exposes them
-            S = tokens.shape[1]
-            cache = model_lib.init_cache(cfg, 1, S, tokens.device)
-            x = model_lib.embed_inputs(params, cfg, {"tokens": tokens})
-            logits, _, cache = model_lib.forward(
-                params, cfg, x, positions=torch.arange(S, device=x.device),
-                cache=cache, cache_len=0)
-            pool = model_lib.write_prefill_to_pages(pool, cache, ids,
-                                                    page_size)
-            tok = pick(logits[0, last_idx][None], sample=sample, gen=gen)[0]
-            return tok, pool
-
-        return fn
+    def _decode_step(self, tokens, page_table, seq_lens):
+        """One batched paged decode step over every slot: (max_slots, 1)
+        next tokens on the device; the pool is written in place."""
+        logits, self.pool = model_lib.decode_step_paged(
+            self.params, self.cfg, tokens, self.pool, page_table, seq_lens)
+        return pick(logits, sample=self.sample,
+                    gen=self._gen if self.sample else None)[:, None]
 
     # --------------------------------------------------------------- submit
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -294,11 +285,8 @@ class DecodeScheduler:
             bucket = need * self.page_size
             toks = np.zeros((1, bucket), np.int32)
             toks[0, :plen] = sess.context
-            tok, self.pool = self._admit_fn(
-                self.params, torch.from_numpy(toks).to(self.device),
-                self.pool, pages, plen - 1,
-                self._gen if self.sample else None)
-            first = int(tok)
+            first = self._admit_prefill(torch.from_numpy(toks).to(self.device),
+                                        pages, plen - 1)
 
             sess.state = "running"
             sess.slot = slot
@@ -374,11 +362,9 @@ class DecodeScheduler:
         if not active:
             return
         dev = self.device
-        nxt, self.pool = self._decode(
-            self.params, torch.from_numpy(self.tokens).to(dev), self.pool,
-            torch.from_numpy(self.page_table).to(dev),
-            torch.from_numpy(self.seq_lens).to(dev),
-            self._gen if self.sample else None)
+        nxt = self._decode_step(torch.from_numpy(self.tokens).to(dev),
+                                torch.from_numpy(self.page_table).to(dev),
+                                torch.from_numpy(self.seq_lens).to(dev))
         self.last_tokens_dev = nxt
         nxt_host = nxt.cpu().numpy()        # host sync: EOS/feedback point
         for i in active:

@@ -174,6 +174,7 @@ def paged_both(q, k_pages, v_pages, table, lens, dtype):
 @pytest.mark.parametrize("B,Hq,Hkv,D,Dv,page,maxp",
                          [(3, 4, 2, 16, 16, 8, 2),    # GQA
                           (2, 4, 1, 16, 8, 4, 4),     # MQA, Dv != D
+                          (2, 24, 2, 16, 16, 4, 3),   # G = 12 (starcoder2)
                           (1, 2, 2, 8, 8, 16, 1)])    # MHA, single page
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_attention_torch_vs_jax_full_slots(B, Hq, Hkv, D, Dv, page,

@@ -288,6 +288,10 @@ def test_chip_smoke_serve_phases_rehearse_on_cpu(capsys):
     assert dense["logits_check"]["max_abs_err"] == 0.0   # same plain path
     paged = smoke.phase_serve_paged(device="cpu", smoke=True)
     assert paged["decode_rounds"] > 0 and paged["evictions"] == 0
+    assert paged["logits_check"]["max_abs_err"] == 0.0
+    admits = paged["admission_logits_checks"]
+    assert [c["bucket"] for c in admits] == [32, 48]
+    assert all(c["max_abs_err"] == 0.0 for c in admits)
     assert set(paged["launches"].values()) == {0}
     if not torch.cuda.is_available():
         assert smoke.main() == 2
