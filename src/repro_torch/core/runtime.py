@@ -1,5 +1,9 @@
-"""BlockRuntime — the per-tenant execution engine for serve blocks (the
-port of ``repro.core.runtime`` for ``kind="serve"``).
+"""BlockRuntime — the per-tenant execution engine (the port of
+``repro.core.runtime``).
+
+A train block (``kind="train"``) runs ``train_step`` on its device: each
+``step()`` takes the synthetic batch for its step count, runs the forward,
+the backward and the AdamW update, and returns the step's metrics.
 
 A serve block runs one of two data planes on its device:
 
@@ -10,9 +14,9 @@ A serve block runs one of two data planes on its device:
   ``start_session``/``feed``/``harvest`` or the in-flight window.
 
 One device per block: the sharding plans of the reference have no
-counterpart until the multi-GPU slice.  Training blocks and checkpointing
-(``save``/``suspend``/``resume``/``restore``) raise ``NotImplementedError``
-until their slices land.
+counterpart until the multi-GPU slice.  Checkpointing (``save``/
+``suspend``/``resume``/``restore``) raises ``NotImplementedError`` until
+its slice lands.
 """
 from __future__ import annotations
 
@@ -25,10 +29,13 @@ import torch
 
 from repro_torch.core.block import BlockGrant
 from repro_torch.core.inflight import InflightWindow
+from repro_torch.data import pipeline
 from repro_torch.device import resolve
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import train_step as train_lib
 
 _CKPT_LATER = ("checkpointing and preempt/resume are not yet ported: they "
                "come with the checkpoint slice (checkpoint/manager.py)")
@@ -38,9 +45,16 @@ _CKPT_LATER = ("checkpointing and preempt/resume are not yet ported: they "
 class JobSpec:
     cfg: ModelConfig
     shape: ShapeConfig
-    kind: str = "train"              # train | serve (only serve is ported)
+    kind: str = "train"              # train | serve
+    opt: opt_lib.OptConfig = dataclasses.field(
+        default_factory=opt_lib.OptConfig)
     seed: int = 0
     decode_sample: bool = False      # serve: sample instead of greedy argmax
+    collect_metrics: bool = False    # carry step metrics (loss, grad_norm)
+                                     # through the async window into each
+                                     # completion record (extra host
+                                     # transfers per step; callers that
+                                     # log every step opt in)
     # ---- serve: continuous batching over a paged KV cache ----
     paged: bool = False              # serve: slot-batched generate sessions
                                      # over a shared page pool instead of the
@@ -55,11 +69,9 @@ class JobSpec:
 class BlockRuntime(InflightWindow):
     def __init__(self, grant: BlockGrant, job: JobSpec,
                  devices: Optional[Sequence] = None):
-        if job.kind != "serve":
-            raise NotImplementedError(
-                f"kind={job.kind!r} is not yet ported: training comes with "
-                f"the training slice (train/, fused_adamw, the flash "
-                f"backward)")
+        if job.kind not in ("train", "serve"):
+            raise ValueError(f"kind must be 'train' or 'serve', got "
+                             f"{job.kind!r}")
         self.job = job
         self.model: Optional[model_lib.Transformer] = None
         self.state: Any = None
@@ -88,7 +100,13 @@ class BlockRuntime(InflightWindow):
         job = self.job
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(job.seed + 1)
-        if job.paged:
+        if job.kind == "train":
+            self._step = train_lib.make_train_step(job.cfg, job.shape,
+                                                   job.opt)
+            self.data = pipeline.DataIterator(job.cfg, job.shape,
+                                              seed=job.seed,
+                                              device=self.device)
+        elif job.paged:
             # the DecodeScheduler owns its prefill/decode; built in
             # init_state (it needs the params)
             self._step = self._prefill_fn = None
@@ -98,11 +116,19 @@ class BlockRuntime(InflightWindow):
             self._prefill_fn = serve_lib.make_prefill_step(job.cfg)
 
     # --------------------------------------------------------------- state
-    def init_state(self, params: Optional[Dict[str, Any]] = None) -> None:
+    def init_state(self, params: Optional[Dict[str, Any]] = None,
+                   opt_state: Optional[Dict[str, Any]] = None) -> None:
         """Install the model (random weights from ``job.seed``, or the given
-        param tree, e.g. weights moved across with ``interop``) and the
-        empty decode context."""
+        param tree, e.g. weights moved across with ``interop``) and, for a
+        train block, the optimizer state (fresh, or the given one), for a
+        serve block the empty decode context."""
         job = self.job
+        if job.kind == "train":
+            self.state = train_lib.make_train_state(
+                job.cfg, job.seed, job.opt, params=params, device=self.device)
+            if opt_state is not None:
+                self.state["opt"] = opt_state
+            return
         self.model = model_lib.Transformer(job.cfg, params, seed=job.seed,
                                            device=self.device)
         params = self.model.params
@@ -192,37 +218,67 @@ class BlockRuntime(InflightWindow):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _train_once(self) -> Dict[str, torch.Tensor]:
+        batch = self.data.batch(self.step_count)
+        self.state, metrics = self._step(self.state, batch)
+        return metrics
+
     def step(self) -> Dict[str, float]:
         t0 = time.perf_counter()
-        self._decode_once()
+        if self.job.kind == "train":
+            metrics = {k: float(v) for k, v in self._train_once().items()}
+        else:
+            self._decode_once()
+            metrics = {}
         self._sync()
         self.step_count += 1
-        return {"step_s": time.perf_counter() - t0}
+        metrics["step_s"] = time.perf_counter() - t0
+        return metrics
 
     def step_async(self):
-        """Dispatch one step without waiting for the device."""
-        self._decode_once()
+        """Dispatch one step without waiting for the device; a train step
+        returns its metrics as device tensors."""
+        if self.job.kind == "train":
+            metrics = self._train_once()
+        else:
+            self._decode_once()
+            metrics = {}
         self.step_count += 1
-        return {}
+        return metrics
 
     # ------------------------------------------------- in-flight dispatch
     # window bookkeeping lives in InflightWindow; a step's completion token
     # is a CUDA event recorded after it (None on the CPU, where eager ops
-    # have finished when they return)
+    # have finished when they return), paired with the step's metric
+    # tensors when the job collects metrics
     def _launch(self):
-        self.step_async()
-        if self.device.type != "cuda":
-            return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        metrics = self.step_async()
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        if self.job.collect_metrics:
+            return (ev, metrics)
         return ev
 
+    @staticmethod
+    def _event(token):
+        return token[0] if isinstance(token, tuple) else token
+
     def _token_ready(self, token) -> bool:
-        return token is None or token.query()
+        ev = self._event(token)
+        return ev is None or ev.query()
 
     def _token_wait(self, token) -> None:
-        if token is not None:
-            token.synchronize()
+        ev = self._event(token)
+        if ev is not None:
+            ev.synchronize()
+
+    def _completion_record(self, dispatch_t: float, token) -> Dict[str, float]:
+        rec = super()._completion_record(dispatch_t, token)
+        if isinstance(token, tuple):
+            rec.update({k: float(v) for k, v in token[1].items()})
+        return rec
 
     # ----------------------------------------------------------- persist
     def save(self, async_: bool = True) -> None:

@@ -1,9 +1,9 @@
-"""Deterministic synthetic data (the port of ``repro.data.pipeline``'s
-host half).
+"""Deterministic synthetic data (the port of ``repro.data.pipeline``).
 
 Reproducible numpy batches keyed on (seed, step) with no host-side state,
 byte for byte the reference's; ``batch_shapes``/``prefill_shapes`` give
-each input's (shape, torch dtype).
+each input's (shape, torch dtype); ``DataIterator`` hands a train block
+its batch for a step as tensors on its device.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
 # Pixtral stub geometry (see configs/pixtral_12b.py of the reference)
@@ -85,3 +86,23 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, *, step: int,
         out["tokens"] = toks[:, :-1]
         out["labels"] = toks[:, 1:]
     return out
+
+
+class DataIterator:
+    """Stateless-by-construction iterator: batch(step) is a pure function
+    of (seed, step), the reference's ``synthetic_batch`` as tensors on
+    ``device`` (float64 leaves as float32, as the reference casts).
+    ``device`` defaults to ``cuda`` and raises without a card, as the other
+    entry points do."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
+                 device="cuda"):
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+        self.device = resolve(device)
+
+    def batch(self, step: int) -> Dict[str, torch.Tensor]:
+        np_batch = synthetic_batch(self.cfg, self.shape, step=step,
+                                   seed=self.seed)
+        return {k: torch.from_numpy(
+                    v.astype(np.float32) if v.dtype == np.float64 else v
+                ).to(self.device) for k, v in np_batch.items()}

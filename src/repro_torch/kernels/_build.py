@@ -32,10 +32,20 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype code, stream
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
-    # q, k, v, o, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal, window,
-    # q_offset, dtype code, stream
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _I, _I, _I, _P],
+    # x, scale, g, dx, dscale, partial, rows, d, eps, max blocks,
+    # dtype code, stream
+    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, lse (or null), B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
+    # window, q_offset, dtype code, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _I, _I, _P],
+    # q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
+    # D, Dv, scale, causal, window, q_offset, dtype code, stream
+    "flash_attention_bwd_launch": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I,
+                                                           _I, _P],
+    # p, g, m, m scales, v, v scales, scalars, rows, L, b1, 1 - b1, b2,
+    # 1 - b2, eps, weight decay, apply_wd, p dtype, g dtype, quant, stream
+    "fused_adamw_launch": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I] * 4 + [_P],
     # q, k_pages, v_pages, page_table, seq_lens, o, B, Hq, Hkv, D, Dv,
     # page, maxp, scale, dtype code, stream
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

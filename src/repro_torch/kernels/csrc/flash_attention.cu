@@ -26,6 +26,13 @@
 // does.  D and Dv up to 128; shared memory is 115.5 KB at D = Dv = 128,
 // which needs cudaFuncSetAttribute above 48 KB and lets two blocks share
 // an SM.
+//
+// Training: when the lse pointer is not null, the kernel also writes each
+// row's log-sum-exp, lse = m + log(l_safe) in fp32 with l_safe = l or 1
+// where l = 0 (as _flash_fwd_impl in src/repro/kernels/ops.py), shape
+// (B, Hq, Sq); the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from it.  A fully masked row keeps m = NEG_INF, so its lse
+// is -1e30.  Serving passes null and writes nothing more.
 #include "common.cuh"
 
 namespace {
@@ -39,7 +46,8 @@ constexpr int NJ = MAX_DV / 16;
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Hq, int Hkv,
                  int Sq, int Sk, int D, int Dv, float scale, int causal,
                  int window, int q_offset) {
   extern __shared__ float smem[];
@@ -181,7 +189,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q_start + ty * 4 + i;
     if (row >= Sq) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    const float inv = 1.f / l_safe;
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<size_t>(b) * Hq + hq) * Sq + row] = m[i] + logf(l_safe);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int c = tx + 16 * jj;
@@ -193,8 +204,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
-                   float scale, int causal, int window, int q_offset,
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                   int Dv, float scale, int causal, int window, int q_offset,
                    cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(BQ) * (D + 1) +
@@ -207,27 +218,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, D, Dv,
-      scale, causal, window, q_offset);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Sk, D,
+      Dv, scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Hq,
-                                      int Hkv, int Sq, int Sk, int D, int Dv,
+                                      const void* v, void* o, void* lse,
+                                      int B, int Hq, int Hkv, int Sq, int Sk,
+                                      int D, int Dv,
                                       float scale, int causal, int window,
                                       int q_offset, int dtype, void* stream) {
   if (D < 1 || D > 128 || Dv < 1 || Dv > MAX_DV || Hkv < 1 || Hq % Hkv)
     return cudaErrorInvalidValue;
   if (B == 0 || Hq == 0 || Sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, Dv, scale,
-                                 causal, window, q_offset, s);
+    return launch<__nv_bfloat16>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, Dv,
+                                 scale, causal, window, q_offset, s);
   if (dtype == DTYPE_F32)
-    return launch<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
-                         window, q_offset, s);
+    return launch<float>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, D, Dv, scale,
+                         causal, window, q_offset, s);
   return cudaErrorInvalidValue;
 }

@@ -16,6 +16,23 @@
 // to 8192, i.e. at most 32 KB a row) instead of holding it in registers,
 // which keeps register use flat for every d.  Arithmetic is fp32 in the
 // reference's order, (x * rsqrt(var + eps)) * scale, then one cast.
+//
+// Backward (rmsnorm_bwd_launch): the port's counterpart of autodiff of
+// ops.rmsnorm (src/repro/kernels/ops.py:243), which the JAX package leaves
+// to XLA; not a TPU kernel.  With r = rsqrt(mean(x^2) + eps) and g the
+// incoming gradient,
+//     dx     = r * (g * s - x * r^2 * mean(g * s * x))
+//     dscale = sum over rows of g * x * r.
+// Bound on the H100: memory again, x and g read and dx written once
+// ((3 * rows * d) elements) plus the scale and its gradient.  Design: the
+// rows are split into one contiguous chunk per block (at most 264 blocks,
+// two per SM); a block walks its rows one after another, reduces
+// sum(x^2) and sum(g * s * x) of a row together (shuffles, then 32 floats
+// of shared memory), writes dx and adds g * x * r into its own fp32
+// partial of dscale in shared memory (each thread owns its columns, so no
+// atomics).  Nothing carries across blocks: each block writes its partial
+// row of a (blocks, d) fp32 buffer and a second pass sums the partials per
+// column in a fixed order and casts, so dscale is reproducible run to run.
 #include <cstdint>
 
 #include "common.cuh"
@@ -98,6 +115,172 @@ static cudaError_t launch(const void* x, const void* scale, void* y, int rows,
   else
     rmsnorm_kernel<T, false><<<rows, threads, 0, stream>>>(xp, sp, yp, d, eps);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- backward
+
+template <typename T, bool VEC>
+__global__ void rmsnorm_bwd_kernel(const T* __restrict__ x,
+                                   const T* __restrict__ scale,
+                                   const T* __restrict__ g,
+                                   T* __restrict__ dx,
+                                   float* __restrict__ partial, int rows,
+                                   int d, float eps, int rows_per_block) {
+  constexpr int V = VEC ? 16 / sizeof(T) : 1;
+  extern __shared__ float ds[];             // d floats: this block's dscale
+  __shared__ float red[2][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int stride = blockDim.x * V;
+  for (int i = threadIdx.x * V; i < d; i += stride)
+#pragma unroll
+    for (int j = 0; j < V; ++j) ds[i + j] = 0.f;
+
+  const int row0 = blockIdx.x * rows_per_block;
+  const int row1 = min(rows, row0 + rows_per_block);
+  for (int row = row0; row < row1; ++row) {
+    const T* xr = x + static_cast<size_t>(row) * d;
+    const T* gr = g + static_cast<size_t>(row) * d;
+    T* dr = dx + static_cast<size_t>(row) * d;
+    float ss = 0.f, sgx = 0.f;
+    for (int i = threadIdx.x * V; i < d; i += stride) {
+      alignas(16) T xe[V], ge[V], se[V];
+      if (VEC) {
+        *reinterpret_cast<uint4*>(xe) = *reinterpret_cast<const uint4*>(xr + i);
+        *reinterpret_cast<uint4*>(ge) = *reinterpret_cast<const uint4*>(gr + i);
+        *reinterpret_cast<uint4*>(se) =
+            *reinterpret_cast<const uint4*>(scale + i);
+      } else {
+        xe[0] = xr[i];
+        ge[0] = gr[i];
+        se[0] = scale[i];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xf = to_f32(xe[j]);
+        ss += xf * xf;
+        sgx += to_f32(ge[j]) * to_f32(se[j]) * xf;
+      }
+    }
+    ss = warp_sum(ss);
+    sgx = warp_sum(sgx);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = sgx;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float a = lane < nwarps ? red[0][lane] : 0.f;
+      float c = lane < nwarps ? red[1][lane] : 0.f;
+      a = warp_sum(a);
+      c = warp_sum(c);
+      if (lane == 0) {
+        red[0][0] = a;
+        red[1][0] = c;
+      }
+    }
+    __syncthreads();
+    const float r = rsqrtf(red[0][0] / static_cast<float>(d) + eps);
+    const float coef = r * r * (red[1][0] / static_cast<float>(d));
+    __syncthreads();  // every thread has read red before the next row
+
+    for (int i = threadIdx.x * V; i < d; i += stride) {
+      alignas(16) T xe[V], ge[V], se[V], oe[V];
+      if (VEC) {
+        *reinterpret_cast<uint4*>(xe) = *reinterpret_cast<const uint4*>(xr + i);
+        *reinterpret_cast<uint4*>(ge) = *reinterpret_cast<const uint4*>(gr + i);
+        *reinterpret_cast<uint4*>(se) =
+            *reinterpret_cast<const uint4*>(scale + i);
+      } else {
+        xe[0] = xr[i];
+        ge[0] = gr[i];
+        se[0] = scale[i];
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xf = to_f32(xe[j]), gf = to_f32(ge[j]);
+        oe[j] = from_f32<T>(r * (gf * to_f32(se[j]) - xf * coef));
+        ds[i + j] += gf * (xf * r);
+      }
+      if (VEC)
+        *reinterpret_cast<uint4*>(dr + i) = *reinterpret_cast<uint4*>(oe);
+      else
+        dr[i] = oe[0];
+    }
+  }
+  float* pr = partial + static_cast<size_t>(blockIdx.x) * d;
+  for (int i = threadIdx.x * V; i < d; i += stride)
+#pragma unroll
+    for (int j = 0; j < V; ++j) pr[i + j] = ds[i + j];
+}
+
+// dscale[c] = sum over blocks of partial[blk, c], in block order.
+template <typename T>
+__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partial,
+                                      T* __restrict__ dscale, int blocks,
+                                      int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float acc = 0.f;
+  for (int b = 0; b < blocks; ++b)
+    acc += partial[static_cast<size_t>(b) * d + c];
+  dscale[c] = from_f32<T>(acc);
+}
+
+template <typename T>
+static cudaError_t launch_bwd(const void* x, const void* scale, const void* g,
+                              void* dx, void* dscale, void* partial, int rows,
+                              int d, float eps, int max_blocks,
+                              cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (d % V == 0) &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(scale) |
+                     reinterpret_cast<uintptr_t>(g) |
+                     reinterpret_cast<uintptr_t>(dx)) % 16 == 0);
+  const int per_thread = vec ? V : 1;
+  int threads = (d + per_thread - 1) / per_thread;
+  threads = ((threads + 31) / 32) * 32;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  const int rpb = (rows + max_blocks - 1) / max_blocks;
+  const int blocks = (rows + rpb - 1) / rpb;
+  const size_t smem = sizeof(float) * d;
+  const T* xp = static_cast<const T*>(x);
+  const T* sp = static_cast<const T*>(scale);
+  const T* gp = static_cast<const T*>(g);
+  T* dp = static_cast<T*>(dx);
+  float* pp = static_cast<float*>(partial);
+  if (vec)
+    rmsnorm_bwd_kernel<T, true><<<blocks, threads, smem, stream>>>(
+        xp, sp, gp, dp, pp, rows, d, eps, rpb);
+  else
+    rmsnorm_bwd_kernel<T, false><<<blocks, threads, smem, stream>>>(
+        xp, sp, gp, dp, pp, rows, d, eps, rpb);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_kernel<T><<<(d + 255) / 256, 256, 0, stream>>>(
+      pp, static_cast<T*>(dscale), blocks, d);
+  return cudaGetLastError();
+}
+
+// partial: max_blocks * d floats of scratch the caller allocates.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
+                                  const void* g, void* dx, void* dscale,
+                                  void* partial, int rows, int d, float eps,
+                                  int max_blocks, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1 || d > 8192 || max_blocks < 1) return cudaErrorInvalidValue;
+  if (rows == 0)
+    return cudaMemsetAsync(dscale, 0,
+                           static_cast<size_t>(d) *
+                               (dtype == DTYPE_BF16 ? 2 : 4), s);
+  if (dtype == DTYPE_BF16)
+    return launch_bwd<__nv_bfloat16>(x, scale, g, dx, dscale, partial, rows,
+                                     d, eps, max_blocks, s);
+  if (dtype == DTYPE_F32)
+    return launch_bwd<float>(x, scale, g, dx, dscale, partial, rows, d, eps,
+                             max_blocks, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y,

@@ -1,9 +1,10 @@
-"""Kernel entry points used by the model stack (the port of
-``repro.kernels.ops`` for the serving path).
+"""Kernel entry points used by the model stack and the optimizer (the
+port of ``repro.kernels.ops`` for the serve and train paths).
 
 Each op with a kernel has two implementations:
   * ``kernel`` — the hand-written CUDA kernel (``flash_attention.py``,
-                 ``paged_attention.py``, ``rmsnorm.py`` and ``csrc/``);
+                 ``paged_attention.py``, ``rmsnorm.py``, ``fused_adamw.py``
+                 and ``csrc/``);
   * ``torch``  — its plain PyTorch version, beside the kernel.
 
 ``impl="auto"`` mirrors ``repro.kernels.ops._use_pallas``: the kernel for a
@@ -11,6 +12,13 @@ CUDA tensor, the plain version for a CPU tensor.  ``impl="kernel"`` on a
 CPU tensor raises.  ``impl="torch"`` is the plain version on any device;
 the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``
 never had a TPU kernel and is plain PyTorch only.
+
+Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
+backward is the flash backward (the counterpart of the custom VJP
+``_flash_bwd_rule``): its kernel for CUDA tensors, its plain version for
+CPU tensors or ``impl="torch"``.  ``rmsnorm`` is one for CUDA tensors, with
+the backward kernel; its plain version is differentiated by autograd.  A
+call that needs no gradient runs the forward alone.
 """
 from __future__ import annotations
 
@@ -20,7 +28,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_adamw as _fo
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import quantized_state as qs
 from repro_torch.kernels import rmsnorm as _rn
 
 NEG_INF = -1.0e30
@@ -44,17 +54,46 @@ def _use_kernel(impl: str, x: torch.Tensor) -> bool:
 # Flash attention (prefill)
 # ===========================================================================
 
+class _FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v); saves (q, k, v, o, lse) for the flash
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, use_kernel):
+        fwd = (_fa.flash_attention_cuda if use_kernel
+               else _fa.flash_attention_torch)
+        o, lse = fwd(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw, ctx.use_kernel = kw, use_kernel
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (_fa.flash_attention_bwd_cuda if ctx.use_kernel
+               else _fa.flash_attention_bwd_torch)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     scale: Optional[float] = None, q_offset: int = 0,
                     impl: str = "auto"):
     """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv)."""
-    if _use_kernel(impl, q):
-        return _fa.flash_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            sliding_window=sliding_window, scale=scale, q_offset=q_offset)
-    return _fa.flash_attention_torch(q, k, v, causal=causal,
-                                     sliding_window=sliding_window,
-                                     scale=scale, q_offset=q_offset)
+    use = _use_kernel(impl, q)
+    kw = dict(causal=causal, sliding_window=sliding_window, scale=scale,
+              q_offset=q_offset)
+    if use:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, kw, use)
+    if use:
+        return _fa.flash_attention_cuda(q, k, v, **kw)
+    return _fa.flash_attention_torch(q, k, v, **kw)
 
 
 # ===========================================================================
@@ -107,7 +146,58 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
 # RMSNorm
 # ===========================================================================
 
+class _RMSNorm(torch.autograd.Function):
+    """The forward and backward kernels (CUDA tensors only)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rn.rmsnorm_cuda(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, ds = _rn.rmsnorm_bwd_cuda(x, scale, g.contiguous(), ctx.eps)
+        return dx, ds, None
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str = "auto"):
     if _use_kernel(impl, x):
-        return _rn.rmsnorm_cuda(x.contiguous(), scale.contiguous(), eps)
+        x, scale = x.contiguous(), scale.contiguous()
+        if _needs_grad(x, scale):
+            return _RMSNorm.apply(x, scale, eps)
+        return _rn.rmsnorm_cuda(x, scale, eps)
     return _rn.rmsnorm_torch(x, scale, eps)
+
+
+# ===========================================================================
+# Fused AdamW optimizer update (one pass per leaf)
+# ===========================================================================
+
+def fused_adamw(p, g, m, v, *, lr, scale, bc1, bc2, b1, b2, eps,
+                weight_decay, apply_wd: Optional[bool] = None,
+                impl: str = "auto"):
+    """One leaf's AdamW update, IN PLACE on p and the moments (fp32
+    tensors or ``quantized_state`` {"q", "s"} dicts); returns (p, m, v),
+    the same objects.  ``lr``, ``scale``, ``bc1``, ``bc2`` are 0-d fp32
+    tensors on p's device (or Python floats); ``apply_wd`` defaults to
+    ``p.ndim >= 2`` (decay matrices only), as in the reference.  The
+    kernel reads the four scalars from device memory; the plain version
+    computes new tensors and copies them in."""
+    if apply_wd is None:
+        apply_wd = p.ndim >= 2
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              apply_wd=apply_wd)
+    if _use_kernel(impl, p):
+        scalars = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                               device=p.device).reshape(())
+                               for x in (lr, scale, bc1, bc2)])
+        return _fo.fused_adamw_cuda(p, g, m, v, scalars, **kw)
+    new_p, new_m, new_v = _fo.fused_adamw_torch(p, g, m, v, lr=lr,
+                                                scale=scale, bc1=bc1,
+                                                bc2=bc2, **kw)
+    with torch.no_grad():
+        for dst, src in ((p, new_p), (m, new_m), (v, new_v)):
+            qs.copy_(dst, src)
+    return p, m, v

@@ -1,8 +1,12 @@
-"""RMSNorm: the CUDA kernel (``csrc/rmsnorm.cu``) and its plain version.
+"""RMSNorm: the CUDA kernels (``csrc/rmsnorm.cu``) and their plain
+versions.
 
 ``rmsnorm_cuda`` replaces the Pallas kernel ``repro.kernels.rmsnorm``;
 ``rmsnorm_torch`` is the same arithmetic in plain PyTorch, used on CPU
-tensors and as the kernel's yardstick on the card.
+tensors and as the kernel's yardstick on the card.  ``rmsnorm_bwd_cuda``
+is the backward, the counterpart of autodiff of ``repro.kernels.ops.
+rmsnorm``; its plain version ``rmsnorm_bwd_torch`` is autograd of
+``rmsnorm_torch``.
 """
 from __future__ import annotations
 
@@ -10,11 +14,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches so far (a run resets it to 0 and reads it afterwards)
+#: forward and backward kernel launches so far (a run resets them to 0
+#: and reads them afterwards)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 8192
+#: the backward's row chunks: at most two blocks for each of the H100's
+#: 132 SMs, each writing one fp32 partial row of dscale
+MAX_BWD_BLOCKS = 264
 
 
 def rmsnorm_torch(x: torch.Tensor, scale: torch.Tensor,
@@ -50,3 +59,52 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     _build.check(err, "rmsnorm_launch")
     LAUNCHES += 1
     return y
+
+
+def rmsnorm_bwd_torch(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                      eps: float = 1e-6):
+    """(dx, dscale) of ``rmsnorm_torch`` by autograd, for the incoming
+    gradient ``g`` of the output."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(True)
+        sr = scale.detach().requires_grad_(True)
+        dx, ds = torch.autograd.grad(rmsnorm_torch(xr, sr, eps), (xr, sr), g)
+    return dx, ds
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-6):
+    """The backward kernel: same arguments and result as
+    ``rmsnorm_bwd_torch``; x and g contiguous, of x's shape and dtype, on
+    the card."""
+    global BWD_LAUNCHES
+    d = x.shape[-1]
+    if not (x.is_cuda and scale.device == x.device and g.device == x.device):
+        raise ValueError("rmsnorm_bwd_cuda needs x, scale and g on one CUDA "
+                         "device")
+    if (x.dtype not in DTYPE_CODES or scale.dtype != x.dtype
+            or g.dtype != x.dtype):
+        raise ValueError(f"rmsnorm_bwd_cuda takes bf16/f32 x, scale, g of "
+                         f"one dtype, got {x.dtype}, {scale.dtype}, "
+                         f"{g.dtype}")
+    if (scale.shape != (d,) or g.shape != x.shape or not 1 <= d <= MAX_D):
+        raise ValueError(f"rmsnorm_bwd_cuda: x {tuple(x.shape)}, scale "
+                         f"{tuple(scale.shape)}, g {tuple(g.shape)} disagree "
+                         f"or d > {MAX_D}")
+    if not (x.is_contiguous() and scale.is_contiguous()
+            and g.is_contiguous()):
+        raise ValueError("rmsnorm_bwd_cuda needs contiguous x, scale, g")
+    rows = x.numel() // d
+    blocks = max(1, min(rows, MAX_BWD_BLOCKS))
+    lib = _build.load()
+    dx = torch.empty_like(x)
+    ds = torch.empty_like(scale)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.rmsnorm_bwd_launch(
+            x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            ds.data_ptr(), partial.data_ptr(), rows, d, float(eps), blocks,
+            DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "rmsnorm_bwd_launch")
+    BWD_LAUNCHES += 1
+    return dx, ds

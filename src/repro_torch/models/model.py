@@ -1,8 +1,9 @@
-"""Model facade for serving: the public API the runtime layers consume
-(the port of ``repro.models.model``; losses come with the training slice).
+"""Model facade: the public API the runtime layers consume (the port of
+``repro.models.model``).
 
   init_params(cfg, seed=, device=)       -> params tree
   abstract_params(cfg)                   -> the same tree on ``meta``
+  loss_fn(params, cfg, batch)            -> (loss, metrics)
   prefill(params, cfg, batch, cache)     -> (logits_last, filled_cache)
   decode_step(params, cfg, token, cache, cache_len) -> (logits, cache)
   decode_step_paged(params, cfg, token, pool, page_table, seq_lens)
@@ -43,9 +44,47 @@ def count_active_params(cfg: ModelConfig) -> int:
 
 
 # ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _xent(logits, labels, mask):
+    """Cross-entropy in fp32 with a validity mask.  logits: (B, S, V)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return nll.sum() / denom
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            impl: str = "auto"):
+    """Next-token loss of the token frontend (the dense family).  Returns
+    (total loss, {"loss", "aux_loss"}) as 0-d fp32 tensors."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} is not yet ported (its family comes "
+            f"with a later slice)")
+    x = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    logits, aux, _ = forward(params, cfg, x, positions=positions, impl=impl)
+    loss = _next_token_loss(logits, batch["labels"])
+    total = loss + aux
+    return total, {"loss": loss, "aux_loss": aux}
+
+
+def _next_token_loss(logits, labels):
+    """Standard causal LM loss: logits[t] predicts labels[t]."""
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=logits.device)
+    return _xent(logits, labels, mask)
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache, *,
             impl: str = "auto"):
     """Run the prompt through the stack, filling ``cache``.
@@ -59,6 +98,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache, *,
     return logits[:, -1], cache
 
 
+@torch.no_grad()
 def decode_step(params, cfg: ModelConfig, token, cache, cache_len: int, *,
                 impl: str = "auto"):
     """One autoregressive step.  token: (B, 1) int; cache_len: int.
@@ -75,6 +115,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_len: int, *,
 # paged serving (continuous batching)
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def decode_step_paged(params, cfg: ModelConfig, token, cache, page_table,
                       seq_lens, *, impl: str = "auto"):
     """One decode step for every slot of a continuous batch.

@@ -4,9 +4,14 @@
 The stack is a repeated *group* of sublayers with every parameter leaf
 stacked ``(n_groups, ...)``, as in the JAX tree, so params move across
 leaf for leaf.  Where the reference scans the groups with ``lax.scan``,
-``forward`` loops over them in Python through views ``params[...][g]``
-(``remat`` does not apply to serving).  ``Transformer`` is the
-``nn.Module`` that owns one model's parameters on one device.
+``forward`` loops over them in Python.  Each stacked param leaf is
+``torch.unbind`` once per forward, so under autograd its backward stacks
+the group gradients once (indexing ``leaf[g]`` per group would write a
+zero tensor the size of the whole stack for every group).  With
+``cfg.remat == "full"`` and gradients on, each group runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as the
+reference wraps its scan body in ``jax.checkpoint``.  ``Transformer`` is
+the ``nn.Module`` that owns one model's parameters on one device.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models.config import ModelConfig
@@ -205,12 +211,20 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
     cache is updated in place.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(n_groups(cfg)):
-        gp = _index(params["layers"], g)
-        gc = None if cache is None else _index(cache, g)
-        x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=gc,
-                            cache_len=cache_len, page_table=page_table,
-                            seq_lens=seq_lens, impl=impl)
+    groups = _unbind(params["layers"], n_groups(cfg))
+    remat = (cfg.remat != "none" and cache is None
+             and torch.is_grad_enabled())
+    for g, gp in enumerate(groups):
+        if remat:
+            # the reference's "dots" policy saves the matmul outputs; here
+            # both policies recompute the whole group
+            x, a = checkpoint(_train_group, gp, x, cfg, positions, impl,
+                              use_reentrant=False)
+        else:
+            gc = None if cache is None else _index(cache, g)
+            x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=gc,
+                                cache_len=cache_len, page_table=page_table,
+                                seq_lens=seq_lens, impl=impl)
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm, impl=impl)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -220,11 +234,24 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
     return logits, aux, cache
 
 
+def _train_group(gp, x, cfg, positions, impl):
+    x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=None,
+                        cache_len=None, impl=impl)
+    return x, a
+
+
 def _index(tree, g: int):
     """View of group ``g`` of a stacked tree (writes go to the stack)."""
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
     return tree[g]
+
+
+def _unbind(tree, n: int):
+    """The stacked tree as ``n`` per-group trees, each leaf unbound once."""
+    flat = [(path, torch.unbind(leaf, 0)) for path, leaf in flatten(tree)]
+    return [unflatten((path, parts[g]) for path, parts in flat)
+            for g in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -254,13 +281,15 @@ def unflatten(pairs) -> Dict[str, Any]:
 
 class Transformer(nn.Module):
     """One dense-family model on one device.  Holds the JAX-layout param
-    tree as buffers named by tree path (``layers/attn/wq``), so
-    ``state_dict()`` keys are the tree's paths; ``params`` rebuilds the
-    nested dict of the same tensors.  ``params=None`` draws random weights
-    from ``seed``."""
+    tree as ``nn.Parameter`` leaves named by tree path
+    (``layers/attn/wq``), so ``state_dict()`` keys are the tree's paths;
+    ``params`` rebuilds the nested dict of the same tensors.
+    ``params=None`` draws random weights from ``seed``.  The leaves
+    require gradients only with ``requires_grad=True`` (a train block);
+    serving keeps them frozen."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", requires_grad: bool = False):
         super().__init__()
         _require_ported(cfg)
         self.cfg = cfg
@@ -268,11 +297,12 @@ class Transformer(nn.Module):
         if params is None:
             params = init_params(cfg, seed=seed, device=self.device)
         for path, leaf in flatten(params):
-            self.register_buffer(path, leaf.to(self.device))
+            self.register_parameter(path, nn.Parameter(
+                leaf.detach().to(self.device), requires_grad=requires_grad))
 
     @property
     def params(self) -> Dict[str, Any]:
-        return unflatten(self.named_buffers())
+        return unflatten(self.named_parameters())
 
     def forward(self, x, *, positions, cache=None, cache_len=None,
                 page_table=None, seq_lens=None, impl: str = "auto"):

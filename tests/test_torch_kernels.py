@@ -4,7 +4,9 @@ kernels in interpret mode and the naive oracles.  Inputs are made from a
 seed with numpy and handed to both frameworks.
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py`` holds
-each against the plain version tested here.
+each against the plain version tested here.  The backward kernels' plain
+versions are held against JAX's gradients: ``jax.grad`` through the custom
+VJP of ``ops._flash_jnp`` and through ``ops.rmsnorm``.
 
 Tolerances: fp32 ``atol=1e-5, rtol=1e-4`` (XLA:CPU and ATen sum in
 different orders); bf16 ``atol=rtol=2e-2`` (one bf16 rounding of the
@@ -16,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -23,12 +26,18 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.paged_attention import paged_attention_pallas  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_pallas  # noqa: E402
+from repro.train import optimizer as jopt  # noqa: E402
+from repro.train import quantized_state as jqs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_torch)
+    flash_attention_bwd_cuda, flash_attention_bwd_torch, flash_attention_cuda,
+    flash_attention_torch)
+from repro_torch.kernels.fused_adamw import (  # noqa: E402
+    fused_adamw_cuda, fused_adamw_torch)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_torch)
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda, rmsnorm_torch)
 
 torch.set_num_threads(1)   # several test workers share the host's cores
 
@@ -113,6 +122,73 @@ def test_flash_attention_fully_masked_rows_are_zero():
                                want[:, :, 5:].numpy(), **F32_TOL)
 
 
+# ---------------------------------------------------------- flash backward
+
+#: the tolerance of tests/test_kernels.py's custom-VJP test: the rule sums
+#: kv chunks of 16 in a scan, the plain version each row at once
+BWD_TOL = dict(atol=2e-4, rtol=2e-3)
+
+
+def flash_grads_both(case, seed=5):
+    """(torch inputs, the cotangent, the plain backward's grads, the
+    kwargs)."""
+    causal, window, q_offset = case[7:]
+    kw = dict(causal=causal, sliding_window=window, q_offset=q_offset)
+    (_, qt), (_, kt), (_, vt) = attn_inputs(case, "float32", seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    ct = rng.standard_normal(case[:2] + (case[3], case[6]), dtype=np.float32)
+    o, lse = flash_attention_torch(qt, kt, vt, with_lse=True, **kw)
+    got = flash_attention_bwd_torch(qt, kt, vt, o, lse, torch.from_numpy(ct),
+                                    **kw)
+    return (qt, kt, vt), ct, got, kw
+
+
+@pytest.mark.parametrize("case", ATTN_CASES[:-1])
+def test_flash_attention_bwd_torch_vs_jax(case):
+    """The plain backward against ``jax.grad`` through the custom VJP
+    (``_flash_bwd_rule``), and the forward's lse against
+    ``_flash_fwd_impl``'s.  (The last case's fully masked rows are NaN in
+    the rule; the next test covers them.)"""
+    (qt, kt, vt), ct, got, kw = flash_grads_both(case)
+    qj, kj, vj = (jnp.asarray(t.numpy()) for t in (qt, kt, vt))
+    args = (kw["causal"], kw["sliding_window"], None, kw["q_offset"], 16)
+
+    def loss(q, k, v):
+        return jnp.sum(jops._flash_jnp(q, k, v, *args) * ct)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **BWD_TOL)
+    _, lse = flash_attention_torch(qt, kt, vt, with_lse=True, **kw)
+    want_lse = jops._flash_fwd_impl(qj, kj, vj, *args)[1]
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(want_lse).reshape(lse.shape),
+                               **F32_TOL)
+    # ops.flash_attention's autograd runs exactly this backward
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out = ops.flash_attention(*leaves, impl="torch", **kw)
+    (out * torch.from_numpy(ct)).sum().backward()
+    for leaf, g in zip(leaves, got):
+        assert torch.equal(leaf.grad, g)
+
+
+def test_flash_attention_bwd_fully_masked_rows_get_zero_gradient():
+    """Rows that see no key have lse = -1e30 and get zero dq; every grad
+    is finite and agrees with autograd through the plain forward."""
+    case = ATTN_CASES[-1]
+    (qt, kt, vt), ct, got, kw = flash_grads_both(case)
+    _, lse = flash_attention_torch(qt, kt, vt, with_lse=True, **kw)
+    assert torch.all(lse[:, :, :5] == -1e30)
+    assert torch.all(got[0][:, :, :5] == 0)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out = flash_attention_torch(*leaves, **kw)
+    want = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), leaves)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **BWD_TOL)
+
+
 def test_decode_attention_vs_jax():
     B, Hq, Hkv, S, D = 2, 4, 2, 24, 16
     rng = np.random.default_rng(1)
@@ -139,6 +215,88 @@ def test_rmsnorm_torch_vs_jax(shape, dtype):
     close(got, rmsnorm_pallas(xj, sj, interpret=True, block_rows=8), dtype)
     close(got, jref.rmsnorm(xj, sj), dtype)
     close(got, ref.rmsnorm(xt, st).float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (3, 17, 128), (1, 1, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_torch_vs_jax(shape, dtype):
+    """(dx, dscale) of the plain backward against ``jax.vjp`` of
+    ``ops.rmsnorm``: both differentiate the same fp32 expression and cast
+    the gradients to the inputs' dtype."""
+    rng = np.random.default_rng(3)
+    xj, xt = both(rng.standard_normal(shape, dtype=np.float32), dtype)
+    sj, st = both(rng.standard_normal((shape[-1],), dtype=np.float32), dtype)
+    gj, gt = both(rng.standard_normal(shape, dtype=np.float32), dtype)
+    _, vjp = jax.vjp(lambda x, s: jops.rmsnorm(x, s, impl="jnp"), xj, sj)
+    want = vjp(gj)
+    got = rmsnorm_bwd_torch(xt, st, gt)
+    for g, w, t in zip(got, want, (xt, st)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        close(g, w, dtype)
+
+
+# ------------------------------------------------------------ fused AdamW
+
+ADAM_LEAVES = [
+    # (shape, param dtype): a stacked (n, d) leaf and a bf16 matrix with a
+    # ragged last quant block (weight decay on), a 1-d leaf and a scalar
+    # (weight decay off)
+    ((4, 300), "float32"), ((3, 2, 600), "bfloat16"), ((300,), "float32"),
+    ((), "float32")]
+
+
+def adam_inputs(shape, dtype, bits, seed=7):
+    rng = np.random.default_rng(seed)
+    p = rng.standard_normal(shape, dtype=np.float32)
+    g = rng.standard_normal(shape, dtype=np.float32)
+    m = rng.standard_normal(shape, dtype=np.float32) * 0.1
+    v = np.abs(rng.standard_normal(shape, dtype=np.float32)) * 0.01
+    pj = jnp.asarray(p).astype(dtype)
+    pt = torch.from_numpy(np.array(p)).to(getattr(torch, dtype))
+    mj, vj = jnp.asarray(m), jnp.asarray(v)
+    if bits == 8:
+        mj, vj = jqs.quantize(mj), jqs.quantize(vj)
+    to_t = lambda x: (  # noqa: E731
+        {k: torch.from_numpy(np.array(a)) for k, a in x.items()}
+        if isinstance(x, dict) else torch.from_numpy(np.array(x)))
+    return (pj, jnp.asarray(g), mj, vj), (pt, torch.from_numpy(g), to_t(mj),
+                                          to_t(vj))
+
+
+def assert_same(got, want):
+    """Bit for bit: the same fp32 op sequence, each op rounded once, on
+    both sides (eager JAX fuses nothing into an FMA)."""
+    if isinstance(want, dict):
+        for k in want:
+            assert_same(got[k], want[k])
+        return
+    w = np.asarray(want)
+    g = got.float().numpy() if got.dtype == torch.bfloat16 else got.numpy()
+    assert g.shape == w.shape
+    np.testing.assert_array_equal(g, w.astype(g.dtype))
+
+
+@pytest.mark.parametrize("bits", [None, 8])
+@pytest.mark.parametrize("shape,dtype", ADAM_LEAVES)
+def test_fused_adamw_torch_vs_jax(shape, dtype, bits):
+    """The plain fused AdamW against ``optimizer._adam_leaf`` and
+    ``ops._fused_adamw_jnp``, bit for bit, for fp32 and int8 moments; and
+    ``ops.fused_adamw`` on CPU tensors writes the same values in place."""
+    (pj, gj, mj, vj), (pt, gt, mt, vt) = adam_inputs(shape, dtype, bits)
+    hyper = dict(lr=3e-4, scale=0.7, bc1=0.1, bc2=0.05)
+    cfg = jopt.OptConfig(state_bits=bits)
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+              weight_decay=cfg.weight_decay, apply_wd=len(shape) >= 2)
+    want = jopt._adam_leaf(cfg, *hyper.values(), pj, gj, mj, vj)
+    want_jnp = jops._fused_adamw_jnp(pj, gj, mj, vj, **hyper, **kw)
+    got = fused_adamw_torch(pt, gt, mt, vt, **hyper, **kw)
+    for g, w, w2 in zip(got, want, want_jnp):
+        assert_same(g, w)
+        assert_same(g, w2)
+    out = ops.fused_adamw(pt, gt, mt, vt, **hyper, **kw)
+    assert out[0] is pt and out[1] is mt
+    for g, w in zip(out, want):
+        assert_same(g, w)
 
 
 # ------------------------------------------------------------ paged attention
@@ -246,6 +404,20 @@ def test_kernel_impl_on_cpu_tensors_raises():
         flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError):
         paged_attention_cuda(q[:, :, 0], pool, pool, table, lens)
+    with pytest.raises(ValueError):
+        rmsnorm_bwd_cuda(x, s, x)
+    o, lse = flash_attention_torch(q, q, q, with_lse=True)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(q, q, q, o, lse, o)
+    m = torch.zeros(2, 8)
+    sc = torch.zeros(4)
+    with pytest.raises(ValueError):
+        ops.fused_adamw(x, x, m, m, lr=1.0, scale=1.0, bc1=1.0, bc2=1.0,
+                        b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                        impl="kernel")
+    with pytest.raises(ValueError):
+        fused_adamw_cuda(x, x, m, m, sc, b1=0.9, b2=0.95, eps=1e-8,
+                         weight_decay=0.1, apply_wd=True)
     with pytest.raises(ValueError):
         ops.rmsnorm(x, s, impl="pallas")
     # auto on the CPU is the plain version

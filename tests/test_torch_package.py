@@ -53,7 +53,7 @@ def test_entry_points_default_to_cuda_and_refuse_the_host():
     import repro_torch.configs as configs
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime, JobSpec
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model
     from repro_torch.models.config import ShapeConfig
     from repro_torch.serve.decode_scheduler import DecodeScheduler
@@ -69,6 +69,17 @@ def test_entry_points_default_to_cuda_and_refuse_the_host():
         DecodeScheduler(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "deepseek_7b", "--smoke"])
+    train_job = JobSpec(cfg, ShapeConfig("s", "train", 16, 1), kind="train")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 60.0), train_job)
+    from repro_torch.train import optimizer, train_step
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_step.make_train_state(cfg, 0, optimizer.OptConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "deepseek_7b", "--smoke", "--steps", "1"])
+    from repro_torch.data import pipeline
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipeline.DataIterator(cfg, ShapeConfig("s", "train", 16, 1))
 
 
 def test_build_without_nvcc_raises(tmp_path):
@@ -86,12 +97,18 @@ def test_every_kernel_source_is_built_and_bound():
     file names the TPU kernel it replaces and what bounds it."""
     from repro_torch.kernels import _build
     srcs = {p.name for p in _build.sources()}
-    assert {"rmsnorm.cu", "flash_attention.cu",
-            "paged_attention.cu"} <= srcs
+    kernels = ("rmsnorm.cu", "flash_attention.cu", "paged_attention.cu",
+               "flash_attention_bwd.cu", "fused_adamw.cu")
+    assert set(kernels) <= srcs
     text = "".join(p.read_text() for p in _build.sources())
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text, name
-    for src in ("rmsnorm.cu", "flash_attention.cu", "paged_attention.cu"):
-        head = (_build.CSRC / src).read_text()[:2000]
-        assert "Replaces the TPU kernel" in head and "Bound on the H100" in \
-            head and "Design:" in head, src
+    for name in ("rmsnorm_launch", "rmsnorm_bwd_launch",
+                 "flash_attention_launch", "flash_attention_bwd_launch",
+                 "paged_attention_launch", "fused_adamw_launch"):
+        assert name in _build.SIGNATURES, name
+    for src in kernels:
+        head = (_build.CSRC / src).read_text()[:4000]
+        assert ("Replaces the TPU kernel" in head
+                or "Not a TPU kernel" in head), src
+        assert "Bound on the H100" in head and "Design:" in head, src

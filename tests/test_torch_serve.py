@@ -309,13 +309,22 @@ def test_launcher_main_on_cpu(capsys, sample):
 
 
 def test_runtime_rejects_what_later_slices_port(setup):
+    """Checkpoint calls wait for the checkpoint slice and ``overlap_comm``
+    for the multi-GPU slices; an unknown kind is refused."""
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as train_lib
     jcfg, cfg, jp, tp = setup
     grant = BlockGrant.new([(0, 0, 0)], (1, 1), 60.0)
     shape = ShapeConfig("s", "train", seq_len=8, global_batch=1)
-    with pytest.raises(NotImplementedError, match="training"):
-        BlockRuntime(grant, JobSpec(cfg, shape), devices=["cpu"])
-    rt = BlockRuntime(grant, JobSpec(cfg, shape, kind="serve"),
-                      devices=["cpu"])
-    for call in (rt.save, rt.suspend, rt.restore):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            call()
+    with pytest.raises(ValueError, match="kind"):
+        BlockRuntime(grant, JobSpec(cfg, shape, kind="eval"),
+                     devices=["cpu"])
+    for kind in ("serve", "train"):
+        rt = BlockRuntime(grant, JobSpec(cfg, shape, kind=kind),
+                          devices=["cpu"])
+        for call in (rt.save, rt.suspend, rt.restore):
+            with pytest.raises(NotImplementedError, match="checkpoint"):
+                call()
+    with pytest.raises(NotImplementedError, match="overlap_comm"):
+        train_lib.make_train_step(cfg, shape, opt_lib.OptConfig(),
+                                  overlap_comm=True)
