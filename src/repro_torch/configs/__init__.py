@@ -1,10 +1,10 @@
 """Architecture config registry (the port's copy of ``repro.configs``).
 
 Every architecture id of the reference stays known, so an unknown name and
-a name the port has not reached yet fail differently.  Only the dense
-family is ported (deepseek_7b, mistral_nemo_12b, yi_34b, starcoder2_15b):
-``get()``/``get_smoke()`` of any other arch raises ``NotImplementedError``
-naming its family.
+a name the port has not reached yet fail differently.  The dense family
+(deepseek_7b, mistral_nemo_12b, yi_34b, starcoder2_15b) and the hybrid
+family (zamba2_2p7b) are ported: ``get()``/``get_smoke()`` of any other
+arch raises ``NotImplementedError`` naming its family.
 """
 from __future__ import annotations
 
@@ -46,7 +46,6 @@ _NOT_PORTED: Dict[str, str] = {
     "xlstm_350m": "xlstm",
     "pixtral_12b": "vlm",
     "hubert_xlarge": "encoder",
-    "zamba2_2p7b": "hybrid",
 }
 
 

@@ -5,7 +5,10 @@ The JAX package's params are a nested dict of arrays; given as numpy
 arrays (``jax.tree.map(np.asarray, params)``, bf16 as ``ml_dtypes``'
 bfloat16) they become the port's tree leaf for leaf, with the same keys,
 shapes, dtypes and bits: both keep ``x @ W`` orientation and stacked
-``(n_groups, ...)`` leaves, so no transpose is needed.
+``(n_groups, ...)`` leaves, so no transpose is needed.  Each leaf keeps
+its own dtype, so the hybrid's tree (``extra``, ``(n_groups, m, ...)``
+Mamba2 leaves, fp32 ``A_log``/``D``/``dt_bias`` in a bf16 model) moves as
+it is.
 
 Optimizer state (``repro.train.optimizer.init``'s tree) moves the same
 way: ``{"m", "v", "step"}`` whose m/v leaves are fp32 arrays or, with

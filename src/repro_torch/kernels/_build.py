@@ -28,6 +28,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: C entry point -> argtypes (every entry point returns a cudaError_t)
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype code, stream
@@ -50,6 +51,9 @@ SIGNATURES = {
     # page, maxp, scale, dtype code, stream
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _F, _I, _P],
+    # x, dt, A, B, C, D, h0 (or null), y, h_final, Bt, S, H, P, N, Q,
+    # (batch, sequence) strides of x, B and C, dtype code, stream
+    "ssd_scan_launch": [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

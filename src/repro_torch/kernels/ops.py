@@ -3,22 +3,24 @@ port of ``repro.kernels.ops`` for the serve and train paths).
 
 Each op with a kernel has two implementations:
   * ``kernel`` — the hand-written CUDA kernel (``flash_attention.py``,
-                 ``paged_attention.py``, ``rmsnorm.py``, ``fused_adamw.py``
-                 and ``csrc/``);
+                 ``paged_attention.py``, ``rmsnorm.py``, ``fused_adamw.py``,
+                 ``ssd_scan.py`` and ``csrc/``);
   * ``torch``  — its plain PyTorch version, beside the kernel.
 
 ``impl="auto"`` mirrors ``repro.kernels.ops._use_pallas``: the kernel for a
 CUDA tensor, the plain version for a CPU tensor.  ``impl="kernel"`` on a
 CPU tensor raises.  ``impl="torch"`` is the plain version on any device;
 the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``
-never had a TPU kernel and is plain PyTorch only.
+and ``ssd_decode_step`` never had a TPU kernel and are plain PyTorch only.
 
 Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
 backward is the flash backward (the counterpart of the custom VJP
 ``_flash_bwd_rule``): its kernel for CUDA tensors, its plain version for
 CPU tensors or ``impl="torch"``.  ``rmsnorm`` is one for CUDA tensors, with
 the backward kernel; its plain version is differentiated by autograd.  A
-call that needs no gradient runs the forward alone.
+call that needs no gradient runs the forward alone.  ``ssd_scan`` has no
+backward kernel yet: its kernel refuses a call that needs a gradient (the
+plain version is differentiated by autograd).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.kernels import fused_adamw as _fo
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import quantized_state as qs
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 NEG_INF = -1.0e30
 IMPLS = ("auto", "kernel", "torch")
@@ -201,3 +204,38 @@ def fused_adamw(p, g, m, v, *, lr, scale, bc1, bc2, b1, b2, eps,
         for dst, src in ((p, new_p), (m, new_m), (v, new_v)):
             qs.copy_(dst, src)
     return p, m, v
+
+
+# ===========================================================================
+# Mamba2 SSD chunked scan
+# ===========================================================================
+
+def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, h0=None,
+             impl: str = "auto"):
+    """Chunked state-space-dual scan.  Shapes as in ``ref.ssd_scan``: x
+    (Bt, S, H, P); dt (Bt, S, H); A, D (H,); B, C (Bt, S, N); h0 (Bt, H, P,
+    N) or None.  Returns (y in x's dtype, the fp32 final state)."""
+    if not _use_kernel(impl, x):
+        return _ssd.ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+    if _needs_grad(x, dt, A, B, C, D, *([] if h0 is None else [h0])):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet (the counterpart of "
+            "autodiff of repro.kernels.ops._ssd_jnp): the CUDA scan serves "
+            "forward passes only")
+    dt, A, D = (t.float().contiguous() for t in (dt, A, D))
+    if h0 is not None:
+        h0 = h0.float().contiguous()
+    return _ssd.ssd_scan_cuda(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+
+def ssd_decode_step(x, dt, A, B, C, D, h):
+    """Single-token Mamba2 update.  x: (Bt, H, P); dt: (Bt, H); B, C:
+    (Bt, N); h: (Bt, H, P, N).  Returns (y in x's dtype, the new fp32
+    state)."""
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(dtf * A[None])
+    h = h * decay[..., None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dtf, B.float(), xf)
+    y = (torch.einsum("bn,bhpn->bhp", C.float(), h)
+         + xf * D[None, :, None])
+    return y.to(x.dtype), h

@@ -1,7 +1,7 @@
 """Naive oracles for the tests (the port's counterpart of
-``repro.kernels.ref``'s ``attention`` and ``rmsnorm``): O(S^2) memory,
-numerically straightforward, fully masked rows give NaN as in the
-reference."""
+``repro.kernels.ref``'s ``attention``, ``rmsnorm`` and ``ssd_scan``): O(S^2)
+memory or one step at a time, numerically straightforward, fully masked
+rows give NaN as in the reference."""
 from __future__ import annotations
 
 import math
@@ -36,3 +36,25 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+def ssd_scan(x, dt, A, B, C, D, *, h0=None):
+    """Sequential (ground-truth) Mamba2 recurrence, one position at a time.
+
+    x: (Bt, S, H, P); dt: (Bt, S, H) softplus'd timestep; A: (H,) negative
+    decay rate; B, C: (Bt, S, N) shared across heads; D: (H,) skip; h0:
+    (Bt, H, P, N) or None.  Returns y (Bt, S, H, P) in x's dtype and the
+    fp32 final state (Bt, H, P, N)."""
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    h = (torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A[None])                  # (Bt, H)
+        dBx = torch.einsum("bh,bn,bhp->bhpn", dtf[:, t], Bf[:, t], xf[:, t])
+        h = h * decay[..., None, None] + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
+    y = torch.stack(ys, 1) + xf * D[None, None, :, None]
+    return y.to(x.dtype), h

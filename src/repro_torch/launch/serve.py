@@ -7,6 +7,9 @@ reference goes through ``ClusterDaemon``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b \
       --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
+
+``--arch zamba2_2p7b`` serves the hybrid family (Mamba2 + shared
+attention) the same way.
 """
 from __future__ import annotations
 

@@ -38,8 +38,10 @@ def count_params(tree) -> int:
 
 
 def count_active_params(cfg: ModelConfig) -> int:
-    """Params touched per token: every param in the dense family (the
-    routed-expert discount comes with the MoE family)."""
+    """Params touched per token: every param in the dense and hybrid
+    families (the hybrid's shared attention block counts once, as in the
+    reference, though every group applies it; the routed-expert discount
+    comes with the MoE family)."""
     return count_params(abstract_params(cfg))
 
 
@@ -59,8 +61,9 @@ def _xent(logits, labels, mask):
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             impl: str = "auto"):
-    """Next-token loss of the token frontend (the dense family).  Returns
-    (total loss, {"loss", "aux_loss"}) as 0-d fp32 tensors."""
+    """Next-token loss of the token frontend (the dense and hybrid
+    families).  Returns (total loss, {"loss", "aux_loss"}) as 0-d fp32
+    tensors."""
     if cfg.frontend != "none":
         raise NotImplementedError(
             f"frontend {cfg.frontend!r} is not yet ported (its family comes "

@@ -1,14 +1,22 @@
-"""Stack assembly for the dense family (the port of
+"""Stack assembly for the dense and hybrid families (the port of
 ``repro.models.transformer``; the other families come with later slices).
 
 The stack is a repeated *group* of sublayers with every parameter leaf
 stacked ``(n_groups, ...)``, as in the JAX tree, so params move across
-leaf for leaf.  Where the reference scans the groups with ``lax.scan``,
-``forward`` loops over them in Python.  Each stacked param leaf is
-``torch.unbind`` once per forward, so under autograd its backward stacks
-the group gradients once (indexing ``leaf[g]`` per group would write a
-zero tensor the size of the whole stack for every group).  With
-``cfg.remat == "full"`` and gradients on, each group runs under
+leaf for leaf:
+
+  dense  : group = [attn + mlp]
+  hybrid : group = [mamba2 x m, shared-attn + mlp]  (zamba2; the mamba
+           leaves are stacked ``(n_groups, m, ...)``, the attention block's
+           params live once in ``params["extra"]`` and are applied by every
+           group, each with its own KV cache)
+
+Where the reference scans the groups (and a group's Mamba2 sublayers)
+with ``lax.scan``, ``forward`` loops over them in Python.  Each stacked
+param leaf is ``torch.unbind`` once per forward, so under autograd its
+backward stacks the group gradients once (indexing ``leaf[g]`` per group
+would write a zero tensor the size of the whole stack for every group).
+With ``cfg.remat == "full"`` and gradients on, each group runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward, as the
 reference wraps its scan body in ``jax.checkpoint``.  ``Transformer`` is
 the ``nn.Module`` that owns one model's parameters on one device.
@@ -22,13 +30,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_randn, apply_norm, attention_fwd,
                                        attention_init, mlp_fwd, mlp_init,
                                        norm_init, paged_attention_fwd,
                                        _he)
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "hybrid")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -44,10 +53,19 @@ def _require_ported(cfg: ModelConfig) -> None:
 # group structure
 # ---------------------------------------------------------------------------
 
+def group_size(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        return cfg.hybrid.mamba_per_group + 1
+    return 1
+
+
 def n_groups(cfg: ModelConfig) -> int:
-    """One [attn + mlp] sublayer per group in the dense family."""
     _require_ported(cfg)
-    return cfg.n_layers
+    g = group_size(cfg)
+    if cfg.n_layers % g:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
+                         f"into groups of {g}")
+    return cfg.n_layers // g
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -74,8 +92,8 @@ def _put(stack, tree, g: int) -> None:
 # per-group init and forward
 # ---------------------------------------------------------------------------
 
-def group_init(gen, cfg: ModelConfig, dtype, device):
-    """One group's params: [ln1, attn, ln2, mlp]."""
+def _dense_sublayer_init(gen, cfg: ModelConfig, dtype, device):
+    """[ln1, attn, ln2, mlp]."""
     return {
         "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "attn": attention_init(gen, cfg.d_model, cfg.attention, dtype,
@@ -84,6 +102,29 @@ def group_init(gen, cfg: ModelConfig, dtype, device):
         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype,
                         device),
     }
+
+
+def group_init(gen, cfg: ModelConfig, dtype, device):
+    """One group's params: a dense sublayer, or the hybrid's Mamba2
+    sublayers stacked (m, ...)."""
+    if cfg.family != "hybrid":
+        return _dense_sublayer_init(gen, cfg, dtype, device)
+    m, stack = cfg.hybrid.mamba_per_group, None
+    for i in range(m):
+        lp = {"ln": norm_init(cfg.d_model, cfg.norm, dtype, device),
+              "blk": ssm.mamba2_init(gen, cfg.d_model, cfg.ssm, dtype,
+                                     device)}
+        if stack is None:
+            stack = _empty_stack(lp, m, device)
+        _put(stack, lp, i)
+    return {"mamba": stack}
+
+
+def shared_extra_init(gen, cfg: ModelConfig, dtype, device):
+    """Weight-shared sublayers applied once per group (zamba2 attention)."""
+    if cfg.family == "hybrid":
+        return _dense_sublayer_init(gen, cfg, dtype, device)
+    return None
 
 
 def _dense_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
@@ -108,14 +149,31 @@ def _dense_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
 
 
 def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
-              page_table=None, seq_lens=None, impl: str = "auto"):
+              extra=None, page_table=None, seq_lens=None,
+              impl: str = "auto"):
     """Returns (x, aux, new_cache).  ``cache`` is this group's cache (or
-    None)."""
+    None), updated in place."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        n_m = cfg.hybrid.mamba_per_group
+        for i, lp in enumerate(_unbind(gp["mamba"], n_m)):
+            st = None if cache is None else _index(cache["mamba"], i)
+            h = apply_norm(lp["ln"], x, cfg.norm, impl=impl)
+            y, _ = ssm.mamba2_fwd(lp["blk"], h, cfg.ssm, cfg.d_model,
+                                  state=st, impl=impl)
+            x = x + y
+        # weight-shared attention block (params from `extra`, cache per
+        # group)
+        a_cache = None if cache is None else cache["attn"]
+        x, _ = _dense_sublayer_fwd(extra, x, cfg, positions=positions,
+                                   cache=a_cache, cache_len=cache_len,
+                                   impl=impl)
+        return x, aux, cache
     x, nc = _dense_sublayer_fwd(gp, x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
                                 page_table=page_table, seq_lens=seq_lens,
                                 impl=impl)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), nc
+    return x, aux, nc
 
 
 # ---------------------------------------------------------------------------
@@ -123,12 +181,21 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
-    """Stacked (n_groups, ...) dense KV cache."""
+    """Stacked (n_groups, ...) cache: the dense family's KV cache, or the
+    hybrid's {"mamba": {"conv", "ssm"} stacked (n_groups, m, ...),
+    "attn": {"k", "v"}}."""
     a, dt, ng = cfg.attention, _dtype(cfg), n_groups(cfg)
-    return {"k": torch.zeros((ng, batch, smax, a.n_kv_heads, a.head_dim),
-                             dtype=dt, device=device),
-            "v": torch.zeros((ng, batch, smax, a.n_kv_heads, a.v_dim),
-                             dtype=dt, device=device)}
+    kv = {"k": torch.zeros((ng, batch, smax, a.n_kv_heads, a.head_dim),
+                           dtype=dt, device=device),
+          "v": torch.zeros((ng, batch, smax, a.n_kv_heads, a.v_dim),
+                           dtype=dt, device=device)}
+    if cfg.family != "hybrid":
+        return kv
+    lead = (ng, cfg.hybrid.mamba_per_group)
+    spec = ssm.mamba2_state_spec(cfg.ssm, cfg.d_model, batch, dt)
+    return {"mamba": {k: torch.zeros(lead + shape, dtype=d, device=device)
+                      for k, (shape, d) in spec.items()},
+            "attn": kv}
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
@@ -187,6 +254,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
                         0.02),
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
     }
+    extra = shared_extra_init(gen, cfg, dtype, device)
+    if extra is not None:
+        params["extra"] = extra
     if not cfg.tie_embeddings:
         params["lm_head"] = _he(gen, (cfg.d_model, cfg.vocab_size), dtype,
                                 device)
@@ -211,6 +281,7 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
     cache is updated in place.
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    extra = params.get("extra")
     groups = _unbind(params["layers"], n_groups(cfg))
     remat = (cfg.remat != "none" and cache is None
              and torch.is_grad_enabled())
@@ -218,13 +289,14 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
         if remat:
             # the reference's "dots" policy saves the matmul outputs; here
             # both policies recompute the whole group
-            x, a = checkpoint(_train_group, gp, x, cfg, positions, impl,
-                              use_reentrant=False)
+            x, a = checkpoint(_train_group, gp, x, cfg, positions, extra,
+                              impl, use_reentrant=False)
         else:
             gc = None if cache is None else _index(cache, g)
             x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=gc,
-                                cache_len=cache_len, page_table=page_table,
-                                seq_lens=seq_lens, impl=impl)
+                                cache_len=cache_len, extra=extra,
+                                page_table=page_table, seq_lens=seq_lens,
+                                impl=impl)
         aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg.norm, impl=impl)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -234,9 +306,9 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
     return logits, aux, cache
 
 
-def _train_group(gp, x, cfg, positions, impl):
+def _train_group(gp, x, cfg, positions, extra, impl):
     x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=None,
-                        cache_len=None, impl=impl)
+                        cache_len=None, extra=extra, impl=impl)
     return x, a
 
 
@@ -280,9 +352,10 @@ def unflatten(pairs) -> Dict[str, Any]:
 
 
 class Transformer(nn.Module):
-    """One dense-family model on one device.  Holds the JAX-layout param
-    tree as ``nn.Parameter`` leaves named by tree path
-    (``layers/attn/wq``), so ``state_dict()`` keys are the tree's paths;
+    """One dense- or hybrid-family model on one device.  Holds the
+    JAX-layout param tree as ``nn.Parameter`` leaves named by tree path
+    (``layers/attn/wq``, ``extra/mlp/w_up``), so ``state_dict()`` keys are
+    the tree's paths;
     ``params`` rebuilds the nested dict of the same tensors.
     ``params=None`` draws random weights from ``seed``.  The leaves
     require gradients only with ``requires_grad=True`` (a train block);

@@ -26,6 +26,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro.kernels.paged_attention import paged_attention_pallas  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_pallas  # noqa: E402
+from repro.kernels.ssd_scan import ssd_scan_pallas  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import quantized_state as jqs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -38,6 +39,8 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_torch)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda, rmsnorm_torch)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan_cuda, ssd_scan_torch)
 
 torch.set_num_threads(1)   # several test workers share the host's cores
 
@@ -423,3 +426,154 @@ def test_kernel_impl_on_cpu_tensors_raises():
     # auto on the CPU is the plain version
     np.testing.assert_array_equal(ops.rmsnorm(x + 1, s).numpy(),
                                   rmsnorm_torch(x + 1, s).numpy())
+
+
+# ---------------------------------------------------------------- ssd scan
+#
+# Against the sequential oracle the JAX tests' own tolerance (atol 5e-4,
+# rtol 5e-3: the chunked form sums in another order and takes exp(a_t -
+# a_j) as a difference of cumulative sums); against the chunked jnp path,
+# the same algorithm, fp32's.
+
+SSD_CASES = [
+    # (Bt, S, H, P, N, chunk)
+    (1, 16, 2, 8, 4, 8),        # S a multiple of the chunk
+    (2, 40, 3, 8, 4, 16),       # ragged S: the last chunk ends in dt = 0
+    (1, 33, 1, 16, 8, 8),       # ragged, one head
+    (2, 10, 2, 16, 16, 16),     # S < chunk: Q = S, one short chunk
+]
+SSD_TOL = dict(atol=5e-4, rtol=5e-3)
+
+
+def ssd_inputs(Bt, S, H, P, N, *, seed=0, h0=False):
+    """x, dt (softplus'd), A < 0, B, C, D and optionally h0, as numpy."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = (rng.standard_normal((Bt, S, H, P)) * 0.5).astype(f32)
+    dt = np.log1p(np.exp(rng.standard_normal((Bt, S, H)))).astype(f32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(f32)
+    B = (rng.standard_normal((Bt, S, N)) * 0.5).astype(f32)
+    C = (rng.standard_normal((Bt, S, N)) * 0.5).astype(f32)
+    D = rng.standard_normal(H).astype(f32)
+    h = (rng.standard_normal((Bt, H, P, N)) * 0.5).astype(f32) if h0 else None
+    return x, dt, A, B, C, D, h
+
+
+def ssd_both(inputs, dtype="float32"):
+    """The inputs as (jax, torch) pairs: x, B, C in ``dtype``, the rest
+    fp32; h0 None stays None."""
+    x, dt, A, B, C, D, h = inputs
+    out = []
+    for i, a in enumerate((x, dt, A, B, C, D, h)):
+        if a is None:
+            out.append((None, None))
+        else:
+            out.append(both(a, dtype if i in (0, 3, 4) else "float32"))
+    return [j for j, _ in out], [t for _, t in out]
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_torch_vs_sequential_oracle(case, dtype, h0):
+    Bt, S, H, P, N, chunk = case
+    (jx, jdt, jA, jB, jC, jD, jh), (x, dt, A, B, C, D, h) = ssd_both(
+        ssd_inputs(Bt, S, H, P, N, seed=1, h0=h0), dtype)
+    yw, hw = jref.ssd_scan(jx, jdt, jA, jB, jC, jD, h0=jh)
+    y, hf = ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h)
+    assert y.dtype == x.dtype and hf.dtype == torch.float32
+    if dtype == "float32":
+        np.testing.assert_allclose(y.numpy(), np.asarray(yw), **SSD_TOL)
+    else:
+        close(y, yw, dtype)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hw), **SSD_TOL)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_torch_vs_jnp_chunked(case, h0):
+    """The plain version is ``ops._ssd_jnp_body``'s arithmetic: y and the
+    final state within fp32 rounding, from zeros and from a nonzero h0."""
+    Bt, S, H, P, N, chunk = case
+    (jx, jdt, jA, jB, jC, jD, jh), (x, dt, A, B, C, D, h) = ssd_both(
+        ssd_inputs(Bt, S, H, P, N, seed=2, h0=h0))
+    yw, hw = jops._ssd_jnp(jx, jdt, jA, jB, jC, jD, chunk=chunk, h0=jh)
+    y, hf = ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h)
+    close(y, yw, "float32")
+    close(hf, hw, "float32")
+    # the dispatcher takes the plain version for CPU tensors
+    y2, h2 = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk, h0=h)
+    assert torch.equal(y2, y) and torch.equal(h2, hf)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_torch_vs_pallas_interpret(case, dtype):
+    """The Pallas kernel in interpret mode (it takes no h0)."""
+    Bt, S, H, P, N, chunk = case
+    (jx, jdt, jA, jB, jC, jD, _), (x, dt, A, B, C, D, _) = ssd_both(
+        ssd_inputs(Bt, S, H, P, N, seed=3), dtype)
+    yw, hw = ssd_scan_pallas(jx, jdt, jA, jB, jC, jD, chunk=chunk,
+                             interpret=True)
+    y, hf = ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk)
+    close(y, yw, dtype)
+    np.testing.assert_allclose(hf.numpy(), np.asarray(hw), **F32_TOL)
+
+
+def test_ssd_scan_large_dt_and_zero_dt():
+    """dt up to 20 drives the cumulative log decay to -1000s: the masked
+    exponent above the diagonal overflows and must not leak a NaN, and
+    exp must underflow to 0; an all-zero dt leaves the state as it was and
+    y = C . h0 + D x."""
+    Bt, S, H, P, N, chunk = 1, 40, 2, 8, 4, 16
+    x, dt, A, B, C, D, h = ssd_inputs(Bt, S, H, P, N, seed=4, h0=True)
+    big = dt * 20.0 / dt.max()
+    (jx, jdt, jA, jB, jC, jD, jh), (tx, tdt, tA, tB, tC, tD, th) = ssd_both(
+        (x, big, A, B, C, D, h))
+    yw, hw = jops._ssd_jnp(jx, jdt, jA, jB, jC, jD, chunk=chunk, h0=jh)
+    y, hf = ssd_scan_torch(tx, tdt, tA, tB, tC, tD, chunk=chunk, h0=th)
+    assert torch.isfinite(y).all() and torch.isfinite(hf).all()
+    close(y, yw, "float32")
+    close(hf, hw, "float32")
+    zero = torch.zeros_like(tdt)
+    y, hf = ssd_scan_torch(tx, zero, tA, tB, tC, tD, chunk=chunk, h0=th)
+    assert torch.equal(hf, th)
+    want = (torch.einsum("bsn,bhpn->bshp", tC, th)
+            + tx * tD[None, None, :, None])
+    np.testing.assert_allclose(y.numpy(), want.numpy(), **F32_TOL)
+
+
+def test_ssd_ref_oracle_vs_jax():
+    """The port's sequential oracle is the reference's."""
+    (jx, jdt, jA, jB, jC, jD, jh), (x, dt, A, B, C, D, h) = ssd_both(
+        ssd_inputs(2, 9, 3, 8, 4, seed=5, h0=True))
+    yw, hw = jref.ssd_scan(jx, jdt, jA, jB, jC, jD, h0=jh)
+    y, hf = ref.ssd_scan(x, dt, A, B, C, D, h0=h)
+    close(y, yw, "float32")
+    close(hf, hw, "float32")
+
+
+def test_ssd_decode_step_vs_jax():
+    Bt, H, P, N = 2, 3, 8, 4
+    x, dt, A, B, C, D, h = ssd_inputs(Bt, 1, H, P, N, seed=6, h0=True)
+    (jx, jdt, jA, jB, jC, jD, jh), (tx, tdt, tA, tB, tC, tD, th) = ssd_both(
+        (x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], D, h))
+    yw, hw = jops.ssd_decode_step(jx, jdt, jA, jB, jC, jD, jh)
+    y, hf = ops.ssd_decode_step(tx, tdt, tA, tB, tC, tD, th)
+    close(y, yw, "float32")
+    close(hf, hw, "float32")
+
+
+def test_ssd_scan_kernel_impl_on_cpu_raises(monkeypatch):
+    """``impl='kernel'`` and the kernel wrapper refuse CPU tensors; a call
+    that selects the kernel and needs a gradient raises, naming the
+    missing backward, before any launch."""
+    x, dt, A, B, C, D, _ = (None if a is None else torch.from_numpy(a)
+                            for a in ssd_inputs(1, 8, 2, 8, 4))
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, B, C, D, chunk=4, impl="kernel")
+    with pytest.raises(ValueError):
+        ssd_scan_cuda(x, dt, A, B, C, D, chunk=4)
+    monkeypatch.setattr(ops, "_use_kernel", lambda impl, t: True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd_scan(x.requires_grad_(True), dt, A, B, C, D, chunk=4)

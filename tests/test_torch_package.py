@@ -98,14 +98,15 @@ def test_every_kernel_source_is_built_and_bound():
     from repro_torch.kernels import _build
     srcs = {p.name for p in _build.sources()}
     kernels = ("rmsnorm.cu", "flash_attention.cu", "paged_attention.cu",
-               "flash_attention_bwd.cu", "fused_adamw.cu")
+               "flash_attention_bwd.cu", "fused_adamw.cu", "ssd_scan.cu")
     assert set(kernels) <= srcs
     text = "".join(p.read_text() for p in _build.sources())
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text, name
     for name in ("rmsnorm_launch", "rmsnorm_bwd_launch",
                  "flash_attention_launch", "flash_attention_bwd_launch",
-                 "paged_attention_launch", "fused_adamw_launch"):
+                 "paged_attention_launch", "fused_adamw_launch",
+                 "ssd_scan_launch"):
         assert name in _build.SIGNATURES, name
     for src in kernels:
         head = (_build.CSRC / src).read_text()[:4000]

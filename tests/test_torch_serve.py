@@ -328,3 +328,137 @@ def test_runtime_rejects_what_later_slices_port(setup):
     with pytest.raises(NotImplementedError, match="overlap_comm"):
         train_lib.make_train_step(cfg, shape, opt_lib.OptConfig(),
                                   overlap_comm=True)
+
+
+
+# ================================================= the hybrid family
+
+def _load_chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_hybrid_launcher_tokens_match_jax(monkeypatch, capsys):
+    """``launch.serve --arch zamba2_2p7b --smoke --device cpu`` emits the
+    token stream that JAX's greedy prefill/decode gives on the same
+    params and prompts.  The smoke config is made fp32 on both sides: in
+    bf16 the two frameworks round differently enough (see
+    tests/test_torch_models.py) that a near tie can flip an argmax."""
+    import dataclasses
+
+    import repro.configs as jconfigs
+    import repro_torch.configs as configs
+    get_smoke = configs.get_smoke
+    monkeypatch.setattr(configs, "get_smoke", lambda a: dataclasses.replace(
+        get_smoke(a), param_dtype="float32"))
+    args = launch_serve.parse_args(
+        ["--arch", "zamba2_2p7b", "--smoke", "--device", "cpu", "--batch",
+         "2", "--prompt-len", "20", "--gen", "8"])
+    res = launch_serve.run(args)
+    assert res["cfg"].family == "hybrid"
+    got = res["tokens"]
+    jcfg = jconfigs.get_smoke("zamba2_2p7b").replace(param_dtype="float32")
+    jp = jax.tree.map(jax.numpy.asarray, interop.params_to_numpy(
+        res["runtime"].state["params"]))
+    prompt = jax.numpy.asarray(res["batch"]["tokens"])
+    cache = jmodel.init_cache(jcfg, 2, 28)
+    logits, cache = jmodel.prefill(jp, jcfg, {"tokens": prompt}, cache)
+    want = []
+    for i in range(8):
+        tok = np.argmax(np.asarray(logits), -1).astype(np.int32)[:, None]
+        want.append(tok)
+        if i < 7:
+            logits, cache = jmodel.decode_step(
+                jp, jcfg, jax.numpy.asarray(tok), cache,
+                jax.numpy.int32(20 + i))
+    assert np.array_equal(got, np.concatenate(want, 1))
+    assert launch_serve.main(["--arch", "zamba2_2p7b", "--smoke", "--device",
+                              "cpu", "--batch", "2", "--prompt-len", "16",
+                              "--gen", "3"]) == 0
+    assert "zamba2_2p7b_smoke" in capsys.readouterr().out
+
+
+def test_hybrid_paged_and_train_jobs_raise():
+    """The hybrid's recurrent state does not page (the reference's
+    ``ValueError``), and it cannot train until the SSD scan has a backward
+    kernel, on any device."""
+    import repro_torch.configs as configs
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as train_lib
+    cfg = configs.get_smoke("zamba2_2p7b")
+    grant = BlockGrant.new([(0, 0, 0)], (1, 1), 60.0)
+    serve_shape = ShapeConfig("s", "serve", seq_len=16, global_batch=1)
+    with pytest.raises(ValueError, match="paged decode unsupported"):
+        rt = BlockRuntime(grant, JobSpec(cfg, serve_shape, kind="serve",
+                                         paged=True), devices=["cpu"])
+        rt.init_state()
+    with pytest.raises(ValueError, match="paged decode unsupported"):
+        DecodeScheduler(cfg, {}, device="cpu")
+    train_shape = ShapeConfig("s", "train", seq_len=16, global_batch=1)
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="SSD scan"):
+            BlockRuntime(grant, JobSpec(cfg, train_shape, kind="train"),
+                         devices=[device])
+    with pytest.raises(NotImplementedError, match="SSD scan"):
+        train_lib.make_train_step(cfg, train_shape, opt_lib.OptConfig())
+    with pytest.raises(NotImplementedError, match="SSD scan"):
+        train_lib.make_train_state(cfg, 0, opt_lib.OptConfig(),
+                                   device="cpu")
+    # a dense serve block of the hybrid runs
+    rt = BlockRuntime(grant, JobSpec(cfg, serve_shape, kind="serve"),
+                      devices=["cpu"])
+    rt.init_state()
+    rt.prefill({"tokens": np.zeros((1, 8), np.int32)})
+    rt.step()
+    assert rt.cache_len == 9 and set(rt.cache) == {"mamba", "attn"}
+
+
+def test_chip_smoke_hybrid_phase_rehearses_on_cpu():
+    """chip_smoke.py's serve_hybrid phase at smoke size on the CPU (the
+    plain versions run; no kernel launches), and the launch counts it
+    holds the card to at full width: 45 SSD scans, 9 flash attentions and
+    109 RMSNorms a prefill, 109 RMSNorms a decode step."""
+    import repro_torch.configs as configs
+    smoke = _load_chip_smoke()
+    out = smoke.phase_serve_hybrid(device="cpu", smoke=True)
+    for chk in (out["logits_check"], out["first_decode_logits_check"]):
+        assert chk["f32"]["max_abs_err"] == 0.0           # same plain path
+        assert chk["bf16_whole_stack"]["max_abs_err"] == 0.0
+    groups = out["bf16_group_check"]
+    assert len(groups["prefill"]) == len(groups["decode"]) == 2
+    assert groups["worst"] == {"prefill": 0.0, "decode": 0.0}
+    assert all(r["update_range"] > 0 and r["finite"]
+               for r in groups["prefill"] + groups["decode"])
+    assert set(out["launches"].values()) == {0}
+    pre, dec = smoke.hybrid_launches(configs.get("zamba2_2p7b"))
+    assert (pre["ssd_scan"], pre["flash_attention"], pre["rmsnorm"]) == \
+        (45, 9, 109)
+    assert (dec["ssd_scan"], dec["flash_attention"], dec["rmsnorm"]) == \
+        (0, 0, 109)
+    assert smoke.KERNEL_META["ssd_scan"]["replaces"] == \
+        "src/repro/kernels/ssd_scan.py:20"
+
+
+def test_chip_smoke_hybrid_group_check_catches_a_bf16_fault(monkeypatch):
+    """The bf16 group check fails when the SSD scan goes wrong in bf16
+    only (one head's outputs zeroed on the kernels' side), where the fp32
+    whole-stack check cannot see it."""
+    from repro_torch.kernels import ops
+    smoke = _load_chip_smoke()
+    real = ops.ssd_scan
+
+    def faulty(*args, impl="auto", **kw):
+        y, h = real(*args, impl=impl, **kw)
+        if impl != "torch" and y.dtype == torch.bfloat16:
+            y = y.clone()
+            y[:, :, 0] = 0
+        return y, h
+
+    monkeypatch.setattr(ops, "ssd_scan", faulty)
+    with pytest.raises(SystemExit, match="hybrid bf16 groups"):
+        smoke.phase_serve_hybrid(device="cpu", smoke=True)
