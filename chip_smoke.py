@@ -22,7 +22,9 @@ never JAX.  Phases, each printing one JSON line:
                      with its time, the plain
                      version's, one PyTorch library call's where one
                      computes the same function, and the least time the
-                     card could take;
+                     card could take; the flash kernels' bf16
+                     tensor-core route also beside their CUDA-core route
+                     (``was_ms``), and the backward twice, bit for bit;
 4. ``serve_dense`` — ``repro_torch.launch.serve`` on deepseek_7b at full
                      width (random bf16 weights from the seed): batched
                      prefill + greedy decode, the kernels' launch counts,
@@ -109,6 +111,10 @@ KERNEL_META = {
         "source": _CSRC + "ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:20"},
 }
+
+# kernel-name substrings that ``profile_steps`` sums device time over
+KERNEL_FAMILIES = ("flash_", "rmsnorm", "paged_decode", "fused_adamw",
+                   "ssd_scan")
 
 # launch counter -> (kernel module, counter attribute)
 COUNTERS = {
@@ -241,8 +247,16 @@ def profile_steps(fn, n: int = 3):
     top = [{"kernel": e.key[:80], "ms_per_call":
             e.self_device_time_total / 1e3 / n, "count_per_call":
             e.count / n} for e in kern[:8]]
+    # the port's kernels by family: device ms per call and share of the
+    # device time (the flash family counts forward, backward and delta)
+    fam = {}
+    for name in KERNEL_FAMILIES:
+        ms = sum(e.self_device_time_total for e in kern
+                 if name in e.key) / 1e3 / n
+        fam[name] = {"ms_per_call": ms, "share": ms / dev if dev else 0.0}
     return {"wall_ms": wall, "device_ms": dev,
-            "idle_share": max(0.0, 1.0 - dev / wall), "top": top}
+            "idle_share": max(0.0, 1.0 - dev / wall), "top": top,
+            "families": fam}
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = BF16_FLOPS):
@@ -424,6 +438,16 @@ def _gen(seed):
 
 def _randn(shape, g, dtype=torch.bfloat16, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element off 16-byte alignment: the
+    flash entry points then take their CUDA-core route (the TMA loads of
+    the tensor-core route need 16-byte aligned rows)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def flash_case(B, Hq, Hkv, Sq, Sk, D, Dv, causal=True, window=0,
@@ -730,20 +754,33 @@ def check_train_kernels(out, edge, edges):
     # the forward at the train shape, lse written: held and timed, and
     # reported in the flash_attention row
     fa = out["flash_attention"]
+    B, H, S, D = q.shape
+    pairs = H * B * sum(min(S, i + 1) for i in range(S))
+    fwd_flops = pairs * 2 * (D + v.shape[-1])
+    b_ms, b_by = bound(2 * 4 * q.numel() + 4 * lse.numel(), fwd_flops)
     fa["train_shape"] = {
         "shape": list(q.shape), "rtol": 2e-2, **fwd_ok(fwd, "train shape",
                                                        2e-2),
         "kernel_ms": time_ms(lambda: flash_attention_cuda(
-            q, k, v, with_lse=True, **kw))}
+            q, k, v, with_lse=True, **kw)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": fwd_flops}
+    fa["train_shape"]["tflops"] = (fwd_flops / fa["train_shape"]["kernel_ms"]
+                                   / 1e9)
     fa["max_err"] = max(fa["max_err"], fa["train_shape"]["o_max_err"],
                         out["flash_attention_hybrid"]["max_err"])
     err, ratio = worst(got, want, 2e-2)
     check(ratio <= 1.0 and all(bool(torch.isfinite(t).all()) for t in got),
           f"flash_attention_bwd full width: max_abs_err {err}, {ratio} x tol")
-    B, H, S, D = q.shape
-    pairs = H * B * sum(min(S, i + 1) for i in range(S))
+    # no atomics: a second call gives the same bits
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "flash_attention_bwd: two calls on the same inputs differ")
+    del again
     nbytes = 2 * 8 * q.numel() + 4 * lse.numel()
-    b_ms, b_by = bound(nbytes, pairs * 2 * (3 * D + 2 * D))
+    bwd_flops = pairs * 2 * (3 * D + 2 * D)
+    b_ms, b_by = bound(nbytes, bwd_flops)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
     out["flash_attention_bwd"] = {
@@ -755,8 +792,20 @@ def check_train_kernels(out, edge, edges):
             q, k, v, o, lse, do, **kw), iters=5),
         "library_ms": time_ms(lambda: torch.autograd.grad(
             ol, (ql, kl, vl), do, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    del q, k, v, o, lse, do, got, want, fwd, ql, kl, vl, ol
+        "bound_ms": b_ms, "bound_by": b_by, "flops": bwd_flops,
+        "bitwise_reproducible": True}
+    fb = out["flash_attention_bwd"]
+    fb["tflops"] = bwd_flops / fb["kernel_ms"] / 1e9
+    qm = misaligned(q)
+    cc = flash_attention_bwd_cuda(qm, k, v, o, lse, do, **kw)
+    cc_err, cc_ratio = worst(cc, want, 2e-2)
+    check(cc_ratio <= 1.0, f"flash_attention_bwd CUDA-core route: "
+          f"max_abs_err {cc_err}, {cc_ratio} x tol")
+    fb["cuda_core_route"] = {
+        "max_err": cc_err, "err_over_tol": cc_ratio,
+        "kernel_ms": time_ms(lambda: flash_attention_bwd_cuda(
+            qm, k, v, o, lse, do, **kw), iters=5)}
+    del q, k, v, o, lse, do, got, want, fwd, ql, kl, vl, ol, qm, cc
     for name, args, kw2 in [
             ("gqa_g4", (2, 8, 2, 100, 100, 64, 64), {}),
             ("gqa_g12", (1, 48, 4, 100, 100, 128, 128), {}),
@@ -766,6 +815,13 @@ def check_train_kernels(out, edge, edges):
             ("q_offset_64", (1, 4, 4, 33, 97, 128, 128), dict(q_offset=64)),
             ("fully_masked_rows", (1, 2, 2, 70, 70, 128, 128),
              dict(q_offset=-10)),
+            # the tensor-core route's padding: the hybrid's D = Dv = 80,
+            # and D = 72, Dv = 40 (neither a multiple of 16); GQA groups
+            # over several 128-row tiles
+            ("d80", (1, 4, 4, 200, 200, 80, 80), {}),
+            ("d72_dv40", (1, 4, 2, 100, 100, 72, 40), {}),
+            ("gqa_g4_tiles128", (1, 16, 4, 300, 300, 128, 128), {}),
+            ("gqa_g12_tiles128", (1, 48, 4, 300, 300, 128, 128), {}),
             ("f32_small_heads", (2, 4, 2, 65, 65, 16, 8),
              dict(dtype=torch.float32))]:
         _, got, want, fwd = flash_bwd_case(*args, **kw2)
@@ -905,15 +961,29 @@ def phase_kernels():
         B, H, S, D = q.shape
         pairs = H * B * sum(min(S, i + 1) for i in range(S))
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
-        b_ms, b_by = bound(nbytes, pairs * 2 * (D + v.shape[-1]))
-        return {
+        flops = pairs * 2 * (D + v.shape[-1])
+        b_ms, b_by = bound(nbytes, flops)
+        row = {
             "shape": [B, H, S, D], "max_err": err, "rtol": 2e-2,
             "err_over_tol": ratio,
             "kernel_ms": time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
             "plain_ms": time_ms(lambda: flash_attention_torch(q, k, v, **kw)),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True)),
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
+        row["tflops"] = flops / row["kernel_ms"] / 1e9
+        # the CUDA-core route (the bf16 design before the tensor cores,
+        # kept for f32) on the same inputs, held and timed
+        qm = misaligned(q)
+        cc = flash_attention_cuda(qm, k, v, **kw)
+        cc_err, cc_ratio = close(cc, want, 2e-2)
+        check(cc_ratio <= 1.0, f"flash_attention CUDA-core route "
+              f"{list(q.shape)}: max_abs_err {cc_err}, {cc_ratio} x tol")
+        row["cuda_core_route"] = {
+            "max_err": cc_err, "err_over_tol": cc_ratio,
+            "kernel_ms": time_ms(lambda: flash_attention_cuda(qm, k, v,
+                                                              **kw))}
+        return row
 
     # ---- flash attention: deepseek_7b's prefill, q/k/v (4, 32, 512, 128),
     # and zamba2_2p7b's shared attention block, (4, 32, 1000, 80); causal
@@ -932,6 +1002,11 @@ def phase_kernels():
             ("q_offset_64", (1, 4, 4, 33, 97, 128, 128), dict(q_offset=64)),
             ("fully_masked_rows", (1, 2, 2, 70, 70, 128, 128),
              dict(q_offset=-10)),
+            # the tensor-core route's padding (neither a multiple of 16)
+            # and GQA groups over several 128-row tiles
+            ("d72_dv40", (1, 4, 2, 100, 100, 72, 40), {}),
+            ("gqa_g4_tiles128", (1, 16, 4, 300, 300, 128, 128), {}),
+            ("gqa_g12_tiles128", (1, 48, 4, 300, 300, 128, 128), {}),
             ("f32_small_heads", (2, 4, 2, 65, 65, 16, 8),
              dict(dtype=torch.float32))]:
         _, got, want = flash_case(*args, **kw2)
@@ -1541,12 +1616,17 @@ def _run_all() -> int:
             per_run = launched(name)
         total = sum(per_run.values())
         check(total > 0, f"{name} was not launched on the main path")
-        rows.append({"name": name, "route": "cuda", **meta,
-                     "launches": total, "launches_by_run": per_run,
-                     "max_abs_err": k["max_err"], "ms": k["kernel_ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"], "shape": k["shape"]})
+        row = {"name": name, "route": "cuda", **meta,
+               "launches": total, "launches_by_run": per_run,
+               "max_abs_err": k["max_err"], "ms": k["kernel_ms"],
+               "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+               "bound_by": k["bound_by"],
+               "library_ms": k["library_ms"], "shape": k["shape"]}
+        if "cuda_core_route" in k:
+            # redesigned for the tensor cores: the CUDA-core route the bf16
+            # path took before, timed in this run on the same inputs
+            row["was_ms"] = k["cuda_core_route"]["kernel_ms"]
+        rows.append(row)
     line = json.dumps({"kernels": rows})
     print(line, flush=True)
     _RECORD.write(line + "\n")

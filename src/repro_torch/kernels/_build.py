@@ -12,6 +12,7 @@ There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,9 +41,9 @@ SIGNATURES = {
     # window, q_offset, dtype code, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _I, _I, _P],
-    # q, k, v, o, do, lse, delta, dq_acc, dq, dk, dv, B, Hq, Hkv, Sq, Sk,
-    # D, Dv, scale, causal, window, q_offset, dtype code, stream
-    "flash_attention_bwd_launch": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I,
+    # q, k, v, o, do, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, Dv,
+    # scale, causal, window, q_offset, dtype code, stream
+    "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I,
                                                            _I, _P],
     # p, g, m, m scales, v, v scales, scalars, rows, L, b1, 1 - b1, b2,
     # 1 - b2, eps, weight decay, apply_wd, p dtype, g dtype, quant, stream
@@ -101,14 +102,22 @@ def build(nvcc: Optional[str] = None) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     log_path = out_dir / "build.log"
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp, \
-            open(log_path, "wb") as log:
-        objs, procs = [], []
+            open(log_path, "wb") as log, contextlib.ExitStack() as stack:
+        objs, procs, logs = [], [], []
         for src in sources():
             obj = os.path.join(tmp, src.stem + ".o")
             objs.append(obj)
+            # one log each, joined in source order: ptxas's report of
+            # each kernel stays next to its own name
+            logs.append(stack.enter_context(
+                open(os.path.join(tmp, src.stem + ".log"), "w+b")))
             procs.append(_run([nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src),
-                               "-o", obj], log))
+                               "-o", obj], logs[-1]))
         rcs = [p.wait() for p in procs]
+        for part_log in logs:
+            part_log.seek(0)
+            log.write(part_log.read())
+        log.flush()
         if any(rcs):
             raise RuntimeError(f"nvcc failed (rc {rcs}); see {log_path}:\n"
                                + log_path.read_text()[-4000:])

@@ -15,6 +15,11 @@ counterparts of the custom VJP ``repro.kernels.ops._flash_bwd_rule``:
 multiplies ``exp(s - lse)`` by the mask, which is NaN on a fully masked row
 (lse = -1e30 overflows the exponential); here such a row gets zero
 gradient.
+
+On the card, bf16 runs on the tensor cores (``wgmma``, K/V or Q/dO tiles
+streamed by TMA through a two-stage ring, the backward's dq in its own
+pass without atomics, so that dq, dk and dv are reproducible bit for bit)
+and f32 on the CUDA cores; the sources' header notes say how.
 """
 from __future__ import annotations
 
@@ -171,13 +176,11 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     lib = _build.load()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty((B, Hq, Sq, D), dtype=torch.float32,
-                         device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
             B, Hq, Hkv, Sq, Sk, D, Dv, float(scale), int(bool(causal)),
             int(sliding_window), int(q_offset), DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream)

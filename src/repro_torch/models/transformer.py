@@ -229,14 +229,15 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, device):
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cpu") -> Dict[str, Any]:
+                device="cuda") -> Dict[str, Any]:
     """Random params from ``seed`` through one ``torch.Generator`` on
-    ``device`` (the ``meta`` device gives shapes only).  Not the JAX
-    package's numbers: to compare, move its params across with
+    ``device`` (``cuda`` by default, which raises without a card; pass
+    ``device="cpu"`` for the host; the ``meta`` device gives shapes only).
+    Not the JAX package's numbers: to compare, move its params across with
     ``repro_torch.interop``."""
     _require_ported(cfg)
     dtype = _dtype(cfg)
-    device = torch.device(device)
+    device = resolve(device)
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device)

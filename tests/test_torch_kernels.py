@@ -111,6 +111,28 @@ def test_flash_attention_torch_vs_jax(case, dtype):
     close(got, want_pallas, dtype)
 
 
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_misaligned_copy_routes_off_the_tensor_cores():
+    """chip_smoke.py times the flash kernels' CUDA-core route on a copy of
+    q one element off 16-byte alignment (the tensor-core route's TMA loads
+    need aligned rows, so the entry point falls to the CUDA-core kernels):
+    the copy must be contiguous, equal to q and misaligned."""
+    smoke = _chip_smoke()
+    q = torch.randn(2, 4, 33, 128).to(torch.bfloat16)
+    m = smoke.misaligned(q)
+    assert m.is_contiguous() and m.shape == q.shape and torch.equal(m, q)
+    assert m.data_ptr() % 16 != 0 and q.data_ptr() % 16 == 0
+
+
 def test_flash_attention_fully_masked_rows_are_zero():
     """q_pos < 0 sees no key: the row ends with l = 0 and is divided by 1
     (the naive oracle gives NaN there; the rest must agree with it)."""
@@ -190,6 +212,34 @@ def test_flash_attention_bwd_fully_masked_rows_get_zero_gradient():
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         np.testing.assert_allclose(g.numpy(), w.numpy(), **BWD_TOL)
+
+
+def test_bf16_p_fails_the_chip_tolerance_and_a_hi_lo_split_holds_it():
+    """Why the tensor-core flash kernels give P (and dS) to their products
+    as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi): dv = P^T dO
+    with P rounded once to bf16 breaks chip_smoke.py's element-wise bf16
+    check (rtol 2e-2) at a causal (1, 4, 1024, 128), because kv rows that
+    few queries see carry weights near 1; hi + lo holds it.  fp32 plain
+    PyTorch on the CPU, only P rounded."""
+    close = _chip_smoke().close
+    rng = np.random.default_rng(0)
+    S, D = 1024, 128
+    q, k, do = (torch.from_numpy(rng.standard_normal((1, 4, S, D),
+                                                     dtype=np.float32))
+                .bfloat16().float() for _ in range(3))
+    mask = torch.ones(S, S, dtype=torch.bool).tril()
+    s = torch.where(mask, q @ k.transpose(-1, -2) / D ** 0.5, -1e30)
+    p = torch.softmax(s, -1)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+
+    def dv(pp):
+        return (pp.transpose(-1, -2) @ do).bfloat16()
+
+    want = dv(p)
+    _, ratio_bf16 = close(dv(hi), want, 2e-2)
+    _, ratio_split = close(dv(hi + lo), want, 2e-2)
+    assert ratio_bf16 > 1.0 and ratio_split < 0.5, (ratio_bf16, ratio_split)
 
 
 def test_decode_attention_vs_jax():

@@ -61,6 +61,9 @@ def test_entry_points_default_to_cuda_and_refuse_the_host():
     cfg = configs.get_smoke("deepseek_7b")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         model.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_params(cfg)
+    assert model.abstract_params(cfg)["embed"].device.type == "meta"
     job = JobSpec(cfg, ShapeConfig("s", "serve", 16, 1), kind="serve")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 60.0), job)
@@ -113,3 +116,53 @@ def test_every_kernel_source_is_built_and_bound():
         assert ("Replaces the TPU kernel" in head
                 or "Not a TPU kernel" in head), src
         assert "Bound on the H100" in head and "Design:" in head, src
+
+
+def _ctypes_for(kind):
+    """The ctypes type a C argument of this kind must be bound as."""
+    import ctypes
+    return {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
+            "float": ctypes.c_float, "long long": ctypes.c_longlong}.get(kind)
+
+
+def _c_prototypes():
+    """Every ``extern "C" <ret> <name>(<args>)`` in ``csrc/*.cu`` as
+    {name: [argument kind, ...]}, a kind being ``pointer`` or a C type."""
+    from repro_torch.kernels import _build
+    proto = re.compile(r'extern\s+"C"\s+[\w\s\*]*?\b(\w+)\s*\(([^)]*)\)',
+                       re.S)
+    out = {}
+    for src in _build.sources():
+        text = re.sub(r"//[^\n]*", "", src.read_text())
+        for name, args in proto.findall(text):
+            kinds = []
+            for arg in args.split(","):
+                words = arg.replace("*", " * ").split()
+                if "*" in words:
+                    kinds.append("pointer")
+                else:
+                    kinds.append(" ".join(w for w in words[:-1]
+                                          if w != "const"))
+            out[name] = kinds
+    return out
+
+
+def test_every_ctypes_signature_matches_its_c_prototype():
+    """A ctypes ``argtypes`` list that disagrees with the C function
+    silently truncates pointers or shifts arguments: each entry of
+    ``_build.SIGNATURES`` (and ``cuda_error_string``) has the C
+    prototype's argument count, and each argument the ctypes type of its
+    kind (pointer -> c_void_p, int -> c_int, float -> c_float, long long
+    -> c_longlong)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    protos = _c_prototypes()
+    sigs = dict(_build.SIGNATURES, cuda_error_string=[ctypes.c_int])
+    for name, argtypes in sigs.items():
+        assert name in protos, f"no extern \"C\" prototype for {name}"
+        kinds = protos[name]
+        assert len(kinds) == len(argtypes), (name, kinds, argtypes)
+        for i, (kind, ct) in enumerate(zip(kinds, argtypes)):
+            want = _ctypes_for(kind)
+            assert want is not None, f"{name} arg {i}: C type {kind!r}"
+            assert ct is want, (name, i, kind, ct)
