@@ -22,9 +22,13 @@ never JAX.  Phases, each printing one JSON line:
                      with its time, the plain
                      version's, one PyTorch library call's where one
                      computes the same function, and the least time the
-                     card could take; the flash kernels' bf16
-                     tensor-core route also beside their CUDA-core route
-                     (``was_ms``), and the backward twice, bit for bit;
+                     card could take; each redesigned kernel also beside
+                     the route it took before (``was_ms``: the flash
+                     kernels' CUDA-core route, the scalar routes of the
+                     fused AdamW and the paged decode kernel), on a copy
+                     of its input one element off alignment, held by the
+                     same check; the flash backward and the paged kernel
+                     twice, bit for bit;
 4. ``serve_dense`` — ``repro_torch.launch.serve`` on deepseek_7b at full
                      width (random bf16 weights from the seed): batched
                      prefill + greedy decode, the kernels' launch counts,
@@ -126,6 +130,9 @@ COUNTERS = {
     "fused_adamw_i8": ("fused_adamw", "LAUNCHES_I8"),
     "fused_adamw_f32": ("fused_adamw", "LAUNCHES_F32"),
     "ssd_scan": ("ssd_scan", "LAUNCHES"),
+    # the calls of the two kernels above that took their scalar route
+    "fused_adamw_scalar": ("fused_adamw", "LAUNCHES_SCALAR"),
+    "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
 }
 
 
@@ -182,6 +189,16 @@ def set_counts(values):
 
 def zero_counts():
     set_counts({n: 0 for n in COUNTERS})
+
+
+def route_of(counter, fn, routes):
+    """Call ``fn``; return its result and the route its kernel took:
+    ``routes[1]`` when the scalar-route counter ``counter`` moved, else
+    ``routes[0]``."""
+    mod, attr = _counter(counter)
+    before = getattr(mod, attr)
+    res = fn()
+    return res, routes[int(getattr(mod, attr) > before)]
 
 
 # ----------------------------------------------------------------- timing
@@ -426,8 +443,33 @@ def phase_build():
             ptxas = [ln.strip() for ln in f
                      if "registers" in ln or "spill" in ln]
     emit("build", seconds=build_s, library=os.path.relpath(path, ROOT),
-         ptxas=ptxas)
+         ptxas=ptxas, sass_instructions=sass_counts(path))
     return build_s
+
+
+SASS_FAMILIES = ("fused_adamw", "paged_decode")
+
+
+def sass_counts(lib: str) -> dict:
+    """Static SASS instruction count of each fused AdamW and paged decode
+    kernel in the built library (``cuobjdump -sass``; slow paths and
+    both branches included), by mangled name; {} without cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.default_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            name = name if any(f in name for f in SASS_FAMILIES) else None
+            if name:
+                counts[name] = 0
+        elif name and ln.strip().startswith("/*") and ";" in ln:
+            counts[name] += 1
+    return counts
 
 
 def _gen(seed):
@@ -443,7 +485,8 @@ def _randn(shape, g, dtype=torch.bfloat16, scale=1.0):
 def misaligned(t):
     """A contiguous copy of ``t`` one element off 16-byte alignment: the
     flash entry points then take their CUDA-core route (the TMA loads of
-    the tensor-core route need 16-byte aligned rows)."""
+    the tensor-core route need 16-byte aligned rows), the fused AdamW and
+    the paged decode kernel their scalar route (16-byte vector loads)."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     out = buf[1:].view(t.shape)
     out.copy_(t)
@@ -479,6 +522,8 @@ def rms_case(rows, d, dtype=torch.bfloat16, seed=1, offset=0):
 
 def paged_case(lens, Hq, Hkv, D, Dv, page=16, maxp=64, dtype=torch.bfloat16,
                seed=2, poison_trash=False):
+    """A decode round's inputs, the kernel's output, the plain version's
+    and the kernel's route ("split" or "scalar")."""
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_torch)
     B = len(lens)
@@ -497,10 +542,12 @@ def paged_case(lens, Hq, Hkv, D, Dv, page=16, maxp=64, dtype=torch.bfloat16,
             table[b, j] = free.pop()
     pt = torch.from_numpy(table).cuda()
     sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    got = paged_attention_cuda(q, k_pages, v_pages, pt, sl)
+    got, route = route_of("paged_attention_scalar", lambda: (
+        paged_attention_cuda(q, k_pages, v_pages, pt, sl)),
+        ("split", "scalar"))
     want = paged_attention_torch(q, k_pages, v_pages, pt, sl)
     torch.cuda.synchronize()
-    return (q, k_pages, v_pages, pt, sl), got, want
+    return (q, k_pages, v_pages, pt, sl), got, want, route
 
 
 def ssd_case(Bt, S, H, P, N, chunk, dtype=torch.bfloat16, h0="zeros",
@@ -650,13 +697,29 @@ ADAM_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
 ADAM_SCALARS = (3e-4, 0.7, 0.1, 0.05)       # lr, clip scale, bc1, bc2
 
 
+def adamw_run(p, g, m, v, sc, hyper, misalign=False):
+    """The kernel in place on copies of (p, m, v), p one element off
+    16-byte alignment with ``misalign`` (the scalar route); returns the
+    copies and the route the kernel took ("vector" or "scalar")."""
+    from repro_torch.kernels.fused_adamw import fused_adamw_cuda
+
+    def copy(t):
+        return ({k: x.clone() for k, x in t.items()} if isinstance(t, dict)
+                else t.clone())
+
+    got = (misaligned(p) if misalign else p.clone(), copy(m), copy(v))
+    _, route = route_of("fused_adamw_scalar", lambda: fused_adamw_cuda(
+        got[0], g, got[1], got[2], sc, **hyper), ("vector", "scalar"))
+    torch.cuda.synchronize()
+    return got, route
+
+
 def adamw_case(shape, quant, p_dtype=torch.bfloat16, g_dtype=torch.bfloat16,
-               seed=5, zero_block=False):
+               seed=5, zero_block=False, misalign=False):
     """A leaf's update by the plain version, then by the kernel in place
-    on copies of the same inputs.  Returns (inputs, the kernel's
-    (p, m, v), the plain version's)."""
-    from repro_torch.kernels.fused_adamw import (fused_adamw_cuda,
-                                                 fused_adamw_torch)
+    on copies of the same inputs (``adamw_run``).  Returns (inputs, the
+    kernel's (p, m, v), the plain version's, the kernel's route)."""
+    from repro_torch.kernels.fused_adamw import fused_adamw_torch
     from repro_torch.kernels import quantized_state as qs
     gen = _gen(seed)
     p = _randn(shape, gen, p_dtype, 0.02)
@@ -672,15 +735,18 @@ def adamw_case(shape, quant, p_dtype=torch.bfloat16, g_dtype=torch.bfloat16,
     hyper = dict(ADAM_HYPER, apply_wd=len(shape) >= 2)
     want = fused_adamw_torch(p, g, m, v, lr=sc[0], scale=sc[1], bc1=sc[2],
                              bc2=sc[3], **hyper)
+    got, route = adamw_run(p, g, m, v, sc, hyper, misalign)
+    return (p, g, m, v, sc, hyper), got, want, route
 
-    def copy(t):
-        return ({k: x.clone() for k, x in t.items()} if isinstance(t, dict)
-                else t.clone())
 
-    got = (p.clone(), copy(m), copy(v))
-    fused_adamw_cuda(*got[:1], g, *got[1:], sc, **hyper)
-    torch.cuda.synchronize()
-    return (p, g, m, v, sc, hyper), got, want
+def same_bits(a, b) -> bool:
+    """Two updates (p, m, v), moments fp32 or {"q", "s"}, bit for bit."""
+    flat = [(x, y) for x, y in zip(a, b) if not isinstance(x, dict)]
+    flat += [(x[k], y[k]) for x, y in zip(a, b) if isinstance(x, dict)
+             for k in x]
+    return all(bool(torch.equal(cx, cy)) for x, y in flat
+               for cx, cy in _chunks(x.reshape(-1).view(torch.uint8),
+                                     y.reshape(-1).view(torch.uint8)))
 
 
 def adamw_check(got, want):
@@ -721,8 +787,6 @@ def check_train_kernels(out, edge, edges):
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_torch,
         flash_attention_cuda)
-    from repro_torch.kernels.fused_adamw import (fused_adamw_cuda,
-                                                 fused_adamw_torch)
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,
                                              rmsnorm_bwd_torch)
 
@@ -801,8 +865,8 @@ def check_train_kernels(out, edge, edges):
     cc_err, cc_ratio = worst(cc, want, 2e-2)
     check(cc_ratio <= 1.0, f"flash_attention_bwd CUDA-core route: "
           f"max_abs_err {cc_err}, {cc_ratio} x tol")
-    fb["cuda_core_route"] = {
-        "max_err": cc_err, "err_over_tol": cc_ratio,
+    fb["was_route"] = {
+        "route": "cuda_core", "max_err": cc_err, "err_over_tol": cc_ratio,
         "kernel_ms": time_ms(lambda: flash_attention_bwd_cuda(
             qm, k, v, o, lse, do, **kw), iters=5)}
     del q, k, v, o, lse, do, got, want, fwd, ql, kl, vl, ol, qm, cc
@@ -864,7 +928,45 @@ def check_train_kernels(out, edge, edges):
         for gname, g, w in zip(("dx", "dscale"), got, want):
             edge("rmsnorm_bwd", f"{name}_{gname}", g, w, rel)
 
-    # ---- fused AdamW, both moment formats, at deepseek_7b's leaves
+    check_adamw_kernel(out, edges)
+
+
+# the distances adamw_check measures: the vector route may be no farther
+# from the plain version than the scalar route on the same inputs
+ADAM_DISTANCES = ("p_ulp", "p_max_abs_err", "m_ulp", "v_ulp",
+                  "m_code_max_diff", "m_code_diff_share", "m_scale_ulp",
+                  "v_code_max_diff", "v_code_diff_share", "v_scale_ulp")
+
+
+def check_adamw_kernel(out, edges):
+    """Both fused AdamW instances (int8 and fp32 moments) at deepseek_7b's
+    largest, widest and smallest leaves (timed) and at edge cases.  Each
+    vector-route case also runs the scalar route on a copy of p one
+    element off alignment: that route is held by the same check, it is
+    no nearer the plain version than the vector route, both give the same
+    bits, and at full width its time is the row's ``was_route``."""
+    from repro_torch.kernels.fused_adamw import (fused_adamw_cuda,
+                                                 fused_adamw_torch)
+
+    def both_routes(case, inputs, got, want, route, expect):
+        chk = adamw_check(got, want)
+        check(chk["passed"] and route == expect,
+              f"fused_adamw {case}: {route} route (want {expect}), {chk}")
+        if route != "vector":
+            return chk, None, None
+        sgot, sroute = adamw_run(*inputs, misalign=True)
+        schk = adamw_check(sgot, want)
+        check(schk["passed"] and sroute == "scalar",
+              f"fused_adamw {case}: {sroute} route on a misaligned p, {schk}")
+        farther = [k for k in ADAM_DISTANCES if k in chk and chk[k] > schk[k]]
+        check(not farther, f"fused_adamw {case}: the vector route is farther "
+              f"from the plain version than the scalar one in {farther}: "
+              f"{chk} against {schk}")
+        chk["bitwise_equal_to_scalar_route"] = same_bits(got, sgot)
+        check(chk["bitwise_equal_to_scalar_route"],
+              f"fused_adamw {case}: the two routes' bits differ")
+        return chk, sgot, schk
+
     leaves = {"layers/mlp/w_up": (30, 4096, 11008), "embed": (102400, 4096),
               "final_norm/scale": (4096,)}
     res = {}
@@ -872,27 +974,36 @@ def check_train_kernels(out, edge, edges):
         per_leaf = {}
         for leaf, shape in leaves.items():
             progress(f"kernels: fused_adamw {variant} {leaf}")
-            (p, g, m, v, sc, hyper), got, want = adamw_case(shape, quant)
-            chk = adamw_check(got, want)
-            check(chk["passed"], f"fused_adamw {variant} {leaf}: {chk}")
+            inputs, got, want, route = adamw_case(shape, quant)
+            p, g, m, v, sc, hyper = inputs
+            chk, sgot, schk = both_routes(f"{variant} {leaf}", inputs, got,
+                                          want, route, "vector")
             n = p.numel()
             nb = n // shape[-1] * -(-shape[-1] // 256)
             nbytes = 10 * n + 16 * nb if quant else 22 * n
             b_ms, b_by = bound(nbytes, 20 * n, F32_FLOPS)
             lr, scale, bc1, bc2 = sc
             del want
-            row = {"shape": list(shape), **chk,
+            row = {"shape": list(shape), "route": route, **chk,
                    "kernel_ms": time_ms(lambda: fused_adamw_cuda(
                        got[0], g, got[1], got[2], sc, **hyper)),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-            del got
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                   "was_route": {"route": "scalar", **schk,
+                                 "kernel_ms": time_ms(lambda: (
+                                     fused_adamw_cuda(sgot[0], g, sgot[1],
+                                                      sgot[2], sc,
+                                                      **hyper)))}}
+            del got, sgot
             row["plain_ms"] = time_ms(lambda: fused_adamw_torch(
                 p, g, m, v, lr=lr, scale=scale, bc1=bc1, bc2=bc2, **hyper),
                 iters=3)
             del m, v
             if not quant:
-                # yardstick: one fused torch.optim.AdamW step on the same
-                # bf16 param and grad (its moments are bf16, as the param)
+                # yardstick, not the same function: one fused
+                # torch.optim.AdamW step on the same bf16 param and grad
+                # keeps bf16 moments (as the param), not fp32 ones, so it
+                # moves 14 bytes an element where the kernel moves 22;
+                # library_bound_ms is its own byte bound
                 lp = torch.nn.Parameter(p.clone())
                 lp.grad = g.clone()
                 optim = torch.optim.AdamW([lp], lr=ADAM_SCALARS[0],
@@ -902,33 +1013,140 @@ def check_train_kernels(out, edge, edges):
                                           weight_decay=ADAM_HYPER[
                                               "weight_decay"], fused=True)
                 row["library_ms"] = time_ms(optim.step, iters=5)
+                row["library_bound_ms"] = bound(14 * n, 20 * n, F32_FLOPS)[0]
                 del lp, optim
             per_leaf[leaf] = row
             del p, g
             torch.cuda.empty_cache()
         res[variant] = per_leaf
-        for name, shape, kw2 in [
-                ("ragged_L300", (7, 300), {}), ("scalar_leaf", (), {}),
-                ("zero_block", (4, 512), dict(zero_block=True)),
-                ("g_f32", (3, 1000), dict(g_dtype=torch.float32)),
+        for name, shape, kw2, expect in [
+                ("ragged_L300", (7, 300), {}, "scalar"),
+                ("scalar_leaf", (), {}, "scalar"),
+                ("zero_block", (4, 512), dict(zero_block=True), "vector"),
+                ("g_f32", (3, 1000), dict(g_dtype=torch.float32), "scalar"),
+                ("g_f32_vector", (3, 4096), dict(g_dtype=torch.float32),
+                 "vector"),
                 ("p_f32_g_f32", (5, 256), dict(p_dtype=torch.float32,
-                                               g_dtype=torch.float32))]:
-            _, got, want = adamw_case(shape, quant, **kw2)
-            chk = adamw_check(got, want)
+                                               g_dtype=torch.float32),
+                 "vector"),
+                # 4112 = 16 x 257: the last quant block of a row holds 16
+                # elements, masked 16 at a time
+                ("L4112_ragged_block_vector", (3, 4112), {}, "vector"),
+                ("misaligned_scalar_route", (5, 4096), dict(misalign=True),
+                 "scalar")]:
+            inputs, got, want, route = adamw_case(shape, quant, **kw2)
+            chk = both_routes(f"{variant} {name}", inputs, got, want, route,
+                              expect)[0]
             edges.append({"kernel": "fused_adamw",
-                          "case": f"{variant}_{name}", **chk})
-            check(chk["passed"], f"fused_adamw {variant} {name}: {chk}")
+                          "case": f"{variant}_{name}", "route": route,
+                          **chk})
             if name == "zero_block" and quant:
                 check(bool((got[1]["s"][..., 0] == 1.0).all()
                            and (got[1]["q"][..., :256] == 0).all()),
                       "fused_adamw i8: an all-zero block's scale is not 1")
     w_up = res["i8"]["layers/mlp/w_up"]
+    f32 = res["f32"]["layers/mlp/w_up"]
     out["fused_adamw"] = {
         "shape": list(leaves["layers/mlp/w_up"]),
         "max_err": w_up["p_max_abs_err"],
         **{k: w_up[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                "bound_by")},
-        "library_ms": None, "variants": res}
+                                "bound_by", "was_route")},
+        "library_ms": None,
+        "f32": {"ms": f32["kernel_ms"],
+                "was_ms": f32["was_route"]["kernel_ms"],
+                "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+                "library_ms": f32["library_ms"],
+                "library_bound_ms": f32["library_bound_ms"]},
+        "variants": res}
+
+
+def check_paged_kernel(out, edge, edges):
+    """Paged decode attention at deepseek_7b's paged round (8 slots, 32
+    heads, D 128, page 16, lengths 17-1000; timed) and at edge cases.  The
+    split route is held against the plain version and its partition-and-
+    merge arithmetic (``paged_attention_split_torch``), and twice on the
+    same inputs, bit for bit (its merge is ordered); the scalar route on a
+    copy of q one element off alignment is held and timed
+    (``was_route``)."""
+    from repro_torch.kernels.paged_attention import (
+        PARTITION, paged_attention_cuda, paged_attention_split_torch,
+        paged_attention_torch)
+    progress("kernels: paged_attention")
+    lens = [17, 157, 298, 438, 579, 719, 860, 1000]
+    (q, kp, vp, pt, sl), got, want, route = paged_case(lens, 32, 32, 128,
+                                                       128)
+    err, ratio = close(got, want, 2e-2)
+    check(route == "split" and ratio <= 1.0,
+          f"paged_attention full width: {route} route, max_abs_err {err}, "
+          f"{ratio} x tol")
+    again = paged_attention_cuda(q, kp, vp, pt, sl)
+    check(bool(torch.equal(got.view(torch.int16), again.view(torch.int16))),
+          "paged_attention: two calls on the same inputs differ")
+    s_err, s_ratio = close(got, paged_attention_split_torch(
+        q, kp, vp, pt, sl, part=PARTITION), 2e-2)
+    check(s_ratio <= 1.0, f"paged_attention full width against the split "
+          f"plain version: max_abs_err {s_err}, {s_ratio} x tol")
+    Hkv, D = kp.shape[2], kp.shape[3]
+    live = sum(lens)
+    nbytes = (2 * (q.numel() + got.numel()) + 2 * live * Hkv * (D + D)
+              + 4 * (len(lens) + sum(-(-n // 16) for n in lens)))
+    b_ms, b_by = bound(nbytes, live * q.shape[1] * 2 * (D + D))
+    qm = misaligned(q)
+    cc, cc_route = route_of("paged_attention_scalar", lambda: (
+        paged_attention_cuda(qm, kp, vp, pt, sl)), ("split", "scalar"))
+    cc_err, cc_ratio = close(cc, want, 2e-2)
+    check(cc_route == "scalar" and cc_ratio <= 1.0,
+          f"paged_attention on a misaligned q: {cc_route} route, "
+          f"max_abs_err {cc_err}, {cc_ratio} x tol")
+    out["paged_attention"] = {
+        "shape": {"lens": lens, "Hq": 32, "Hkv": 32, "D": 128, "page": 16,
+                  "partition": PARTITION},
+        "route": route, "max_err": err, "rtol": 2e-2, "err_over_tol": ratio,
+        "bitwise_reproducible": True,
+        "vs_split_plain": {"max_err": s_err, "err_over_tol": s_ratio},
+        "kernel_ms": time_ms(lambda: paged_attention_cuda(q, kp, vp, pt, sl)),
+        "plain_ms": time_ms(lambda: paged_attention_torch(q, kp, vp, pt, sl)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        # the split route's two kernels, apart
+        "kernels_ms": {t["kernel"]: t["ms_per_call"] for t in profile_steps(
+            lambda: paged_attention_cuda(q, kp, vp, pt, sl), 20)["top"]
+            if "paged_decode" in t["kernel"]},
+        "was_route": {"route": "scalar", "max_err": cc_err,
+                      "err_over_tol": cc_ratio,
+                      "kernel_ms": time_ms(lambda: paged_attention_cuda(
+                          qm, kp, vp, pt, sl))}}
+    del q, kp, vp, pt, sl, got, want, again, qm, cc
+    for name, args, kw2, expect in [
+            ("empty_and_len1_slots", ([0, 1, 16, 17], 8, 8, 128, 128), {},
+             "split"),
+            ("poisoned_trash_page", ([5, 33, 64], 4, 4, 128, 128),
+             dict(poison_trash=True, maxp=8), "split"),
+            ("gqa_g4_dv_ne_d", ([40, 300], 8, 2, 128, 64), {}, "split"),
+            # starcoder2_15b's group (48 / 4 = 12 runs as 2 chunks of 6)
+            # and yi_34b's (56 / 8 = 7)
+            ("gqa_g12_two_chunks", ([40, 300, 1], 48, 4, 128, 128), {},
+             "split"),
+            ("gqa_g7", ([33, 200], 56, 8, 128, 128), {}, "split"),
+            ("f32_g8", ([9, 100, 31], 8, 1, 64, 64),
+             dict(dtype=torch.float32, page=8, maxp=16), "split"),
+            # lengths on, just past and just short of the 128-position
+            # partitions, and one position
+            ("partition_boundaries", ([127, 128, 129, 256, 1], 8, 8, 128,
+                                      128), {}, "split"),
+            # a head dim that is no whole number of 16-byte words
+            ("d100_scalar_route", ([40, 300], 8, 8, 100, 100), {},
+             "scalar"),
+            # page 8 (16 pages a partition), lengths ending mid-partition
+            ("f32_page8", ([9, 100, 131, 250], 8, 2, 128, 128),
+             dict(dtype=torch.float32, page=8, maxp=32), "split")]:
+        _, got, want, route = paged_case(*args, **kw2)
+        check(route == expect, f"paged_attention {name}: {route} route, "
+              f"want {expect}")
+        rel = 1e-4 if kw2.get("dtype") == torch.float32 else 2e-2
+        edge("paged_attention", name, got, want, rel)
+        edges[-1]["route"] = route
+        if name == "empty_and_len1_slots":
+            check(bool((got[0] == 0).all()), "paged: empty slot is not 0")
 
 
 def phase_kernels():
@@ -937,8 +1155,6 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_torch)
-    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
-                                                     paged_attention_torch)
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
     out = {}
     edges = []
@@ -979,8 +1195,8 @@ def phase_kernels():
         cc_err, cc_ratio = close(cc, want, 2e-2)
         check(cc_ratio <= 1.0, f"flash_attention CUDA-core route "
               f"{list(q.shape)}: max_abs_err {cc_err}, {cc_ratio} x tol")
-        row["cuda_core_route"] = {
-            "max_err": cc_err, "err_over_tol": cc_ratio,
+        row["was_route"] = {
+            "route": "cuda_core", "max_err": cc_err, "err_over_tol": cc_ratio,
             "kernel_ms": time_ms(lambda: flash_attention_cuda(qm, k, v,
                                                               **kw))}
         return row
@@ -1050,41 +1266,7 @@ def phase_kernels():
         rel = 1e-5 if kw2.get("dtype") == torch.float32 else 2e-2
         edge("rmsnorm", name, got, want, rel)
 
-    # ---- paged attention: 8 slots, 32 kv heads, D 128, page 16, lens 17-1000
-    lens = [17, 157, 298, 438, 579, 719, 860, 1000]
-    (q, kp, vp, pt, sl), got, want = paged_case(lens, 32, 32, 128, 128)
-    err, ratio = close(got, want, 2e-2)
-    check(ratio <= 1.0, f"paged_attention full width: max_abs_err {err}, "
-          f"{ratio} x tol")
-    Hkv, D = kp.shape[2], kp.shape[3]
-    live = sum(lens)
-    nbytes = (2 * (q.numel() + got.numel()) + 2 * live * Hkv * (D + D)
-              + 4 * (len(lens) + sum(-(-n // 16) for n in lens)))
-    b_ms, b_by = bound(nbytes, live * q.shape[1] * 2 * (D + D))
-    out["paged_attention"] = {
-        "shape": {"lens": lens, "Hq": 32, "Hkv": 32, "D": 128, "page": 16},
-        "max_err": err, "rtol": 2e-2, "err_over_tol": ratio,
-        "kernel_ms": time_ms(lambda: paged_attention_cuda(q, kp, vp, pt, sl)),
-        "plain_ms": time_ms(lambda: paged_attention_torch(q, kp, vp, pt, sl)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    del q, kp, vp, pt, sl, got, want
-    for name, args, kw2 in [
-            ("empty_and_len1_slots", ([0, 1, 16, 17], 8, 8, 128, 128), {}),
-            ("poisoned_trash_page", ([5, 33, 64], 4, 4, 128, 128),
-             dict(poison_trash=True, maxp=8)),
-            ("gqa_g4_dv_ne_d", ([40, 300], 8, 2, 128, 64), {}),
-            # starcoder2_15b's group (48 / 4 = 12 runs as 2 chunks of 6)
-            # and yi_34b's (56 / 8 = 7)
-            ("gqa_g12_two_chunks", ([40, 300, 1], 48, 4, 128, 128), {}),
-            ("gqa_g7", ([33, 200], 56, 8, 128, 128), {}),
-            ("f32_g8", ([9, 100, 31], 8, 1, 64, 64),
-             dict(dtype=torch.float32, page=8, maxp=16))]:
-        _, got, want = paged_case(*args, **kw2)
-        rel = 1e-4 if kw2.get("dtype") == torch.float32 else 2e-2
-        edge("paged_attention", name, got, want, rel)
-        if name == "empty_and_len1_slots":
-            check(bool((got[0] == 0).all()), "paged: empty slot is not 0")
-
+    check_paged_kernel(out, edge, edges)
     check_ssd_kernel(out, edge)
     check_train_kernels(out, edge, edges)
     emit("kernels", launches=counts(), full_width=out, edge_cases=edges)
@@ -1584,19 +1766,22 @@ def _run_all() -> int:
     pl = paged["launches"]
     check(pl["paged_attention"] >= 30 * paged["decode_rounds"] > 0
           and pl["flash_attention"] >= 30 * paged["admissions"]
-          and pl["rmsnorm"] > 0, f"paged path launches {pl}")
+          and pl["rmsnorm"] > 0 and pl["paged_attention_scalar"] == 0,
+          f"paged path launches {pl}")
     # per train step, 30 layers: forward + remat recompute, one backward
     # each; 61 norms (2 a layer + the final one); 12 param leaves
     tl = train["launches_per_step"]
     check(tl["flash_attention"] >= 60 and tl["flash_attention_bwd"] == 30
           and tl["rmsnorm"] >= 121 and tl["rmsnorm_bwd"] == 61
-          and tl["fused_adamw_i8"] == 12 and tl["fused_adamw_f32"] == 0,
+          and tl["fused_adamw_i8"] == 12 and tl["fused_adamw_f32"] == 0
+          and tl["fused_adamw_scalar"] == 0,
           f"train path launches per step {tl}")
     # 4 layers, 2 microbatches
     fl = train_f32["launches_per_step"]
     check(fl["flash_attention"] >= 16 and fl["flash_attention_bwd"] == 8
           and fl["rmsnorm"] >= 34 and fl["rmsnorm_bwd"] == 18
-          and fl["fused_adamw_f32"] == 12 and fl["fused_adamw_i8"] == 0,
+          and fl["fused_adamw_f32"] == 12 and fl["fused_adamw_i8"] == 0
+          and fl["fused_adamw_scalar"] == 0,
           f"train_f32 path launches per step {fl}")
 
     # the hybrid's counts were checked exactly in its phase
@@ -1622,10 +1807,14 @@ def _run_all() -> int:
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"],
                "library_ms": k["library_ms"], "shape": k["shape"]}
-        if "cuda_core_route" in k:
-            # redesigned for the tensor cores: the CUDA-core route the bf16
-            # path took before, timed in this run on the same inputs
-            row["was_ms"] = k["cuda_core_route"]["kernel_ms"]
+        if "was_route" in k:
+            # a redesigned kernel: the route its main path took before
+            # (flash's CUDA-core kernels, the scalar routes of the fused
+            # AdamW and the paged decode kernel), timed in this run on the
+            # same inputs one element off alignment
+            row["was_ms"] = k["was_route"]["kernel_ms"]
+        if "f32" in k:
+            row["f32"] = k["f32"]
         rows.append(row)
     line = json.dumps({"kernels": rows})
     print(line, flush=True)

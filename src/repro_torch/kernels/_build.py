@@ -46,12 +46,13 @@ SIGNATURES = {
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I,
                                                            _I, _P],
     # p, g, m, m scales, v, v scales, scalars, rows, L, b1, 1 - b1, b2,
-    # 1 - b2, eps, weight decay, apply_wd, p dtype, g dtype, quant, stream
-    "fused_adamw_launch": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I] * 4 + [_P],
-    # q, k_pages, v_pages, page_table, seq_lens, o, B, Hq, Hkv, D, Dv,
-    # page, maxp, scale, dtype code, stream
-    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _I, _P],
+    # 1 - b2, eps, weight decay, apply_wd, p dtype, g dtype, quant, vector
+    # route, stream
+    "fused_adamw_launch": [_P] * 7 + [_I, _I] + [_F] * 6 + [_I] * 5 + [_P],
+    # q, k_pages, v_pages, page_table, seq_lens, o, workspace (or null),
+    # B, Hq, Hkv, D, Dv, page, maxp, partition pages, scale, dtype code,
+    # split route, stream
+    "paged_attention_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     # x, dt, A, B, C, D, h0 (or null), y, h_final, Bt, S, H, P, N, Q,
     # (batch, sequence) strides of x, B and C, dtype code, stream
     "ssd_scan_launch": [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P],

@@ -12,14 +12,42 @@
 // so the least time is the live K/V bytes, sum_b seq_lens[b] * Hkv *
 // (D + Dv) * bytes, over 3.35 TB/s.
 //
-// Design: one thread block (8 warps) per (kv head h, head chunk c, slot b),
-// holding GC query heads of that kv head in registers: GC is the largest
-// divisor of the group size G that is at most 8, and the G / GC chunks of
-// one kv head are separate blocks, so any G works (G = 12 runs as 2 chunks
-// of 6) while a block's registers stay bounded.  The block reads seq_lens[b]
-// and page_table[b, j] itself (Hopper has no scalar prefetch) and walks
-// only positions t < seq_lens[b], page by page: it never reads a row at or
-// past the slot's length, so the trash page and the unallocated tail cost
+// Design: two routes, chosen by the wrapper from the shapes and the
+// alignment.
+//
+// Split route (D and Dv multiples of 16 bytes' worth of elements, 16-byte
+// aligned q and pools: every dense config's decode): flash-decoding.  Each
+// slot's positions are cut into partitions of P positions (a whole number
+// of pages, ~128), and one thread block (8 warps) takes one (kv head h,
+// head chunk c, slot b, partition j).  The grid covers maxp * page
+// positions from the table's shape, so the host needs no sync to read
+// seq_lens; a block whose partition starts at or past seq_lens[b] returns
+// at once, and no block walks more than P positions, so a long slot no
+// longer sets the time while most SMs idle.  A block reads its partition's
+// page ids into shared memory (beside seq_lens[b], not after it), then
+// each half-warp takes one position at a time: lane i reads elements 8i .. 8i + 7 of the K and V rows with 16-byte
+// loads (a 128-wide bf16 row is one half-warp load), and a lane issues the
+// loads of all its batch's rows (up to 8 positions) before any arithmetic.
+// Rows at or past seq_lens[b] are never read.  Scores and the online
+// softmax are fp32, each half-warp keeping its own (m, l, acc) per query
+// head; a warp's two halves merge by shuffles and the 8 warps through
+// shared memory in a fixed order, and the block writes fp32 partials
+// (acc[Dv], m, l) for its GC heads to a workspace (B, Hq, n_part,
+// Dv + 2).  A second kernel merges a
+// slot's live partitions in partition order, with no atomics, so the
+// result is the same bits on every call; it writes o in q's dtype and
+// zeros for seq_lens[b] == 0.
+//
+// Scalar route (anything else: odd head dims, unaligned bases; the design
+// before the split route): one thread block (8 warps) per (kv head h, head
+// chunk c, slot b), holding GC query heads of that kv head in registers:
+// GC is the largest divisor of the group size G that is at most 8, and the
+// G / GC chunks of one kv head are separate blocks, so any G works (G = 12
+// runs as 2 chunks of 6) while a block's registers stay bounded (the split
+// route chunks heads the same way).  The block reads seq_lens[b] and
+// page_table[b, j] itself (Hopper has no scalar prefetch) and walks only
+// positions t < seq_lens[b], page by page: it never reads a row at or past
+// the slot's length, so the trash page and the unallocated tail cost
 // nothing and cannot leak.  A warp takes 4 positions at a time; lane i
 // reads elements i, i+32, ... of each row, so one row of one head (D
 // contiguous elements in the (n_pages, page, Hkv, D) pool) is a coalesced
@@ -28,6 +56,8 @@
 // softmax (m, l, acc) per query head, and the 8 warps' partial results are
 // merged through shared memory at the end.  seq_lens[b] == 0 writes zeros
 // (l = 0 is divided by 1).  D and Dv up to 128, any G.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -175,54 +205,339 @@ cudaError_t launch_g(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ split route
+
+namespace split {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int LE = 8;                  // elements of a row a lane owns
+constexpr int MAX_PART_PAGES = 128;    // page ids of one partition
+constexpr int MERGE_THREADS = MAX_D;
+
+// A lane's 8 elements of a row, c0 .. c0 + 7: one (bf16) or two (f32)
+// 16-byte words; words at or past the row's width are 0 and not read.
 template <typename T>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* pt, const int* sl, void* o, int B, int Hq,
-                   int Hkv, int D, int Dv, int page, int maxp, float scale,
-                   cudaStream_t stream) {
-#define REPRO_PAGED_G(G_)                                                   \
-  case G_:                                                                  \
-    return launch_g<T, G_>(q, kp, vp, pt, sl, o, B, Hq, Hkv, D, Dv, page,   \
-                           maxp, scale, stream);
-  const int G = Hq / Hkv;
+struct Row8 {
+  static constexpr int VEC = 16 / sizeof(T);   // elements a word
+  static constexpr int W = LE / VEC;           // words
+  uint4 w[W];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < W; ++i) w[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ __forceinline__ void load(const T* row, int c0, int width) {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      w[i] = c0 + i * VEC < width
+                 ? *reinterpret_cast<const uint4*>(row + c0 + i * VEC)
+                 : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ __forceinline__ void to_f32(float (&f)[LE]) const;
+};
+
+template <>
+__device__ __forceinline__ void Row8<float>::to_f32(float (&f)[LE]) const {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    f[4 * i] = __uint_as_float(w[i].x);
+    f[4 * i + 1] = __uint_as_float(w[i].y);
+    f[4 * i + 2] = __uint_as_float(w[i].z);
+    f[4 * i + 3] = __uint_as_float(w[i].w);
+  }
+}
+
+template <>
+__device__ __forceinline__ void Row8<__nv_bfloat16>::to_f32(
+    float (&f)[LE]) const {
+  const uint32_t u[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(u[i] << 16);
+    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// positions a half-warp loads at once: 8 K and 8 V words in flight a lane,
+// fewer as the GC heads' registers grow
+template <typename T, int GC>
+__host__ __device__ constexpr int batch() {
+  constexpr int u = 8 / Row8<T>::W;
+  constexpr int v = GC <= 2 ? u : GC <= 4 ? u / 2 : u / 4;
+  return v < 1 ? 1 : v;
+}
+
+template <typename T, int GC>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_split_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages,
+                          const int* __restrict__ page_table,
+                          const int* __restrict__ seq_lens,
+                          float* __restrict__ ws, int Hq, int Hkv, int D,
+                          int Dv, int page, int maxp, int part_pages,
+                          int n_part, float scale) {
+  constexpr int U = batch<T, GC>();
+  __shared__ int s_pid[MAX_PART_PAGES];
+  __shared__ float s_m[WARPS][GC];
+  __shared__ float s_l[WARPS][GC];
+  __shared__ float s_acc[WARPS][GC][MAX_D];
+
+  const int b = blockIdx.x / n_part, j = blockIdx.x - b * n_part;
+  const int h = blockIdx.y;
+  const int hq0 = h * (Hq / Hkv) + blockIdx.z * GC;
+  const int P = part_pages * page;
+  // the partition's page ids and seq_lens[b] in flight together: the table
+  // is read whole, so no id waits for the length (ids past it go unused)
+  const int* pt = page_table + static_cast<size_t>(b) * maxp + j * part_pages;
+  for (int i = threadIdx.x; i < min(part_pages, maxp - j * part_pages);
+       i += THREADS)
+    s_pid[i] = pt[i];
+  const int len = max(0, min(seq_lens[b], maxp * page));
+  const int t0 = j * P;
+  if (t0 >= len) return;                  // the whole block, before a sync
+  const int t1 = min(t0 + P, len);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = lane >> 4, c0 = LE * (lane & 15);
+  float qf[GC][LE];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    Row8<T> r;
+    r.load(q + (static_cast<size_t>(b) * Hq + hq0 + g) * D, c0, D);
+    r.to_f32(qf[g]);
+  }
+  float m[GC], l[GC], acc[GC][LE];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < LE; ++e) acc[g][e] = 0.f;
+  }
+  __syncthreads();                        // the page ids are in
+
+  // warp w takes positions base + 2u + half, u < U, base = t0 + 2U w + ...
+  for (int base = t0 + warp * 2 * U; base < t1; base += WARPS * 2 * U) {
+    Row8<T> kr[U], vr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = base + 2 * u + half;
+      if (t < t1) {
+        const size_t row =
+            (static_cast<size_t>(s_pid[(t - t0) / page]) * page + t % page) *
+                Hkv + h;
+        kr[u].load(k_pages + row * D, c0, D);
+        vr[u].load(v_pages + row * Dv, c0, Dv);
+      } else {
+        kr[u].zero();
+        vr[u].zero();
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      float s[U];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[LE];
+        kr[u].to_f32(kf);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < LE; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+        s[u] = half_sum(dot) * scale;
+        if (base + 2 * u + half < t1) mx = fmaxf(mx, s[u]);
+      }
+      const float m_new = fmaxf(m[g], mx);
+      const float corr = expf(m[g] - m_new);
+      float p[U], ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        p[u] = base + 2 * u + half < t1 ? expf(s[u] - m_new) : 0.f;
+        ps += p[u];
+      }
+      l[g] = l[g] * corr + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < LE; ++e) acc[g][e] *= corr;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vf[LE];
+        vr[u].to_f32(vf);
+#pragma unroll
+        for (int e = 0; e < LE; ++e) acc[g][e] = fmaf(p[u], vf[e], acc[g][e]);
+      }
+    }
+  }
+
+  // the warp's two half-warps, then the 8 warps in order
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    const float mo = __shfl_xor_sync(0xffffffffu, m[g], 16);
+    const float lo = __shfl_xor_sync(0xffffffffu, l[g], 16);
+    const float M = fmaxf(m[g], mo);
+    const float fa = expf(m[g] - M), fb = expf(mo - M);
+#pragma unroll
+    for (int e = 0; e < LE; ++e) {
+      const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], 16);
+      acc[g][e] = acc[g][e] * fa + ao * fb;
+    }
+    if (half == 0) {
+      if (c0 == 0) {
+        s_m[warp][g] = M;
+        s_l[warp][g] = l[g] * fa + lo * fb;
+      }
+#pragma unroll
+      for (int e = 0; e < LE; ++e)
+        if (c0 + e < Dv) s_acc[warp][g][c0 + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < GC * Dv; idx += THREADS) {
+    const int g = idx / Dv, c = idx - g * Dv;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, s_m[w][g]);
+    float L = 0.f, O = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float f = expf(s_m[w][g] - M);
+      L = fmaf(s_l[w][g], f, L);
+      O = fmaf(s_acc[w][g][c], f, O);
+    }
+    float* out =
+        ws + ((static_cast<size_t>(b) * Hq + hq0 + g) * n_part + j) * (Dv + 2);
+    out[c] = O;
+    if (c == 0) {
+      out[Dv] = M;
+      out[Dv + 1] = L;
+    }
+  }
+}
+
+// o[b, hq] from the live partitions' partials, in partition order
+template <typename T>
+__global__ void __launch_bounds__(MERGE_THREADS)
+paged_decode_merge_kernel(const float* __restrict__ ws,
+                          const int* __restrict__ seq_lens, T* __restrict__ o,
+                          int Hq, int Dv, int n_part, int P, int max_len) {
+  const int bh = blockIdx.x, b = bh / Hq;
+  const int len = max(0, min(seq_lens[b], max_len));
+  const int live = (len + P - 1) / P;
+  const float* w = ws + static_cast<size_t>(bh) * n_part * (Dv + 2);
+  for (int c = threadIdx.x; c < Dv; c += MERGE_THREADS) {
+    float M = NEG_INF;
+    for (int i = 0; i < live; ++i) M = fmaxf(M, w[i * (Dv + 2) + Dv]);
+    float L = 0.f, O = 0.f;
+    for (int i = 0; i < live; ++i) {
+      const float* wi = w + i * (Dv + 2);
+      const float f = expf(wi[Dv] - M);
+      L = fmaf(wi[Dv + 1], f, L);
+      O = fmaf(wi[c], f, O);
+    }
+    o[static_cast<size_t>(bh) * Dv + c] =
+        from_f32<T>(O / (L == 0.f ? 1.f : L));
+  }
+}
+
+}  // namespace split
+
+struct Args {
+  const void *q, *kp, *vp;
+  const int *pt, *sl;
+  void* o;
+  float* ws;
+  int B, Hq, Hkv, D, Dv, page, maxp, part_pages;
+  float scale;
+};
+
+template <typename T, int GC>
+cudaError_t launch_split(const Args& a, cudaStream_t stream) {
+  const int n_part = (a.maxp + a.part_pages - 1) / a.part_pages;
+  dim3 grid(n_part * a.B, a.Hkv, a.Hq / a.Hkv / GC);
+  split::paged_decode_split_kernel<T, GC>
+      <<<grid, split::THREADS, 0, stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+          static_cast<const T*>(a.vp), a.pt, a.sl, a.ws, a.Hq, a.Hkv, a.D,
+          a.Dv, a.page, a.maxp, a.part_pages, n_part, a.scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  split::paged_decode_merge_kernel<T>
+      <<<a.B * a.Hq, split::MERGE_THREADS, 0, stream>>>(
+          a.ws, a.sl, static_cast<T*>(a.o), a.Hq, a.Dv, n_part,
+          a.part_pages * a.page, a.maxp * a.page);
+  return cudaGetLastError();
+}
+
+template <typename T, int GC>
+cudaError_t launch_gc(const Args& a, bool split_route, cudaStream_t stream) {
+  if (split_route) return launch_split<T, GC>(a, stream);
+  return launch_g<T, GC>(a.q, a.kp, a.vp, a.pt, a.sl, a.o, a.B, a.Hq, a.Hkv,
+                         a.D, a.Dv, a.page, a.maxp, a.scale, stream);
+}
+
+template <typename T>
+cudaError_t launch(const Args& a, bool split_route, cudaStream_t stream) {
+  const int G = a.Hq / a.Hkv;
   int gc = 8;
   while (G % gc) --gc;
   switch (gc) {
-    REPRO_PAGED_G(1)
-    REPRO_PAGED_G(2)
-    REPRO_PAGED_G(3)
-    REPRO_PAGED_G(4)
-    REPRO_PAGED_G(5)
-    REPRO_PAGED_G(6)
-    REPRO_PAGED_G(7)
-    REPRO_PAGED_G(8)
-    default:
-      return cudaErrorInvalidValue;
+    case 1: return launch_gc<T, 1>(a, split_route, stream);
+    case 2: return launch_gc<T, 2>(a, split_route, stream);
+    case 3: return launch_gc<T, 3>(a, split_route, stream);
+    case 4: return launch_gc<T, 4>(a, split_route, stream);
+    case 5: return launch_gc<T, 5>(a, split_route, stream);
+    case 6: return launch_gc<T, 6>(a, split_route, stream);
+    case 7: return launch_gc<T, 7>(a, split_route, stream);
+    case 8: return launch_gc<T, 8>(a, split_route, stream);
+    default: return cudaErrorInvalidValue;
   }
-#undef REPRO_PAGED_G
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
 }  // namespace
 
+// q (B, Hq, D); pools (n_pages, page, Hkv, D | Dv); page_table (B, maxp)
+// int32; seq_lens (B,) int32; o (B, Hq, Dv).  split = 1 takes the split
+// route, which needs D and Dv multiples of 16 bytes' worth of elements,
+// 16-byte aligned q and pools, and a workspace of B * Hq * n_part *
+// (Dv + 2) floats, n_part = ceil(maxp / part_pages).
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* page_table,
-                                      const void* seq_lens, void* o, int B,
-                                      int Hq, int Hkv, int D, int Dv,
-                                      int page, int maxp, float scale,
-                                      int dtype, void* stream) {
+                                      const void* seq_lens, void* o,
+                                      void* workspace, int B, int Hq,
+                                      int Hkv, int D, int Dv, int page,
+                                      int maxp, int part_pages, float scale,
+                                      int dtype, int split_route,
+                                      void* stream) {
   if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_D || Hkv < 1 || Hq % Hkv ||
-      page < 1 || maxp < 1)
+      page < 1 || maxp < 1 || (dtype != DTYPE_BF16 && dtype != DTYPE_F32))
+    return cudaErrorInvalidValue;
+  const int vec = dtype == DTYPE_BF16 ? 8 : 4;
+  if (split_route &&
+      (part_pages < 1 || part_pages > split::MAX_PART_PAGES || D % vec ||
+       Dv % vec || !aligned16(q) || !aligned16(k_pages) ||
+       !aligned16(v_pages) || workspace == nullptr))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
+  const Args a{q, k_pages, v_pages, static_cast<const int*>(page_table),
+               static_cast<const int*>(seq_lens), o,
+               static_cast<float*>(workspace), B, Hq, Hkv, D, Dv, page, maxp,
+               part_pages, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* pt = static_cast<const int*>(page_table);
-  const int* sl = static_cast<const int*>(seq_lens);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, pt, sl, o, B, Hq, Hkv,
-                                 D, Dv, page, maxp, scale, s);
-  if (dtype == DTYPE_F32)
-    return launch<float>(q, k_pages, v_pages, pt, sl, o, B, Hq, Hkv, D, Dv,
-                         page, maxp, scale, s);
-  return cudaErrorInvalidValue;
+    return launch<__nv_bfloat16>(a, split_route != 0, s);
+  return launch<float>(a, split_route != 0, s);
 }

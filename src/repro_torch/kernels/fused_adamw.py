@@ -8,6 +8,12 @@ and their per-256 scales, IN PLACE (the JAX kernel returns fresh arrays;
 the port saves the memory of a second copy).  ``fused_adamw_torch`` is the
 plain version, ``repro.kernels.ops._fused_adamw_jnp``'s op sequence in
 PyTorch, and returns new tensors.
+
+On the card the kernel has two routes, chosen here from the leaf's shape
+and alignment (``vector_route``), never by the caller: the vector route
+(16-byte loads, a half-warp per quantization block) for a last dim that is
+a multiple of 16 on 16-byte aligned buffers, the scalar route (one element
+a load) for anything else.  Both give the same bits.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from repro_torch.kernels import quantized_state as qs
 #: reads them afterwards)
 LAUNCHES_F32 = 0
 LAUNCHES_I8 = 0
+#: of those, the launches that took the scalar route
+LAUNCHES_SCALAR = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -50,13 +58,22 @@ def _f32(x: float) -> float:
     return float(torch.tensor(x, dtype=torch.float32))
 
 
+def vector_route(p, g, m, v) -> bool:
+    """Whether the kernel takes its vector route for this leaf: the last
+    dim a multiple of 16 and every buffer 16-byte aligned."""
+    bufs = (p, g, m["q"], m["s"], v["q"], v["s"]) if isinstance(m, dict) \
+        else (p, g, m, v)
+    return (p.ndim >= 1 and p.shape[-1] % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in bufs))
+
+
 def fused_adamw_cuda(p, g, m, v, scalars, *, b1: float, b2: float,
                      eps: float, weight_decay: float, apply_wd: bool):
     """The kernel, in place on p, m and v.  ``scalars``: 4 fp32 values on
     p's device, (lr, clip scale, bc1, bc2).  p bf16/f32, g bf16/f32 of p's
     shape; m, v fp32 of p's shape or {"q": int8 of p's shape, "s": fp32
     (..., ceil(L / 256))}.  All contiguous on one CUDA device."""
-    global LAUNCHES_F32, LAUNCHES_I8
+    global LAUNCHES_F32, LAUNCHES_I8, LAUNCHES_SCALAR
     quant = isinstance(m, dict)
     L = p.shape[-1] if p.ndim else 1
     rows = p.numel() // L if L else 0
@@ -84,6 +101,7 @@ def fused_adamw_cuda(p, g, m, v, scalars, *, b1: float, b2: float,
     if g.dtype not in DTYPE_CODES or not p.is_contiguous():
         raise ValueError("fused_adamw_cuda needs a contiguous p and a "
                          "bf16/f32 g")
+    vector = vector_route(p, g, m, v)
     lib = _build.load()
     if quant:
         ptrs = (m["q"].data_ptr(), m["s"].data_ptr(), v["q"].data_ptr(),
@@ -95,11 +113,13 @@ def fused_adamw_cuda(p, g, m, v, scalars, *, b1: float, b2: float,
             p.data_ptr(), g.data_ptr(), *ptrs, scalars.data_ptr(), rows, L,
             _f32(b1), _f32(1 - b1), _f32(b2), _f32(1 - b2), _f32(eps),
             _f32(weight_decay), int(bool(apply_wd)), DTYPE_CODES[p.dtype],
-            DTYPE_CODES[g.dtype], int(quant),
+            DTYPE_CODES[g.dtype], int(quant), int(vector),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "fused_adamw_launch")
     if quant:
         LAUNCHES_I8 += 1
     else:
         LAUNCHES_F32 += 1
+    if not vector:
+        LAUNCHES_SCALAR += 1
     return p, m, v

@@ -34,9 +34,11 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd_cuda, flash_attention_bwd_torch, flash_attention_cuda,
     flash_attention_torch)
 from repro_torch.kernels.fused_adamw import (  # noqa: E402
-    fused_adamw_cuda, fused_adamw_torch)
+    fused_adamw_cuda, fused_adamw_torch, vector_route)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention_cuda, paged_attention_torch)
+    paged_attention_cuda, paged_attention_split_torch, paged_attention_torch,
+    partition_pages, split_route)
+from repro_torch.kernels import quantized_state as tqs  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda, rmsnorm_torch)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
@@ -352,6 +354,91 @@ def test_fused_adamw_torch_vs_jax(shape, dtype, bits):
         assert_same(g, w)
 
 
+def _fma32(a, b, c):
+    """fma(a, b, c) of float32 values with one rounding.  a * b is exact in
+    float64; the float64 sum rounds once more, which can differ from one
+    rounding only where it lands exactly on a float32 midpoint and was
+    itself inexact (TwoSum finds those): these few are redone exactly."""
+    from fractions import Fraction
+    a, b, c = (np.asarray(x, np.float32).astype(np.float64)
+               for x in (a, b, c))
+    prod = a * b
+    s = prod + c
+    bb = s - prod
+    err = (prod - (s - bb)) + (c - bb)          # TwoSum: s + err is exact
+    out = s.astype(np.float32)
+    mant = np.frexp(s)[0] * 2.0 ** 25
+    redo = (err != 0) & (mant == np.floor(mant)) & (np.fmod(mant, 2) != 0)
+    for i in np.flatnonzero(redo):
+        exact = Fraction(prod[i]) + Fraction(c[i])
+        cand = out[i]
+        nbrs = [np.nextafter(cand, np.float32(-np.inf)), cand,
+                np.nextafter(cand, np.float32(np.inf))]
+        out[i] = min(nbrs, key=lambda f: (abs(Fraction(float(f)) - exact),
+                                          int(np.float32(f).view(np.int32))
+                                          & 1))
+    return out
+
+
+def reciprocal_quotient(x, b):
+    """The vector route's x / b for a divisor constant over a launch or a
+    quant block (``csrc/fused_adamw.cu`` ``markstein``): y = RN(1/b),
+    q = RN(x y), t = fma(q, b, -x), q' = fma(-t, y, q)."""
+    y = np.float32(1.0) / b
+    q = x * y
+    t = _fma32(q, b, -x)
+    return _fma32(-t, y, q)
+
+
+def test_reciprocal_fma_quotient_is_ieee_division():
+    """Markstein's quotient equals IEEE float32 division, bit for bit, on
+    seeded pairs over the moments' range (1e-12 to 1e2, both signs, and
+    zeros of both signs) and the divisors the kernel sees: bias
+    corrections 1 - b^t in (0, 1], block scales amax / 127, and
+    mantissas of all ones."""
+    rng = np.random.default_rng(0)
+    n = 300_000
+    x = (10.0 ** rng.uniform(-12, 2, n)
+         * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    x[:64] = np.float32(0.0)
+    x[64:128] = np.float32(-0.0)
+    b1 = rng.choice([0.9, 0.95, 0.999], n // 4)
+    t = rng.integers(1, 10_000, n // 4)
+    ones = np.float32(2.0 - 2.0 ** -23) * np.float32(2.0) ** rng.integers(
+        -40, 1, n // 4).astype(np.float32)
+    b = np.concatenate([
+        1.0 - b1 ** t, rng.uniform(1e-7, 1.0, n // 4),
+        (10.0 ** rng.uniform(-12, 2, n - 3 * (n // 4))) / np.float32(127),
+        ones]).astype(np.float32)
+    b = b[rng.permutation(n)]
+    got = reciprocal_quotient(x, b)
+    want = x / b
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _aligned_leaf(shape, quant, dtype=torch.bfloat16):
+    p = torch.zeros(shape, dtype=dtype)
+    if quant:
+        return p, p.clone(), tqs.zeros_like_quantized(p), \
+            tqs.zeros_like_quantized(p)
+    return p, p.clone(), p.float(), p.float()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_fused_adamw_route_choice(quant):
+    """The vector route takes a last dim that is a multiple of 16 on 16-byte
+    aligned buffers (every deepseek_7b leaf but the scalar one, ragged
+    quant blocks included); the scalar route takes the rest, a p one
+    element off alignment among them (``chip_smoke.misaligned``)."""
+    smoke = _chip_smoke()
+    for shape in ((3, 4096), (2, 3, 11008), (4096,), (3, 4112)):
+        assert vector_route(*_aligned_leaf(shape, quant)), shape
+    for shape in ((7, 300), (3, 1000), ()):
+        assert not vector_route(*_aligned_leaf(shape, quant)), shape
+    p, g, m, v = _aligned_leaf((5, 4096), quant)
+    assert not vector_route(smoke.misaligned(p), g, m, v)
+
+
 # ------------------------------------------------------------ paged attention
 
 def make_paged(B, Hq, Hkv, D, Dv, page, maxp, n_pages, lens, seed=3):
@@ -431,6 +518,63 @@ def test_paged_attention_empty_slot_is_zero():
     got = paged_attention_torch(*(torch.from_numpy(x) for x in
                                   (q, k_pages, v_pages, table, lens)))
     assert torch.all(got[0] == 0) and torch.isfinite(got).all()
+
+
+# the split route's partition-and-merge arithmetic: lengths on and across
+# 16- and 128-position partition boundaries, an empty slot, one position
+SPLIT_CASES = [
+    # (B, Hq, Hkv, D, Dv, page, maxp, lens)
+    (8, 24, 2, 16, 8, 4, 40, [0, 1, 16, 17, 127, 128, 129, 160]),  # G = 12
+    (4, 8, 2, 32, 32, 8, 20, [33, 96, 150, 160]),                   # GQA 4
+]
+
+
+@pytest.mark.parametrize("part", [16, 128])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_attention_split_torch_vs_plain_and_pallas(case, part):
+    """``paged_attention_split_torch`` (partials per partition of ``part``
+    positions, merged in order) against ``paged_attention_torch`` and the
+    Pallas kernel in interpret mode, fp32, within 1e-5: the merge only
+    reorders sums.  An empty slot is 0, as in the plain version (the Pallas
+    kernel averages every row there)."""
+    B, Hq, Hkv, D, Dv, page, maxp, lens = case
+    q, k_pages, v_pages, table, lens = make_paged(
+        B, Hq, Hkv, D, Dv, page, maxp, B * maxp + 1, lens, seed=6)
+    k_pages[0], v_pages[0] = 1e4, -1e4          # the trash page, poisoned
+    args = [torch.from_numpy(x) for x in (q, k_pages, v_pages, table, lens)]
+    got = paged_attention_split_torch(*args, part=part)
+    plain = paged_attention_torch(*args)
+    want_pallas = np.asarray(paged_attention_pallas(
+        *(jnp.asarray(x) for x in (q, k_pages, v_pages, table, lens)),
+        interpret=True))
+    assert got.shape == (B, Hq, Dv) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    live = lens > 0
+    np.testing.assert_allclose(got.numpy()[live], want_pallas[live],
+                               atol=1e-5, rtol=1e-5)
+    assert torch.all(got[~torch.from_numpy(live)] == 0)
+
+
+def test_paged_split_route_choice():
+    """The split route takes head dims that are whole 16-byte words (8 bf16,
+    4 f32) on 16-byte aligned q and pools; a partition is ~128 positions
+    of whole pages."""
+    smoke = _chip_smoke()
+
+    def route(D, Dv, dtype, misalign=False):
+        q = torch.zeros(2, 4, D, dtype=dtype)
+        k = torch.zeros(5, 16, 2, D, dtype=dtype)
+        v = torch.zeros(5, 16, 2, Dv, dtype=dtype)
+        return split_route(smoke.misaligned(q) if misalign else q, k, v)
+
+    assert route(128, 128, torch.bfloat16) and route(128, 64, torch.bfloat16)
+    assert route(100, 100, torch.float32)
+    assert not route(100, 100, torch.bfloat16)
+    assert not route(128, 60, torch.bfloat16)
+    assert not route(128, 128, torch.bfloat16, misalign=True)
+    assert [partition_pages(p) * p for p in (1, 8, 16, 3, 256)] == [
+        128, 128, 128, 126, 256]
 
 
 # --------------------------------------------------- dispatch without a card
