@@ -25,10 +25,13 @@ never JAX.  Phases, each printing one JSON line:
                      card could take; each redesigned kernel also beside
                      the route it took before (``was_ms``: the flash
                      kernels' CUDA-core route, the scalar routes of the
-                     fused AdamW and the paged decode kernel), on a copy
-                     of its input one element off alignment, held by the
-                     same check; the flash backward and the paged kernel
-                     twice, bit for bit;
+                     fused AdamW, the paged decode kernel, the SSD scan
+                     and the RMSNorm backward), on a copy of its input one
+                     element off alignment, held by the same check; the
+                     flash backward, the paged kernel, the SSD scan and
+                     the RMSNorm backward twice, bit for bit; the SSD
+                     scan's and the RMSNorm backward's kernels timed apart
+                     (``passes_ms``) and held under a guard time;
 4. ``serve_dense`` — ``repro_torch.launch.serve`` on deepseek_7b at full
                      width (random bf16 weights from the seed): batched
                      prefill + greedy decode, the kernels' launch counts,
@@ -130,10 +133,17 @@ COUNTERS = {
     "fused_adamw_i8": ("fused_adamw", "LAUNCHES_I8"),
     "fused_adamw_f32": ("fused_adamw", "LAUNCHES_F32"),
     "ssd_scan": ("ssd_scan", "LAUNCHES"),
-    # the calls of the two kernels above that took their scalar route
+    # the calls of the kernels above that took their scalar route
     "fused_adamw_scalar": ("fused_adamw", "LAUNCHES_SCALAR"),
     "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
+    "ssd_scan_scalar": ("ssd_scan", "LAUNCHES_SCALAR"),
+    "rmsnorm_bwd_scalar": ("rmsnorm", "BWD_LAUNCHES_SCALAR"),
 }
+
+# guard limits, in ms at the main path's shape: a redesigned kernel slower
+# than this has lost its redesign (the routes before read 1.23 and 0.0795;
+# NVIDIA H100 80GB HBM3, 700 W)
+GUARD_MS = {"ssd_scan": 0.6, "rmsnorm_bwd": 0.07}
 
 
 _RECORD = None     # main() opens build/chip_smoke.jsonl here
@@ -437,17 +447,27 @@ def phase_build():
     path = _build.load()._name
     build_s = time.perf_counter() - t0
     log = os.path.join(os.path.dirname(path), "build.log")
-    ptxas = []
+    ptxas, per_kernel, name = [], {}, None
     if os.path.exists(log):
         with open(log) as f:
-            ptxas = [ln.strip() for ln in f
-                     if "registers" in ln or "spill" in ln]
+            for ln in f:
+                if "Compiling entry function" in ln:
+                    name = ln.split("'")[1] if "'" in ln else None
+                if "registers" in ln or "spill" in ln:
+                    ptxas.append(ln.strip())
+                    if name and any(k in name for k in PTXAS_KERNELS):
+                        per_kernel.setdefault(name, []).append(
+                            ln.split(":", 1)[-1].strip())
     emit("build", seconds=build_s, library=os.path.relpath(path, ROOT),
-         ptxas=ptxas, sass_instructions=sass_counts(path))
+         ptxas=ptxas, ptxas_by_kernel=per_kernel,
+         sass_instructions=sass_counts(path))
     return build_s
 
 
 SASS_FAMILIES = ("fused_adamw", "paged_decode")
+# kernels whose registers, shared memory and spills the build line gives
+# by name (ptxas -v): the chunked SSD scan's and the RMSNorm backward's
+PTXAS_KERNELS = ("ssd_scan", "rmsnorm_bwd", "rmsnorm_dscale")
 
 
 def sass_counts(lib: str) -> dict:
@@ -556,7 +576,8 @@ def ssd_case(Bt, S, H, P, N, chunk, dtype=torch.bfloat16, h0="zeros",
     strided slices of one conv output, dt softplus'd (scaled to reach
     ``dt_max``, or 0 over the first chunk), A = -exp(.), h0 zeros (as a
     prefill from a fresh cache), random or None.  Returns (inputs, the
-    kernel's (y, h_final), the plain version's)."""
+    kernel's (y, h_final), the plain version's, the kernel's route,
+    "chunked" or "scalar")."""
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
     g = _gen(seed)
@@ -574,10 +595,11 @@ def ssd_case(Bt, S, H, P, N, chunk, dtype=torch.bfloat16, h0="zeros",
     h = {"zeros": torch.zeros((Bt, H, P, N), device="cuda"), "none": None,
          "random": _randn((Bt, H, P, N), g, torch.float32, 0.5)}[h0]
     args = (x, dt, A, B, C, D)
-    got = ssd_scan_cuda(*args, chunk=chunk, h0=h)
+    got, route = route_of("ssd_scan_scalar", lambda: ssd_scan_cuda(
+        *args, chunk=chunk, h0=h), ("chunked", "scalar"))
     want = ssd_scan_torch(*args, chunk=chunk, h0=h)
     torch.cuda.synchronize()
-    return (args, chunk, h), got, want
+    return (args, chunk, h), got, want, route
 
 
 def ssd_cost(x, B, h0, chunk):
@@ -597,16 +619,22 @@ def ssd_cost(x, B, h0, chunk):
     return nbytes, flops
 
 
-def check_ssd_kernel(out, edge):
+def check_ssd_kernel(out, edge, edges):
     """The SSD scan at zamba2_2p7b's prefill shape (timed) and at edge
     cases: y within rtol 2e-2 (bf16) or 1e-4 (f32), the fp32 final state
     within 1e-4 of the plain version (the same chunked algorithm).  At
     the prefill shape, with a random h0 and with dt up to 20 the kernel is
     also held against the sequential oracle ``ref.ssd_scan`` (another
     algorithm: fp32 y and the final state within 5e-3, the JAX tests'
-    rtol against the reference's oracle; bf16 y within 2e-2)."""
+    rtol against the reference's oracle; bf16 y within 2e-2).  bf16 takes
+    the chunked route, which is also held against its passes in plain
+    PyTorch (``ssd_scan_passes_torch``) and twice on the same inputs, bit
+    for bit; its four kernels are timed apart; the scalar route on a copy
+    of x one element off alignment is held and timed (``was_route``)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
+    from repro_torch.kernels.ssd_scan import (ssd_scan_cuda,
+                                              ssd_scan_passes_torch,
+                                              ssd_scan_torch)
 
     def vs_oracle(case, args, chunk, h0, y, hf):
         yo, ho = ref.ssd_scan(*args, h0=h0)
@@ -615,32 +643,72 @@ def check_ssd_kernel(out, edge):
         edge("ssd_scan", f"{case}_h_final_vs_oracle", hf, ho, 5e-3)
 
     progress("kernels: ssd_scan")
-    (args, chunk, h0), got, want = ssd_case(4, 1000, 80, 64, 64, 256)
+    (args, chunk, h0), got, want, route = ssd_case(4, 1000, 80, 64, 64, 256)
     (y, hf), (yw, hw) = got, want
     err, ratio = close(y, yw, 2e-2)
     h_err, h_ratio = close(hf, hw, 1e-4)
-    check(ratio <= 1.0 and h_ratio <= 1.0 and bool(torch.isfinite(
-        y.float()).all()), f"ssd_scan full width: y max_abs_err {err} "
+    check(route == "chunked" and ratio <= 1.0 and h_ratio <= 1.0
+          and bool(torch.isfinite(y.float()).all()),
+          f"ssd_scan full width: {route} route, y max_abs_err {err} "
           f"({ratio} x tol), h_final {h_err} ({h_ratio} x tol)")
     vs_oracle("full_width", args, chunk, h0, y, hf)
+    again = ssd_scan_cuda(*args, chunk=chunk, h0=h0)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "ssd_scan: two calls on the same inputs differ")
+    yp, hp = ssd_scan_passes_torch(*args, chunk=chunk, h0=h0)
+    p_err, p_ratio = close(y, yp, 2e-2)
+    ph_err, ph_ratio = close(hf, hp, 1e-4)
+    check(p_ratio <= 1.0 and ph_ratio <= 1.0,
+          f"ssd_scan full width against its passes in plain PyTorch: y "
+          f"{p_err} ({p_ratio} x tol), h_final {ph_err} ({ph_ratio} x tol)")
+    del again, yp, hp
     nbytes, flops = ssd_cost(args[0], args[3], h0, chunk)
     b_ms, b_by = bound(nbytes, flops)
+    xm = misaligned(args[0])
+    margs = (xm,) + args[1:]
+    (sy, shf), sroute = route_of("ssd_scan_scalar", lambda: ssd_scan_cuda(
+        *margs, chunk=chunk, h0=h0), ("chunked", "scalar"))
+    s_err, s_ratio = close(sy, yw, 2e-2)
+    sh_err, sh_ratio = close(shf, hw, 1e-4)
+    check(sroute == "scalar" and s_ratio <= 1.0 and sh_ratio <= 1.0,
+          f"ssd_scan on a misaligned x: {sroute} route, y {s_err} "
+          f"({s_ratio} x tol), h_final {sh_err} ({sh_ratio} x tol)")
+    kernel_ms = time_ms(lambda: ssd_scan_cuda(*args, chunk=chunk, h0=h0))
+    check(kernel_ms <= GUARD_MS["ssd_scan"],
+          f"ssd_scan full width: {kernel_ms} ms, above its "
+          f"{GUARD_MS['ssd_scan']} ms guard")
     out["ssd_scan"] = {
         "shape": {"x": list(args[0].shape), "N": args[3].shape[-1],
                   "chunk": chunk, "h0": "zeros"},
-        "max_err": err, "rtol": 2e-2, "err_over_tol": ratio,
+        "route": route, "max_err": err, "rtol": 2e-2, "err_over_tol": ratio,
         "h_final_max_err": h_err, "h_final_err_over_tol": h_ratio,
-        "kernel_ms": time_ms(lambda: ssd_scan_cuda(*args, chunk=chunk,
-                                                   h0=h0)),
+        "bitwise_reproducible": True,
+        "vs_passes_plain": {"y_err_over_tol": p_ratio,
+                            "h_final_err_over_tol": ph_ratio},
+        "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: ssd_scan_torch(*args, chunk=chunk,
                                                    h0=h0), iters=3),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "bytes": nbytes, "flops": flops}
-    del args, got, want, y, hf, yw, hw
+        "bytes": nbytes, "flops": flops,
+        # the chunked route's four kernels, apart
+        "passes_ms": {t["kernel"]: t["ms_per_call"] for t in profile_steps(
+            lambda: ssd_scan_cuda(*args, chunk=chunk, h0=h0), 20)["top"]
+            if "ssd_scan" in t["kernel"]},
+        "was_route": {"route": "scalar", "max_err": s_err,
+                      "err_over_tol": s_ratio,
+                      "h_final_err_over_tol": sh_ratio,
+                      "kernel_ms": time_ms(lambda: ssd_scan_cuda(
+                          *margs, chunk=chunk, h0=h0), iters=5)}}
+    del args, margs, xm, got, want, y, hf, yw, hw, sy, shf
     for name, shape, kw in [
             ("S17_lt_chunk", (2, 17, 80, 64, 64, 256), {}),
             ("S256_one_chunk", (2, 256, 80, 64, 64, 256), {}),
             ("S1000_ragged_B1", (1, 1000, 80, 64, 64, 256), {}),
+            # S a multiple of 64 but not of the chunk: a short last chunk
+            # of whole 64-row tiles
+            ("S640_tiles_not_chunks", (2, 640, 16, 64, 64, 256),
+             dict(h0="random")),
+            ("Bt1_H1", (1, 700, 1, 64, 64, 256), dict(h0="random")),
             ("h0_random", (2, 600, 80, 64, 64, 256), dict(h0="random")),
             ("h0_none", (2, 300, 16, 64, 64, 256), dict(h0="none")),
             ("f32", (2, 600, 16, 64, 64, 256),
@@ -650,10 +718,15 @@ def check_ssd_kernel(out, edge):
              dict(dt_max=20.0, h0="random")),
             ("zero_dt_block", (2, 600, 16, 64, 64, 256),
              dict(zero_dt_block=True, h0="random"))]:
-        (args, chunk, h0), (y, hf), (yw, hw) = ssd_case(*shape, **kw)
-        rel = 1e-4 if kw.get("dtype") == torch.float32 else 2e-2
+        (args, chunk, h0), (y, hf), (yw, hw), route = ssd_case(*shape, **kw)
+        f32 = kw.get("dtype") == torch.float32
+        check(route == ("scalar" if f32 else "chunked"),
+              f"ssd_scan {name}: {route} route")
+        rel = 1e-4 if f32 else 2e-2
         edge("ssd_scan", f"{name}_y", y, yw, rel)
+        edges[-1]["route"] = route
         edge("ssd_scan", f"{name}_h_final", hf, hw, 1e-4)
+        edges[-1]["route"] = route
         if name in ("h0_random", "dt_max_20"):
             vs_oracle(name, args, chunk, h0, y, hf)
 
@@ -687,10 +760,11 @@ def rms_bwd_case(rows, d, dtype=torch.bfloat16, seed=4, offset=0):
     x = _randn((rows * d + offset,), g, dtype)[offset:].view(rows, d)
     s = _randn((d,), g, dtype)
     gy = _randn((rows * d + offset,), g, dtype)[offset:].view(rows, d)
-    got = rmsnorm_bwd_cuda(x, s, gy)
+    got, route = route_of("rmsnorm_bwd_scalar", lambda: rmsnorm_bwd_cuda(
+        x, s, gy), ("vector", "scalar"))
     want = rmsnorm_bwd_torch(x, s, gy)
     torch.cuda.synchronize()
-    return (x, s, gy), got, want
+    return (x, s, gy), got, want, route
 
 
 ADAM_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
@@ -720,7 +794,7 @@ def adamw_case(shape, quant, p_dtype=torch.bfloat16, g_dtype=torch.bfloat16,
     on copies of the same inputs (``adamw_run``).  Returns (inputs, the
     kernel's (p, m, v), the plain version's, the kernel's route)."""
     from repro_torch.kernels.fused_adamw import fused_adamw_torch
-    from repro_torch.kernels import quantized_state as qs
+    from repro_torch.train import quantized_state as qs
     gen = _gen(seed)
     p = _randn(shape, gen, p_dtype, 0.02)
     g = _randn(shape, gen, g_dtype, 1e-3)
@@ -900,33 +974,65 @@ def check_train_kernels(out, edge, edges):
                   "flash_attention_bwd: fully masked rows' dq is not 0")
 
     progress("kernels: rmsnorm backward")
-    # ---- rmsnorm backward: (4096, 4096), the train step's rows
-    (x, s, gy), got, want = rms_bwd_case(4096, 4096)
+    # ---- rmsnorm backward: (4096, 4096), the train step's rows; the
+    # vector route, twice bit for bit, and the scalar route on copies of x
+    # and g one element off alignment (``was_route``)
+    (x, s, gy), got, want, route = rms_bwd_case(4096, 4096)
     err, ratio = worst(got, want, 2e-2)
-    check(ratio <= 1.0, f"rmsnorm_bwd (4096, 4096): max_abs_err {err}, "
+    check(route == "vector" and ratio <= 1.0,
+          f"rmsnorm_bwd (4096, 4096): {route} route, max_abs_err {err}, "
           f"{ratio} x tol")
+    again = rmsnorm_bwd_cuda(x, s, gy)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "rmsnorm_bwd: two calls on the same inputs differ")
+    xm, gm = misaligned(x), misaligned(gy)
+    sgot, sroute = route_of("rmsnorm_bwd_scalar", lambda: rmsnorm_bwd_cuda(
+        xm, s, gm), ("vector", "scalar"))
+    s_err, s_ratio = worst(sgot, want, 2e-2)
+    check(sroute == "scalar" and s_ratio <= 1.0,
+          f"rmsnorm_bwd on misaligned x and g: {sroute} route, max_abs_err "
+          f"{s_err}, {s_ratio} x tol")
     b_ms, b_by = bound(2 * (3 * x.numel() + 2 * s.numel()), 10 * x.numel(),
                        F32_FLOPS)
+    kernel_ms = time_ms(lambda: rmsnorm_bwd_cuda(x, s, gy))
+    check(kernel_ms <= GUARD_MS["rmsnorm_bwd"],
+          f"rmsnorm_bwd (4096, 4096): {kernel_ms} ms, above its "
+          f"{GUARD_MS['rmsnorm_bwd']} ms guard")
     xl, sl = (t.detach().requires_grad_(True) for t in (x, s))
     yl = F.rms_norm(xl, (4096,), sl, 1e-6)
     out["rmsnorm_bwd"] = {
-        "shape": [4096, 4096], "max_err": err, "rtol": 2e-2,
-        "err_over_tol": ratio,
-        "kernel_ms": time_ms(lambda: rmsnorm_bwd_cuda(x, s, gy)),
+        "shape": [4096, 4096], "route": route, "max_err": err, "rtol": 2e-2,
+        "err_over_tol": ratio, "bitwise_reproducible": True,
+        "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: rmsnorm_bwd_torch(x, s, gy)),
         "library_ms": time_ms(lambda: torch.autograd.grad(
             yl, (xl, sl), gy, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    del x, s, gy, got, want, xl, sl, yl
-    for name, args, kw2 in [("d8_f32", (3, 8), dict(dtype=torch.float32)),
-                            ("d4100_scalar_path", (5, 4100), {}),
-                            ("misaligned", (6, 4096), dict(offset=3)),
-                            ("rows_1000_ragged_chunks", (1000, 4096), {}),
-                            ("one_row", (1, 64), {})]:
-        _, got, want = rms_bwd_case(*args, **kw2)
+        "bound_ms": b_ms, "bound_by": b_by,
+        # the vector route's row kernel and its dscale sum, apart
+        "passes_ms": {t["kernel"]: t["ms_per_call"] for t in profile_steps(
+            lambda: rmsnorm_bwd_cuda(x, s, gy), 20)["top"]
+            if "rmsnorm" in t["kernel"]},
+        "was_route": {"route": "scalar", "max_err": s_err,
+                      "err_over_tol": s_ratio,
+                      "kernel_ms": time_ms(lambda: rmsnorm_bwd_cuda(
+                          xm, s, gm))}}
+    del x, s, gy, got, want, again, xm, gm, sgot, xl, sl, yl
+    for name, args, kw2, expect in [
+            ("d8_f32", (3, 8), dict(dtype=torch.float32), "vector"),
+            ("d4100_scalar_path", (5, 4100), {}, "scalar"),
+            ("misaligned", (6, 4096), dict(offset=3), "scalar"),
+            ("rows_1000_ragged_chunks", (1000, 4096), {}, "vector"),
+            ("one_row", (1, 64), {}, "vector"),
+            # 512 threads of 4 f32 vectors; a width that leaves threads idle
+            ("d8192_f32", (77, 8192), dict(dtype=torch.float32), "vector"),
+            ("d2560", (300, 2560), {}, "vector")]:
+        _, got, want, route = rms_bwd_case(*args, **kw2)
+        check(route == expect, f"rmsnorm_bwd {name}: {route} route, want "
+              f"{expect}")
         rel = 1e-4 if kw2.get("dtype") == torch.float32 else 2e-2
         for gname, g, w in zip(("dx", "dscale"), got, want):
             edge("rmsnorm_bwd", f"{name}_{gname}", g, w, rel)
+            edges[-1]["route"] = route
 
     check_adamw_kernel(out, edges)
 
@@ -1267,7 +1373,7 @@ def phase_kernels():
         edge("rmsnorm", name, got, want, rel)
 
     check_paged_kernel(out, edge, edges)
-    check_ssd_kernel(out, edge)
+    check_ssd_kernel(out, edge, edges)
     check_train_kernels(out, edge, edges)
     emit("kernels", launches=counts(), full_width=out, edge_cases=edges)
     return out
@@ -1546,14 +1652,17 @@ def phase_serve_hybrid(device="cuda", smoke=False):
     want_pre, want_dec = hybrid_launches(cfg)
     if rt.device.type != "cuda":
         want_pre = want_dec = {n: 0 for n in COUNTERS}
+    # the fp32 stack's SSD scans take the scalar route
+    want_f32 = dict(want_pre, ssd_scan_scalar=want_pre["ssd_scan"])
     check(per_call["bf16_auto"] == want_pre
           and per_call["decode_bf16_auto"] == want_dec
-          and per_call["f32_auto"] == want_pre
+          and per_call["f32_auto"] == want_f32
           and per_call["decode_f32_auto"] == want_dec
           and all(set(per_call[k].values()) == {0} for k in per_call
                   if k.endswith("torch")),
           f"hybrid launches per prefill and decode step {per_call} (want "
-          f"{want_pre} and {want_dec} with the kernels, none without)")
+          f"{want_pre} ({want_f32} in fp32) and {want_dec} with the "
+          f"kernels, none without)")
     check(launches == {n: want_pre[n] + (G - 1) * want_dec[n]
                        for n in COUNTERS},
           f"hybrid main path launches {launches}: not one prefill and "
@@ -1774,14 +1883,16 @@ def _run_all() -> int:
     check(tl["flash_attention"] >= 60 and tl["flash_attention_bwd"] == 30
           and tl["rmsnorm"] >= 121 and tl["rmsnorm_bwd"] == 61
           and tl["fused_adamw_i8"] == 12 and tl["fused_adamw_f32"] == 0
-          and tl["fused_adamw_scalar"] == 0,
+          and tl["fused_adamw_scalar"] == 0
+          and tl["rmsnorm_bwd_scalar"] == 0,
           f"train path launches per step {tl}")
     # 4 layers, 2 microbatches
     fl = train_f32["launches_per_step"]
     check(fl["flash_attention"] >= 16 and fl["flash_attention_bwd"] == 8
           and fl["rmsnorm"] >= 34 and fl["rmsnorm_bwd"] == 18
           and fl["fused_adamw_f32"] == 12 and fl["fused_adamw_i8"] == 0
-          and fl["fused_adamw_scalar"] == 0,
+          and fl["fused_adamw_scalar"] == 0
+          and fl["rmsnorm_bwd_scalar"] == 0,
           f"train_f32 path launches per step {fl}")
 
     # the hybrid's counts were checked exactly in its phase
@@ -1815,6 +1926,9 @@ def _run_all() -> int:
             row["was_ms"] = k["was_route"]["kernel_ms"]
         if "f32" in k:
             row["f32"] = k["f32"]
+        if "passes_ms" in k:
+            row["passes_ms"] = k["passes_ms"]
+        row["bound_share"] = k["bound_ms"] / k["kernel_ms"]
         rows.append(row)
     line = json.dumps({"kernels": rows})
     print(line, flush=True)

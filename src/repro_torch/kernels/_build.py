@@ -35,8 +35,9 @@ SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype code, stream
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
     # x, scale, g, dx, dscale, partial, rows, d, eps, max blocks,
-    # dtype code, stream
-    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    # dtype code, vector route, stream
+    "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,
+                           _P],
     # q, k, v, o, lse (or null), B, Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
     # window, q_offset, dtype code, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -56,6 +57,9 @@ SIGNATURES = {
     # x, dt, A, B, C, D, h0 (or null), y, h_final, Bt, S, H, P, N, Q,
     # (batch, sequence) strides of x, B and C, dtype code, stream
     "ssd_scan_launch": [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P],
+    # x, dt, A, B, C, D, h0 (or null), y, h_final, acum, cb, states, Bt,
+    # S, H, P, N, Q, (batch, sequence) strides of x, B and C, stream
+    "ssd_scan_chunked_launch": [_P] * 12 + [_I] * 6 + [_L] * 6 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels import quantized_state as qs
+from repro_torch.train import quantized_state as qs
 
 #: kernel launches so far by moment format (a run resets them to 0 and
 #: reads them afterwards)

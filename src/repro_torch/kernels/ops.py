@@ -32,7 +32,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adamw as _fo
 from repro_torch.kernels import paged_attention as _pa
-from repro_torch.kernels import quantized_state as qs
+from repro_torch.train import quantized_state as qs
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
 

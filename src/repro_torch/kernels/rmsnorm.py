@@ -6,7 +6,11 @@ versions.
 tensors and as the kernel's yardstick on the card.  ``rmsnorm_bwd_cuda``
 is the backward, the counterpart of autodiff of ``repro.kernels.ops.
 rmsnorm``; its plain version ``rmsnorm_bwd_torch`` is autograd of
-``rmsnorm_torch``.
+``rmsnorm_torch``.  The backward has two routes, chosen from the width and
+the alignment (``bwd_vector_route``), never by the caller: the vector
+route (rows held in registers, 16-byte loads, the next row in flight, a
+wide ordered sum of the dscale partials) and, for anything else, the
+scalar route (one element a thread at a time, the design before).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from repro_torch.kernels import _build
 #: and reads them afterwards)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+#: the backward calls that took the scalar route
+BWD_LAUNCHES_SCALAR = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 8192
@@ -61,6 +67,16 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+def bwd_vector_route(x: torch.Tensor, scale: torch.Tensor,
+                     g: torch.Tensor) -> bool:
+    """Whether the backward kernel takes its vector route: rows of whole
+    16-byte words (d a multiple of 8 bf16 or 4 f32) on 16-byte aligned x,
+    scale and g (dx is allocated aligned)."""
+    vec = 16 // x.element_size()
+    return (x.shape[-1] % vec == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, scale, g)))
+
+
 def rmsnorm_bwd_torch(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                       eps: float = 1e-6):
     """(dx, dscale) of ``rmsnorm_torch`` by autograd, for the incoming
@@ -77,7 +93,7 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     """The backward kernel: same arguments and result as
     ``rmsnorm_bwd_torch``; x and g contiguous, of x's shape and dtype, on
     the card."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_LAUNCHES_SCALAR
     d = x.shape[-1]
     if not (x.is_cuda and scale.device == x.device and g.device == x.device):
         raise ValueError("rmsnorm_bwd_cuda needs x, scale and g on one CUDA "
@@ -100,11 +116,14 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     dx = torch.empty_like(x)
     ds = torch.empty_like(scale)
     partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    vector = bwd_vector_route(x, scale, g)
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_bwd_launch(
             x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
             ds.data_ptr(), partial.data_ptr(), rows, d, float(eps), blocks,
-            DTYPE_CODES[x.dtype], torch.cuda.current_stream().cuda_stream)
+            DTYPE_CODES[x.dtype], int(vector),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rmsnorm_bwd_launch")
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_SCALAR += not vector
     return dx, ds

@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels import quantized_state as qs
+from repro_torch.train import quantized_state as qs
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,8 +8,9 @@ scale is ``amax / 127`` (1 where amax is 0) and its codes ``round(x /
 scale)`` half to even, clipped to +-127; the ragged last block is padded
 with zeros.
 
-The format lives beside the kernels: the fused AdamW kernel and its plain
-version read and write it, and the optimizer builds its state from it.
+The fused AdamW kernel and its plain version (``kernels/fused_adamw.py``)
+read and write this format, and the optimizer builds its state from it,
+as the reference's kernels import ``repro.train.quantized_state``.
 """
 from __future__ import annotations
 

@@ -38,11 +38,12 @@ from repro_torch.kernels.fused_adamw import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_split_torch, paged_attention_torch,
     partition_pages, split_route)
-from repro_torch.kernels import quantized_state as tqs  # noqa: E402
+from repro_torch.train import quantized_state as tqs  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
-    rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda, rmsnorm_torch)
+    bwd_vector_route, rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda,
+    rmsnorm_torch)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    ssd_scan_cuda, ssd_scan_torch)
+    chunked_route, ssd_scan_cuda, ssd_scan_passes_torch, ssd_scan_torch)
 
 torch.set_num_threads(1)   # several test workers share the host's cores
 
@@ -288,6 +289,24 @@ def test_rmsnorm_bwd_torch_vs_jax(shape, dtype):
     for g, w, t in zip(got, want, (xt, st)):
         assert g.dtype == t.dtype and g.shape == t.shape
         close(g, w, dtype)
+
+
+def test_rmsnorm_bwd_route_choice():
+    """The backward's vector route takes rows of whole 16-byte words (d a
+    multiple of 8 bf16 or 4 f32) on 16-byte aligned x, scale and g: every
+    train-step norm of deepseek_7b (4096); the scalar route the rest, a
+    copy one element off alignment among them (``chip_smoke.misaligned``)."""
+    smoke = _chip_smoke()
+
+    def route(rows, d, dtype=torch.bfloat16, misalign=False):
+        x = torch.zeros(rows, d, dtype=dtype)
+        g = smoke.misaligned(x) if misalign else x.clone()
+        return bwd_vector_route(x, torch.ones(d, dtype=dtype), g)
+
+    assert route(4096, 4096) and route(1, 64) and route(3, 8, torch.float32)
+    assert route(2, 8192) and route(5, 2560)
+    assert not route(5, 4100) and not route(3, 6, torch.float32)
+    assert not route(6, 4096, misalign=True)
 
 
 # ------------------------------------------------------------ fused AdamW
@@ -712,6 +731,81 @@ def test_ssd_scan_torch_vs_pallas_interpret(case, dtype):
     y, hf = ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk)
     close(y, yw, dtype)
     np.testing.assert_allclose(hf.numpy(), np.asarray(hw), **F32_TOL)
+
+
+@pytest.mark.parametrize("h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_passes_torch_vs_plain_jnp_and_pallas(case, dtype, h0):
+    """The chunked route's passes (its sequential cumulative sums, one
+    C.B^T per (batch, chunk), chunk states, state passing, outputs; fp32
+    operands as bf16 parts) against the plain version, the JAX chunked
+    path and, from zeros, the Pallas kernel in interpret mode: fp32 at
+    fp32's tolerance (two bf16 parts are v to ~2^-17 relative, three to
+    ~2^-26), bf16 y at bf16's."""
+    Bt, S, H, P, N, chunk = case
+    (jx, jdt, jA, jB, jC, jD, jh), (x, dt, A, B, C, D, h) = ssd_both(
+        ssd_inputs(Bt, S, H, P, N, seed=8, h0=h0), dtype)
+    y, hf = ssd_scan_passes_torch(x, dt, A, B, C, D, chunk=chunk, h0=h)
+    assert y.dtype == x.dtype and hf.dtype == torch.float32
+    yp, hp = ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h)
+    close(y, yp.float().numpy(), dtype)
+    close(hf, hp.numpy(), "float32")
+    yw, hw = jops._ssd_jnp(jx, jdt, jA, jB, jC, jD, chunk=chunk, h0=jh)
+    close(y, yw, dtype)
+    close(hf, hw, "float32")
+    if not h0:
+        yw, hw = ssd_scan_pallas(jx, jdt, jA, jB, jC, jD, chunk=chunk,
+                                 interpret=True)
+        close(y, yw, dtype)
+        close(hf, hw, "float32")
+
+
+def test_one_bf16_operand_fails_the_state_tolerance_and_a_hi_lo_split_holds_it():
+    """Why the chunked route gives its three fp32 operands (w_j x_j, the
+    entering state, the decay weights) to the tensor cores as bf16 parts:
+    at the prefill's chunk of 256 positions, each rounded once to bf16
+    puts the final state far outside chip_smoke.py's 1e-4 (element by
+    element against the plain version), hi + lo holds it, and the
+    kernel's three parts for w_j x_j come no farther.  bf16 x, B, C as the
+    Mamba2 layer gives them; fp32 plain PyTorch on the CPU."""
+    close = _chip_smoke().close
+    (x, dt, A, B, C, D, h) = (torch.from_numpy(a) for a in ssd_inputs(
+        1, 512, 4, 64, 64, seed=9, h0=True))
+    x, B, C = (t.bfloat16() for t in (x, B, C))
+    _, want = ssd_scan_torch(x, dt, A, B, C, D, chunk=256, h0=h)
+    ratio = {}
+    for name, parts in (("bf16", 1), ("hi_lo", 2), ("kernel", None)):
+        _, hf = ssd_scan_passes_torch(x, dt, A, B, C, D, chunk=256, h0=h,
+                                      parts=parts)
+        ratio[name] = close(hf, want, 1e-4)[1]
+    assert ratio["bf16"] > 10.0 and ratio["hi_lo"] < 0.5, ratio
+    assert ratio["kernel"] <= ratio["hi_lo"], ratio
+
+
+def test_ssd_scan_route_choice():
+    """The chunked route takes bf16 x, B, C with P and N multiples of 16 up
+    to 64, chunks of at most 256 and 16-byte aligned bases and strides
+    (the Mamba2 conv output's slices, zamba2_2p7b's and the smoke
+    config's); the scalar route the rest: f32, P or N of 8, chunks of 512,
+    a copy one element off alignment (``chip_smoke.misaligned``)."""
+    smoke = _chip_smoke()
+
+    def route(S, H, P, N, chunk=256, dtype=torch.bfloat16, misalign=False):
+        conv = torch.zeros(2, S, H * P + 2 * N, dtype=dtype)
+        x = conv[..., :H * P].reshape(2, S, H, P)
+        if misalign:
+            x = smoke.misaligned(x)
+        return chunked_route(x, conv[..., H * P:H * P + N],
+                             conv[..., H * P + N:], chunk)
+
+    assert route(1000, 80, 64, 64) and route(40, 8, 16, 16, 16)
+    assert route(17, 4, 32, 48) and route(200, 4, 64, 64, 512)
+    assert not route(1000, 4, 64, 64, 512)
+    assert not route(100, 4, 64, 64, dtype=torch.float32)
+    assert not route(100, 4, 8, 64) and not route(100, 4, 64, 8)
+    assert not route(100, 4, 80, 64)
+    assert not route(100, 4, 64, 64, misalign=True)
 
 
 def test_ssd_scan_large_dt_and_zero_dt():

@@ -166,3 +166,26 @@ def test_every_ctypes_signature_matches_its_c_prototype():
             want = _ctypes_for(kind)
             assert want is not None, f"{name} arg {i}: C type {kind!r}"
             assert ct is want, (name, i, kind, ct)
+
+
+#: files the port has and the JAX package has not: the device and interop
+#: helpers, the CUDA build and sources, and the ``__init__.py`` of the six
+#: packages that the JAX package keeps as namespace packages
+PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
+             "data/__init__.py", "launch/__init__.py", "models/__init__.py",
+             "serve/__init__.py", "train/__init__.py"}
+
+
+def test_every_module_has_its_reference_counterpart():
+    """The port mirrors the JAX package's layout file for file: each module
+    under ``src/repro_torch/`` sits at the same relative path under
+    ``src/repro/``, but for the listed port-only files.  Paths only,
+    nothing imported."""
+    ref = SRC / "repro"
+    mods = sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py"))
+    assert "train/quantized_state.py" in mods
+    assert all((PKG / p).exists() for p in PORT_ONLY)
+    stray = [p for p in mods
+             if p not in PORT_ONLY and not (ref / p).is_file()]
+    assert not stray, f"port modules without a reference counterpart: {stray}"
+    assert (PKG / "kernels" / "csrc").is_dir()

@@ -44,7 +44,7 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.core.block import BlockGrant  # noqa: E402
 from repro_torch.core.runtime import BlockRuntime, JobSpec  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
-from repro_torch.kernels import quantized_state as qs  # noqa: E402
+from repro_torch.train import quantized_state as qs  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 from repro_torch.models.config import (AttentionConfig, ModelConfig,  # noqa: E402
