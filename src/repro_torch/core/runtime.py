@@ -14,9 +14,8 @@ A serve block runs one of two data planes on its device:
   ``start_session``/``feed``/``harvest`` or the in-flight window.
 
 The dense family runs every kind and plane.  The hybrid family (zamba2)
-serves on the dense plane only: its recurrent state does not page, so a
-paged job raises the reference's ``ValueError``, and a train block raises
-``NotImplementedError`` until the SSD scan's backward kernel is ported.
+trains, and serves on the dense plane only: its recurrent state does not
+page, so a paged job raises the reference's ``ValueError``.
 
 One device per block: the sharding plans of the reference have no
 counterpart until the multi-GPU slice.  Checkpointing (``save``/
@@ -77,9 +76,7 @@ class BlockRuntime(InflightWindow):
         if job.kind not in ("train", "serve"):
             raise ValueError(f"kind must be 'train' or 'serve', got "
                              f"{job.kind!r}")
-        if job.kind == "train":
-            train_lib.check_trainable(job.cfg)
-        elif job.paged:
+        if job.kind == "serve" and job.paged:
             model_lib.check_paged_support(job.cfg)
         self.job = job
         self.model: Optional[model_lib.Transformer] = None

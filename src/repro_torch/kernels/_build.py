@@ -60,6 +60,10 @@ SIGNATURES = {
     # x, dt, A, B, C, D, h0 (or null), y, h_final, acum, cb, states, Bt,
     # S, H, P, N, Q, (batch, sequence) strides of x, B and C, stream
     "ssd_scan_chunked_launch": [_P] * 12 + [_I] * 6 + [_L] * 6 + [_P],
+    # x, dt, A, B, C, D, h0 (or null), dy, dh_final (or null), dx, ddt, dA,
+    # dB, dC, dD, dh0, workspace, Bt, S, H, P, N, Q, (batch, sequence)
+    # strides of x, B and C, dtype code, stream
+    "ssd_scan_bwd_launch": [_P] * 17 + [_I] * 6 + [_L] * 6 + [_I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -146,6 +150,10 @@ def load(nvcc: Optional[str] = None) -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            # Bt, S, H, P, N, Q -> fp32 elements of the SSD backward's
+            # workspace (-1: dimensions it does not take)
+            lib.ssd_scan_bwd_workspace.argtypes = [_I] * 6
+            lib.ssd_scan_bwd_workspace.restype = _L
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

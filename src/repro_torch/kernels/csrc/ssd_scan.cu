@@ -47,7 +47,9 @@
 //      exp(a_t - a_t0) exp(a_t0 - a_j) about the tile's first row t0,
 //      both exponents <= 0, and the column factors (times dt_j) are one
 //      shared table a block.
-// acum, cb and the entering states are the buffers the SSD backward reads.
+// acum, cb and the entering states are scratch the passes hand on; the
+// backward (csrc/ssd_scan_bwd.cu) recomputes what it needs from the
+// inputs, whichever route ran.
 //
 // Every product runs on the tensor cores with mma.sync m16n8k16 (bf16
 // operands, fp32 accumulators), not wgmma: the products are small (K of 64

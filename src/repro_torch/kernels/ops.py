@@ -17,10 +17,11 @@ Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
 backward is the flash backward (the counterpart of the custom VJP
 ``_flash_bwd_rule``): its kernel for CUDA tensors, its plain version for
 CPU tensors or ``impl="torch"``.  ``rmsnorm`` is one for CUDA tensors, with
-the backward kernel; its plain version is differentiated by autograd.  A
-call that needs no gradient runs the forward alone.  ``ssd_scan`` has no
-backward kernel yet: its kernel refuses a call that needs a gradient (the
-plain version is differentiated by autograd).
+the backward kernel; its plain version is differentiated by autograd.
+``ssd_scan`` is one for CUDA tensors, whose backward is the SSD backward
+kernel (the counterpart of autodiff of ``ops._ssd_jnp``); its plain
+version is differentiated by autograd.  A call that needs no gradient runs
+the forward alone.
 """
 from __future__ import annotations
 
@@ -210,6 +211,31 @@ def fused_adamw(p, g, m, v, *, lr, scale, bc1, bc2, b1, b2, eps,
 # Mamba2 SSD chunked scan
 # ===========================================================================
 
+class _SSDScan(torch.autograd.Function):
+    """(y, h_final) = the SSD scan kernel; saves only its inputs, and the
+    backward kernel recomputes the rest (under ``torch.utils.checkpoint``
+    the forward runs twice and the backward once).  The final state's
+    cotangent may be None (training discards the state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        ctx.chunk = chunk
+        return _ssd.ssd_scan_cuda(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        x, dt, A, B, C, D, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_final is not None:
+            dh_final = dh_final.contiguous()
+        grads = _ssd.ssd_scan_bwd_cuda(x, dt, A, B, C, D, dy, dh_final,
+                                       chunk=ctx.chunk, h0=h0)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
 def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, h0=None,
              impl: str = "auto"):
     """Chunked state-space-dual scan.  Shapes as in ``ref.ssd_scan``: x
@@ -217,14 +243,11 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, h0=None,
     N) or None.  Returns (y in x's dtype, the fp32 final state)."""
     if not _use_kernel(impl, x):
         return _ssd.ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h0)
-    if _needs_grad(x, dt, A, B, C, D, *([] if h0 is None else [h0])):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet (the counterpart of "
-            "autodiff of repro.kernels.ops._ssd_jnp): the CUDA scan serves "
-            "forward passes only")
     dt, A, D = (t.float().contiguous() for t in (dt, A, D))
     if h0 is not None:
         h0 = h0.float().contiguous()
+    if _needs_grad(x, dt, A, B, C, D, *([] if h0 is None else [h0])):
+        return _SSDScan.apply(x, dt, A, B, C, D, h0, chunk)
     return _ssd.ssd_scan_cuda(x, dt, A, B, C, D, chunk=chunk, h0=h0)
 
 

@@ -22,6 +22,13 @@ kernel: a block per (batch, head) sweeps the chunks in order on the CUDA
 cores).  ``ssd_scan_passes_torch`` is the chunked route's pass structure
 in plain PyTorch, for the tests and ``chip_smoke.py``.
 
+The backward (``ssd_scan_bwd_cuda``, ``csrc/ssd_scan_bwd.cu``; plain
+version ``ssd_scan_bwd_torch``) is the counterpart of autodiff of
+``repro.kernels.ops._ssd_jnp``: from the cotangents of y and of the final
+state, those of x, dt, A, B, C, D and h0.  It recomputes the cumulative
+sums, C.B^T and the entering states from the inputs, whichever forward
+route ran.
+
 Shapes, as ``repro.kernels.ref.ssd_scan``: x (Bt, S, H, P); dt (Bt, S, H)
 fp32; A, D (H,) fp32; B, C (Bt, S, N) in x's dtype, shared across heads;
 h0 (Bt, H, P, N) fp32 or None (zeros).  Both return y (Bt, S, H, P) in
@@ -35,9 +42,11 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 #: calls of the kernel so far, and those of them that took the scalar
-#: route (a run resets them to 0 and reads them afterwards)
+#: route; calls of the backward kernel (one route) so far (a run resets
+#: them to 0 and reads them afterwards)
 LAUNCHES = 0
 LAUNCHES_SCALAR = 0
+BWD_LAUNCHES = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel keeps a (P, N) state and 64-row tiles of x, B and C in
@@ -87,10 +96,11 @@ def ssd_scan_torch(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
         # inter-chunk: y_inter[t] = C_t . (exp(a_t) h)
         y_inter = (torch.einsum("bqn,bhpn->bqhp", C_c, h)
                    * torch.exp(a)[..., None])
-        # intra-chunk: L[t, j] = exp(a_t - a_j) for t >= j; the exponent
-        # overflows above the diagonal, where the mask picks 0
+        # intra-chunk: L[t, j] = exp(a_t - a_j) for t >= j, 0 above the
+        # diagonal; the mask goes on the exponent (-inf), where the
+        # exponent would overflow and its gradient there would be inf * 0
         seg = a[:, :, None, :] - a[:, None, :, :]    # (Bt, Q, Q, H)
-        L = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        L = torch.exp(torch.where(tri[None, :, :, None], seg, -torch.inf))
         cb = torch.einsum("bqn,bjn->bqj", C_c, B_c)  # (Bt, Q, Q)
         w = cb[..., None] * L * dt_c[:, None]        # (Bt, Q, Q, H)
         y_intra = torch.einsum("bqjh,bjhp->bqhp", w, x_c)
@@ -188,6 +198,110 @@ def ssd_scan_passes_torch(x, dt, A, B, C, D, *, chunk: int = 256, h0=None,
     return y.to(x.dtype), h
 
 
+def ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh_final=None, *,
+                       chunk: int = 256, h0=None):
+    """The SSD scan's backward in plain PyTorch, as explicit chunk passes:
+    the cotangents (dx, ddt, dA, dB, dC, dD, dh0) of ``ssd_scan_torch``'s
+    inputs for the cotangents ``dy`` of y and ``dh_final`` of the final
+    state (None: zeros).  dx, dB and dC come back in their inputs' dtypes;
+    ddt, dA, dD and dh0 in fp32 (fp64 for fp64 inputs, to measure what
+    fp32 summation alone moves).  Per (batch, head) and chunk, with a the
+    within-chunk cumulative sum of dt * A:
+
+    1. each chunk's state from zero, ``sum_j exp(a_Q - a_j) dt_j x_j
+       B_j^T``, and its share of the entering state's cotangent, ``sum_t
+       exp(a_t) dy_t C_t^T``;
+    2. the states entering the chunks, forward from h0, and the cotangent
+       G_c of the state leaving chunk c, in reverse from dh_final:
+       ``G_{c-1} = exp(a_Q^c) G_c + sum_t exp(a_t) dy_t C_t^T``; dh0 is
+       that sum for c = 0;
+    3. within each chunk the transposed causal triangle of ``W[t, j] =
+       CB[t, j] exp(a_t - a_j) dt_j`` (the exponent taken only where t >=
+       j) gives dx, and its cotangent, summed over the heads, dB and dC;
+       the state terms add theirs;
+    4. the cotangent of a, reverse-summed within the chunk, is that of dt
+       * A: ``d(dt A)_j = sum_{t >= j} da_t``, whence ddt and dA.
+
+    Padded tail rows (dt, x, B, C and dy zero) contribute nothing."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t, *tail):
+        t = F.pad(t.to(ct), (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.reshape(Bt, nc, Q, *tail)
+
+    xc, dyc, dtc = chunks(x, H, P), chunks(dy, H, P), chunks(dt, H)
+    Bc, Cc = chunks(B, N), chunks(C, N)
+    Af = A.to(ct)
+    a = torch.cumsum(dtc * Af, dim=2)                     # (Bt,nc,Q,H)
+    a_last = a[:, :, -1]                                  # (Bt,nc,H)
+    e = torch.exp(a)
+    w = torch.exp(a_last[:, :, None] - a) * dtc           # (Bt,nc,Q,H)
+    # 1. chunk-local states and the local sums of the cotangent
+    local = torch.einsum("bcqh,bcqhp,bcqn->bchpn", w, xc, Bc)
+    dyC = torch.einsum("bcqh,bcqhp,bcqn->bchpn", e, dyc, Cc)
+    # 2. the states entering each chunk; G_c, the cotangent of the state
+    # leaving chunk c
+    decay = torch.exp(a_last)[..., None, None]            # (Bt,nc,H,1,1)
+    h = (torch.zeros((Bt, H, P, N), dtype=ct, device=x.device)
+         if h0 is None else h0.to(ct))
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * decay[:, c] + local[:, c]
+    G = (torch.zeros((Bt, H, P, N), dtype=ct, device=x.device)
+         if dh_final is None else dh_final.to(ct))
+    Gs = [None] * nc
+    for c in reversed(range(nc)):
+        Gs[c] = G
+        G = G * decay[:, c] + dyC[:, c]
+    dh0 = G
+    h_in, Gs = torch.stack(h_in, 1), torch.stack(Gs, 1)  # (Bt,nc,H,P,N)
+    # 3. within each chunk: L[t, j] = exp(a_t - a_j) for t >= j
+    seg = a[:, :, :, None, :] - a[:, :, None, :, :]       # (Bt,nc,Q,Q,H)
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(tri[:, :, None], torch.exp(seg), 0.0)
+    del seg
+    cb = torch.einsum("bcqn,bcjn->bcqj", Cc, Bc)          # (Bt,nc,Q,Q)
+    dW = torch.einsum("bcqhp,bcjhp->bcqjh", dyc, xc)      # dy_t . x_j
+    W = cb[..., None] * L * dtc[:, :, None]
+    U = torch.einsum("bcqhp,bchpn->bcqhn", dyc, h_in)     # dy_t h_in
+    V = torch.einsum("bcjhp,bchpn->bcjhn", xc, Gs)        # x_j G
+    dx = (torch.einsum("bcqjh,bcqhp->bcjhp", W, dyc)
+          + w[..., None] * torch.einsum("bcjn,bchpn->bcjhp", Bc, Gs)
+          + dyc * D.to(ct)[:, None])
+    dCB = (dW * L * dtc[:, :, None]).sum(-1)              # over the heads
+    dC = (torch.einsum("bcqj,bcjn->bcqn", dCB, Bc)
+          + torch.einsum("bcqh,bcqhn->bcqn", e, U))
+    dB = (torch.einsum("bcqj,bcqn->bcjn", dCB, Cc)
+          + torch.einsum("bcjh,bcjhn->bcjn", w, V))
+    # 4. the cotangent of a: the intra-chunk weights, the inter-chunk term,
+    # the state update (a_Q enters every w_j and the decay of h_in)
+    M = W * dW
+    dw = torch.einsum("bcjhn,bcjn->bcjh", V, Bc)
+    da = (M.sum(3) - M.sum(2)
+          + e * torch.einsum("bcqhn,bcqn->bcqh", U, Cc) - w * dw)
+    da[:, :, -1] += (torch.exp(a_last) * (Gs * h_in).sum((-1, -2))
+                     + (w * dw).sum(2))
+    ddt = ((cb[..., None] * L * dW).sum(2)
+           + torch.exp(a_last[:, :, None] - a) * dw)
+    del L, W, dW, M
+    ddA = torch.flip(torch.cumsum(torch.flip(da, [2]), 2), [2])
+    ddt = ddt + Af * ddA
+    dA = (ddA * dtc).sum((0, 1, 2))
+    dD = (dy.to(ct) * x.to(ct)).sum((0, 1, 3))
+
+    def rows(t, *tail):
+        return t.reshape(Bt, nc * Q, *tail)[:, :S]
+
+    return (rows(dx, H, P).to(x.dtype), rows(ddt, H), dA,
+            rows(dB, N).to(B.dtype), rows(dC, N).to(C.dtype), dD, dh0)
+
+
 def _row_strides(name: str, t: torch.Tensor):
     """(batch, sequence) strides of a (Bt, S, ...) tensor whose values of
     each position are contiguous."""
@@ -251,9 +365,9 @@ def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if chunked_route(x, B, C, chunk):
-            # scratch the passes hand on (and the SSD backward would read):
-            # the cumulative sums, C.B^T per (batch, chunk), and each
-            # chunk's state from zero, then the state entering it
+            # scratch the passes hand on: the cumulative sums, C.B^T per
+            # (batch, chunk), and each chunk's state from zero, then the
+            # state entering it
             nc, Qp = -(-S // Q), -(-Q // 16) * 16
             f32 = dict(dtype=torch.float32, device=x.device)
             acum = torch.empty((Bt, H, nc, Qp), **f32)
@@ -276,3 +390,80 @@ def ssd_scan_cuda(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
             LAUNCHES_SCALAR += 1
     LAUNCHES += 1
     return y, h_final
+
+
+def ssd_scan_bwd_cuda(x, dt, A, B, C, D, dy, dh_final=None, *,
+                      chunk: int = 256, h0=None):
+    """The backward kernel: same arguments and results as
+    ``ssd_scan_bwd_torch``, all on one CUDA device.  x, B and C may be
+    strided along batch and sequence, each position's values contiguous;
+    dy (x's shape and dtype), dt, A, D, h0 and dh_final are contiguous."""
+    global BWD_LAUNCHES
+    if x.ndim != 4:
+        raise ValueError(f"ssd_scan_bwd_cuda: x must be (Bt, S, H, P), got "
+                         f"{tuple(x.shape)}")
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    f32s = [dt, A, D] + [t for t in (h0, dh_final) if t is not None]
+    if not (x.is_cuda and all(t.device == x.device
+                              for t in [B, C, dy] + f32s)):
+        raise ValueError("ssd_scan_bwd_cuda needs every tensor on one CUDA "
+                         "device")
+    if (x.dtype not in DTYPE_CODES
+            or any(t.dtype != x.dtype for t in (B, C, dy))):
+        raise ValueError(f"ssd_scan_bwd_cuda takes bf16/f32 x with B, C and "
+                         f"dy of its dtype, got {x.dtype}, {B.dtype}, "
+                         f"{C.dtype}, {dy.dtype}")
+    if any(t.dtype != torch.float32 for t in f32s):
+        raise ValueError("ssd_scan_bwd_cuda takes fp32 dt, A, D, h0 and "
+                         "dh_final")
+    shapes = {"dt": (dt, (Bt, S, H)), "A": (A, (H,)), "B": (B, (Bt, S, N)),
+              "C": (C, (Bt, S, N)), "D": (D, (H,)), "dy": (dy, (Bt, S, H, P))}
+    for name, t in (("h0", h0), ("dh_final", dh_final)):
+        if t is not None:
+            shapes[name] = (t, (Bt, H, P, N))
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"ssd_scan_bwd_cuda: {name} {tuple(t.shape)} "
+                             f"must be {want}")
+    if not (dy.is_contiguous() and all(t.is_contiguous() for t in f32s)):
+        raise ValueError("ssd_scan_bwd_cuda needs contiguous dy, dt, A, D, "
+                         "h0 and dh_final")
+    if chunk < 1:
+        raise ValueError(f"ssd_scan_bwd_cuda: chunk {chunk} must be positive")
+    Q = min(chunk, S)
+    x_sb, x_ss = _row_strides("x", x)
+    b_sb, b_ss = _row_strides("B", B)
+    c_sb, c_ss = _row_strides("C", C)
+    lib = _build.load()
+    n_ws = lib.ssd_scan_bwd_workspace(Bt, S, H, P, N, Q)
+    if n_ws < 0:
+        raise ValueError(f"ssd_scan_bwd_cuda: (Bt, S, H, P, N, chunk) = "
+                         f"{(Bt, S, H, P, N, Q)} outside the kernel's "
+                         f"limits (P, N in [1, {MAX_PN}], chunk up to "
+                         f"{MAX_CHUNK}, Bt up to 65535)")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ws = torch.empty((n_ws,), **f32)
+    dx = torch.empty((Bt, S, H, P), dtype=x.dtype, device=x.device)
+    dB = torch.empty((Bt, S, N), dtype=x.dtype, device=x.device)
+    dC = torch.empty((Bt, S, N), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((Bt, S, H), **f32)
+    dA = torch.empty((H,), **f32)
+    dD = torch.empty((H,), **f32)
+    dh0 = torch.empty((Bt, H, P, N), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D.data_ptr(), ptr(h0), dy.data_ptr(),
+            ptr(dh_final), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
+            ws.data_ptr(), Bt, S, H, P, N, Q, x_sb, x_ss, b_sb, b_ss, c_sb,
+            c_ss, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ssd_scan_bwd_launch")
+    BWD_LAUNCHES += 1
+    return dx, ddt, dA, dB, dC, dD, dh0

@@ -5,8 +5,10 @@ port of ``repro.train.train_step`` for one device).
 call; gradients average over ``shape.microbatch`` sequential microbatches.
 The state's params and moments are updated in place.  The reference's
 ``overlap_comm`` (a compressed cross-pod all-reduce folded into the
-accumulation) waits for the multi-GPU slices and raises here.  The hybrid
-family does not train yet: its SSD scan kernel has no backward.
+accumulation) waits for the multi-GPU slices and raises here.  Both
+ported families train: the dense GQA decoder and the hybrid (Mamba2 +
+shared attention, whose SSD scan has its backward kernel); the others are
+refused where the model is built (``transformer._require_ported``).
 """
 from __future__ import annotations
 
@@ -20,22 +22,12 @@ from repro_torch.models.transformer import flatten, unflatten
 from repro_torch.train import optimizer as opt_lib
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family the port cannot train yet, on every device."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"training the hybrid family ({cfg.name}) is not yet ported: it "
-            f"needs a backward kernel for the SSD scan (the counterpart of "
-            f"autodiff of repro.kernels.ops._ssd_jnp); serving works")
-
-
 def make_train_state(cfg: ModelConfig, seed: int, opt_cfg: opt_lib.OptConfig,
                      *, params: Optional[Dict[str, Any]] = None,
                      device="cuda") -> Dict[str, Any]:
     """{"params": tree of leaves that require grad, "opt": optimizer
     state}.  Random weights from ``seed`` unless ``params`` is given (e.g.
     moved across from the JAX package with ``interop``)."""
-    check_trainable(cfg)
     net = model_lib.Transformer(cfg, params, seed=seed, device=device,
                                 requires_grad=True)
     params = net.params
@@ -85,7 +77,6 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
     (default) or "mixed" (bf16 for leaves of >= 4M elements).  ``impl``
     selects the kernels or their plain versions for the whole step
     (``kernels.ops``)."""
-    check_trainable(cfg)
     if overlap_comm:
         raise NotImplementedError(
             "overlap_comm (the compressed cross-pod gradient all-reduce) is "

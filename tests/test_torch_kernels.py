@@ -42,8 +42,10 @@ from repro_torch.train import quantized_state as tqs  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     bwd_vector_route, rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda,
     rmsnorm_torch)
+from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    chunked_route, ssd_scan_cuda, ssd_scan_passes_torch, ssd_scan_torch)
+    chunked_route, ssd_scan_bwd_cuda, ssd_scan_bwd_torch, ssd_scan_cuda,
+    ssd_scan_passes_torch, ssd_scan_torch)
 
 torch.set_num_threads(1)   # several test workers share the host's cores
 
@@ -852,16 +854,202 @@ def test_ssd_decode_step_vs_jax():
     close(hf, hw, "float32")
 
 
-def test_ssd_scan_kernel_impl_on_cpu_raises(monkeypatch):
-    """``impl='kernel'`` and the kernel wrapper refuse CPU tensors; a call
-    that selects the kernel and needs a gradient raises, naming the
-    missing backward, before any launch."""
+def test_ssd_scan_kernel_impl_on_cpu_raises():
+    """``impl='kernel'`` and the kernel wrappers, forward and backward,
+    refuse CPU tensors."""
     x, dt, A, B, C, D, _ = (None if a is None else torch.from_numpy(a)
                             for a in ssd_inputs(1, 8, 2, 8, 4))
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, A, B, C, D, chunk=4, impl="kernel")
     with pytest.raises(ValueError):
         ssd_scan_cuda(x, dt, A, B, C, D, chunk=4)
-    monkeypatch.setattr(ops, "_use_kernel", lambda impl, t: True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.ssd_scan(x.requires_grad_(True), dt, A, B, C, D, chunk=4)
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_cuda(x, dt, A, B, C, D, torch.zeros_like(x), chunk=4)
+
+
+# ------------------------------------------------------- ssd scan backward
+#
+# The plain backward against JAX's autodiff of the chunked jnp path (the
+# reference's differentiable scan) and against torch.autograd of the plain
+# forward: the same algorithm, so fp32 within 1e-4 and bf16 (x, B, C and dy
+# in bf16, every cotangent) within 2e-2, element by element in the form
+# |got - want| <= rtol * (|want| + rms(want)) that chip_smoke.py holds the
+# kernel to.
+
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+
+
+def rms_close(got, want, rtol, what=""):
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    assert np.isfinite(g).all(), what
+    tol = rtol * (np.abs(w) + np.sqrt((w ** 2).mean()))
+    worst = float((np.abs(g - w) / np.maximum(tol, 1e-30)).max())
+    assert worst <= 1.0, f"{what}: {worst} x tol (rtol {rtol})"
+
+
+SSD_BWD_CASES = [
+    # (name, (Bt, S, H, P, N, chunk), h0, dt scale, dtype)
+    ("multiple_of_chunk", (1, 16, 2, 8, 4, 8), False, None, "float32"),
+    ("ragged", (2, 40, 3, 8, 4, 16), True, None, "float32"),
+    ("chunk_gt_S", (2, 10, 2, 16, 16, 16), True, None, "float32"),
+    ("h0_none_ragged", (1, 33, 1, 16, 8, 8), False, None, "float32"),
+    ("zero_dt", (1, 24, 2, 8, 4, 8), True, 0.0, "float32"),
+    # decays down to exp(-70) within a chunk, yet no exponent of the
+    # reference's own mask (exp(a_t - a_j) above the diagonal) overflows:
+    # jax.grad of it would give NaN there
+    ("large_dt", (1, 24, 2, 8, 4, 8), True, 5.0, "float32"),
+    ("ragged_bf16", (2, 40, 3, 8, 4, 16), True, None, "bfloat16"),
+    ("chunk_gt_S_bf16", (2, 10, 2, 16, 16, 16), False, None, "bfloat16"),
+]
+
+
+def ssd_bwd_inputs(case, seed=11):
+    """The case's inputs and random cotangents dy (x's dtype) and dh_final
+    (fp32), as (jax, torch) lists: x, dt, A, B, C, D, h0, dy, dh_final."""
+    _, (Bt, S, H, P, N, _), h0, dt_max, dtype = case
+    x, dt, A, B, C, D, h = ssd_inputs(Bt, S, H, P, N, seed=seed, h0=h0)
+    if dt_max is not None:
+        dt = (dt * (dt_max / dt.max())).astype(np.float32)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    dh = rng.standard_normal((Bt, H, P, N)).astype(np.float32)
+    j, t = ssd_both((x, dt, A, B, C, D, h), dtype)
+    jdy, tdy = both(dy, dtype)
+    jdh, tdh = both(dh, "float32")
+    return j + [jdy, jdh], t + [tdy, tdh]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=[c[0] for c in
+                                                      SSD_BWD_CASES])
+def test_ssd_scan_bwd_torch_vs_jax_vjp_and_autograd(case):
+    chunk = case[1][-1]
+    rtol = 2e-2 if case[-1] == "bfloat16" else 1e-4
+    (jx, jdt, jA, jB, jC, jD, jh, jdy, jdh), \
+        (x, dt, A, B, C, D, h, dy, dh) = ssd_bwd_inputs(case)
+    got = ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh, chunk=chunk, h0=h)
+    assert [g.dtype for g in got] == [x.dtype, torch.float32, torch.float32,
+                                      B.dtype, C.dtype, torch.float32,
+                                      torch.float32]
+    # jax.vjp of the reference's chunked scan; with no h0 it differentiates
+    # a zero state, the plain version's dh0
+    jh = jnp.zeros(dh.shape, jnp.float32) if jh is None else jh
+
+    def scan(x, dt, A, B, C, D, h0):
+        return jops._ssd_jnp(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+    _, vjp = jax.vjp(scan, jx, jdt, jA, jB, jC, jD, jh)
+    want = vjp((jdy, jdh))
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        rms_close(g.float().numpy(), np.asarray(w, np.float32), rtol,
+                  f"{case[0]} {name} vs jax.vjp")
+    # torch.autograd of the plain forward
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C, D)]
+    h0 = (torch.zeros(dh.shape) if h is None else h).requires_grad_(True)
+    y, hf = ssd_scan_torch(*leaves, chunk=chunk, h0=h0)
+    want = torch.autograd.grad((y, hf), leaves + [h0], (dy, dh))
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        rms_close(g.float().numpy(), w.float().numpy(), rtol,
+                  f"{case[0]} {name} vs autograd")
+
+
+def test_ssd_scan_bwd_torch_very_large_dt_vs_sequential_oracle():
+    """dt up to 20 drives a within a chunk to -1000s: the chunked jnp
+    path's own gradient is NaN there (its mask multiplies an overflowed
+    exponent by 0), the plain backward takes exponents only where t >= j
+    and stays finite.  Held against autograd of the sequential oracle
+    ``ref.ssd_scan`` (another algorithm: the JAX tests' rtol 5e-3)."""
+    case = ("dt20", (1, 40, 2, 8, 4, 16), True, 20.0, "float32")
+    _, (x, dt, A, B, C, D, h, dy, dh) = ssd_bwd_inputs(case, seed=4)
+    got = ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh, chunk=16, h0=h)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C, D, h)]
+    y, hf = ref.ssd_scan(*leaves[:6], h0=leaves[6])
+    want = torch.autograd.grad((y, hf), leaves, (dy, dh))
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        rms_close(g.numpy(), w.numpy(), 5e-3, f"dt20 {name}")
+
+
+def test_ssd_scan_torch_gradient_is_finite_at_large_dt():
+    """Autograd of the plain forward at dt up to 20: its intra-chunk mask
+    goes on the exponent, so no overflowed exp(a_t - a_j) above the
+    diagonal meets a zero of the mask in the backward (inf * 0 = NaN, as
+    in the reference's ``_ssd_jnp``, whose gradient is NaN there).  At
+    zamba2_2p7b's full width with random weights the chunks' decays reach
+    that range, and the plain train step's gradients were NaN.  The
+    gradients equal the plain backward's."""
+    case = ("dt20", (1, 40, 2, 8, 4, 16), True, 20.0, "float32")
+    _, (x, dt, A, B, C, D, h, dy, dh) = ssd_bwd_inputs(case, seed=4)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, dt, A, B, C, D, h)]
+    y, hf = ssd_scan_torch(*leaves[:6], chunk=16, h0=leaves[6])
+    got = torch.autograd.grad((y, hf), leaves, (dy, dh))
+    want = ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh, chunk=16, h0=h)
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        rms_close(g.numpy(), w.numpy(), 1e-4, f"dt20 autograd {name}")
+
+
+class _Ctx:
+    """Stands in for autograd's context in a direct call of
+    ``_SSDScan.backward``."""
+
+    def __init__(self, saved, chunk, needs):
+        self.saved_tensors, self.chunk = saved, chunk
+        self.needs_input_grad = needs
+
+
+def test_ssd_scan_autograd_function_wiring_on_cpu(monkeypatch):
+    """``ops.ssd_scan`` on a tensor that selects the kernel and needs a
+    gradient goes through ``_SSDScan``: its forward is the forward kernel
+    and its backward the backward kernel (both stood in for on the CPU by
+    their plain versions), with x, B and C strided views of a conv output
+    and the final state unused (its cotangent None); every gradient equals
+    autograd of the plain forward.  Inputs that need no gradient get
+    None."""
+    calls = {"fwd": 0, "bwd": 0}
+
+    def fwd(x, dt, A, B, C, D, *, chunk, h0=None):
+        calls["fwd"] += 1
+        return ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h0)
+
+    def bwd(*args, chunk, h0=None):
+        calls["bwd"] += 1
+        assert args[-1] is None                  # dh_final: unused state
+        return ssd_scan_bwd_torch(*args, chunk=chunk, h0=h0)
+
+    monkeypatch.setattr(tssd, "ssd_scan_cuda", fwd)
+    monkeypatch.setattr(tssd, "ssd_scan_bwd_cuda", bwd)
+    monkeypatch.setattr(ops, "_use_kernel", lambda impl, t: impl != "torch")
+    Bt, S, H, P, N, chunk = 2, 40, 3, 8, 4, 16
+    rng = np.random.default_rng(12)
+    conv0 = torch.from_numpy(rng.standard_normal(
+        (Bt, S, H * P + 2 * N)).astype(np.float32) * 0.5)
+    dt0 = torch.from_numpy(np.log1p(np.exp(rng.standard_normal(
+        (Bt, S, H)))).astype(np.float32))
+    A0 = torch.from_numpy(-np.exp(rng.standard_normal(H) * 0.3)
+                          .astype(np.float32))
+    D0 = torch.from_numpy(rng.standard_normal(H).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((Bt, S, H, P))
+                          .astype(np.float32))
+    grads = {}
+    for impl in ("auto", "torch"):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (conv0, dt0, A0, D0)]
+        conv, dt, A, D = leaves
+        x = conv[..., :H * P].reshape(Bt, S, H, P)
+        B, C = conv[..., H * P:H * P + N], conv[..., H * P + N:]
+        assert x.stride(1) == H * P + 2 * N and B.stride(1) == x.stride(1)
+        y, _ = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk, impl=impl)
+        grads[impl] = torch.autograd.grad(y, leaves, dy)
+    assert calls == {"fwd": 1, "bwd": 1}
+    for g, w in zip(grads["auto"], grads["torch"]):
+        rms_close(g.numpy(), w.numpy(), 1e-5)
+    # only the inputs that need a gradient get one
+    saved = (x.detach(), dt0, A0, B.detach(), C.detach(), D0, None)
+    needs = (True, False, True, False, True, False, False, False)
+    out = ops._SSDScan.backward(_Ctx(saved, chunk, needs), dy, None)
+    assert len(out) == 8
+    assert [g is not None for g in out] == list(needs)
+    assert calls["bwd"] == 2

@@ -385,8 +385,9 @@ def test_hybrid_launcher_tokens_match_jax(monkeypatch, capsys):
 
 def test_hybrid_paged_and_train_jobs_raise():
     """The hybrid's recurrent state does not page (the reference's
-    ``ValueError``), and it cannot train until the SSD scan has a backward
-    kernel, on any device."""
+    ``ValueError``); its train block runs on the CPU (the SSD scan's plain
+    version under autograd; on the card its backward kernel), through
+    ``BlockRuntime``, ``make_train_state`` and ``make_train_step``."""
     import repro_torch.configs as configs
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import train_step as train_lib
@@ -400,15 +401,17 @@ def test_hybrid_paged_and_train_jobs_raise():
     with pytest.raises(ValueError, match="paged decode unsupported"):
         DecodeScheduler(cfg, {}, device="cpu")
     train_shape = ShapeConfig("s", "train", seq_len=16, global_batch=1)
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="SSD scan"):
-            BlockRuntime(grant, JobSpec(cfg, train_shape, kind="train"),
-                         devices=[device])
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        train_lib.make_train_step(cfg, train_shape, opt_lib.OptConfig())
-    with pytest.raises(NotImplementedError, match="SSD scan"):
-        train_lib.make_train_state(cfg, 0, opt_lib.OptConfig(),
-                                   device="cpu")
+    rt = BlockRuntime(grant, JobSpec(cfg, train_shape, kind="train"),
+                      devices=["cpu"])
+    rt.init_state()
+    m = rt.step()
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+    assert rt.step_count == 1
+    state = train_lib.make_train_state(cfg, 0, opt_lib.OptConfig(),
+                                       device="cpu")
+    step = train_lib.make_train_step(cfg, train_shape, opt_lib.OptConfig())
+    state, m = step(state, rt.data.batch(1))
+    assert torch.isfinite(m["loss"]) and int(state["opt"]["step"]) == 1
     # a dense serve block of the hybrid runs
     rt = BlockRuntime(grant, JobSpec(cfg, serve_shape, kind="serve"),
                       devices=["cpu"])

@@ -18,6 +18,7 @@ Tolerances, each with its reason:
   depends on the last bit).  The largest param difference measured was
   2.6e-4 (int8) and 6e-7 (fp32).
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -227,7 +228,6 @@ def test_loss_fn_value_and_grads_vs_jax(tiny):
 def test_remat_and_plain_forward_give_the_same_grads(tiny):
     """``remat="full"`` recomputes each group in the backward; the grads
     are those of the plain forward, bit for bit."""
-    import dataclasses
     jcfg, cfg, jp = tiny
     nb = {k: torch.from_numpy(v) for k, v in tiny_batch(cfg).items()}
     out = []
@@ -374,19 +374,66 @@ def test_opt_state_interop_round_trip(tiny, bits):
 # ============================================================ chip_smoke
 
 def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
-    """chip_smoke.py's train phases at smoke size on the CPU: the plain
-    versions run (no kernel launches), the step-0 check against
-    ``impl="torch"`` is exact, and the losses are finite."""
+    """chip_smoke.py's train phases at smoke size on the CPU, the hybrid's
+    (``train_hybrid``: step 0 in fp32 with the weights upcast, and in
+    bf16) among them: the plain versions run (no kernel launches), the
+    step-0 checks against ``impl="torch"`` are exact, the bf16 step 0's
+    distance from the fp32 one is the plain version's, and the losses are
+    finite.  The launches the card is held to per step
+    (``train_launches``): the dense train phase's (30 layers) and
+    train_f32's (4 layers, 2 microbatches) as read on the card, and in a
+    full-width hybrid step 90 SSD scans (forward and remat), 45 SSD
+    backward, 18 and 9 flash attention, 217 and 109 RMSNorm, one fp32
+    AdamW launch for each of the 19 leaves."""
+    import repro_torch.configs as configs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import OptConfig
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    for phase in (smoke.phase_train, smoke.phase_train_f32):
+    exact = ("loss_rel_err", "grad_norm_rel_err",
+             "worst_leaf_grad_norm_rel_err", "leaf_rms_rel_err")
+    for phase in (smoke.phase_train, smoke.phase_train_f32,
+                  smoke.phase_train_hybrid):
         out = phase(device="cpu", smoke=True)
-        assert out["step0_check"]["loss_rel_err"] == 0.0
-        assert out["step0_check"]["grad_norm_rel_err"] == 0.0
-        assert out["step0_check"]["worst_leaf_grad_norm_rel_err"] == 0.0
+        checks = out["step0_check"]
+        for chk in ([checks["f32"], checks["bf16"]] if "f32" in checks
+                    else [checks]):
+            assert all(chk[k] == 0.0 for k in exact)
+            assert chk["finite"]
         assert len(out["losses"]) == out["steps"] >= 2
         assert all(np.isfinite(out["losses"]))
         assert set(out["launches"].values()) == {0}
+    assert out["arch"] == "zamba2_2p7b_smoke"
+    assert checks["f32"]["within_rtol"] and checks["bf16_vs_f32"][
+        "within_rtol"]
+    for k in exact:
+        assert checks["bf16_vs_f32"][k] == checks["bf16_plain_vs_f32"][k]
+
+    def launches(arch, layers, microbatch, bits):
+        cfg = configs.get_smoke(arch)
+        leaves = dict(flatten(init_params(cfg, seed=0, device="cpu")))
+        cfg = dataclasses.replace(configs.get(arch), **(
+            {"n_layers": layers} if layers else {}))
+        shape = ShapeConfig("chip", "train", seq_len=2048, global_batch=2,
+                            microbatch=microbatch)
+        want = smoke.train_launches(cfg, shape, OptConfig(state_bits=bits),
+                                    leaves)
+        assert set(want) == set(smoke.COUNTERS)
+        return {k: v for k, v in want.items() if v}
+
+    assert launches("deepseek_7b", 0, 1, 8) == {
+        "flash_attention": 60, "flash_attention_bwd": 30, "rmsnorm": 121,
+        "rmsnorm_bwd": 61, "fused_adamw_i8": 12}
+    assert launches("deepseek_7b", 4, 2, None) == {
+        "flash_attention": 16, "flash_attention_bwd": 8, "rmsnorm": 34,
+        "rmsnorm_bwd": 18, "fused_adamw_f32": 12}
+    assert launches("zamba2_2p7b", 0, 1, None) == {
+        "ssd_scan": 90, "ssd_scan_bwd": 45, "flash_attention": 18,
+        "flash_attention_bwd": 9, "rmsnorm": 217, "rmsnorm_bwd": 109,
+        "fused_adamw_f32": 19}
+    assert smoke.KERNEL_META["ssd_scan_bwd"]["replaces"] == \
+        "src/repro/kernels/ops.py:319"
     assert '"ok": true' not in capsys.readouterr().out
