@@ -25,16 +25,18 @@ never JAX.  Phases, each printing one JSON line:
                      card could take; each redesigned kernel also beside
                      the route it took before (``was_ms``: the flash
                      kernels' CUDA-core route, the scalar routes of the
-                     fused AdamW, the paged decode kernel, the SSD scan
-                     and the RMSNorm backward), on a copy of its input one
-                     element off alignment, held by the same check; the
-                     flash backward, the paged kernel, the SSD scan, its
-                     backward and the RMSNorm backward twice, bit for bit;
-                     the SSD scan's, its backward's and the RMSNorm
-                     backward's kernels timed apart (``passes_ms``), the
-                     first and last held under a guard time; the SSD
-                     backward's seven cotangents each element by element
-                     at zamba2_2p7b's train shape and at edge cases;
+                     fused AdamW, the paged decode kernel, the SSD scan,
+                     its backward and the RMSNorm backward), on a copy of
+                     its input one element off alignment, held by the same
+                     check; the flash backward, the paged kernel, the SSD
+                     scan, its backward and the RMSNorm backward twice,
+                     bit for bit; the SSD scan's, its backward's and the
+                     RMSNorm backward's kernels timed apart
+                     (``passes_ms``), each held under a guard time
+                     (``GUARD_MS``); the SSD backward's seven cotangents
+                     each element by element at zamba2_2p7b's train shape
+                     and at edge cases, each case's route checked, and
+                     its tensor-core kernels' ptxas lines free of spills;
 4. ``serve_dense`` — ``repro_torch.launch.serve`` on deepseek_7b at full
                      width (random bf16 weights from the seed): batched
                      prefill + greedy decode, the kernels' launch counts,
@@ -158,12 +160,13 @@ COUNTERS = {
     "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
     "ssd_scan_scalar": ("ssd_scan", "LAUNCHES_SCALAR"),
     "rmsnorm_bwd_scalar": ("rmsnorm", "BWD_LAUNCHES_SCALAR"),
+    "ssd_scan_bwd_scalar": ("ssd_scan", "BWD_LAUNCHES_SCALAR"),
 }
 
 # guard limits, in ms at the main path's shape: a redesigned kernel slower
-# than this has lost its redesign (the routes before read 1.23 and 0.0795;
-# NVIDIA H100 80GB HBM3, 700 W)
-GUARD_MS = {"ssd_scan": 0.6, "rmsnorm_bwd": 0.07}
+# than this has lost its redesign (the routes before read 1.23, 0.0795 and
+# 2.155; NVIDIA H100 80GB HBM3, 700 W)
+GUARD_MS = {"ssd_scan": 0.6, "rmsnorm_bwd": 0.07, "ssd_scan_bwd": 1.0}
 
 
 _RECORD = None     # main() opens build/chip_smoke.jsonl here
@@ -268,11 +271,11 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def profile_steps(fn, n: int = 3):
+def profile_steps(fn, n: int = 3, top: int = 8):
     """Host wall time per call of ``fn`` (warm, ending in a device sync),
     then the device kernel time per call over ``n`` more calls under
-    ``torch.profiler``, the device's idle share, and the kernels that take
-    the most device time."""
+    ``torch.profiler``, the device's idle share, and the ``top`` kernels
+    that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -293,7 +296,7 @@ def profile_steps(fn, n: int = 3):
     kern.sort(key=lambda e: -e.self_device_time_total)
     top = [{"kernel": e.key[:80], "ms_per_call":
             e.self_device_time_total / 1e3 / n, "count_per_call":
-            e.count / n} for e in kern[:8]]
+            e.count / n} for e in kern[:top]]
     # the port's kernels by family: device ms per call and share of the
     # device time (the flash family counts forward, backward and delta)
     fam = {}
@@ -481,6 +484,14 @@ def phase_build():
     emit("build", seconds=build_s, library=os.path.relpath(path, ROOT),
          ptxas=ptxas, ptxas_by_kernel=per_kernel,
          sass_instructions=sass_counts(path))
+    # the SSD backward's six tensor-core kernels keep their registers: no
+    # spills
+    tc = {k: v for k, v in per_kernel.items()
+          if "ssd_bwd" in k and "tc_" in k}
+    check(len(tc) == 6 and all(
+        any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in v)
+        for v in tc.values()),
+        f"ssd_scan_bwd tensor-core kernels' ptxas lines: {tc}")
     return build_s
 
 
@@ -692,7 +703,8 @@ def ssd_bwd_case(Bt, S, H, P, N, chunk, dtype=torch.bfloat16, h0="zeros",
     """The SSD backward kernel and its plain version on ``ssd_inputs``
     with a random cotangent dy of y (x's dtype) and dh of the final state
     (fp32, or None).  Returns ((inputs, dy, dh, chunk, h0), the kernel's
-    seven cotangents, the plain version's)."""
+    seven cotangents, the plain version's, the kernel's route,
+    "tensor_core" or "scalar")."""
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
                                               ssd_scan_bwd_torch)
     args, h, g = ssd_inputs(Bt, S, H, P, N, chunk, dtype, h0, dt_max,
@@ -700,36 +712,58 @@ def ssd_bwd_case(Bt, S, H, P, N, chunk, dtype=torch.bfloat16, h0="zeros",
     dy = _randn((Bt, S, H, P), g, dtype)
     dhf = (_randn((Bt, H, P, N), g, torch.float32, 0.5) if dh == "random"
            else None)
-    got = ssd_scan_bwd_cuda(*args, dy, dhf, chunk=chunk, h0=h)
+    got, route = route_of("ssd_scan_bwd_scalar", lambda: ssd_scan_bwd_cuda(
+        *args, dy, dhf, chunk=chunk, h0=h), ("tensor_core", "scalar"))
     want = ssd_scan_bwd_torch(*args, dy, dhf, chunk=chunk, h0=h)
     torch.cuda.synchronize()
-    return (args, dy, dhf, chunk, h), got, want
+    return (args, dy, dhf, chunk, h), got, want, route
+
+
+def ssd_bwd_held(what, got, want, dtype):
+    """Every cotangent element by element against the plain version
+    (``ssd_bwd_rtol``): {name: max_err, rtol, err_over_tol}; fails on one
+    outside its tolerance or not finite."""
+    res = {}
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        rtol = ssd_bwd_rtol(name, dtype)
+        err, ratio = close(g, w, rtol)
+        res[name] = {"max_err": err, "rtol": rtol, "err_over_tol": ratio}
+        check(ratio <= 1.0 and bool(torch.isfinite(g).all()),
+              f"ssd_scan_bwd {what} {name}: max_abs_err {err}, {ratio} x "
+              f"its tolerance (rtol {rtol})")
+    return res
 
 
 def check_ssd_bwd_kernel(out, edge, edges):
     """The SSD backward at zamba2_2p7b's train shape (timed) and at edge
     cases, every cotangent element by element against the plain version
-    (``ssd_bwd_rtol``), and twice on the same inputs, bit for bit; at the
-    train shape also the fp32 plain version's distance from its own
-    float64 run (what fp32 summation order alone moves) and the seven
-    kernels' times apart (``passes_ms``)."""
+    (``ssd_bwd_rtol``).  bf16 takes the tensor-core route, which is also
+    held against its passes in plain PyTorch
+    (``ssd_scan_bwd_passes_torch``), twice on the same inputs, bit for bit,
+    and under its guard time; its seven kernels are timed apart
+    (``passes_ms``); the scalar route on a copy of x one element off
+    alignment is held and timed (``was_route``).  At the train shape also
+    the fp32 plain version's distance from its own float64 run (what fp32
+    summation order alone moves)."""
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
+                                              ssd_scan_bwd_passes_torch,
                                               ssd_scan_bwd_torch)
     progress("kernels: ssd_scan_bwd")
-    (args, dy, dhf, chunk, h0), got, want = ssd_bwd_case(2, 2048, 80, 64, 64,
-                                                         256)
-    res = {}
-    for name, g, w in zip(SSD_BWD_NAMES, got, want):
-        rtol = ssd_bwd_rtol(name, args[0].dtype)
-        err, ratio = close(g, w, rtol)
-        res[name] = {"max_err": err, "rtol": rtol, "err_over_tol": ratio}
-        check(ratio <= 1.0 and bool(torch.isfinite(g).all()),
-              f"ssd_scan_bwd train shape {name}: max_abs_err {err}, {ratio} "
-              f"x its tolerance (rtol {rtol})")
+    (args, dy, dhf, chunk, h0), got, want, route = ssd_bwd_case(
+        2, 2048, 80, 64, 64, 256)
+    check(route == "tensor_core",
+          f"ssd_scan_bwd train shape: {route} route")
+    dtype = args[0].dtype
+    res = ssd_bwd_held("train shape", got, want, dtype)
     again = ssd_scan_bwd_cuda(*args, dy, dhf, chunk=chunk, h0=h0)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "ssd_scan_bwd: two calls on the same inputs differ")
     del again
+    passes = ssd_scan_bwd_passes_torch(*args, dy, dhf, chunk=chunk, h0=h0)
+    vs_passes = {n: r["err_over_tol"] for n, r in ssd_bwd_held(
+        "train shape against its passes in plain PyTorch", got, passes,
+        dtype).items()}
+    del passes
     # the fp32 plain version against its float64 run: what fp32 summation
     # order alone moves each fp32 cotangent, in units of its rtol
     f64 = ssd_scan_bwd_torch(*(t.double() for t in args), dy.double(),
@@ -741,30 +775,50 @@ def check_ssd_bwd_kernel(out, edge, edges):
     del f64
     nbytes, flops = ssd_bwd_cost(args[0], args[3], h0, dhf, chunk)
     b_ms, b_by = bound(nbytes, flops)
+    # the scalar route on the same values, x one element off alignment
+    margs = (misaligned(args[0]),) + args[1:]
+    sgot, sroute = route_of("ssd_scan_bwd_scalar", lambda: ssd_scan_bwd_cuda(
+        *margs, dy, dhf, chunk=chunk, h0=h0), ("tensor_core", "scalar"))
+    check(sroute == "scalar", f"ssd_scan_bwd on a misaligned x: {sroute} "
+          f"route")
+    sres = ssd_bwd_held("scalar route", sgot, want, dtype)
+    del sgot
 
     def kernel():
         return ssd_scan_bwd_cuda(*args, dy, dhf, chunk=chunk, h0=h0)
 
+    kernel_ms = time_ms(kernel)
+    check(kernel_ms <= GUARD_MS["ssd_scan_bwd"],
+          f"ssd_scan_bwd train shape: {kernel_ms} ms, above its "
+          f"{GUARD_MS['ssd_scan_bwd']} ms guard")
     out["ssd_scan_bwd"] = {
         "shape": {"x": list(args[0].shape), "N": args[3].shape[-1],
                   "chunk": chunk, "h0": "zeros", "dh_final": "random"},
-        "route": "cuda_core",
+        "route": route,
         "max_err": max(r["max_err"] for r in res.values()),
-        "outputs": res, "fp32_plain_vs_f64": vs64,
-        "bitwise_reproducible": True,
-        "kernel_ms": time_ms(kernel),
+        "outputs": res, "vs_passes_plain": vs_passes,
+        "fp32_plain_vs_f64": vs64, "bitwise_reproducible": True,
+        "kernel_ms": kernel_ms,
         "plain_ms": time_ms(lambda: ssd_scan_bwd_torch(
             *args, dy, dhf, chunk=chunk, h0=h0), iters=3),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "bytes": nbytes, "flops": flops,
-        # the seven kernels, apart
+        # the tensor-core route's nine kernels, apart
         "passes_ms": {t["kernel"]: t["ms_per_call"] for t in profile_steps(
-            kernel, 5)["top"] if "ssd_bwd" in t["kernel"]}}
-    out["ssd_scan_bwd"]["tflops"] = flops / out["ssd_scan_bwd"]["kernel_ms"] / 1e9
-    del args, dy, dhf, h0, got, want
+            kernel, 5, top=12)["top"] if "ssd_bwd" in t["kernel"]},
+        "was_route": {"route": "scalar", "outputs": sres,
+                      "kernel_ms": time_ms(lambda: ssd_scan_bwd_cuda(
+                          *margs, dy, dhf, chunk=chunk, h0=h0), iters=5)}}
+    out["ssd_scan_bwd"]["tflops"] = flops / kernel_ms / 1e9
+    del args, margs, dy, dhf, h0, got, want
     for name, shape, kw in [
             ("S1000_ragged", (2, 1000, 80, 64, 64, 256), {}),
             ("S17_lt_chunk", (2, 17, 80, 64, 64, 256), {}),
+            # a short last chunk of whole 64-row tiles; P and N narrower
+            # than 64 and unequal
+            ("S640_tiles_not_chunks", (2, 640, 16, 64, 64, 256),
+             dict(h0="random")),
+            ("P32_N48", (2, 300, 8, 32, 48, 128), dict(h0="random")),
             ("h0_random", (2, 600, 16, 64, 64, 256), dict(h0="random")),
             ("dh_final_none", (2, 300, 16, 64, 64, 256),
              dict(dh="none", h0="none")),
@@ -779,15 +833,20 @@ def check_ssd_bwd_kernel(out, edge, edges):
             ("misaligned_base", (2, 300, 16, 64, 64, 256),
              dict(misalign=True, h0="random")),
             ("smoke_width", (2, 40, 8, 16, 16, 16), dict(h0="random"))]:
-        (args, dy, dhf, chunk, h0), got, want = ssd_bwd_case(*shape, **kw)
+        (args, dy, dhf, chunk, h0), got, want, route = ssd_bwd_case(
+            *shape, **kw)
+        expect = ("scalar" if name in ("f32", "misaligned_base")
+                  else "tensor_core")
+        check(route == expect, f"ssd_scan_bwd {name}: {route} route, want "
+              f"{expect}")
         for gname, g, w in zip(SSD_BWD_NAMES, got, want):
             edge("ssd_scan_bwd", f"{name}_{gname}", g, w,
                  ssd_bwd_rtol(gname, args[0].dtype))
-            edges[-1]["route"] = "cuda_core"
-        if name == "misaligned_base":
+            edges[-1]["route"] = route
+        if name in ("misaligned_base", "S1000_ragged"):
             again = ssd_scan_bwd_cuda(*args, dy, dhf, chunk=chunk, h0=h0)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  "ssd_scan_bwd misaligned: two calls differ")
+                  f"ssd_scan_bwd {name}: two calls differ")
 
 
 def check_ssd_kernel(out, edge, edges):

@@ -64,6 +64,9 @@ SIGNATURES = {
     # dB, dC, dD, dh0, workspace, Bt, S, H, P, N, Q, (batch, sequence)
     # strides of x, B and C, dtype code, stream
     "ssd_scan_bwd_launch": [_P] * 17 + [_I] * 6 + [_L] * 6 + [_I, _P],
+    # the same arguments but the dtype code (bf16 only): the tensor-core
+    # route
+    "ssd_scan_bwd_tc_launch": [_P] * 17 + [_I] * 6 + [_L] * 6 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -151,9 +154,12 @@ def load(nvcc: Optional[str] = None) -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             # Bt, S, H, P, N, Q -> fp32 elements of the SSD backward's
-            # workspace (-1: dimensions it does not take)
-            lib.ssd_scan_bwd_workspace.argtypes = [_I] * 6
-            lib.ssd_scan_bwd_workspace.restype = _L
+            # workspace, scalar or tensor-core route (-1: dimensions the
+            # route does not take)
+            for name in ("ssd_scan_bwd_workspace",
+                         "ssd_scan_bwd_tc_workspace"):
+                getattr(lib, name).argtypes = [_I] * 6
+                getattr(lib, name).restype = _L
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

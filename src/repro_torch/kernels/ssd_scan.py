@@ -27,7 +27,14 @@ version ``ssd_scan_bwd_torch``) is the counterpart of autodiff of
 ``repro.kernels.ops._ssd_jnp``: from the cotangents of y and of the final
 state, those of x, dt, A, B, C, D and h0.  It recomputes the cumulative
 sums, C.B^T and the entering states from the inputs, whichever forward
-route ran.
+route ran.  It too has two routes, chosen from dtype, shape and alignment
+(``bwd_chunked_route``): the tensor-core route (bf16; nine device
+kernels, the products on ``mma.sync`` with the fp32 operands split into
+bf16 parts, the heads of dCB spread over groups of blocks whose partials
+are summed in order) and the scalar route (any dtype; seven device
+kernels, fp32 tile products on the CUDA cores).
+``ssd_scan_bwd_passes_torch`` is the tensor-core route's pass structure
+in plain PyTorch.
 
 Shapes, as ``repro.kernels.ref.ssd_scan``: x (Bt, S, H, P); dt (Bt, S, H)
 fp32; A, D (H,) fp32; B, C (Bt, S, N) in x's dtype, shared across heads;
@@ -42,11 +49,12 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 #: calls of the kernel so far, and those of them that took the scalar
-#: route; calls of the backward kernel (one route) so far (a run resets
-#: them to 0 and reads them afterwards)
+#: route; the same two for the backward kernel (a run resets them to 0
+#: and reads them afterwards)
 LAUNCHES = 0
 LAUNCHES_SCALAR = 0
 BWD_LAUNCHES = 0
+BWD_LAUNCHES_SCALAR = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel keeps a (P, N) state and 64-row tiles of x, B and C in
@@ -70,6 +78,13 @@ def chunked_route(x, B, C, chunk: int) -> bool:
         return False
     return all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
                and t.stride(1) % 8 == 0 for t in (x, B, C))
+
+
+def bwd_chunked_route(x, B, C, dy, chunk: int) -> bool:
+    """Whether the backward kernel takes its tensor-core route: where the
+    forward takes its chunked route (``chunked_route``), with a 16-byte
+    aligned dy beside it."""
+    return chunked_route(x, B, C, chunk) and dy.data_ptr() % 16 == 0
 
 
 def ssd_scan_torch(x, dt, A, B, C, D, *, chunk: int = 256, h0=None):
@@ -302,6 +317,125 @@ def ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh_final=None, *,
             rows(dB, N).to(B.dtype), rows(dC, N).to(C.dtype), dD, dh0)
 
 
+#: bf16 parts of the backward's tensor-core operands that are fp32 (see
+#: ``ssd_scan_bwd_passes_torch``): w_j x_j and exp(a_t) dy_t of the chunk
+#: pass, the entering states h_in and their cotangents G (U, V and dx's
+#: state term), the weights W of dx, dCB of the intra-chunk dB and dC
+BWD_KERNEL_PARTS = {"chunk": 2, "state": 2, "weights": 2, "dcb": 2}
+
+
+def ssd_scan_bwd_passes_torch(x, dt, A, B, C, D, dy, dh_final=None, *,
+                              chunk: int = 256, h0=None, parts=None):
+    """The backward's tensor-core route in plain PyTorch, same arguments
+    and results as ``ssd_scan_bwd_torch``, pass by pass: (1) the
+    within-chunk cumulative sums of dt * A in sequence order, each product
+    and sum rounded on its own, and each chunk's state and the local sum
+    of its cotangent, ``sum_j (w_j x_j)^T B_j`` and ``sum_t (exp(a_t)
+    dy_t)^T C_t``; (2) the states entering the chunks and the cotangents G
+    of those leaving them; (3) C.B^T and dW = dy_t . x_j, whence dCB,
+    summed over the heads, and the intra-chunk shares of da and ddt; (4)
+    dx; (5) U = dy_t h_in and V = x_j G, whence dC and dB with the
+    intra-chunk terms dCB B and dCB^T C; (6) da, reverse-summed in the
+    chunk, gives ddt and dA.  The fp32 operands of the tensor-core
+    products are sums of bf16 parts (``_parts``), as many as ``parts``
+    gives for each ({"chunk", "state", "weights", "dcb"}: n, or one n for
+    all; ``BWD_KERNEL_PARTS`` by default); the bf16 inputs are exact, and
+    the products of two of them (C.B^T, dW) are exact in fp32."""
+    if parts is None:
+        parts = BWD_KERNEL_PARTS
+    elif isinstance(parts, int):
+        parts = dict.fromkeys(BWD_KERNEL_PARTS, parts)
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t, *tail):
+        t = F.pad(t.float(), (0, 0) * (t.ndim - 2) + (0, pad))
+        return t.reshape(Bt, nc, Q, *tail)
+
+    xc, dyc, dtc = chunks(x, H, P), chunks(dy, H, P), chunks(dt, H)
+    Bc, Cc = chunks(B, N), chunks(C, N)
+    Af = A.float()
+    # 1. cumulative sums, then the chunk-local states and cotangent sums
+    dA_ = dtc * Af
+    a = torch.empty_like(dA_)
+    run = torch.zeros_like(dA_[:, :, 0])
+    for r in range(Q):
+        run = run + dA_[:, :, r]
+        a[:, :, r] = run
+    a_last = a[:, :, -1]
+    e = torch.exp(a)
+    w = torch.exp(a_last[:, :, None] - a) * dtc
+    local = torch.einsum("bcqhp,bcqn->bchpn",
+                         _parts(xc * w[..., None], parts["chunk"]), Bc)
+    dyC = torch.einsum("bcqhp,bcqn->bchpn",
+                       _parts(dyc * e[..., None], parts["chunk"]), Cc)
+    # 2. entering states forward from h0; G in reverse from dh_final
+    decay = torch.exp(a_last)[..., None, None]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h = torch.zeros((Bt, H, P, N), **f32) if h0 is None else h0.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * decay[:, c] + local[:, c]
+    G = (torch.zeros((Bt, H, P, N), **f32) if dh_final is None
+         else dh_final.float())
+    Gs = [None] * nc
+    for c in reversed(range(nc)):
+        Gs[c] = G
+        G = G * decay[:, c] + dyC[:, c]
+    dh0 = G
+    h_in, Gs = torch.stack(h_in, 1), torch.stack(Gs, 1)
+    # 3. C.B^T, dW, and L[t, j] = exp(a_t - a_j), the exponent only where
+    # t >= j
+    seg = a[:, :, :, None, :] - a[:, :, None, :, :]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tri[:, :, None], seg, -torch.inf))
+    del seg
+    cb = torch.einsum("bcqn,bcjn->bcqj", Cc, Bc)
+    dW = torch.einsum("bcqhp,bcjhp->bcqjh", dyc, xc)
+    W = cb[..., None] * L * dtc[:, :, None]
+    dCB = (dW * L * dtc[:, :, None]).sum(-1)
+    M = W * dW
+    q_ddt = (cb[..., None] * L * dW).sum(2)
+    # 4. dx: the transposed causal triangle, the state term, the D skip
+    Gp = _parts(Gs, parts["state"])
+    dx = (torch.einsum("bcqjh,bcqhp->bcjhp", _parts(W, parts["weights"]),
+                       dyc)
+          + w[..., None] * torch.einsum("bcjn,bchpn->bcjhp", Bc, Gp)
+          + dyc * D.float()[:, None])
+    del L, W, dW
+    # 5. dB and dC
+    U = torch.einsum("bcqhp,bchpn->bcqhn", dyc,
+                     _parts(h_in, parts["state"]))
+    V = torch.einsum("bcjhp,bchpn->bcjhn", xc, Gp)
+    dCBp = _parts(dCB, parts["dcb"])
+    dC = (torch.einsum("bcqj,bcjn->bcqn", dCBp, Bc)
+          + torch.einsum("bcqh,bcqhn->bcqn", e, U))
+    dB = (torch.einsum("bcqj,bcqn->bcjn", dCBp, Cc)
+          + torch.einsum("bcjh,bcjhn->bcjn", w, V))
+    # 6. da from the intra-chunk weights, the inter-chunk term and the
+    # state update
+    dw = torch.einsum("bcjhn,bcjn->bcjh", V, Bc)
+    da = (M.sum(3) - M.sum(2)
+          + e * torch.einsum("bcqhn,bcqn->bcqh", U, Cc) - w * dw)
+    da[:, :, -1] += (torch.exp(a_last) * (Gs * h_in).sum((-1, -2))
+                     + (w * dw).sum(2))
+    del M
+    ddA = torch.flip(torch.cumsum(torch.flip(da, [2]), 2), [2])
+    ddt = q_ddt + torch.exp(a_last[:, :, None] - a) * dw + Af * ddA
+    dA = (ddA * dtc).sum((0, 1, 2))
+    dD = (dy.float() * x.float()).sum((0, 1, 3))
+
+    def rows(t, *tail):
+        return t.reshape(Bt, nc * Q, *tail)[:, :S]
+
+    return (rows(dx, H, P).to(x.dtype), rows(ddt, H), dA,
+            rows(dB, N).to(B.dtype), rows(dC, N).to(C.dtype), dD, dh0)
+
+
 def _row_strides(name: str, t: torch.Tensor):
     """(batch, sequence) strides of a (Bt, S, ...) tensor whose values of
     each position are contiguous."""
@@ -397,8 +531,9 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, D, dy, dh_final=None, *,
     """The backward kernel: same arguments and results as
     ``ssd_scan_bwd_torch``, all on one CUDA device.  x, B and C may be
     strided along batch and sequence, each position's values contiguous;
-    dy (x's shape and dtype), dt, A, D, h0 and dh_final are contiguous."""
-    global BWD_LAUNCHES
+    dy (x's shape and dtype), dt, A, D, h0 and dh_final are contiguous.
+    The route follows from the inputs (``bwd_chunked_route``)."""
+    global BWD_LAUNCHES, BWD_LAUNCHES_SCALAR
     if x.ndim != 4:
         raise ValueError(f"ssd_scan_bwd_cuda: x must be (Bt, S, H, P), got "
                          f"{tuple(x.shape)}")
@@ -436,10 +571,13 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, D, dy, dh_final=None, *,
     b_sb, b_ss = _row_strides("B", B)
     c_sb, c_ss = _row_strides("C", C)
     lib = _build.load()
-    n_ws = lib.ssd_scan_bwd_workspace(Bt, S, H, P, N, Q)
+    tc = bwd_chunked_route(x, B, C, dy, chunk)
+    n_ws = (lib.ssd_scan_bwd_tc_workspace if tc
+            else lib.ssd_scan_bwd_workspace)(Bt, S, H, P, N, Q)
     if n_ws < 0:
         raise ValueError(f"ssd_scan_bwd_cuda: (Bt, S, H, P, N, chunk) = "
-                         f"{(Bt, S, H, P, N, Q)} outside the kernel's "
+                         f"{(Bt, S, H, P, N, Q)} outside the "
+                         f"{'tensor-core' if tc else 'scalar'} route's "
                          f"limits (P, N in [1, {MAX_PN}], chunk up to "
                          f"{MAX_CHUNK}, Bt up to 65535)")
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -455,15 +593,21 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, D, dy, dh_final=None, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(x.device):
-        err = lib.ssd_scan_bwd_launch(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(), ptr(h0), dy.data_ptr(),
             ptr(dh_final), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), dD.data_ptr(), dh0.data_ptr(),
             ws.data_ptr(), Bt, S, H, P, N, Q, x_sb, x_ss, b_sb, b_ss, c_sb,
-            c_ss, DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "ssd_scan_bwd_launch")
+            c_ss)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        if tc:
+            err = lib.ssd_scan_bwd_tc_launch(*args, stream)
+            _build.check(err, "ssd_scan_bwd_tc_launch")
+        else:
+            err = lib.ssd_scan_bwd_launch(*args, DTYPE_CODES[x.dtype],
+                                          stream)
+            _build.check(err, "ssd_scan_bwd_launch")
+            BWD_LAUNCHES_SCALAR += 1
     BWD_LAUNCHES += 1
     return dx, ddt, dA, dB, dC, dD, dh0

@@ -955,6 +955,91 @@ def test_ssd_scan_bwd_torch_vs_jax_vjp_and_autograd(case):
                   f"{case[0]} {name} vs autograd")
 
 
+@pytest.mark.parametrize("case", SSD_BWD_CASES, ids=[c[0] for c in
+                                                      SSD_BWD_CASES])
+def test_ssd_scan_bwd_passes_torch_vs_jax_vjp_and_plain(case):
+    """The tensor-core route's passes in plain PyTorch (sequential
+    cumulative sums, the chunk states, the state passing, C.B^T and dW,
+    dx, dB and dC, da; fp32 operands of the products as bf16 parts,
+    ``BWD_KERNEL_PARTS``) against ``jax.vjp`` of the reference's chunked
+    scan and against the plain backward: fp32 within 1e-4 (two bf16 parts
+    are v to ~2^-17 relative), bf16 within 2e-2."""
+    chunk = case[1][-1]
+    rtol = 2e-2 if case[-1] == "bfloat16" else 1e-4
+    (jx, jdt, jA, jB, jC, jD, jh, jdy, jdh), \
+        (x, dt, A, B, C, D, h, dy, dh) = ssd_bwd_inputs(case)
+    got = tssd.ssd_scan_bwd_passes_torch(x, dt, A, B, C, D, dy, dh,
+                                         chunk=chunk, h0=h)
+    assert [g.dtype for g in got] == [x.dtype, torch.float32, torch.float32,
+                                      B.dtype, C.dtype, torch.float32,
+                                      torch.float32]
+    jh = jnp.zeros(dh.shape, jnp.float32) if jh is None else jh
+    _, vjp = jax.vjp(lambda *a: jops._ssd_jnp(*a[:6], chunk=chunk, h0=a[6]),
+                     jx, jdt, jA, jB, jC, jD, jh)
+    want = vjp((jdy, jdh))
+    plain = ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh, chunk=chunk, h0=h)
+    for name, g, w, p in zip(SSD_BWD_NAMES, got, want, plain):
+        rms_close(g.float().numpy(), np.asarray(w, np.float32), rtol,
+                  f"{case[0]} {name} vs jax.vjp")
+        rms_close(g.float().numpy(), p.float().numpy(), rtol,
+                  f"{case[0]} {name} vs the plain backward")
+
+
+def test_one_bf16_operand_fails_the_bwd_tolerance_and_two_parts_hold_it():
+    """Why the backward's tensor-core route gives its fp32 operands to the
+    tensor cores as bf16 parts: at a 512-long sequence in chunks of 256,
+    with x, B, C and dy in bf16 as the Mamba2 layer gives them, one bf16
+    value each puts dh0 (through the chunk states' cotangent sums) far
+    outside chip_smoke.py's 1e-3, element by element against the plain
+    backward; hi + lo holds ddt, dA and dh0, and the kernel's counts
+    (``BWD_KERNEL_PARTS``) hold every cotangent's tolerance.  fp32 plain
+    PyTorch on the CPU."""
+    smoke = _chip_smoke()
+    case = ("s512", (1, 512, 4, 64, 64, 256), True, None, "bfloat16")
+    _, (x, dt, A, B, C, D, h, dy, dh) = ssd_bwd_inputs(case, seed=9)
+    want = ssd_scan_bwd_torch(x, dt, A, B, C, D, dy, dh, chunk=256, h0=h)
+    ratio = {}
+    for label, parts in (("bf16", 1), ("hi_lo", 2), ("kernel", None)):
+        got = tssd.ssd_scan_bwd_passes_torch(x, dt, A, B, C, D, dy, dh,
+                                             chunk=256, h0=h, parts=parts)
+        ratio[label] = {
+            name: smoke.close(g, w, smoke.ssd_bwd_rtol(name, g.dtype))[1]
+            for name, g, w in zip(SSD_BWD_NAMES, got, want)}
+    assert ratio["bf16"]["dh0"] > 1.0, ratio
+    assert all(ratio["hi_lo"][n] < 0.1 for n in ("ddt", "dA", "dh0")), ratio
+    assert all(r <= 1.0 for r in ratio["kernel"].values()), ratio
+
+
+def test_ssd_scan_bwd_route_choice():
+    """The backward takes its tensor-core route where the forward takes
+    its chunked route (bf16 x, B, C; P and N multiples of 16 up to 64;
+    chunks of at most 256; 16-byte aligned bases and strides) and dy is
+    16-byte aligned too: the Mamba2 conv output's slices, zamba2_2p7b's
+    and the smoke config's.  The scalar route takes the rest: f32, P of
+    8, chunks of 512, a copy one element off alignment
+    (``chip_smoke.misaligned``) of x or of dy."""
+    smoke = _chip_smoke()
+
+    def route(S, H, P, N, chunk=256, dtype=torch.bfloat16, misalign=None):
+        conv = torch.zeros(2, S, H * P + 2 * N, dtype=dtype)
+        x = conv[..., :H * P].reshape(2, S, H, P)
+        dy = torch.zeros(2, S, H, P, dtype=dtype)
+        if misalign == "x":
+            x = smoke.misaligned(x)
+        if misalign == "dy":
+            dy = smoke.misaligned(dy)
+        return tssd.bwd_chunked_route(x, conv[..., H * P:H * P + N],
+                                      conv[..., H * P + N:], dy, chunk)
+
+    assert route(2048, 80, 64, 64) and route(40, 8, 16, 16, 16)
+    assert route(17, 4, 32, 48) and route(200, 4, 64, 64, 512)
+    assert not route(1000, 4, 64, 64, 512)
+    assert not route(100, 4, 64, 64, dtype=torch.float32)
+    assert not route(100, 4, 8, 64) and not route(100, 4, 64, 8)
+    assert not route(100, 4, 64, 64, misalign="x")
+    assert not route(100, 4, 64, 64, misalign="dy")
+
+
 def test_ssd_scan_bwd_torch_very_large_dt_vs_sequential_oracle():
     """dt up to 20 drives a within a chunk to -1000s: the chunked jnp
     path's own gradient is NaN there (its mask multiplies an overflowed
