@@ -76,9 +76,26 @@ never JAX.  Phases, each printing one JSON line:
                      under the dense phases' limits, and the bf16 step 0
                      against the fp32 one, within 1.25 times the plain
                      version's bf16 distance (``step0_upcast_check``),
-                     then 3 steps, the kernels' launches per step held
+                     then 4 steps, the kernels' launches per step held
                      exactly (the SSD scan's backward kernel among them),
-                     tokens/s, step time, peak memory and a profiled step.
+                     tokens/s, step time, peak memory and a profiled step;
+10. ``preempt``    — checkpoints and preempt/resume at full width
+                     (``BlockRuntime.suspend``/``resume`` through
+                     ``repro_torch.checkpoint.manager``, under a temporary
+                     directory): train_hybrid's job suspended after 3
+                     steps and resumed, its 4 losses and grad norms
+                     train_hybrid's bit for bit and the resumed step's
+                     launches exact; serve_paged's 12 sessions suspended
+                     after a third of their rounds, each session's tokens
+                     those of a run without a break; serve_hybrid's dense
+                     decode with an async save after 4 steps and a
+                     suspend after 8, its 16 tokens a row those of 16
+                     uninterrupted steps.  Each suspend leaves under 1%
+                     of the state's bytes on the card and each resume
+                     the state's per-leaf checksums; save, suspend and
+                     resume seconds and GB/s, the async save's overlap
+                     with the steps, ``progress_lost`` before and after
+                     the save, disk space and peak memory.
 
 Then one JSON line listing every kernel, the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Every JSON line is also
@@ -93,8 +110,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1715,29 +1734,15 @@ def phase_serve_dense(device="cuda", smoke=False):
 
 def phase_serve_paged(device="cuda", smoke=False):
     """The paged data plane: 12 generate sessions through 8 slots."""
-    import repro_torch.configs as configs
-    from repro_torch.core.block import BlockGrant
-    from repro_torch.core.runtime import BlockRuntime, JobSpec
-    from repro_torch.data import pipeline
     from repro_torch.models import model
-    from repro_torch.models.config import ShapeConfig
-    cfg = (configs.get_smoke("deepseek_7b") if smoke
-           else configs.get("deepseek_7b"))
-    max_seq, max_new, n_sess, longest = ((64, 6, 5, 40) if smoke
-                                         else (1024, 32, 12, 700))
-    job = JobSpec(cfg, ShapeConfig("smoke", "serve", seq_len=max_seq,
-                                   global_batch=1), kind="serve", seed=0,
-                  paged=True, page_size=16, max_slots=8,
-                  max_seq_len=max_seq)
-    rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0), job,
-                      devices=[device])
+    job = _paged_job(smoke)
+    cfg = job.cfg
+    max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
+    rt = _block(job, device)
     rt.init_state()
     sch = rt.sessions
-    toks = pipeline.synthetic_batch(
-        cfg, ShapeConfig("p", "prefill", longest, n_sess), step=1,
-        seed=0)["tokens"]
-    lens = np.linspace(17, longest, n_sess).astype(int)
-    prompts = [toks[i, :n].tolist() for i, n in enumerate(lens)]
+    prompts = _paged_prompts(cfg, smoke)
+    n_sess, lens = len(prompts), [len(p) for p in prompts]
 
     # hold the first admission prefill, the first one of another prompt
     # bucket that ends in a partial 64-row kv tile, and the first decode
@@ -1819,7 +1824,7 @@ def phase_serve_paged(device="cuda", smoke=False):
           f"admission prefill logits: {admits}")
     ttft = np.asarray([first_t[s] - submit_t[s] for s in submit_t])
     out = {"arch": cfg.name, "sessions": n_sess, "slots": 8,
-           "prompt_lens": lens.tolist(), "max_new_tokens": max_new,
+           "prompt_lens": lens, "max_new_tokens": max_new,
            "n_pages": sch.n_pages, "decode_rounds": rounds,
            "admissions": sch.admissions, "evictions": sch.evictions,
            "elapsed_s": elapsed, "tokens": n_tokens,
@@ -2223,8 +2228,406 @@ def phase_train_hybrid(device="cuda", smoke=False):
                         global_batch=2, microbatch=1)
     opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
     return _train_phase("train_hybrid", cfg, shape, opt_cfg, device,
-                        n_steps=2 if smoke else 3, profile=True,
+                        n_steps=2 if smoke else 4, profile=True,
                         step0=step0_upcast_check)
+
+
+# ---------------------------------------------------------------- preempt
+
+def _tensors(tree):
+    """The tensors of a nested dict, in sorted-key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def bit_checksums(tree, chunk: int = 1 << 26):
+    """Per-leaf checksums of the raw bits, computed where the leaf lies:
+    the sum and a position-weighted sum of its 32-bit words (16- or 8-bit
+    where its size is no multiple of 4), in int64 with wraparound."""
+    out = []
+    for t in _tensors(tree):
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        width = next(w for w in (4, 2, 1) if b.numel() % w == 0)
+        words = b.view({4: torch.int32, 2: torch.int16, 1: torch.uint8}[
+            width])
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for o in range(0, words.numel(), chunk):
+            w = words[o:o + chunk].to(torch.int64)
+            pos = torch.arange(o, o + w.numel(), device=t.device) % 1000003
+            s1 = s1 + w.sum()
+            s2 = s2 + (w * (pos + 1)).sum()
+        out.append((int(s1), int(s2)))
+    return out
+
+
+def _mem(device):
+    return (torch.cuda.memory_allocated() if device.type == "cuda"
+            else None)
+
+
+def _ckpt_files(rt):
+    """The latest checkpoint's bytes on disk and its leaf count."""
+    path = os.path.join(rt.ckpt.dir, f"step_{rt.ckpt.latest_step():08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        n = len(json.load(f)["leaves"])
+    return sum(os.path.getsize(os.path.join(path, x))
+               for x in os.listdir(path)), n
+
+
+def _disk_check(root, need, what):
+    free = shutil.disk_usage(root).free
+    progress(f"preempt {what}: {free / 1e9:.1f} GB free for a "
+             f"{need / 1e9:.1f} GB checkpoint")
+    check(free >= need + (1 << 30),
+          f"preempt {what}: {free / 1e9:.2f} GB free under {root}, the "
+          f"checkpoint needs {need / 1e9:.2f} GB and 1 GB to spare")
+    return free / 1e9
+
+
+def _suspend_resume(rt, name, root, base_mem):
+    """``suspend()``, the card's memory after it, then ``resume()``: the
+    timings, GB/s and memory of the pair; the state's checksums before
+    and after are held equal bit for bit."""
+    payload = rt._payload()
+    state_bytes = tree_bytes(payload)
+    free = _disk_check(root, state_bytes, name)
+    before = bit_checksums(payload)
+    del payload
+    lost = rt.progress_lost
+    t0 = time.perf_counter()
+    info = rt.suspend()
+    suspend_s = time.perf_counter() - t0
+    save_t = dict(rt.ckpt.timings)
+    held = _mem(rt.device)
+    ckpt_bytes, n_leaves = _ckpt_files(rt)
+    out = {"state_gb": state_bytes / 1e9, "ckpt_gb": ckpt_bytes / 1e9,
+           "ckpt_leaves": n_leaves, "disk_free_gb": free,
+           "progress_lost_before_save": lost,
+           "progress_lost_after_save": rt.progress_lost,
+           "drained_steps": info["drained_steps"],
+           "suspend_s": suspend_s,
+           "save_s": save_t["copy_s"] + save_t["write_s"],
+           "save_stages_s": save_t}
+    if held is not None:
+        out["mem_after_suspend_gb"] = (held - base_mem) / 1e9
+        out["reserved_after_suspend_gb"] = torch.cuda.memory_reserved() / 1e9
+        check(held - base_mem < 0.01 * state_bytes,
+              f"preempt {name}: {(held - base_mem) / 1e9:.3f} GB still "
+              f"allocated after suspend(), 1% of the state is "
+              f"{0.01 * state_bytes / 1e9:.3f} GB")
+    t0 = time.perf_counter()
+    at = rt.resume(rt.grant, [str(rt.device)])
+    rt._sync()
+    out["resume_s"] = time.perf_counter() - t0
+    out["restore_stages_s"] = dict(rt.ckpt.timings)
+    check(at == info["step"], f"preempt {name}: resumed at {at}, suspended "
+          f"at {info['step']}")
+    after = bit_checksums(rt._payload())
+    check(after == before, f"preempt {name}: the resumed state's checksums "
+          f"differ from the suspended state's in "
+          f"{sum(a != b for a, b in zip(after, before))} of {len(before)} "
+          f"leaves")
+    out["leaves_bitwise_equal"] = len(before)
+    for k in ("save", "suspend", "resume"):
+        out[f"{k}_gb_s"] = ckpt_bytes / 1e9 / out[f"{k}_s"]
+    return out
+
+
+def _block(job, device, root=None):
+    from repro_torch.core.block import BlockGrant
+    from repro_torch.core.runtime import BlockRuntime
+    rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0), job,
+                      devices=[device], ckpt_root=root)
+    if root is not None:
+        rt.ckpt.keep = 1            # one checkpoint on disk at a time
+    return rt
+
+
+def _peak(device):
+    if device.type == "cuda":
+        return torch.cuda.max_memory_allocated() / 1e9
+    return None
+
+
+def _preempt_train(device, smoke, root, train):
+    """zamba2_2p7b's train_hybrid job: 3 steps, suspend, resume, a 4th;
+    the 4 losses and grad norms are the uninterrupted run's, bit for
+    bit, and the resumed step's launches ``train_launches``'."""
+    import repro_torch.configs as configs
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    cfg = (configs.get_smoke("zamba2_2p7b") if smoke
+           else configs.get("zamba2_2p7b"))
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
+                        global_batch=2, microbatch=1)
+    opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=0,
+                  ckpt_namespace="train_hybrid")
+    n_before = 1 if smoke else 3
+    if train is None:                       # the uninterrupted run
+        rt = _block(job, device)
+        rt.init_state()
+        train = {"losses": [], "grad_norms": []}
+        for _ in range(n_before + 1):
+            m = rt.step()
+            train["losses"].append(m["loss"])
+            train["grad_norms"].append(m["grad_norm"])
+        del rt
+        _free(device)
+    dev = torch.device(device)
+    base = _mem(dev)
+    rt = _block(job, device, root)
+    rt.init_state()
+    hist = [rt.step() for _ in range(n_before)]
+    out = _suspend_resume(rt, "train_hybrid", root, base)
+    zero_counts()
+    hist.append(rt.step())
+    launches = counts()
+    want = (train_launches(cfg, shape, opt_cfg, rt.state["params"])
+            if dev.type == "cuda" else {n: 0 for n in COUNTERS})
+    check(launches == want, f"preempt train_hybrid: the resumed step's "
+          f"launches {launches}, want {want}")
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["grad_norm"] for h in hist]
+    ref = (train["losses"][:n_before + 1], train["grad_norms"][:n_before + 1])
+    check((losses, gnorms) == ref,
+          f"preempt train_hybrid: losses {losses} and grad norms {gnorms} "
+          f"across a suspend, uninterrupted {ref}")
+    out.update(arch=cfg.name, n_layers=cfg.n_layers, steps_before=n_before,
+               losses=losses, grad_norms=gnorms, uninterrupted_losses=ref[0],
+               resumed_step_launches=launches, peak_mem_gb=_peak(dev))
+    shutil.rmtree(rt.ckpt.dir)
+    return out, launches
+
+
+# the serve_paged traffic: 12 sessions through 8 slots, each generating
+# this many tokens (the second at smoke size)
+PAGED_NEW_TOKENS, PAGED_NEW_TOKENS_SMOKE = 32, 6
+
+
+def _paged_job(smoke, ns=None):
+    import repro_torch.configs as configs
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.models.config import ShapeConfig
+    cfg = (configs.get_smoke("deepseek_7b") if smoke
+           else configs.get("deepseek_7b"))
+    max_seq = 64 if smoke else 1024
+    return JobSpec(cfg, ShapeConfig("smoke", "serve", seq_len=max_seq,
+                                    global_batch=1), kind="serve", seed=0,
+                   paged=True, page_size=16, max_slots=8,
+                   max_seq_len=max_seq, ckpt_namespace=ns)
+
+
+def _paged_prompts(cfg, smoke):
+    """serve_paged's 12 prompts (17 to 700 tokens; 17 to 40 at smoke
+    size)."""
+    from repro_torch.data import pipeline
+    from repro_torch.models.config import ShapeConfig
+    longest = 40 if smoke else 700
+    toks = pipeline.synthetic_batch(
+        cfg, ShapeConfig("p", "prefill", longest, 12), step=1,
+        seed=0)["tokens"]
+    lens = np.linspace(17, longest, 12).astype(int)
+    return [toks[i, :n].tolist() for i, n in enumerate(lens)]
+
+
+def _feed(rt, rounds=None):
+    ems, n = [], 0
+    while not rt.idle_serve and (rounds is None or n < rounds):
+        ems.extend(rt.feed())
+        n += 1
+    return ems, n
+
+
+def _preempt_paged(device, smoke, root):
+    """deepseek_7b's serve_paged traffic (12 sessions through 8 slots,
+    greedy), once straight and once suspended after a third of its
+    rounds: each session's tokens are the same."""
+    job = _paged_job(smoke)
+    prompts = _paged_prompts(job.cfg, smoke)
+    max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
+    dev = torch.device(device)
+
+    def start(rt):
+        rt.init_state()
+        return [rt.start_session(p, max_new_tokens=max_new)
+                for p in prompts]
+
+    rt = _block(job, device)
+    sids = start(rt)
+    want, rounds = _feed(rt)
+    want_tokens = {s: rt.sessions.sessions[s].generated for s in sids}
+    del rt                                   # released before the fresh one
+    _free(device)
+
+    base = _mem(dev)
+    rt = _block(_paged_job(smoke, "serve_paged"), device, root)
+    start(rt)
+    got, _ = _feed(rt, rounds // 3)
+    states = [s.state for s in rt.sessions.sessions.values()]
+    running, queued = states.count("running"), states.count("queued")
+    check(running > 0 and queued > 0, f"preempt serve_paged: suspended "
+          f"with {running} sessions running and {queued} queued")
+    out = _suspend_resume(rt, "serve_paged", root, base)
+    zero_counts()
+    rest, _ = _feed(rt)
+    launches = counts()
+    got += rest
+    tokens = {s: rt.sessions.sessions[s].generated for s in sids}
+    check(tokens == want_tokens, f"preempt serve_paged: tokens across a "
+          f"suspend differ in sessions "
+          f"{[s for s in sids if tokens[s] != want_tokens[s]]}")
+    if dev.type == "cuda":
+        check(launches["paged_attention"] > 0
+              and launches["flash_attention"] > 0
+              and launches["paged_attention_scalar"] == 0,
+              f"preempt serve_paged: launches after resume {launches}")
+    out.update(arch=job.cfg.name, sessions=len(sids), rounds=rounds,
+               suspended_after_rounds=rounds // 3, running=running,
+               queued=queued, emissions_equal=got == want,
+               launches_after_resume=launches, peak_mem_gb=_peak(dev))
+    shutil.rmtree(rt.ckpt.dir)
+    return out, launches
+
+
+def _preempt_hybrid(device, smoke, root):
+    """zamba2_2p7b on the dense plane, 4 x 1000 prompt tokens: an async
+    save after 4 decode steps while steps 5-8 run, a suspend after 8,
+    resume, 8 more; the tokens are 16 uninterrupted steps'."""
+    import repro_torch.configs as configs
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.data import pipeline
+    from repro_torch.models.config import ShapeConfig
+    cfg = (configs.get_smoke("zamba2_2p7b") if smoke
+           else configs.get("zamba2_2p7b"))
+    B, P = (2, 24) if smoke else (4, 1000)
+    n1, n2, n3 = (2, 2, 4) if smoke else (4, 4, 8)
+    G = n1 + n2 + n3
+    job = JobSpec(cfg, ShapeConfig("cli", "serve", seq_len=P + G + 1,
+                                   global_batch=B), kind="serve", seed=0,
+                  ckpt_namespace="serve_hybrid")
+    batch = {"tokens": pipeline.synthetic_batch(
+        cfg, ShapeConfig("cli", "prefill", seq_len=P, global_batch=B),
+        step=0, seed=0)["tokens"]}
+    dev = torch.device(device)
+
+    def decode(rt, n):
+        toks, times = [], []
+        for _ in range(n):
+            m = rt.step()
+            times.append(m["step_s"])
+            toks.append(rt.token.cpu())
+        return toks, times
+
+    rt = _block(job, device)
+    rt.init_state()
+    rt.prefill(batch)
+    want, _ = decode(rt, G)
+    del rt
+    _free(device)
+
+    base = _mem(dev)
+    rt = _block(job, device, root)
+    rt.init_state()
+    rt.prefill(batch)
+    got, t_before = decode(rt, n1)
+    _disk_check(root, tree_bytes(rt._payload()), "serve_hybrid async")
+    lost_before = rt.progress_lost
+    t0 = time.perf_counter()
+    rt.save(async_=True)
+    save_call_s = time.perf_counter() - t0
+    lost_after = rt.progress_lost
+    t0 = time.perf_counter()
+    toks, t_during = decode(rt, n2)
+    during_s = time.perf_counter() - t0
+    got += toks
+    t0 = time.perf_counter()
+    rt.ckpt.wait()
+    wait_s = time.perf_counter() - t0
+    write_s = rt.ckpt.timings["write_s"]
+    delay = during_s - n2 * float(np.median(t_before))
+    first_steps = rt.ckpt.steps()
+    out = _suspend_resume(rt, "serve_hybrid", root, base)
+    check(first_steps == [n1] and rt.ckpt.steps() == [n1 + n2],
+          f"preempt serve_hybrid: checkpoints {first_steps} then "
+          f"{rt.ckpt.steps()} with keep=1")
+    check(rt.cache_len == P + n1 + n2, f"preempt serve_hybrid: cache_len "
+          f"{rt.cache_len} after resume")
+    zero_counts()
+    toks, _ = decode(rt, n3)
+    launches = counts()
+    got += toks
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "preempt serve_hybrid: tokens across an async save and a suspend "
+          "differ from uninterrupted decoding")
+    per_step = hybrid_launches(cfg)[1] if dev.type == "cuda" else {}
+    want_l = {n: n3 * per_step.get(n, 0) for n in COUNTERS}
+    check(launches == want_l, f"preempt serve_hybrid: launches after "
+          f"resume {launches}, want {want_l}")
+    out.update(arch=cfg.name, batch=B, prompt_len=P,
+               decode_steps=[n1, n2, n3],
+               async_save={"progress_lost_before": lost_before,
+                           "progress_lost_after": lost_after,
+                           "call_s": save_call_s,
+                           "stages_s": {"copy_s": save_call_s,
+                                        "write_s": write_s},
+                           "steps_during_s": during_s,
+                           "wait_after_steps_s": wait_s,
+                           # the write ran beside the steps for overlap_s,
+                           # and slowed them by step_delay_s: what it hid
+                           # is the difference
+                           "overlap_s": write_s - wait_s,
+                           "step_delay_s": delay,
+                           "hidden_share": (write_s - wait_s - delay)
+                           / write_s,
+                           "step_s_before": t_before,
+                           "step_s_during": t_during},
+               checkpoints_kept=rt.ckpt.steps(),
+               launches_after_resume=launches, peak_mem_gb=_peak(dev))
+    shutil.rmtree(rt.ckpt.dir)
+    return out, launches
+
+
+def phase_preempt(device="cuda", smoke=False, train=None):
+    """Checkpoints and preempt/resume at full width, three sub-runs, each
+    with its checkpoints under one temporary directory (one at a time,
+    ``keep=1``, removed before the next sub-run; the directory goes at
+    the end): train_hybrid suspended and resumed between steps 3 and 4
+    (``train``: train_hybrid's output, whose 4 steps it must equal; run
+    here when not given), serve_paged's 12 sessions suspended after a
+    third of their rounds, and serve_hybrid's dense decode with an async
+    save and a suspend.  Each sub-run gives its checkpoint's GB and
+    leaves, save, suspend and resume seconds and GB/s, progress_lost
+    before and after the save, the card's memory after suspend() (held
+    under 1% of the state) and peak memory."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_preempt_")
+    t0 = time.perf_counter()
+    out, launches = {}, {n: 0 for n in COUNTERS}
+    try:
+        for name, run in (("train_hybrid", lambda: _preempt_train(
+                               device, smoke, root, train)),
+                          ("serve_paged", lambda: _preempt_paged(
+                              device, smoke, root)),
+                          ("serve_hybrid", lambda: _preempt_hybrid(
+                              device, smoke, root))):
+            progress(f"preempt: {name}")
+            _free(device)
+            out[name], got = run()
+            launches = {n: launches[n] + got[n] for n in COUNTERS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = launches
+    emit("preempt", **out)
+    return out
 
 
 def main() -> int:
@@ -2245,12 +2648,13 @@ def main() -> int:
             _RECORD = None
 
 
-def _free() -> None:
+def _free(device="cuda") -> None:
     """Release the last phase's tensors (the paged phase's taps form a
     reference cycle) so the next phase's peak memory is its own."""
     gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
 
 
 def _run_all() -> int:
@@ -2273,6 +2677,8 @@ def _run_all() -> int:
     train_f32 = phase_train_f32()
     _free()
     train_hybrid = phase_train_hybrid()
+    _free()
+    preempt = phase_preempt(train=train_hybrid)
 
     nl = dense["launches"]
     check(nl["flash_attention"] >= 30 and nl["rmsnorm"] >= 61,
@@ -2286,7 +2692,8 @@ def _run_all() -> int:
     # exactly in their phases
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
             "train": train["launches"], "train_f32": train_f32["launches"],
-            "train_hybrid": train_hybrid["launches"]}
+            "train_hybrid": train_hybrid["launches"],
+            "preempt": preempt["launches"]}
 
     def launched(counter):
         return {run: c[counter] for run, c in runs.items()}
@@ -2298,7 +2705,8 @@ def _run_all() -> int:
             per_run = {"train": train["launches"]["fused_adamw_i8"],
                        "train_f32": train_f32["launches"]["fused_adamw_f32"],
                        "train_hybrid":
-                           train_hybrid["launches"]["fused_adamw_f32"]}
+                           train_hybrid["launches"]["fused_adamw_f32"],
+                       "preempt": preempt["launches"]["fused_adamw_f32"]}
         else:
             per_run = launched(name)
         total = sum(per_run.values())

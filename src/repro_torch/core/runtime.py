@@ -18,9 +18,16 @@ trains, and serves on the dense plane only: its recurrent state does not
 page, so a paged job raises the reference's ``ValueError``.
 
 One device per block: the sharding plans of the reference have no
-counterpart until the multi-GPU slice.  Checkpointing (``save``/
-``suspend``/``resume``/``restore``) raises ``NotImplementedError`` until
-its slice lands.
+counterpart until the multi-GPU slice.
+
+Preemption: ``suspend()`` drains the in-flight window, writes a
+synchronous checkpoint (``repro_torch.checkpoint.manager``, the
+reference's format) and drops every device reference, then hands the
+freed memory back to the card, so another block can have it;
+``resume(grant, devices)`` rebuilds the runtime on the given device and
+restores the suspended state into restore targets on the ``meta`` device
+(no random init).  ``rebuild`` starts a new runtime from an old block's
+checkpoints.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.block import BlockGrant
 from repro_torch.core.inflight import InflightWindow
 from repro_torch.data import pipeline
@@ -40,10 +48,6 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as train_lib
-
-_CKPT_LATER = ("checkpointing and preempt/resume are not yet ported: they "
-               "come with the checkpoint slice (checkpoint/manager.py)")
-
 
 @dataclasses.dataclass
 class JobSpec:
@@ -59,6 +63,14 @@ class JobSpec:
                                      # completion record (extra host
                                      # transfers per step; callers that
                                      # log every step opt in)
+    ckpt_namespace: Optional[str] = None  # stable checkpoint namespace so a
+                                          # relaunched launcher can
+                                          # --resume; default: the (random)
+                                          # block id
+    ckpt_every: int = 0              # periodic checkpoint interval (read by
+                                     # the reference's autostep engine;
+                                     # client-driven launchers call save()
+                                     # between batches themselves)
     # ---- serve: continuous batching over a paged KV cache ----
     paged: bool = False              # serve: slot-batched generate sessions
                                      # over a shared page pool instead of the
@@ -71,20 +83,30 @@ class JobSpec:
 
 
 class BlockRuntime(InflightWindow):
+    """``ckpt_root``: where the block's checkpoints go, under the job's
+    ``ckpt_namespace`` (default: the block id); without one, the
+    checkpoint calls raise."""
+
     def __init__(self, grant: BlockGrant, job: JobSpec,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None,
+                 ckpt_root: Optional[str] = None):
         if job.kind not in ("train", "serve"):
             raise ValueError(f"kind must be 'train' or 'serve', got "
                              f"{job.kind!r}")
         if job.kind == "serve" and job.paged:
             model_lib.check_paged_support(job.cfg)
         self.job = job
+        self.ckpt = (CheckpointManager(
+            ckpt_root, namespace=job.ckpt_namespace or grant.block_id)
+            if ckpt_root is not None else None)
         self.model: Optional[model_lib.Transformer] = None
         self.state: Any = None
         self.cache: Any = None
         self.sessions = None         # paged serve: the DecodeScheduler
         self._emissions: list = []   # paged serve: buffered generate events
         self.step_count = 0
+        self.last_saved_step = 0     # step_count at the last checkpoint
+        self.suspended = False
         self._init_window()
         self._attach(grant, devices)
 
@@ -131,16 +153,12 @@ class BlockRuntime(InflightWindow):
         job = self.job
         if job.kind == "train":
             self.state = train_lib.make_train_state(
-                job.cfg, job.seed, job.opt, params=params, device=self.device)
-            if opt_state is not None:
-                self.state["opt"] = opt_state
+                job.cfg, job.seed, job.opt, params=params,
+                opt_state=opt_state, device=self.device)
             return
-        self.model = model_lib.Transformer(job.cfg, params, seed=job.seed,
-                                           device=self.device)
-        params = self.model.params
-        self.state = {"params": params}
+        self._install_params(params)
         if job.paged:
-            self.sessions = self._make_scheduler(params)
+            self.sessions = self._make_scheduler(self.state["params"])
             self.token = self.sessions.last_tokens_dev
             return
         self.cache = model_lib.init_cache(job.cfg, job.shape.global_batch,
@@ -149,18 +167,26 @@ class BlockRuntime(InflightWindow):
         self.token = torch.zeros((job.shape.global_batch, 1),
                                  dtype=torch.int32, device=self.device)
 
+    def _install_params(self, params: Optional[Dict[str, Any]]) -> None:
+        """A serve block's model around ``params`` (random from
+        ``job.seed`` when None)."""
+        self.model = model_lib.Transformer(self.job.cfg, params,
+                                           seed=self.job.seed,
+                                           device=self.device)
+        self.state = {"params": self.model.params}
+
     def _paged_geometry(self) -> Dict[str, int]:
         job = self.job
         return dict(page_size=job.page_size, n_pages=job.n_pages,
                     max_slots=job.max_slots,
                     max_seq_len=job.max_seq_len or job.shape.seq_len)
 
-    def _make_scheduler(self, params):
+    def _make_scheduler(self, params, init_pool: bool = True):
         from repro_torch.serve.decode_scheduler import DecodeScheduler
         job = self.job
         return DecodeScheduler(job.cfg, params, sample=job.decode_sample,
-                               seed=job.seed, device=self.device,
-                               **self._paged_geometry())
+                               seed=job.seed, init_pool=init_pool,
+                               device=self.device, **self._paged_geometry())
 
     def prefill(self, batch: Dict[str, Any]) -> None:
         """Dense serve blocks: process a prompt batch into the KV cache and
@@ -287,14 +313,159 @@ class BlockRuntime(InflightWindow):
         return rec
 
     # ----------------------------------------------------------- persist
+    def _manager(self) -> CheckpointManager:
+        if self.ckpt is None:
+            raise ValueError("this block has no checkpoint root: build it "
+                             "with BlockRuntime(..., ckpt_root=...)")
+        return self.ckpt
+
+    def _decode_ctx(self) -> Dict[str, Any]:
+        """A serve block's generation context: without it a restored
+        decoder would restart from an empty cache at position 0.  Paged
+        serve saves the whole continuous-batching plane (page pool, page
+        tables, per-slot lengths, session metadata).  ``cache_len`` is an
+        int32 0-d leaf, as the reference's."""
+        if self.job.paged:
+            return {"paged": self.sessions.state_tree()}
+        return {"cache": self.cache, "token": self.token,
+                "cache_len": torch.tensor(self.cache_len,
+                                          dtype=torch.int32)}
+
+    def _abstract_like(self) -> Dict[str, Any]:
+        """Restore targets on the ``meta`` device: a resume allocates no
+        state just to overwrite it."""
+        job = self.job
+        if job.kind == "train":
+            return train_lib.abstract_train_state(job.cfg, job.opt)
+        return {"params": model_lib.abstract_params(job.cfg)}
+
+    def _abstract_decode(self) -> Dict[str, Any]:
+        if self.job.paged:
+            from repro_torch.serve.decode_scheduler import DecodeScheduler
+            return {"paged": DecodeScheduler.abstract_state(
+                self.job.cfg, **self._paged_geometry())}
+        shape = self.job.shape
+        B = shape.global_batch
+        return {"cache": serve_lib.abstract_cache(self.job.cfg, B,
+                                                  shape.seq_len),
+                "token": torch.empty((B, 1), dtype=torch.int32,
+                                     device="meta"),
+                "cache_len": torch.empty((), dtype=torch.int32,
+                                         device="meta")}
+
+    def _payload(self) -> Dict[str, Any]:
+        payload = {"state": self.state, "step_count": self.step_count}
+        if self.job.kind == "serve":
+            payload["decode"] = self._decode_ctx()
+        return payload
+
     def save(self, async_: bool = True) -> None:
-        raise NotImplementedError(_CKPT_LATER)
+        """Checkpoint the block at its step count.  ``async_``: the copy
+        to the host happens now, the files are written in the
+        background."""
+        ckpt = self._manager()
+        if self.state is None:
+            raise ValueError("nothing to save: the block has no state")
+        payload = self._payload()
+        if async_:
+            ckpt.save_async(self.step_count, payload)
+        else:
+            ckpt.save(self.step_count, payload)
+        self.last_saved_step = self.step_count
+
+    @property
+    def progress_lost(self) -> int:
+        """Steps of work beyond the last checkpoint: what an eviction
+        without ``suspend()`` would throw away."""
+        return max(0, self.step_count - self.last_saved_step)
 
     def suspend(self) -> Dict[str, float]:
-        raise NotImplementedError(_CKPT_LATER)
+        """Preemption: drain in-flight dispatches, checkpoint synchronously,
+        drop every device reference and hand the freed memory back to the
+        card.  The runtime object survives (job spec and checkpoint
+        namespace) and is rebuilt on a device with ``resume``."""
+        ckpt = self._manager()
+        drained = self.drain()
+        ckpt.wait()                      # an async save may still be landing
+        self.save(async_=False)
+        self.state = None
+        self.cache = None
+        self.model = None
+        self.token = None
+        self.cache_len = None
+        self.sessions = None         # device pool dropped; host session
+                                     # state lives in the checkpoint
+        self._step = self._prefill_fn = None
+        self.data = None
+        self._gen = None
+        device, self.devices = self.device, []
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        self.suspended = True
+        return {"step": self.step_count, "drained_steps": len(drained)}
 
     def resume(self, grant: BlockGrant, devices: Sequence) -> int:
-        raise NotImplementedError(_CKPT_LATER)
+        """Rebuild after preemption on ``devices`` and restore the
+        suspended state from the checkpoint.  Returns the step the block
+        resumed at."""
+        if not self.suspended:
+            raise ValueError("resume() is only legal after suspend()")
+        self._attach(grant, devices)
+        at = self.restore()
+        self.suspended = False
+        return at
 
     def restore(self, step: Optional[int] = None) -> int:
-        raise NotImplementedError(_CKPT_LATER)
+        """Load a checkpoint (the latest unless ``step``) into the block:
+        the live state's shapes are the targets, or, with no state, the
+        abstract ones.  Returns the restored step."""
+        ckpt = self._manager()
+        job = self.job
+        like = {"state": (self.state if self.state is not None
+                          else self._abstract_like()),
+                "step_count": self.step_count}
+        if job.kind == "serve":
+            have_ctx = (self.sessions is not None if job.paged
+                        else self.cache is not None)
+            like["decode"] = (self._decode_ctx() if have_ctx
+                              else self._abstract_decode())
+        restored, at = ckpt.restore(like, step=step, device=self.device)
+        state = restored["state"]
+        if job.kind == "train":
+            self.state = train_lib.make_train_state(
+                job.cfg, job.seed, job.opt, params=state["params"],
+                opt_state=state["opt"], device=self.device)
+        else:
+            self._install_params(state["params"])
+            dec = restored["decode"]
+            if job.paged:
+                if self.sessions is None:   # resume: no throwaway pool
+                    self.sessions = self._make_scheduler(
+                        self.state["params"], init_pool=False)
+                self.sessions.params = self.state["params"]
+                self.sessions.load_state(dec["paged"])
+                self.token = self.sessions.last_tokens_dev
+            else:
+                self.cache = dec["cache"]
+                self.token = dec["token"]
+                self.cache_len = int(dec["cache_len"])
+        self.step_count = int(restored["step_count"])
+        self.last_saved_step = self.step_count   # state == checkpoint now
+        return at
+
+    @classmethod
+    def rebuild(cls, old: "BlockRuntime", grant: BlockGrant,
+                devices: Sequence, ckpt_root: str) -> "BlockRuntime":
+        """Failure migration: a new runtime on ``devices`` with the old
+        block's state restored from its checkpoints (adopting its
+        namespace), or a fresh init when it has none."""
+        rt = cls(grant, old.job, devices, ckpt_root)
+        old_ckpt = old._manager()
+        old_ckpt.wait()
+        if old_ckpt.latest_step() is None:
+            rt.init_state()
+        else:
+            rt.ckpt = old_ckpt      # same namespace: adopt checkpoint history
+            rt.restore()
+        return rt

@@ -23,7 +23,9 @@ context.  Page 0 is the reserved trash page idle slots write into.
 PyTorch runs eagerly, so the reference's compile-cache wrappers have no
 counterpart, and the pool is updated in place where the JAX version
 donates it.  ``state_tree()``/``load_state()`` round-trip the whole state
-(pool, page table, per-slot lengths and host session metadata).
+(pool, page table, per-slot lengths and host session metadata) through
+the ``CheckpointManager``; ``abstract_state`` is its restore target, and
+``init_pool=False`` builds a scheduler for ``load_state`` with no pool.
 """
 from __future__ import annotations
 
@@ -444,16 +446,42 @@ class DecodeScheduler:
                 "tokens": self.tokens.copy(),
                 "meta": buf}
 
+    @classmethod
+    def abstract_state(cls, cfg: ModelConfig, *, page_size: int,
+                       n_pages: int, max_slots: int,
+                       max_seq_len: int) -> Dict[str, Any]:
+        """``state_tree()``'s restore target on the ``meta`` device: a
+        resume allocates no pool just to overwrite it."""
+        geo = paged_geometry(cfg, page_size=page_size, n_pages=n_pages,
+                             max_slots=max_slots, max_seq_len=max_seq_len)
+        slots = geo["max_slots"]
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        return {"pool": model_lib.init_paged_cache(
+                    cfg, geo["n_pages"], geo["page_size"], "meta"),
+                "page_table": meta((slots, geo["pages_per_seq"])),
+                "seq_lens": meta((slots,)),
+                "tokens": meta((slots, 1)),
+                "meta": meta((META_CAP,), torch.uint8)}
+
     def load_state(self, tree: Dict[str, Any]) -> None:
         """Adopt a saved state; pool leaves (tensors or numpy arrays) land
-        on this scheduler's device."""
+        on this scheduler's device, host leaves (numpy arrays or tensors
+        on any device) on the host."""
+        def host(x, dtype):
+            if isinstance(x, torch.Tensor):
+                x = x.cpu().numpy()
+            return np.asarray(x, dtype).copy()
+
         self.pool = {k: torch.as_tensor(v).to(self.device)
                      for k, v in tree["pool"].items()}
-        self.page_table = np.asarray(tree["page_table"], np.int32).copy()
-        self.seq_lens = np.asarray(tree["seq_lens"], np.int32).copy()
-        self.tokens = np.asarray(tree["tokens"], np.int32).copy()
+        self.page_table = host(tree["page_table"], np.int32)
+        self.seq_lens = host(tree["seq_lens"], np.int32)
+        self.tokens = host(tree["tokens"], np.int32)
         self.last_tokens_dev = torch.tensor(self.tokens, device=self.device)
-        buf = np.asarray(tree["meta"], np.uint8)
+        buf = host(tree["meta"], np.uint8)
         n = int(np.frombuffer(buf[:8].tobytes(), np.uint64)[0])
         meta = json.loads(buf[8:8 + n].tobytes().decode())
         self._next_id = int(meta["next_id"])

@@ -1,6 +1,7 @@
 """Serving step factories: batched prefill and single-token decode (the
 port of ``repro.serve.serve_step``).  Sampling draws from an explicit
-``torch.Generator``."""
+``torch.Generator``.  ``abstract_cache`` is a decode cache's restore target
+on the ``meta`` device."""
 from __future__ import annotations
 
 from typing import Optional
@@ -38,3 +39,7 @@ def make_decode_step(cfg: ModelConfig, *, sample: bool = False,
         nxt = pick(logits, sample=sample, gen=gen, temperature=temperature)
         return nxt[:, None], cache
     return decode_step
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, smax: int):
+    return model_lib.init_cache(cfg, batch, smax, "meta")

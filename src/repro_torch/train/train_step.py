@@ -24,13 +24,24 @@ from repro_torch.train import optimizer as opt_lib
 
 def make_train_state(cfg: ModelConfig, seed: int, opt_cfg: opt_lib.OptConfig,
                      *, params: Optional[Dict[str, Any]] = None,
+                     opt_state: Optional[Dict[str, Any]] = None,
                      device="cuda") -> Dict[str, Any]:
     """{"params": tree of leaves that require grad, "opt": optimizer
     state}.  Random weights from ``seed`` unless ``params`` is given (e.g.
-    moved across from the JAX package with ``interop``)."""
+    moved across from the JAX package with ``interop``, or restored from
+    a checkpoint); fresh moments unless ``opt_state`` is given."""
     net = model_lib.Transformer(cfg, params, seed=seed, device=device,
                                 requires_grad=True)
     params = net.params
+    if opt_state is None:
+        opt_state = opt_lib.init(params, opt_cfg)
+    return {"params": params, "opt": opt_state}
+
+
+def abstract_train_state(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig):
+    """The train state's restore target: its tree on the ``meta``
+    device."""
+    params = model_lib.abstract_params(cfg)
     return {"params": params, "opt": opt_lib.init(params, opt_cfg)}
 
 

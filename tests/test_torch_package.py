@@ -169,11 +169,12 @@ def test_every_ctypes_signature_matches_its_c_prototype():
 
 
 #: files the port has and the JAX package has not: the device and interop
-#: helpers, the CUDA build and sources, and the ``__init__.py`` of the six
+#: helpers, the CUDA build and sources, and the ``__init__.py`` of the seven
 #: packages that the JAX package keeps as namespace packages
 PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
-             "data/__init__.py", "launch/__init__.py", "models/__init__.py",
-             "serve/__init__.py", "train/__init__.py"}
+             "checkpoint/__init__.py", "data/__init__.py",
+             "launch/__init__.py", "models/__init__.py", "serve/__init__.py",
+             "train/__init__.py"}
 
 
 def test_every_module_has_its_reference_counterpart():

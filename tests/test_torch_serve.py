@@ -308,9 +308,11 @@ def test_launcher_main_on_cpu(capsys, sample):
     assert "# prefill:" in out and "# decode:" in out
 
 
-def test_runtime_rejects_what_later_slices_port(setup):
-    """Checkpoint calls wait for the checkpoint slice and ``overlap_comm``
-    for the multi-GPU slices; an unknown kind is refused."""
+def test_runtime_rejects_what_later_slices_port(setup, tmp_path):
+    """``overlap_comm`` waits for the multi-GPU slices and an unknown kind
+    is refused.  The checkpoint calls work: with a ``ckpt_root`` a serve
+    and a train block save, suspend, resume and restore at their step;
+    without one they raise."""
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import train_step as train_lib
     jcfg, cfg, jp, tp = setup
@@ -320,11 +322,20 @@ def test_runtime_rejects_what_later_slices_port(setup):
         BlockRuntime(grant, JobSpec(cfg, shape, kind="eval"),
                      devices=["cpu"])
     for kind in ("serve", "train"):
-        rt = BlockRuntime(grant, JobSpec(cfg, shape, kind=kind),
-                          devices=["cpu"])
-        for call in (rt.save, rt.suspend, rt.restore):
-            with pytest.raises(NotImplementedError, match="checkpoint"):
+        bare = BlockRuntime(grant, JobSpec(cfg, shape, kind=kind),
+                            devices=["cpu"])
+        for call in (bare.save, bare.suspend, bare.restore):
+            with pytest.raises(ValueError, match="checkpoint root"):
                 call()
+        rt = BlockRuntime(grant, JobSpec(cfg, shape, kind=kind),
+                          devices=["cpu"], ckpt_root=str(tmp_path / kind))
+        rt.init_state()
+        rt.step()
+        rt.save(async_=False)
+        assert rt.ckpt.steps() == [1] and rt.progress_lost == 0
+        assert rt.suspend()["step"] == 1 and rt.state is None
+        assert rt.resume(grant, ["cpu"]) == 1 and not rt.suspended
+        assert rt.restore() == 1 and rt.step_count == 1
     with pytest.raises(NotImplementedError, match="overlap_comm"):
         train_lib.make_train_step(cfg, shape, opt_lib.OptConfig(),
                                   overlap_comm=True)

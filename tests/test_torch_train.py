@@ -302,7 +302,9 @@ def test_train_step_mixed_accum_and_overlap_comm(tiny):
 
 def test_train_runtime_matches_jax(tiny, tmp_path):
     """``BlockRuntime(kind="train")``: ``step`` and the in-flight window
-    with ``collect_metrics`` give the JAX block's losses, step for step."""
+    with ``collect_metrics`` give the JAX block's losses, step for step,
+    and after the port's block is suspended and resumed its next step
+    still gives the JAX block's."""
     jcfg, cfg, jp = tiny
     kw = dict(lr=1e-2, warmup_steps=1, total_steps=10, eps=1e-3)
     shape_kw = dict(seq_len=16, global_batch=2)
@@ -314,7 +316,7 @@ def test_train_runtime_matches_jax(tiny, tmp_path):
                    [jax.devices()[0]], str(tmp_path / "ckpt"))
     jrt.init_state()
     rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 60.0), job,
-                      devices=["cpu"])
+                      devices=["cpu"], ckpt_root=str(tmp_path / "port"))
     st = np_tree(jrt.state)
     rt.init_state(params=port_params(st["params"]),
                   opt_state=interop.opt_state_from_numpy(st["opt"], "cpu"))
@@ -332,9 +334,12 @@ def test_train_runtime_matches_jax(tiny, tmp_path):
         np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-4)
         assert g["step_s"] >= 0
     assert rt.step_count == jrt.step_count == 4
-    for call in (rt.save, rt.suspend, rt.restore):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            call()
+    rt.save()
+    assert rt.suspend() == {"step": 4, "drained_steps": 0}
+    assert rt.resume(rt.grant, ["cpu"]) == 4 and rt.ckpt.steps() == [4]
+    want, got = jrt.step(), rt.step()
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4)
 
 
 def test_launcher_main_on_cpu(capsys):
@@ -379,7 +384,9 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
     bf16) among them: the plain versions run (no kernel launches), the
     step-0 checks against ``impl="torch"`` are exact, the bf16 step 0's
     distance from the fp32 one is the plain version's, and the losses are
-    finite.  The launches the card is held to per step
+    finite.  The ``preempt`` phase's three sub-runs continue across a
+    suspend as their uninterrupted runs do (its train sub-run's losses
+    are train_hybrid's).  The launches the card is held to per step
     (``train_launches``): the dense train phase's (30 layers) and
     train_f32's (4 layers, 2 microbatches) as read on the card, and in a
     full-width hybrid step 90 SSD scans (forward and remat), 45 SSD
@@ -409,6 +416,18 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
     assert out["arch"] == "zamba2_2p7b_smoke"
     assert checks["f32"]["within_rtol"] and checks["bf16_vs_f32"][
         "within_rtol"]
+    pre = smoke.phase_preempt(device="cpu", smoke=True)
+    train = pre["train_hybrid"]
+    assert train["losses"] == train["uninterrupted_losses"] == out["losses"]
+    assert pre["serve_paged"]["emissions_equal"]
+    assert pre["serve_paged"]["running"] and pre["serve_paged"]["queued"]
+    assert pre["serve_hybrid"]["checkpoints_kept"] == [4]
+    assert pre["serve_hybrid"]["async_save"]["progress_lost_after"] == 0
+    for sub in ("train_hybrid", "serve_paged", "serve_hybrid"):
+        assert pre[sub]["progress_lost_before_save"] > 0
+        assert pre[sub]["progress_lost_after_save"] == 0
+        assert pre[sub]["leaves_bitwise_equal"] > 0
+    assert set(pre["launches"].values()) == {0}
     for k in exact:
         assert checks["bf16_vs_f32"][k] == checks["bf16_plain_vs_f32"][k]
 
