@@ -39,18 +39,29 @@ never JAX.  Phases, each printing one JSON line:
                      its tensor-core kernels' ptxas lines free of spills;
 4. ``serve_dense`` — ``repro_torch.launch.serve`` on deepseek_7b at full
                      width (random bf16 weights from the seed): batched
-                     prefill + greedy decode, the kernels' launch counts,
-                     and the prefill logits against the same path with
-                     ``impl="torch"``;
+                     prefill + greedy decode, the decode steps as CUDA
+                     graph replays (one capture, a replay a step, no
+                     eager decode step), the kernels' launches exactly,
+                     the prefill logits against the same path with
+                     ``impl="torch"``, and 31 replays against 31 eager
+                     steps from one state (every token and the cache's
+                     bits equal; ``captured_vs_eager``), with a sampling
+                     job's captured decode against its eager one on both
+                     planes at smoke size (``sampled_vs_eager``);
 5. ``serve_paged`` — a paged serve ``BlockRuntime`` on the same model: 12
-                     generate sessions through 8 slots, the launch counts,
-                     the logits of two admission prefills (two prompt
-                     buckets) and of the first decode round against
-                     ``impl="torch"``, tokens/s and TTFT;
+                     generate sessions through 8 slots, the decode rounds
+                     as graph replays, the launches exactly, the logits
+                     of two admission prefills (two prompt buckets) and
+                     of the first decode round against ``impl="torch"``,
+                     tokens/s and TTFT, then the same traffic with the
+                     rounds run eagerly from the same (empty) state: every
+                     session's tokens and the pool's bits equal;
 6. ``serve_hybrid`` — ``repro_torch.launch.serve`` on zamba2_2p7b (the
                      hybrid family: Mamba2 + shared attention) at full
                      width, 54 layers, random bf16 weights from the seed:
-                     4 x 1000 prompt tokens, 32 generated; the launches of
+                     4 x 1000 prompt tokens, 32 generated, the decode
+                     steps as graph replays held against eager ones as in
+                     ``serve_dense``; the launches of
                      one prefill and one decode step, exactly; the prefill
                      logits and the first decode step's (from the state
                      each prefill left) against ``impl="torch"`` in fp32
@@ -90,15 +101,22 @@ never JAX.  Phases, each printing one JSON line:
                      those of a run without a break; serve_hybrid's dense
                      decode with an async save after 4 steps and a
                      suspend after 8, its 16 tokens a row those of 16
-                     uninterrupted steps.  Each suspend leaves under 1%
-                     of the state's bytes on the card and each resume
-                     the state's per-leaf checksums; save, suspend and
+                     uninterrupted steps.  Each suspend releases the
+                     block's decode graph and leaves under 1% of the
+                     state's bytes on the card, each resume is a hit of
+                     the compile cache (no new miss) and captures once
+                     again, and it restores the state's per-leaf
+                     checksums; save, suspend and
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
                      the save, disk space and peak memory.
 
-Then one JSON line listing every kernel, the ``nvidia-smi`` line, and as
-the last line ``{"ok": true, "device": {...}}``.  Every JSON line is also
+Then one JSON line (``decode_capture``) giving each decode path's step
+wall time, idle share and tok/s run eagerly and as graph replays, its
+capture time and graph pool, beside the ``nvidia-smi`` line; one JSON line
+listing every kernel (its launches inside graphs among them), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.  Every JSON line is also
 written to ``build/chip_smoke.jsonl`` beside the script, whole (the
 kernels line is longer than a terminal's tail).  Any failed check exits
 non-zero without that line; so does a machine without CUDA or a
@@ -189,6 +207,7 @@ GUARD_MS = {"ssd_scan": 0.6, "rmsnorm_bwd": 0.07, "ssd_scan_bwd": 1.0}
 
 
 _RECORD = None     # main() opens build/chip_smoke.jsonl here
+_CARD = None       # phase_device's nvidia-smi line, beside every time
 
 
 def emit(phase: str, **data) -> None:
@@ -479,6 +498,8 @@ def phase_device():
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "capability": list(torch.cuda.get_device_capability(0))}
+    global _CARD
+    _CARD = smi
     emit("device", **info)
     return info
 
@@ -1682,8 +1703,156 @@ def phase_kernels():
     return out
 
 
+def dense_launches(cfg):
+    """The kernels' launches in one dense prefill (or paged admission),
+    one decode step and one paged round: a layer runs one flash attention
+    (prefill only) or one paged attention (a paged round) and two
+    RMSNorms, the final norm one."""
+    zero = {n: 0 for n in COUNTERS}
+    L, norms = cfg.n_layers, 2 * cfg.n_layers + 1
+    return ({**zero, "flash_attention": L, "rmsnorm": norms},
+            {**zero, "rmsnorm": norms},
+            {**zero, "paged_attention": L, "rmsnorm": norms})
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _eager_calls():
+    from repro_torch.train import compile_cache
+    return compile_cache.EAGER_CALLS
+
+
+def _zero_eager_calls():
+    from repro_torch.train import compile_cache
+    compile_cache.EAGER_CALLS = 0
+
+
+def graph_check(name, graph, steps, eager_calls, device):
+    """The main path's decode ran as graph replays: one capture, a replay
+    a step, and no eager decode step (on the CPU: every step eager)."""
+    st = graph.stats()
+    if torch.device(device).type == "cuda":
+        check(st["captures"] == 1 and st["replays"] == steps
+              and st["eager_calls"] == 0 and eager_calls == 0,
+              f"{name}: {steps} decode steps on the main path, graph "
+              f"{st}, {eager_calls} eager decode steps")
+    else:
+        check(st["captures"] == st["replays"] == 0
+              and st["eager_calls"] == steps,
+              f"{name}: {steps} decode steps on the CPU, graph {st}")
+    return {**st, "card": _CARD}
+
+
+def captured_vs_eager(rt, batch, n):
+    """A dense-plane block's captured decode against its step function run
+    eagerly, from one state (a prefill of ``batch`` into the block's
+    zeroed cache, and a copy of it): ``n`` steps each, every token and
+    the final cache's bit checksums equal.  Each loop ends every step in
+    the launcher's ``token.cpu()``: their seconds and tok/s are decode
+    before and after capture.  Returns the record, the eager copy of the
+    cache and its position scalar (for a profile of the eager step); the
+    check's launches are not the main path's."""
+    saved = counts()
+    graph = rt.decode_graph
+    for t in _tensors(rt.cache):       # in place: the graph keeps its cache
+        t.zero_()
+    rt.prefill(batch)
+    params, B, P = rt.state["params"], rt.token.shape[0], rt.cache_len
+    cache, first = _clone(rt.cache), rt.token.clone()
+    pos = torch.zeros((), dtype=torch.int32, device=rt.device)
+    rt._sync()
+    t0 = time.perf_counter()
+    tok, eager = first, []
+    for i in range(n):
+        pos.fill_(P + i)
+        tok, _ = graph.fn(params, tok, cache, pos, None)
+        eager.append(tok.cpu())
+    eager_s = time.perf_counter() - t0
+    replays = graph.replays
+    t0 = time.perf_counter()
+    captured = []
+    for _ in range(n):
+        rt.step()
+        captured.append(rt.token.cpu())
+    captured_s = time.perf_counter() - t0
+    set_counts(saved)
+    out = {"steps": n,
+           "tokens_equal": all(torch.equal(a, b)
+                               for a, b in zip(eager, captured)),
+           "cache_bitwise_equal": bit_checksums(cache)
+           == bit_checksums(rt.cache),
+           "replays": graph.replays - replays,
+           "eager_s": eager_s, "captured_s": captured_s,
+           "eager_tok_s": B * n / eager_s,
+           "captured_tok_s": B * n / captured_s, "card": _CARD}
+    check(out["tokens_equal"] and out["cache_bitwise_equal"],
+          f"captured decode against eager from one state: {out}")
+    if rt.device.type == "cuda":
+        check(out["replays"] == n, f"captured decode: {out}")
+    return out, cache, first, pos
+
+
+def sampled_vs_eager(device):
+    """A sampling job's decode on the dense and the paged plane, at
+    deepseek_7b's smoke size: captured with its generator registered,
+    against the same block (the same seed) run eagerly, token for token
+    over 8 steps (4 sessions of 8 tokens on the paged plane, whose
+    admissions draw eagerly in between).  The check's launches are not
+    the main path's."""
+    import repro_torch.configs as configs
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.data import pipeline
+    from repro_torch.models.config import ShapeConfig
+    saved = counts()
+    cfg = configs.get_smoke("deepseek_7b")
+    prompt = pipeline.synthetic_batch(
+        cfg, ShapeConfig("p", "prefill", 16, 2), step=0, seed=0)["tokens"]
+    out = {}
+    for plane in ("dense", "paged"):
+        runs = []
+        for capture in (False, True):
+            if plane == "dense":
+                job = JobSpec(cfg, ShapeConfig("s", "serve", 32, 2),
+                              kind="serve", seed=0, decode_sample=True)
+            else:
+                job = dataclasses.replace(_paged_job(True),
+                                          decode_sample=True)
+            rt = _block(job, device)
+            rt.init_state()
+            rt.decode_graph.capture = capture
+            if plane == "dense":
+                rt.prefill({"tokens": prompt})
+                toks = []
+                for _ in range(8):
+                    rt.step()
+                    toks.append(rt.token.cpu())
+                toks = torch.cat(toks, 1).tolist()
+            else:
+                for p in _paged_prompts(cfg, True)[:4]:
+                    rt.start_session(p, max_new_tokens=8)
+                toks = [(e["session"], e["token"]) for e in _feed(rt)[0]
+                        if e["event"] == "token"]
+            runs.append((toks, rt.decode_graph.stats()))
+            del rt
+        (want, _), (got, st) = runs
+        out[plane] = {"tokens_equal": got == want, "graph": st}
+        on_card = torch.device(device).type == "cuda"
+        check(got == want and (not on_card or (
+            st["captures"] == 1 and st["replays"] > 0
+            and st["eager_calls"] == 0)),
+            f"sampled {plane} decode, captured against eager: {out}")
+    set_counts(saved)
+    return out
+
+
 def phase_serve_dense(device="cuda", smoke=False):
-    """The dense data plane through the launcher's entry point."""
+    """The dense data plane through the launcher's entry point: the
+    decode steps as graph replays, each kernel's launches exact, then the
+    captured decode against the eager one from one state."""
     from repro_torch.launch import serve
     from repro_torch.models import model
     argv = ["--arch", "deepseek_7b", "--batch", "4", "--prompt-len", "512",
@@ -1693,10 +1862,19 @@ def phase_serve_dense(device="cuda", smoke=False):
                            "--gen", "6", "--device", device]
     args = serve.parse_args(argv)
     zero_counts()
+    _zero_eager_calls()
     res = serve.run(args)
     launches = counts()
     rt, cfg = res["runtime"], res["cfg"]
     B, P, G = args.batch, args.prompt_len, args.gen
+    graph = graph_check("serve_dense", rt.decode_graph, G - 1,
+                        _eager_calls(), device)
+    pre, dec, _ = dense_launches(cfg)
+    if rt.device.type != "cuda":
+        pre = dec = {n: 0 for n in COUNTERS}
+    check(launches == {n: pre[n] + (G - 1) * dec[n] for n in COUNTERS},
+          f"dense main path launches {launches}: not one prefill {pre} and "
+          f"{G - 1} decode steps {dec}")
     toks = res["tokens"]
     check(toks.shape == (B, G) and toks.min() >= 0
           and toks.max() < cfg.vocab_size, f"dense tokens {toks.shape}")
@@ -1713,11 +1891,16 @@ def phase_serve_dense(device="cuda", smoke=False):
     check(chk["passed"], f"dense prefill logits: {chk}")
     check(bool((torch.argmax(got, -1).cpu().numpy() == toks[:, 0]).all()),
           "the runtime's first token is not the prefill logits' argmax")
+    del got, want
+    vs_eager, eager_cache, first, pos = captured_vs_eager(
+        rt, {"tokens": tokens}, G - 1)
     out = {"arch": cfg.name, "batch": B, "prompt_len": P, "gen": G,
            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
            "prefill_tok_s": B * P / res["prefill_s"],
            "decode_tok_s": B * (G - 1) / res["decode_s"],
-           "launches": launches,
+           "launches": launches, "decode_graph": graph,
+           "captured_vs_eager": vs_eager,
+           "sampled_vs_eager": sampled_vs_eager(device),
            "logits_check": chk}
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1726,8 +1909,14 @@ def phase_serve_dense(device="cuda", smoke=False):
         cache = model.init_cache(cfg, B, P, rt.device)
         out["warm_prefill"] = profile_steps(
             lambda: model.prefill(params, cfg, {"tokens": tokens}, cache), 2)
+        del cache
         rt.prefill({"tokens": tokens})         # cache_len back to P
         out["warm_decode_step"] = profile_steps(rt.step, 3)
+        # the same step eagerly, on the check's copy of the cache
+        pos.fill_(P)
+        out["warm_decode_step_eager"] = profile_steps(
+            lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
+                                       None), 3)
     emit("serve_dense", **out)
     return out
 
@@ -1792,22 +1981,21 @@ def phase_serve_paged(device="cuda", smoke=False):
 
     sch._admit_prefill, sch._decode_step = tapped_admit, tapped_decode
     zero_counts()
-    t0 = time.perf_counter()
-    submit_t, first_t = {}, {}
-    for p in prompts:
-        sid = rt.start_session(p, max_new_tokens=max_new)
-        submit_t[sid] = time.perf_counter()
-    emissions = []
-    while not rt.idle_serve:
-        ems = rt.feed()
-        now = time.perf_counter()          # feed() ends in a host sync
-        for e in ems:
-            if e["event"] == "token" and e["session"] not in first_t:
-                first_t[e["session"]] = now
-        emissions.extend(ems)
-    elapsed = time.perf_counter() - t0
+    _zero_eager_calls()
+    emissions, elapsed, ttft = _paged_traffic(rt, prompts, max_new)
     launches = counts()
     rounds = tap["rounds"]
+    graph = graph_check("serve_paged", sch.decode_graph, rounds,
+                        _eager_calls(), device)
+    pre, _, per_round = dense_launches(cfg)
+    if rt.device.type != "cuda":
+        pre = per_round = {n: 0 for n in COUNTERS}
+    check(launches == {n: sch.admissions * pre[n] + rounds * per_round[n]
+                       for n in COUNTERS},
+          f"paged main path launches {launches}: not {sch.admissions} "
+          f"admissions {pre} and {rounds} rounds {per_round}")
+    want_tokens = {s.sid: list(s.generated) for s in sch.sessions.values()}
+    want_pool = bit_checksums(sch.pool)
     finished = [e for e in emissions if e["event"] == "finished"]
     n_tokens = sum(1 for e in emissions if e["event"] == "token")
     check(len(finished) == n_sess and sch.finished == n_sess,
@@ -1822,7 +2010,6 @@ def phase_serve_paged(device="cuda", smoke=False):
           f"first paged decode round logits: {chk}")
     check(len(admits) == 2 and all(c["passed"] for c in admits),
           f"admission prefill logits: {admits}")
-    ttft = np.asarray([first_t[s] - submit_t[s] for s in submit_t])
     out = {"arch": cfg.name, "sessions": n_sess, "slots": 8,
            "prompt_lens": lens, "max_new_tokens": max_new,
            "n_pages": sch.n_pages, "decode_rounds": rounds,
@@ -1831,19 +2018,74 @@ def phase_serve_paged(device="cuda", smoke=False):
            "tok_s": n_tokens / elapsed,
            "ttft_p50_s": float(np.percentile(ttft, 50)),
            "ttft_p99_s": float(np.percentile(ttft, 99)),
-           "launches": launches, "logits_check": chk,
-           "admission_logits_checks": admits}
+           "launches": launches, "decode_graph": graph,
+           "logits_check": chk, "admission_logits_checks": admits}
     if rt.device.type == "cuda":
         out["pool_gb"] = sum(v.numel() * v.element_size()
                              for v in sch.pool.values()) / 1e9
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        # a warm decode round with all 8 slots busy (after their admission)
-        for p in prompts[:8]:
-            rt.start_session(p, max_new_tokens=max_new)
-        rt.feed()
-        out["warm_decode_round"] = profile_steps(rt.feed, 3)
+        out["warm_decode_round"] = _warm_round(rt, prompts, max_new)
+
+    # the same traffic from the same state (a fresh scheduler: an empty
+    # pool) with the decode round run eagerly: every session's tokens and
+    # the pool's bits equal; its seconds and tok/s are before capture
+    saved = counts()
+    del sch._admit_prefill, sch._decode_step     # the taps' cycle
+    sch.decode_graph.release()
+    rt.sessions = sch = None
+    _free(device)
+    rt.sessions = sch = rt._make_scheduler(rt.state["params"])
+    sch.decode_graph.capture = False
+    ems, eager_s, eager_ttft = _paged_traffic(rt, prompts, max_new)
+    got_tokens = {s.sid: list(s.generated) for s in sch.sessions.values()}
+    out["captured_vs_eager"] = {
+        "rounds": sch.decode_graph.eager_calls,
+        "tokens_equal": got_tokens == want_tokens,
+        "pool_bitwise_equal": bit_checksums(sch.pool) == want_pool,
+        "eager_s": eager_s, "captured_s": elapsed,
+        "eager_tok_s": n_tokens / eager_s, "captured_tok_s": out["tok_s"],
+        "eager_ttft_p50_s": float(np.percentile(eager_ttft, 50)),
+        "card": _CARD}
+    check(out["captured_vs_eager"]["tokens_equal"]
+          and out["captured_vs_eager"]["pool_bitwise_equal"]
+          and out["captured_vs_eager"]["rounds"] == rounds,
+          f"paged rounds captured against eager from one state: "
+          f"{out['captured_vs_eager']}")
+    if rt.device.type == "cuda":
+        out["warm_decode_round_eager"] = _warm_round(rt, prompts, max_new)
+    set_counts(saved)
     emit("serve_paged", **out)
     return out
+
+
+def _paged_traffic(rt, prompts, max_new):
+    """The prompts submitted at once and fed to the end: (emissions,
+    seconds, each session's time to its first token)."""
+    t0 = time.perf_counter()
+    submit_t, first_t = {}, {}
+    for p in prompts:
+        sid = rt.start_session(p, max_new_tokens=max_new)
+        submit_t[sid] = time.perf_counter()
+    emissions = []
+    while not rt.idle_serve:
+        ems = rt.feed()
+        now = time.perf_counter()          # feed() ends in a host sync
+        for e in ems:
+            if e["event"] == "token" and e["session"] not in first_t:
+                first_t[e["session"]] = now
+        emissions.extend(ems)
+    elapsed = time.perf_counter() - t0
+    return emissions, elapsed, np.asarray(
+        [first_t[s] - submit_t[s] for s in submit_t])
+
+
+def _warm_round(rt, prompts, max_new):
+    """A warm decode round with all 8 slots busy (after their
+    admission)."""
+    for p in prompts[:8]:
+        rt.start_session(p, max_new_tokens=max_new)
+    rt.feed()
+    return profile_steps(rt.feed, 3)
 
 
 def hybrid_launches(cfg):
@@ -1876,6 +2118,7 @@ def phase_serve_hybrid(device="cuda", smoke=False):
                            "--gen", "6", "--device", device]
     args = serve.parse_args(argv)
     zero_counts()
+    _zero_eager_calls()
     res = serve.run(args)
     launches = counts()
     rt, cfg = res["runtime"], res["cfg"]
@@ -1883,6 +2126,8 @@ def phase_serve_hybrid(device="cuda", smoke=False):
     peak = (torch.cuda.max_memory_allocated() / 1e9
             if rt.device.type == "cuda" else None)
     B, P, G = args.batch, args.prompt_len, args.gen
+    graph = graph_check("serve_hybrid", rt.decode_graph, G - 1,
+                        _eager_calls(), device)
     toks = res["tokens"]
     check(toks.shape == (B, G) and toks.min() >= 0
           and toks.max() < cfg.vocab_size, f"hybrid tokens {toks.shape}")
@@ -1956,12 +2201,15 @@ def phase_serve_hybrid(device="cuda", smoke=False):
                        for n in COUNTERS},
           f"hybrid main path launches {launches}: not one prefill and "
           f"{G - 1} decode steps")
+    vs_eager, eager_cache, first, pos = captured_vs_eager(
+        rt, {"tokens": tokens}, G - 1)
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
            "prompt_len": P, "gen": G,
            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
            "prefill_tok_s": B * P / res["prefill_s"],
            "decode_tok_s": B * (G - 1) / res["decode_s"],
-           "launches": launches,
+           "launches": launches, "decode_graph": graph,
+           "captured_vs_eager": vs_eager,
            "launches_per_prefill": per_call["bf16_auto"],
            "launches_per_decode_step": per_call["decode_bf16_auto"],
            "logits_check": chk, "first_decode_logits_check": chk_dec,
@@ -1972,11 +2220,16 @@ def phase_serve_hybrid(device="cuda", smoke=False):
         out["warm_prefill"] = profile_steps(
             lambda: model.prefill(params, cfg, {"tokens": tokens}, cache), 2)
         del cache
-        # a fresh decode context: the SSM states restart from zeros and
-        # cache_len goes back to P
-        rt.cache = model.init_cache(cfg, B, P + G, rt.device)
+        # a fresh decode context, in the graph's own cache: the SSM states
+        # restart from zeros and cache_len goes back to P
+        for t in _tensors(rt.cache):
+            t.zero_()
         rt.prefill({"tokens": tokens})
         out["warm_decode_step"] = profile_steps(rt.step, 3)
+        pos.fill_(P)
+        out["warm_decode_step_eager"] = profile_steps(
+            lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
+                                       None), 3)
     emit("serve_hybrid", **out)
     return out
 
@@ -2301,9 +2554,14 @@ def _suspend_resume(rt, name, root, base_mem):
     before = bit_checksums(payload)
     del payload
     lost = rt.progress_lost
+    from repro_torch.train import compile_cache
+    cache_before = compile_cache.GLOBAL.stats()
+    graph = rt.decode_graph
     t0 = time.perf_counter()
     info = rt.suspend()
     suspend_s = time.perf_counter() - t0
+    check(graph is None or graph._graph is None,
+          f"preempt {name}: suspend() kept the decode graph")
     save_t = dict(rt.ckpt.timings)
     held = _mem(rt.device)
     ckpt_bytes, n_leaves = _ckpt_files(rt)
@@ -2329,6 +2587,13 @@ def _suspend_resume(rt, name, root, base_mem):
     out["restore_stages_s"] = dict(rt.ckpt.timings)
     check(at == info["step"], f"preempt {name}: resumed at {at}, suspended "
           f"at {info['step']}")
+    cache_after = compile_cache.GLOBAL.stats()
+    out["compile_cache"] = {"before_suspend": cache_before,
+                            "after_resume": cache_after}
+    check(cache_after["misses"] == cache_before["misses"]
+          and cache_after["hits"] > cache_before["hits"],
+          f"preempt {name}: resume is not a compile-cache hit: "
+          f"{out['compile_cache']}")
     after = bit_checksums(rt._payload())
     check(after == before, f"preempt {name}: the resumed state's checksums "
           f"differ from the suspended state's in "
@@ -2338,6 +2603,17 @@ def _suspend_resume(rt, name, root, base_mem):
     for k in ("save", "suspend", "resume"):
         out[f"{k}_gb_s"] = ckpt_bytes / 1e9 / out[f"{k}_s"]
     return out
+
+
+def _resumed_graph(name, rt, steps):
+    """After resume the block's decode captures again, once, and replays
+    every step (on the CPU: runs each eagerly)."""
+    st = rt.decode_graph.stats()
+    want = ((1, steps, 0) if rt.device.type == "cuda" else (0, 0, steps))
+    check((st["captures"], st["replays"], st["eager_calls"]) == want,
+          f"preempt {name}: the decode graph after resume {st}, want "
+          f"(captures, replays, eager) {want}")
+    return {**st, "card": _CARD}
 
 
 def _block(job, device, root=None):
@@ -2478,8 +2754,10 @@ def _preempt_paged(device, smoke, root):
           f"with {running} sessions running and {queued} queued")
     out = _suspend_resume(rt, "serve_paged", root, base)
     zero_counts()
-    rest, _ = _feed(rt)
+    rest, n_rest = _feed(rt)
     launches = counts()
+    out["decode_graph_after_resume"] = _resumed_graph(
+        "serve_paged", rt, n_rest)
     got += rest
     tokens = {s: rt.sessions.sessions[s].generated for s in sids}
     check(tokens == want_tokens, f"preempt serve_paged: tokens across a "
@@ -2564,6 +2842,8 @@ def _preempt_hybrid(device, smoke, root):
     zero_counts()
     toks, _ = decode(rt, n3)
     launches = counts()
+    out["decode_graph_after_resume"] = _resumed_graph(
+        "serve_hybrid", rt, n3)
     got += toks
     check(all(torch.equal(g, w) for g, w in zip(got, want)),
           "preempt serve_hybrid: tokens across an async save and a suspend "
@@ -2657,6 +2937,32 @@ def _free(device="cuda") -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+def emit_capture_summary(info, dense, paged, hybrid) -> None:
+    """One line: each decode path's step wall time, idle share and tok/s
+    run eagerly and as graph replays (the same run, the same card), its
+    capture time and graph pool."""
+    paths = {}
+    for name, run, key in (("serve_dense", dense, "warm_decode_step"),
+                           ("serve_paged", paged, "warm_decode_round"),
+                           ("serve_hybrid", hybrid, "warm_decode_step")):
+        eager, captured = run[key + "_eager"], run[key]
+        vs = run["captured_vs_eager"]
+        paths[name] = {
+            "eager": {"wall_ms": eager["wall_ms"],
+                      "device_ms": eager["device_ms"],
+                      "idle_share": eager["idle_share"],
+                      "tok_s": vs["eager_tok_s"]},
+            "captured": {"wall_ms": captured["wall_ms"],
+                         "device_ms": captured["device_ms"],
+                         "idle_share": captured["idle_share"],
+                         "tok_s": vs["captured_tok_s"]},
+            "capture_ms": run["decode_graph"]["capture_ms"],
+            "pool_mb": run["decode_graph"]["pool_mb"],
+            "bitwise_equal": vs["tokens_equal"] and vs.get(
+                "cache_bitwise_equal", vs.get("pool_bitwise_equal"))}
+    emit("decode_capture", card=info["nvidia_smi"], paths=paths)
+
+
 def _run_all() -> int:
     info = phase_device()
     phase_build()
@@ -2698,6 +3004,24 @@ def _run_all() -> int:
     def launched(counter):
         return {run: c[counter] for run, c in runs.items()}
 
+    # the launches that ran inside decode graphs, run by run: each graph's
+    # replays times its launches per replay
+    graphs = {"dense": [dense["decode_graph"]],
+              "paged": [paged["decode_graph"]],
+              "hybrid": [hybrid["decode_graph"]],
+              "preempt": [preempt[k]["decode_graph_after_resume"]
+                          for k in ("serve_paged", "serve_hybrid")]}
+
+    def in_graphs(counter):
+        if counter not in COUNTERS:    # fused_adamw: train only, eager
+            return {}
+        key = "{}.{}".format(*COUNTERS[counter])
+        got = {run: sum(g["replays"] * g["launches_per_replay"].get(key, 0)
+                        for g in gs) for run, gs in graphs.items()}
+        return {run: n for run, n in got.items() if n}
+
+    emit_capture_summary(info, dense, paged, hybrid)
+
     rows = []
     for name, meta in KERNEL_META.items():
         k = kern[name]
@@ -2713,6 +3037,7 @@ def _run_all() -> int:
         check(total > 0, f"{name} was not launched on the main path")
         row = {"name": name, "route": "cuda", **meta,
                "launches": total, "launches_by_run": per_run,
+               "launches_in_graphs_by_run": in_graphs(name),
                "max_abs_err": k["max_err"], "ms": k["kernel_ms"],
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"],

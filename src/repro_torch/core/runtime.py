@@ -20,6 +20,15 @@ page, so a paged job raises the reference's ``ValueError``.
 One device per block: the sharding plans of the reference have no
 counterpart until the multi-GPU slice.
 
+Steps are built through ``compile_cache.GLOBAL`` under the reference's
+keys (``_cache_key``), the mesh's fingerprint replaced by the device's.
+A dense serve block's decode step runs as a ``CapturedStep``: the first
+step on the card captures it as a CUDA graph with the block's params,
+cache and a device ``cache_len`` scalar bound (and a sampling job's
+generator registered), and every later step refills the scalar and
+replays the graph (on the CPU the step runs eagerly).  The train step
+and prefill run eagerly.
+
 Preemption: ``suspend()`` drains the in-flight window, writes a
 synchronous checkpoint (``repro_torch.checkpoint.manager``, the
 reference's format) and drops every device reference, then hands the
@@ -27,7 +36,9 @@ freed memory back to the card, so another block can have it;
 ``resume(grant, devices)`` rebuilds the runtime on the given device and
 restores the suspended state into restore targets on the ``meta`` device
 (no random init).  ``rebuild`` starts a new runtime from an old block's
-checkpoints.
+checkpoints.  ``suspend()`` also releases the block's captured graphs and
+their memory pools; a resumed block gets its steps from the compile cache
+(a hit) and captures again at its first step.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ from repro_torch.device import resolve
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
+from repro_torch.train import compile_cache
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as train_lib
 
@@ -128,20 +140,61 @@ class BlockRuntime(InflightWindow):
         job = self.job
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(job.seed + 1)
+        self._prefill_fn = None      # built at the first prefill()
         if job.kind == "train":
-            self._step = train_lib.make_train_step(job.cfg, job.shape,
-                                                   job.opt)
+            self._step = self._cached(
+                self._cache_key("train_step", compile_cache.freeze(job.opt),
+                                ("donate", 0)),
+                lambda: train_lib.make_train_step(job.cfg, job.shape,
+                                                  job.opt), "train_step")
             self.data = pipeline.DataIterator(job.cfg, job.shape,
                                               seed=job.seed,
                                               device=self.device)
         elif job.paged:
             # the DecodeScheduler owns its prefill/decode; built in
             # init_state (it needs the params)
-            self._step = self._prefill_fn = None
+            self._step = None
         else:
-            self._step = serve_lib.make_decode_step(
-                job.cfg, sample=job.decode_sample)
-            self._prefill_fn = serve_lib.make_prefill_step(job.cfg)
+            decode = self._cached(
+                self._cache_key("decode_step", job.decode_sample,
+                                ("donate", 2)),
+                lambda: serve_lib.make_decode_step(
+                    job.cfg, sample=job.decode_sample), "decode_step")
+            # the graph binds this block's params (0), cache (2) and
+            # position scalar (3) (and a sampling job's generator), so it
+            # is the block's own
+            self._step = compile_cache.CapturedStep(
+                decode, static=(0, 2, 3), donate=(2,))
+            self._cache_len_dev = torch.zeros((), dtype=torch.int32,
+                                              device=self.device)
+
+    # ------------------------------------------------------------ compile
+    def _cache_key(self, family: str, *extra) -> tuple:
+        """Logical build signature: everything the built step can depend
+        on.  ``seed``/checkpoint fields deliberately excluded."""
+        job = self.job
+        return (family, compile_cache.freeze(job.cfg),
+                compile_cache.freeze(job.shape),
+                compile_cache.device_fingerprint(self.device)) + extra
+
+    def _cached(self, key, builder, label: str):
+        return compile_cache.GLOBAL.get(
+            key, builder, label=label, block_id=self.grant.block_id)
+
+    @property
+    def decode_graph(self) -> Optional[compile_cache.CapturedStep]:
+        """The block's captured decode step (the dense plane's, or the
+        paged plane's round), None for a train block."""
+        if self.sessions is not None:
+            return self.sessions.decode_graph
+        if isinstance(self._step, compile_cache.CapturedStep):
+            return self._step
+        return None
+
+    def _release_graphs(self) -> None:
+        graph = self.decode_graph
+        if graph is not None:
+            graph.release()
 
     # --------------------------------------------------------------- state
     def init_state(self, params: Optional[Dict[str, Any]] = None,
@@ -194,6 +247,11 @@ class BlockRuntime(InflightWindow):
         if self.job.paged:
             raise ValueError("a paged serve block prefills each session at "
                              "admission: use start_session()")
+        if self._prefill_fn is None:
+            self._prefill_fn = self._cached(
+                self._cache_key("prefill_step"),
+                lambda: serve_lib.make_prefill_step(self.job.cfg),
+                "prefill_step")
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         logits, self.cache = self._prefill_fn(self.state["params"],
                                               {"tokens": tokens}, self.cache)
@@ -241,8 +299,11 @@ class BlockRuntime(InflightWindow):
             self._emissions.extend(self.sessions.step())
             self.token = self.sessions.last_tokens_dev
             return
+        # a launch, not a sync: the replay reads the scalar on the device
+        self._cache_len_dev.fill_(self.cache_len)
         self.token, self.cache = self._step(
-            self.state["params"], self.token, self.cache, self.cache_len,
+            self.state["params"], self.token, self.cache,
+            self._cache_len_dev,
             self._gen if self.job.decode_sample else None)
         self.cache_len += 1
 
@@ -388,6 +449,7 @@ class BlockRuntime(InflightWindow):
         drained = self.drain()
         ckpt.wait()                      # an async save may still be landing
         self.save(async_=False)
+        self._release_graphs()
         self.state = None
         self.cache = None
         self.model = None
@@ -396,6 +458,7 @@ class BlockRuntime(InflightWindow):
         self.sessions = None         # device pool dropped; host session
                                      # state lives in the checkpoint
         self._step = self._prefill_fn = None
+        self._cache_len_dev = None
         self.data = None
         self._gen = None
         device, self.devices = self.device, []
@@ -431,6 +494,7 @@ class BlockRuntime(InflightWindow):
             like["decode"] = (self._decode_ctx() if have_ctx
                               else self._abstract_decode())
         restored, at = ckpt.restore(like, step=step, device=self.device)
+        self._release_graphs()       # they bind the tensors replaced here
         state = restored["state"]
         if job.kind == "train":
             self.state = train_lib.make_train_state(

@@ -104,11 +104,12 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
 # Decode attention (single new token vs. a dense cache)
 # ===========================================================================
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, scale=None,
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
                      sliding_window: int = 0):
     """q: (B, Hq, 1, D); caches: (B, Hkv, Smax, D|Dv).  Attends over the
     first ``cache_len`` entries (the new token's K/V already written at
-    ``cache_len - 1``)."""
+    ``cache_len - 1``); ``cache_len`` an int or a 0-d tensor on q's
+    device (the mask is a comparison, so no host sync)."""
     B, Hq, _, D = q.shape
     _, Hkv, Smax, Dv = v_cache.shape
     G = Hq // Hkv

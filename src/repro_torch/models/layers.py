@@ -113,7 +113,9 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
 
     Returns (out, cache).  In prefill mode (cache given, S>1) the K/V are
     written at positions [0, S) and the rest of the cache is zeroed; in
-    decode (S==1) at position ``cache_len`` (a Python int).
+    decode (S==1) at position ``cache_len``, a 0-d integer tensor on the
+    cache's device (written through a device index: no host sync; an int
+    is taken too).
     """
     B, S, _ = x.shape
     H, vd = a.n_heads, a.v_dim
@@ -124,12 +126,15 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
         o = ops.flash_attention(q, k, v, causal=causal,
                                 sliding_window=a.sliding_window, impl=impl)
     elif S == 1:  # decode
-        idx = int(cache_len)
-        cache["k"][:, idx] = k[:, :, 0].to(cache["k"].dtype)
-        cache["v"][:, idx] = v[:, :, 0].to(cache["v"].dtype)
+        cache_len = torch.as_tensor(cache_len, device=cache["k"].device)
+        idx = cache_len.reshape(1).long()
+        cache["k"].index_copy_(1, idx, k.transpose(1, 2).to(
+            cache["k"].dtype))
+        cache["v"].index_copy_(1, idx, v.transpose(1, 2).to(
+            cache["v"].dtype))
         o = ops.decode_attention(
             q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-            idx + 1, sliding_window=a.sliding_window)
+            cache_len + 1, sliding_window=a.sliding_window)
     else:  # prefill into cache
         o = ops.flash_attention(q, k, v, causal=causal,
                                 sliding_window=a.sliding_window, impl=impl)

@@ -102,13 +102,18 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache, *,
 
 
 @torch.no_grad()
-def decode_step(params, cfg: ModelConfig, token, cache, cache_len: int, *,
+def decode_step(params, cfg: ModelConfig, token, cache, cache_len, *,
                 impl: str = "auto"):
-    """One autoregressive step.  token: (B, 1) int; cache_len: int.
+    """One autoregressive step.  token: (B, 1) int; cache_len: scalar
+    int32, a 0-d tensor on the model's device as in the reference (a
+    Python int is taken too).  The position stays on the device, so a
+    captured step reads it at every replay.
 
     Returns (logits (B, V), cache)."""
     x = embed_inputs(params, cfg, {"tokens": token})
-    positions = int(cache_len) + torch.arange(1, device=x.device)
+    cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
+                                device=x.device)
+    positions = cache_len + torch.arange(1, device=x.device)
     logits, _, cache = forward(params, cfg, x, positions=positions,
                                cache=cache, cache_len=cache_len, impl=impl)
     return logits[:, -1], cache

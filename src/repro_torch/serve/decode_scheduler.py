@@ -20,11 +20,19 @@ position crosses a page boundary); when the pool runs dry mid-decode the
 least-progressed running session is *evicted* and re-queued with its
 context.  Page 0 is the reserved trash page idle slots write into.
 
-PyTorch runs eagerly, so the reference's compile-cache wrappers have no
-counterpart, and the pool is updated in place where the JAX version
-donates it.  ``state_tree()``/``load_state()`` round-trip the whole state
-(pool, page table, per-slot lengths and host session metadata) through
-the ``CheckpointManager``; ``abstract_state`` is its restore target, and
+The decode and admission functions are built through
+``compile_cache.GLOBAL`` under the reference's keys.  The decode round
+runs as a ``CapturedStep`` over all ``max_slots``: the params, the
+pool (updated in place, where the JAX version donates it) and three
+device buffers of the round's inputs are bound to its graph, and each
+round copies the host mirrors (tokens, page table, lengths) into those
+buffers from pinned host memory, then replays (a sampling scheduler's
+generator registered on the graph).  Admission prefill has a prompt
+bucket per page count and runs eagerly, as does everything on the CPU.
+
+``state_tree()``/``load_state()`` round-trip the whole state (pool, page
+table, per-slot lengths and host session metadata) through the
+``CheckpointManager``; ``abstract_state`` is its restore target, and
 ``init_pool=False`` builds a scheduler for ``load_state`` with no pool.
 """
 from __future__ import annotations
@@ -43,6 +51,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import TRACER
 from repro_torch.serve.serve_step import pick
+from repro_torch.train import compile_cache
 
 #: fixed budget for the JSON-encoded host session metadata in state_tree()
 META_CAP = 1 << 20
@@ -134,6 +143,38 @@ def paged_geometry(cfg: ModelConfig, *, page_size: int, n_pages: int,
             "pages_per_seq": pages_per_seq}
 
 
+def _make_decode(cfg: ModelConfig, sample: bool):
+    """One batched paged decode step over every slot: (next tokens
+    (max_slots, 1) int32, the pool written in place)."""
+    def fn(params, tokens, pool, page_table, seq_lens, gen=None):
+        logits, pool = model_lib.decode_step_paged(
+            params, cfg, tokens, pool, page_table, seq_lens)
+        return pick(logits, sample=sample, gen=gen)[:, None], pool
+    return fn
+
+
+def _make_admit(cfg: ModelConfig, page_size: int, sample: bool):
+    """Admission: zero temp cache + dense prefill + page scatter +
+    first-token pick: (first token, a 0-d int32 tensor, the pool written
+    in place)."""
+    def fn(params, tokens, pool, pages, last_idx, gen=None):
+        # prompt padded to a page multiple: causal masking keeps logits at
+        # ``last_idx`` and cache rows [0, last_idx] identical to the
+        # unpadded run; pad-token rows land past the live length and are
+        # overwritten before the length mask ever exposes them
+        S = tokens.shape[1]
+        cache = model_lib.init_cache(cfg, 1, S, tokens.device)
+        x = model_lib.embed_inputs(params, cfg, {"tokens": tokens})
+        logits, _, cache = model_lib.forward(
+            params, cfg, x, positions=torch.arange(S, device=x.device),
+            cache=cache, cache_len=0)
+        pool = model_lib.write_prefill_to_pages(pool, cache, pages,
+                                                page_size)
+        return pick(logits[0, last_idx][None], sample=sample,
+                    gen=gen)[0], pool
+    return fn
+
+
 class DecodeScheduler:
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  n_pages: int = 0, max_slots: int = 8, max_seq_len: int = 128,
@@ -167,6 +208,28 @@ class DecodeScheduler:
                                    np.int32)
         self.seq_lens = np.zeros((self.max_slots,), np.int32)
         self.tokens = np.zeros((self.max_slots, 1), np.int32)
+        # ... through pinned staging into the decode graph's input buffers
+        pin = self.device.type == "cuda"
+        self._staged = {k: torch.zeros(getattr(self, k).shape,
+                                       dtype=torch.int32, pin_memory=pin)
+                        for k in ("tokens", "page_table", "seq_lens")}
+        self._inputs = {k: torch.zeros(v.shape, dtype=torch.int32,
+                                       device=self.device)
+                        for k, v in self._staged.items()}
+
+        # built through the process-wide compile cache: a scheduler
+        # rebuilt after preemption with the same (cfg, sample, paging)
+        # signature adopts the previous functions; its graph is its own
+        self._decode = compile_cache.GLOBAL.get(
+            ("paged_decode", compile_cache.freeze(cfg), sample),
+            lambda: _make_decode(cfg, sample), label="paged_decode")
+        self._admit_fn = compile_cache.GLOBAL.get(
+            ("paged_admit", compile_cache.freeze(cfg), self.page_size,
+             sample),
+            lambda: _make_admit(cfg, self.page_size, sample),
+            label="paged_admit")
+        self.decode_graph = compile_cache.CapturedStep(
+            self._decode, static=(0, 1, 2, 3, 4), donate=(2,))
 
         # host bookkeeping
         self.pages = PagePool(self.n_pages)
@@ -182,31 +245,20 @@ class DecodeScheduler:
 
     # ---------------------------------------------------------- device fns
     def _admit_prefill(self, tokens, pages: List[int], last_idx: int) -> int:
-        """Admission: zero temp cache + dense prefill + page scatter +
-        first-token pick, with one host sync for the token."""
-        # prompt padded to a page multiple: causal masking keeps logits at
-        # ``last_idx`` and cache rows [0, last_idx] identical to the
-        # unpadded run; pad-token rows land past the live length and are
-        # overwritten before the length mask ever exposes them
-        S = tokens.shape[1]
-        cache = model_lib.init_cache(self.cfg, 1, S, tokens.device)
-        x = model_lib.embed_inputs(self.params, self.cfg, {"tokens": tokens})
-        logits, _, cache = model_lib.forward(
-            self.params, self.cfg, x,
-            positions=torch.arange(S, device=x.device), cache=cache,
-            cache_len=0)
-        self.pool = model_lib.write_prefill_to_pages(self.pool, cache, pages,
-                                                     self.page_size)
-        return int(pick(logits[0, last_idx][None], sample=self.sample,
-                        gen=self._gen if self.sample else None)[0])
+        """Admission (eager), with one host sync for the first token."""
+        first, self.pool = self._admit_fn(
+            self.params, tokens, self.pool, pages, last_idx,
+            self._gen if self.sample else None)
+        return int(first)
 
     def _decode_step(self, tokens, page_table, seq_lens):
-        """One batched paged decode step over every slot: (max_slots, 1)
-        next tokens on the device; the pool is written in place."""
-        logits, self.pool = model_lib.decode_step_paged(
-            self.params, self.cfg, tokens, self.pool, page_table, seq_lens)
-        return pick(logits, sample=self.sample,
-                    gen=self._gen if self.sample else None)[:, None]
+        """One batched paged decode step over every slot, through the
+        scheduler's captured graph: (max_slots, 1) next tokens on the
+        device, the caller's own; the pool is written in place."""
+        nxt, self.pool = self.decode_graph(
+            self.params, tokens, self.pool, page_table, seq_lens,
+            self._gen if self.sample else None)
+        return nxt
 
     # --------------------------------------------------------------- submit
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
@@ -363,10 +415,13 @@ class DecodeScheduler:
                   if self.slots[i] is not None]
         if not active:
             return
-        dev = self.device
-        nxt = self._decode_step(torch.from_numpy(self.tokens).to(dev),
-                                torch.from_numpy(self.page_table).to(dev),
-                                torch.from_numpy(self.seq_lens).to(dev))
+        for name, buf in self._inputs.items():
+            staged = self._staged[name]
+            staged.copy_(torch.from_numpy(getattr(self, name)))
+            buf.copy_(staged, non_blocking=True)
+        nxt = self._decode_step(self._inputs["tokens"],
+                                self._inputs["page_table"],
+                                self._inputs["seq_lens"])
         self.last_tokens_dev = nxt
         nxt_host = nxt.cpu().numpy()        # host sync: EOS/feedback point
         for i in active:
@@ -475,6 +530,7 @@ class DecodeScheduler:
                 x = x.cpu().numpy()
             return np.asarray(x, dtype).copy()
 
+        self.decode_graph.release()      # it binds the pool replaced here
         self.pool = {k: torch.as_tensor(v).to(self.device)
                      for k, v in tree["pool"].items()}
         self.page_table = host(tree["page_table"], np.int32)

@@ -21,10 +21,15 @@ def make_prefill_step(cfg: ModelConfig):
 def pick(logits, *, sample: bool, gen: Optional[torch.Generator] = None,
          temperature: float = 1.0):
     """Next token per row of ``logits`` (B, V): greedy argmax (first
-    maximum on ties, as ``jnp.argmax``) or a draw from the softmax."""
+    maximum on ties, as ``jnp.argmax``) or a draw from the softmax.  The
+    draw is ``torch.multinomial``'s one-sample path written out (the
+    argmax of p / q, q ~ Exp(1) from ``gen``): the same draws and tokens,
+    without the host-side checks of p that keep a graph from capturing
+    it."""
     if sample:
         probs = torch.softmax(logits.float() / temperature, dim=-1)
-        nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+        nxt = torch.argmax(probs / q, dim=-1)
     else:
         nxt = torch.argmax(logits, dim=-1)
     return nxt.to(torch.int32)
@@ -32,7 +37,11 @@ def pick(logits, *, sample: bool, gen: Optional[torch.Generator] = None,
 
 def make_decode_step(cfg: ModelConfig, *, sample: bool = False,
                      temperature: float = 1.0):
-    def decode_step(params, token, cache, cache_len: int,
+    """``decode_step(params, token, cache, cache_len, gen=None)`` ->
+    (next token (B, 1) int32, cache): ``cache_len`` a 0-d int32 tensor on
+    the device, the cache updated in place.  A step launches no host
+    sync, so a block captures it (``compile_cache.CapturedStep``)."""
+    def decode_step(params, token, cache, cache_len,
                     gen: Optional[torch.Generator] = None):
         logits, cache = model_lib.decode_step(params, cfg, token, cache,
                                               cache_len)

@@ -150,9 +150,11 @@ def test_attention_fwd_branches_vs_jax(tiny, branch):
         jattn, jnp.asarray(x), jcfg.attention, positions=jnp.asarray(pos),
         cache=jcache,
         cache_len=None if cache_len is None else jnp.int32(cache_len))
-    got, gc = layers.attention_fwd(tattn, torch.from_numpy(x), a,
-                                   positions=torch.from_numpy(pos),
-                                   cache=cache, cache_len=cache_len)
+    got, gc = layers.attention_fwd(
+        tattn, torch.from_numpy(x), a, positions=torch.from_numpy(pos),
+        cache=cache,
+        cache_len=None if cache_len is None else torch.tensor(
+            cache_len, dtype=torch.int32))
     assert_close(got, want)
     if branch != "train":
         for k in ("k", "v"):
@@ -181,7 +183,7 @@ def test_prefill_and_decode_steps_vs_jax(tiny):
         wl, jcache = jmodel.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                         jnp.int32(n))
         gl, cache = model.decode_step(tp, cfg, torch.from_numpy(tok), cache,
-                                      n)
+                                      torch.tensor(n, dtype=torch.int32))
         assert_close(gl, wl)
         for k in ("k", "v"):
             assert_close(cache[k], jcache[k])
@@ -384,7 +386,7 @@ def test_hybrid_prefill_and_decode_steps_vs_jax(dtype, monkeypatch):
         wl, jcache = jmodel.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                         jnp.int32(n))
         gl, cache = model.decode_step(tp, cfg, torch.from_numpy(tok), cache,
-                                      n)
+                                      torch.tensor(n, dtype=torch.int32))
         assert_close(gl, wl, **lt)
         check_cache()
         tok = np.argmax(np.asarray(wl, np.float32),
@@ -438,11 +440,49 @@ def test_hybrid_decode_consistency():
     np.testing.assert_allclose(last.numpy(), full[:, P - 1].numpy(),
                                atol=1e-4, rtol=1e-4)
     for i in range(S - P):
-        logits, cache = model.decode_step(params, cfg,
-                                          tokens[:, P + i:P + i + 1], cache,
-                                          P + i)
+        logits, cache = model.decode_step(
+            params, cfg, tokens[:, P + i:P + i + 1], cache,
+            torch.tensor(P + i, dtype=torch.int32))
         np.testing.assert_allclose(logits.numpy(), full[:, P + i].numpy(),
                                    atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek_7b", "zamba2_2p7b"])
+def test_decode_step_with_a_device_position_vs_jax(arch):
+    """``model.decode_step`` takes ``cache_len`` as a 0-d int32 tensor, as
+    the reference does (a captured step reads it at every replay): the
+    dense and hybrid smoke configs in fp32, prefill and then four decode
+    steps at positions P..P+3, each step's logits within 1e-5 of their
+    range of the reference's ``decode_step`` fed ``jnp.int32``, and the
+    cache leaf by leaf within 1e-5 of each leaf's largest value."""
+    jcfg = jconfigs.get_smoke(arch).replace(param_dtype="float32")
+    cfg = configs.get_smoke(arch).replace(param_dtype="float32")
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(14))
+    tp = interop.params_from_numpy(np_tree(jp), "cpu")
+    rng = np.random.default_rng(15)
+    B, P, smax = 2, 11, 16
+    prompt = rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)
+    jcache = jmodel.init_cache(jcfg, B, smax)
+    cache = model.init_cache(cfg, B, smax, "cpu")
+    wl, jcache = jmodel.prefill(jp, jcfg, {"tokens": jnp.asarray(prompt)},
+                                jcache)
+    _, cache = model.prefill(tp, cfg, {"tokens": torch.from_numpy(prompt)},
+                             cache)
+    for i in range(4):
+        tok = np.argmax(np.asarray(wl), -1).astype(np.int32)[:, None]
+        pos = torch.tensor(P + i, dtype=torch.int32)
+        assert pos.ndim == 0
+        wl, jcache = jmodel.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
+                                        jnp.int32(P + i))
+        gl, cache = model.decode_step(tp, cfg, torch.from_numpy(tok), cache,
+                                      pos)
+        want = np.asarray(wl, np.float32)
+        span = float(want.max() - want.min())
+        assert_close(gl, want, atol=1e-5 * span, rtol=0)
+        jleaves = dict(flatten(jax.tree.map(np.asarray, jcache)))
+        for k, v in flatten(cache):
+            w = np.asarray(jleaves[k], np.float32)
+            assert_close(v, w, atol=1e-5 * float(np.abs(w).max()), rtol=0)
 
 
 # ------------------------------------------------- the other dense configs
@@ -487,7 +527,7 @@ def test_other_dense_smoke_configs_vs_jax(arch):
         wl, jcache = jmodel.decode_step(jp, jcfg, jnp.asarray(tok), jcache,
                                         jnp.int32(n))
         gl, cache = model.decode_step(tp, cfg, torch.from_numpy(tok), cache,
-                                      n)
+                                      torch.tensor(n, dtype=torch.int32))
 
     nb = pipeline.synthetic_batch(cfg, ShapeConfig("t", "train", 12, 2),
                                   step=0, seed=13)
