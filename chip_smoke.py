@@ -109,7 +109,21 @@ never JAX.  Phases, each printing one JSON line:
                      checksums; save, suspend and
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
-                     the save, disk space and peak memory.
+                     the save, disk space and peak memory;
+11. ``control``    — the control plane on the card: a background-mode
+                     ``ClusterDaemon`` on one chip, Alice's train block
+                     (train_hybrid's job) autostepping toward 4 steps,
+                     preempted after 2 by Bob's priority-1 paged serve
+                     block (serve_paged's job), whose 12 sessions run
+                     through ``daemon.generate`` and the engine's decode
+                     rounds (graph replays) until his period ends and the
+                     pump's tick resumes Alice; her losses and grad norms
+                     train_hybrid's and his tokens serve_paged's, bit for
+                     bit, the events in order, her resume a compile-cache
+                     hit, the memory while Bob runs, the launches exactly;
+                     admission, preemption, first-token and resume
+                     seconds, each block's tok/s inside the daemon and
+                     Alice's MFU on the H100 roofline.
 
 Then one JSON line (``decode_capture``) giving each decode path's step
 wall time, idle share and tok/s run eagerly and as graph replays, its
@@ -2055,6 +2069,8 @@ def phase_serve_paged(device="cuda", smoke=False):
         out["warm_decode_round_eager"] = _warm_round(rt, prompts, max_new)
     set_counts(saved)
     emit("serve_paged", **out)
+    # each session's tokens, for the control phase (not printed)
+    out["session_tokens"] = want_tokens
     return out
 
 
@@ -2466,12 +2482,9 @@ def phase_train_f32(device="cuda", smoke=False):
                         n_steps=2 if smoke else 3, profile=False)
 
 
-def phase_train_hybrid(device="cuda", smoke=False):
-    """zamba2_2p7b at full width (54 layers, random bf16 weights from seed
-    0), fp32 AdamW moments, 2 x 2048 tokens a step, one microbatch, remat:
-    the step 0 in fp32 (weights upcast) against impl="torch" under
-    STEP0_RTOL and the bf16 step 0 beside it; 3 steps, their launches per
-    step held exactly (``train_launches``), and a profiled step."""
+def _train_hybrid_setup(smoke):
+    """train_hybrid's job: zamba2_2p7b at full width (54 layers), 2 x 2048
+    tokens a step (2 x 32 at smoke size), one microbatch, fp32 moments."""
     import repro_torch.configs as configs
     from repro_torch.models.config import ShapeConfig
     from repro_torch.train.optimizer import OptConfig
@@ -2480,6 +2493,16 @@ def phase_train_hybrid(device="cuda", smoke=False):
     shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
                         global_batch=2, microbatch=1)
     opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    return cfg, shape, opt_cfg
+
+
+def phase_train_hybrid(device="cuda", smoke=False):
+    """zamba2_2p7b at full width (54 layers, random bf16 weights from seed
+    0), fp32 AdamW moments, 2 x 2048 tokens a step, one microbatch, remat:
+    the step 0 in fp32 (weights upcast) against impl="torch" under
+    STEP0_RTOL and the bf16 step 0 beside it; 3 steps, their launches per
+    step held exactly (``train_launches``), and a profiled step."""
+    cfg, shape, opt_cfg = _train_hybrid_setup(smoke)
     return _train_phase("train_hybrid", cfg, shape, opt_cfg, device,
                         n_steps=2 if smoke else 4, profile=True,
                         step0=step0_upcast_check)
@@ -2636,15 +2659,8 @@ def _preempt_train(device, smoke, root, train):
     """zamba2_2p7b's train_hybrid job: 3 steps, suspend, resume, a 4th;
     the 4 losses and grad norms are the uninterrupted run's, bit for
     bit, and the resumed step's launches ``train_launches``'."""
-    import repro_torch.configs as configs
     from repro_torch.core.runtime import JobSpec
-    from repro_torch.models.config import ShapeConfig
-    from repro_torch.train.optimizer import OptConfig
-    cfg = (configs.get_smoke("zamba2_2p7b") if smoke
-           else configs.get("zamba2_2p7b"))
-    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
-                        global_batch=2, microbatch=1)
-    opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    cfg, shape, opt_cfg = _train_hybrid_setup(smoke)
     job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=0,
                   ckpt_namespace="train_hybrid")
     n_before = 1 if smoke else 3
@@ -2910,6 +2926,299 @@ def phase_preempt(device="cuda", smoke=False, train=None):
     return out
 
 
+# ---------------------------------------------------------------- control
+
+#: Alice's step rate until Bob arrives: a dispatch every 2 s, about five
+#: train_hybrid steps apart, so Bob's submit lands between her steps and
+#: the preemption finds her with exactly half her steps done
+CONTROL_PACE_HZ = 0.5
+#: the longest the control phase waits for one event of its scenario
+CONTROL_TIMEOUT_S = 300.0
+
+
+def _await(daemon, cond, what):
+    """Wait until ``cond()`` holds; fails on a timeout or an engine error
+    (the daemon's workers print its traceback and go on)."""
+    deadline = time.monotonic() + CONTROL_TIMEOUT_S
+    while not cond():
+        check(not daemon._engine_error_logged,
+              f"control: an engine round raised while waiting for {what}")
+        check(time.monotonic() < deadline,
+              f"control: no {what} in {CONTROL_TIMEOUT_S:.0f} s")
+        time.sleep(0.01)
+
+
+def _events(log, app_id, kind, **payload):
+    return [e for e in list(log) if e.app_id == app_id and e.kind == kind
+            and all(e.payload.get(k) == v for k, v in payload.items())]
+
+
+def phase_control(device="cuda", smoke=False, train=None, paged=None):
+    """The paper's scenario on one chip, through ``ClusterDaemon`` in
+    background mode (its pump thread serves the commands and the periodic
+    tick; an engine worker thread runs the blocks' steps): Alice's train
+    block (train_hybrid's job) autosteps toward 4 steps (2 at smoke size),
+    paced until Bob arrives; Bob's paged serve block (serve_paged's job)
+    is submitted at priority 1 once the bus shows her second step, and the
+    scheduler preempts her (drain, a synchronous checkpoint, her memory
+    given back) and grants him the chip; his 12 sessions run through
+    ``daemon.generate`` and the engine's decode rounds (graph replays);
+    his period ends, and the pump's tick expires him and resumes Alice,
+    who trains on to her last step.  Held: Alice's losses and grad norms
+    are train_hybrid's (``train``) bit for bit, and Bob's tokens
+    serve_paged's (``paged``); the bus shows her ``preempted`` (her
+    checkpoint at her second step, and both steps counted as what a kill
+    without the suspend would have lost), his grant and her ``resumed``,
+    in that order; her resume is a
+    compile-cache hit with no new miss; while Bob runs, the card holds no
+    more than his state, his graph pool and 1% of Alice's state; each
+    kernel's launches are exactly her steps', his admissions' and his
+    rounds'.  Times come from the events' wall clocks."""
+    from repro_torch.core.block import BlockState
+    from repro_torch.core.daemon import ClusterDaemon
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.core.topology import Topology
+    from repro_torch.models import model as model_lib
+    if train is None:
+        train = phase_train_hybrid(device, smoke)
+        _free(device)
+    if paged is None:
+        paged = phase_serve_paged(device, smoke)
+        _free(device)
+    cfg, shape, opt_cfg = _train_hybrid_setup(smoke)
+    n_steps = len(train["losses"])
+    n_before = n_steps // 2
+    alice_job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=0,
+                        collect_metrics=True)
+    bob_job = _paged_job(smoke)
+    prompts = _paged_prompts(bob_job.cfg, smoke)
+    max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
+    dev = torch.device(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    base = _mem(dev)
+    log = []
+    daemon = ClusterDaemon(Topology(n_pods=1, pod_x=1, pod_y=1),
+                           devices=[device], ckpt_root=root,
+                           background=True)
+    daemon.bus.subscribe(log.append)
+    t0 = time.perf_counter()
+    try:
+        zero_counts()
+        _zero_eager_calls()
+        progress("control: alice submits")
+        t_alice = time.time()
+        alice, grant = daemon.submit("alice", f"train {cfg.name}", 1,
+                                     job=alice_job, priority=0)
+        check(grant is not None, "control: alice not admitted on a free "
+              "chip")
+        alice_bytes = tree_bytes(daemon.runtime(alice).state)
+        _disk_check(root, alice_bytes, "control")
+        daemon.autostep_enable(alice, until_steps=n_steps,
+                               max_rate_hz=CONTROL_PACE_HZ)
+        _await(daemon, lambda: len(_events(log, alice, "step")) >= n_before,
+               f"alice's step {n_before}")
+
+        progress("control: bob submits")
+        t_bob = time.time()
+        bob, bob_grant = daemon.submit("bob", f"serve {bob_job.cfg.name}",
+                                       1, job=bob_job, priority=1)
+        check(bob_grant is not None and daemon.registry.get(alice).state
+              == BlockState.PREEMPTED,
+              f"control: bob {bob_grant}, alice "
+              f"{daemon.registry.get(alice).state}")
+        daemon.autostep_pace(alice, None)      # unpaced once she resumes
+        sids = [daemon.generate(bob, p, max_new_tokens=max_new)
+                for p in prompts]
+        daemon.autostep_enable(bob)
+        _await(daemon, lambda: len(_events(
+            log, bob, "session", action="finished")) == len(sids),
+            "the end of bob's sessions")
+        held = _mem(dev)
+        rt = daemon.runtime(bob)
+        sch = rt.sessions
+        bob_bytes = tree_bytes(rt.state) + tree_bytes(sch.pool)
+        graph = sch.decode_graph.stats()
+        tokens = {s: list(sch.sessions[s].generated) for s in sids}
+        admissions = sch.admissions
+        del rt, sch
+        progress("control: bob's period ends")
+        daemon.registry.get(bob).grant.expires_at = time.time()
+        _await(daemon, lambda: _events(log, alice, "autostep",
+                                       action="done"),
+               "alice's last step")
+        launches = counts()
+        elapsed = time.perf_counter() - t0
+        mfu = daemon.monitor.mfu(grant.block_id)
+        roofline = daemon.monitor.roofline_report()["blocks"][
+            grant.block_id]
+        daemon.expire(alice)
+    finally:
+        daemon.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Alice: her losses and grad norms across the preemption
+    steps = _events(log, alice, "step")
+    losses = [e.payload["metrics"]["loss"] for e in steps]
+    gnorms = [e.payload["metrics"]["grad_norm"] for e in steps]
+    check((losses, gnorms) == (train["losses"], train["grad_norms"]),
+          f"control: alice's losses {losses} and grad norms {gnorms} "
+          f"through the daemon, train_hybrid's {train['losses']} and "
+          f"{train['grad_norms']}")
+    # Bob: the direct run's tokens, session by session
+    want = paged["session_tokens"]
+    check(tokens == want, f"control: bob's tokens differ from "
+          f"serve_paged's in sessions "
+          f"{[s for s in sids if tokens[s] != want.get(s)]}")
+    # the bus: her preemption, his grant, her resume
+    pre = _events(log, alice, "preempted")
+    granted = _events(log, bob, "state", state="approved")
+    res = _events(log, alice, "resumed")
+    check(len(pre) == len(granted) == len(res) == 1
+          and pre[0].seq < granted[0].seq < res[0].seq,
+          f"control: events preempted {pre}, granted {granted}, resumed "
+          f"{res}")
+    pre, res = pre[0], res[0]
+    check(pre.payload["checkpoint_step"] == n_before
+          and pre.payload["progress_lost_steps"] == n_before
+          and res.payload["step"] == n_before,
+          f"control: alice preempted {pre.payload}, resumed "
+          f"{res.payload}")
+    check(daemon.registry.get(bob).state == BlockState.EXPIRED,
+          f"control: bob {daemon.registry.get(bob).state}")
+    # her resume is a compile-cache hit
+    comp = [e.payload["action"] for e in list(log) if e.kind == "compile"
+            and e.block_id == grant.block_id and e.seq > pre.seq]
+    check("miss" not in comp and "hit" in comp,
+          f"control: alice's compile-cache events after her preemption "
+          f"{comp}")
+    # memory while Bob runs
+    if held is not None:
+        limit = bob_bytes + graph["pool_mb"] * 2 ** 20 + 0.01 * alice_bytes
+        check(held - base < limit,
+              f"control: {(held - base) / 1e9:.3f} GB allocated while bob "
+              f"runs, his state {bob_bytes / 1e9:.3f} GB, graph pool "
+              f"{graph['pool_mb']:.0f} MB, 1% of alice's "
+              f"{0.01 * alice_bytes / 1e9:.3f} GB")
+    # launches: her steps, his admissions and rounds
+    rounds = graph["replays"] if dev.type == "cuda" else graph["eager_calls"]
+    zero = {n: 0 for n in COUNTERS}
+    per_step, pre_l, per_round = zero, zero, zero
+    if dev.type == "cuda":
+        check(graph["captures"] == 1 and graph["eager_calls"] == 0
+              and _eager_calls() == 0,
+              f"control: bob's decode graph {graph}, {_eager_calls()} "
+              f"eager decode steps")
+        per_step = train_launches(cfg, shape, opt_cfg,
+                                  model_lib.abstract_params(cfg))
+        pre_l, _, per_round = dense_launches(bob_job.cfg)
+    want = {n: n_steps * per_step[n] + admissions * pre_l[n]
+            + rounds * per_round[n] for n in COUNTERS}
+    check(launches == want, f"control: launches {launches}, want {want} "
+          f"({n_steps} train steps, {admissions} admissions, {rounds} "
+          f"rounds)")
+
+    def t_of(evs):
+        check(bool(evs), "control: an event the timing needs is missing")
+        return evs[0].t
+
+    def state_t(app_id, state):
+        return t_of(_events(log, app_id, "state", state=state))
+
+    b_steps = _events(log, bob, "step")
+    gen = _events(log, bob, "generate")
+    bob_enabled = t_of(_events(log, bob, "autostep", action="enabled"))
+    alice_tokens = shape.global_batch * shape.seq_len
+    step_s = [e.payload["step_s"] for e in steps]
+    out = {
+        "alice": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                  "steps": n_steps, "preempted_after": n_before,
+                  "losses": losses, "grad_norms": gnorms,
+                  "state_gb": alice_bytes / 1e9, "step_s": step_s,
+                  # each step from its dispatch or its predecessor's end,
+                  # whichever is later: their sum is the serial chain's
+                  # busy time, the first step and the one after resume
+                  # included, as the direct run's tok_s includes its first
+                  "tok_s_in_daemon": n_steps * alice_tokens / sum(step_s),
+                  "tok_s_direct": train["tok_s"],
+                  "steady_step_s_direct": train["steady_step_s"],
+                  "mfu": mfu, "roofline": roofline},
+        "bob": {"arch": bob_job.cfg.name, "sessions": len(sids),
+                "max_new_tokens": max_new, "admissions": admissions,
+                "rounds": rounds, "tokens": len(gen),
+                "decode_graph": graph,
+                "state_gb": bob_bytes / 1e9,
+                # from the engine's start on his sessions, as the direct
+                # run's from their submission
+                "tok_s_in_daemon": len(gen) / (gen[-1].t - bob_enabled),
+                "tok_s_direct": paged["tok_s"]},
+        "events": {"preempted": pre.payload, "resumed": res.payload,
+                   "compile_after_preempt": comp},
+        # the events' wall clocks (an "admitted" event carries its
+        # submission's time, so a grant is its "approved" state event)
+        "seconds": {
+            "alice_submit_to_grant": state_t(alice, "approved") - t_alice,
+            "alice_activation": state_t(alice, "active")
+            - state_t(alice, "approved"),
+            "alice_grant_to_first_step": t_of(steps)
+            - state_t(alice, "approved"),
+            "bob_submit_to_grant": state_t(bob, "approved") - t_bob,
+            # Bob's submit to Alice's requeue, right after her suspend
+            # (her "preempted" events carry the submission's time)
+            "alice_suspend": t_of(_events(log, alice, "enqueued",
+                                          preempted=True)) - t_bob,
+            "bob_activation": state_t(bob, "active")
+            - state_t(bob, "approved"),
+            "bob_grant_to_first_step": t_of(b_steps)
+            - state_t(bob, "approved"),
+            "bob_enable_to_first_step": t_of(b_steps) - bob_enabled,
+            "bob_submit_to_first_token": t_of(gen) - t_bob,
+            "bob_expiry_to_alice_resumed": res.t - state_t(bob, "expired"),
+            "bob_expiry_to_alice_step": t_of(
+                [e for e in steps if e.seq > res.seq])
+            - state_t(bob, "expired"),
+            "phase": elapsed},
+        "launches": launches, "card": _CARD}
+    if held is not None:
+        out["mem_while_bob_gb"] = (held - base) / 1e9
+        out["mem_limit_gb"] = limit / 1e9
+    out["overhead_us_per_step"] = control_overhead()
+    emit("control", **out)
+    return out
+
+
+def control_overhead(n: int = 2000) -> dict:
+    """The control plane's own host time per step, in microseconds: a
+    block whose steps take no time (``SimJobSpec(step_s=0)``), stepped
+    ``n`` times by ``run_steps`` and by inline engine rounds, every step
+    through the window, the bus and the Monitor as a real block's."""
+    from repro_torch.core.block import BlockState
+    from repro_torch.core.daemon import ClusterDaemon
+    from repro_torch.core.runtime import SimJobSpec
+    from repro_torch.core.topology import Topology
+    out = {}
+    for driver in ("run_steps", "autostep"):
+        root = tempfile.mkdtemp(prefix="chip_smoke_overhead_")
+        try:
+            d = ClusterDaemon(Topology(n_pods=1, pod_x=1, pod_y=1),
+                              devices=["cpu"], ckpt_root=root)
+            app, _ = d.submit("sim", "overhead", 1,
+                              job=SimJobSpec(step_s=0.0))
+            t0 = time.perf_counter()
+            if driver == "run_steps":
+                d.run_steps({app: n})
+            else:
+                d.autostep_enable(app, until_steps=n)
+                while d.registry.get(app).state != BlockState.DONE:
+                    d.autostep_round()
+            out[driver] = (time.perf_counter() - t0) / n * 1e6
+            check(d.runtime(app).step_count == n,
+                  f"control overhead: {driver} ran "
+                  f"{d.runtime(app).step_count} of {n} steps")
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2985,6 +3294,9 @@ def _run_all() -> int:
     train_hybrid = phase_train_hybrid()
     _free()
     preempt = phase_preempt(train=train_hybrid)
+    _free()
+    progress("control")
+    control = phase_control(train=train_hybrid, paged=paged)
 
     nl = dense["launches"]
     check(nl["flash_attention"] >= 30 and nl["rmsnorm"] >= 61,
@@ -2999,7 +3311,7 @@ def _run_all() -> int:
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
             "train": train["launches"], "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
-            "preempt": preempt["launches"]}
+            "preempt": preempt["launches"], "control": control["launches"]}
 
     def launched(counter):
         return {run: c[counter] for run, c in runs.items()}
@@ -3010,7 +3322,8 @@ def _run_all() -> int:
               "paged": [paged["decode_graph"]],
               "hybrid": [hybrid["decode_graph"]],
               "preempt": [preempt[k]["decode_graph_after_resume"]
-                          for k in ("serve_paged", "serve_hybrid")]}
+                          for k in ("serve_paged", "serve_hybrid")],
+              "control": [control["bob"]["decode_graph"]]}
 
     def in_graphs(counter):
         if counter not in COUNTERS:    # fused_adamw: train only, eager
@@ -3030,7 +3343,8 @@ def _run_all() -> int:
                        "train_f32": train_f32["launches"]["fused_adamw_f32"],
                        "train_hybrid":
                            train_hybrid["launches"]["fused_adamw_f32"],
-                       "preempt": preempt["launches"]["fused_adamw_f32"]}
+                       "preempt": preempt["launches"]["fused_adamw_f32"],
+                       "control": control["launches"]["fused_adamw_f32"]}
         else:
             per_run = launched(name)
         total = sum(per_run.values())

@@ -3,8 +3,8 @@ a weight-SHARED attention(32H kv=32)+MLP(d_ff=10240) block applied once per
 group of 5 Mamba2 blocks (9 applications, one parameter set — Zamba2's
 shared-block design).  vocab=32000.  [arXiv:2411.15242; hf]
 """
-from repro_torch.models.config import (AttentionConfig, HybridConfig,
-                                       ModelConfig, SSMConfig)
+from repro_torch.models.config import (AttentionConfig, HybridConfig, ModelConfig,
+                                 SSMConfig)
 
 CONFIG = ModelConfig(
     name="zamba2_2p7b",

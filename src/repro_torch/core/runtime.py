@@ -94,6 +94,17 @@ class JobSpec:
     max_seq_len: int = 0             # per-session context cap; 0 -> shape.seq_len
 
 
+@dataclasses.dataclass
+class SimJobSpec:
+    """Device-free stand-in for a JobSpec: activating a block with one
+    boots a ``scheduler.SimRuntime`` (wall-clock step model with the full
+    suspend/resume preemption surface) instead of building a real
+    runtime, so admission, dispatch, preemption and expiry run without a
+    device."""
+    step_s: float = 0.001
+    ckpt_every: int = 0
+
+
 class BlockRuntime(InflightWindow):
     """``ckpt_root``: where the block's checkpoints go, under the job's
     ``ckpt_namespace`` (default: the block id); without one, the

@@ -6,6 +6,8 @@ runs only when the caller asks for it with ``device="cpu"``.
 """
 from __future__ import annotations
 
+from typing import List
+
 import torch
 
 
@@ -16,3 +18,10 @@ def resolve(device) -> torch.device:
             f"device {str(dev)!r} requested but CUDA is not available; pass "
             f"device='cpu' to run the plain PyTorch path on the host")
     return dev
+
+
+def cuda_devices() -> List[torch.device]:
+    """Every CUDA device of the host, one per chip of a control plane's
+    topology; raises without a card."""
+    resolve("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

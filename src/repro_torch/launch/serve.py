@@ -1,9 +1,9 @@
-"""Serving driver: batched prefill + autoregressive decode on one serve
-block (the port of ``repro.launch.serve``).
-
-Until the control plane is ported, the launcher grants itself a one-chip
-block and drives ``BlockRuntime.prefill`` and ``step`` directly; the
-reference goes through ``ClusterDaemon``.
+"""Serving driver: batched prefill + autoregressive decode (the port of
+``repro.launch.serve``), run as a serve-kind block through the
+``ClusterDaemon`` service layer (register -> admit -> activate ->
+prefill -> decode steps -> download), so the launcher exercises the same
+lifecycle, dispatcher and monitoring as any other tenant of the public
+cluster.  The daemon's topology is one chip on ``--device``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b \
       --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
@@ -20,8 +20,9 @@ from typing import Any, Dict
 import numpy as np
 
 import repro_torch.configs as configs
-from repro_torch.core.block import BlockGrant
-from repro_torch.core.runtime import BlockRuntime, JobSpec
+from repro_torch.core.daemon import ClusterDaemon
+from repro_torch.core.runtime import JobSpec
+from repro_torch.core.topology import Topology
 from repro_torch.data import pipeline
 from repro_torch.models.config import ShapeConfig
 
@@ -41,20 +42,25 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Prefill a synthetic prompt batch and decode ``--gen`` tokens.
-    Returns the runtime, the batch, the generated tokens (B, gen) and the
-    prefill/decode wall times (each ending in a device sync)."""
+    Returns the daemon, the block's app id and runtime, the batch, the
+    generated tokens (B, gen) and the prefill/decode wall times (each
+    ending in a device sync)."""
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode path")
     B, P, G = args.batch, args.prompt_len, args.gen
 
-    grant = BlockGrant.new([(0, 0, 0)], (1, 1), duration_s=3600.0)
+    topo = Topology(n_pods=1, pod_x=1, pod_y=1)
+    daemon = ClusterDaemon(topo, devices=[args.device],
+                           ckpt_root="artifacts/serve_ckpt")
+    # cache sized for prompt + generation
     job = JobSpec(cfg, ShapeConfig("cli", "serve", seq_len=P + G,
                                    global_batch=B),
                   kind="serve", seed=args.seed, decode_sample=args.sample)
-    rt = BlockRuntime(grant, job, devices=[args.device])
-    rt.init_state()
+    app_id, grant = daemon.submit("cli", f"serve {cfg.name}", 1, job=job)
+    assert grant is not None, "single-tenant pod must admit immediately"
+    rt = daemon.runtime(app_id)
 
     prompt_shape = ShapeConfig("cli", "prefill", seq_len=P, global_batch=B)
     batch = {k: v for k, v in pipeline.synthetic_batch(
@@ -67,12 +73,18 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
     t0 = time.perf_counter()
     for _ in range(G - 1):
-        rt.step()
+        # one dispatch round per generated token so every token is
+        # collected (decode is a serial chain: no parallelism is lost)
+        daemon.run_steps({app_id: 1})
         out_tokens.append(rt.token.cpu().numpy())
     t_decode = time.perf_counter() - t0
+    res = daemon.download(app_id)
+    daemon.expire(app_id)
     return {"cfg": cfg, "runtime": rt, "batch": batch, "grant": grant,
+            "daemon": daemon, "app_id": app_id,
             "tokens": np.concatenate(out_tokens, axis=1),
-            "prefill_s": t_prefill, "decode_s": t_decode}
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "steps": res["steps"]}
 
 
 def main(argv=None) -> int:
@@ -86,7 +98,7 @@ def main(argv=None) -> int:
           f"({B*P/t_prefill:.0f} tok/s)")
     print(f"# decode:  {t_decode*1e3:.1f} ms "
           f"({B*(G-1)/max(t_decode,1e-9):.0f} tok/s) "
-          f"steps={res['runtime'].step_count}")
+          f"steps={res['steps']}")
     print("# first generations:", res["tokens"][:2, :10].tolist())
     return 0
 

@@ -641,15 +641,17 @@ def test_launcher_resume_equals_an_uninterrupted_run(tmp_path, capsys,
         return launch_train.parse_args(argv + ["--ckpt-dir", str(d), *extra])
 
     whole = launch_train.run(args(tmp_path / "whole"))
-    step, first = BlockRuntime.step, []
+    step, first = BlockRuntime.step_async, []
 
     def preempted_after_two(self):
         if self.step_count == 2:
             raise Preempted
-        first.append(step(self)["loss"])
-        return {"loss": first[-1], "grad_norm": 0.0, "lr": 0.0}
+        metrics = step(self)
+        first.append(float(metrics["loss"]))
+        return metrics
 
-    monkeypatch.setattr(BlockRuntime, "step", preempted_after_two)
+    # the launcher's steps are the daemon's dispatches
+    monkeypatch.setattr(BlockRuntime, "step_async", preempted_after_two)
     with pytest.raises(Preempted):
         launch_train.run(args(tmp_path / "cut"))
     monkeypatch.undo()

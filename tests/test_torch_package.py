@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax_or_repro():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 25     # every module was walked
+    assert int(r.stdout.split()[-1]) >= 76     # every module was walked
 
 
 def test_no_source_imports_jax_or_repro():
@@ -83,6 +83,14 @@ def test_entry_points_default_to_cuda_and_refuse_the_host():
     from repro_torch.data import pipeline
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pipeline.DataIterator(cfg, ShapeConfig("s", "train", 16, 1))
+    from repro_torch.core.controller import ClusterController
+    from repro_torch.core.daemon import ClusterDaemon
+    from repro_torch.core.topology import Topology
+    topo = Topology(n_pods=1, pod_x=1, pod_y=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterController(topo)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterDaemon(topo)
 
 
 def test_build_without_nvcc_raises(tmp_path):
@@ -190,3 +198,46 @@ def test_every_module_has_its_reference_counterpart():
              if p not in PORT_ONLY and not (ref / p).is_file()]
     assert not stray, f"port modules without a reference counterpart: {stray}"
     assert (PKG / "kernels" / "csrc").is_dir()
+
+
+#: the port's copies of reference modules that need no JAX: each is the
+#: reference file with ``repro`` read as ``repro_torch``, nothing else
+VERBATIM = (
+    ["models/config.py", "obs/trace.py", "obs/metrics.py", "obs/flight.py",
+     "obs/bridge.py", "obs/__init__.py", "core/__init__.py"]
+    + [f"core/{m}.py" for m in ("block", "topology", "inflight", "events",
+                                "registry", "policy", "partition",
+                                "interference", "monitor", "scheduler",
+                                "daemon")]
+    + [f"configs/{c}.py" for c in ("deepseek_7b", "mistral_nemo_12b",
+                                   "starcoder2_15b", "yi_34b",
+                                   "zamba2_2p7b")]
+    + [f"analysis/{m}" for m in ("__init__.py", "__main__.py",
+                                 "_astutil.py", "events_check.py",
+                                 "lifecycle.py", "locks.py", "report.py",
+                                 "rules.py", "run.py", "runtime_check.py",
+                                 "baseline.json")]
+    + [f"federation/{m}.py" for m in ("__init__", "health", "partition",
+                                      "placer", "pods")]
+    + [f"engine/{m}.py" for m in ("__init__", "autostep", "pacing")])
+
+
+@pytest.mark.parametrize("path", VERBATIM)
+def test_verbatim_copy_equals_its_reference(path):
+    """A copied module is its reference once ``repro_torch`` is read as
+    ``repro``: the copy re-points its imports (and the paths that name
+    the package) and changes nothing else."""
+    got = (PKG / path).read_text().replace("repro_torch", "repro")
+    assert got == (SRC / "repro" / path).read_text(), path
+
+
+def test_every_copied_reference_module_is_held():
+    """Every port file that is its reference under the renaming is in
+    ``VERBATIM``, so no copy goes unheld."""
+    same = sorted(
+        p.relative_to(PKG).as_posix() for p in PKG.rglob("*")
+        if p.suffix in (".py", ".json")
+        and (SRC / "repro" / p.relative_to(PKG)).is_file()
+        and p.read_text().replace("repro_torch", "repro")
+        == (SRC / "repro" / p.relative_to(PKG)).read_text())
+    assert same == sorted(VERBATIM)
