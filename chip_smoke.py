@@ -123,7 +123,24 @@ never JAX.  Phases, each printing one JSON line:
                      hit, the memory while Bob runs, the launches exactly;
                      admission, preemption, first-token and resume
                      seconds, each block's tok/s inside the daemon and
-                     Alice's MFU on the H100 roofline.
+                     Alice's MFU on the H100 roofline;
+12. ``gateway``    — the web gateway in front of a background
+                     ``ClusterDaemon`` on one chip, every step a real HTTP
+                     call: Alice walks the paper's explicit workflow
+                     (register, admin review, confirm, activate, run, 2
+                     steps, download, expire) with train_hybrid's job;
+                     Bob submits serve_paged's job and opens its 12
+                     sessions as 12 concurrent generate requests (11 SSE
+                     streams, one long-poll); an admin preempts his block
+                     mid-stream and posts its resume, and keeps the
+                     cluster-wide SSE feed open throughout.  Held: each
+                     session's streamed tokens serve_paged's bit for bit,
+                     no frame lost or repeated across the preemption,
+                     the launches exactly, the resume a compile-cache
+                     hit, the admin's frames the bus's in order, ``/ui``
+                     served, every body and frame encoded without
+                     ``default=``; HTTP TTFT and tok/s beside the direct
+                     run, the preempt and resume seconds.
 
 Then one JSON line (``decode_capture``) giving each decode path's step
 wall time, idle share and tok/s run eagerly and as graph replays, its
@@ -3219,6 +3236,539 @@ def control_overhead(n: int = 2000) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------- gateway
+
+#: the gateway phase's session profiles: user, token, priority, admin
+GATEWAY_USERS = (("alice", "tok-alice", 0, False),
+                 ("bob", "tok-bob", 1, False),
+                 ("root", "tok-root", 0, True))
+#: the event kinds root's SSE feed subscribes to for the whole phase
+GATEWAY_KINDS = ("state", "admitted", "preempted", "resumed", "enqueued",
+                 "step", "session", "generate", "autostep", "compile")
+#: the longest one HTTP call or stream of the gateway phase may take
+GATEWAY_TIMEOUT_S = 300.0
+
+
+class StrictJSON:
+    """Stands in for ``json`` in the gateway's server and handler modules
+    while the gateway phase runs: ``dumps`` ignores the ``default=str``
+    they pass, so a value JSON cannot encode (a tensor in an event
+    payload, a status dict or a download) raises where the modules would
+    have sent it as the string ``"tensor(...)"``; failures are kept."""
+
+    def __init__(self):
+        self.encoded = 0
+        self.failures = []
+
+    def dumps(self, obj, default=None, **kw):
+        try:
+            out = json.dumps(obj, **kw)
+        except TypeError as e:
+            self.failures.append(repr(e))
+            raise
+        self.encoded += 1
+        return out
+
+    def __getattr__(self, name):
+        return getattr(json, name)
+
+
+class HttpClient:
+    """HTTP to the gateway, from any thread: JSON calls and SSE streams
+    through ``urllib``; every decoded body and frame is kept for the
+    strict-JSON hold, and requests and frames are counted."""
+
+    def __init__(self, url):
+        import threading
+        self.url = url
+        self.lock = threading.Lock()
+        self.bodies = []
+        self.requests = 0
+        self.frames = 0
+
+    def _open(self, method, path, token, body):
+        import urllib.request
+        r = urllib.request.Request(
+            self.url + path, method=method,
+            data=None if body is None else json.dumps(body).encode())
+        if token:
+            r.add_header("Authorization", f"Bearer {token}")
+        with self.lock:
+            self.requests += 1
+        return urllib.request.urlopen(r, timeout=GATEWAY_TIMEOUT_S)
+
+    def raw(self, method, path, token=None, body=None):
+        """(status, content type, bytes)."""
+        import urllib.error
+        try:
+            with self._open(method, path, token, body) as resp:
+                return resp.status, resp.headers["Content-Type"], resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers["Content-Type"], e.read()
+
+    def req(self, method, path, token=None, body=None):
+        status, _, data = self.raw(method, path, token, body)
+        out = json.loads(data)
+        with self.lock:
+            self.bodies.append(out)
+        return status, out
+
+    def stream(self, method, path, token, body=None, on_frame=None):
+        """An SSE response read to its end: its frames (``id``, ``event``,
+        the decoded ``data``, ``t`` its arrival on the host clock), each
+        also handed to ``on_frame``."""
+        frames, cur = [], {}
+        with self._open(method, path, token, body) as resp:
+            check(resp.headers["Content-Type"].startswith(
+                "text/event-stream"), f"gateway: {path} is no SSE stream")
+            for raw in resp:
+                line = raw.decode().rstrip("\n")
+                if line.startswith("id: "):
+                    cur["id"] = int(line[4:])
+                elif line.startswith("event: "):
+                    cur["event"] = line[7:]
+                elif line.startswith("data: "):
+                    cur["data"] = json.loads(line[6:])
+                elif line == "" and "data" in cur:
+                    cur["t"] = time.perf_counter()
+                    frames.append(cur)
+                    if on_frame is not None:
+                        on_frame(cur)
+                    cur = {}
+        with self.lock:
+            self.bodies.extend(f["data"] for f in frames)
+            self.frames += len(frames)
+        return frames
+
+
+def _gateway_jobs(smoke):
+    """Alice's and Bob's jobs as a client writes them: with ``parse_job``'s
+    defaults, train_hybrid's job and serve_paged's."""
+    cfg, shape, _ = _train_hybrid_setup(smoke)
+    paged = _paged_job(smoke)
+    alice = {"kind": "train", "arch": "zamba2_2p7b", "smoke": smoke,
+             "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+             "microbatch": shape.microbatch}
+    bob = {"kind": "serve", "arch": "deepseek_7b", "smoke": smoke,
+           "paged": True, "page_size": paged.page_size,
+           "max_slots": paged.max_slots, "seq_len": paged.shape.seq_len,
+           "max_seq_len": paged.max_seq_len, "global_batch": 1}
+    return alice, bob
+
+
+def phase_gateway(device="cuda", smoke=False, paged=None):
+    """The web gateway on the card: a background ``ClusterDaemon`` on one
+    chip behind a ``GatewayServer`` on 127.0.0.1, every step of the
+    scenario a real HTTP call from a client thread.  Alice walks the
+    paper's explicit workflow with train_hybrid's job (register, root's
+    review, confirm with the capability token, activate, run, 2 steps,
+    download, expire); then Bob submits serve_paged's job and opens its 12
+    sessions as 12 concurrent generate requests (11 SSE streams, one
+    long-poll); after a third of the tokens root preempts his block and
+    posts its resume (the pump's tick re-admits a preempted block as soon
+    as the chip is free, so whichever lands first resumes him); root
+    keeps the cluster-wide SSE feed open throughout.  Held: Alice's
+    launches exactly 2 train_hybrid steps', her download's 2 steps, her
+    MFU in ``/v1/cluster``, under 1% of her state left after her expire;
+    each of Bob's sessions streams serve_paged's tokens (``paged``) bit
+    for bit, ends at its final token with no frame lost or repeated across
+    the preemption, his launches exactly his admissions' and rounds', one
+    resume, a compile-cache hit; root's frames the bus's for his kinds, in
+    order; ``/ui`` served, ``/v1/trace`` a Chrome trace; every response
+    body and frame encoded without ``default=`` (no tensor hidden as a
+    string).  The only reads of the daemon are for these checks."""
+    import threading
+    from repro_torch.core.daemon import ClusterDaemon
+    from repro_torch.core.topology import Topology
+    from repro_torch.gateway import GatewayServer, ProfileStore, UserProfile
+    from repro_torch.gateway import handlers as gw_handlers
+    from repro_torch.gateway import server as gw_server
+    from repro_torch.models import model as model_lib
+    if paged is None:
+        paged = phase_serve_paged(device, smoke)
+        _free(device)
+    cfg, shape, opt_cfg = _train_hybrid_setup(smoke)
+    alice_job, bob_job = _gateway_jobs(smoke)
+    parsed = gw_handlers.parse_job(alice_job)
+    check(parsed.cfg == cfg and parsed.opt == opt_cfg and (
+        parsed.shape.seq_len, parsed.shape.global_batch,
+        parsed.shape.microbatch) == (shape.seq_len, shape.global_batch,
+                                     shape.microbatch),
+          f"gateway: alice's job over the wire is not train_hybrid's: "
+          f"{parsed}")
+    bob_cfg = _paged_job(smoke).cfg
+    prompts = _paged_prompts(bob_cfg, smoke)
+    max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
+    want = list(paged["session_tokens"].values())   # in prompt order
+    check(len(want) == len(prompts), "gateway: serve_paged's sessions")
+    n_alice_steps = 2
+    n_tokens = len(prompts) * max_new
+    dev = torch.device(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
+    strict = StrictJSON()
+    encoders = (gw_server.json, gw_handlers.json)
+    gw_server.json = gw_handlers.json = strict
+    gc.collect()
+    base = _mem(dev)
+    log = []
+    daemon = ClusterDaemon(Topology(n_pods=1, pod_x=1, pod_y=1),
+                           devices=[device], ckpt_root=root,
+                           background=True)
+    daemon.bus.subscribe(log.append)
+    server = GatewayServer(daemon, ProfileStore([
+        UserProfile(u, tok, priority=p, admin=a)
+        for u, tok, p, a in GATEWAY_USERS])).start()
+    client = HttpClient(server.url)
+    watched = {"frames": [], "generate": 0, "error": None}
+
+    def on_watch(frame):
+        watched["frames"].append(frame)
+        if frame["event"] == "generate":
+            watched["generate"] += 1
+
+    def watch():
+        try:
+            client.stream("GET", "/v1/events/stream?after=0&kinds="
+                          + ",".join(GATEWAY_KINDS), "tok-root",
+                          on_frame=on_watch)
+        except Exception as e:          # read by the main thread
+            watched["error"] = repr(e)
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + GATEWAY_TIMEOUT_S
+        while not cond():
+            check(watched["error"] is None,
+                  f"gateway: root's feed failed: {watched['error']}")
+            check(time.monotonic() < deadline,
+                  f"gateway: no {what} in {GATEWAY_TIMEOUT_S:.0f} s")
+            time.sleep(0.005)
+
+    def ok(status, out, what, code=200):
+        check(status == code, f"gateway: {what} answered {status}: {out}")
+        return out
+
+    watcher = threading.Thread(target=watch, name="gateway-root-feed",
+                               daemon=True)
+    t0 = time.perf_counter()
+    sessions = [None] * len(prompts)
+    try:
+        watcher.start()
+        # ------------------------------------------------ Alice, train
+        progress("gateway: alice's explicit workflow")
+        zero_counts()
+        t_alice = time.time()
+        r = ok(*client.req("POST", "/v1/register", "tok-alice", {
+            "job_description": "train zamba2_2p7b over http",
+            "n_chips": 1}), "alice's register", 201)
+        alice = r["app_id"]
+        check(r["state"] == "requested", f"gateway: alice {r}")
+        rv = ok(*client.req("POST", f"/v1/blocks/{alice}/review",
+                            "tok-root", {}), "root's review")
+        st = ok(*client.req("GET", f"/v1/blocks/{alice}", "tok-alice"),
+                "alice's status")
+        check(rv["approved"] and st["token"], f"gateway: review {rv}")
+        ok(*client.req("POST", f"/v1/blocks/{alice}/confirm", "tok-alice",
+                       {"token": st["token"]}), "alice's confirm")
+        ok(*client.req("POST", f"/v1/blocks/{alice}/activate", "tok-alice",
+                       {"job": alice_job}), "alice's activate")
+        ok(*client.req("POST", f"/v1/blocks/{alice}/run", "tok-alice", {}),
+           "alice's run")
+        t_steps = time.perf_counter()
+        stepped = ok(*client.req("POST", f"/v1/blocks/{alice}/steps",
+                                 "tok-alice", {"rounds": n_alice_steps}),
+                     "alice's steps")
+        steps_http_s = time.perf_counter() - t_steps
+        dl = ok(*client.req("GET", f"/v1/blocks/{alice}/download",
+                            "tok-alice"), "alice's download")
+        cl = ok(*client.req("GET", "/v1/cluster", "tok-alice"),
+                "alice's cluster view")
+        alice_launches = counts()
+        alice_block = daemon.registry.get(alice).block_id
+        alice_bytes = tree_bytes(daemon.runtime(alice).state)
+        ok(*client.req("POST", f"/v1/blocks/{alice}/expire", "tok-alice",
+                       {}), "alice's expire")
+        gc.collect()
+        after_alice = _mem(dev)
+
+        # -------------------------------------------------- Bob, serve
+        progress("gateway: bob's 12 sessions over http")
+        zero_counts()
+        _zero_eager_calls()
+        t_bob = time.time()
+        b = ok(*client.req("POST", "/v1/submit", "tok-bob", {
+            "job_description": "serve deepseek_7b over http", "n_chips": 1,
+            "job": bob_job}), "bob's submit", 201)
+        bob = b["app_id"]
+        check(b["admitted"] and b["state"] == "running",
+              f"gateway: bob {b}")
+        rt = daemon.runtime(bob)
+        bob_bytes = tree_bytes(rt.state) + tree_bytes(rt.sessions.pool)
+        graph_before = rt.sessions.decode_graph
+        del rt
+        _disk_check(root, bob_bytes, "gateway")
+        polled = len(prompts) - 1        # this one long-polls
+        gen = f"/v1/blocks/{bob}/generate"
+
+        def sse_session(i):
+            t_send = time.perf_counter()
+            try:
+                frames = client.stream("POST", gen, "tok-bob", {
+                    "prompt": prompts[i], "max_new_tokens": max_new})
+                sessions[i] = {"send": t_send, "frames": frames}
+            except Exception as e:
+                sessions[i] = {"error": repr(e)}
+
+        def poll_session(i):
+            """``stream: false``; a long-poll that ends before its session
+            does (its wait is capped at 30 s, and the preemption falls
+            inside it) goes on over the block's feed from a cursor taken
+            before the submission."""
+            t_send = time.perf_counter()
+            try:
+                _, page = client.req("GET", f"/v1/blocks/{bob}/events?"
+                                     "kinds=state", "tok-bob")
+                cursor = page["next_after"]
+                s, out = client.req("POST", gen, "tok-bob", {
+                    "prompt": prompts[i], "max_new_tokens": max_new,
+                    "stream": False})
+                check(s == 200, f"gateway: long-poll answered {s}: {out}")
+                tokens, done = list(out["tokens"]), out["done"]
+                polls = 1
+                while not done:
+                    _, page = client.req(
+                        "GET", f"/v1/blocks/{bob}/events?after={cursor}"
+                        "&kinds=generate,session&timeout_s=30", "tok-bob")
+                    cursor = page["next_after"]
+                    polls += 1
+                    for ev in page["events"]:
+                        if ev.get("session") != out["session"]:
+                            continue
+                        if (ev["kind"] == "generate"
+                                and ev["index"] >= len(tokens)):
+                            tokens.append(ev["token"])
+                        done = done or ev["kind"] == "generate" and ev[
+                            "done"]
+                sessions[i] = {"send": t_send, "tokens": tokens,
+                               "polls": polls, "end": time.perf_counter()}
+            except BaseException as e:
+                sessions[i] = {"error": repr(e)}
+
+        threads = [threading.Thread(
+            target=poll_session if i == polled else sse_session, args=(i,),
+            name=f"gateway-session-{i}", daemon=True)
+            for i in range(len(prompts))]
+        t_traffic = time.perf_counter()
+        for th in threads:
+            th.start()
+        wait_for(lambda: watched["generate"] >= n_tokens // 3,
+                 "third of bob's tokens")
+        progress("gateway: root preempts bob")
+        t_pre = time.perf_counter()
+        t_pre_wall = time.time()
+        pr = ok(*client.req("POST", f"/v1/blocks/{bob}/preempt",
+                            "tok-root", {"reason": "admin over http"}),
+                "root's preempt")
+        preempt_http_s = time.perf_counter() - t_pre
+        t_res = time.perf_counter()
+        res_status, res_out = client.req("POST", f"/v1/blocks/{bob}/resume",
+                                         "tok-root", {})
+        resume_http_s = time.perf_counter() - t_res
+        for th in threads:
+            th.join(GATEWAY_TIMEOUT_S)
+        check(not any(th.is_alive() for th in threads),
+              "gateway: a session's request never ended")
+        t_end = max(s["frames"][-1]["t"] if "frames" in s else s["end"]
+                    for s in sessions if s and "error" not in s)
+        wait_for(lambda: _events(log, bob, "session", action="finished")
+                 and len(_events(log, bob, "session", action="finished"))
+                 == len(prompts), "the end of bob's sessions")
+        rt = daemon.runtime(bob)
+        graph_after = rt.sessions.decode_graph
+        admissions = rt.sessions.admissions
+        del rt
+        bob_launches = counts()
+        ok(*client.req("POST", f"/v1/blocks/{bob}/expire", "tok-bob", {}),
+           "bob's expire")
+
+        # ----------------------------------------- root's other surfaces
+        ui = client.raw("GET", "/ui")
+        app_js = client.raw("GET", "/ui/app.js")
+        trace = ok(*client.req("GET", "/v1/trace", "tok-root"),
+                   "root's trace")
+        last = max(e.seq for e in list(log) if e.kind in GATEWAY_KINDS)
+        wait_for(lambda: watched["frames"]
+                 and watched["frames"][-1]["id"] >= last,
+                 "root's feed to reach the bus's last event")
+        elapsed = time.perf_counter() - t0
+    finally:
+        server.stop()
+        daemon.stop()
+        gw_server.json, gw_handlers.json = encoders
+        watcher.join(10.0)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Alice: her workflow, launches, download, MFU, memory
+    steps = _events(log, alice, "step")
+    check(stepped["completed"] == n_alice_steps == len(steps)
+          and dl["steps"] == n_alice_steps,
+          f"gateway: alice's steps {stepped}, download {dl}")
+    alice_states = [e.payload["state"] for e in _events(log, alice,
+                                                         "state")]
+    check(alice_states == ["approved", "confirmed", "active", "running",
+                           "done", "expired"],
+          f"gateway: alice's states {alice_states}")
+    roofline = cl["roofline"]["blocks"].get(alice_block, {})
+    mfu = roofline.get("mfu")
+    check(mfu is not None and mfu > 0,
+          f"gateway: alice's MFU in /v1/cluster {roofline}")
+    zero = {n: 0 for n in COUNTERS}
+    per_step = (train_launches(cfg, shape, opt_cfg,
+                               model_lib.abstract_params(cfg))
+                if dev.type == "cuda" else zero)
+    want_alice = {n: n_alice_steps * per_step[n] for n in COUNTERS}
+    check(alice_launches == want_alice,
+          f"gateway: alice's launches {alice_launches}, want {want_alice}")
+    if base is not None:
+        check(after_alice - base < 0.01 * alice_bytes,
+              f"gateway: {(after_alice - base) / 1e9:.3f} GB left after "
+              f"alice's expire, her state {alice_bytes / 1e9:.3f} GB")
+
+    # Bob: every session's tokens, frames and end
+    bad = [i for i, s in enumerate(sessions) if s is None or "error" in s]
+    check(not bad, f"gateway: sessions {bad} failed: "
+          f"{[sessions[i] for i in bad]}")
+    ttft, got = [], []
+    for i, sess in enumerate(sessions):
+        if i == polled:
+            got.append(sess["tokens"])
+            continue
+        frames = sess["frames"]
+        ids = [f["id"] for f in frames]
+        gens = [f for f in frames if f["event"] == "generate"]
+        check(ids == sorted(set(ids))
+              and [f["data"]["index"] for f in gens] == list(range(max_new))
+              and gens[-1]["data"]["done"] and frames[-1] is gens[-1],
+              f"gateway: session {i}'s stream: ids {ids}, indices "
+              f"{[f['data']['index'] for f in gens]}")
+        got.append([f["data"]["token"] for f in gens])
+        ttft.append(gens[0]["t"] - sess["send"])
+    check(got == want, f"gateway: bob's tokens over http differ from "
+          f"serve_paged's in sessions "
+          f"{[i for i in range(len(want)) if got[i] != want[i]]}")
+    # one preemption, one resume, a compile-cache hit
+    pre = _events(log, bob, "preempted")
+    res = _events(log, bob, "resumed")
+    check(pr["state"] == "preempted" and len(pre) == len(res) == 1
+          and pre[0].seq < res[0].seq,
+          f"gateway: root's preempt {pr}, events preempted {pre}, resumed "
+          f"{res}")
+    resumed_by = "root" if res_status == 200 else "tick"
+    check(res_status == 200 or (res_status == 409 and res[0].t
+                                <= t_pre_wall + preempt_http_s
+                                + resume_http_s),
+          f"gateway: root's resume answered {res_status}: {res_out}")
+    # (the paged plane's steps are cached under no block id: Bob's block
+    # is the only one on the card after his preemption)
+    comp = [e.payload["action"] for e in list(log) if e.kind == "compile"
+            and e.seq > pre[0].seq]
+    check("miss" not in comp and "hit" in comp,
+          f"gateway: bob's compile-cache events after his preemption "
+          f"{comp}")
+    # launches: his admissions and rounds, in two graphs
+    graphs = [g.stats() for g in {id(g): g for g in (
+        graph_before, graph_after)}.values()]
+    rounds = len(_events(log, bob, "step"))
+    if dev.type == "cuda":
+        check(len(graphs) == 2 and all(
+            g["captures"] == 1 and g["eager_calls"] == 0 for g in graphs)
+            and sum(g["replays"] for g in graphs) == rounds
+            and _eager_calls() == 0,
+            f"gateway: bob's decode graphs {graphs} for {rounds} rounds, "
+            f"{_eager_calls()} eager decode steps")
+        pre_l, _, per_round = dense_launches(bob_cfg)
+    else:
+        check(sum(g["eager_calls"] for g in graphs) == rounds,
+              f"gateway: bob's {rounds} rounds on the CPU, graphs {graphs}")
+        pre_l = per_round = zero
+    want_bob = {n: admissions * pre_l[n] + rounds * per_round[n]
+                for n in COUNTERS}
+    check(bob_launches == want_bob,
+          f"gateway: bob's launches {bob_launches}, want {want_bob} "
+          f"({admissions} admissions, {rounds} rounds)")
+
+    # root: the feed in bus order, the dashboard, the trace
+    frames = watched["frames"]
+    ids = [f["id"] for f in frames]
+    bus = [e for e in list(log) if e.kind in GATEWAY_KINDS]
+    check(ids == [e.seq for e in bus] and ids == sorted(set(ids)),
+          f"gateway: root's feed ids {ids[:20]}... are not the bus's "
+          f"{[e.seq for e in bus][:20]}...")
+    for app in (alice, bob):
+        seen = [f["data"]["state"] for f in frames if f["event"] == "state"
+                and f["data"]["app_id"] == app]
+        check(seen == [e.payload["state"] for e in _events(log, app,
+                                                            "state")],
+              f"gateway: {app}'s states on root's feed {seen}")
+    check(ui[0] == 200 and ui[1].startswith("text/html")
+          and b"/ui/app.js" in ui[2] and app_js[0] == 200
+          and app_js[1].startswith("text/javascript"),
+          f"gateway: /ui {ui[:2]}, /ui/app.js {app_js[:2]}")
+    check(isinstance(trace.get("traceEvents"), list),
+          f"gateway: /v1/trace is no Chrome trace: {list(trace)[:5]}")
+    # no tensor hidden as a string, server side and client side
+    check(strict.failures == [] and strict.encoded > 0,
+          f"gateway: the strict encoder failed: {strict.failures}")
+    for obj in client.bodies:
+        text = json.dumps(obj)
+        check("tensor(" not in text, f"gateway: a tensor written out as a "
+              f"string in {text[:300]}")
+
+    traffic_s = t_end - t_traffic
+    gap_s = res[0].t - t_pre_wall
+    out = {
+        "alice": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                  "steps": n_alice_steps,
+                  "submit_to_first_step_s": steps[0].t - t_alice,
+                  "steps_http_s": steps_http_s,
+                  "step_s": [e.payload["step_s"] for e in steps],
+                  "state_gb": alice_bytes / 1e9, "mfu": mfu,
+                  "mem_after_expire_gb": (None if base is None else
+                                          (after_alice - base) / 1e9)},
+        "bob": {"arch": bob_cfg.name, "sessions": len(prompts),
+                "sse_sessions": len(ttft), "max_new_tokens": max_new,
+                "admissions": admissions, "rounds": rounds,
+                "tokens": n_tokens, "state_gb": bob_bytes / 1e9,
+                "long_poll_requests": sessions[polled]["polls"],
+                "decode_graphs": graphs,
+                "submit_to_first_token_s":
+                    _events(log, bob, "generate")[0].t - t_bob,
+                "http": {"ttft_p50_s": float(np.percentile(ttft, 50)),
+                         "ttft_p99_s": float(np.percentile(ttft, 99)),
+                         "tok_s": n_tokens / traffic_s,
+                         "tok_s_outside_preemption":
+                             n_tokens / (traffic_s - gap_s)},
+                "direct": {"ttft_p50_s": paged["ttft_p50_s"],
+                           "ttft_p99_s": paged["ttft_p99_s"],
+                           "tok_s": paged["tok_s"]}},
+        "admin": {"resumed_by": resumed_by, "resume_status": res_status,
+                  "preempt_http_s": preempt_http_s,
+                  "resume_http_s": resume_http_s,
+                  "preempt_event_s": pre[0].t - t_pre_wall,
+                  "preempted_to_resumed_event_s": res[0].t - pre[0].t,
+                  "preempt_call_to_resumed_event_s": gap_s,
+                  "compile_after_preempt": comp},
+        "http_requests": client.requests, "sse_frames": client.frames,
+        "root_feed_frames": len(frames), "strict_encodes": strict.encoded,
+        "phase_s": elapsed, "launches": {
+            n: alice_launches[n] + bob_launches[n] for n in COUNTERS},
+        "launches_by_user": {"alice": alice_launches, "bob": bob_launches},
+        "card": _CARD}
+    emit("gateway", **out)
+    out["decode_graphs"] = graphs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -3297,6 +3847,9 @@ def _run_all() -> int:
     _free()
     progress("control")
     control = phase_control(train=train_hybrid, paged=paged)
+    _free()
+    progress("gateway")
+    gateway = phase_gateway(paged=paged)
 
     nl = dense["launches"]
     check(nl["flash_attention"] >= 30 and nl["rmsnorm"] >= 61,
@@ -3311,7 +3864,8 @@ def _run_all() -> int:
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
             "train": train["launches"], "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
-            "preempt": preempt["launches"], "control": control["launches"]}
+            "preempt": preempt["launches"], "control": control["launches"],
+            "gateway": gateway["launches"]}
 
     def launched(counter):
         return {run: c[counter] for run, c in runs.items()}
@@ -3323,7 +3877,8 @@ def _run_all() -> int:
               "hybrid": [hybrid["decode_graph"]],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
-              "control": [control["bob"]["decode_graph"]]}
+              "control": [control["bob"]["decode_graph"]],
+              "gateway": gateway["decode_graphs"]}
 
     def in_graphs(counter):
         if counter not in COUNTERS:    # fused_adamw: train only, eager
@@ -3344,7 +3899,8 @@ def _run_all() -> int:
                        "train_hybrid":
                            train_hybrid["launches"]["fused_adamw_f32"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],
-                       "control": control["launches"]["fused_adamw_f32"]}
+                       "control": control["launches"]["fused_adamw_f32"],
+                       "gateway": gateway["launches"]["fused_adamw_f32"]}
         else:
             per_run = launched(name)
         total = sum(per_run.values())

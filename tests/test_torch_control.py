@@ -112,7 +112,8 @@ def twins(ref, **helpers):
     for k, v in vars(ref).items():
         if (isinstance(v, types.FunctionType) and v.__module__ == ref.__name__
                 and k not in helpers):
-            g[k] = types.FunctionType(v.__code__, g, k, v.__defaults__)
+            g[k] = types.FunctionType(v.__code__, g, k, v.__defaults__,
+                                      v.__closure__)
     leaked = [k for k, v in g.items() if not k.startswith("__") and (
         getattr(v, "__module__", None) or "").startswith("repro.")]
     assert not leaked, f"reference objects left in the twins: {leaked}"
@@ -608,11 +609,29 @@ def test_chip_smoke_control_phase_on_cpu_race_checked():
 
 def test_port_analysis_runs_clean_without_a_dashboard():
     """The port's copy of ``analysis`` walks the port by default (its CLI
-    gate exits 0) and, with no ``gateway/static/`` yet, finds no
-    dashboard JS and reports nothing about it."""
+    gate exits 0).  The port has had a dashboard since its gateway came
+    in, so (the test's name is older than it) the walk now finds
+    ``gateway/static/app.js``, whose SSE subscription array agrees with
+    ``EVENT_KINDS``: no error, no dashboard finding."""
     from repro_torch.analysis import analyze_paths
     from repro_torch.analysis.__main__ import main
+    from repro_torch.core.events import EVENT_KINDS
     report, model = analyze_paths([str(ROOT / "src" / "repro_torch")])
-    assert report.errors() == [] and model["events"]["dashboard"] == []
+    assert report.errors() == []
+    assert model["events"]["dashboard"] == sorted(EVENT_KINDS)
     assert not any("dashboard" in f.rule for f in report.findings)
     assert main([]) == 0
+
+
+#: the reference's analysis CLI cases, run against the port's analysis
+ANALYSIS_CLI_CASES = ("test_cli_json_output",
+                      "test_unknown_event_kind_covers_all_three_sides")
+
+
+@pytest.mark.parametrize("name", ANALYSIS_CLI_CASES)
+def test_analysis_cli_twin(name, tmp_path):
+    import test_analysis as ref_analysis
+    fn = twins(ref_analysis)[name]
+    kwargs = ({"tmp_path": tmp_path}
+              if "tmp_path" in inspect.signature(fn).parameters else {})
+    fn(**kwargs)

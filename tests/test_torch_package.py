@@ -24,6 +24,7 @@ def test_every_module_imports_without_jax_or_repro():
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
+        assert "repro_torch.gateway.handlers" in names
         for n in names:
             importlib.import_module(n)
         assert not any(k == "jax" or k.startswith(("jax.", "repro."))
@@ -219,7 +220,9 @@ VERBATIM = (
                                  "baseline.json")]
     + [f"federation/{m}.py" for m in ("__init__", "health", "partition",
                                       "placer", "pods")]
-    + [f"engine/{m}.py" for m in ("__init__", "autostep", "pacing")])
+    + [f"engine/{m}.py" for m in ("__init__", "autostep", "pacing")]
+    + [f"gateway/{m}.py" for m in ("__init__", "auth", "profiles",
+                                   "ratelimit", "server")])
 
 
 @pytest.mark.parametrize("path", VERBATIM)
@@ -229,6 +232,21 @@ def test_verbatim_copy_equals_its_reference(path):
     the package) and changes nothing else."""
     got = (PKG / path).read_text().replace("repro_torch", "repro")
     assert got == (SRC / "repro" / path).read_text(), path
+
+
+#: the dashboard's assets, copied byte for byte
+STATIC = ("index.html", "app.js", "style.css")
+
+
+@pytest.mark.parametrize("name", STATIC)
+def test_dashboard_asset_equals_its_reference(name):
+    """The gateway serves the reference's dashboard unchanged: each asset
+    under ``gateway/static/`` is the reference's, byte for byte, and the
+    port's static directory holds no other file."""
+    got = PKG / "gateway" / "static" / name
+    assert got.read_bytes() == (SRC / "repro" / "gateway" / "static"
+                                / name).read_bytes()
+    assert sorted(p.name for p in got.parent.iterdir()) == sorted(STATIC)
 
 
 def test_every_copied_reference_module_is_held():
