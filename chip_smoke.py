@@ -69,7 +69,16 @@ never JAX.  Phases, each printing one JSON line:
                      in bf16 each group's output, fed the same input,
                      within 5% of the range of its update, and the SSM
                      states within 5% of theirs (``hybrid_group_check``);
-7. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
+7. ``serve_vlm``   — ``repro_torch.launch.serve`` on pixtral_12b (the VLM:
+                     mistral_nemo_12b's backbone behind the patch stub) at
+                     full size, 40 layers, random bf16 weights from the
+                     seed: 4 prompts of 2048 positions (256 image patches,
+                     then 1792 text tokens), 32 generated, the decode
+                     steps as graph replays held against eager ones as in
+                     ``serve_dense``; the launches exactly; the prefill
+                     logits against ``impl="torch"``; the decode steps
+                     written at positions n_patches + T onward;
+8. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
                      (30 layers, random bf16 weights from the seed, int8
                      AdamW moments, 2 x 2048 tokens a step, remat): the
                      step-0 loss and grad norm against ``impl="torch"``,
@@ -77,10 +86,10 @@ never JAX.  Phases, each printing one JSON line:
                      peak memory, the kernels' launches per step (held
                      exactly, as in every train phase) and a profiled
                      warm step;
-8. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
+9. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
                      2 microbatches: the fp32 AdamW variant and the serial
                      gradient accumulation;
-9. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
+10. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
                      (54 layers, random bf16 weights from the seed, fp32
                      AdamW moments, 2 x 2048 tokens a step, remat): step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
@@ -90,7 +99,14 @@ never JAX.  Phases, each printing one JSON line:
                      then 4 steps, the kernels' launches per step held
                      exactly (the SSD scan's backward kernel among them),
                      tokens/s, step time, peak memory and a profiled step;
-10. ``preempt``    — checkpoints and preempt/resume at full width
+11. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
+                     encoder: LayerNorm, plain GELU MLP, bidirectional
+                     attention at head dim 80, the frame stub, the
+                     masked-frame loss) at full size, 48 layers, fp32
+                     moments, 8 x 1024 frames a step: step 0 as
+                     ``train_hybrid``'s, 5 steps with their launches held
+                     exactly (no RMSNorm), frames/s, MFU, a profiled step;
+12. ``preempt``    — checkpoints and preempt/resume at full width
                      (``BlockRuntime.suspend``/``resume`` through
                      ``repro_torch.checkpoint.manager``, under a temporary
                      directory): train_hybrid's job suspended after 3
@@ -110,7 +126,7 @@ never JAX.  Phases, each printing one JSON line:
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
                      the save, disk space and peak memory;
-11. ``control``    — the control plane on the card: a background-mode
+13. ``control``    — the control plane on the card: a background-mode
                      ``ClusterDaemon`` on one chip, Alice's train block
                      (train_hybrid's job) autostepping toward 4 steps,
                      preempted after 2 by Bob's priority-1 paged serve
@@ -124,7 +140,7 @@ never JAX.  Phases, each printing one JSON line:
                      admission, preemption, first-token and resume
                      seconds, each block's tok/s inside the daemon and
                      Alice's MFU on the H100 roofline;
-12. ``gateway``    — the web gateway in front of a background
+14. ``gateway``    — the web gateway in front of a background
                      ``ClusterDaemon`` on one chip, every step a real HTTP
                      call: Alice walks the paper's explicit workflow
                      (register, admin review, confirm, activate, run, 2
@@ -629,6 +645,19 @@ def flash_case(B, Hq, Hkv, Sq, Sk, D, Dv, causal=True, window=0,
     want = flash_attention_torch(q, k, v, **kw)
     torch.cuda.synchronize()
     return (q, k, v, kw), got, want
+
+
+def flash_pairs(B, H, S, causal=True) -> int:
+    """(query, key) pairs a square attention computes: the lower triangle
+    with the causal mask, every pair without."""
+    return B * H * (S * (S + 1) // 2 if causal else S * S)
+
+
+def sdpa(q, k, v, causal):
+    """PyTorch's one call for the same attention (GQA heads shared)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
 
 
 def rms_case(rows, d, dtype=torch.bfloat16, seed=1, offset=0):
@@ -1196,7 +1225,7 @@ def check_train_kernels(out, edge, edges):
     # reported in the flash_attention row
     fa = out["flash_attention"]
     B, H, S, D = q.shape
-    pairs = H * B * sum(min(S, i + 1) for i in range(S))
+    pairs = flash_pairs(B, H, S)
     fwd_flops = pairs * 2 * (D + v.shape[-1])
     b_ms, b_by = bound(2 * 4 * q.numel() + 4 * lse.numel(), fwd_flops)
     fa["train_shape"] = {
@@ -1210,7 +1239,8 @@ def check_train_kernels(out, edge, edges):
     fa["train_shape"]["tflops"] = (fwd_flops / fa["train_shape"]["kernel_ms"]
                                    / 1e9)
     fa["max_err"] = max(fa["max_err"], fa["train_shape"]["o_max_err"],
-                        out["flash_attention_hybrid"]["max_err"])
+                        *(out[f"flash_attention_{k}"]["max_err"]
+                          for k in ("hybrid", "vlm", "encoder")))
     err, ratio = worst(got, want, 2e-2)
     check(ratio <= 1.0 and all(bool(torch.isfinite(t).all()) for t in got),
           f"flash_attention_bwd full width: max_abs_err {err}, {ratio} x tol")
@@ -1247,37 +1277,14 @@ def check_train_kernels(out, edge, edges):
         "kernel_ms": time_ms(lambda: flash_attention_bwd_cuda(
             qm, k, v, o, lse, do, **kw), iters=5)}
     del q, k, v, o, lse, do, got, want, fwd, ql, kl, vl, ol, qm, cc
-    # ---- the hybrid's train shape: zamba2_2p7b's shared block, (2, 32,
-    # 2048, 80): the forward with lse held, the backward held and timed
-    # beside its plain version and SDPA's
-    (q, k, v, o, lse, do, kw), got, want, fwd = flash_bwd_case(
-        2, 32, 32, 2048, 2048, 80, 80)
-    fa["hybrid_train_shape"] = {"shape": list(q.shape), "rtol": 2e-2,
-                                **fwd_ok(fwd, "hybrid train shape", 2e-2)}
-    fa["max_err"] = max(fa["max_err"], fa["hybrid_train_shape"]["o_max_err"])
-    err, ratio = worst(got, want, 2e-2)
-    check(ratio <= 1.0 and all(bool(torch.isfinite(t).all()) for t in got),
-          f"flash_attention_bwd hybrid train shape: max_abs_err {err}, "
-          f"{ratio} x tol")
-    B, H, S, D = q.shape
-    pairs = H * B * sum(min(S, i + 1) for i in range(S))
-    h_flops = pairs * 2 * 5 * D
-    b_ms, b_by = bound(2 * 8 * q.numel() + 4 * lse.numel(), h_flops)
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    fb["hybrid_train_shape"] = {
-        "shape": [B, H, S, D], "max_err": err, "rtol": 2e-2,
-        "err_over_tol": ratio,
-        "kernel_ms": time_ms(lambda: flash_attention_bwd_cuda(
-            q, k, v, o, lse, do, **kw)),
-        "plain_ms": time_ms(lambda: flash_attention_bwd_torch(
-            q, k, v, o, lse, do, **kw), iters=5),
-        "library_ms": time_ms(lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), do, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by, "flops": h_flops}
-    fb["hybrid_train_shape"]["tflops"] = (
-        h_flops / fb["hybrid_train_shape"]["kernel_ms"] / 1e9)
-    del q, k, v, o, lse, do, got, want, fwd, ql, kl, vl, ol
+    # ---- the other train shapes: zamba2_2p7b's shared block, (2, 32,
+    # 2048, 80) causal, and hubert_xlarge's bidirectional attention, (8,
+    # 16, 1024, 80) without the mask (every kv tile full: the kernels'
+    # non-causal branches)
+    flash_train_shape(out, "hybrid_train_shape",
+                      (2, 32, 32, 2048, 2048, 80, 80), True, fwd_ok, worst)
+    flash_train_shape(out, "encoder_train_shape",
+                      (8, 16, 16, 1024, 1024, 80, 80), False, fwd_ok, worst)
     for name, args, kw2 in [
             ("gqa_g4", (2, 8, 2, 100, 100, 64, 64), {}),
             ("gqa_g12", (1, 48, 4, 100, 100, 128, 128), {}),
@@ -1398,6 +1405,57 @@ ADAM_DISTANCES = ("p_ulp", "p_max_abs_err", "m_ulp", "v_ulp",
                   "v_code_max_diff", "v_code_diff_share", "v_scale_ulp")
 
 
+def flash_train_shape(out, key, args, causal, fwd_ok, worst):
+    """A train step's attention shape (``flash_bwd_case``'s ``args``)
+    recorded as ``key`` in both flash rows: the forward with lse held and
+    timed, the backward held element by element, bit for bit over two
+    calls, and timed beside its plain version and SDPA's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_torch,
+        flash_attention_cuda)
+    progress(f"kernels: flash backward, {key}")
+    (q, k, v, o, lse, do, kw), got, want, fwd = flash_bwd_case(
+        *args, causal=causal)
+    fa, fb = out["flash_attention"], out["flash_attention_bwd"]
+    B, H, S, D = q.shape
+    pairs = flash_pairs(B, H, S, causal)
+    fwd_flops = pairs * 2 * 2 * D
+    b_ms, b_by = bound(2 * 4 * q.numel() + 4 * lse.numel(), fwd_flops)
+    fa[key] = {
+        "shape": list(q.shape), "causal": causal, "rtol": 2e-2,
+        **fwd_ok(fwd, key, 2e-2),
+        "kernel_ms": time_ms(lambda: flash_attention_cuda(
+            q, k, v, with_lse=True, **kw)),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": fwd_flops}
+    fa["max_err"] = max(fa["max_err"], fa[key]["o_max_err"])
+    err, ratio = worst(got, want, 2e-2)
+    check(ratio <= 1.0 and all(bool(torch.isfinite(t).all()) for t in got),
+          f"flash_attention_bwd {key}: max_abs_err {err}, {ratio} x tol")
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {key}: two calls differ")
+    del again
+    flops = pairs * 2 * 5 * D
+    b_ms, b_by = bound(2 * 8 * q.numel() + 4 * lse.numel(), flops)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    row = {
+        "shape": [B, H, S, D], "causal": causal, "max_err": err,
+        "rtol": 2e-2, "err_over_tol": ratio,
+        "kernel_ms": time_ms(lambda: flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, **kw)),
+        "plain_ms": time_ms(lambda: flash_attention_bwd_torch(
+            q, k, v, o, lse, do, **kw), iters=5),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True)),
+        "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+        "bitwise_reproducible": True}
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    fb[key] = row
+    fb["max_err"] = max(fb["max_err"], err)
+
+
 def check_adamw_kernel(out, edges):
     """Both fused AdamW instances (int8 and fp32 moments) at deepseek_7b's
     largest, widest and smallest leaves (timed) and at edge cases.  Each
@@ -1493,7 +1551,13 @@ def check_adamw_kernel(out, edges):
                 # elements, masked 16 at a time
                 ("L4112_ragged_block_vector", (3, 4112), {}, "vector"),
                 ("misaligned_scalar_route", (5, 4096), dict(misalign=True),
-                 "scalar")]:
+                 "scalar"),
+                # hubert_xlarge's largest leaf and its LM head, 504 wide
+                # (its moments are fp32)
+                ("hubert_w_up", (48, 1280, 5120), {}, "vector"),
+                ("hubert_lm_head", (1280, 504), {}, "scalar")]:
+            if quant and name.startswith("hubert"):
+                continue
             inputs, got, want, route = adamw_case(shape, quant, **kw2)
             chk = both_routes(f"{variant} {name}", inputs, got, want, route,
                               expect)[0]
@@ -1627,25 +1691,25 @@ def phase_kernels():
         check(ok, f"{name} {case}: max_abs_err {err}, {ratio} x its "
               f"tolerance (rtol {rtol})")
 
-    def flash_row(*shape):
-        """A causal bf16 prefill shape, held and timed."""
-        (q, k, v, kw), got, want = flash_case(*shape)
+    def flash_row(*shape, causal=True):
+        """A bf16 prefill (or, ``causal=False``, encoder) shape, held and
+        timed."""
+        (q, k, v, kw), got, want = flash_case(*shape, causal=causal)
         err, ratio = close(got, want, 2e-2)
         check(ratio <= 1.0 and bool(torch.isfinite(got).all()),
-              f"flash_attention {list(q.shape)}: max_abs_err {err}, "
-              f"{ratio} x tol")
+              f"flash_attention {list(q.shape)} causal={causal}: "
+              f"max_abs_err {err}, {ratio} x tol")
         B, H, S, D = q.shape
-        pairs = H * B * sum(min(S, i + 1) for i in range(S))
+        pairs = flash_pairs(B, H, S, causal)
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
         flops = pairs * 2 * (D + v.shape[-1])
         b_ms, b_by = bound(nbytes, flops)
         row = {
-            "shape": [B, H, S, D], "max_err": err, "rtol": 2e-2,
-            "err_over_tol": ratio,
+            "shape": [B, H, S, D], "kv_heads": k.shape[1], "causal": causal,
+            "max_err": err, "rtol": 2e-2, "err_over_tol": ratio,
             "kernel_ms": time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
             "plain_ms": time_ms(lambda: flash_attention_torch(q, k, v, **kw)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True)),
+            "library_ms": time_ms(lambda: sdpa(q, k, v, causal)),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops}
         row["tflops"] = flops / row["kernel_ms"] / 1e9
         # the CUDA-core route (the bf16 design before the tensor cores,
@@ -1665,6 +1729,11 @@ def phase_kernels():
     # and zamba2_2p7b's shared attention block, (4, 32, 1000, 80); causal
     out["flash_attention"] = flash_row(4, 32, 32, 512, 512, 128, 128)
     out["flash_attention_hybrid"] = flash_row(4, 32, 32, 1000, 1000, 80, 80)
+    # pixtral_12b's prefill, GQA 32/8 at 4 x 2048 positions (patches and
+    # text), and hubert_xlarge's bidirectional attention, (8, 16, 1024, 80)
+    out["flash_attention_vlm"] = flash_row(4, 32, 8, 2048, 2048, 128, 128)
+    out["flash_attention_encoder"] = flash_row(8, 16, 16, 1024, 1024, 80, 80,
+                                               causal=False)
     for name, args, kw2 in [
             ("gqa_g4", (2, 8, 2, 100, 100, 64, 64), {}),
             ("gqa_g12", (1, 48, 4, 100, 100, 128, 128), {}),
@@ -1698,6 +1767,8 @@ def phase_kernels():
     # Mamba2 gated norm's 5120
     for rows, d, key in ((2048, 4096, "rmsnorm"), (4, 4096, "rmsnorm_decode"),
                          (4096, 4096, "rmsnorm_train"),
+                         (8192, 5120, "rmsnorm_vlm"),
+                         (4, 5120, "rmsnorm_vlm_decode"),
                          (4000, 2560, "rmsnorm_hybrid_d2560"),
                          (4000, 5120, "rmsnorm_hybrid_d5120"),
                          (4, 2560, "rmsnorm_hybrid_decode_d2560"),
@@ -1880,17 +1951,17 @@ def sampled_vs_eager(device):
     return out
 
 
-def phase_serve_dense(device="cuda", smoke=False):
-    """The dense data plane through the launcher's entry point: the
-    decode steps as graph replays, each kernel's launches exact, then the
-    captured decode against the eager one from one state."""
+def dense_plane(name, argv, device, positions=None):
+    """A dense-plane serve block through the launcher's entry point
+    (``argv``): the decode steps as graph replays, each kernel's launches
+    exact, the tokens in range, the prefill logits against
+    ``impl="torch"`` and the first token their argmax, then the captured
+    decode against the eager one from one state, and the warm prefill
+    and decode steps profiled.  ``positions(rt, batch, args)``, if given,
+    reads the cache the launcher's decode left before anything else
+    touches it.  Returns the phase's record."""
     from repro_torch.launch import serve
     from repro_torch.models import model
-    argv = ["--arch", "deepseek_7b", "--batch", "4", "--prompt-len", "512",
-            "--gen", "32", "--seed", "0", "--device", device]
-    if smoke:
-        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
-                           "--gen", "6", "--device", device]
     args = serve.parse_args(argv)
     zero_counts()
     _zero_eager_calls()
@@ -1898,56 +1969,73 @@ def phase_serve_dense(device="cuda", smoke=False):
     launches = counts()
     rt, cfg = res["runtime"], res["cfg"]
     B, P, G = args.batch, args.prompt_len, args.gen
-    graph = graph_check("serve_dense", rt.decode_graph, G - 1,
-                        _eager_calls(), device)
+    graph = graph_check(name, rt.decode_graph, G - 1, _eager_calls(),
+                        device)
     pre, dec, _ = dense_launches(cfg)
     if rt.device.type != "cuda":
         pre = dec = {n: 0 for n in COUNTERS}
     check(launches == {n: pre[n] + (G - 1) * dec[n] for n in COUNTERS},
-          f"dense main path launches {launches}: not one prefill {pre} and "
+          f"{name} main path launches {launches}: not one prefill {pre} and "
           f"{G - 1} decode steps {dec}")
     toks = res["tokens"]
     check(toks.shape == (B, G) and toks.min() >= 0
-          and toks.max() < cfg.vocab_size, f"dense tokens {toks.shape}")
-
-    # the same prefill with the kernels and with their plain versions
-    params, tokens = rt.state["params"], torch.as_tensor(
-        res["batch"]["tokens"], device=rt.device)
-    got, _ = model.prefill(params, cfg, {"tokens": tokens},
-                           model.init_cache(cfg, B, P, rt.device))
-    want, _ = model.prefill(params, cfg, {"tokens": tokens},
-                            model.init_cache(cfg, B, P, rt.device),
-                            impl="torch")
-    chk = logits_check(got, want)
-    check(chk["passed"], f"dense prefill logits: {chk}")
-    check(bool((torch.argmax(got, -1).cpu().numpy() == toks[:, 0]).all()),
-          "the runtime's first token is not the prefill logits' argmax")
-    del got, want
-    vs_eager, eager_cache, first, pos = captured_vs_eager(
-        rt, {"tokens": tokens}, G - 1)
-    out = {"arch": cfg.name, "batch": B, "prompt_len": P, "gen": G,
+          and toks.max() < cfg.vocab_size, f"{name} tokens {toks.shape}")
+    batch = {k: torch.as_tensor(v, device=rt.device)
+             for k, v in res["batch"].items()}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+           "prompt_len": P, "gen": G,
            "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+           # the prompt's positions (a VLM's patches among them)
            "prefill_tok_s": B * P / res["prefill_s"],
            "decode_tok_s": B * (G - 1) / res["decode_s"],
-           "launches": launches, "decode_graph": graph,
-           "captured_vs_eager": vs_eager,
-           "sampled_vs_eager": sampled_vs_eager(device),
-           "logits_check": chk}
+           "launches": launches, "decode_graph": graph}
+    if positions is not None:
+        out["positions"] = positions(rt, batch, args)
+
+    # the same prefill with the kernels and with their plain versions
+    params = rt.state["params"]
+    got, _ = model.prefill(params, cfg, batch,
+                           model.init_cache(cfg, B, P, rt.device))
+    want, _ = model.prefill(params, cfg, batch,
+                            model.init_cache(cfg, B, P, rt.device),
+                            impl="torch")
+    out["logits_check"] = chk = logits_check(got, want)
+    check(chk["passed"], f"{name} prefill logits: {chk}")
+    check(bool((torch.argmax(got, -1).cpu().numpy() == toks[:, 0]).all()),
+          f"{name}: the runtime's first token is not the prefill logits' "
+          f"argmax")
+    del got, want
+    out["captured_vs_eager"], eager_cache, first, pos = captured_vs_eager(
+        rt, batch, G - 1)
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         # warm: the timed run above includes first-call costs (cuBLAS
         # handles and heuristics, lazy module loading)
         cache = model.init_cache(cfg, B, P, rt.device)
         out["warm_prefill"] = profile_steps(
-            lambda: model.prefill(params, cfg, {"tokens": tokens}, cache), 2)
+            lambda: model.prefill(params, cfg, batch, cache), 2)
         del cache
-        rt.prefill({"tokens": tokens})         # cache_len back to P
+        rt.prefill(batch)                      # cache_len back to P
         out["warm_decode_step"] = profile_steps(rt.step, 3)
         # the same step eagerly, on the check's copy of the cache
         pos.fill_(P)
         out["warm_decode_step_eager"] = profile_steps(
             lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
                                        None), 3)
+    return out
+
+
+def phase_serve_dense(device="cuda", smoke=False):
+    """deepseek_7b's dense data plane through the launcher's entry point
+    (``dense_plane``), and a sampling job's captured decode against its
+    eager one on both planes at smoke size."""
+    argv = ["--arch", "deepseek_7b", "--batch", "4", "--prompt-len", "512",
+            "--gen", "32", "--seed", "0", "--device", device]
+    if smoke:
+        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
+                           "--gen", "6", "--device", device]
+    out = dense_plane("serve_dense", argv, device)
+    out["sampled_vs_eager"] = sampled_vs_eager(device)
     emit("serve_dense", **out)
     return out
 
@@ -2267,6 +2355,40 @@ def phase_serve_hybrid(device="cuda", smoke=False):
     return out
 
 
+def phase_serve_vlm(device="cuda", smoke=False):
+    """pixtral_12b (the VLM: mistral_nemo_12b's backbone behind the patch
+    stub) through the launcher's entry point at full size
+    (``dense_plane``), all 40 layers, random bf16 weights from seed 0: 4
+    prompts of 2048 positions each (the stub's 256 image patches, then
+    1792 text tokens), 32 tokens generated.  Held besides: the decode
+    steps wrote the cache at positions n_patches + T onward (the
+    reference's runtime starts them at T)."""
+    argv = ["--arch", "pixtral_12b", "--batch", "4", "--prompt-len", "2048",
+            "--gen", "32", "--seed", "0", "--device", device]
+    if smoke:
+        argv = ["--arch", "pixtral_12b", "--smoke", "--batch", "2",
+                "--prompt-len", "32", "--gen", "6", "--device", device]
+
+    def positions(rt, batch, args):
+        """The prefill filled n_p + T = P cache rows; the G - 1 decode
+        steps wrote rows P .. P + G - 2, and the cache's last row is
+        empty."""
+        P, G = args.prompt_len, args.gen
+        n_p, T = batch["patches"].shape[1], batch["tokens"].shape[1]
+        rows = rt.cache["k"].abs().amax(dim=(0, 1, 3, 4)) > 0
+        got = {"n_patches": n_p, "text_tokens": T,
+               "cache_len": rt.cache_len, "rows_written": int(rows.sum()),
+               "cache_rows": P + G}
+        check(n_p + T == P and rt.cache_len == P + G - 1
+              and bool(rows[:P + G - 1].all()) and not bool(rows[P + G - 1]),
+              f"vlm decode positions: {got}")
+        return got
+
+    out = dense_plane("serve_vlm", argv, device, positions)
+    emit("serve_vlm", **out)
+    return out
+
+
 def leaf_grad_norms(grads):
     """The grad norm of every leaf in fp32, per layer for the stacked
     ``layers/`` leaves (one slice at a time: a whole full-width leaf in
@@ -2340,10 +2462,10 @@ def step0_check(params, cfg, batch):
                        "step-0 check")
 
 
-# the kernels' bf16 hybrid step 0 may lie this many times as far from the
-# fp32 one as the plain bf16 step 0 does (or within STEP0_RTOL of it); read
-# on the H100, the kernels' distances were 0.42-1.04 times the plain's
-# (PERF.md §6)
+# the kernels' bf16 step 0 (hybrid, encoder) may lie this many times as far
+# from the fp32 one as the plain bf16 step 0 does (or within STEP0_RTOL of
+# it); read on the H100, the kernels' distances were 0.42-1.04 times the
+# plain's for the hybrid, 0.13-1.06 for the encoder (PERF.md §6)
 BF16_STEP0_MARGIN = 1.25
 
 
@@ -2395,20 +2517,27 @@ def train_launches(cfg, shape, opt_cfg, params):
     once backward (the final norm is outside the groups); a dense group
     is one layer (attention and 2 norms), a hybrid group m Mamba2 layers
     (an SSD scan and 2 norms each) and the shared block (attention and 2
-    norms); one AdamW launch a leaf, int8 or fp32 as the moments; no
-    scalar-route launch."""
+    norms); one AdamW launch a leaf, int8 or fp32 as the moments, on its
+    scalar route for a leaf whose last dim is no multiple of 16 (the
+    vector route's 16-element loads; hubert_xlarge's LM head, 504 wide,
+    is the only such leaf of the main path); no other scalar-route
+    launch."""
     from repro_torch.models.transformer import flatten, n_groups
     ng, fwd = n_groups(cfg), 2 if cfg.remat != "none" else 1
     m = cfg.hybrid.mamba_per_group if cfg.family == "hybrid" else 0
-    norms = ng * (2 * m + 2) + 1
+    # LayerNorm (the encoder's) is plain PyTorch: no RMSNorm launch
+    norms = ng * (2 * m + 2) + 1 if cfg.norm == "rms" else 0
     mb = max(1, shape.microbatch)
     adamw = "fused_adamw_i8" if opt_cfg.state_bits == 8 else \
         "fused_adamw_f32"
     return {**{n: 0 for n in COUNTERS},
             "ssd_scan": mb * fwd * ng * m, "ssd_scan_bwd": mb * ng * m,
             "flash_attention": mb * fwd * ng, "flash_attention_bwd": mb * ng,
-            "rmsnorm": mb * (fwd * (norms - 1) + 1), "rmsnorm_bwd": mb * norms,
-            adamw: len(flatten(params))}
+            "rmsnorm": mb * (fwd * (norms - 1) + 1) if norms else 0,
+            "rmsnorm_bwd": mb * norms,
+            adamw: len(flatten(params)),
+            "fused_adamw_scalar": sum(1 for _, p in flatten(params)
+                                      if p.ndim == 0 or p.shape[-1] % 16)}
 
 
 def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
@@ -2463,11 +2592,44 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
           f"{name} launches per step {out['launches_per_step']}, want "
           f"{want}")
     if rt.device.type == "cuda":
+        from repro_torch.launch import hlo_analysis
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # model FLOPs (the Monitor's analytic roofline) over the steady
+        # step time, on the H100's bf16 peak
+        out["model_flops"] = hlo_analysis.model_step_flops(cfg, shape)
+        out["mfu"] = (out["model_flops"] / out["steady_step_s"]
+                      / hlo_analysis.PEAK_FLOPS)
         if profile:
             out["warm_step"] = profile_steps(rt.step, 1)
     emit(name, **out)
     return out
+
+
+def phase_train_encoder(device="cuda", smoke=False):
+    """hubert_xlarge (the encoder: LayerNorm, a plain GELU MLP,
+    bidirectional MHA at head dim 80, the frame stub and the masked-frame
+    loss) at full size, all 48 layers, random bf16 weights from seed 0,
+    fp32 AdamW moments, 8 x 1024 frames a step (about 20 s of audio each
+    at 50 frames a second), 30% of them masked, remat: step 0 as
+    train_hybrid's (``step0_upcast_check``: in fp32, the weights upcast,
+    against ``impl="torch"`` under STEP0_RTOL, and the bf16 step 0 against
+    the fp32 one within BF16_STEP0_MARGIN of the plain bf16 step 0's
+    distance: this random-weight bf16 stack moves single leaves' grad
+    norms 7.3% from fp32 in the plain version itself, read on the H100),
+    then 5 steps, their launches per step held exactly
+    (``train_launches``: no RMSNorm), frames a second, MFU and a profiled
+    step."""
+    import repro_torch.configs as configs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    cfg = (configs.get_smoke("hubert_xlarge") if smoke
+           else configs.get("hubert_xlarge"))
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 1024,
+                        global_batch=2 if smoke else 8, microbatch=1)
+    opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    return _train_phase("train_encoder", cfg, shape, opt_cfg, device,
+                        n_steps=2 if smoke else 5, profile=True,
+                        step0=step0_upcast_check)
 
 
 def phase_train(device="cuda", smoke=False):
@@ -3373,8 +3535,10 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
     MFU in ``/v1/cluster``, under 1% of her state left after her expire;
     each of Bob's sessions streams serve_paged's tokens (``paged``) bit
     for bit, ends at its final token with no frame lost or repeated across
-    the preemption, his launches exactly his admissions' and rounds', one
-    resume, a compile-cache hit; root's frames the bus's for his kinds, in
+    the preemption, his launches exactly his admissions' and those of
+    the rounds that decoded (every step event is a round; one the engine
+    dispatched after his last active session ended decodes nothing and
+    is counted apart), one resume, a compile-cache hit; root's frames the bus's for his kinds, in
     order; ``/ui`` served, ``/v1/trace`` a Chrome trace; every response
     body and frame encoded without ``default=`` (no tensor hidden as a
     string).  The only reads of the daemon are for these checks."""
@@ -3586,6 +3750,7 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
         rt = daemon.runtime(bob)
         graph_after = rt.sessions.decode_graph
         admissions = rt.sessions.admissions
+        paged_rounds = dict(rt.paged_rounds)
         del rt
         bob_launches = counts()
         ok(*client.req("POST", f"/v1/blocks/{bob}/expire", "tok-bob", {}),
@@ -3675,27 +3840,36 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
     check("miss" not in comp and "hit" in comp,
           f"gateway: bob's compile-cache events after his preemption "
           f"{comp}")
-    # launches: his admissions and rounds, in two graphs
+    # launches: his admissions and the rounds that decoded, in two
+    # graphs.  Every step event is a round; a round the engine dispatched
+    # after the last active session ended decodes nothing (no graph
+    # call), so it is counted apart
     graphs = [g.stats() for g in {id(g): g for g in (
         graph_before, graph_after)}.values()]
     rounds = len(_events(log, bob, "step"))
+    decoded, empty = paged_rounds["decoded"], paged_rounds["empty"]
+    check(decoded + empty == rounds,
+          f"gateway: bob's {rounds} step events against his block's "
+          f"rounds {paged_rounds}")
     if dev.type == "cuda":
         check(len(graphs) == 2 and all(
             g["captures"] == 1 and g["eager_calls"] == 0 for g in graphs)
-            and sum(g["replays"] for g in graphs) == rounds
+            and sum(g["replays"] for g in graphs) == decoded
             and _eager_calls() == 0,
-            f"gateway: bob's decode graphs {graphs} for {rounds} rounds, "
-            f"{_eager_calls()} eager decode steps")
+            f"gateway: bob's decode graphs {graphs} for {decoded} rounds "
+            f"that decoded ({empty} empty), {_eager_calls()} eager decode "
+            f"steps")
         pre_l, _, per_round = dense_launches(bob_cfg)
     else:
-        check(sum(g["eager_calls"] for g in graphs) == rounds,
-              f"gateway: bob's {rounds} rounds on the CPU, graphs {graphs}")
+        check(sum(g["eager_calls"] for g in graphs) == decoded,
+              f"gateway: bob's {decoded} rounds that decoded ({empty} "
+              f"empty) on the CPU, graphs {graphs}")
         pre_l = per_round = zero
-    want_bob = {n: admissions * pre_l[n] + rounds * per_round[n]
+    want_bob = {n: admissions * pre_l[n] + decoded * per_round[n]
                 for n in COUNTERS}
     check(bob_launches == want_bob,
           f"gateway: bob's launches {bob_launches}, want {want_bob} "
-          f"({admissions} admissions, {rounds} rounds)")
+          f"({admissions} admissions, {decoded} rounds that decoded)")
 
     # root: the feed in bus order, the dashboard, the trace
     frames = watched["frames"]
@@ -3738,6 +3912,7 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
         "bob": {"arch": bob_cfg.name, "sessions": len(prompts),
                 "sse_sessions": len(ttft), "max_new_tokens": max_new,
                 "admissions": admissions, "rounds": rounds,
+                "decoded_rounds": decoded, "empty_rounds": empty,
                 "tokens": n_tokens, "state_gb": bob_bytes / 1e9,
                 "long_poll_requests": sessions[polled]["polls"],
                 "decode_graphs": graphs,
@@ -3796,14 +3971,15 @@ def _free(device="cuda") -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
-def emit_capture_summary(info, dense, paged, hybrid) -> None:
+def emit_capture_summary(info, dense, paged, hybrid, vlm) -> None:
     """One line: each decode path's step wall time, idle share and tok/s
     run eagerly and as graph replays (the same run, the same card), its
     capture time and graph pool."""
     paths = {}
     for name, run, key in (("serve_dense", dense, "warm_decode_step"),
                            ("serve_paged", paged, "warm_decode_round"),
-                           ("serve_hybrid", hybrid, "warm_decode_step")):
+                           ("serve_hybrid", hybrid, "warm_decode_step"),
+                           ("serve_vlm", vlm, "warm_decode_step")):
         eager, captured = run[key + "_eager"], run[key]
         vs = run["captured_vs_eager"]
         paths[name] = {
@@ -3837,11 +4013,16 @@ def _run_all() -> int:
     progress("serve_hybrid")
     hybrid = phase_serve_hybrid()
     _free()
+    progress("serve_vlm")
+    vlm = phase_serve_vlm()
+    _free()
     train = phase_train()
     _free()
     train_f32 = phase_train_f32()
     _free()
     train_hybrid = phase_train_hybrid()
+    _free()
+    train_encoder = phase_train_encoder()
     _free()
     preempt = phase_preempt(train=train_hybrid)
     _free()
@@ -3862,8 +4043,10 @@ def _run_all() -> int:
     # serve_hybrid's counts, and the train phases' per step, were held
     # exactly in their phases
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
+            "vlm": vlm["launches"],
             "train": train["launches"], "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
+            "train_encoder": train_encoder["launches"],
             "preempt": preempt["launches"], "control": control["launches"],
             "gateway": gateway["launches"]}
 
@@ -3875,6 +4058,7 @@ def _run_all() -> int:
     graphs = {"dense": [dense["decode_graph"]],
               "paged": [paged["decode_graph"]],
               "hybrid": [hybrid["decode_graph"]],
+              "vlm": [vlm["decode_graph"]],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
@@ -3888,7 +4072,7 @@ def _run_all() -> int:
                         for g in gs) for run, gs in graphs.items()}
         return {run: n for run, n in got.items() if n}
 
-    emit_capture_summary(info, dense, paged, hybrid)
+    emit_capture_summary(info, dense, paged, hybrid, vlm)
 
     rows = []
     for name, meta in KERNEL_META.items():
@@ -3898,6 +4082,8 @@ def _run_all() -> int:
                        "train_f32": train_f32["launches"]["fused_adamw_f32"],
                        "train_hybrid":
                            train_hybrid["launches"]["fused_adamw_f32"],
+                       "train_encoder":
+                           train_encoder["launches"]["fused_adamw_f32"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],
                        "control": control["launches"]["fused_adamw_f32"],
                        "gateway": gateway["launches"]["fused_adamw_f32"]}

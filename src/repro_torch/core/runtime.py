@@ -15,7 +15,19 @@ A serve block runs one of two data planes on its device:
 
 The dense family runs every kind and plane.  The hybrid family (zamba2)
 trains, and serves on the dense plane only: its recurrent state does not
-page, so a paged job raises the reference's ``ValueError``.
+page, so a paged job raises the reference's ``ValueError``.  The VLM
+(pixtral) trains and serves; its dense-plane prefill takes the batch's
+``patches`` in front of its tokens.  The encoder (hubert) trains; it has
+no decode path (the launcher refuses to serve it, as the reference's
+does).
+
+One departure from the reference: after a prefill the reference sets
+``cache_len`` to ``tokens.shape[1]`` (``repro/core/runtime.py``'s
+``prefill``), although the prefill filled ``n_patches + T`` cache rows
+when the batch has patches, so each of its VLM decode steps writes and
+reads K/V ``n_patches`` positions too early.  Here ``cache_len`` is the
+embedded length, ``n_patches + T``, where the reference's own model test
+decodes too.
 
 One device per block: the sharding plans of the reference have no
 counterpart until the multi-GPU slice.
@@ -128,6 +140,12 @@ class BlockRuntime(InflightWindow):
         self.sessions = None         # paged serve: the DecodeScheduler
         self._emissions: list = []   # paged serve: buffered generate events
         self.step_count = 0
+        self.paged_rounds = {"decoded": 0, "empty": 0}   # paged serve:
+                                     # rounds that ran a decode call, and
+                                     # rounds that found no active slot
+                                     # (the engine can dispatch one after
+                                     # the last session ended); kept across
+                                     # suspend/resume
         self.last_saved_step = 0     # step_count at the last checkpoint
         self.suspended = False
         self._init_window()
@@ -263,11 +281,13 @@ class BlockRuntime(InflightWindow):
                 self._cache_key("prefill_step"),
                 lambda: serve_lib.make_prefill_step(self.job.cfg),
                 "prefill_step")
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        logits, self.cache = self._prefill_fn(self.state["params"],
-                                              {"tokens": tokens}, self.cache)
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items() if k in ("tokens", "patches")}
+        logits, self.cache = self._prefill_fn(self.state["params"], batch,
+                                              self.cache)
         self.token = torch.argmax(logits, -1)[:, None].to(torch.int32)
-        self.cache_len = int(tokens.shape[1])
+        # patches + tokens: the module docstring's one departure
+        self.cache_len = model_lib.embedded_len(self.job.cfg, batch)
 
     # ------------------------------------------------- generate sessions
     # (paged serve only: the continuous-batching session surface)
@@ -289,8 +309,15 @@ class BlockRuntime(InflightWindow):
             raise ValueError("feed() needs a paged serve job")
         out = self.harvest()
         for _ in range(rounds):
-            out.extend(self.sessions.step())
+            out.extend(self._round())
             self.step_count += 1
+        return out
+
+    def _round(self) -> list:
+        """One continuous-batching round, counted in ``paged_rounds``."""
+        out = self.sessions.step()
+        self.paged_rounds["decoded" if self.sessions.round_decoded
+                          else "empty"] += 1
         return out
 
     def harvest(self) -> list:
@@ -307,7 +334,7 @@ class BlockRuntime(InflightWindow):
     # ---------------------------------------------------------------- step
     def _decode_once(self):
         if self.job.paged:
-            self._emissions.extend(self.sessions.step())
+            self._emissions.extend(self._round())
             self.token = self.sessions.last_tokens_dev
             return
         # a launch, not a sync: the replay reads the scalar on the device

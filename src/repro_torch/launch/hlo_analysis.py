@@ -7,6 +7,13 @@ as model FLOPs utilization.  The port has no compiled HLO to walk and no
 dry-run sweep of its own: the floor is always the analytic one, against
 the H100's peaks.  A TPU dry run's step time is never a torch block's
 floor.
+
+One departure: the reference's ``model_step_flops`` takes
+``vocab_size * d_model`` off the count as the embedding gather for every
+frontend, but the frame frontend (the encoder) has no embedding table, so
+for it the reference drops ``vocab_size * d_model`` params of real
+matmuls (hubert_xlarge's LM head is 504 x 1280); here nothing is taken
+off for a frame frontend.
 """
 from __future__ import annotations
 
@@ -23,8 +30,10 @@ def model_step_flops(cfg, shape) -> float:
     numerator of MFU — what the Monitor divides by measured step time."""
     from repro_torch.models import model as model_lib
     n_active = model_lib.count_active_params(cfg)
-    # exclude the embedding gather (not matmul flops); keep lm_head
-    n_eff = max(n_active - cfg.vocab_size * cfg.d_model, 1)
+    # exclude the embedding gather (not matmul flops); keep lm_head.  The
+    # frame frontend has no embedding table
+    gather = 0 if cfg.frontend == "frame" else cfg.vocab_size * cfg.d_model
+    n_eff = max(n_active - gather, 1)
     if shape.kind == "train":
         return 6.0 * n_eff * shape.global_batch * shape.seq_len
     if shape.kind == "prefill":

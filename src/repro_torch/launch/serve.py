@@ -9,7 +9,11 @@ cluster.  The daemon's topology is one chip on ``--device``.
       --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
 
 ``--arch zamba2_2p7b`` serves the hybrid family (Mamba2 + shared
-attention) the same way.
+attention) the same way, and ``--arch pixtral_12b`` the VLM: each prompt
+of ``--prompt-len`` positions is the stub's image patches (up to 256, an
+eighth of the prompt) followed by text tokens, so the prefill's tokens a
+second count the patch positions, and decoding starts after both.  An
+encoder (``--arch hubert_xlarge``) has no decode path and is refused.
 """
 from __future__ import annotations
 

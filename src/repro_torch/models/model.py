@@ -38,9 +38,10 @@ def count_params(tree) -> int:
 
 
 def count_active_params(cfg: ModelConfig) -> int:
-    """Params touched per token: every param in the dense and hybrid
-    families (the hybrid's shared attention block counts once, as in the
-    reference, though every group applies it; the routed-expert discount
+    """Params touched per token: every param in the ported families (the
+    hybrid's shared attention block counts once, as in the reference,
+    though every group applies it; the frontends' projections count, and
+    the frame frontend has no embedding table; the routed-expert discount
     comes with the MoE family)."""
     return count_params(abstract_params(cfg))
 
@@ -61,17 +62,21 @@ def _xent(logits, labels, mask):
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *,
             impl: str = "auto"):
-    """Next-token loss of the token frontend (the dense and hybrid
-    families).  Returns (total loss, {"loss", "aux_loss"}) as 0-d fp32
-    tensors."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not yet ported (its family comes "
-            f"with a later slice)")
+    """The reference's losses: masked-frame cross-entropy (HuBERT-style,
+    only the masked frames count) for the frame frontend, next-token loss
+    on the text segment (the patches occupy the prefix) for the patch
+    frontend, next-token loss for the token frontend.  Returns (total
+    loss, {"loss", "aux_loss"}) as 0-d fp32 tensors."""
     x = embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     logits, aux, _ = forward(params, cfg, x, positions=positions, impl=impl)
-    loss = _next_token_loss(logits, batch["labels"])
+    if cfg.frontend == "frame":
+        loss = _xent(logits, batch["labels"], batch["mask"].float())
+    elif cfg.frontend == "patch":
+        n_p = batch["patches"].shape[1]
+        loss = _next_token_loss(logits[:, n_p:], batch["labels"])
+    else:
+        loss = _next_token_loss(logits, batch["labels"])
     total = loss + aux
     return total, {"loss": loss, "aux_loss": aux}
 
@@ -86,6 +91,15 @@ def _next_token_loss(logits, labels):
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
+
+def embedded_len(cfg: ModelConfig, batch: Dict[str, Any]) -> int:
+    """The sequence length ``embed_inputs`` gives ``batch``: its tokens,
+    plus the patches in front of them for the patch frontend."""
+    n = int(batch["tokens"].shape[1])
+    if cfg.frontend == "patch" and "patches" in batch:
+        n += int(batch["patches"].shape[1])
+    return n
+
 
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache, *,

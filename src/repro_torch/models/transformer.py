@@ -1,15 +1,25 @@
-"""Stack assembly for the dense and hybrid families (the port of
-``repro.models.transformer``; the other families come with later slices).
+"""Stack assembly for the dense, VLM, encoder and hybrid families (the
+port of ``repro.models.transformer``; moe and xlstm come with later
+slices).
 
 The stack is a repeated *group* of sublayers with every parameter leaf
 stacked ``(n_groups, ...)``, as in the JAX tree, so params move across
 leaf for leaf:
 
-  dense  : group = [attn + mlp]
-  hybrid : group = [mamba2 x m, shared-attn + mlp]  (zamba2; the mamba
-           leaves are stacked ``(n_groups, m, ...)``, the attention block's
-           params live once in ``params["extra"]`` and are applied by every
-           group, each with its own KV cache)
+  dense / vlm : group = [attn + mlp]
+  encoder     : group = [attn + mlp], attention without the causal mask
+                and no cache (hubert: LayerNorm, a plain GELU MLP)
+  hybrid      : group = [mamba2 x m, shared-attn + mlp]  (zamba2; the
+                mamba leaves are stacked ``(n_groups, m, ...)``, the
+                attention block's params live once in ``params["extra"]``
+                and are applied by every group, each with its own KV
+                cache)
+
+The frontends are the reference's stubs: ``"patch"`` (the VLM) projects
+precomputed image patches with ``patch_proj`` and puts them in front of
+the token embeddings; ``"frame"`` (the encoder) projects precomputed
+audio frames with ``frame_proj``, puts ``mask_embed`` at the masked
+frames, and has no embedding table.
 
 Where the reference scans the groups (and a group's Mamba2 sublayers)
 with ``lax.scan``, ``forward`` loops over them in Python.  Each stacked
@@ -37,7 +47,7 @@ from repro_torch.models.layers import (_randn, apply_norm, attention_fwd,
                                        norm_init, paged_attention_fwd,
                                        _he)
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "vlm", "encoder")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -169,6 +179,11 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
                                    cache=a_cache, cache_len=cache_len,
                                    impl=impl)
         return x, aux, cache
+    if cfg.family == "encoder":
+        x, _ = _dense_sublayer_fwd(gp, x, cfg, positions=positions,
+                                   cache=None, cache_len=None, causal=False,
+                                   impl=impl)
+        return x, aux, None
     x, nc = _dense_sublayer_fwd(gp, x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
                                 page_table=page_table, seq_lens=seq_lens,
@@ -181,10 +196,13 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
-    """Stacked (n_groups, ...) cache: the dense family's KV cache, or the
-    hybrid's {"mamba": {"conv", "ssm"} stacked (n_groups, m, ...),
-    "attn": {"k", "v"}}."""
+    """Stacked (n_groups, ...) cache: the dense family's (and the VLM's)
+    KV cache, or the hybrid's {"mamba": {"conv", "ssm"} stacked
+    (n_groups, m, ...), "attn": {"k", "v"}}; None for the encoder, which
+    does not decode."""
     a, dt, ng = cfg.attention, _dtype(cfg), n_groups(cfg)
+    if cfg.family == "encoder":
+        return None
     kv = {"k": torch.zeros((ng, batch, smax, a.n_kv_heads, a.head_dim),
                            dtype=dt, device=device),
           "v": torch.zeros((ng, batch, smax, a.n_kv_heads, a.v_dim),
@@ -249,12 +267,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if device.type != "meta":
         for g in range(ng):
             _put(layers, group_init(gen, cfg, dtype, device), g)
-    params: Dict[str, Any] = {
-        "layers": layers,
-        "embed": _randn((cfg.vocab_size, cfg.d_model), gen, device, dtype,
-                        0.02),
-        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
-    }
+    params: Dict[str, Any] = {"layers": layers}
+    if cfg.frontend == "frame":
+        params["frame_proj"] = _he(gen, (cfg.frontend_dim, cfg.d_model),
+                                   dtype, device)
+        params["mask_embed"] = _randn((cfg.d_model,), gen, device, dtype,
+                                      0.02)
+    else:
+        params["embed"] = _randn((cfg.vocab_size, cfg.d_model), gen, device,
+                                 dtype, 0.02)
+    if cfg.frontend == "patch":
+        params["patch_proj"] = _he(gen, (cfg.frontend_dim, cfg.d_model),
+                                   dtype, device)
+    params["final_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device)
     extra = shared_extra_init(gen, cfg, dtype, device)
     if extra is not None:
         params["extra"] = extra
@@ -264,10 +289,31 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def _stub_proj(inputs, w):
+    """``inputs.astype(bf16) @ w`` as ``jnp`` computes it: the inputs
+    rounded to bf16, then the product in ``w``'s dtype (with fp32 params
+    ``jnp`` promotes the bf16 operand to fp32; ``torch.matmul`` takes no
+    mixed dtypes)."""
+    return inputs.to(torch.bfloat16).to(w.dtype) @ w
+
+
 def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
-    """Build the (B, S, d) input activations from the batch dict."""
+    """Build the (B, S, d) input activations from the batch dict: frames
+    projected (``mask_embed`` where ``batch["mask"]`` is set), or token
+    embeddings with the projected patches in front of them when the batch
+    has ``"patches"``."""
     _require_ported(cfg)
-    return params["embed"][batch["tokens"].long()]
+    if cfg.frontend == "frame":
+        x = _stub_proj(batch["frames"], params["frame_proj"])
+        if "mask" in batch:
+            x = torch.where(batch["mask"].bool()[..., None],
+                            params["mask_embed"], x)
+        return x
+    tok = params["embed"][batch["tokens"].long()]
+    if cfg.frontend == "patch" and "patches" in batch:
+        patches = _stub_proj(batch["patches"], params["patch_proj"])
+        tok = torch.cat([patches, tok], dim=1)
+    return tok
 
 
 def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
@@ -353,7 +399,7 @@ def unflatten(pairs) -> Dict[str, Any]:
 
 
 class Transformer(nn.Module):
-    """One dense- or hybrid-family model on one device.  Holds the
+    """One model of a ported family on one device.  Holds the
     JAX-layout param tree as ``nn.Parameter`` leaves named by tree path
     (``layers/attn/wq``, ``extra/mlp/w_up``), so ``state_dict()`` keys are
     the tree's paths;

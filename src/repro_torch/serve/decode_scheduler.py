@@ -242,6 +242,9 @@ class DecodeScheduler:
         self.evictions = 0
         self.finished = 0
         self.ttft_s: List[float] = []
+        self.round_decoded = False   # the last step() ran a decode call
+                                     # (False: no slot was active after
+                                     # admission)
 
     # ---------------------------------------------------------- device fns
     def _admit_prefill(self, tokens, pages: List[int], last_idx: int) -> int:
@@ -413,6 +416,7 @@ class DecodeScheduler:
         self._ensure_pages(emissions, now)
         active = [i for i in range(self.max_slots)
                   if self.slots[i] is not None]
+        self.round_decoded = bool(active)
         if not active:
             return
         for name, buf in self._inputs.items():

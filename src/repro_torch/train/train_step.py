@@ -5,10 +5,12 @@ port of ``repro.train.train_step`` for one device).
 call; gradients average over ``shape.microbatch`` sequential microbatches.
 The state's params and moments are updated in place.  The reference's
 ``overlap_comm`` (a compressed cross-pod all-reduce folded into the
-accumulation) waits for the multi-GPU slices and raises here.  Both
-ported families train: the dense GQA decoder and the hybrid (Mamba2 +
-shared attention, whose SSD scan has its backward kernel); the others are
-refused where the model is built (``transformer._require_ported``).
+accumulation) waits for the multi-GPU slices and raises here.  Every
+ported family trains: the dense GQA decoder, the VLM (next-token loss on
+the text after the patches), the encoder (masked-frame loss,
+bidirectional attention) and the hybrid (Mamba2 + shared attention, whose
+SSD scan has its backward kernel); the others are refused where the model
+is built (``transformer._require_ported``).
 """
 from __future__ import annotations
 

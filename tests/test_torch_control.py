@@ -535,7 +535,8 @@ def test_serve_launcher_through_the_daemon():
 
 # ============================================================= roofline
 
-@pytest.mark.parametrize("arch", ["deepseek_7b", "zamba2_2p7b"])
+@pytest.mark.parametrize("arch", ["deepseek_7b", "zamba2_2p7b",
+                                  "pixtral_12b"])
 @pytest.mark.parametrize("kind,seq,batch", [("train", 2048, 2),
                                             ("prefill", 512, 4),
                                             ("decode", 1024, 8)])

@@ -444,17 +444,44 @@ def test_unported_family_answers_501_naming_it(gw):
     from repro.gateway.handlers import parse_job as ref_parse_job
     server, daemon = gw
     req = smoke.HttpClient(server.url).req
-    job = {"kind": "serve", "arch": "pixtral_12b"}
-    assert ref_parse_job(job).cfg.family == "vlm"
+    job = {"kind": "serve", "arch": "xlstm_350m"}
+    assert ref_parse_job(job).cfg.family == "xlstm"
     s, e = req("POST", "/v1/submit", "tok-alice",
-               {"job_description": "vlm", "n_chips": 1, "job": job})
-    assert s == 501 and "vlm family" in e["error"], (s, e)
-    assert "pixtral_12b" in e["error"]
+               {"job_description": "xlstm", "n_chips": 1, "job": job})
+    assert s == 501 and "xlstm family" in e["error"], (s, e)
+    assert "xlstm_350m" in e["error"]
     assert daemon.list_apps() == []            # refused before submitting
     s, e = req("POST", "/v1/submit", "tok-alice",
                {"job_description": "typo", "n_chips": 1,
                 "job": {"kind": "serve", "arch": "no_such_arch"}})
     assert s == 400 and "unknown arch" in e["error"]
+
+
+def test_vlm_serve_and_encoder_train_jobs_are_admitted(gw):
+    """The families the port now has: a smoke pixtral_12b serve job and a
+    smoke hubert_xlarge train job submitted over HTTP are admitted and
+    running, as the reference's gateway parses them, and the train block
+    takes a step over the wire."""
+    from repro.gateway.handlers import parse_job as ref_parse_job
+    server, daemon = gw
+    req = smoke.HttpClient(server.url).req
+    jobs = {"pixtral_12b": {"kind": "serve", "arch": "pixtral_12b",
+                            "seq_len": 40, "global_batch": 2},
+            "hubert_xlarge": {"kind": "train", "arch": "hubert_xlarge",
+                              "seq_len": 16, "global_batch": 2}}
+    apps = {}
+    for arch, job in jobs.items():
+        assert parse_job(job).cfg == configs.get_smoke(arch)
+        assert parse_job(job).cfg.family == ref_parse_job(job).cfg.family
+        s, b = req("POST", "/v1/submit", "tok-alice",
+                   {"job_description": arch, "n_chips": 1, "job": job})
+        assert s == 201 and b["admitted"] and b["state"] == "running", b
+        apps[arch] = b["app_id"]
+    assert daemon.runtime(apps["pixtral_12b"]).cache is not None
+    s, r = req("POST", f"/v1/blocks/{apps['hubert_xlarge']}/steps",
+               "tok-alice", {"rounds": 1})
+    assert s == 200 and r["completed"] == 1, r
+    assert daemon.runtime(apps["hubert_xlarge"]).step_count == 1
 
 
 def test_several_chip_activation_answers_with_its_reason(tmp_path):

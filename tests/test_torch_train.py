@@ -391,7 +391,9 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
     train_f32's (4 layers, 2 microbatches) as read on the card, and in a
     full-width hybrid step 90 SSD scans (forward and remat), 45 SSD
     backward, 18 and 9 flash attention, 217 and 109 RMSNorm, one fp32
-    AdamW launch for each of the 19 leaves."""
+    AdamW launch for each of the 19 leaves; in a full-size hubert_xlarge
+    step 96 and 48 flash attention, no RMSNorm, and 15 fp32 AdamW
+    launches, the 504-wide LM head's on the scalar route."""
     import repro_torch.configs as configs
     from repro_torch.models.config import ShapeConfig
     from repro_torch.models.transformer import init_params
@@ -432,10 +434,11 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
         assert checks["bf16_vs_f32"][k] == checks["bf16_plain_vs_f32"][k]
 
     def launches(arch, layers, microbatch, bits):
-        cfg = configs.get_smoke(arch)
-        leaves = dict(flatten(init_params(cfg, seed=0, device="cpu")))
         cfg = dataclasses.replace(configs.get(arch), **(
             {"n_layers": layers} if layers else {}))
+        # the phase's own leaves: their last dims choose each AdamW
+        # launch's route
+        leaves = dict(flatten(init_params(cfg, device="meta")))
         shape = ShapeConfig("chip", "train", seq_len=2048, global_batch=2,
                             microbatch=microbatch)
         want = smoke.train_launches(cfg, shape, OptConfig(state_bits=bits),
@@ -453,6 +456,9 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
         "ssd_scan": 90, "ssd_scan_bwd": 45, "flash_attention": 18,
         "flash_attention_bwd": 9, "rmsnorm": 217, "rmsnorm_bwd": 109,
         "fused_adamw_f32": 19}
+    assert launches("hubert_xlarge", 0, 1, None) == {
+        "flash_attention": 96, "flash_attention_bwd": 48,
+        "fused_adamw_f32": 15, "fused_adamw_scalar": 1}
     assert smoke.KERNEL_META["ssd_scan_bwd"]["replaces"] == \
         "src/repro/kernels/ops.py:319"
     assert '"ok": true' not in capsys.readouterr().out
