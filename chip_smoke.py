@@ -19,8 +19,11 @@ never JAX.  Phases, each printing one JSON line:
                      dense configs' head groups, ragged and all-zero
                      quantization blocks, the SSD scan's ragged and short
                      sequences, initial states and extreme timesteps),
-                     with its time, the plain
-                     version's, one PyTorch library call's where one
+                     (among them MLA's prefill at head dims 192 | 128,
+                     and f32, unaligned, D = 136 and Dv = 64 cases at
+                     D > 128, each launch's route counted, and the
+                     backward's refusal at D = 192), with its time, the
+                     plain version's, one PyTorch library call's where one
                      computes the same function, and the least time the
                      card could take; each redesigned kernel also beside
                      the route it took before (``was_ms``: the flash
@@ -78,7 +81,21 @@ never JAX.  Phases, each printing one JSON line:
                      ``serve_dense``; the launches exactly; the prefill
                      logits against ``impl="torch"``; the decode steps
                      written at positions n_patches + T onward;
-8. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
+8. ``serve_moe``   — ``repro_torch.launch.serve``'s ``run`` on
+                     deepseek_v2_236b (the moe family: MLA attention, 2
+                     shared and 160 routed experts, top-6) at full width,
+                     cut to 7 of its 60 layers, random bf16 weights from
+                     the seed: 4 x 512 prompt tokens, 32 generated, held
+                     as ``serve_dense`` (MLA's prefill runs flash at head
+                     dim 192, its absorbed decode plain einsums; the
+                     logits checked with the plain run's routing replayed,
+                     a top-k swap near a tie moving the capacity's slots
+                     of later tokens, and read with their own); besides,
+                     the share of routing choices the capacity dropped in
+                     the prefill and a decode step, the decode bound (the
+                     weights' bytes over the memory rate), its idle share
+                     and the expert products' share of the prefill;
+9. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
                      (30 layers, random bf16 weights from the seed, int8
                      AdamW moments, 2 x 2048 tokens a step, remat): the
                      step-0 loss and grad norm against ``impl="torch"``,
@@ -86,10 +103,10 @@ never JAX.  Phases, each printing one JSON line:
                      peak memory, the kernels' launches per step (held
                      exactly, as in every train phase) and a profiled
                      warm step;
-9. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
+10. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
                      2 microbatches: the fp32 AdamW variant and the serial
                      gradient accumulation;
-10. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
+11. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
                      (54 layers, random bf16 weights from the seed, fp32
                      AdamW moments, 2 x 2048 tokens a step, remat): step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
@@ -99,14 +116,14 @@ never JAX.  Phases, each printing one JSON line:
                      then 4 steps, the kernels' launches per step held
                      exactly (the SSD scan's backward kernel among them),
                      tokens/s, step time, peak memory and a profiled step;
-11. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
+12. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
                      encoder: LayerNorm, plain GELU MLP, bidirectional
                      attention at head dim 80, the frame stub, the
                      masked-frame loss) at full size, 48 layers, fp32
                      moments, 8 x 1024 frames a step: step 0 as
                      ``train_hybrid``'s, 5 steps with their launches held
                      exactly (no RMSNorm), frames/s, MFU, a profiled step;
-12. ``preempt``    — checkpoints and preempt/resume at full width
+13. ``preempt``    — checkpoints and preempt/resume at full width
                      (``BlockRuntime.suspend``/``resume`` through
                      ``repro_torch.checkpoint.manager``, under a temporary
                      directory): train_hybrid's job suspended after 3
@@ -126,7 +143,7 @@ never JAX.  Phases, each printing one JSON line:
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
                      the save, disk space and peak memory;
-13. ``control``    — the control plane on the card: a background-mode
+14. ``control``    — the control plane on the card: a background-mode
                      ``ClusterDaemon`` on one chip, Alice's train block
                      (train_hybrid's job) autostepping toward 4 steps,
                      preempted after 2 by Bob's priority-1 paged serve
@@ -140,7 +157,7 @@ never JAX.  Phases, each printing one JSON line:
                      admission, preemption, first-token and resume
                      seconds, each block's tok/s inside the daemon and
                      Alice's MFU on the H100 roofline;
-14. ``gateway``    — the web gateway in front of a background
+15. ``gateway``    — the web gateway in front of a background
                      ``ClusterDaemon`` on one chip, every step a real HTTP
                      call: Alice walks the paper's explicit workflow
                      (register, admin review, confirm, activate, run, 2
@@ -232,6 +249,9 @@ KERNEL_FAMILIES = ("flash_", "rmsnorm", "paged_decode", "fused_adamw",
 COUNTERS = {
     "flash_attention": ("flash_attention", "LAUNCHES"),
     "flash_attention_bwd": ("flash_attention", "BWD_LAUNCHES"),
+    # the forward launches that took the CUDA-core kernel (none on a main
+    # path: bf16 operands the TMA loads take)
+    "flash_attention_cuda_core": ("flash_attention", "LAUNCHES_CUDA_CORE"),
     "rmsnorm": ("rmsnorm", "LAUNCHES"),
     "rmsnorm_bwd": ("rmsnorm", "BWD_LAUNCHES"),
     "paged_attention": ("paged_attention", "LAUNCHES"),
@@ -1673,6 +1693,56 @@ def check_paged_kernel(out, edge, edges):
             check(bool((got[0] == 0).all()), "paged: empty slot is not 0")
 
 
+def check_mla_flash(row, edge):
+    """The flash forward at MLA's head dims past the main shape (held and
+    timed in ``row`` by ``flash_row``): f32 at D = 192 (the CUDA-core
+    kernel, its rows staged 193 floats wide), bf16 at D = 192 from a base
+    one element off alignment (the CUDA-core kernel), D = 136 (a third
+    64-column half mostly zeros) and D = 192 with Dv = 64 (the wgmma
+    route's three-half instances), each against its plain version, and
+    the route each launch took, as the wrapper counts it; then the
+    backward at D = 192, which must refuse by name."""
+    from repro_torch.kernels import flash_attention as fa
+    routes = {}
+    for name, args, kw2, want in [
+            ("mla_main", (4, 128, 128, 512, 512, 192, 128), {}, "wgmma"),
+            ("mla_f32_d192", (1, 8, 8, 130, 130, 192, 128),
+             dict(dtype=torch.float32), "cuda_core"),
+            ("mla_d192_misaligned", (1, 8, 8, 130, 130, 192, 128),
+             dict(misalign=True), "cuda_core"),
+            ("d136_third_half", (1, 4, 2, 150, 150, 136, 128), {}, "wgmma"),
+            ("mla_d192_dv64", (1, 4, 4, 200, 200, 192, 64), {}, "wgmma")]:
+        misalign = kw2.pop("misalign", False)
+        n0 = (fa.LAUNCHES, fa.LAUNCHES_CUDA_CORE)
+        (q, k, v, kw), got, want_o = flash_case(*args, **kw2)
+        if misalign:
+            n0 = (fa.LAUNCHES, fa.LAUNCHES_CUDA_CORE)
+            got = fa.flash_attention_cuda(misaligned(q), k, v, **kw)
+            torch.cuda.synchronize()
+        cc = fa.LAUNCHES_CUDA_CORE - n0[1]
+        routes[name] = {"wgmma": fa.LAUNCHES - n0[0] - cc, "cuda_core": cc}
+        check(routes[name] == {"wgmma": int(want == "wgmma"),
+                               "cuda_core": int(want == "cuda_core")},
+              f"flash_attention {name}: routes {routes[name]}, want {want}")
+        if name != "mla_main":
+            rel = 1e-4 if q.dtype == torch.float32 else 2e-2
+            edge("flash_attention", name, got, want_o, rel)
+        del q, k, v, got, want_o
+    g = _gen(5)
+    q = _randn((1, 2, 64, 192), g)
+    v = _randn((1, 2, 64, 128), g)
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    try:
+        fa.flash_attention_bwd_cuda(q, q, v, v, lse, v)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "MoE training slice" in refused,
+          f"flash backward at D = 192: {refused!r}")
+    row["routes"] = routes
+    row["bwd_d192_refused"] = refused
+
+
 def phase_kernels():
     """Every kernel vs its plain version at full width (timed) and at edge
     cases.  Launches made here are checks, not the main path's."""
@@ -1734,6 +1804,14 @@ def phase_kernels():
     out["flash_attention_vlm"] = flash_row(4, 32, 8, 2048, 2048, 128, 128)
     out["flash_attention_encoder"] = flash_row(8, 16, 16, 1024, 1024, 80, 80,
                                                causal=False)
+    # deepseek_v2_236b's MLA prefill: q and k at 128 + 64 = 192, v at 128
+    out["flash_attention_mla"] = flash_row(4, 128, 128, 512, 512, 192, 128)
+    check_mla_flash(out["flash_attention_mla"], edge)
+    # the kernels line's error is the worst over the main paths' prefill
+    # shapes; serve_moe's is MLA's
+    out["flash_attention"]["max_err"] = max(
+        out["flash_attention"]["max_err"],
+        out["flash_attention_mla"]["max_err"])
     for name, args, kw2 in [
             ("gqa_g4", (2, 8, 2, 100, 100, 64, 64), {}),
             ("gqa_g12", (1, 48, 4, 100, 100, 128, 128), {}),
@@ -1764,7 +1842,8 @@ def phase_kernels():
     # ---- rmsnorm at the main paths' rows: deepseek_7b's prefill (2048,
     # 4096), decode (4, 4096) and train step (4096, 4096); zamba2_2p7b's
     # prefill (4000 rows) and decode (4 rows) at d_model 2560 and at the
-    # Mamba2 gated norm's 5120
+    # Mamba2 gated norm's 5120; deepseek_v2_236b's prefill (2048 rows) and
+    # decode (4) at d_model 5120 and MLA's q_norm (1536) and kv_norm (512)
     for rows, d, key in ((2048, 4096, "rmsnorm"), (4, 4096, "rmsnorm_decode"),
                          (4096, 4096, "rmsnorm_train"),
                          (8192, 5120, "rmsnorm_vlm"),
@@ -1772,7 +1851,12 @@ def phase_kernels():
                          (4000, 2560, "rmsnorm_hybrid_d2560"),
                          (4000, 5120, "rmsnorm_hybrid_d5120"),
                          (4, 2560, "rmsnorm_hybrid_decode_d2560"),
-                         (4, 5120, "rmsnorm_hybrid_decode_d5120")):
+                         (4, 5120, "rmsnorm_hybrid_decode_d5120"),
+                         (2048, 5120, "rmsnorm_moe_d5120"),
+                         (2048, 1536, "rmsnorm_moe_q_norm"),
+                         (2048, 512, "rmsnorm_moe_kv_norm"),
+                         (4, 1536, "rmsnorm_moe_decode_q_norm"),
+                         (4, 512, "rmsnorm_moe_decode_kv_norm")):
         (x, s), got, want = rms_case(rows, d)
         err, ratio = close(got, want, 2e-2)
         check(ratio <= 1.0, f"rmsnorm ({rows}, {d}): max_abs_err {err}, "
@@ -1807,11 +1891,14 @@ def phase_kernels():
 
 def dense_launches(cfg):
     """The kernels' launches in one dense prefill (or paged admission),
-    one decode step and one paged round: a layer runs one flash attention
-    (prefill only) or one paged attention (a paged round) and two
-    RMSNorms, the final norm one."""
+    one decode step and one paged round: a layer (a moe family's dense or
+    MoE sublayer alike) runs one flash attention (prefill only) or one
+    paged attention (a paged round) and two RMSNorms, four with MLA (its
+    q_norm and kv_norm too; its absorbed decode is plain einsums), the
+    final norm one."""
     zero = {n: 0 for n in COUNTERS}
-    L, norms = cfg.n_layers, 2 * cfg.n_layers + 1
+    per = 4 if cfg.attention.is_mla else 2
+    L, norms = cfg.n_layers, per * cfg.n_layers + 1
     return ({**zero, "flash_attention": L, "rmsnorm": norms},
             {**zero, "rmsnorm": norms},
             {**zero, "paged_attention": L, "rmsnorm": norms})
@@ -1951,21 +2038,106 @@ def sampled_vs_eager(device):
     return out
 
 
-def dense_plane(name, argv, device, positions=None):
+def prefill_pair(params, cfg, batch, B, P, device):
+    """The prefill's logits with the kernels and with their plain
+    versions: (checked, plain, the kernels' as the runtime computes them,
+    what else was read)."""
+    from repro_torch.models import model
+    got, _ = model.prefill(params, cfg, batch,
+                           model.init_cache(cfg, B, P, device))
+    want, _ = model.prefill(params, cfg, batch,
+                            model.init_cache(cfg, B, P, device),
+                            impl="torch")
+    return got, want, got, {}
+
+
+class RoutingTape:
+    """Stands in for ``models.moe.route`` while it is open: ``record``
+    keeps every MoE layer's routing of a run, ``replay`` hands a run the
+    recorded routing layer by layer, ``compare`` routes afresh and counts,
+    layer by layer, the tokens whose chosen experts and the (token, k)
+    choices whose slots differ from the recording."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe.route
+        self.mode, self.calls, self.i = "record", [], 0
+        self.tokens_changed, self.slots_changed = [], []
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def set(self, mode):
+        self.mode, self.i = mode, 0
+
+    def __call__(self, xs, router, mcfg):
+        if self.mode == "replay":
+            self.i += 1
+            return self.calls[self.i - 1]
+        r = self.route(xs, router, mcfg)
+        if self.mode == "record":
+            self.calls.append(r)
+        else:
+            rec = self.calls[self.i]
+            self.i += 1
+            same = (torch.sort(r[1], -1)[0] == torch.sort(rec[1], -1)[0])
+            self.tokens_changed.append(int((~same.all(-1)).sum()))
+            self.slots_changed.append(int((r[2] != rec[2]).sum()))
+        return r
+
+
+def moe_prefill_pair(params, cfg, batch, B, P, device):
+    """``prefill_pair`` for the moe family.  Routing is a discrete choice:
+    a kernel and its plain version may round an RMSNorm output to
+    neighbouring bf16 steps, which can swap a token's k-th and (k+1)-th
+    experts near a tie, and a swap moves the capacity's slots of every
+    later token of those experts (the last tokens, whose logits are read,
+    have the lowest priority).  So the plain run's routing is recorded
+    and replayed into the kernels' run, whose logits are checked; the
+    kernels' run with its own routing (the runtime's first tokens) is
+    read beside it, with the tokens and choices whose routing changed."""
+    from repro_torch.models import model
+    with RoutingTape() as tape:
+        want, _ = model.prefill(params, cfg, batch,
+                                model.init_cache(cfg, B, P, device),
+                                impl="torch")
+        tape.set("replay")
+        got, _ = model.prefill(params, cfg, batch,
+                               model.init_cache(cfg, B, P, device))
+        tape.set("compare")
+        free, _ = model.prefill(params, cfg, batch,
+                                model.init_cache(cfg, B, P, device))
+    read = {"routing": "the plain run's, replayed",
+            "own_routing": {**logits_check(free, want),
+                            "tokens_rerouted_by_layer": tape.tokens_changed,
+                            "choices_reslotted_by_layer":
+                                tape.slots_changed}}
+    return got, want, free, read
+
+
+def dense_plane(name, argv, device, positions=None, cfg=None, extra=None,
+                logits_pair=prefill_pair):
     """A dense-plane serve block through the launcher's entry point
-    (``argv``): the decode steps as graph replays, each kernel's launches
-    exact, the tokens in range, the prefill logits against
-    ``impl="torch"`` and the first token their argmax, then the captured
-    decode against the eager one from one state, and the warm prefill
-    and decode steps profiled.  ``positions(rt, batch, args)``, if given,
-    reads the cache the launcher's decode left before anything else
-    touches it.  Returns the phase's record."""
+    (``argv``, on ``cfg`` when given, else the config ``argv`` names):
+    the decode steps as graph replays, each kernel's launches exact, the
+    tokens in range, the prefill logits against ``impl="torch"`` and the
+    first token their argmax, then the captured decode against the eager
+    one from one state, and the warm prefill and decode steps profiled.
+    ``positions(rt, batch, args)``, if given, reads the cache the
+    launcher's decode left before anything else touches it;
+    ``extra(rt, batch, args, out)``, if given, adds its keys to the
+    record at the end; ``logits_pair`` gives the logits checked
+    (``prefill_pair``).  Returns the phase's record."""
     from repro_torch.launch import serve
     from repro_torch.models import model
     args = serve.parse_args(argv)
     zero_counts()
     _zero_eager_calls()
-    res = serve.run(args)
+    res = serve.run(args, cfg)
     launches = counts()
     rt, cfg = res["runtime"], res["cfg"]
     B, P, G = args.batch, args.prompt_len, args.gen
@@ -1994,17 +2166,13 @@ def dense_plane(name, argv, device, positions=None):
 
     # the same prefill with the kernels and with their plain versions
     params = rt.state["params"]
-    got, _ = model.prefill(params, cfg, batch,
-                           model.init_cache(cfg, B, P, rt.device))
-    want, _ = model.prefill(params, cfg, batch,
-                            model.init_cache(cfg, B, P, rt.device),
-                            impl="torch")
-    out["logits_check"] = chk = logits_check(got, want)
+    got, want, free, read = logits_pair(params, cfg, batch, B, P, rt.device)
+    out["logits_check"] = chk = {**logits_check(got, want), **read}
     check(chk["passed"], f"{name} prefill logits: {chk}")
-    check(bool((torch.argmax(got, -1).cpu().numpy() == toks[:, 0]).all()),
+    check(bool((torch.argmax(free, -1).cpu().numpy() == toks[:, 0]).all()),
           f"{name}: the runtime's first token is not the prefill logits' "
           f"argmax")
-    del got, want
+    del got, want, free
     out["captured_vs_eager"], eager_cache, first, pos = captured_vs_eager(
         rt, batch, G - 1)
     if rt.device.type == "cuda":
@@ -2022,6 +2190,8 @@ def dense_plane(name, argv, device, positions=None):
         out["warm_decode_step_eager"] = profile_steps(
             lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
                                        None), 3)
+    if extra is not None:
+        out.update(extra(rt, batch, args, out))
     return out
 
 
@@ -2307,8 +2477,10 @@ def phase_serve_hybrid(device="cuda", smoke=False):
     want_pre, want_dec = hybrid_launches(cfg)
     if rt.device.type != "cuda":
         want_pre = want_dec = {n: 0 for n in COUNTERS}
-    # the fp32 stack's SSD scans take the scalar route
-    want_f32 = dict(want_pre, ssd_scan_scalar=want_pre["ssd_scan"])
+    # the fp32 stack's SSD scans take the scalar route, its flash
+    # attention the CUDA-core kernel
+    want_f32 = dict(want_pre, ssd_scan_scalar=want_pre["ssd_scan"],
+                    flash_attention_cuda_core=want_pre["flash_attention"])
     check(per_call["bf16_auto"] == want_pre
           and per_call["decode_bf16_auto"] == want_dec
           and per_call["f32_auto"] == want_f32
@@ -2386,6 +2558,126 @@ def phase_serve_vlm(device="cuda", smoke=False):
 
     out = dense_plane("serve_vlm", argv, device, positions)
     emit("serve_vlm", **out)
+    return out
+
+
+#: deepseek_v2_236b's layers in ``serve_moe``: 7 of 60 at full width
+#: (7 x 7.95 GB of layers and 2.1 GB of embedding and LM head, 57.7 GB of
+#: bf16 weights)
+MOE_LAYERS = 7
+
+
+def moe_reads(rt, batch, args, out):
+    """``serve_moe``'s reads beside the main path (its launches restored
+    afterwards): a prefill of the same batch and one decode step with
+    every MoE layer's routing tapped, giving the share of (token, k)
+    choices the capacity dropped in each (the reference's per-call
+    capacity: C = 96 for 2048 prefill tokens, C = 1 for a decode step's 4),
+    and the experts the decode step's tokens chose; the decode bound, the
+    weights' bytes over the memory rate (the expert products read every
+    expert, even at C = 1), beside the bytes of the chosen experts alone;
+    on the card, the decode step's idle share and the expert products'
+    share of the warm prefill (three batched products of one layer timed
+    alone, times the layers, over the prefill's device time)."""
+    import torch.nn.functional as F
+    from repro_torch.models import model, moe
+    cfg, params = rt.job.cfg, rt.state["params"]
+    m = cfg.moe
+    saved = counts()
+    taps = []
+    route = moe.route
+
+    def tap(xs, router, mcfg):
+        r = route(xs, router, mcfg)
+        taps.append((int((r[2] == mcfg.n_experts * r[4]).sum()),
+                     r[2].numel(), r[4], torch.unique(r[1]).numel()))
+        return r
+
+    moe.route = tap
+    try:
+        B, P = batch["tokens"].shape
+        cache = model.init_cache(cfg, B, P + 1, rt.device)
+        logits, cache = model.prefill(params, cfg, batch, cache)
+        pre, taps[:] = list(taps), []
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        model.decode_step(params, cfg, tok, cache, P)
+        dec = list(taps)
+    finally:
+        moe.route = route
+    del cache, logits
+    set_counts(saved)
+
+    def drops(rows):
+        n = sum(r[0] for r in rows)
+        total = sum(r[1] for r in rows)
+        return {"capacity": rows[0][2], "choices": total, "dropped": n,
+                "dropped_share": n / total,
+                "dropped_by_layer": [r[0] for r in rows]}
+
+    elem = params["layers"]["moe"]["w_gate"].element_size()
+    expert_bytes = 3 * cfg.d_model * m.d_ff_expert * elem
+    weights = tree_bytes(params)
+    chosen = [r[3] for r in dec]
+    active = weights - expert_bytes * (cfg.n_layers * m.n_experts
+                                       - sum(chosen))
+    res = {"capacity_drop": {"prefill": drops(pre), "decode": drops(dec)},
+           "decode_bound": {
+               "weights_gb": weights / 1e9,
+               "bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+               "experts_chosen_by_layer": chosen,
+               "chosen_experts_bound_ms": active / HBM_BYTES_PER_S * 1e3}}
+    if rt.device.type == "cuda":
+        res["decode_idle_share"] = out["warm_decode_step"]["idle_share"]
+        lp = params["layers"]["moe"]
+        E, C, d = m.n_experts, pre[0][2], cfg.d_model
+        ebuf = _randn((E, C, d), _gen(6))
+        wg, wu, wd = (lp[k][0] for k in ("w_gate", "w_up", "w_down"))
+
+        def experts():
+            h = F.silu(torch.bmm(ebuf, wg)) * torch.bmm(ebuf, wu)
+            return torch.bmm(h, wd)
+
+        ms = time_ms(experts, iters=10)
+        res["expert_products"] = {
+            "ms_per_layer": ms, "shape": [E, C, d, m.d_ff_expert],
+            "prefill_share": ms * cfg.n_layers
+            / out["warm_prefill"]["device_ms"]}
+        del ebuf
+    return res
+
+
+def phase_serve_moe(device="cuda", smoke=False):
+    """deepseek_v2_236b (the moe family with MLA attention: 2 shared and
+    160 routed experts a layer, top-6) at full width, cut in depth to
+    ``MOE_LAYERS`` of its 60 layers, random bf16 weights from seed 0,
+    through the launcher's entry point (``dense_plane``, handed the cut
+    config): 4 prompts of 512 tokens, 32 generated, the decode steps as
+    graph replays (the absorbed decode's einsums and the routing
+    captured), the launches exact (per layer 1 flash at head dim 192 and
+    4 RMSNorms a prefill, 4 RMSNorms a decode step), the prefill logits
+    against ``impl="torch"`` with the plain run's routing replayed, and
+    with their own routing read beside it (``moe_prefill_pair``).
+    Besides: ``moe_reads``."""
+    import repro_torch.configs as configs
+    arch = "deepseek_v2_236b"
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "512", "--gen",
+            "32", "--seed", "0", "--device", device]
+    full = configs.get(arch)
+    cfg = full.replace(n_layers=MOE_LAYERS)
+    if smoke:
+        argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+                "24", "--gen", "6", "--device", device]
+        full = cfg = configs.get_smoke(arch)
+    out = dense_plane("serve_moe", argv, device, cfg=cfg, extra=moe_reads,
+                      logits_pair=moe_prefill_pair)
+    a = cfg.attention
+    out.update(d_model=cfg.d_model, n_heads=a.n_heads,
+               qk_head_dim=a.head_dim + a.qk_rope_head_dim,
+               v_head_dim=a.v_dim, kv_lora_rank=a.kv_lora_rank,
+               n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+               n_shared=cfg.moe.n_shared,
+               reduced={"n_layers": [full.n_layers, cfg.n_layers]})
+    emit("serve_moe", **out)
     return out
 
 
@@ -3971,7 +4263,7 @@ def _free(device="cuda") -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
-def emit_capture_summary(info, dense, paged, hybrid, vlm) -> None:
+def emit_capture_summary(info, dense, paged, hybrid, vlm, moe) -> None:
     """One line: each decode path's step wall time, idle share and tok/s
     run eagerly and as graph replays (the same run, the same card), its
     capture time and graph pool."""
@@ -3979,7 +4271,8 @@ def emit_capture_summary(info, dense, paged, hybrid, vlm) -> None:
     for name, run, key in (("serve_dense", dense, "warm_decode_step"),
                            ("serve_paged", paged, "warm_decode_round"),
                            ("serve_hybrid", hybrid, "warm_decode_step"),
-                           ("serve_vlm", vlm, "warm_decode_step")):
+                           ("serve_vlm", vlm, "warm_decode_step"),
+                           ("serve_moe", moe, "warm_decode_step")):
         eager, captured = run[key + "_eager"], run[key]
         vs = run["captured_vs_eager"]
         paths[name] = {
@@ -4016,6 +4309,9 @@ def _run_all() -> int:
     progress("serve_vlm")
     vlm = phase_serve_vlm()
     _free()
+    progress("serve_moe")
+    moe = phase_serve_moe()
+    _free()
     train = phase_train()
     _free()
     train_f32 = phase_train_f32()
@@ -4043,7 +4339,7 @@ def _run_all() -> int:
     # serve_hybrid's counts, and the train phases' per step, were held
     # exactly in their phases
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
-            "vlm": vlm["launches"],
+            "vlm": vlm["launches"], "moe": moe["launches"],
             "train": train["launches"], "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
             "train_encoder": train_encoder["launches"],
@@ -4059,6 +4355,7 @@ def _run_all() -> int:
               "paged": [paged["decode_graph"]],
               "hybrid": [hybrid["decode_graph"]],
               "vlm": [vlm["decode_graph"]],
+              "moe": [moe["decode_graph"]],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
@@ -4072,7 +4369,7 @@ def _run_all() -> int:
                         for g in gs) for run, gs in graphs.items()}
         return {run: n for run, n in got.items() if n}
 
-    emit_capture_summary(info, dense, paged, hybrid, vlm)
+    emit_capture_summary(info, dense, paged, hybrid, vlm, moe)
 
     rows = []
     for name, meta in KERNEL_META.items():
@@ -4108,6 +4405,19 @@ def _run_all() -> int:
             row["f32"] = k["f32"]
         if "passes_ms" in k:
             row["passes_ms"] = k["passes_ms"]
+        if name == "flash_attention":
+            # MLA's prefill shape (head dims 192 | 128), its serve_moe
+            # launches and the route each check launch took
+            mla = kern["flash_attention_mla"]
+            row["mla_prefill"] = {
+                "shape": mla["shape"], "v_head_dim": 128,
+                "launches": moe["launches"]["flash_attention"],
+                "max_abs_err": mla["max_err"], "ms": mla["kernel_ms"],
+                "plain_ms": mla["plain_ms"], "bound_ms": mla["bound_ms"],
+                "bound_by": mla["bound_by"],
+                "library_ms": mla["library_ms"],
+                "was_ms": mla["was_route"]["kernel_ms"],
+                "routes": mla["routes"]}
         row["bound_share"] = k["bound_ms"] / k["kernel_ms"]
         rows.append(row)
     line = json.dumps({"kernels": rows})

@@ -3,9 +3,10 @@
 Every architecture id of the reference stays known, so an unknown name and
 a name the port has not reached yet fail differently.  The dense family
 (deepseek_7b, mistral_nemo_12b, yi_34b, starcoder2_15b), the hybrid
-family (zamba2_2p7b), the VLM (pixtral_12b) and the encoder
-(hubert_xlarge) are ported: ``get()``/``get_smoke()`` of any other arch
-(the moe and xlstm families) raises ``NotImplementedError`` naming its
+family (zamba2_2p7b), the VLM (pixtral_12b), the encoder (hubert_xlarge)
+and the moe family (deepseek_v2_236b with MLA attention,
+llama4_maverick_400b) are ported: ``get()``/``get_smoke()`` of any other
+arch (the xlstm family) raises ``NotImplementedError`` naming its
 family.
 """
 from __future__ import annotations
@@ -43,8 +44,6 @@ _ALIASES = {
 
 #: arch id -> family, for the archs whose family is not ported yet
 _NOT_PORTED: Dict[str, str] = {
-    "llama4_maverick_400b": "moe",
-    "deepseek_v2_236b": "moe",
     "xlstm_350m": "xlstm",
 }
 

@@ -8,7 +8,9 @@ shapes, dtypes and bits: both keep ``x @ W`` orientation and stacked
 ``(n_groups, ...)`` leaves, so no transpose is needed.  Each leaf keeps
 its own dtype, so the hybrid's tree (``extra``, ``(n_groups, m, ...)``
 Mamba2 leaves, fp32 ``A_log``/``D``/``dt_bias`` in a bf16 model) moves as
-it is.
+it is, and so does the moe family's: the stacked ``(n_groups, E, d, F)``
+experts, the fp32 router, MLA's leaves and llama4's ``{"dense", "moe"}``
+halves of a group.
 
 Optimizer state (``repro.train.optimizer.init``'s tree) moves the same
 way: ``{"m", "v", "step"}`` whose m/v leaves are fp32 arrays or, with

@@ -30,7 +30,8 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-#: C entry point -> argtypes (every entry point returns a cudaError_t)
+#: C entry point -> argtypes (every entry point returns a cudaError_t but
+#: flash_attention_route, which returns the route it names)
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype code, stream
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
@@ -42,6 +43,8 @@ SIGNATURES = {
     # window, q_offset, dtype code, stream
     "flash_attention_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _I, _I, _P],
+    # q, k, v, o, Sk, D, Dv, dtype code -> 1 for the tensor-core route
+    "flash_attention_route": [_P, _P, _P, _P, _I, _I, _I, _I],
     # q, k, v, o, do, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, D, Dv,
     # scale, causal, window, q_offset, dtype code, stream
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I,

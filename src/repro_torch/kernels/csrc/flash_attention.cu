@@ -24,8 +24,12 @@
 // (D, S, B*H), so rows past Sq or Sk and columns past D read as zeros;
 // tiles are 64-column halves of 128-byte swizzled rows, so D = 80 (the
 // hybrid's shared block) or 72 takes two halves, the second zero-padded,
-// and Q K^T runs over all 128 columns; Dv pads to 64 or 128 columns in the
-// P V product and the padded columns are not stored.  Every batch of
+// and Q K^T runs over all 128 columns; MLA's prefill (q and k of 128 + 64
+// = 192 columns, v of 128) takes three halves of Q and K, and D = 136 a
+// third half mostly zeros; Dv pads to 64 or 128 columns in the P V
+// product and the padded columns are not stored.  At three halves the
+// block holds 1 KB of alignment, 48 KB of Q and two 40 KB stages of K and
+// V: 132 KB of the 227 KB a block may have.  Every batch of
 // wgmma is issued without a branch, its accumulators pinned before and
 // after (hopper.cuh fence_regs): issuing only ceil(D / 16) k-slices
 // behind a condition made ptxas serialize the products (C7515), and the
@@ -56,8 +60,12 @@
 // the score tile and a 4x8 patch of the output, fmaf on the CUDA cores.
 // TF32 would not hold the f32 checks' 1e-4.
 //
+// Its rows are staged D + 1 floats wide (no bank conflicts): at D = 192
+// the block takes 148 KB of dynamic shared memory, one block an SM.
+//
 // Both: a row left fully masked ends with l = 0 and is divided by 1 (its
-// output is 0), as the TPU kernel does.  D and Dv up to 128.
+// output is 0), as the TPU kernel does.  D up to 192 (MAX_D), Dv up to
+// 128.
 //
 // Training: when the lse pointer is not null, the kernel also writes each
 // row's log-sum-exp, lse = m + log(l_safe) in fp32 with l_safe = l or 1
@@ -77,6 +85,7 @@ constexpr int BK = 64;       // kv rows per tile
 constexpr int THREADS = 256;
 constexpr int MAX_DV = 128;  // 16 lanes x 8 columns
 constexpr int NJ = MAX_DV / 16;
+constexpr int MAX_D = 192;   // three 64-column halves on the wgmma route
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -482,6 +491,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !make_map(&tv, v, Dv, Sk, B * Hkv, BK))
     return cudaErrorInvalidValue;
   const bool d2 = D > 64, dv2 = Dv > 64;
+  if (D > 128 && dv2)
+    return launch_dims<3, 2>(tq, tk, tv, o, lse, B, Hq, Hkv, Sq, Sk, Dv,
+                             scale, causal, window, q_offset, stream);
+  if (D > 128)
+    return launch_dims<3, 1>(tq, tk, tv, o, lse, B, Hq, Hkv, Sq, Sk, Dv,
+                             scale, causal, window, q_offset, stream);
   if (d2 && dv2)
     return launch_dims<2, 2>(tq, tk, tv, o, lse, B, Hq, Hkv, Sq, Sk, Dv,
                              scale, causal, window, q_offset, stream);
@@ -497,13 +512,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace wg
 
+// 1 when flash_attention_launch takes the tensor-core route for these
+// operands, 0 when it takes the CUDA-core kernel (the wrapper counts the
+// launches of each route)
+extern "C" int flash_attention_route(const void* q, const void* k,
+                                     const void* v, const void* o, int Sk,
+                                     int D, int Dv, int dtype) {
+  return dtype == DTYPE_BF16 && wg::takes(q, k, v, o, Sk, D, Dv) ? 1 : 0;
+}
+
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int B, int Hq, int Hkv, int Sq, int Sk,
                                       int D, int Dv,
                                       float scale, int causal, int window,
                                       int q_offset, int dtype, void* stream) {
-  if (D < 1 || D > 128 || Dv < 1 || Dv > MAX_DV || Hkv < 1 || Hq % Hkv)
+  if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_DV || Hkv < 1 || Hq % Hkv)
     return cudaErrorInvalidValue;
   if (B == 0 || Hq == 0 || Sq == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -12,14 +12,21 @@ cluster.  The daemon's topology is one chip on ``--device``.
 attention) the same way, and ``--arch pixtral_12b`` the VLM: each prompt
 of ``--prompt-len`` positions is the stub's image patches (up to 256, an
 eighth of the prompt) followed by text tokens, so the prefill's tokens a
-second count the patch positions, and decoding starts after both.  An
-encoder (``--arch hubert_xlarge``) has no decode path and is refused.
+second count the patch positions, and decoding starts after both.
+``--arch deepseek_v2_236b`` serves the moe family with MLA attention
+(its absorbed decode scores against the compressed cache) and
+``--arch llama4_maverick_400b`` the moe family with GQA.  An encoder
+(``--arch hubert_xlarge``) has no decode path and is refused.
+
+``run(args, cfg)`` serves a config the caller made (one cut in depth,
+say) with the flags' traffic; ``config(args)`` is the one the flags
+name.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -28,7 +35,7 @@ from repro_torch.core.daemon import ClusterDaemon
 from repro_torch.core.runtime import JobSpec
 from repro_torch.core.topology import Topology
 from repro_torch.data import pipeline
-from repro_torch.models.config import ShapeConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -44,13 +51,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> Dict[str, Any]:
-    """Prefill a synthetic prompt batch and decode ``--gen`` tokens.
-    Returns the daemon, the block's app id and runtime, the batch, the
-    generated tokens (B, gen) and the prefill/decode wall times (each
-    ending in a device sync)."""
-    cfg = (configs.get_smoke(args.arch) if args.smoke
-           else configs.get(args.arch))
+def config(args: argparse.Namespace) -> ModelConfig:
+    """The config ``--arch`` (and ``--smoke``) name."""
+    return (configs.get_smoke(args.arch) if args.smoke
+            else configs.get(args.arch))
+
+
+def run(args: argparse.Namespace,
+        cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
+    """Prefill a synthetic prompt batch and decode ``--gen`` tokens, on
+    ``cfg`` (``config(args)`` when None).  Returns the daemon, the block's
+    app id and runtime, the batch, the generated tokens (B, gen) and the
+    prefill/decode wall times (each ending in a device sync)."""
+    cfg = config(args) if cfg is None else cfg
     if cfg.is_encoder:
         raise SystemExit("encoder-only arch has no decode path")
     B, P, G = args.batch, args.prompt_len, args.gen

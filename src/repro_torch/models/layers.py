@@ -1,7 +1,7 @@
-"""Shared layers: norms, RoPE, GQA attention (dense and paged), MLPs.
+"""Shared layers: norms, RoPE, GQA attention (dense and paged), Multi-head
+Latent Attention (DeepSeek-V2), MLPs.
 
-The port of ``repro.models.layers`` for the dense family (MLA waits for a
-later slice).  Parameters are plain nested dicts of tensors in the JAX
+The port of ``repro.models.layers``.  Parameters are plain nested dicts of tensors in the JAX
 tree's layout: ``x @ W`` orientation ``(d_in, d_out)``.  ``*_init(gen,
 ...)`` builds one layer's params from an explicit ``torch.Generator``.
 Matmuls run in the param dtype with fp32 softmax/norm accumulation.
@@ -170,6 +170,90 @@ def paged_attention_fwd(p, x, a: AttentionConfig, *, pages, page_table,
                             seq_lens + 1, impl=impl)
     o = o.transpose(1, 2).reshape(B, S, H * vd)
     return o @ p["wo"], pages
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, d_model: int, a: AttentionConfig, dtype, device):
+    H, Dn, Dr, Dv = a.n_heads, a.head_dim, a.qk_rope_head_dim, a.v_dim
+    return {
+        "wq_a": _he(gen, (d_model, a.q_lora_rank), dtype, device),
+        "q_norm": torch.ones((a.q_lora_rank,), dtype=dtype, device=device),
+        "wq_b": _he(gen, (a.q_lora_rank, H * (Dn + Dr)), dtype, device),
+        "wkv_a": _he(gen, (d_model, a.kv_lora_rank + Dr), dtype, device),
+        "kv_norm": torch.ones((a.kv_lora_rank,), dtype=dtype,
+                              device=device),
+        "wk_b": _he(gen, (a.kv_lora_rank, H * Dn), dtype, device),
+        "wv_b": _he(gen, (a.kv_lora_rank, H * Dv), dtype, device),
+        "wo": _he(gen, (H * Dv, d_model), dtype, device, fan_in=H * Dv),
+    }
+
+
+def mla_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
+            cache_len=None, impl: str = "auto"):
+    """MLA forward.  cache: dict(c_kv: (B, Smax, R), k_rope: (B, Smax, Dr)),
+    updated in place.
+
+    Train and prefill materialise per-head K and V and run flash
+    attention at head dim Dn + Dr (value head dim Dv); a prefill writes
+    the compressed rows [0, S) and zeroes the rest.  Decode (S == 1)
+    writes row ``cache_len`` (a 0-d tensor on the cache's device, written
+    through a device index, or an int) and scores against the compressed
+    cache with the up-projections absorbed, in fp32 einsums, as the
+    reference does outside any kernel."""
+    B, S, _ = x.shape
+    H, Dn, Dr, Dv, R = (a.n_heads, a.head_dim, a.qk_rope_head_dim,
+                        a.v_dim, a.kv_lora_rank)
+    scale = 1.0 / math.sqrt(Dn + Dr)
+    cq = ops.rmsnorm(x @ p["wq_a"], p["q_norm"], impl=impl)
+    q = (cq @ p["wq_b"]).reshape(B, S, H, Dn + Dr)
+    q_nope, q_rope = q[..., :Dn], q[..., Dn:]
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions,
+                        a.rope_theta)                          # (B,H,S,Dr)
+
+    kv_a = x @ p["wkv_a"]
+    # the kernel takes contiguous rows; the slice is a strided view
+    c_kv = ops.rmsnorm(kv_a[..., :R].contiguous(), p["kv_norm"],
+                       impl=impl)                              # (B,S,R)
+    k_rope = apply_rope(kv_a[..., None, R:].transpose(1, 2), positions,
+                        a.rope_theta)                          # (B,1,S,Dr)
+
+    if cache is not None and S == 1:
+        # ---- absorbed decode: score against the compressed cache ----
+        c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+        cache_len = torch.as_tensor(cache_len, device=c_cache.device)
+        idx = cache_len.reshape(1).long()
+        c_cache.index_copy_(1, idx, c_kv.to(c_cache.dtype))
+        r_cache.index_copy_(1, idx, k_rope[:, 0].to(r_cache.dtype))
+        wk_b = p["wk_b"].reshape(R, H, Dn)
+        q_abs = torch.einsum("bshd,rhd->bhsr", q_nope, wk_b)   # (B,H,1,R)
+        s = (torch.einsum("bhsr,btr->bhst", q_abs.float(), c_cache.float())
+             + torch.einsum("bhsd,btd->bhst", q_rope.float(),
+                            r_cache.float())) * scale
+        pos = torch.arange(c_cache.shape[1], device=c_cache.device)
+        s = torch.where(pos < cache_len + 1, s, ops.NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        o_c = torch.einsum("bhst,btr->bhsr", w, c_cache.float())
+        wv_b = p["wv_b"].reshape(R, H, Dv)
+        o = torch.einsum("bhsr,rhd->bshd", o_c.to(x.dtype), wv_b)
+    else:
+        # ---- train / prefill: materialize per-head K, V ----
+        k_nope = (c_kv @ p["wk_b"]).reshape(B, S, H, Dn).transpose(1, 2)
+        v = (c_kv @ p["wv_b"]).reshape(B, S, H, Dv).transpose(1, 2)
+        k = torch.cat([k_nope, k_rope.expand(B, H, S, Dr)], dim=-1)
+        qq = torch.cat([q_nope.transpose(1, 2), q_rope], dim=-1)
+        o = ops.flash_attention(qq, k, v, causal=True, scale=scale,
+                                impl=impl)
+        o = o.transpose(1, 2)
+        if cache is not None:
+            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :S] = k_rope[:, 0].to(cache["k_rope"].dtype)
+            cache["c_kv"][:, S:] = 0
+            cache["k_rope"][:, S:] = 0
+    out = o.reshape(B, S, H * Dv) @ p["wo"]
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

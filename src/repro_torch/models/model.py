@@ -38,12 +38,19 @@ def count_params(tree) -> int:
 
 
 def count_active_params(cfg: ModelConfig) -> int:
-    """Params touched per token: every param in the ported families (the
-    hybrid's shared attention block counts once, as in the reference,
-    though every group applies it; the frontends' projections count, and
-    the frame frontend has no embedding table; the routed-expert discount
-    comes with the MoE family)."""
-    return count_params(abstract_params(cfg))
+    """Params touched per token: the full count minus the inactive routed
+    experts (the E - K a MoE sublayer does not route a token to; one MoE
+    sublayer per group), as in the reference.  The hybrid's shared
+    attention block counts once, though every group applies it; the
+    frontends' projections count, and the frame frontend has no embedding
+    table."""
+    total = count_params(abstract_params(cfg))
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    n_moe_layers = transformer.n_groups(cfg)   # one moe sublayer per group
+    return total - n_moe_layers * (m.n_experts - m.top_k) * per_expert
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +168,16 @@ def write_prefill_to_pages(pool, dense_cache, page_ids, page_size: int):
     place.
 
     Leaf shapes: dense (ng, 1, smax, Hkv, D) -> pool (ng, n_pages, page,
-    Hkv, D).  Page row ``p`` receives exactly dense row ``p``."""
-    some = next(iter(pool.values()))
-    ids = torch.as_tensor(page_ids, dtype=torch.long, device=some.device)
+    Hkv, D), leaf for leaf of the two trees (llama4's pool is
+    {"dense": {k, v}, "moe": {k, v}}).  Page row ``p`` receives exactly
+    dense row ``p``."""
+    leaves = transformer.flatten(pool)
+    ids = torch.as_tensor(page_ids, dtype=torch.long,
+                          device=leaves[0][1].device)
     npg = ids.shape[0]
-    for name, p in pool.items():
-        d = dense_cache[name]
+    dense = dict(transformer.flatten(dense_cache))
+    for name, p in leaves:
+        d = dense[name]
         ng, _, smax = d.shape[:3]
         assert smax == npg * page_size, (smax, npg, page_size)
         p[:, ids] = d[:, 0].reshape((ng, npg, page_size) + tuple(d.shape[3:])

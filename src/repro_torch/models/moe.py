@@ -1,0 +1,132 @@
+"""Mixture-of-Experts layer: top-k token-choice routing with scatter/gather
+dispatch (the port of ``repro.models.moe``).
+
+Routing matches the reference's: fp32 router logits, softmax, top-k and
+the gates renormalised over the k choices; a static capacity
+``C = max(1, ceil(T * K / E * capacity_factor))`` per expert; each
+(token, k) choice's position within its expert from a cumulative sum in
+k-major order (every k = 0 choice claims its slot before any k = 1
+choice); choices past the capacity go to the overflow slot ``E * C``,
+which the scatter drops and the combine reads as row ``E * C - 1`` with
+weight 0.  Tokens are scattered into (E, C, d) expert buffers by rows
+(no one-hot einsums), the experts run as batched matrix products, and
+the N shared experts are one wide gated MLP whose output is added.
+
+The reference computes routing and capacity per data shard (a leading DP
+dim, from its sharding context) and runs the dispatch and combine under
+``shard_map``.  The port has no sharding context: a block spans one
+device, so DP = 1, the whole batch is one shard, and the reference's
+``constrain_*`` calls (layout hints for the EP all-to-all) have nothing
+to do and are left out.
+
+Every valid slot receives exactly one token, so the scatter is a plain
+indexed write into an (E * C + 1, d) buffer whose last row takes every
+overflow choice and is discarded: the kept rows do not depend on the
+order of the writes, no atomics decide them, and the layer launches no
+host sync, so a decode step that runs it captures as a CUDA graph.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import MoEConfig
+from repro_torch.models.layers import _gelu, _he, mlp_fwd, mlp_init
+
+
+def moe_init(gen, d_model: int, cfg: MoEConfig, dtype, device):
+    E, F_ = cfg.n_experts, cfg.d_ff_expert
+    p = {
+        "router": _he(gen, (d_model, E), torch.float32, device),
+        "w_gate": _he(gen, (E, d_model, F_), dtype, device, fan_in=d_model),
+        "w_up": _he(gen, (E, d_model, F_), dtype, device, fan_in=d_model),
+        "w_down": _he(gen, (E, F_, d_model), dtype, device, fan_in=F_),
+    }
+    if cfg.n_shared > 0:
+        p["shared"] = mlp_init(gen, d_model, cfg.n_shared * cfg.shared_ff,
+                               gated=True, dtype=dtype, device=device)
+    return p
+
+
+def capacity(T: int, cfg: MoEConfig) -> int:
+    """Slots per expert for T tokens (static, as the reference's)."""
+    return max(1, int(math.ceil(T * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def route(xs, router, cfg: MoEConfig):
+    """xs: (T, d).  Returns (probs (T, E) fp32, idx (T, K), slots (K, T),
+    weights (K, T) in xs's dtype, C): a dropped choice has slot E * C and
+    weight 0."""
+    T = xs.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xs.float() @ router, dim=-1)        # (T, E)
+    gate_vals, idx = torch.topk(probs, K, dim=-1)             # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    C = capacity(T, cfg)
+    experts = torch.arange(E, device=xs.device)
+    counts = torch.zeros((1, E), dtype=torch.int64, device=xs.device)
+    overflow = E * C
+    slot_k, weight_k = [], []
+    for j in range(K):
+        oh = (idx[:, j:j + 1] == experts).long()              # (T, E)
+        pos_all = torch.cumsum(oh, dim=0) - 1 + counts        # (T, E)
+        pos = torch.gather(pos_all, 1, idx[:, j:j + 1])[:, 0]  # (T,)
+        counts = counts + oh.sum(0, keepdim=True)
+        valid = pos < C
+        slot_k.append(torch.where(valid, idx[:, j] * C + pos, overflow))
+        weight_k.append((gate_vals[:, j] * valid).to(xs.dtype))
+    return probs, idx, torch.stack(slot_k), torch.stack(weight_k), C
+
+
+def moe_fwd(p, x, cfg: MoEConfig, act: str = "silu"):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d fp32)."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    xs = x.reshape(B * S, d)
+    probs, idx, slots, weights, C = route(xs, p["router"], cfg)
+
+    buf = _scatter_local(xs, slots, E=E, C=C)
+    ebuf = buf.reshape(E, C, d)
+    g = torch.bmm(ebuf, p["w_gate"])                          # (E, C, F)
+    u = torch.bmm(ebuf, p["w_up"])
+    g = F.silu(g) if act == "silu" else _gelu(g)
+    h = torch.bmm(g * u, p["w_down"])                         # (E, C, d)
+    out = _combine_local(h.reshape(E * C, d), slots, weights, E=E, C=C)
+
+    if cfg.n_shared > 0:
+        out = out + mlp_fwd(p["shared"], xs, act, gated=True)
+
+    # load-balancing auxiliary loss (Switch-style)
+    frac_tokens = (idx[:, :1] == torch.arange(E, device=x.device)
+                   ).float().mean(0)
+    frac_probs = probs.mean(0)
+    aux = cfg.router_aux_coef * E * torch.sum(frac_tokens * frac_probs)
+    return out.reshape(B, S, d), aux
+
+
+def _scatter_local(xs, slots, *, E, C):
+    """Dispatch.  xs: (T, d); slots: (K, T), overflow id E * C.  Each
+    valid slot is written by exactly one (token, k) choice; the overflow
+    choices all land in the trash row E * C, which is cut off.  Returns
+    the (E * C, d) expert rows, zeros where no token came."""
+    T, d = xs.shape
+    buf = torch.zeros((E * C + 1, d), dtype=xs.dtype, device=xs.device)
+    for j in range(slots.shape[0]):
+        buf[slots[j]] = xs
+    return buf[:E * C]
+
+
+def _combine_local(hflat, slots, weights, *, E, C):
+    """Combine.  hflat: (E * C, d).  Each choice reads its slot's row (an
+    overflow choice reads row E * C - 1, weighted 0) times its weight; the
+    K contributions add in k order.  Returns (T, d)."""
+    out = None
+    for j in range(slots.shape[0]):
+        rows = hflat[torch.clamp(slots[j], max=E * C - 1)]
+        contrib = rows * weights[j][:, None]
+        out = contrib if out is None else out + contrib
+    return out

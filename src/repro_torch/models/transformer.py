@@ -1,6 +1,5 @@
-"""Stack assembly for the dense, VLM, encoder and hybrid families (the
-port of ``repro.models.transformer``; moe and xlstm come with later
-slices).
+"""Stack assembly for the dense, VLM, encoder, moe and hybrid families (the
+port of ``repro.models.transformer``; xlstm comes with a later slice).
 
 The stack is a repeated *group* of sublayers with every parameter leaf
 stacked ``(n_groups, ...)``, as in the JAX tree, so params move across
@@ -9,6 +8,10 @@ leaf for leaf:
   dense / vlm : group = [attn + mlp]
   encoder     : group = [attn + mlp], attention without the causal mask
                 and no cache (hubert: LayerNorm, a plain GELU MLP)
+  moe         : group = [attn + moe] when ``d_ff == 0`` (deepseek-v2, MLA
+                attention), or [attn + mlp, attn + moe] (llama4-maverick:
+                dense and MoE layers alternating; the tree's
+                ``{"dense", "moe"}`` halves, and the cache's)
   hybrid      : group = [mamba2 x m, shared-attn + mlp]  (zamba2; the
                 mamba leaves are stacked ``(n_groups, m, ...)``, the
                 attention block's params live once in ``params["extra"]``
@@ -43,11 +46,12 @@ from repro_torch.device import resolve
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (_randn, apply_norm, attention_fwd,
-                                       attention_init, mlp_fwd, mlp_init,
-                                       norm_init, paged_attention_fwd,
-                                       _he)
+                                       attention_init, mla_fwd, mla_init,
+                                       mlp_fwd, mlp_init, norm_init,
+                                       paged_attention_fwd, _he)
+from repro_torch.models.moe import moe_fwd, moe_init
 
-PORTED_FAMILIES = ("dense", "hybrid", "vlm", "encoder")
+PORTED_FAMILIES = ("dense", "hybrid", "vlm", "encoder", "moe")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -55,8 +59,6 @@ def _require_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not yet ported to repro_torch "
             f"(ported: {PORTED_FAMILIES})")
-    if cfg.attention is not None and cfg.attention.is_mla:
-        raise NotImplementedError("MLA attention is not yet ported")
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +68,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 def group_size(cfg: ModelConfig) -> int:
     if cfg.family == "hybrid":
         return cfg.hybrid.mamba_per_group + 1
+    if cfg.family == "moe" and cfg.d_ff > 0:
+        return 2  # alternating dense / moe
     return 1
 
 
@@ -102,21 +106,42 @@ def _put(stack, tree, g: int) -> None:
 # per-group init and forward
 # ---------------------------------------------------------------------------
 
+def _attn_init(gen, cfg: ModelConfig, dtype, device):
+    if cfg.attention.is_mla:
+        return mla_init(gen, cfg.d_model, cfg.attention, dtype, device)
+    return attention_init(gen, cfg.d_model, cfg.attention, dtype, device)
+
+
 def _dense_sublayer_init(gen, cfg: ModelConfig, dtype, device):
     """[ln1, attn, ln2, mlp]."""
     return {
         "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
-        "attn": attention_init(gen, cfg.d_model, cfg.attention, dtype,
-                               device),
+        "attn": _attn_init(gen, cfg, dtype, device),
         "ln2": norm_init(cfg.d_model, cfg.norm, dtype, device),
         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype,
                         device),
     }
 
 
+def _moe_sublayer_init(gen, cfg: ModelConfig, dtype, device):
+    """[ln1, attn, ln2, moe]."""
+    return {
+        "ln1": norm_init(cfg.d_model, cfg.norm, dtype, device),
+        "attn": _attn_init(gen, cfg, dtype, device),
+        "ln2": norm_init(cfg.d_model, cfg.norm, dtype, device),
+        "moe": moe_init(gen, cfg.d_model, cfg.moe, dtype, device),
+    }
+
+
 def group_init(gen, cfg: ModelConfig, dtype, device):
-    """One group's params: a dense sublayer, or the hybrid's Mamba2
-    sublayers stacked (m, ...)."""
+    """One group's params: a dense sublayer, a MoE sublayer (after a dense
+    one when ``d_ff > 0``), or the hybrid's Mamba2 sublayers stacked
+    (m, ...)."""
+    if cfg.family == "moe":
+        if cfg.d_ff > 0:
+            return {"dense": _dense_sublayer_init(gen, cfg, dtype, device),
+                    "moe": _moe_sublayer_init(gen, cfg, dtype, device)}
+        return _moe_sublayer_init(gen, cfg, dtype, device)
     if cfg.family != "hybrid":
         return _dense_sublayer_init(gen, cfg, dtype, device)
     m, stack = cfg.hybrid.mamba_per_group, None
@@ -137,25 +162,46 @@ def shared_extra_init(gen, cfg: ModelConfig, dtype, device):
     return None
 
 
+def _attn_fwd(p, h, cfg, *, positions, cache, cache_len, causal=None,
+              page_table=None, seq_lens=None, impl: str = "auto"):
+    # `is not None`: an all-zeros page table is a valid (trash-only) table
+    if page_table is not None:
+        return paged_attention_fwd(p, h, cfg.attention, pages=cache,
+                                   page_table=page_table, seq_lens=seq_lens,
+                                   impl=impl)
+    if cfg.attention.is_mla:
+        return mla_fwd(p, h, cfg.attention, positions=positions,
+                       cache=cache, cache_len=cache_len, impl=impl)
+    return attention_fwd(p, h, cfg.attention, positions=positions,
+                         cache=cache, cache_len=cache_len, causal=causal,
+                         impl=impl)
+
+
 def _dense_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
                         causal=None, page_table=None, seq_lens=None,
                         impl: str = "auto"):
     h = apply_norm(p["ln1"], x, cfg.norm, impl=impl)
-    # `is not None`: an all-zeros page table is a valid (trash-only) table
-    if page_table is not None:
-        a, new_cache = paged_attention_fwd(p["attn"], h, cfg.attention,
-                                           pages=cache,
-                                           page_table=page_table,
-                                           seq_lens=seq_lens, impl=impl)
-    else:
-        a, new_cache = attention_fwd(p["attn"], h, cfg.attention,
-                                     positions=positions, cache=cache,
-                                     cache_len=cache_len, causal=causal,
-                                     impl=impl)
+    a, new_cache = _attn_fwd(p["attn"], h, cfg, positions=positions,
+                             cache=cache, cache_len=cache_len, causal=causal,
+                             page_table=page_table, seq_lens=seq_lens,
+                             impl=impl)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm, impl=impl)
     x = x + mlp_fwd(p["mlp"], h, cfg.act, cfg.mlp_gated)
     return x, new_cache
+
+
+def _moe_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
+                      page_table=None, seq_lens=None, impl: str = "auto"):
+    h = apply_norm(p["ln1"], x, cfg.norm, impl=impl)
+    a, new_cache = _attn_fwd(p["attn"], h, cfg, positions=positions,
+                             cache=cache, cache_len=cache_len,
+                             page_table=page_table, seq_lens=seq_lens,
+                             impl=impl)
+    x = x + a
+    h = apply_norm(p["ln2"], x, cfg.norm, impl=impl)
+    m, aux = moe_fwd(p["moe"], h, cfg.moe, cfg.act)
+    return x + m, aux, new_cache
 
 
 def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
@@ -184,6 +230,18 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
                                    cache=None, cache_len=None, causal=False,
                                    impl=impl)
         return x, aux, None
+    if cfg.family == "moe":
+        kw = dict(positions=positions, cache_len=cache_len,
+                  page_table=page_table, seq_lens=seq_lens, impl=impl)
+        if cfg.d_ff > 0:
+            x, _ = _dense_sublayer_fwd(
+                gp["dense"], x, cfg,
+                cache=None if cache is None else cache["dense"], **kw)
+            gp, cache_m = gp["moe"], None if cache is None else cache["moe"]
+        else:
+            cache_m = cache
+        x, aux, _ = _moe_sublayer_fwd(gp, x, cfg, cache=cache_m, **kw)
+        return x, aux, cache
     x, nc = _dense_sublayer_fwd(gp, x, cfg, positions=positions,
                                 cache=cache, cache_len=cache_len,
                                 page_table=page_table, seq_lens=seq_lens,
@@ -195,18 +253,34 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
 # caches
 # ---------------------------------------------------------------------------
 
+def _attn_cache_init(cfg: ModelConfig, lead, device):
+    """One attention cache with leading dims ``lead``: MLA's compressed
+    {"c_kv", "k_rope"}, else {"k", "v"}."""
+    a, dt = cfg.attention, _dtype(cfg)
+    if a.is_mla:
+        return {"c_kv": torch.zeros(lead + (a.kv_lora_rank,), dtype=dt,
+                                    device=device),
+                "k_rope": torch.zeros(lead + (a.qk_rope_head_dim,),
+                                      dtype=dt, device=device)}
+    return {"k": torch.zeros(lead + (a.n_kv_heads, a.head_dim), dtype=dt,
+                             device=device),
+            "v": torch.zeros(lead + (a.n_kv_heads, a.v_dim), dtype=dt,
+                             device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
     """Stacked (n_groups, ...) cache: the dense family's (and the VLM's)
-    KV cache, or the hybrid's {"mamba": {"conv", "ssm"} stacked
-    (n_groups, m, ...), "attn": {"k", "v"}}; None for the encoder, which
-    does not decode."""
-    a, dt, ng = cfg.attention, _dtype(cfg), n_groups(cfg)
+    KV cache; the moe family's, MLA's compressed {"c_kv", "k_rope"} or,
+    with dense layers between, {"dense": kv, "moe": kv}; or the hybrid's
+    {"mamba": {"conv", "ssm"} stacked (n_groups, m, ...), "attn": {"k",
+    "v"}}; None for the encoder, which does not decode."""
+    dt, ng = _dtype(cfg), n_groups(cfg)
     if cfg.family == "encoder":
         return None
-    kv = {"k": torch.zeros((ng, batch, smax, a.n_kv_heads, a.head_dim),
-                           dtype=dt, device=device),
-          "v": torch.zeros((ng, batch, smax, a.n_kv_heads, a.v_dim),
-                           dtype=dt, device=device)}
+    kv = _attn_cache_init(cfg, (ng, batch, smax), device)
+    if cfg.family == "moe" and cfg.d_ff > 0:
+        return {"dense": _attn_cache_init(cfg, (ng, batch, smax), device),
+                "moe": kv}
     if cfg.family != "hybrid":
         return kv
     lead = (ng, cfg.hybrid.mamba_per_group)
@@ -235,11 +309,11 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, device):
     inactive slots' table rows point at it so their scatter writes and
     gathered garbage stay masked out."""
     check_paged_support(cfg)
-    a, dt, ng = cfg.attention, _dtype(cfg), n_groups(cfg)
-    return {"k": torch.zeros((ng, n_pages, page_size, a.n_kv_heads,
-                              a.head_dim), dtype=dt, device=device),
-            "v": torch.zeros((ng, n_pages, page_size, a.n_kv_heads,
-                              a.v_dim), dtype=dt, device=device)}
+    lead = (n_groups(cfg), n_pages, page_size)
+    if cfg.family == "moe" and cfg.d_ff > 0:
+        return {"dense": _attn_cache_init(cfg, lead, device),
+                "moe": _attn_cache_init(cfg, lead, device)}
+    return _attn_cache_init(cfg, lead, device)
 
 
 # ---------------------------------------------------------------------------

@@ -175,6 +175,14 @@ def _make_admit(cfg: ModelConfig, page_size: int, sample: bool):
     return fn
 
 
+def _to_device(tree, device):
+    """A pool tree (nested dicts of tensors or numpy arrays) on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)
+
+
 class DecodeScheduler:
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  n_pages: int = 0, max_slots: int = 8, max_seq_len: int = 128,
@@ -535,8 +543,7 @@ class DecodeScheduler:
             return np.asarray(x, dtype).copy()
 
         self.decode_graph.release()      # it binds the pool replaced here
-        self.pool = {k: torch.as_tensor(v).to(self.device)
-                     for k, v in tree["pool"].items()}
+        self.pool = _to_device(tree["pool"], self.device)
         self.page_table = host(tree["page_table"], np.int32)
         self.seq_lens = host(tree["seq_lens"], np.int32)
         self.tokens = host(tree["tokens"], np.int32)

@@ -213,7 +213,8 @@ VERBATIM = (
     + [f"configs/{c}.py" for c in ("deepseek_7b", "mistral_nemo_12b",
                                    "starcoder2_15b", "yi_34b",
                                    "zamba2_2p7b", "pixtral_12b",
-                                   "hubert_xlarge")]
+                                   "hubert_xlarge", "deepseek_v2_236b",
+                                   "llama4_maverick_400b")]
     + [f"analysis/{m}" for m in ("__init__.py", "__main__.py",
                                  "_astutil.py", "events_check.py",
                                  "lifecycle.py", "locks.py", "report.py",

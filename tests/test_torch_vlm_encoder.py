@@ -97,7 +97,7 @@ def assert_close(got, want, **tol):
 
 def test_configs_are_ported():
     """Both archs resolve in the port (the reference's configs, verbatim:
-    ``tests/test_torch_package.py``); moe and xlstm still raise."""
+    ``tests/test_torch_package.py``); xlstm still raises."""
     for arch in ARCHS:
         for get, jget in ((configs.get, jconfigs.get),
                           (configs.get_smoke, jconfigs.get_smoke)):
@@ -105,19 +105,22 @@ def test_configs_are_ported():
                 jget(arch))
     assert configs.get("pixtral_12b").family == "vlm"
     assert configs.get("hubert_xlarge").family == "encoder"
-    for arch in ("xlstm_350m", "llama4_maverick_400b"):
+    for arch in ("xlstm_350m",):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             configs.get(arch)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek_v2_236b",
+                                          "llama4_maverick_400b"))
 def test_init_params_tree_is_the_references(arch, dtype):
     """The port's own init draws the reference's tree (keys, shapes,
     dtypes): the frame frontend has ``frame_proj`` and ``mask_embed`` and
     no ``embed``, the patch frontend adds ``patch_proj``, LayerNorm leaves
-    have ``scale`` and ``bias``; JAX params cross to the port and back bit
-    for bit; both count the same active params."""
+    have ``scale`` and ``bias``, the moe family has MLA's leaves or the
+    ``{dense, moe}`` halves, stacked experts and an fp32 router; JAX
+    params cross to the port and back bit for bit; both count the same
+    active params (the routed-expert discount among them)."""
     jcfg, cfg = cfgs(arch, dtype)
     jp = np_tree(jmodel.init_params(jcfg, jax.random.PRNGKey(1)))
     want = {p: (tuple(a.shape), np.dtype(a.dtype).name)
@@ -129,8 +132,16 @@ def test_init_params_tree_is_the_references(arch, dtype):
         assert "embed" not in got and {"frame_proj", "mask_embed"} <= set(got)
         assert {"layers/ln1/scale", "layers/ln1/bias",
                 "final_norm/bias"} <= set(got)
-    else:
+    elif cfg.frontend == "patch":
         assert {"embed", "patch_proj"} <= set(got)
+    elif cfg.attention.is_mla:
+        assert {"embed", "layers/attn/wkv_a", "layers/attn/kv_norm",
+                "layers/moe/w_gate"} <= set(got)
+        assert got["layers/moe/router"][1] == "float32"
+    else:
+        assert {"layers/dense/mlp/w_up", "layers/moe/moe/w_down",
+                "layers/moe/moe/shared/w_gate"} <= set(got)
+        assert got["layers/moe/moe/router"][1] == "float32"
     back = interop.params_to_numpy(port_params(jp))
     for path, a in flatten(jp):
         b = dict(flatten(back))[path]
