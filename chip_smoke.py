@@ -19,10 +19,12 @@ never JAX.  Phases, each printing one JSON line:
                      dense configs' head groups, ragged and all-zero
                      quantization blocks, the SSD scan's ragged and short
                      sequences, initial states and extreme timesteps),
-                     (among them MLA's prefill at head dims 192 | 128,
-                     and f32, unaligned, D = 136 and Dv = 64 cases at
-                     D > 128, each launch's route counted, and the
-                     backward's refusal at D = 192), with its time, the
+                     (among them MLA's prefill and train shapes at head
+                     dims 192 | 128, forward and backward, and f32,
+                     unaligned, D = 136 and Dv = 64 cases at D > 128,
+                     each launch's route counted; the RMSNorm backward at
+                     MLA's norm widths, 1536 and 512; the int8 AdamW on
+                     a 2.52e9-element expert leaf), with its time, the
                      plain version's, one PyTorch library call's where one
                      computes the same function, and the least time the
                      card could take; each redesigned kernel also beside
@@ -123,7 +125,25 @@ never JAX.  Phases, each printing one JSON line:
                      moments, 8 x 1024 frames a step: step 0 as
                      ``train_hybrid``'s, 5 steps with their launches held
                      exactly (no RMSNorm), frames/s, MFU, a profiled step;
-13. ``preempt``    — checkpoints and preempt/resume at full width
+13. ``train_moe``  — ``repro_torch.launch.train``'s ``run(args, cfg)`` on
+                     deepseek_v2_236b (MLA, 160 routed experts top-6 and 2
+                     shared) at full width, cut to 2 of its 60 layers,
+                     random bf16 weights from seed 0, int8 moments, 2 x
+                     2048 tokens a step: step 0 first, before the block's
+                     optimizer state exists, against ``impl="torch"``
+                     under the train phases' limits with the plain run's
+                     routing replayed (``RoutingTape``: the gates and the
+                     router's gradient from the kernels' run), read beside
+                     the kernels' run with its own routing, remat's
+                     recompute held to route as the forward did; then 6
+                     steps through the launcher, the launches per step
+                     exactly (flash at head dim 192 forward twice and
+                     backward once a layer, 4 RMSNorms a layer forward,
+                     again in the recompute and backward, one int8 AdamW
+                     a leaf, none on a scalar or CUDA-core route),
+                     tok/s, peak memory, MFU, a profiled step and the
+                     capacity's dropped share;
+14. ``preempt``    — checkpoints and preempt/resume at full width
                      (``BlockRuntime.suspend``/``resume`` through
                      ``repro_torch.checkpoint.manager``, under a temporary
                      directory): train_hybrid's job suspended after 3
@@ -143,7 +163,7 @@ never JAX.  Phases, each printing one JSON line:
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
                      the save, disk space and peak memory;
-14. ``control``    — the control plane on the card: a background-mode
+15. ``control``    — the control plane on the card: a background-mode
                      ``ClusterDaemon`` on one chip, Alice's train block
                      (train_hybrid's job) autostepping toward 4 steps,
                      preempted after 2 by Bob's priority-1 paged serve
@@ -157,7 +177,7 @@ never JAX.  Phases, each printing one JSON line:
                      admission, preemption, first-token and resume
                      seconds, each block's tok/s inside the daemon and
                      Alice's MFU on the H100 roofline;
-15. ``gateway``    — the web gateway in front of a background
+16. ``gateway``    — the web gateway in front of a background
                      ``ClusterDaemon`` on one chip, every step a real HTTP
                      call: Alice walks the paper's explicit workflow
                      (register, admin review, confirm, activate, run, 2
@@ -250,8 +270,10 @@ COUNTERS = {
     "flash_attention": ("flash_attention", "LAUNCHES"),
     "flash_attention_bwd": ("flash_attention", "BWD_LAUNCHES"),
     # the forward launches that took the CUDA-core kernel (none on a main
-    # path: bf16 operands the TMA loads take)
+    # path: bf16 operands the TMA loads take), and the backward's
     "flash_attention_cuda_core": ("flash_attention", "LAUNCHES_CUDA_CORE"),
+    "flash_attention_bwd_cuda_core": ("flash_attention",
+                                      "BWD_LAUNCHES_CUDA_CORE"),
     "rmsnorm": ("rmsnorm", "LAUNCHES"),
     "rmsnorm_bwd": ("rmsnorm", "BWD_LAUNCHES"),
     "paged_attention": ("paged_attention", "LAUNCHES"),
@@ -604,9 +626,10 @@ def phase_build():
 
 SASS_FAMILIES = ("fused_adamw", "paged_decode")
 # kernels whose registers, shared memory and spills the build line gives
-# by name (ptxas -v): the SSD scan's, its backward's and the RMSNorm
-# backward's
-PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_bwd", "rmsnorm_dscale")
+# by name (ptxas -v): the SSD scan's, its backward's, the RMSNorm
+# backward's and the flash backward's
+PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_bwd", "rmsnorm_dscale",
+                 "flash_bwd")
 
 
 def sass_counts(lib: str) -> dict:
@@ -1305,6 +1328,8 @@ def check_train_kernels(out, edge, edges):
                       (2, 32, 32, 2048, 2048, 80, 80), True, fwd_ok, worst)
     flash_train_shape(out, "encoder_train_shape",
                       (8, 16, 16, 1024, 1024, 80, 80), False, fwd_ok, worst)
+    # deepseek_v2_236b's MLA train shape and the backward's cases at D > 128
+    check_mla_flash_bwd(out, edge, fwd_ok, worst)
     for name, args, kw2 in [
             ("gqa_g4", (2, 8, 2, 100, 100, 64, 64), {}),
             ("gqa_g12", (1, 48, 4, 100, 100, 128, 128), {}),
@@ -1378,26 +1403,33 @@ def check_train_kernels(out, edge, edges):
                       "kernel_ms": time_ms(lambda: rmsnorm_bwd_cuda(
                           xm, s, gm))}}
     del x, s, gy, got, want, again, xm, gm, sgot, xl, sl, yl
-    # the hybrid's widest rows: the Mamba2 gated norm's (4096, 5120) in a
-    # train step of 2 x 2048 tokens, held and timed
-    (x, s, gy), got, want, route = rms_bwd_case(4096, 5120)
-    err, ratio = worst(got, want, 2e-2)
-    check(route == "vector" and ratio <= 1.0,
-          f"rmsnorm_bwd (4096, 5120): {route} route, max_abs_err {err}, "
-          f"{ratio} x tol")
-    b_ms, b_by = bound(2 * (3 * x.numel() + 2 * s.numel()), 10 * x.numel(),
-                       F32_FLOPS)
-    xl, sl = (t.detach().requires_grad_(True) for t in (x, s))
-    yl = F.rms_norm(xl, (5120,), sl, 1e-6)
-    out["rmsnorm_bwd"]["hybrid_d5120"] = {
-        "shape": [4096, 5120], "route": route, "max_err": err, "rtol": 2e-2,
-        "err_over_tol": ratio,
-        "kernel_ms": time_ms(lambda: rmsnorm_bwd_cuda(x, s, gy)),
-        "plain_ms": time_ms(lambda: rmsnorm_bwd_torch(x, s, gy)),
-        "library_ms": time_ms(lambda: torch.autograd.grad(
-            yl, (xl, sl), gy, retain_graph=True)),
-        "bound_ms": b_ms, "bound_by": b_by}
-    del x, s, gy, got, want, xl, sl, yl
+    # the other train steps' rows, 2 x 2048 tokens, held and timed: the
+    # hybrid's widest, the Mamba2 gated norm's (4096, 5120), and
+    # deepseek_v2_236b's MLA norms, q_norm (4096, 1536) and kv_norm
+    # (4096, 512)
+    for rows, d, key in ((4096, 5120, "hybrid_d5120"),
+                         (4096, 1536, "moe_q_norm"),
+                         (4096, 512, "moe_kv_norm")):
+        (x, s, gy), got, want, route = rms_bwd_case(rows, d)
+        err, ratio = worst(got, want, 2e-2)
+        check(route == "vector" and ratio <= 1.0,
+              f"rmsnorm_bwd ({rows}, {d}): {route} route, max_abs_err "
+              f"{err}, {ratio} x tol")
+        b_ms, b_by = bound(2 * (3 * x.numel() + 2 * s.numel()),
+                           10 * x.numel(), F32_FLOPS)
+        xl, sl = (t.detach().requires_grad_(True) for t in (x, s))
+        yl = F.rms_norm(xl, (d,), sl, 1e-6)
+        out["rmsnorm_bwd"][key] = {
+            "shape": [rows, d], "route": route, "max_err": err,
+            "rtol": 2e-2, "err_over_tol": ratio,
+            "kernel_ms": time_ms(lambda: rmsnorm_bwd_cuda(x, s, gy)),
+            "plain_ms": time_ms(lambda: rmsnorm_bwd_torch(x, s, gy)),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                yl, (xl, sl), gy, retain_graph=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        out["rmsnorm_bwd"]["max_err"] = max(out["rmsnorm_bwd"]["max_err"],
+                                            err)
+        del x, s, gy, got, want, xl, sl, yl
     for name, args, kw2, expect in [
             ("d8_f32", (3, 8), dict(dtype=torch.float32), "vector"),
             ("d4100_scalar_path", (5, 4100), {}, "scalar"),
@@ -1428,25 +1460,34 @@ ADAM_DISTANCES = ("p_ulp", "p_max_abs_err", "m_ulp", "v_ulp",
 def flash_train_shape(out, key, args, causal, fwd_ok, worst):
     """A train step's attention shape (``flash_bwd_case``'s ``args``)
     recorded as ``key`` in both flash rows: the forward with lse held and
-    timed, the backward held element by element, bit for bit over two
-    calls, and timed beside its plain version and SDPA's backward."""
+    timed beside its plain version and SDPA, the backward held element by
+    element, bit for bit over two calls, and timed beside its plain
+    version and SDPA's backward.  The bounds count q and k (and dq, dk)
+    at D, v and o (and dv, do) at Dv: the backward's five products are S
+    and dP at D and Dv, dQ and dK at D, dV at Dv.  Returns the backward's
+    row."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_torch,
-        flash_attention_cuda)
+        flash_attention_cuda, flash_attention_torch)
     progress(f"kernels: flash backward, {key}")
     (q, k, v, o, lse, do, kw), got, want, fwd = flash_bwd_case(
         *args, causal=causal)
     fa, fb = out["flash_attention"], out["flash_attention_bwd"]
     B, H, S, D = q.shape
+    Dv = v.shape[-1]
     pairs = flash_pairs(B, H, S, causal)
-    fwd_flops = pairs * 2 * 2 * D
-    b_ms, b_by = bound(2 * 4 * q.numel() + 4 * lse.numel(), fwd_flops)
+    fwd_flops = pairs * 2 * (D + Dv)
+    elems = q.numel() + k.numel() + v.numel() + o.numel()
+    b_ms, b_by = bound(2 * elems + 4 * lse.numel(), fwd_flops)
     fa[key] = {
         "shape": list(q.shape), "causal": causal, "rtol": 2e-2,
         **fwd_ok(fwd, key, 2e-2),
         "kernel_ms": time_ms(lambda: flash_attention_cuda(
             q, k, v, with_lse=True, **kw)),
+        "plain_ms": time_ms(lambda: flash_attention_torch(
+            q, k, v, with_lse=True, **kw), iters=5),
+        "library_ms": time_ms(lambda: sdpa(q, k, v, causal)),
         "bound_ms": b_ms, "bound_by": b_by, "flops": fwd_flops}
     fa["max_err"] = max(fa["max_err"], fa[key]["o_max_err"])
     err, ratio = worst(got, want, 2e-2)
@@ -1456,12 +1497,13 @@ def flash_train_shape(out, key, args, causal, fwd_ok, worst):
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash_attention_bwd {key}: two calls differ")
     del again
-    flops = pairs * 2 * 5 * D
-    b_ms, b_by = bound(2 * 8 * q.numel() + 4 * lse.numel(), flops)
+    flops = pairs * 2 * (3 * D + 2 * Dv)
+    b_ms, b_by = bound(2 * 2 * elems + 4 * lse.numel(), flops)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
     ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
     row = {
-        "shape": [B, H, S, D], "causal": causal, "max_err": err,
+        "shape": [B, H, S, D], "v_head_dim": Dv, "causal": causal,
+        "max_err": err,
         "rtol": 2e-2, "err_over_tol": ratio,
         "kernel_ms": time_ms(lambda: flash_attention_bwd_cuda(
             q, k, v, o, lse, do, **kw)),
@@ -1474,6 +1516,57 @@ def flash_train_shape(out, key, args, causal, fwd_ok, worst):
     row["tflops"] = flops / row["kernel_ms"] / 1e9
     fb[key] = row
     fb["max_err"] = max(fb["max_err"], err)
+    return row
+
+
+def check_mla_flash_bwd(out, edge, fwd_ok, worst):
+    """The backward at MLA's head dims (q and k at 128 + 64 = 192, v at
+    128): deepseek_v2_236b's train shape, (2, 128, 2048, 192 | 128)
+    causal bf16, held, bit for bit over two calls and timed
+    (``flash_train_shape``, ``mla_train_shape`` in both flash rows); then
+    f32 at D = 192 and bf16 at D = 192 from a base one element off
+    alignment (the CUDA-core kernels, a lane's 12 columns), D = 136 and
+    D = 192 with Dv = 64 (the tensor-core route's three-half instances,
+    the dk/dv pass split in two launches), each against its plain version
+    with the route its launch took, as the wrapper counts it."""
+    from repro_torch.kernels import flash_attention as fa
+    n0 = (fa.BWD_LAUNCHES, fa.BWD_LAUNCHES_CUDA_CORE)
+    row = flash_train_shape(out, "mla_train_shape",
+                            (2, 128, 128, 2048, 2048, 192, 128), True,
+                            fwd_ok, worst)
+    # its launches: the case, a second call, warm-up and timing
+    cc = fa.BWD_LAUNCHES_CUDA_CORE - n0[1]
+    routes = {"mla_train": {"wgmma": fa.BWD_LAUNCHES - n0[0] - cc,
+                            "cuda_core": cc}}
+    check(cc == 0, f"flash_attention_bwd mla_train: {cc} launches on the "
+          f"CUDA-core route")
+    for name, args, kw2, want in [
+            ("mla_f32_d192", (1, 8, 8, 130, 130, 192, 128),
+             dict(dtype=torch.float32), "cuda_core"),
+            ("mla_d192_misaligned", (1, 8, 8, 130, 130, 192, 128), {},
+             "cuda_core"),
+            ("d136_third_half", (1, 4, 2, 150, 150, 136, 128), {}, "wgmma"),
+            ("mla_d192_dv64", (1, 4, 4, 200, 200, 192, 64), {}, "wgmma"),
+            ("mla_d192_window_gqa", (1, 8, 2, 300, 300, 192, 128),
+             dict(window=70), "wgmma")]:
+        (q, k, v, o, lse, do, kw), _, want_g, _ = flash_bwd_case(*args,
+                                                                 **kw2)
+        qb = misaligned(q) if "misaligned" in name else q
+        n0 = (fa.BWD_LAUNCHES, fa.BWD_LAUNCHES_CUDA_CORE)
+        got = fa.flash_attention_bwd_cuda(qb, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        cc = fa.BWD_LAUNCHES_CUDA_CORE - n0[1]
+        routes[name] = {"wgmma": fa.BWD_LAUNCHES - n0[0] - cc,
+                        "cuda_core": cc}
+        check(routes[name] == {"wgmma": int(want == "wgmma"),
+                               "cuda_core": int(want == "cuda_core")},
+              f"flash_attention_bwd {name}: routes {routes[name]}, want "
+              f"{want}")
+        rel = 1e-4 if q.dtype == torch.float32 else 2e-2
+        for gname, g, w in zip(("dq", "dk", "dv"), got, want_g):
+            edge("flash_attention_bwd", f"{name}_{gname}", g, w, rel)
+        del q, k, v, o, lse, do, got, want_g, qb
+    row.update(route="wgmma", routes=routes)
 
 
 def check_adamw_kernel(out, edges):
@@ -1602,6 +1695,84 @@ def check_adamw_kernel(out, edges):
                 "library_ms": f32["library_ms"],
                 "library_bound_ms": f32["library_bound_ms"]},
         "variants": res}
+    out["fused_adamw"]["moe_expert_leaf"] = check_adamw_expert_leaf()
+
+
+# deepseek_v2_236b's largest leaves at train_moe's 2 layers: each routed
+# expert projection, (layers, experts, d_model, d_ff_expert)
+MOE_EXPERT_LEAF = (2, 160, 5120, 1536)
+
+
+def check_adamw_expert_leaf():
+    """int8 AdamW on ``MOE_EXPERT_LEAF`` (``layers/moe/w_gate``'s shape at
+    2 layers): 2.52e9 elements, past 2^31, in one launch, as the
+    train_moe step runs it (the element offsets 64-bit, its 9.8e6 quant
+    blocks within the kernel's 32-bit division).  The moments are random
+    int8 codes and scales.  The plain version would need ~60 GB of fp32
+    temporaries for the whole leaf; it runs on slices of whole rows (a
+    row's quant blocks are its own, so each slice is the same function)
+    against the kernel's update, slice by slice, under ``adamw_check``.
+    Timed: the kernel, the plain version over all the slices once, the
+    bound."""
+    from repro_torch.kernels.fused_adamw import (fused_adamw_cuda,
+                                                 fused_adamw_torch)
+    progress("kernels: fused_adamw i8 on a 2.52e9-element expert leaf")
+    shape, L = MOE_EXPERT_LEAF, MOE_EXPERT_LEAF[-1]
+    gen = _gen(7)
+    p = _randn(shape, gen, torch.bfloat16, 0.02)
+    g = _randn(shape, gen, torch.bfloat16, 1e-3)
+    n, nb = p.numel(), -(-L // 256)
+    rows = n // L
+
+    def moment(lo):
+        return {"q": torch.randint(lo, 128, shape, generator=gen,
+                                   device="cuda", dtype=torch.int8),
+                "s": torch.rand((*shape[:-1], nb), generator=gen,
+                                device="cuda") * 1e-4 + 1e-6}
+
+    m, v = moment(-127), moment(0)
+    sc = torch.tensor(ADAM_SCALARS, dtype=torch.float32, device="cuda")
+    hyper = dict(ADAM_HYPER, apply_wd=True)
+    got, route = adamw_run(p, g, m, v, sc, hyper)
+    step = (1 << 26) // L
+
+    def part(t, r0):
+        if isinstance(t, dict):
+            return {"q": t["q"].view(rows, L)[r0:r0 + step],
+                    "s": t["s"].view(rows, nb)[r0:r0 + step]}
+        return t.view(rows, L)[r0:r0 + step]
+
+    def plain(r0):
+        return fused_adamw_torch(part(p, r0), part(g, r0), part(m, r0),
+                                 part(v, r0), lr=sc[0], scale=sc[1],
+                                 bc1=sc[2], bc2=sc[3], **hyper)
+
+    res = {}
+    for r0 in range(0, rows, step):
+        chk = adamw_check(tuple(part(t, r0) for t in got), plain(r0))
+        k = min(step, rows - r0) * L
+        for name, x in chk.items():
+            if name.endswith("_share"):     # a count over the whole leaf
+                res[name] = res.get(name, 0.0) + x * k / n
+            elif name == "passed":
+                res[name] = res.get(name, True) and x
+            else:
+                res[name] = max(res.get(name, 0), x)
+    check(res["passed"] and route == "vector",
+          f"fused_adamw i8 {list(shape)}: {route} route, {res}")
+    del got
+    b_ms, b_by = bound(10 * n + 16 * rows * nb, 20 * n, F32_FLOPS)
+    row = {"shape": list(shape), "elements": n, "route": route, **res,
+           "kernel_ms": time_ms(lambda: fused_adamw_cuda(
+               p, g, m, v, sc, **hyper), iters=5),
+           "plain_ms": time_ms(lambda: [plain(r0) for r0 in
+                                        range(0, rows, step)],
+                               iters=1, warmup=0),
+           "plain_slices": -(-rows // step), "library_ms": None,
+           "bound_ms": b_ms, "bound_by": b_by}
+    del p, g, m, v
+    torch.cuda.empty_cache()
+    return row
 
 
 def check_paged_kernel(out, edge, edges):
@@ -1700,8 +1871,8 @@ def check_mla_flash(row, edge):
     one element off alignment (the CUDA-core kernel), D = 136 (a third
     64-column half mostly zeros) and D = 192 with Dv = 64 (the wgmma
     route's three-half instances), each against its plain version, and
-    the route each launch took, as the wrapper counts it; then the
-    backward at D = 192, which must refuse by name."""
+    the route each launch took, as the wrapper counts it (the backward's
+    cases: ``check_mla_flash_bwd``)."""
     from repro_torch.kernels import flash_attention as fa
     routes = {}
     for name, args, kw2, want in [
@@ -1728,19 +1899,7 @@ def check_mla_flash(row, edge):
             rel = 1e-4 if q.dtype == torch.float32 else 2e-2
             edge("flash_attention", name, got, want_o, rel)
         del q, k, v, got, want_o
-    g = _gen(5)
-    q = _randn((1, 2, 64, 192), g)
-    v = _randn((1, 2, 64, 128), g)
-    lse = torch.zeros((1, 2, 64), device="cuda")
-    try:
-        fa.flash_attention_bwd_cuda(q, q, v, v, lse, v)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    check(refused is not None and "MoE training slice" in refused,
-          f"flash backward at D = 192: {refused!r}")
     row["routes"] = routes
-    row["bwd_d192_refused"] = refused
 
 
 def phase_kernels():
@@ -2052,17 +2211,27 @@ def prefill_pair(params, cfg, batch, B, P, device):
 
 
 class RoutingTape:
-    """Stands in for ``models.moe.route`` while it is open: ``record``
-    keeps every MoE layer's routing of a run, ``replay`` hands a run the
-    recorded routing layer by layer, ``compare`` routes afresh and counts,
-    layer by layer, the tokens whose chosen experts and the (token, k)
-    choices whose slots differ from the recording."""
+    """Stands in for ``models.moe.route`` while it is open, each MoE layer
+    known by its router's storage.  ``record`` keeps every layer's
+    routing of a run (its expert choices ``idx`` and slots); ``replay``
+    hands each layer the recorded choices and slots, with the probabilities
+    and the gates computed from this run's router at the recorded
+    choices, so that the router keeps its gradient (through the gates and
+    the aux loss's mean probabilities) in this run's graph; ``compare``
+    routes afresh and counts, layer by layer, the tokens whose chosen
+    experts and the (token, k) choices whose slots differ from the
+    recording.  A layer routed again within one run (remat's recompute in
+    the backward) gets the same entry as its first call in every mode,
+    and is held to route as that call did (``recompute_changed`` counts
+    the choices and slots that differ, over every run).  ``dropped`` is
+    each layer's count of choices the capacity dropped in the last run."""
 
     def __init__(self):
         from repro_torch.models import moe
         self.moe, self.route = moe, moe.route
-        self.mode, self.calls, self.i = "record", [], 0
-        self.tokens_changed, self.slots_changed = [], []
+        self.rec = {}
+        self.recompute_changed = 0
+        self.set("record")
 
     def __enter__(self):
         self.moe.route = self
@@ -2072,21 +2241,39 @@ class RoutingTape:
         self.moe.route = self.route
 
     def set(self, mode):
-        self.mode, self.i = mode, 0
+        self.mode, self.first = mode, {}
+        self.tokens_changed, self.slots_changed, self.dropped = [], [], []
+
+    def replayed(self, xs, router, mcfg, idx, slots, C):
+        """``moe.route``'s outputs at the recorded ``idx`` and ``slots``:
+        the probabilities from this call's router, the gates renormalised
+        over the recorded choices, 0 where the recording dropped one."""
+        probs = torch.softmax(xs.float() @ router, dim=-1)
+        gates = torch.gather(probs, 1, idx)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        kept = slots != mcfg.n_experts * C
+        return probs, idx, slots, (gates.T * kept).to(xs.dtype), C
 
     def __call__(self, xs, router, mcfg):
+        key = router.data_ptr()
         if self.mode == "replay":
-            self.i += 1
-            return self.calls[self.i - 1]
-        r = self.route(xs, router, mcfg)
-        if self.mode == "record":
-            self.calls.append(r)
+            r = self.replayed(xs, router, mcfg, *self.rec[key])
         else:
-            rec = self.calls[self.i]
-            self.i += 1
-            same = (torch.sort(r[1], -1)[0] == torch.sort(rec[1], -1)[0])
+            r = self.route(xs, router, mcfg)
+        if key in self.first:           # the layer's recompute
+            idx, slots = self.first[key]
+            self.recompute_changed += int((r[1] != idx).sum()
+                                          + (r[2] != slots).sum())
+            return r
+        self.first[key] = (r[1], r[2])
+        self.dropped.append(int((r[2] == mcfg.n_experts * r[4]).sum()))
+        if self.mode == "record":
+            self.rec[key] = (r[1], r[2], r[4])
+        elif self.mode == "compare":
+            idx, slots, _ = self.rec[key]
+            same = (torch.sort(r[1], -1)[0] == torch.sort(idx, -1)[0])
             self.tokens_changed.append(int((~same.all(-1)).sum()))
-            self.slots_changed.append(int((r[2] != rec[2]).sum()))
+            self.slots_changed.append(int((r[2] != slots).sum()))
         return r
 
 
@@ -2809,22 +2996,29 @@ def train_launches(cfg, shape, opt_cfg, params):
     once backward (the final norm is outside the groups); a dense group
     is one layer (attention and 2 norms), a hybrid group m Mamba2 layers
     (an SSD scan and 2 norms each) and the shared block (attention and 2
-    norms); one AdamW launch a leaf, int8 or fp32 as the moments, on its
-    scalar route for a leaf whose last dim is no multiple of 16 (the
-    vector route's 16-element loads; hubert_xlarge's LM head, 504 wide,
-    is the only such leaf of the main path); no other scalar-route
-    launch."""
+    norms), a moe group one attention sublayer (deepseek_v2's [attn +
+    moe]) or two (llama4's dense and moe halves), each with 2 norms and,
+    with MLA, its q_norm and kv_norm; one AdamW launch a leaf, int8 or
+    fp32 as the moments, on its scalar route for a leaf whose last dim is
+    no multiple of 16 (the vector route's 16-element loads;
+    hubert_xlarge's LM head, 504 wide, is the only such leaf of the main
+    path); no other scalar-route launch, and none on the flash kernels'
+    CUDA-core routes."""
     from repro_torch.models.transformer import flatten, n_groups
     ng, fwd = n_groups(cfg), 2 if cfg.remat != "none" else 1
     m = cfg.hybrid.mamba_per_group if cfg.family == "hybrid" else 0
+    attn = 2 if cfg.family == "moe" and cfg.d_ff > 0 else 1
+    attn_norms = 4 if cfg.attention.is_mla else 2
     # LayerNorm (the encoder's) is plain PyTorch: no RMSNorm launch
-    norms = ng * (2 * m + 2) + 1 if cfg.norm == "rms" else 0
+    norms = (ng * (2 * m + attn * attn_norms) + 1 if cfg.norm == "rms"
+             else 0)
     mb = max(1, shape.microbatch)
     adamw = "fused_adamw_i8" if opt_cfg.state_bits == 8 else \
         "fused_adamw_f32"
     return {**{n: 0 for n in COUNTERS},
             "ssd_scan": mb * fwd * ng * m, "ssd_scan_bwd": mb * ng * m,
-            "flash_attention": mb * fwd * ng, "flash_attention_bwd": mb * ng,
+            "flash_attention": mb * fwd * ng * attn,
+            "flash_attention_bwd": mb * ng * attn,
             "rmsnorm": mb * (fwd * (norms - 1) + 1) if norms else 0,
             "rmsnorm_bwd": mb * norms,
             adamw: len(flatten(params)),
@@ -2977,6 +3171,147 @@ def phase_train_hybrid(device="cuda", smoke=False):
     return _train_phase("train_hybrid", cfg, shape, opt_cfg, device,
                         n_steps=2 if smoke else 4, profile=True,
                         step0=step0_upcast_check)
+
+
+MOE_TRAIN_LAYERS = 2
+
+
+def moe_step0_check(params, cfg, batch):
+    """Step 0 with the kernels against ``impl="torch"`` under STEP0_RTOL,
+    with the plain run's routing replayed into the kernels' run
+    (``RoutingTape``: its expert choices and slots; the gates and the aux
+    loss's probabilities from the kernels' run's own router, which so
+    keeps its gradient), as ``serve_moe``'s logits are held; the kernels'
+    run with its own routing read beside it.  Each run's gradients are
+    reduced to their norms before the next starts.  Besides: the choices
+    each layer's capacity dropped, and remat's recompute routing as the
+    first forward did in all three runs (held)."""
+    with RoutingTape() as tape:
+        want = step0_reads(params, cfg, batch, "torch")
+        plain_dropped = list(tape.dropped)
+        tape.set("replay")
+        got = step0_reads(params, cfg, batch, "auto")
+        tape.set("compare")
+        free = step0_reads(params, cfg, batch, "auto")
+    check(tape.recompute_changed == 0,
+          f"train_moe: remat's recompute moved {tape.recompute_changed} "
+          f"routing choices or slots")
+    chk = held_within(step0_distance(got, want), STEP0_RTOL,
+                      "train_moe step-0 check (the plain run's routing "
+                      "replayed)")
+    chk.update(routing="the plain run's, replayed",
+               recompute_changed=tape.recompute_changed,
+               plain_dropped_by_layer=plain_dropped,
+               own_routing={**step0_distance(free, want),
+                            "tokens_rerouted_by_layer": tape.tokens_changed,
+                            "choices_reslotted_by_layer":
+                                tape.slots_changed,
+                            "dropped_by_layer": tape.dropped})
+    return chk
+
+
+def phase_train_moe(device="cuda", smoke=False):
+    """deepseek_v2_236b (the moe family with MLA: q_lora 1536, kv_lora
+    512, rope 64, flash at head dims 192 | 128; 160 routed experts top-6
+    and 2 shared) at full width, cut in depth to ``MOE_TRAIN_LAYERS`` of
+    its 60 layers, random bf16 weights from seed 0, int8 AdamW moments,
+    2 x 2048 tokens a step, one microbatch, remat, through the training
+    launcher's ``run(args, cfg)`` (so through ``ClusterDaemon`` and
+    ``BlockRuntime(kind="train")``).  First, before the block and its
+    optimizer state exist, step 0 on the launcher's params and first
+    batch (``moe_step0_check``; the plain backward's fp32 scores and two
+    grad trees would not fit beside the 54 GB of train state); then 6
+    steps through the launcher, their launches per step held exactly
+    (``train_launches``: per layer 4 RMSNorms and 1 flash at head dim 192
+    forward, again in the recompute, 4 and 1 backward; one int8 AdamW a
+    leaf; none on a scalar or CUDA-core route); tok/s, steady step, peak
+    memory, MFU on the analytic roofline (active params), a profiled
+    step after the launcher's run and the share of routing choices the
+    capacity dropped at step 0."""
+    import repro_torch.configs as configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import hlo_analysis
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.moe import capacity
+    arch = "deepseek_v2_236b"
+    full = configs.get_smoke(arch) if smoke else configs.get(arch)
+    cfg = full if smoke else full.replace(n_layers=MOE_TRAIN_LAYERS)
+    seq, steps = (32, 3) if smoke else (2048, 6)
+    args = launch_train.parse_args(
+        ["--arch", arch, "--steps", str(steps), "--seq-len", str(seq),
+         "--global-batch", "2", "--microbatch", "1", "--seed", "0",
+         "--log-every", "1", "--device", device]
+        + (["--smoke"] if smoke else []))
+    shape = ShapeConfig("cli", "train", seq_len=seq, global_batch=2,
+                        microbatch=1)
+    progress("train_moe: step-0 check")
+    t0 = time.perf_counter()
+    params = model_lib.Transformer(cfg, None, seed=args.seed, device=device,
+                                   requires_grad=True).params
+    batch = pipeline.DataIterator(cfg, shape, seed=args.seed,
+                                  device=device).batch(0)
+    chk = moe_step0_check(params, cfg, batch)
+    step0_s = time.perf_counter() - t0
+    del params, batch
+    _free(device)
+    progress(f"train_moe: {steps} steps through the launcher")
+    zero_counts()
+    res = launch_train.run(args, cfg, state_bits=8)
+    launches = counts()
+    rt, hist = res["runtime"], res["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == steps and all(np.isfinite(losses))
+          and all(np.isfinite([h["grad_norm"] for h in hist])),
+          f"train_moe: losses {losses}")
+    T, K = shape.global_batch * seq, cfg.moe.top_k
+    dropped = chk["own_routing"]["dropped_by_layer"]
+    # the launcher keeps two steps in flight, so a step's step_s (from
+    # its dispatch or the previous step's completion to its own) swings
+    # from step to step; their mean is the loop's time a step
+    steady = float(np.mean([h["step_s"] for h in hist[1:]]))
+    a = cfg.attention
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+           "d_model": cfg.d_model, "n_heads": a.n_heads,
+           "qk_head_dim": a.head_dim + a.qk_rope_head_dim,
+           "v_head_dim": a.v_dim, "q_lora_rank": a.q_lora_rank,
+           "kv_lora_rank": a.kv_lora_rank, "n_experts": cfg.moe.n_experts,
+           "top_k": K, "n_shared": cfg.moe.n_shared,
+           "params": model_lib.count_params(rt.state["params"]),
+           "state_bits": 8, "seq_len": seq,
+           "global_batch": shape.global_batch, "microbatch": 1,
+           "steps": steps, "step0_s": step0_s, "step0_check": chk,
+           "launcher_step0_loss_equals_check":
+               losses[0] == chk["own_routing"]["loss"],
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": [h["step_s"] for h in hist], "wall_s": res["wall_s"],
+           "tok_s": steps * T / res["wall_s"], "steady_step_s": steady,
+           "steady_tok_s": T / steady,
+           "capacity_drop": {"capacity": capacity(T, cfg.moe),
+                             "choices_per_layer": T * K,
+                             "dropped_by_layer": dropped,
+                             "dropped_share": sum(dropped)
+                             / (T * K * len(dropped))},
+           "launches": launches,
+           "launches_per_step": {k: c / steps for k, c in launches.items()}}
+    want = (train_launches(cfg, shape, rt.job.opt, rt.state["params"])
+            if rt.device.type == "cuda" else {n: 0 for n in COUNTERS})
+    out["launches_per_step_expected"] = want
+    check(out["launches_per_step"] == want,
+          f"train_moe launches per step {out['launches_per_step']}, want "
+          f"{want}")
+    if rt.device.type == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["model_flops"] = hlo_analysis.model_step_flops(cfg, shape)
+        out["mfu"] = out["model_flops"] / steady / hlo_analysis.PEAK_FLOPS
+        saved = counts()
+        out["warm_step"] = profile_steps(rt.step, 1)
+        set_counts(saved)
+    del rt, res
+    emit("train_moe", **out)
+    return out
 
 
 # ---------------------------------------------------------------- preempt
@@ -4320,6 +4655,8 @@ def _run_all() -> int:
     _free()
     train_encoder = phase_train_encoder()
     _free()
+    train_moe = phase_train_moe()
+    _free()
     preempt = phase_preempt(train=train_hybrid)
     _free()
     progress("control")
@@ -4343,6 +4680,7 @@ def _run_all() -> int:
             "train": train["launches"], "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
             "train_encoder": train_encoder["launches"],
+            "train_moe": train_moe["launches"],
             "preempt": preempt["launches"], "control": control["launches"],
             "gateway": gateway["launches"]}
 
@@ -4381,6 +4719,7 @@ def _run_all() -> int:
                            train_hybrid["launches"]["fused_adamw_f32"],
                        "train_encoder":
                            train_encoder["launches"]["fused_adamw_f32"],
+                       "train_moe": train_moe["launches"]["fused_adamw_i8"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],
                        "control": control["launches"]["fused_adamw_f32"],
                        "gateway": gateway["launches"]["fused_adamw_f32"]}
@@ -4418,6 +4757,26 @@ def _run_all() -> int:
                 "library_ms": mla["library_ms"],
                 "was_ms": mla["was_route"]["kernel_ms"],
                 "routes": mla["routes"]}
+        if name == "flash_attention_bwd":
+            # MLA's train shape (head dims 192 | 128), its train_moe
+            # launches and the route each check launch took
+            mla = k["mla_train_shape"]
+            row["mla_train"] = {
+                "shape": mla["shape"], "v_head_dim": mla["v_head_dim"],
+                "launches": train_moe["launches"]["flash_attention_bwd"],
+                "max_abs_err": mla["max_err"], "ms": mla["kernel_ms"],
+                "plain_ms": mla["plain_ms"], "bound_ms": mla["bound_ms"],
+                "bound_by": mla["bound_by"],
+                "library_ms": mla["library_ms"], "routes": mla["routes"]}
+        if name == "fused_adamw":
+            # the int8 update of a 2.52e9-element expert leaf, as train_moe
+            # runs it
+            leaf = k["moe_expert_leaf"]
+            row["moe_expert_leaf"] = {
+                "shape": leaf["shape"], "ms": leaf["kernel_ms"],
+                "plain_ms": leaf["plain_ms"], "bound_ms": leaf["bound_ms"],
+                "bound_by": leaf["bound_by"], "library_ms": None,
+                "p_ulp": leaf["p_ulp"]}
         row["bound_share"] = k["bound_ms"] / k["kernel_ms"]
         rows.append(row)
     line = json.dumps({"kernels": rows})

@@ -19,10 +19,10 @@ page, so a paged job raises the reference's ``ValueError``.  The VLM
 (pixtral) trains and serves; its dense-plane prefill takes the batch's
 ``patches`` in front of its tokens.  The encoder (hubert) trains; it has
 no decode path (the launcher refuses to serve it, as the reference's
-does).  The moe family serves on the dense plane (its decode captured as
-the dense family's), and llama4 (GQA) on the paged plane too; MLA's
-compressed cache does not page (the reference's ``ValueError``).  Its
-training waits for the flash backward at MLA's head dim 192.
+does).  The moe family trains (MLA's flash backward at head dim 192) and
+serves on the dense plane (its decode captured as the dense family's),
+and llama4 (GQA) on the paged plane too; MLA's compressed cache does not
+page (the reference's ``ValueError``).
 
 One departure from the reference: after a prefill the reference sets
 ``cache_len`` to ``tokens.shape[1]`` (``repro/core/runtime.py``'s

@@ -31,7 +31,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: C entry point -> argtypes (every entry point returns a cudaError_t but
-#: flash_attention_route, which returns the route it names)
+#: the flash_attention*_route functions, which return the route they name)
 SIGNATURES = {
     # x, scale, y, rows, d, eps, dtype code, stream
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
@@ -49,6 +49,9 @@ SIGNATURES = {
     # scale, causal, window, q_offset, dtype code, stream
     "flash_attention_bwd_launch": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _I,
                                                            _I, _P],
+    # q, k, v, do, dq, dk, dv, D, Dv, dtype code -> 1 for the tensor-core
+    # passes
+    "flash_attention_bwd_route": [_P] * 7 + [_I] * 3,
     # p, g, m, m scales, v, v scales, scalars, rows, L, b1, 1 - b1, b2,
     # 1 - b2, eps, weight decay, apply_wd, p dtype, g dtype, quant, vector
     # route, stream

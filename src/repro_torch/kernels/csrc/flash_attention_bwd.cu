@@ -56,11 +56,28 @@
 // five of the bound).  Needs D and Dv multiples of 8 and 16-byte aligned
 // bases; other bf16 shapes take the CUDA-core kernels.
 //
+// MLA's train shape (q and k of 128 + 64 = 192 columns, v of 128) takes
+// three halves of Q and K (D = 136 a third half mostly zeros).  Shared
+// memory holds it: 1 KB of alignment, 80 KB of the block's own rows and
+// two 40 KB ring stages, 165 KB of the 227 KB.  Registers do not: a
+// dk/dv thread would hold dk (96 fp32), dv (64), S^T (32) and dP^T (32)
+// before the A fragments and the addressing, past the 255 a thread may
+// have.  So at three halves the dk/dv pass is two launches of one kernel
+// (PART): a dv launch (S^T and dV += P^T dO: 96 accumulators) and a dk
+// launch (S^T, dP^T and dK += dS^T Q: 160), which recomputes S^T, one
+// product of the ten.  dK (and dQ in the dq pass, 96 + 64 there) at N =
+// 192 are three m64n64 products a k-slice, one per half (rs_product).
+//
 // f32 (flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, fmaf on the CUDA
 // cores; TF32 would not hold the f32 checks' 1e-4): the same passes with
 // 64-row tiles staged in shared memory as fp32 (rows padded by one float
 // against bank conflicts), each thread a 4x4 patch of the 64x64 tiles and
-// a 4x8 patch of the (64 x D) accumulators.
+// a 4x8 patch of the (64 x Dv) accumulator, 4x8 of (64 x D) up to D = 128
+// and 4x12 past it (NJ).  At 192 | 128 the dk/dv block stages 199 KB of
+// dynamic shared memory, the dq block 182 KB: one block an SM.
+//
+// Head dims: D <= 192 (MAX_D), Dv <= 128 (MAX_DV); past them the entry
+// point returns cudaErrorInvalidValue (the wrapper refuses first).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -69,8 +86,9 @@ namespace {
 constexpr int BQ = 64;       // query rows per tile
 constexpr int BK = 64;       // kv rows per block
 constexpr int THREADS = 256;
-constexpr int MAX_D = 128;   // 16 lanes x 8 columns
-constexpr int NJ = MAX_D / 16;
+constexpr int MAX_D = 192;   // q and k: 16 lanes x 12 columns (MLA's 192)
+constexpr int MAX_DV = 128;  // v: 16 lanes x 8 columns
+constexpr int NJV = MAX_DV / 16;
 
 // delta[row] = sum_c o[row, c] * do[row, c] in fp32; one warp per row.
 template <typename T>
@@ -91,7 +109,7 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T>
+template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dO,
@@ -140,11 +158,14 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (window > 0) q_hi = min(Sq, max(0, k_last + window - q_offset));
   q_lo = (q_lo / BQ) * BQ;
 
-  float dk_acc[4][NJ], dv_acc[4][NJ];
+  float dk_acc[4][NJ], dv_acc[4][NJV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJV; ++jj) dv_acc[i][jj] = 0.f;
+  }
 
   for (int g = 0; g < G; ++g) {
     const int hq = hk * G + g;
@@ -231,25 +252,31 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // dv += p^T do and dk += ds^T q over this tile's q rows
 #pragma unroll 2
       for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], sv[4], ov[NJ], qv[NJ];
+        float pv[4], sv[4], ov[NJV], qv[NJ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           pv[i] = sP[qq * PP + ty * 4 + i];
           sv[i] = sS[qq * PP + ty * 4 + i];
         }
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
+        for (int jj = 0; jj < NJV; ++jj) {
           const int c = tx + 16 * jj;
           ov[jj] = c < Dv ? sO[qq * DVP + c] : 0.f;
+        }
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) {
+          const int c = tx + 16 * jj;
           qv[jj] = c < D ? sQ[qq * DP + c] : 0.f;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) {
+          for (int jj = 0; jj < NJV; ++jj)
             dv_acc[i][jj] = fmaf(pv[i], ov[jj], dv_acc[i][jj]);
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
             dk_acc[i][jj] = fmaf(sv[i], qv[jj], dk_acc[i][jj]);
-          }
+        }
       }
     }
   }
@@ -265,6 +292,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = tx + 16 * jj;
       if (c < D)
         dkb[static_cast<size_t>(row) * D + c] = from_f32<T>(dk_acc[i][jj]);
+    }
+#pragma unroll
+    for (int jj = 0; jj < NJV; ++jj) {
+      const int c = tx + 16 * jj;
       if (c < Dv)
         dvb[static_cast<size_t>(row) * Dv + c] = from_f32<T>(dv_acc[i][jj]);
     }
@@ -273,7 +304,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // dq = ds k for one (q tile of 64 rows, q head, batch), the kv tiles the
 // rows can see swept in order; s, p, dp and ds as in the dk/dv kernel.
-template <typename T>
+template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dO,
@@ -434,8 +465,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v,
+template <typename T, int NJ>
+cudaError_t launch_cols(const void* q, const void* k, const void* v,
                               const void* dO, const float* lse,
                               const float* delta, void* dq, void* dk,
                               void* dv, int B, int Hq, int Hkv, int Sq,
@@ -447,28 +478,46 @@ cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v,
                        static_cast<size_t>(BQ) * (Dv + 1);
   const size_t smem_kv = sizeof(float) * (tiles + 2 * BQ * (BK + 1) + 2 * BQ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_kv));
+      flash_bwd_dkdv_kernel<T, NJ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T><<<dim3((Sk + BK - 1) / BK, Hkv, B), THREADS,
-                             smem_kv, stream>>>(
+  flash_bwd_dkdv_kernel<T, NJ><<<dim3((Sk + BK - 1) / BK, Hkv, B), THREADS,
+                                 smem_kv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv, Sq, Sk, D, Dv,
       scale, causal, window, q_offset);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_q = sizeof(float) * (tiles + BQ * (BK + 1) + 2 * BQ);
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, NJ>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem_q));
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T><<<dim3((Sq + BQ - 1) / BQ, Hq, B), THREADS, smem_q,
-                           stream>>>(
+  flash_bwd_dq_kernel<T, NJ><<<dim3((Sq + BQ - 1) / BQ, Hq, B), THREADS,
+                               smem_q, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dO), lse, delta,
       static_cast<T*>(dq), Hq, Hkv, Sq, Sk, D, Dv, scale, causal, window,
       q_offset);
   return cudaGetLastError();
+}
+
+// a lane holds 8 columns of dk and dq up to D = 128, 12 past it (MLA's
+// 192), so that D <= 128 keeps its registers and loop trips
+template <typename T>
+cudaError_t launch_cuda_cores(const void* q, const void* k, const void* v,
+                              const void* dO, const float* lse,
+                              const float* delta, void* dq, void* dk,
+                              void* dv, int B, int Hq, int Hkv, int Sq,
+                              int Sk, int D, int Dv, float scale, int causal,
+                              int window, int q_offset, cudaStream_t stream) {
+  if (D > 128)
+    return launch_cols<T, MAX_D / 16>(q, k, v, dO, lse, delta, dq, dk, dv, B,
+                                      Hq, Hkv, Sq, Sk, D, Dv, scale, causal,
+                                      window, q_offset, stream);
+  return launch_cols<T, 128 / 16>(q, k, v, dO, lse, delta, dq, dk, dv, B, Hq,
+                                  Hkv, Sq, Sk, D, Dv, scale, causal, window,
+                                  q_offset, stream);
 }
 
 }  // namespace
@@ -484,14 +533,39 @@ constexpr int TILE = 64;     // rows of a streamed ring tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 256;
 
+// what a dk/dv launch computes: both (DH <= 2), or at DH = 3 one of the two
+// launches that split the pass (the registers of dk, dv, S^T and dP^T
+// together pass a thread's 255 there)
+constexpr int DV_PART = 1, DK_PART = 2, DKDV = DV_PART | DK_PART;
+
 __device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// dk, dv for 128 kv rows of one kv head: the G query heads of its group
-// and the 64-row q tiles that see the rows, in order.
-template <int DH, int DVH>
+// acc (+)= A B for k-slice kk, A from registers and B MN-major over DH
+// 64-column halves of `tile`: one m64n(64 DH) product, or at DH = 3 (N =
+// 192) one m64n64 product a half, whose accumulator registers 32 h ..
+// 32 h + 31 lie where the m64n192 fragment keeps the half's columns.
+template <int DH>
+__device__ __forceinline__ void rs_product(float (&acc)[32 * DH],
+                                           const uint32_t (&a)[4],
+                                           const uint8_t* tile,
+                                           int half_bytes, int kk) {
+  if constexpr (DH == 3) {
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+      wgmma_rs_n64_tb(*reinterpret_cast<float(*)[32]>(acc + 32 * h), a,
+                      desc_mn(tile + h * half_bytes, half_bytes, kk), 1);
+  } else {
+    wgmma_rs_tb<64 * DH>(acc, a, desc_mn(tile, half_bytes, kk), 1);
+  }
+}
+
+// dk, dv (PART: DKDV, or one of them) for 128 kv rows of one kv head: the
+// G query heads of its group and the 64-row q tiles that see the rows, in
+// order.
+template <int DH, int DVH, int PART>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -504,6 +578,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      int Sk, int D, int Dv, float scale, float scale_log2,
                      int causal, int window, int q_offset) {
   constexpr int DP = 64 * DH, DVP = 64 * DVH;
+  constexpr bool DO_DK = PART & DK_PART, DO_DV = PART & DV_PART;
   constexpr int Q_BYTES = DH * TILE * 128, DO_BYTES = DVH * TILE * 128;
   constexpr int STAGE = Q_BYTES + DO_BYTES;
   extern __shared__ uint8_t smem_raw[];
@@ -568,11 +643,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   const int wk_last = min(wk0 + 63, Sk - 1);
   const bool live = wk0 < Sk;
 
-  float dk_acc[DP / 2], dv_acc[DVP / 2];
+  float dk_acc[DP / 2], dv_acc[DVP / 2];   // the part's own only
+  if constexpr (DO_DK) {
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = 0.f;
+  }
+  if constexpr (DO_DV) {
 #pragma unroll
-  for (int i = 0; i < DVP / 2; ++i) dv_acc[i] = 0.f;
+    for (int i = 0; i < DVP / 2; ++i) dv_acc[i] = 0.f;
+  }
 
   mbar_wait(&bar[0], 0);
   for (int it = 0; it < n; ++it) {
@@ -588,20 +667,22 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       const float* sD = sL + TILE;
       float s[32], dp[32];   // the first k-slice overwrites (scale-d = 0)
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (DO_DK) fence_regs(dp);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4 * DH; ++kk)
         wgmma_ss_n64(s, desc_k(sK, ROWS * 128, wgi * 64, kk),
                      desc_k(sQ, TILE * 128, 0, kk), kk > 0);
+      if constexpr (DO_DK) {   // dP^T = V dO^T: ds needs it, dv does not
 #pragma unroll
-      for (int kk = 0; kk < 4 * DVH; ++kk)
-        wgmma_ss_n64(dp, desc_k(sV, ROWS * 128, wgi * 64, kk),
-                     desc_k(sdO, TILE * 128, 0, kk), kk > 0);
+        for (int kk = 0; kk < 4 * DVH; ++kk)
+          wgmma_ss_n64(dp, desc_k(sV, ROWS * 128, wgi * 64, kk),
+                       desc_k(sdO, TILE * 128, 0, kk), kk > 0);
+      }
       wgmma_commit();
       wgmma_wait0();
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (DO_DK) fence_regs(dp);
 
       // s^T and dp^T: rows are kv rows, columns q rows of the tile
       const bool edge = qt + TILE > Sq || wk0 + 64 > Sk ||
@@ -624,33 +705,36 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
             }
             const float p = ok ? exp2f(s[e] * scale_log2 - sL[col]) : 0.f;
             s[e] = p;
-            dp[e] = p * (dp[e] - sD[col]) * scale;
+            if constexpr (DO_DK) dp[e] = p * (dp[e] - sD[col]) * scale;
           }
       }
 
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+      if constexpr (DO_DV) fence_regs(dv_acc);
+      if constexpr (DO_DK) fence_regs(dk_acc);
       wgmma_fence();
+      if constexpr (DO_DV) {
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-        to_a_frags(s, kk, hi, lo);
-        const uint64_t db = desc_mn(sdO, TILE * 128, kk);
-        wgmma_rs_tb<DVP>(dv_acc, hi, db, 1);
-        wgmma_rs_tb<DVP>(dv_acc, lo, db, 1);
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+          uint32_t hi[4], lo[4];
+          to_a_frags(s, kk, hi, lo);
+          const uint64_t db = desc_mn(sdO, TILE * 128, kk);
+          wgmma_rs_tb<DVP>(dv_acc, hi, db, 1);
+          wgmma_rs_tb<DVP>(dv_acc, lo, db, 1);
+        }
       }
+      if constexpr (DO_DK) {
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk) {
-        uint32_t hi[4], lo[4];
-        to_a_frags(dp, kk, hi, lo);
-        const uint64_t db = desc_mn(sQ, TILE * 128, kk);
-        wgmma_rs_tb<DP>(dk_acc, hi, db, 1);
-        wgmma_rs_tb<DP>(dk_acc, lo, db, 1);
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+          uint32_t hi[4], lo[4];
+          to_a_frags(dp, kk, hi, lo);
+          rs_product<DH>(dk_acc, hi, sQ, TILE * 128, kk);
+          rs_product<DH>(dk_acc, lo, sQ, TILE * 128, kk);
+        }
       }
       wgmma_commit();
       wgmma_wait0();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
+      if constexpr (DO_DV) fence_regs(dv_acc);
+      if constexpr (DO_DK) fence_regs(dk_acc);
     }
     load_ld(it + 1);                  // the slot item it - 1 used
     __syncthreads();                  // stage st and slot it % 2 are free
@@ -663,21 +747,25 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     const int row = wk0 + r_in + 8 * i;
     if (row >= Sk) continue;
     const size_t at = kv_head * Sk + row;
+    if constexpr (DO_DK) {
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = 8 * j + cq;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(dk + at * D + col) =
-            __floats2bfloat162_rn(dk_acc[4 * j + 2 * i],
-                                  dk_acc[4 * j + 2 * i + 1]);
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(dk + at * D + col) =
+              __floats2bfloat162_rn(dk_acc[4 * j + 2 * i],
+                                    dk_acc[4 * j + 2 * i + 1]);
+      }
     }
+    if constexpr (DO_DV) {
 #pragma unroll
-    for (int j = 0; j < DVP / 8; ++j) {
-      const int col = 8 * j + cq;
-      if (col < Dv)
-        *reinterpret_cast<__nv_bfloat162*>(dv + at * Dv + col) =
-            __floats2bfloat162_rn(dv_acc[4 * j + 2 * i],
-                                  dv_acc[4 * j + 2 * i + 1]);
+      for (int j = 0; j < DVP / 8; ++j) {
+        const int col = 8 * j + cq;
+        if (col < Dv)
+          *reinterpret_cast<__nv_bfloat162*>(dv + at * Dv + col) =
+              __floats2bfloat162_rn(dv_acc[4 * j + 2 * i],
+                                    dv_acc[4 * j + 2 * i + 1]);
+      }
     }
   }
 }
@@ -809,9 +897,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < TILE / 16; ++kk) {
         uint32_t hi[4], lo[4];
         to_a_frags(dp, kk, hi, lo);
-        const uint64_t db = desc_mn(sK, TILE * 128, kk);
-        wgmma_rs_tb<DP>(acc, hi, db, 1);
-        wgmma_rs_tb<DP>(acc, lo, db, 1);
+        rs_product<DH>(acc, hi, sK, TILE * 128, kk);
+        rs_product<DH>(acc, lo, sK, TILE * 128, kk);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -840,6 +927,28 @@ struct Maps {
   CUtensorMap q, k, v, dO;
 };
 
+template <int DH, int DVH, int PART>
+cudaError_t launch_dkdv(const Maps& kv_pass, const float* lse,
+                        const float* delta, void* dk, void* dv, int B,
+                        int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
+                        float scale, int causal, int window, int q_offset,
+                        cudaStream_t stream) {
+  const size_t smem = 1024 + (DH + DVH) * ROWS * 128 +
+                      STAGES * (DH + DVH) * TILE * 128 +
+                      4 * TILE * sizeof(float) + 8 * (STAGES + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma<DH, DVH, PART>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_wgmma<DH, DVH, PART><<<dim3(Hkv, B, (Sk + ROWS - 1) / ROWS),
+                                        THREADS, smem, stream>>>(
+      kv_pass.q, kv_pass.k, kv_pass.v, kv_pass.dO, lse, delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Hq,
+      Hkv, Sq, Sk, D, Dv, scale, scale * LOG2E, causal, window, q_offset);
+  return cudaGetLastError();
+}
+
+// the dk/dv pass (two launches at DH = 3), then the dq pass
 template <int DH, int DVH>
 cudaError_t launch_dims(const Maps& kv_pass, const Maps& q_pass,
                         const float* lse, const float* delta, void* dq,
@@ -847,19 +956,21 @@ cudaError_t launch_dims(const Maps& kv_pass, const Maps& q_pass,
                         int Sk, int D, int Dv, float scale, int causal,
                         int window, int q_offset, cudaStream_t stream) {
   const float scale_log2 = scale * LOG2E;
-  const size_t smem_kv = 1024 + (DH + DVH) * ROWS * 128 +
-                         STAGES * (DH + DVH) * TILE * 128 +
-                         4 * TILE * sizeof(float) + 8 * (STAGES + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma<DH, DVH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_kv));
+  cudaError_t err;
+  if constexpr (DH == 3) {
+    if ((err = launch_dkdv<DH, DVH, DV_PART>(
+             kv_pass, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk, D, Dv, scale,
+             causal, window, q_offset, stream)) != cudaSuccess)
+      return err;
+    err = launch_dkdv<DH, DVH, DK_PART>(kv_pass, lse, delta, dk, dv, B, Hq,
+                                        Hkv, Sq, Sk, D, Dv, scale, causal,
+                                        window, q_offset, stream);
+  } else {
+    err = launch_dkdv<DH, DVH, DKDV>(kv_pass, lse, delta, dk, dv, B, Hq, Hkv,
+                                     Sq, Sk, D, Dv, scale, causal, window,
+                                     q_offset, stream);
+  }
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_wgmma<DH, DVH><<<dim3(Hkv, B, (Sk + ROWS - 1) / ROWS),
-                                  THREADS, smem_kv, stream>>>(
-      kv_pass.q, kv_pass.k, kv_pass.v, kv_pass.dO, lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), Hq,
-      Hkv, Sq, Sk, D, Dv, scale, scale_log2, causal, window, q_offset);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem_q = 1024 + (DH + DVH) * ROWS * 128 +
                         STAGES * (DH + DVH) * TILE * 128 + 8 * (STAGES + 1);
   err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<DH, DVH>,
@@ -902,6 +1013,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !make_map(&q_pass.v, v, Dv, Sk, B * Hkv, TILE))
     return cudaErrorInvalidValue;
   const bool d2 = D > 64, dv2 = Dv > 64;
+  if (D > 128 && dv2)
+    return launch_dims<3, 2>(kv_pass, q_pass, lse, delta, dq, dk, dv, B, Hq,
+                             Hkv, Sq, Sk, D, Dv, scale, causal, window,
+                             q_offset, stream);
+  if (D > 128)
+    return launch_dims<3, 1>(kv_pass, q_pass, lse, delta, dq, dk, dv, B, Hq,
+                             Hkv, Sq, Sk, D, Dv, scale, causal, window,
+                             q_offset, stream);
   if (d2 && dv2)
     return launch_dims<2, 2>(kv_pass, q_pass, lse, delta, dq, dk, dv, B, Hq,
                              Hkv, Sq, Sk, D, Dv, scale, causal, window,
@@ -921,6 +1040,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace wg
 
+// 1 when flash_attention_bwd_launch takes the tensor-core passes for these
+// operands, 0 when it takes the CUDA-core kernels (the wrapper counts the
+// launches of each route)
+extern "C" int flash_attention_bwd_route(const void* q, const void* k,
+                                         const void* v, const void* dO,
+                                         const void* dq, const void* dk,
+                                         const void* dv, int D, int Dv,
+                                         int dtype) {
+  return dtype == DTYPE_BF16 && wg::takes(q, k, v, dO, dq, dk, dv, D, Dv)
+             ? 1 : 0;
+}
+
 // delta (B*Hq*Sq floats) is scratch the caller allocates; dq, dk, dv are
 // written whole, each element by one block.
 extern "C" int flash_attention_bwd_launch(
@@ -929,7 +1060,7 @@ extern "C" int flash_attention_bwd_launch(
     void* dv, int B, int Hq, int Hkv, int Sq, int Sk, int D, int Dv,
     float scale, int causal, int window, int q_offset, int dtype,
     void* stream) {
-  if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_D || Hkv < 1 || Hq % Hkv ||
+  if (D < 1 || D > MAX_D || Dv < 1 || Dv > MAX_DV || Hkv < 1 || Hq % Hkv ||
       (dtype != DTYPE_BF16 && dtype != DTYPE_F32))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -31,21 +31,20 @@ import torch
 from repro_torch.kernels import _build
 
 #: forward and backward kernel launches so far (a run resets them to 0 and
-#: reads them afterwards); the forward launches that took the CUDA-core
-#: kernel (f32, or bf16 operands the TMA loads cannot take) among them
+#: reads them afterwards); the launches of each that took the CUDA-core
+#: kernels (f32, or bf16 operands the TMA loads cannot take) among them
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 LAUNCHES_CUDA_CORE = 0
+BWD_LAUNCHES_CUDA_CORE = 0
 
 NEG_INF = -1.0e30
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the forward's query/key head dim (MLA's prefill: 128 + 64 = 192) and
-#: value head dim
+#: the query/key head dim (MLA's prefill and train step: 128 + 64 = 192)
+#: and value head dim, forward and backward
 MAX_HEAD_DIM = 192
 MAX_V_HEAD_DIM = 128
-#: the backward's head dims: training the MoE family with MLA needs 192
-#: and waits for its own slice
-MAX_BWD_HEAD_DIM = 128
+MAX_BWD_HEAD_DIM = 192
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, q_offset: int,
@@ -117,7 +116,7 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def _check(name, q, k, v, max_d: int = MAX_HEAD_DIM):
+def _check(name, q, k, v):
     B, Hq, Sq, D = q.shape
     Bk, Hkv, Sk, Dk = k.shape
     Dv = v.shape[3]
@@ -130,9 +129,9 @@ def _check(name, q, k, v, max_d: int = MAX_HEAD_DIM):
             or Hq % Hkv):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} disagree")
-    if not (1 <= D <= max_d and 1 <= Dv <= MAX_V_HEAD_DIM):
+    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_V_HEAD_DIM):
         raise ValueError(f"{name}: head dims {D}, {Dv} must be in "
-                         f"[1, {max_d}] and [1, {MAX_V_HEAD_DIM}]")
+                         f"[1, {MAX_HEAD_DIM}] and [1, {MAX_V_HEAD_DIM}]")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} needs contiguous q, k, v")
     return B, Hq, Hkv, Sq, Sk, D, Dv
@@ -175,16 +174,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     """The backward kernel: same arguments and result as
     ``flash_attention_bwd_torch``.  o and do contiguous (B, Hq, Sq, Dv) of
     q's dtype, lse contiguous fp32 (B, Hq, Sq), all on q's device; head
-    dims <= 128 (MLA's 192 raises: its backward comes with the MoE
-    training slice)."""
-    global BWD_LAUNCHES
-    if q.shape[-1] > MAX_BWD_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash_attention_bwd_cuda: head dim {q.shape[-1]} > "
-            f"{MAX_BWD_HEAD_DIM}; the backward at MLA's head dim 192 comes "
-            f"with the MoE training slice")
-    B, Hq, Hkv, Sq, Sk, D, Dv = _check("flash_attention_bwd_cuda", q, k, v,
-                                       MAX_BWD_HEAD_DIM)
+    dims D <= 192 (MLA's 128 + 64) and Dv <= 128, refused past them before
+    the device is looked at."""
+    global BWD_LAUNCHES, BWD_LAUNCHES_CUDA_CORE
+    D, Dv = q.shape[-1], v.shape[-1]
+    if D > MAX_BWD_HEAD_DIM or Dv > MAX_V_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention_bwd_cuda: head dims {D} | {Dv} past the "
+            f"kernel's MAX_BWD_HEAD_DIM {MAX_BWD_HEAD_DIM} | MAX_V_HEAD_DIM "
+            f"{MAX_V_HEAD_DIM}")
+    B, Hq, Hkv, Sq, Sk, D, Dv = _check("flash_attention_bwd_cuda", q, k, v)
     for name, t, shape, dtype in (("o", o, (B, Hq, Sq, Dv), q.dtype),
                                   ("do", do, (B, Hq, Sq, Dv), q.dtype),
                                   ("lse", lse, (B, Hq, Sq), torch.float32)):
@@ -207,4 +206,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention_bwd_launch")
     BWD_LAUNCHES += 1
+    if not lib.flash_attention_bwd_route(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), D, Dv,
+            DTYPE_CODES[q.dtype]):
+        BWD_LAUNCHES_CUDA_CORE += 1
     return dq, dk, dv

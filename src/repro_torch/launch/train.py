@@ -14,6 +14,12 @@ Checkpoints: with ``--ckpt-dir`` the block saves asynchronously every
 ``--ckpt-every`` steps under the stable namespace ``cfg.name``, and
 ``--resume`` restores the latest one and trains on to ``--steps``.
 
+``--arch deepseek_v2_236b`` and ``--arch llama4_maverick_400b`` train the
+moe family (the loss plus the router's aux loss).  ``run(args, cfg)``
+trains a config the caller made (one cut in depth, say) with the flags'
+batch and optimizer, ``run(args, cfg, state_bits=8)`` with int8 AdamW
+moments; ``config(args)`` is the one the flags name.
+
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_7b \\
       --smoke --steps 20 --seq-len 64 --global-batch 4 [--device cpu] \\
       [--ckpt-dir DIR --ckpt-every 10 [--resume]] [--autostep [--pace HZ]]
@@ -22,7 +28,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import repro_torch.configs as configs
 from repro_torch.core.block import BlockState
@@ -30,7 +36,7 @@ from repro_torch.core.daemon import ClusterDaemon
 from repro_torch.core.runtime import JobSpec
 from repro_torch.core.topology import Topology
 from repro_torch.models import model as model_lib
-from repro_torch.models.config import ShapeConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -60,21 +66,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace) -> Dict[str, Any]:
-    """Train to ``--steps`` (from the latest checkpoint with ``--resume``);
-    returns the daemon, the block's app id and runtime, each step's
-    metrics, the step the run started at, the wall time of the loop and
-    the checkpoints on disk.  However the loop ends, an async save it
-    started lands, and the daemon stops, before ``run`` returns or
-    raises."""
-    cfg = (configs.get_smoke(args.arch) if args.smoke
-           else configs.get(args.arch))
+def config(args: argparse.Namespace) -> ModelConfig:
+    """The config ``--arch`` (and ``--smoke``) name."""
+    return (configs.get_smoke(args.arch) if args.smoke
+            else configs.get(args.arch))
+
+
+def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
+        state_bits: Optional[int] = None) -> Dict[str, Any]:
+    """Train ``cfg`` (``config(args)`` when None) to ``--steps`` (from the
+    latest checkpoint with ``--resume``), the AdamW moments fp32 (as the
+    flags give them) or, with ``state_bits=8``, int8; returns the daemon,
+    the block's app id and runtime, each step's metrics, the step the run
+    started at, the wall time of the loop and the checkpoints on disk.
+    However the loop ends, an async save it started lands, and the daemon
+    stops, before ``run`` returns or raises."""
+    cfg = config(args) if cfg is None else cfg
     shape = ShapeConfig("cli", "train", seq_len=args.seq_len,
                         global_batch=args.global_batch,
                         microbatch=args.microbatch)
     opt_cfg = opt_lib.OptConfig(lr=args.lr,
                                 warmup_steps=max(args.steps // 20, 1),
-                                total_steps=args.steps)
+                                total_steps=args.steps,
+                                state_bits=state_bits)
     # a one-chip block granted by the daemon (--autostep needs the
     # background pump: the engine steps from there)
     topo = Topology(n_pods=1, pod_x=1, pod_y=1)

@@ -24,6 +24,19 @@ indexed write into an (E * C + 1, d) buffer whose last row takes every
 overflow choice and is discarded: the kept rows do not depend on the
 order of the writes, no atomics decide them, and the layer launches no
 host sync, so a decode step that runs it captures as a CUDA graph.
+
+Under autograd the layer's gradients are the reference's.  The writes
+into the buffer are ``index_put_``, whose backward gathers each choice's
+row of the buffer's gradient: a kept choice gets its slot's row, and a
+dropped one the trash row's, which is cut off and so is zero, where the
+reference's ``mode="drop"`` scatter gives it zero.  The combine's
+gathers scatter-add back into the expert rows (each kept row is read by
+one choice).  The router gets its gradient through the top-k gates,
+renormalised over the k choices, and through ``frac_probs`` in the aux
+loss; the routing itself (``idx``, the slots, ``frac_tokens``) is
+integer and carries none.  The routing is a function of the layer's
+input alone, so a remat recompute routes every token as the first
+forward did.
 """
 from __future__ import annotations
 

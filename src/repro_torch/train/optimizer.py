@@ -85,8 +85,23 @@ def _leaves(tree, is_leaf=lambda x: False):
             yield v
 
 
+#: elements of a leaf squared and summed at a time in ``global_norm``: its
+#: fp32 temporaries stay at 512 MB where a whole leaf's would not fit (the
+#: reference's XLA fuses them away; deepseek_v2_236b's expert leaves hold
+#: 2.52e9 elements at 2 layers, two 10 GB copies)
+NORM_CHUNK = 1 << 26
+
+
+def _sq_sum(leaf: torch.Tensor) -> torch.Tensor:
+    """sum(leaf ** 2) in fp32; a leaf of up to ``NORM_CHUNK`` elements in
+    one sum, a larger one as the sum of its chunks' sums."""
+    parts = [torch.sum(c.float() ** 2)
+             for c in leaf.reshape(-1).split(NORM_CHUNK)]
+    return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(leaf.float() ** 2) for leaf in _leaves(tree)]
+    sq = [_sq_sum(leaf) for leaf in _leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 

@@ -11,8 +11,9 @@ that a choice is dropped, so the overflow path runs) and at 16; MLA's
 prefill and its absorbed decode step by step; both configs' ``forward``
 logits and aux, prefill and decode; llama4 on the port's paged plane
 against the reference's dense decode; the active-param count and the
-roofline at full size; the flash backward's named refusal at MLA's head
-dim; chip_smoke's ``serve_moe`` at smoke size.
+roofline at full size; the flash backward's named refusal past MLA's
+head dims; chip_smoke's ``serve_moe`` at smoke size.  Training is held in
+``tests/test_torch_moe_train.py``.
 
 Tolerance: fp32 ``atol=1e-5, rtol=1e-4``, as ``tests/test_torch_models.py``
 (XLA:CPU and ATen sum matmuls in different orders).
@@ -355,14 +356,26 @@ def test_active_params_and_roofline_at_full_size(arch):
 
 
 def test_flash_backward_refuses_mla_head_dim_naming_its_slice():
-    """The forward takes MLA's head dim 192; the backward keeps its limit
-    of 128 and says which slice lifts it, before it looks at the device."""
+    """The backward takes MLA's head dims since the MoE training slice (D
+    <= 192, Dv <= 128, as the forward).  Past them it refuses naming its
+    limits, before it looks at the device (D = 200, Dv = 136); within them
+    a CPU tensor is refused for its device (the kernel runs on the card
+    only)."""
+    assert fa.MAX_HEAD_DIM == fa.MAX_BWD_HEAD_DIM == 192
+    assert fa.MAX_V_HEAD_DIM == 128
+    for D, Dv in ((200, 128), (192, 136)):
+        q = torch.zeros((1, 2, 4, D))
+        v = torch.zeros((1, 2, 4, Dv))
+        lse = torch.zeros((1, 2, 4))
+        with pytest.raises(ValueError, match=r"head dims {} \| {} past the "
+                           r"kernel's MAX_BWD_HEAD_DIM 192 \| MAX_V_HEAD_DIM "
+                           r"128".format(D, Dv)):
+            fa.flash_attention_bwd_cuda(q, q, v, v, lse, v)
     q = torch.zeros((1, 2, 4, 192))
     v = torch.zeros((1, 2, 4, 128))
     lse = torch.zeros((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="MoE training slice"):
+    with pytest.raises(ValueError, match="one CUDA device"):
         fa.flash_attention_bwd_cuda(q, q, v, v, lse, v)
-    assert fa.MAX_HEAD_DIM == 192 and fa.MAX_BWD_HEAD_DIM == 128
     o = fa.flash_attention_torch(q, q, v)
     assert o.shape == v.shape
 
