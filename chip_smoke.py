@@ -24,7 +24,10 @@ never JAX.  Phases, each printing one JSON line:
                      unaligned, D = 136 and Dv = 64 cases at D > 128,
                      each launch's route counted; the RMSNorm backward at
                      MLA's norm widths, 1536 and 512; the int8 AdamW on
-                     a 2.52e9-element expert leaf), with its time, the
+                     a 2.52e9-element expert leaf; the RMSNorm and its
+                     backward at xlstm_350m's 8192 rows of 1024 and
+                     2048, the fp32 AdamW on its leaves of last dims 8
+                     and 1365), with its time, the
                      plain version's, one PyTorch library call's where one
                      computes the same function, and the least time the
                      card could take; each redesigned kernel also beside
@@ -97,7 +100,21 @@ never JAX.  Phases, each printing one JSON line:
                      the prefill and a decode step, the decode bound (the
                      weights' bytes over the memory rate), its idle share
                      and the expert products' share of the prefill;
-9. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
+9. ``serve_xlstm`` — ``repro_torch.launch.serve`` on xlstm_350m (the xlstm
+                     family: 3 groups of 7 mLSTM and 1 sLSTM blocks) at
+                     full size, random bf16 weights from the seed: 4 x
+                     2048 prompt tokens, 32 generated, the decode steps as
+                     graph replays held against eager ones; the launches
+                     of one prefill and one decode step exactly (49
+                     RMSNorms each); the prefill logits and the first
+                     decode step's against ``impl="torch"`` in fp32 (the
+                     weights upcast, the sLSTM's bf16 stacking taken out)
+                     within 0.5% of their range, in bf16 each sublayer,
+                     fed the same input, within 5% of the range of its
+                     update, and the recurrent states within 5% of theirs
+                     (``xlstm_sublayer_check``); the sLSTM blocks' share
+                     of a warm prefill;
+10. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
                      (30 layers, random bf16 weights from the seed, int8
                      AdamW moments, 2 x 2048 tokens a step, remat): the
                      step-0 loss and grad norm against ``impl="torch"``,
@@ -105,10 +122,10 @@ never JAX.  Phases, each printing one JSON line:
                      peak memory, the kernels' launches per step (held
                      exactly, as in every train phase) and a profiled
                      warm step;
-10. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
+11. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
                      2 microbatches: the fp32 AdamW variant and the serial
                      gradient accumulation;
-11. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
+12. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
                      (54 layers, random bf16 weights from the seed, fp32
                      AdamW moments, 2 x 2048 tokens a step, remat): step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
@@ -118,14 +135,14 @@ never JAX.  Phases, each printing one JSON line:
                      then 4 steps, the kernels' launches per step held
                      exactly (the SSD scan's backward kernel among them),
                      tokens/s, step time, peak memory and a profiled step;
-12. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
+13. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
                      encoder: LayerNorm, plain GELU MLP, bidirectional
                      attention at head dim 80, the frame stub, the
                      masked-frame loss) at full size, 48 layers, fp32
                      moments, 8 x 1024 frames a step: step 0 as
                      ``train_hybrid``'s, 5 steps with their launches held
                      exactly (no RMSNorm), frames/s, MFU, a profiled step;
-13. ``train_moe``  — ``repro_torch.launch.train``'s ``run(args, cfg)`` on
+14. ``train_moe``  — ``repro_torch.launch.train``'s ``run(args, cfg)`` on
                      deepseek_v2_236b (MLA, 160 routed experts top-6 and 2
                      shared) at full width, cut to 2 of its 60 layers,
                      random bf16 weights from seed 0, int8 moments, 2 x
@@ -143,7 +160,14 @@ never JAX.  Phases, each printing one JSON line:
                      a leaf, none on a scalar or CUDA-core route),
                      tok/s, peak memory, MFU, a profiled step and the
                      capacity's dropped share;
-14. ``preempt``    — checkpoints and preempt/resume at full width
+15. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full size
+                     (fp32 moments, 4 x 2048 tokens a step, remat): step 0
+                     in fp32 (the weights upcast) against ``impl="torch"``
+                     under the train phases' limits, the bf16 step 0 read
+                     beside it; 3 steps, their launches held exactly, the
+                     last one profiled (the device's activity only);
+                     tok/s, MFU, peak memory;
+16. ``preempt``    — checkpoints and preempt/resume at full width
                      (``BlockRuntime.suspend``/``resume`` through
                      ``repro_torch.checkpoint.manager``, under a temporary
                      directory): train_hybrid's job suspended after 3
@@ -163,7 +187,7 @@ never JAX.  Phases, each printing one JSON line:
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
                      the save, disk space and peak memory;
-15. ``control``    — the control plane on the card: a background-mode
+17. ``control``    — the control plane on the card: a background-mode
                      ``ClusterDaemon`` on one chip, Alice's train block
                      (train_hybrid's job) autostepping toward 4 steps,
                      preempted after 2 by Bob's priority-1 paged serve
@@ -177,7 +201,7 @@ never JAX.  Phases, each printing one JSON line:
                      admission, preemption, first-token and resume
                      seconds, each block's tok/s inside the daemon and
                      Alice's MFU on the H100 roofline;
-16. ``gateway``    — the web gateway in front of a background
+18. ``gateway``    — the web gateway in front of a background
                      ``ClusterDaemon`` on one chip, every step a real HTTP
                      call: Alice walks the paper's explicit workflow
                      (register, admin review, confirm, activate, run, 2
@@ -208,6 +232,7 @@ directory without the package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -398,13 +423,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_profile():
+    """A ``torch.profiler`` window over the device's activities only: the
+    records read are the device's, and recording the host's ops too
+    takes minutes over the ~5e5 small launches of an xlstm train
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 def profile_steps(fn, n: int = 3, top: int = 8):
     """Host wall time per call of ``fn`` (warm, ending in a device sync),
     then the device kernel time per call over ``n`` more calls under
-    ``torch.profiler``, the device's idle share, and the ``top`` kernels
-    that take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` (``device_profile``), the device's idle share, and
+    the ``top`` kernels that take the most device time."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -412,25 +444,36 @@ def profile_steps(fn, n: int = 3, top: int = 8):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in kern) / 1e3 / n
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    top = [{"kernel": e.key[:80], "ms_per_call":
-            e.self_device_time_total / 1e3 / n, "count_per_call":
-            e.count / n} for e in kern[:top]]
+    return profile_summary(prof, wall, n, top)
+
+
+def profile_summary(prof, wall, n: int = 1, top: int = 8):
+    """``profile_steps``'s record from a finished ``torch.profiler``
+    window over ``n`` calls, each ``wall`` ms on the host clock: the
+    device's activities summed by name from the profiler's raw events
+    (what ``key_averages`` sums, without building an event tree: that
+    takes minutes for the ~5e5 launches of an xlstm train step)."""
+    from torch.autograd import DeviceType
+    ns, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == DeviceType.CUDA
+                and not e.is_user_annotation() and not e.is_hidden_event()):
+            ns[e.name()] = ns.get(e.name(), 0) + e.duration_ns()
+            count[e.name()] = count.get(e.name(), 0) + 1
+    dev = sum(ns.values()) / 1e6 / n
+    names = sorted(ns, key=lambda k: -ns[k])
+    top = [{"kernel": k[:80], "ms_per_call": ns[k] / 1e6 / n,
+            "count_per_call": count[k] / n} for k in names[:top]]
     # the port's kernels by family: device ms per call and share of the
     # device time (the flash family counts forward, backward and delta)
     fam = {}
-    for name in KERNEL_FAMILIES:
-        ms = sum(e.self_device_time_total for e in kern
-                 if name in e.key) / 1e3 / n
-        fam[name] = {"ms_per_call": ms, "share": ms / dev if dev else 0.0}
+    for family in KERNEL_FAMILIES:
+        ms = sum(t for k, t in ns.items() if family in k) / 1e6 / n
+        fam[family] = {"ms_per_call": ms, "share": ms / dev if dev else 0.0}
     return {"wall_ms": wall, "device_ms": dev,
             "idle_share": max(0.0, 1.0 - dev / wall), "top": top,
             "families": fam}
@@ -501,6 +544,22 @@ def logits_check(got, want, rtol: float = 5e-2) -> dict:
 HYBRID_F32_RTOL = 1e-3
 HYBRID_GROUP_RTOL = 5e-2
 
+# The xlstm's checks (``serve_xlstm``).  Its 24 recurrent layers carry a
+# last-bit difference much farther than the hybrid's 54 do: in fp32 (the
+# weights upcast, every kernel in its fp32 instantiation, TF32 off, the
+# sLSTM's bf16 stacking taken out of both runs) the whole stack's logits
+# with the kernels lie 5.5e-4 (prefill) and 7.3e-4 (first decode step) of
+# their range from ``impl="torch"``, 1.9e-3 with the stacking kept (read
+# on the H100), so the fp32 whole stack is held within XLSTM_F32_RTOL.  In
+# bf16 the whole stack's two runs part by 27% of the range (argmax agreeing
+# on half the rows) and a whole group's by up to 10% of its update, so
+# bf16 is held one sublayer at a time (``xlstm_sublayer_check``): each
+# mLSTM or sLSTM sublayer with the kernels against itself with
+# ``impl="torch"``, fed the same input, within HYBRID_GROUP_RTOL of its
+# update's range, and the recurrent states after the prefill within the
+# same share of theirs; the whole stack's distances are read.
+XLSTM_F32_RTOL = 5e-3
+
 
 def update_check(x_in, got, want) -> dict:
     """One group's output with the kernels (``got``) against its output
@@ -512,6 +571,14 @@ def update_check(x_in, got, want) -> dict:
             "err_over_range": err / max(span, 1e-30),
             "rms_err": rms(got.float() - want.float()), "rms_update": rms(upd),
             "finite": bool(torch.isfinite(got).all())}
+
+
+#: the recurrent states a group or sublayer check holds after the
+#: prefill, by family: (record key, the state's path in the cache)
+GROUP_STATES = {
+    "hybrid": (("ssm_state_after_prefill", ("mamba", "ssm")),),
+    "xlstm": (("mlstm_state_after_prefill", ("mlstm", "mlstm", 0)),
+              ("slstm_state_after_prefill", ("slstm", "slstm", 1)))}
 
 
 @torch.no_grad()
@@ -544,11 +611,69 @@ def hybrid_group_check(params, cfg, tokens, first) -> dict:
             rows[step].append(update_check(x, out["auto"], out["torch"]))
             x = out["auto"]
         if step == "prefill":
-            hs = [c["mamba"]["ssm"] for c in caches.values()]
-            rows["ssm_state_after_prefill"] = {
-                "max_abs_err": max_err(*hs),
-                "err_over_range": max_err(*hs) / float(hs[1].abs().max()),
-                "rms_err": rms(hs[0] - hs[1]), "rms_state": rms(hs[1])}
+            rows.update(state_distances(cfg, caches))
+    return rows
+
+
+def state_distances(cfg, caches) -> dict:
+    """The recurrent states (``GROUP_STATES``) of the kernels' cache
+    against the plain version's: {record key: distances}."""
+    out = {}
+    for key, path in GROUP_STATES[cfg.family]:
+        hs = []
+        for c in (caches["auto"], caches["torch"]):
+            for p in path:
+                c = c[p]
+            hs.append(c)
+        out[key] = {
+            "max_abs_err": max_err(*hs),
+            "err_over_range": max_err(*hs) / float(hs[1].abs().max()),
+            "rms_err": rms(hs[0] - hs[1]), "rms_state": rms(hs[1])}
+    return out
+
+
+@torch.no_grad()
+def xlstm_sublayer_check(params, cfg, tokens, first) -> dict:
+    """``hybrid_group_check`` one sublayer at a time, for the xlstm: each
+    mLSTM and sLSTM sublayer (its pre-norm, the block and the residual)
+    with the kernels and with ``impl="torch"`` on the same input, each
+    writing its own cache, the kernels' stream carried on; the prefill of
+    ``tokens``, then the decode step of ``first`` from the states each
+    variant's prefill left.  Returns the per-sublayer ``update_check``
+    rows (g * k + i: group g, sublayer i, the sLSTM last) and the
+    recurrent states' distances after the prefill."""
+    from repro_torch.models import model, ssm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import apply_norm
+    B, P = tokens.shape
+    ng, k = tf.n_groups(cfg), cfg.xlstm.slstm_every
+    caches = {impl: model.init_cache(cfg, B, P + 1, tokens.device)
+              for impl in ("auto", "torch")}
+
+    def sublayer(lp, x, st, impl, block):
+        h = apply_norm(lp["ln"], x, cfg.norm, impl=impl)
+        return x + block(lp["blk"], h, cfg.xlstm, cfg.d_model, state=st,
+                         impl=impl)[0]
+
+    rows = {}
+    for step, toks in (("prefill", tokens), ("decode", first)):
+        x = model.embed_inputs(params, cfg, {"tokens": toks})
+        rows[step] = []
+        for g, gp in enumerate(tf._unbind(params["layers"], ng)):
+            subs = [(lp, ssm.mlstm_fwd, lambda c, i=i: tf._index(
+                tf._index(c, g)["mlstm"], i))
+                for i, lp in enumerate(tf._unbind(gp["mlstm"], k - 1))]
+            subs.append((gp["slstm"], ssm.slstm_fwd,
+                         lambda c: tf._index(c, g)["slstm"]))
+            for lp, block, state in subs:
+                out = {impl: sublayer(lp, x, state(caches[impl]), impl,
+                                      block)
+                       for impl in ("auto", "torch")}
+                rows[step].append(update_check(x, out["auto"],
+                                               out["torch"]))
+                x = out["auto"]
+        if step == "prefill":
+            rows.update(state_distances(cfg, caches))
     return rows
 
 
@@ -1406,10 +1531,13 @@ def check_train_kernels(out, edge, edges):
     # the other train steps' rows, 2 x 2048 tokens, held and timed: the
     # hybrid's widest, the Mamba2 gated norm's (4096, 5120), and
     # deepseek_v2_236b's MLA norms, q_norm (4096, 1536) and kv_norm
-    # (4096, 512)
+    # (4096, 512); xlstm_350m's 4 x 2048 rows at d_model 1024 and the mLSTM
+    # out_norm's 2048
     for rows, d, key in ((4096, 5120, "hybrid_d5120"),
                          (4096, 1536, "moe_q_norm"),
-                         (4096, 512, "moe_kv_norm")):
+                         (4096, 512, "moe_kv_norm"),
+                         (8192, 1024, "xlstm_d1024"),
+                         (8192, 2048, "xlstm_d2048")):
         (x, s, gy), got, want, route = rms_bwd_case(rows, d)
         err, ratio = worst(got, want, 2e-2)
         check(route == "vector" and ratio <= 1.0,
@@ -1665,11 +1793,16 @@ def check_adamw_kernel(out, edges):
                 ("L4112_ragged_block_vector", (3, 4112), {}, "vector"),
                 ("misaligned_scalar_route", (5, 4096), dict(misalign=True),
                  "scalar"),
-                # hubert_xlarge's largest leaf and its LM head, 504 wide
-                # (its moments are fp32)
+                # hubert_xlarge's largest leaf and its LM head, 504 wide,
+                # and xlstm_350m's largest leaf and its three leaves of a
+                # last dim no multiple of 16, w_if (8) and the sLSTM's
+                # w_ff_gate and w_ff_up (1365) (their moments are fp32)
                 ("hubert_w_up", (48, 1280, 5120), {}, "vector"),
-                ("hubert_lm_head", (1280, 504), {}, "scalar")]:
-            if quant and name.startswith("hubert"):
+                ("hubert_lm_head", (1280, 504), {}, "scalar"),
+                ("xlstm_w_up", (3, 7, 1024, 4096), {}, "vector"),
+                ("xlstm_w_if", (3, 7, 2048, 8), {}, "scalar"),
+                ("xlstm_w_ff_gate", (3, 1024, 1365), {}, "scalar")]:
+            if quant and name.startswith(("hubert", "xlstm")):
                 continue
             inputs, got, want, route = adamw_case(shape, quant, **kw2)
             chk = both_routes(f"{variant} {name}", inputs, got, want, route,
@@ -2002,7 +2135,9 @@ def phase_kernels():
     # 4096), decode (4, 4096) and train step (4096, 4096); zamba2_2p7b's
     # prefill (4000 rows) and decode (4 rows) at d_model 2560 and at the
     # Mamba2 gated norm's 5120; deepseek_v2_236b's prefill (2048 rows) and
-    # decode (4) at d_model 5120 and MLA's q_norm (1536) and kv_norm (512)
+    # decode (4) at d_model 5120 and MLA's q_norm (1536) and kv_norm (512);
+    # xlstm_350m's prefill (8192 rows) and decode (4) at d_model 1024 and
+    # the mLSTM out_norm's 2048
     for rows, d, key in ((2048, 4096, "rmsnorm"), (4, 4096, "rmsnorm_decode"),
                          (4096, 4096, "rmsnorm_train"),
                          (8192, 5120, "rmsnorm_vlm"),
@@ -2015,7 +2150,11 @@ def phase_kernels():
                          (2048, 1536, "rmsnorm_moe_q_norm"),
                          (2048, 512, "rmsnorm_moe_kv_norm"),
                          (4, 1536, "rmsnorm_moe_decode_q_norm"),
-                         (4, 512, "rmsnorm_moe_decode_kv_norm")):
+                         (4, 512, "rmsnorm_moe_decode_kv_norm"),
+                         (8192, 1024, "rmsnorm_xlstm_d1024"),
+                         (8192, 2048, "rmsnorm_xlstm_d2048"),
+                         (4, 1024, "rmsnorm_xlstm_decode_d1024"),
+                         (4, 2048, "rmsnorm_xlstm_decode_d2048")):
         (x, s), got, want = rms_case(rows, d)
         err, ratio = close(got, want, 2e-2)
         check(ratio <= 1.0, f"rmsnorm ({rows}, {d}): max_abs_err {err}, "
@@ -2066,6 +2205,8 @@ def dense_launches(cfg):
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_clone(v) for v in tree)
     return tree.clone()
 
 
@@ -2095,6 +2236,18 @@ def graph_check(name, graph, steps, eager_calls, device):
     return {**st, "card": _CARD}
 
 
+def restart(rt):
+    """A dense-plane block's cache back to its initial values (zeros; the
+    xlstm's mLSTM m at -inf and sLSTM n at 1), in place: the graph keeps
+    its cache."""
+    from repro_torch.models import model
+    shape = rt.job.shape
+    fresh = model.init_cache(rt.job.cfg, shape.global_batch, shape.seq_len,
+                             rt.device)
+    for t, f in zip(_tensors(rt.cache), _tensors(fresh)):
+        t.copy_(f)
+
+
 def captured_vs_eager(rt, batch, n):
     """A dense-plane block's captured decode against its step function run
     eagerly, from one state (a prefill of ``batch`` into the block's
@@ -2106,8 +2259,7 @@ def captured_vs_eager(rt, batch, n):
     check's launches are not the main path's."""
     saved = counts()
     graph = rt.decode_graph
-    for t in _tensors(rt.cache):       # in place: the graph keeps its cache
-        t.zero_()
+    restart(rt)
     rt.prefill(batch)
     params, B, P = rt.state["params"], rt.token.shape[0], rt.cache_len
     cache, first = _clone(rt.cache), rt.token.clone()
@@ -2702,8 +2854,7 @@ def phase_serve_hybrid(device="cuda", smoke=False):
         del cache
         # a fresh decode context, in the graph's own cache: the SSM states
         # restart from zeros and cache_len goes back to P
-        for t in _tensors(rt.cache):
-            t.zero_()
+        restart(rt)
         rt.prefill({"tokens": tokens})
         out["warm_decode_step"] = profile_steps(rt.step, 3)
         pos.fill_(P)
@@ -2868,6 +3019,220 @@ def phase_serve_moe(device="cuda", smoke=False):
     return out
 
 
+def xlstm_launches(cfg):
+    """The kernels' launches in one xlstm prefill and one decode step: a
+    group's k-1 mLSTM sublayers and its sLSTM run two RMSNorms each (the
+    pre-norm and the block's out_norm), the final norm one.  The mLSTM
+    scan and the sLSTM recurrence are plain PyTorch: the reference has no
+    TPU kernel for either."""
+    from repro_torch.models.transformer import n_groups
+    norms = n_groups(cfg) * 2 * cfg.xlstm.slstm_every + 1
+    zero = {n: 0 for n in COUNTERS}
+    return {**zero, "rmsnorm": norms}, {**zero, "rmsnorm": norms}
+
+
+@contextlib.contextmanager
+def slstm_stacking(dtype):
+    """``ssm.SLSTM_STACK_DTYPE`` (bf16, the reference's rounding of each
+    sLSTM step's h) set to ``dtype`` inside the block.  In a bf16 model
+    it changes nothing; in an fp32 one float32 takes the rounding out, so
+    an fp32 comparison reads the kernels' differences and not the
+    one-bf16-step ones their last bits turn into at the rounding
+    (``tests/test_torch_xlstm.py``)."""
+    from repro_torch.models import ssm
+    saved = ssm.SLSTM_STACK_DTYPE
+    ssm.SLSTM_STACK_DTYPE = dtype
+    try:
+        yield
+    finally:
+        ssm.SLSTM_STACK_DTYPE = saved
+
+
+def slstm_share(fn) -> dict:
+    """One call of ``fn`` (a prefill) timed between device syncs, and the
+    part of it spent in ``ssm.slstm_fwd`` (each sLSTM block: its input
+    projection, the step-by-step recurrence, its norm and feed-forward),
+    every call of it timed between device syncs."""
+    from repro_torch.models import ssm
+    spans, orig = [], ssm.slstm_fwd
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    ssm.slstm_fwd = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ssm.slstm_fwd = orig
+    return {"wall_ms": wall * 1e3, "slstm_ms": sum(spans) * 1e3,
+            "slstm_calls": len(spans), "slstm_share": sum(spans) / wall,
+            "card": _CARD}
+
+
+def phase_serve_xlstm(device="cuda", smoke=False):
+    """The xlstm family (xlstm_350m: 24 layers, 3 groups of 7 mLSTM and 1
+    sLSTM) through the launcher's entry point on the dense plane at full
+    size, random bf16 weights from seed 0: 4 x 2048 prompt tokens, 32
+    generated, greedy; the decode steps as graph replays held against
+    eager ones (``captured_vs_eager``); each kernel's launches in one
+    prefill and one decode step, exactly; the logits of the prefill and
+    of the first decode step (each from the state its own prefill left)
+    against ``impl="torch"``: in fp32 (the weights upcast) the whole
+    stack within XLSTM_F32_RTOL of their range with the sLSTM's bf16
+    stacking taken out of both runs (``slstm_stacking``) and read with it
+    kept; in bf16 sublayer by sublayer (``xlstm_sublayer_check``) within
+    HYBRID_GROUP_RTOL, the whole stack read (see XLSTM_F32_RTOL); the
+    sLSTM blocks' share of a warm prefill (``slstm_share``)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.models.transformer import flatten, unflatten
+    argv = ["--arch", "xlstm_350m", "--batch", "4", "--prompt-len", "2048",
+            "--gen", "32", "--seed", "0", "--device", device]
+    if smoke:
+        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
+                           "--gen", "6", "--device", device]
+    args = serve.parse_args(argv)
+    zero_counts()
+    _zero_eager_calls()
+    res = serve.run(args)
+    launches = counts()
+    rt, cfg = res["runtime"], res["cfg"]
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if rt.device.type == "cuda" else None)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    graph = graph_check("serve_xlstm", rt.decode_graph, G - 1,
+                        _eager_calls(), device)
+    toks = res["tokens"]
+    check(toks.shape == (B, G) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size, f"xlstm tokens {toks.shape}")
+    progress("serve_xlstm: logits against impl=\"torch\"")
+
+    # the checks' launches are not the main path's: counted apart, then
+    # the main path's counts are put back
+    params, tokens = rt.state["params"], torch.as_tensor(
+        res["batch"]["tokens"], device=rt.device)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params32 = unflatten((k, v.float()) for k, v in flatten(params))
+    logits, per_call, first = {}, {}, None
+    for name, c, p, stack in (
+            ("bf16", cfg, params, torch.bfloat16),
+            ("f32", cfg32, params32, torch.float32),
+            ("f32_bf16_stacking", cfg32, params32, torch.bfloat16)):
+        for impl in ("auto", "torch"):
+            key = f"{name}_{impl}"
+            zero_counts()
+            cache = model.init_cache(c, B, P + 1, rt.device)
+            with slstm_stacking(stack):
+                lg, _ = model.prefill(p, c, {"tokens": tokens}, cache,
+                                      impl=impl)
+                per_call[key] = counts()
+                if first is None:
+                    # every decode check steps from the main path's first
+                    # token
+                    first = torch.argmax(lg, -1)[:, None].to(torch.int32)
+                zero_counts()
+                step, _ = model.decode_step(p, c, first, cache, P,
+                                            impl=impl)
+            per_call[f"decode_{key}"] = counts()
+            logits[key] = (lg.float(), step.float())
+            del cache
+    del params32
+    subs = xlstm_sublayer_check(params, cfg, tokens, first)
+    set_counts(launches)
+    check(bool((first[:, 0].cpu().numpy() == toks[:, 0]).all()),
+          "the runtime's first token is not the prefill logits' argmax")
+
+    def read(got, want):
+        return {k: v for k, v in logits_check(got, want).items()
+                if k not in ("tol", "passed")}
+
+    # fp32 (no bf16 stacking): checked; the rest read
+    chk, chk_dec = ({"f32": logits_check(logits["f32_auto"][i],
+                                         logits["f32_torch"][i],
+                                         XLSTM_F32_RTOL),
+                     "f32_bf16_stacking": read(
+                         logits["f32_bf16_stacking_auto"][i],
+                         logits["f32_bf16_stacking_torch"][i]),
+                     "bf16_whole_stack": read(logits["bf16_auto"][i],
+                                              logits["bf16_torch"][i]),
+                     "bf16_kernels_vs_f32": read(logits["bf16_auto"][i],
+                                                 logits["f32_torch"][i]),
+                     "bf16_plain_vs_f32": read(logits["bf16_torch"][i],
+                                               logits["f32_torch"][i])}
+                    for i in (0, 1))
+    for what, c in (("prefill", chk), ("first decode step", chk_dec)):
+        check(c["f32"]["passed"], f"xlstm {what} logits: {c}")
+    worst = {step: max(r["err_over_range"] for r in subs[step])
+             for step in ("prefill", "decode")}
+    subs["limit"], subs["worst"] = HYBRID_GROUP_RTOL, worst
+    states = [k for k, _ in GROUP_STATES["xlstm"]]
+    check(all(r["finite"] for step in ("prefill", "decode")
+              for r in subs[step])
+          and max(worst.values()) <= HYBRID_GROUP_RTOL
+          and all(subs[k]["err_over_range"] <= HYBRID_GROUP_RTOL
+                  for k in states),
+          f"xlstm bf16 sublayers, kernels against impl=\"torch\": {subs}")
+    del logits
+
+    want_pre, want_dec = xlstm_launches(cfg)
+    if rt.device.type != "cuda":
+        want_pre = want_dec = {n: 0 for n in COUNTERS}
+    check(all(per_call[k] == want_pre for k in per_call
+              if k.endswith("auto") and not k.startswith("decode"))
+          and all(per_call[k] == want_dec for k in per_call
+                  if k.endswith("auto") and k.startswith("decode"))
+          and all(set(per_call[k].values()) == {0} for k in per_call
+                  if k.endswith("torch")),
+          f"xlstm launches per prefill and decode step {per_call} (want "
+          f"{want_pre} and {want_dec} with the kernels, none without)")
+    check(launches == {n: want_pre[n] + (G - 1) * want_dec[n]
+                       for n in COUNTERS},
+          f"xlstm main path launches {launches}: not one prefill and "
+          f"{G - 1} decode steps")
+    vs_eager, eager_cache, first, pos = captured_vs_eager(
+        rt, {"tokens": tokens}, G - 1)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+           "prompt_len": P, "gen": G,
+           "prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+           "prefill_tok_s": B * P / res["prefill_s"],
+           "decode_tok_s": B * (G - 1) / res["decode_s"],
+           "launches": launches, "decode_graph": graph,
+           "captured_vs_eager": vs_eager,
+           "launches_per_prefill": per_call["bf16_auto"],
+           "launches_per_decode_step": per_call["decode_bf16_auto"],
+           "logits_check": chk, "first_decode_logits_check": chk_dec,
+           "bf16_sublayer_check": subs}
+    if rt.device.type == "cuda":
+        out["peak_mem_gb"] = peak
+        progress("serve_xlstm: warm prefill and decode profiles")
+        cache = model.init_cache(cfg, B, P, rt.device)
+        out["warm_prefill"] = profile_steps(
+            lambda: model.prefill(params, cfg, {"tokens": tokens}, cache), 1)
+        out["prefill_slstm_share"] = slstm_share(
+            lambda: model.prefill(params, cfg, {"tokens": tokens}, cache))
+        del cache
+        # a fresh decode context, in the graph's own cache (the states
+        # back to their initial values) and cache_len back to P
+        restart(rt)
+        rt.prefill({"tokens": tokens})
+        out["warm_decode_step"] = profile_steps(rt.step, 3)
+        pos.fill_(P)
+        out["warm_decode_step_eager"] = profile_steps(
+            lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
+                                       None), 3)
+    emit("serve_xlstm", **out)
+    return out
+
+
 def leaf_grad_norms(grads):
     """The grad norm of every leaf in fp32, per layer for the stacked
     ``layers/`` leaves (one slice at a time: a whole full-width leaf in
@@ -2948,7 +3313,7 @@ def step0_check(params, cfg, batch):
 BF16_STEP0_MARGIN = 1.25
 
 
-def step0_upcast_check(params, cfg, batch):
+def step0_upcast_check(params, cfg, batch, hold_bf16=True):
     """The hybrid's step 0 with the weights upcast to fp32, every kernel on
     its fp32 instantiation and TF32 off, against ``impl="torch"`` on the
     same weights: held under STEP0_RTOL.  The random-weight bf16 stack
@@ -2959,7 +3324,9 @@ def step0_upcast_check(params, cfg, batch):
     times BF16_STEP0_MARGIN, or within STEP0_RTOL (the worst leaf's for
     the mean).  Single leaves scatter too widely to hold one by one (a
     leaf's two bf16 distances read 0.4-13 times each other); those past
-    STEP0_RTOL are recorded with both distances."""
+    STEP0_RTOL are recorded with both distances.  ``hold_bf16=False``
+    reads the bf16 step 0 against its limit and does not hold it (the
+    xlstm's: ``xlstm_step0_check``)."""
     from repro_torch.models.transformer import flatten, unflatten
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     params32 = unflatten((k, v.detach().float().requires_grad_(True))
@@ -2981,13 +3348,18 @@ def step0_upcast_check(params, cfg, batch):
         if max(d) > rtol["leaf_rms"]:
             far[leaf] = {"kernels": d[0], "plain": d[1]}
     kernels["leaves_past_rtol"] = far
+    if hold_bf16:
+        kernels = held_within(
+            kernels, limit, f"bf16 step 0 against the fp32 one (the plain "
+            f"bf16 step 0's distance from it: {plain})")
+    else:
+        kernels["limit_read"] = limit
+        kernels["within_limit_read"] = all(
+            kernels[f"{k}_rel_err"] <= r for k, r in limit.items())
     return {"f32": held_within(step0_distance(f32["auto"], f32["torch"]),
                                STEP0_RTOL, "step-0 check, fp32"),
             "bf16": step0_distance(bf16["auto"], bf16["torch"]),
-            "bf16_plain_vs_f32": plain,
-            "bf16_vs_f32": held_within(
-                kernels, limit, f"bf16 step 0 against the fp32 one (the "
-                f"plain bf16 step 0's distance from it: {plain})")}
+            "bf16_plain_vs_f32": plain, "bf16_vs_f32": kernels}
 
 
 def train_launches(cfg, shape, opt_cfg, params):
@@ -2998,20 +3370,24 @@ def train_launches(cfg, shape, opt_cfg, params):
     (an SSD scan and 2 norms each) and the shared block (attention and 2
     norms), a moe group one attention sublayer (deepseek_v2's [attn +
     moe]) or two (llama4's dense and moe halves), each with 2 norms and,
-    with MLA, its q_norm and kv_norm; one AdamW launch a leaf, int8 or
-    fp32 as the moments, on its scalar route for a leaf whose last dim is
-    no multiple of 16 (the vector route's 16-element loads;
-    hubert_xlarge's LM head, 504 wide, is the only such leaf of the main
-    path); no other scalar-route launch, and none on the flash kernels'
-    CUDA-core routes."""
+    with MLA, its q_norm and kv_norm, an xlstm group k-1 mLSTM layers and
+    an sLSTM (2 norms each, no attention: the pre-norm and the block's
+    out_norm); one AdamW launch a leaf, int8 or fp32 as the moments, on
+    its scalar route for a leaf whose last dim is no multiple of 16 (the
+    vector route's 16-element loads: hubert_xlarge's LM head, 504 wide;
+    xlstm_350m's ``w_if``, 8 wide, and its sLSTM's ``w_ff_gate`` and
+    ``w_ff_up``, 1365); no other scalar-route launch, and none on the
+    flash kernels' CUDA-core routes."""
     from repro_torch.models.transformer import flatten, n_groups
     ng, fwd = n_groups(cfg), 2 if cfg.remat != "none" else 1
     m = cfg.hybrid.mamba_per_group if cfg.family == "hybrid" else 0
-    attn = 2 if cfg.family == "moe" and cfg.d_ff > 0 else 1
-    attn_norms = 4 if cfg.attention.is_mla else 2
+    xl = cfg.xlstm.slstm_every if cfg.family == "xlstm" else 0
+    attn = (0 if cfg.attention is None
+            else 2 if cfg.family == "moe" and cfg.d_ff > 0 else 1)
+    attn_norms = 4 if attn and cfg.attention.is_mla else 2
     # LayerNorm (the encoder's) is plain PyTorch: no RMSNorm launch
-    norms = (ng * (2 * m + attn * attn_norms) + 1 if cfg.norm == "rms"
-             else 0)
+    norms = (ng * (2 * m + attn * attn_norms + 2 * xl) + 1
+             if cfg.norm == "rms" else 0)
     mb = max(1, shape.microbatch)
     adamw = "fused_adamw_i8" if opt_cfg.state_bits == 8 else \
         "fused_adamw_f32"
@@ -3031,7 +3407,10 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
     """A train block through ``BlockRuntime``: the step-0 check
     (``step0``), then ``n_steps`` steps counted as the main path, their
     launches per step held exactly (``train_launches``; none on the
-    CPU)."""
+    CPU).  ``profile``: a profiled warm step after them (True), the last
+    of them run under the profiler (``"last"``: for a step whose
+    extra runs the script cannot spend; the steady time and tok/s then
+    come from the steps before it), or none."""
     progress(f"{name}: init")
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime, JobSpec
@@ -3048,17 +3427,25 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
     if rt.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    hist = []
+    hist, prof = [], None
+    in_run = profile == "last" and rt.device.type == "cuda"
     t0 = time.perf_counter()
-    for _ in range(n_steps):
-        hist.append(rt.step())
+    for i in range(n_steps):
+        if in_run and i == n_steps - 1:
+            with device_profile() as prof:
+                hist.append(rt.step())
+        else:
+            hist.append(rt.step())
     elapsed = time.perf_counter() - t0
     launches = counts()
     losses = [h["loss"] for h in hist]
     check(all(np.isfinite(losses)) and all(np.isfinite(
         [h["grad_norm"] for h in hist])), f"{name}: losses {losses}")
     tokens = shape.global_batch * shape.seq_len
-    steady = [h["step_s"] for h in hist[1:]] or [hist[0]["step_s"]]
+    timed = hist[:-1] if in_run else hist
+    if in_run:
+        elapsed -= hist[-1]["step_s"]
+    steady = [h["step_s"] for h in timed[1:]] or [timed[0]["step_s"]]
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "state_bits": opt_cfg.state_bits, "seq_len": shape.seq_len,
            "global_batch": shape.global_batch,
@@ -3066,7 +3453,7 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
            "init_s": init_s, "step0_check": chk, "losses": losses,
            "grad_norms": [h["grad_norm"] for h in hist],
            "step_s": [h["step_s"] for h in hist],
-           "tok_s": n_steps * tokens / elapsed,
+           "tok_s": len(timed) * tokens / elapsed,
            "steady_tok_s": tokens / float(np.median(steady)),
            "steady_step_s": float(np.median(steady)),
            "launches": launches,
@@ -3085,7 +3472,12 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
         out["model_flops"] = hlo_analysis.model_step_flops(cfg, shape)
         out["mfu"] = (out["model_flops"] / out["steady_step_s"]
                       / hlo_analysis.PEAK_FLOPS)
-        if profile:
+        if in_run:
+            out["warm_step"] = profile_summary(
+                prof, out["steady_step_s"] * 1e3)
+            out["warm_step"]["profiled_step_wall_ms"] = \
+                hist[-1]["step_s"] * 1e3
+        elif profile:
             out["warm_step"] = profile_steps(rt.step, 1)
     emit(name, **out)
     return out
@@ -3314,13 +3706,53 @@ def phase_train_moe(device="cuda", smoke=False):
     return out
 
 
+def xlstm_step0_check(params, cfg, batch):
+    """``step0_upcast_check`` with the bf16 step 0 read beside the fp32
+    one and not held: the random-weight xlstm's recurrent stack carries a
+    kernel's one-bf16-step differences far (the plain bf16 step 0 itself
+    lies 1.2% from the fp32 one in the grad norm and 4.0% in its farthest
+    leaf, the kernels' 1.8% and 5.8%, read on the H100; ``serve_xlstm``
+    reads the same in its logits), so the fp32 step 0 holds the path and
+    the kernels' bf16 instantiations are held element by element at the
+    xlstm's shapes in the kernels phase."""
+    return step0_upcast_check(params, cfg, batch, hold_bf16=False)
+
+
+def phase_train_xlstm(device="cuda", smoke=False):
+    """xlstm_350m at full size (24 layers, random bf16 weights from seed
+    0), fp32 AdamW moments, 4 x 2048 tokens a step, one microbatch,
+    remat: step 0 in fp32 (the weights upcast) against ``impl="torch"``
+    under STEP0_RTOL and the bf16 step 0 beside it
+    (``xlstm_step0_check``); 3 steps, their launches per step held
+    exactly (``train_launches``: 97 RMSNorms forward with the recompute,
+    49 backward, 18 fp32 AdamW of which 3 on the scalar route, no
+    flash), the last of them profiled (a step takes ~17 s, the host
+    launching ~500k small kernels, most of them the sLSTM's); tok/s,
+    MFU and peak memory."""
+    import repro_torch.configs as configs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    cfg = (configs.get_smoke("xlstm_350m") if smoke
+           else configs.get("xlstm_350m"))
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
+                        global_batch=2 if smoke else 4, microbatch=1)
+    opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    return _train_phase("train_xlstm", cfg, shape, opt_cfg, device,
+                        n_steps=2 if smoke else 3, profile="last",
+                        step0=xlstm_step0_check)
+
+
 # ---------------------------------------------------------------- preempt
 
 def _tensors(tree):
-    """The tensors of a nested dict, in sorted-key order."""
+    """The tensors of a nested dict, in sorted-key order (a tuple's, the
+    xlstm cache's states, in order)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _tensors(tree[k])
+    elif isinstance(tree, tuple):
+        for t in tree:
+            yield from _tensors(t)
     elif isinstance(tree, torch.Tensor):
         yield tree
 
@@ -4598,7 +5030,8 @@ def _free(device="cuda") -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
-def emit_capture_summary(info, dense, paged, hybrid, vlm, moe) -> None:
+def emit_capture_summary(info, dense, paged, hybrid, vlm, moe,
+                         xlstm) -> None:
     """One line: each decode path's step wall time, idle share and tok/s
     run eagerly and as graph replays (the same run, the same card), its
     capture time and graph pool."""
@@ -4607,7 +5040,8 @@ def emit_capture_summary(info, dense, paged, hybrid, vlm, moe) -> None:
                            ("serve_paged", paged, "warm_decode_round"),
                            ("serve_hybrid", hybrid, "warm_decode_step"),
                            ("serve_vlm", vlm, "warm_decode_step"),
-                           ("serve_moe", moe, "warm_decode_step")):
+                           ("serve_moe", moe, "warm_decode_step"),
+                           ("serve_xlstm", xlstm, "warm_decode_step")):
         eager, captured = run[key + "_eager"], run[key]
         vs = run["captured_vs_eager"]
         paths[name] = {
@@ -4647,6 +5081,9 @@ def _run_all() -> int:
     progress("serve_moe")
     moe = phase_serve_moe()
     _free()
+    progress("serve_xlstm")
+    xlstm = phase_serve_xlstm()
+    _free()
     train = phase_train()
     _free()
     train_f32 = phase_train_f32()
@@ -4656,6 +5093,8 @@ def _run_all() -> int:
     train_encoder = phase_train_encoder()
     _free()
     train_moe = phase_train_moe()
+    _free()
+    train_xlstm = phase_train_xlstm()
     _free()
     preempt = phase_preempt(train=train_hybrid)
     _free()
@@ -4677,10 +5116,12 @@ def _run_all() -> int:
     # exactly in their phases
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
             "vlm": vlm["launches"], "moe": moe["launches"],
+            "xlstm": xlstm["launches"],
             "train": train["launches"], "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
             "train_encoder": train_encoder["launches"],
             "train_moe": train_moe["launches"],
+            "train_xlstm": train_xlstm["launches"],
             "preempt": preempt["launches"], "control": control["launches"],
             "gateway": gateway["launches"]}
 
@@ -4694,6 +5135,7 @@ def _run_all() -> int:
               "hybrid": [hybrid["decode_graph"]],
               "vlm": [vlm["decode_graph"]],
               "moe": [moe["decode_graph"]],
+              "xlstm": [xlstm["decode_graph"]],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
@@ -4707,7 +5149,7 @@ def _run_all() -> int:
                         for g in gs) for run, gs in graphs.items()}
         return {run: n for run, n in got.items() if n}
 
-    emit_capture_summary(info, dense, paged, hybrid, vlm, moe)
+    emit_capture_summary(info, dense, paged, hybrid, vlm, moe, xlstm)
 
     rows = []
     for name, meta in KERNEL_META.items():
@@ -4720,6 +5162,8 @@ def _run_all() -> int:
                        "train_encoder":
                            train_encoder["launches"]["fused_adamw_f32"],
                        "train_moe": train_moe["launches"]["fused_adamw_i8"],
+                       "train_xlstm":
+                           train_xlstm["launches"]["fused_adamw_f32"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],
                        "control": control["launches"]["fused_adamw_f32"],
                        "gateway": gateway["launches"]["fused_adamw_f32"]}

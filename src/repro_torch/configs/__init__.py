@@ -1,13 +1,14 @@
 """Architecture config registry (the port's copy of ``repro.configs``).
 
 Every architecture id of the reference stays known, so an unknown name and
-a name the port has not reached yet fail differently.  The dense family
-(deepseek_7b, mistral_nemo_12b, yi_34b, starcoder2_15b), the hybrid
-family (zamba2_2p7b), the VLM (pixtral_12b), the encoder (hubert_xlarge)
-and the moe family (deepseek_v2_236b with MLA attention,
-llama4_maverick_400b) are ported: ``get()``/``get_smoke()`` of any other
-arch (the xlstm family) raises ``NotImplementedError`` naming its
-family.
+a name the port has not reached yet fail differently.  Every family is
+ported: the dense family (deepseek_7b, mistral_nemo_12b, yi_34b,
+starcoder2_15b), the hybrid family (zamba2_2p7b), the VLM (pixtral_12b),
+the encoder (hubert_xlarge), the moe family (deepseek_v2_236b with MLA
+attention, llama4_maverick_400b) and the xlstm family (xlstm_350m).  An
+arch listed in ``_NOT_PORTED`` would make ``get()``/``get_smoke()``
+raise ``NotImplementedError`` naming its family (none is listed now; the
+gateway answers such an arch with a 501).
 """
 from __future__ import annotations
 
@@ -43,9 +44,7 @@ _ALIASES = {
 }
 
 #: arch id -> family, for the archs whose family is not ported yet
-_NOT_PORTED: Dict[str, str] = {
-    "xlstm_350m": "xlstm",
-}
+_NOT_PORTED: Dict[str, str] = {}
 
 
 def canonical(name: str) -> str:

@@ -22,7 +22,11 @@ no decode path (the launcher refuses to serve it, as the reference's
 does).  The moe family trains (MLA's flash backward at head dim 192) and
 serves on the dense plane (its decode captured as the dense family's),
 and llama4 (GQA) on the paged plane too; MLA's compressed cache does not
-page (the reference's ``ValueError``).
+page (the reference's ``ValueError``).  The xlstm family trains, and
+serves on the dense plane only (its recurrent state does not page, the
+reference's ``ValueError``): its cache is the mLSTM and sLSTM states
+(tuples, as the reference's), updated in place by the captured decode
+step and carried through a suspend and resume like any cache.
 
 One departure from the reference: after a prefill the reference sets
 ``cache_len`` to ``tokens.shape[1]`` (``repro/core/runtime.py``'s

@@ -56,10 +56,11 @@ where the session left off instead of replaying or skipping events.
 
 This module is a twin of the JAX package's ``gateway/handlers.py``, not a
 copy: it imports the port's modules, and ``parse_job`` answers an arch
-whose model family the port has not ported yet (``configs.get`` raises
-``NotImplementedError`` for it: today the xlstm family) with a
-501 that names the family, where the reference, which has every family,
-never meets that error.  Without
+whose model family the port has not ported (``configs.get`` raises
+``NotImplementedError`` for an arch listed in ``configs._NOT_PORTED``;
+none is listed now that every family is ported) with a 501 that names
+the family, where the reference, which has every family, never meets
+that error.  Without
 it the error would reach the server's catch-all and come back as a 500.
 Everything else is the reference's, line for line.
 """

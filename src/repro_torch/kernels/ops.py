@@ -10,8 +10,9 @@ Each op with a kernel has two implementations:
 ``impl="auto"`` mirrors ``repro.kernels.ops._use_pallas``: the kernel for a
 CUDA tensor, the plain version for a CPU tensor.  ``impl="kernel"`` on a
 CPU tensor raises.  ``impl="torch"`` is the plain version on any device;
-the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``
-and ``ssd_decode_step`` never had a TPU kernel and are plain PyTorch only.
+the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``,
+``ssd_decode_step``, ``mlstm_scan`` and ``mlstm_decode_step`` never had a
+TPU kernel and are plain PyTorch only.
 
 Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
 backward is the flash backward (the counterpart of the custom VJP
@@ -29,6 +30,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adamw as _fo
@@ -263,3 +265,110 @@ def ssd_decode_step(x, dt, A, B, C, D, h):
     y = (torch.einsum("bn,bhpn->bhp", C.float(), h)
          + xf * D[None, :, None])
     return y.to(x.dtype), h
+
+
+# ===========================================================================
+# mLSTM chunked scan (xLSTM matrix memory)
+# ===========================================================================
+
+def mlstm_scan(q, k, v, i_gate, f_gate, *, chunk: int = 256, carry=None,
+               impl: str = "auto"):
+    """Chunkwise-parallel stabilized mLSTM.  Shapes as in
+    ``ref.mlstm_scan``; ``carry`` is (C, n, m) or None (zeros, m = -inf).
+
+    Returns (h in q's dtype, the fp32 (C, n, m)).  Matches the sequential
+    reference (the same running-max stabilizer).  The reference has no
+    TPU kernel for it (a single ``jnp`` implementation), so neither does
+    the port: ``impl`` is taken for the other ops' signature and
+    ignored."""
+    del impl
+    return _mlstm_scan_body(q, k, v, i_gate, f_gate, chunk=chunk,
+                            carry=carry)
+
+
+def _mlstm_scan_body(q, k, v, i_gate, f_gate, *, chunk, carry):
+    B, H, S, Dk = q.shape
+    Dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(Dk)
+    Q = min(chunk, S)
+    Sp = -(-S // Q) * Q
+    pad = Sp - S
+    f32, dev = torch.float32, q.device
+
+    def pad_s(t):
+        return F.pad(t.float(), (0, 0, 0, pad))
+
+    qf, kf, vf = pad_s(q), pad_s(k), pad_s(v)
+    # padded positions write nothing (i = NEG_INF) and decay nothing
+    # (f = 80: log f ~ 0), so the running max and the carry pass through
+    igf = F.pad(i_gate.float(), (0, pad), value=NEG_INF)
+    fgf = F.pad(f_gate.float(), (0, pad), value=80.0)
+
+    if carry is None:
+        C = torch.zeros((B, H, Dk, Dv), dtype=f32, device=dev)
+        n = torch.zeros((B, H, Dk), dtype=f32, device=dev)
+        m = torch.full((B, H), float("-inf"), dtype=f32, device=dev)
+    else:
+        C, n, m = (c.float() for c in carry)
+
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
+    # the chunks as ``split`` views: their backward concatenates the
+    # chunks' gradients once (a slice's writes a zero tensor of the whole
+    # sequence for each chunk)
+    chunks = zip(*(t.split(Q, dim=2) for t in (qf, kf, vf, igf, fgf)))
+    hs = []
+    for q_c, k_c, v_c, i_c, f_c in chunks:               # gates (B, H, Q)
+        logf = F.logsigmoid(f_c)
+        G = torch.cumsum(logf, dim=-1)     # local cumulative log forget
+        # D_local[t, j] = G_t - G_j + i_j for j <= t
+        d_loc = G[..., :, None] - G[..., None, :] + i_c[..., None, :]
+        d_loc = torch.where(tri, d_loc, float("-inf"))
+        # running max m_t = max(m_prev + G_t, max_{j<=t} d_loc[t, j]): row
+        # t already holds every j <= t with its decay, so the row max is
+        # the whole local running max (a cummax over rows would mix in
+        # stale, undecayed values).  torch.maximum and amax split the
+        # gradient at ties as jnp.maximum and jnp.max do.
+        m_t = torch.maximum(m[..., None] + G, d_loc.amax(dim=-1))
+        # intra-chunk scores
+        s = torch.einsum("bhqd,bhjd->bhqj", q_c, k_c) * scale
+        w = torch.where(tri, torch.exp(d_loc - m_t[..., None]), 0.0)
+        sw = s * w
+        num_i = sw @ v_c
+        den_i = sw.sum(-1)
+        # inter-chunk: decay from the carry
+        inter_w = torch.exp(m[..., None] + G - m_t)            # (B, H, Q)
+        num_x = (q_c @ C) * scale * inter_w[..., None]
+        den_x = torch.einsum("bhk,bhqk->bhq", n, q_c) * scale * inter_w
+        den = torch.maximum(torch.abs(den_i + den_x), torch.exp(-m_t))
+        hs.append((num_i + num_x) / den[..., None])
+        # carry update at the chunk's end, with m_end
+        m_end = m_t[..., -1]
+        cw = torch.exp(G[..., -1:] - G + i_c - m_end[..., None])  # (B,H,Q)
+        decay = torch.exp(m + G[..., -1] - m_end)
+        C = (C * decay[..., None, None]
+             + (k_c * cw[..., None]).transpose(-1, -2) @ v_c)
+        n = n * decay[..., None] + torch.einsum("bhq,bhqk->bhk", cw, k_c)
+        m = m_end
+    h = torch.cat(hs, dim=2)[:, :, :S]
+    return h.to(q.dtype), (C, n, m)
+
+
+def mlstm_decode_step(q, k, v, i_gate, f_gate, carry):
+    """Single-token mLSTM update.  q, k: (B, H, Dk); v: (B, H, Dv); gates:
+    (B, H); carry (C, n, m).  Returns (h in q's dtype, the new fp32
+    carry)."""
+    C, n, m = carry
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    ig = i_gate.float()
+    logf = F.logsigmoid(f_gate.float())
+    m_new = torch.maximum(logf + m, ig)
+    fg = torch.exp(logf + m - m_new)
+    ig = torch.exp(ig - m_new)
+    kf, vf, qf = k.float(), v.float(), q.float()
+    C = (C * fg[..., None, None]
+         + ig[..., None, None] * (kf[..., :, None] * vf[..., None, :]))
+    n = n * fg[..., None] + ig[..., None] * kf
+    num = torch.einsum("bhkv,bhk->bhv", C, qf) * scale
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qf)) * scale,
+                        torch.exp(-m_new))
+    return (num / den[..., None]).to(q.dtype), (C, n, m_new)

@@ -1,5 +1,6 @@
 """Naive oracles for the tests (the port's counterpart of
-``repro.kernels.ref``'s ``attention``, ``rmsnorm`` and ``ssd_scan``): O(S^2)
+``repro.kernels.ref``'s ``attention``, ``rmsnorm``, ``ssd_scan`` and
+``mlstm_scan``): O(S^2)
 memory or one step at a time, numerically straightforward, fully masked
 rows give NaN as in the reference."""
 from __future__ import annotations
@@ -8,6 +9,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
@@ -58,3 +60,43 @@ def ssd_scan(x, dt, A, B, C, D, *, h0=None):
         ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
     y = torch.stack(ys, 1) + xf * D[None, None, :, None]
     return y.to(x.dtype), h
+
+
+def mlstm_scan(q, k, v, i_gate, f_gate, *, c0=None, n0=None, m0=None):
+    """Sequential (ground-truth) mLSTM recurrence with log-domain
+    stabilization.
+
+    q, k: (B, H, S, Dk); v: (B, H, S, Dv); i_gate, f_gate: (B, H, S)
+    pre-activations.  C_t = f C_{t-1} + i v k^T; n_t = f n + i k;
+    h = (C q) / max(|n.q|, 1), stabilized with m_t = max(log f + m_{t-1},
+    log i).  Returns h (B, H, S, Dv) in q's dtype and the fp32 final
+    (C, n, m)."""
+    B, H, S, Dk = q.shape
+    Dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(Dk)
+    f32, dev = torch.float32, q.device
+    C = (torch.zeros((B, H, Dk, Dv), dtype=f32, device=dev) if c0 is None
+         else c0.float())
+    n = (torch.zeros((B, H, Dk), dtype=f32, device=dev) if n0 is None
+         else n0.float())
+    m = (torch.full((B, H), float("-inf"), dtype=f32, device=dev)
+         if m0 is None else m0.float())
+    qf, kf, vf = q.float(), k.float(), v.float()
+    igf, fgf = i_gate.float(), f_gate.float()
+    hs = []
+    for t in range(S):
+        q_t, k_t, v_t = qf[:, :, t], kf[:, :, t], vf[:, :, t]
+        logf = F.logsigmoid(fgf[:, :, t])                     # (B, H)
+        m_new = torch.maximum(logf + m, igf[:, :, t])
+        fg = torch.exp(logf + m - m_new)
+        ig = torch.exp(igf[:, :, t] - m_new)
+        C = (C * fg[..., None, None]
+             + ig[..., None, None] * (k_t[..., :, None] * v_t[..., None, :]))
+        n = n * fg[..., None] + ig[..., None] * k_t
+        num = torch.einsum("bhkv,bhk->bhv", C, q_t) * scale
+        den = torch.maximum(
+            torch.abs(torch.einsum("bhk,bhk->bh", n, q_t)) * scale,
+            torch.exp(-m_new))
+        hs.append(num / den[..., None])
+        m = m_new
+    return torch.stack(hs, 2).to(q.dtype), (C, n, m)

@@ -15,7 +15,9 @@ eighth of the prompt) followed by text tokens, so the prefill's tokens a
 second count the patch positions, and decoding starts after both.
 ``--arch deepseek_v2_236b`` serves the moe family with MLA attention
 (its absorbed decode scores against the compressed cache) and
-``--arch llama4_maverick_400b`` the moe family with GQA.  An encoder
+``--arch llama4_maverick_400b`` the moe family with GQA.  ``--arch
+xlstm_350m`` serves the xlstm family: its cache holds the mLSTM and
+sLSTM states, not K/V, and each decode step updates them.  An encoder
 (``--arch hubert_xlarge``) has no decode path and is refused.
 
 ``run(args, cfg)`` serves a config the caller made (one cut in depth,

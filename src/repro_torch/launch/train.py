@@ -15,7 +15,8 @@ Checkpoints: with ``--ckpt-dir`` the block saves asynchronously every
 ``--resume`` restores the latest one and trains on to ``--steps``.
 
 ``--arch deepseek_v2_236b`` and ``--arch llama4_maverick_400b`` train the
-moe family (the loss plus the router's aux loss).  ``run(args, cfg)``
+moe family (the loss plus the router's aux loss), ``--arch xlstm_350m``
+the xlstm family (mLSTM and sLSTM blocks).  ``run(args, cfg)``
 trains a config the caller made (one cut in depth, say) with the flags'
 batch and optimizer, ``run(args, cfg, state_bits=8)`` with int8 AdamW
 moments; ``config(args)`` is the one the flags name.

@@ -1,15 +1,16 @@
-"""Recurrent sequence-mixing blocks: Mamba2 (SSD).  The port of
-``repro.models.ssm`` for the hybrid family (mLSTM and sLSTM come with the
-xLSTM family).
+"""Recurrent sequence-mixing blocks: Mamba2 (SSD), mLSTM and sLSTM
+(xLSTM).  The port of ``repro.models.ssm``.
 
-The block exposes:
-  mamba2_init(gen, d_model, cfg, dtype, device) -> params
-  mamba2_fwd(p, x, cfg, d_model, *, state=None) -> (y, state)
-  mamba2_state_spec(cfg, d_model, batch, dtype) -> {name: (shape, dtype)}
+Each block exposes:
+  *_init(gen, d_model, cfg, dtype, device)    -> params
+  *_fwd(p, x, cfg, d_model, *, state=None)    -> (y, state)
+  *_state_spec(cfg, d_model, batch[, dtype])  -> tree of (shape, dtype)
 
 ``state=None`` means full-sequence (train/prefill) mode starting from
 zeros; passing a state runs from it and writes the updated one back into
-it, in place (decode passes S=1).
+it, in place (decode passes S=1).  The xLSTM states hold tuples, as the
+reference's: the mLSTM's ``{"conv", "mlstm": (C, n, m)}`` and the
+sLSTM's ``{"slstm": (h, c, n, m)}``; their tensors are written in place.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.config import SSMConfig
+from repro_torch.models.config import SSMConfig, XLSTMConfig
 from repro_torch.models.layers import _he
 
 
@@ -114,3 +115,170 @@ def mamba2_state_spec(cfg: SSMConfig, d_model: int, batch: int,
     di, H, N = _dims(cfg, d_model)
     return {"conv": ((batch, cfg.conv_width - 1, di + 2 * N), dtype),
             "ssm": ((batch, H, cfg.head_dim, N), torch.float32)}
+
+
+# ===========================================================================
+# mLSTM block (xLSTM)
+# ===========================================================================
+
+#: the mLSTM's causal conv width (its decode state keeps the last 3 inputs)
+MLSTM_CONV_WIDTH = 4
+
+
+def _mlstm_dims(d_model: int, cfg: XLSTMConfig):
+    inner = int(cfg.proj_factor * d_model)
+    qk_total = int(cfg.qk_factor * inner)
+    H = cfg.n_heads
+    return inner, qk_total // H, inner // H, H   # inner, Dk, Dv, H
+
+
+def mlstm_init(gen, d_model: int, cfg: XLSTMConfig, dtype, device):
+    inner, Dk, Dv, H = _mlstm_dims(d_model, cfg)
+    return {
+        "w_up": _he(gen, (d_model, 2 * inner), dtype, device),
+        "conv_w": _he(gen, (MLSTM_CONV_WIDTH, inner), dtype, device,
+                      fan_in=MLSTM_CONV_WIDTH),
+        "wq": _he(gen, (inner, H * Dk), dtype, device, fan_in=inner),
+        "wk": _he(gen, (inner, H * Dk), dtype, device, fan_in=inner),
+        "wv": _he(gen, (inner, H * Dv), dtype, device, fan_in=inner),
+        "w_if": _he(gen, (inner, 2 * H), dtype, device, fan_in=inner),
+        "out_norm": torch.ones((inner,), dtype=dtype, device=device),
+        "w_down": _he(gen, (inner, d_model), dtype, device, fan_in=inner),
+    }
+
+
+def mlstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
+              impl: str = "auto"):
+    B, S, _ = x.shape
+    inner, Dk, Dv, H = _mlstm_dims(d_model, cfg)
+    up = x @ p["w_up"]
+    xm, z = up[..., :inner], up[..., inner:]
+    conv_tail = None if state is None else state["conv"]
+    xc, new_tail = causal_conv(xm, p["conv_w"], conv_tail)
+    xc = F.silu(xc)
+    q = (xc @ p["wq"]).reshape(B, S, H, Dk).transpose(1, 2)
+    k = (xc @ p["wk"]).reshape(B, S, H, Dk).transpose(1, 2)
+    v = (xm @ p["wv"]).reshape(B, S, H, Dv).transpose(1, 2)
+    gates = (xc @ p["w_if"]).reshape(B, S, 2, H)
+    ig = gates[:, :, 0].transpose(1, 2)      # (B, H, S)
+    fg = gates[:, :, 1].transpose(1, 2)
+
+    carry = None if state is None else state["mlstm"]
+    if S == 1 and state is not None:
+        h, new_carry = ops.mlstm_decode_step(q[:, :, 0], k[:, :, 0],
+                                             v[:, :, 0], ig[:, :, 0],
+                                             fg[:, :, 0], carry)
+        h = h[:, :, None]
+    else:
+        h, new_carry = ops.mlstm_scan(q, k, v, ig, fg, chunk=cfg.chunk,
+                                      carry=carry, impl=impl)
+    h = h.transpose(1, 2).reshape(B, S, inner)
+    h = ops.rmsnorm(h, p["out_norm"], impl=impl) * F.silu(z)
+    out = h @ p["w_down"]
+    if state is None:
+        return out, {"conv": new_tail, "mlstm": new_carry}
+    state["conv"].copy_(new_tail)
+    for dst, src in zip(state["mlstm"], new_carry):
+        dst.copy_(src)
+    return out, state
+
+
+def mlstm_state_spec(cfg: XLSTMConfig, d_model: int, batch: int,
+                     dtype=torch.bfloat16):
+    """The decode state's shapes and dtypes.  As for Mamba2's, the conv
+    tail takes ``dtype`` (the param dtype), where the reference's is bf16
+    whatever the model's dtype and its prefill hands back one in the
+    compute dtype."""
+    inner, Dk, Dv, H = _mlstm_dims(d_model, cfg)
+    f32 = torch.float32
+    return {"conv": ((batch, MLSTM_CONV_WIDTH - 1, inner), dtype),
+            "mlstm": (((batch, H, Dk, Dv), f32), ((batch, H, Dk), f32),
+                      ((batch, H), f32))}
+
+
+# ===========================================================================
+# sLSTM block (xLSTM scalar memory, true recurrence)
+# ===========================================================================
+
+#: the dtype each step's h is kept in before the output norm: bf16, as the
+#: reference stacks it, whatever the model's dtype
+SLSTM_STACK_DTYPE = torch.bfloat16
+
+def slstm_init(gen, d_model: int, cfg: XLSTMConfig, dtype, device):
+    """The reference draws ``w_ff_gate`` and ``w_ff_up`` from one key, so
+    the two start equal; here each has its own draw."""
+    H = cfg.n_heads
+    Dh = d_model // H
+    ff = int(d_model * 4 / 3)
+    return {
+        "w_gates": _he(gen, (d_model, 4 * d_model), dtype, device),  # z i f o
+        "r_gates": _he(gen, (H, Dh, 4 * Dh), dtype, device,
+                       fan_in=Dh),                                # block-diag
+        "out_norm": torch.ones((d_model,), dtype=dtype, device=device),
+        "w_ff_gate": _he(gen, (d_model, ff), dtype, device),
+        "w_ff_up": _he(gen, (d_model, ff), dtype, device),
+        "w_ff_down": _he(gen, (ff, d_model), dtype, device, fan_in=ff),
+    }
+
+
+def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
+              impl: str = "auto"):
+    """The recurrence runs one position at a time, as the reference's
+    ``lax.scan``, with the heads leading ((H, B, Dh)) so the recurrent
+    product is one ``bmm`` a step.  Each step's h is kept in
+    ``SLSTM_STACK_DTYPE`` (bf16, as the reference stacks it).  The
+    steps' gates are ``unbind`` views, whose backward stacks the steps'
+    gradients once (indexing ``gates_x[t]`` would write a zero tensor of
+    every step's gates for each step)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    Dh = d_model // H
+    f32 = torch.float32
+    # S steps of (4, H, B, Dh) gates, each contiguous
+    gates_x = (x @ p["w_gates"]).reshape(B, S, 4, H, Dh).float().permute(
+        1, 2, 3, 0, 4).contiguous().unbind(0)
+    if state is None:
+        h = torch.zeros((H, B, Dh), dtype=f32, device=x.device)
+        c = torch.zeros_like(h)
+        n = torch.ones_like(h)
+        m = torch.zeros_like(h)
+    else:
+        h, c, n, m = (t.float().transpose(0, 1) for t in state["slstm"])
+    r = p["r_gates"].float()                            # (H, Dh, 4 Dh)
+    # torch.maximum against a tensor splits the gradient at a tie, as
+    # jnp.maximum does (clamp_min would give it all to |n|)
+    one = torch.ones((), dtype=f32, device=x.device)
+    hs = []
+    for gx in gates_x:
+        rec = torch.bmm(h, r).view(H, B, 4, Dh).permute(2, 0, 1, 3)
+        g = gx + rec                                    # (4, H, B, Dh)
+        z_t = torch.tanh(g[0])
+        i_t = g[1]
+        o_t = torch.sigmoid(g[3])
+        logf_m = F.logsigmoid(g[2]) + m
+        m_new = torch.maximum(logf_m, i_t)
+        i_p = torch.exp(i_t - m_new)
+        f_p = torch.exp(logf_m - m_new)
+        c = f_p * c + i_p * z_t
+        n = f_p * n + i_p
+        h = o_t * c / torch.maximum(torch.abs(n), one)
+        m = m_new
+        hs.append(h.to(SLSTM_STACK_DTYPE))
+    # (S, H, B, Dh) -> (B, S, H * Dh)
+    y = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, d_model).to(
+        x.dtype)
+    y = ops.rmsnorm(y, p["out_norm"], impl=impl)
+    ff = F.silu(y @ p["w_ff_gate"]) * (y @ p["w_ff_up"])
+    out = ff @ p["w_ff_down"]
+    new = tuple(t.transpose(0, 1) for t in (h, c, n, m))
+    if state is None:
+        return out, {"slstm": new}
+    for dst, src in zip(state["slstm"], new):
+        dst.copy_(src)
+    return out, state
+
+
+def slstm_state_spec(cfg: XLSTMConfig, d_model: int, batch: int):
+    H = cfg.n_heads
+    s = ((batch, H, d_model // H), torch.float32)
+    return {"slstm": (s, s, s, s)}

@@ -1,5 +1,5 @@
-"""Stack assembly for the dense, VLM, encoder, moe and hybrid families (the
-port of ``repro.models.transformer``; xlstm comes with a later slice).
+"""Stack assembly for every architecture family (the port of
+``repro.models.transformer``).
 
 The stack is a repeated *group* of sublayers with every parameter leaf
 stacked ``(n_groups, ...)``, as in the JAX tree, so params move across
@@ -12,6 +12,11 @@ leaf for leaf:
                 attention), or [attn + mlp, attn + moe] (llama4-maverick:
                 dense and MoE layers alternating; the tree's
                 ``{"dense", "moe"}`` halves, and the cache's)
+  xlstm       : group = [mLSTM x (k-1), sLSTM x 1]  (xlstm_350m; the
+                mLSTM leaves are stacked ``(n_groups, k-1, ...)``, the
+                sLSTM's ``(n_groups, ...)``; no attention and no KV cache:
+                the cache holds the recurrent states, the reference's
+                tuples among them)
   hybrid      : group = [mamba2 x m, shared-attn + mlp]  (zamba2; the
                 mamba leaves are stacked ``(n_groups, m, ...)``, the
                 attention block's params live once in ``params["extra"]``
@@ -24,11 +29,12 @@ the token embeddings; ``"frame"`` (the encoder) projects precomputed
 audio frames with ``frame_proj``, puts ``mask_embed`` at the masked
 frames, and has no embedding table.
 
-Where the reference scans the groups (and a group's Mamba2 sublayers)
-with ``lax.scan``, ``forward`` loops over them in Python.  Each stacked
-param leaf is ``torch.unbind`` once per forward, so under autograd its
-backward stacks the group gradients once (indexing ``leaf[g]`` per group
-would write a zero tensor the size of the whole stack for every group).
+Where the reference scans the groups (and a group's Mamba2 or mLSTM
+sublayers) with ``lax.scan``, ``forward`` loops over them in Python.
+Each stacked param leaf is ``torch.unbind`` once per forward, so under
+autograd its backward stacks the group gradients once (indexing
+``leaf[g]`` per group would write a zero tensor the size of the whole
+stack for every group).
 With ``cfg.remat == "full"`` and gradients on, each group runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward, as the
 reference wraps its scan body in ``jax.checkpoint``.  ``Transformer`` is
@@ -51,7 +57,7 @@ from repro_torch.models.layers import (_randn, apply_norm, attention_fwd,
                                        paged_attention_fwd, _he)
 from repro_torch.models.moe import moe_fwd, moe_init
 
-PORTED_FAMILIES = ("dense", "hybrid", "vlm", "encoder", "moe")
+PORTED_FAMILIES = ("dense", "hybrid", "vlm", "encoder", "moe", "xlstm")
 
 
 def _require_ported(cfg: ModelConfig) -> None:
@@ -66,6 +72,8 @@ def _require_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def group_size(cfg: ModelConfig) -> int:
+    if cfg.family == "xlstm":
+        return cfg.xlstm.slstm_every
     if cfg.family == "hybrid":
         return cfg.hybrid.mamba_per_group + 1
     if cfg.family == "moe" and cfg.d_ff > 0:
@@ -133,26 +141,41 @@ def _moe_sublayer_init(gen, cfg: ModelConfig, dtype, device):
     }
 
 
+def _stacked(make, m: int, device):
+    """``m`` sublayers' params from ``make()``, stacked (m, ...)."""
+    stack = None
+    for i in range(m):
+        lp = make()
+        if stack is None:
+            stack = _empty_stack(lp, m, device)
+        _put(stack, lp, i)
+    return stack
+
+
 def group_init(gen, cfg: ModelConfig, dtype, device):
     """One group's params: a dense sublayer, a MoE sublayer (after a dense
-    one when ``d_ff > 0``), or the hybrid's Mamba2 sublayers stacked
-    (m, ...)."""
+    one when ``d_ff > 0``), the xlstm's mLSTM sublayers stacked (k-1, ...)
+    and its sLSTM, or the hybrid's Mamba2 sublayers stacked (m, ...)."""
     if cfg.family == "moe":
         if cfg.d_ff > 0:
             return {"dense": _dense_sublayer_init(gen, cfg, dtype, device),
                     "moe": _moe_sublayer_init(gen, cfg, dtype, device)}
         return _moe_sublayer_init(gen, cfg, dtype, device)
+
+    def sublayer(init, blk_cfg):
+        return lambda: {"ln": norm_init(cfg.d_model, cfg.norm, dtype,
+                                        device),
+                        "blk": init(gen, cfg.d_model, blk_cfg, dtype,
+                                    device)}
+
+    if cfg.family == "xlstm":
+        return {"mlstm": _stacked(sublayer(ssm.mlstm_init, cfg.xlstm),
+                                  cfg.xlstm.slstm_every - 1, device),
+                "slstm": sublayer(ssm.slstm_init, cfg.xlstm)()}
     if cfg.family != "hybrid":
         return _dense_sublayer_init(gen, cfg, dtype, device)
-    m, stack = cfg.hybrid.mamba_per_group, None
-    for i in range(m):
-        lp = {"ln": norm_init(cfg.d_model, cfg.norm, dtype, device),
-              "blk": ssm.mamba2_init(gen, cfg.d_model, cfg.ssm, dtype,
-                                     device)}
-        if stack is None:
-            stack = _empty_stack(lp, m, device)
-        _put(stack, lp, i)
-    return {"mamba": stack}
+    return {"mamba": _stacked(sublayer(ssm.mamba2_init, cfg.ssm),
+                              cfg.hybrid.mamba_per_group, device)}
 
 
 def shared_extra_init(gen, cfg: ModelConfig, dtype, device):
@@ -210,6 +233,20 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
     """Returns (x, aux, new_cache).  ``cache`` is this group's cache (or
     None), updated in place."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "xlstm":
+        n_m = cfg.xlstm.slstm_every - 1
+        for i, lp in enumerate(_unbind(gp["mlstm"], n_m)):
+            st = None if cache is None else _index(cache["mlstm"], i)
+            h = apply_norm(lp["ln"], x, cfg.norm, impl=impl)
+            y, _ = ssm.mlstm_fwd(lp["blk"], h, cfg.xlstm, cfg.d_model,
+                                 state=st, impl=impl)
+            x = x + y
+        sp = gp["slstm"]
+        h = apply_norm(sp["ln"], x, cfg.norm, impl=impl)
+        y, _ = ssm.slstm_fwd(sp["blk"], h, cfg.xlstm, cfg.d_model,
+                             state=None if cache is None else cache["slstm"],
+                             impl=impl)
+        return x + y, aux, cache
     if cfg.family == "hybrid":
         n_m = cfg.hybrid.mamba_per_group
         for i, lp in enumerate(_unbind(gp["mamba"], n_m)):
@@ -268,15 +305,56 @@ def _attn_cache_init(cfg: ModelConfig, lead, device):
                              device=device)}
 
 
+def _zeros(spec, lead, device):
+    """Zeros shaped ``lead + shape`` for each (shape, dtype) of a state
+    spec, in its dicts and tuples."""
+    if isinstance(spec, dict):
+        return {k: _zeros(v, lead, device) for k, v in spec.items()}
+    if not isinstance(spec[1], torch.dtype):
+        return tuple(_zeros(s, lead, device) for s in spec)
+    shape, dtype = spec
+    return torch.zeros(lead + shape, dtype=dtype, device=device)
+
+
+def _xlstm_cache_init(cfg: ModelConfig, batch: int, device):
+    """{"mlstm": {"conv", "mlstm": (C, n, m)} stacked (n_groups, k-1,
+    ...), "slstm": {"slstm": (h, c, n, m)} stacked (n_groups, ...)}, as
+    the reference's: the mLSTM's carry from ``_mlstm_zero_carry``, the
+    sLSTM's n from ones."""
+    ng, dt = n_groups(cfg), _dtype(cfg)
+    lead = (ng, cfg.xlstm.slstm_every - 1)
+    spec = ssm.mlstm_state_spec(cfg.xlstm, cfg.d_model, batch, dt)
+    mlstm = {"conv": _zeros(spec["conv"], lead, device),
+             "mlstm": _mlstm_zero_carry(cfg, lead + (batch,), device)}
+    slstm = _zeros(ssm.slstm_state_spec(cfg.xlstm, cfg.d_model, batch),
+                   (ng,), device)
+    slstm["slstm"][2].fill_(1.0)
+    return {"mlstm": mlstm, "slstm": slstm}
+
+
+def _mlstm_zero_carry(cfg: ModelConfig, lead, device):
+    """(C, n, m) with leading dims ``lead``: zeros, and m = -inf."""
+    _, Dk, Dv, H = ssm._mlstm_dims(cfg.d_model, cfg.xlstm)
+    f32 = torch.float32
+    return (torch.zeros(lead + (H, Dk, Dv), dtype=f32, device=device),
+            torch.zeros(lead + (H, Dk), dtype=f32, device=device),
+            torch.full(lead + (H,), float("-inf"), dtype=f32,
+                       device=device))
+
+
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
     """Stacked (n_groups, ...) cache: the dense family's (and the VLM's)
     KV cache; the moe family's, MLA's compressed {"c_kv", "k_rope"} or,
-    with dense layers between, {"dense": kv, "moe": kv}; or the hybrid's
-    {"mamba": {"conv", "ssm"} stacked (n_groups, m, ...), "attn": {"k",
-    "v"}}; None for the encoder, which does not decode."""
+    with dense layers between, {"dense": kv, "moe": kv}; the xlstm's
+    recurrent states (``_xlstm_cache_init``; no KV cache, so ``smax`` is
+    unused); or the hybrid's {"mamba": {"conv", "ssm"} stacked (n_groups,
+    m, ...), "attn": {"k", "v"}}; None for the encoder, which does not
+    decode."""
     dt, ng = _dtype(cfg), n_groups(cfg)
     if cfg.family == "encoder":
         return None
+    if cfg.family == "xlstm":
+        return _xlstm_cache_init(cfg, batch, device)
     kv = _attn_cache_init(cfg, (ng, batch, smax), device)
     if cfg.family == "moe" and cfg.d_ff > 0:
         return {"dense": _attn_cache_init(cfg, (ng, batch, smax), device),
@@ -285,9 +363,7 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
         return kv
     lead = (ng, cfg.hybrid.mamba_per_group)
     spec = ssm.mamba2_state_spec(cfg.ssm, cfg.d_model, batch, dt)
-    return {"mamba": {k: torch.zeros(lead + shape, dtype=d, device=device)
-                      for k, (shape, d) in spec.items()},
-            "attn": kv}
+    return {"mamba": _zeros(spec, lead, device), "attn": kv}
 
 
 def check_paged_support(cfg: ModelConfig) -> None:
@@ -434,9 +510,12 @@ def _train_group(gp, x, cfg, positions, extra, impl):
 
 
 def _index(tree, g: int):
-    """View of group ``g`` of a stacked tree (writes go to the stack)."""
+    """View of group ``g`` of a stacked tree, in its dicts and tuples
+    (writes go to the stack)."""
     if isinstance(tree, dict):
         return {k: _index(v, g) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_index(v, g) for v in tree)
     return tree[g]
 
 
@@ -452,16 +531,22 @@ def _unbind(tree, n: int):
 # ---------------------------------------------------------------------------
 
 def flatten(tree, prefix: str = ""):
-    """[(path, leaf)] of a nested dict, paths joined with '/'."""
+    """[(path, leaf)] of a nested dict, paths joined with '/', in
+    ``jax.tree`` order; a tuple's items (the xlstm cache's) are walked in
+    order, their paths ending in the index."""
     out = []
-    for k in sorted(tree):
-        v = tree[k]
-        path = f"{prefix}/{k}" if prefix else k
-        out.extend(flatten(v, path) if isinstance(v, dict) else [(path, v)])
+    items = (sorted(tree.items()) if isinstance(tree, dict)
+             else enumerate(tree))
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        out.extend(flatten(v, path) if isinstance(v, (dict, tuple))
+                   else [(path, v)])
     return out
 
 
 def unflatten(pairs) -> Dict[str, Any]:
+    """The nested dict of ``flatten``'s pairs (a param tree: no
+    tuples)."""
     tree: Dict[str, Any] = {}
     for path, leaf in pairs:
         *parents, last = path.split("/")

@@ -9,11 +9,12 @@ accumulation) waits for the multi-GPU slices and raises here.  Every
 ported family trains: the dense GQA decoder, the VLM (next-token loss on
 the text after the patches), the encoder (masked-frame loss,
 bidirectional attention), the hybrid (Mamba2 + shared attention, whose
-SSD scan has its backward kernel) and the moe family (the loss plus the
+SSD scan has its backward kernel), the moe family (the loss plus the
 router's aux loss; MLA's flash backward at head dim 192; each
 microbatch's capacity from its own token count, as the reference's
-per-call capacity); the others are refused where the model is built
-(``transformer._require_ported``).
+per-call capacity) and the xlstm family (its mLSTM chunked scan and
+sLSTM recurrence in plain PyTorch under autograd, as the reference has
+no kernel for them; its RMSNorms are the kernel's).
 """
 from __future__ import annotations
 

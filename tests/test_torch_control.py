@@ -5,8 +5,10 @@
   ``test_engine.py``, ``test_preemption.py``) with every name it takes
   from ``repro`` bound to the port's object of the same name, and the
   devices the port's (``"cpu"`` per chip).  The preemption tests that
-  build real blocks (an xLSTM, which the port lacks) are written out
-  below with deepseek_7b's smoke config.
+  build real blocks (the reference's build an xLSTM) are written out
+  below, each on xlstm_350m's smoke config and on deepseek_7b's, and so
+  is the scheduler's chip-failure case (``tests/test_scheduler.py``'s
+  ``test_inject_chip_failure_recovers_block``).
 * **Parity**: one deterministic script, on the model clock, run on both
   daemons with ``SimJobSpec`` blocks gives the same event stream.
 * **A real block through both daemons**: deepseek_7b's smoke config
@@ -121,7 +123,8 @@ def twins(ref, **helpers):
 
 
 #: the reference preemption tests that build real (xLSTM) blocks: their
-#: twins, on deepseek_7b's smoke config, are written out below
+#: twins, on xlstm_350m's and deepseek_7b's smoke configs, are written
+#: out below
 REAL_BLOCK_TESTS = ("test_suspend_resume_bit_identical_params",
                     "test_resume_is_a_compile_cache_hit",
                     "test_serve_block_suspend_resume_keeps_decode_context",
@@ -158,6 +161,9 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k])
+    elif isinstance(tree, tuple):            # the xlstm cache's states
+        for t in tree:
+            yield from _leaves(t)
     elif isinstance(tree, torch.Tensor):
         yield tree
 
@@ -177,18 +183,24 @@ def _same_bits(a, b):
         for (da, sa, x), (db, sb, y) in zip(a, b))
 
 
-def _train_job(seq_len=16, global_batch=2, microbatch=1):
+#: the real-block twins run on deepseek_7b and on xlstm_350m, the arch
+#: the reference's own cases use
+REAL_ARCHS = ("deepseek_7b", "xlstm_350m")
+
+
+def _train_job(arch, seq_len=16, global_batch=2, microbatch=1):
     shape = ShapeConfig("t", "train", seq_len=seq_len,
                         global_batch=global_batch, microbatch=microbatch)
-    return JobSpec(configs.get_smoke("deepseek_7b"), shape,
+    return JobSpec(configs.get_smoke(arch), shape,
                    opt=OptConfig(warmup_steps=1, total_steps=8))
 
 
-def test_suspend_resume_bit_identical_params(tmp_path):
+@pytest.mark.parametrize("arch", REAL_ARCHS)
+def test_suspend_resume_bit_identical_params(tmp_path, arch):
     """Preempt -> resume restores bit-identical state on the real
     runtime."""
     ctl = make_ctl(tmp_path, pod_x=2, pod_y=1)
-    a, g = ctl.submit("alice", "train", 1, job=_train_job())
+    a, g = ctl.submit("alice", "train", 1, job=_train_job(arch))
     ctl.step_all(rounds=3)
     rt = ctl.runtimes[a]
     before = _bits(rt.state)
@@ -205,14 +217,15 @@ def test_suspend_resume_bit_identical_params(tmp_path):
     assert rt.step_count == steps_before + 1
 
 
-def test_resume_is_a_compile_cache_hit(tmp_path):
+@pytest.mark.parametrize("arch", REAL_ARCHS)
+def test_resume_is_a_compile_cache_hit(tmp_path, arch):
     """Resuming on the same chips builds nothing: the rebuilt runtime's
     train step comes out of the compile cache, the Monitor counts the
     hit, and the activation attached the block's roofline, so its MFU
     reads back after two steps."""
     compile_cache.GLOBAL.clear()            # process-wide: isolate the test
     ctl = make_ctl(tmp_path, pod_x=2, pod_y=1)
-    a, g = ctl.submit("alice", "train", 1, job=_train_job())
+    a, g = ctl.submit("alice", "train", 1, job=_train_job(arch))
     ctl.step_all(rounds=2)
     first = compile_cache.GLOBAL.stats()
     assert first["misses"] >= 1 and first["hits"] == 0
@@ -240,12 +253,14 @@ def test_resume_is_a_compile_cache_hit(tmp_path):
     assert roof["blocks"][blk.block_id]["source"] == "analytic"
 
 
-def test_serve_block_suspend_resume_keeps_decode_context(tmp_path):
-    """A serve block's KV cache, token and cache_len survive preemption:
+@pytest.mark.parametrize("arch", REAL_ARCHS)
+def test_serve_block_suspend_resume_keeps_decode_context(tmp_path, arch):
+    """A serve block's cache (deepseek_7b's KV cache, xlstm's recurrent
+    states with their tuples), token and cache_len survive preemption:
     without them a restored decoder would restart from an empty cache at
     position 0."""
     ctl = make_ctl(tmp_path, pod_x=2, pod_y=1)
-    job = JobSpec(configs.get_smoke("deepseek_7b"),
+    job = JobSpec(configs.get_smoke(arch),
                   ShapeConfig("s", "serve", seq_len=16, global_batch=2,
                               microbatch=1), kind="serve")
     a, g = ctl.submit("alice", "serve", 1, job=job)
@@ -266,13 +281,14 @@ def test_serve_block_suspend_resume_keeps_decode_context(tmp_path):
     assert rt.cache_len == 4
 
 
-def test_resume_on_different_geometry(tmp_path):
+@pytest.mark.parametrize("arch", REAL_ARCHS)
+def test_resume_on_different_geometry(tmp_path, arch):
     """Suspend on a (2, 2) 4-chip grant, resume on 2 chips: the block
     keeps its id and its params bit for bit (a port block spans one
     device, here one ``"cpu"`` per chip)."""
     ctl = make_ctl(tmp_path, pod_x=4, pod_y=2)
     a, g = ctl.submit("alice", "train", 4,
-                      job=_train_job(seq_len=32, global_batch=4,
+                      job=_train_job(arch, seq_len=32, global_batch=4,
                                      microbatch=2))
     assert g.mesh_shape == (2, 2), g.mesh_shape
     ctl.step_all(rounds=2)
@@ -291,13 +307,14 @@ def test_resume_on_different_geometry(tmp_path):
     ctl.partitioner.check_invariants()
 
 
-def test_chip_failure_and_resize_rebuild_a_real_block(tmp_path):
+@pytest.mark.parametrize("arch", REAL_ARCHS)
+def test_chip_failure_and_resize_rebuild_a_real_block(tmp_path, arch):
     """The controller's other runtime paths on a torch block: a chip
     failure re-carves the block and ``BlockRuntime.rebuild`` restores its
     last checkpoint (bit for bit), and an elastic resize saves, rebuilds
     at the new size and steps on."""
     ctl = make_ctl(tmp_path, pod_x=2, pod_y=2)
-    a, g = ctl.submit("alice", "train", 2, job=_train_job())
+    a, g = ctl.submit("alice", "train", 2, job=_train_job(arch))
     ctl.step_all(rounds=2)
     rt = ctl.runtimes[a]
     rt.save(async_=False)
@@ -561,7 +578,7 @@ def test_monitor_mfu_of_a_smoke_block_after_two_steps(tmp_path):
     after two steps and is model FLOPs over the EWMA step time at the
     H100 peak."""
     ctl = make_ctl(tmp_path, pod_x=1, pod_y=1)
-    job = _train_job()
+    job = _train_job("deepseek_7b")
     a, g = ctl.submit("alice", "train", 1, job=job)
     assert ctl.monitor.mfu(g.block_id) is None
     ctl.step_all(rounds=2)

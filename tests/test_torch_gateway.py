@@ -437,20 +437,32 @@ def test_train_block_over_http_is_the_direct_run(gw, strict_json):
 
 # ======================================================= port departures
 
-def test_unported_family_answers_501_naming_it(gw):
+def test_unported_family_answers_501_naming_it(gw, monkeypatch):
     """``parse_job`` is the handler twin's one departure: an arch the
     reference accepts but whose family the port has not ported answers 501
-    with the family's name, not the server's catch-all 500."""
+    with the family's name, not the server's catch-all 500.  Every family
+    is ported now, so an xlstm submit is accepted, and the refusal is
+    shown with a stand-in entry in ``configs._NOT_PORTED`` (yi_34b marked
+    as of a family not ported)."""
     from repro.gateway.handlers import parse_job as ref_parse_job
     server, daemon = gw
     req = smoke.HttpClient(server.url).req
-    job = {"kind": "serve", "arch": "xlstm_350m"}
-    assert ref_parse_job(job).cfg.family == "xlstm"
+    xlstm = {"kind": "serve", "arch": "xlstm_350m"}
+    assert parse_job(xlstm).cfg == configs.get_smoke("xlstm_350m")
+    assert ref_parse_job(xlstm).cfg.family == "xlstm"
+    job = {"kind": "serve", "arch": "yi_34b"}
+    assert ref_parse_job(job).cfg.family == "dense"
+    monkeypatch.setitem(configs._NOT_PORTED, "yi_34b", "stand-in")
     s, e = req("POST", "/v1/submit", "tok-alice",
-               {"job_description": "xlstm", "n_chips": 1, "job": job})
-    assert s == 501 and "xlstm family" in e["error"], (s, e)
-    assert "xlstm_350m" in e["error"]
+               {"job_description": "stand-in", "n_chips": 1, "job": job})
+    assert s == 501 and "stand-in family" in e["error"], (s, e)
+    assert "yi_34b" in e["error"]
     assert daemon.list_apps() == []            # refused before submitting
+    monkeypatch.delitem(configs._NOT_PORTED, "yi_34b")
+    s, b = req("POST", "/v1/submit", "tok-alice",
+               {"job_description": "xlstm", "n_chips": 1, "job": xlstm})
+    assert s == 201 and b["admitted"] and b["state"] == "running", b
+    assert set(daemon.runtime(b["app_id"]).cache) == {"mlstm", "slstm"}
     s, e = req("POST", "/v1/submit", "tok-alice",
                {"job_description": "typo", "n_chips": 1,
                 "job": {"kind": "serve", "arch": "no_such_arch"}})

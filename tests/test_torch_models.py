@@ -247,10 +247,20 @@ def test_deepseek_smoke_bf16_prefill_vs_jax():
     assert_close(gl, want, atol=2e-2 * span, rtol=2e-2)
 
 
-def test_unported_families_raise():
-    for arch in ("xlstm_350m",):
+def test_unported_families_raise(monkeypatch):
+    """Every family is ported: xlstm resolves to the reference's config.
+    The refusal of an arch whose family is not ported stays, shown with a
+    stand-in entry in ``configs._NOT_PORTED``; an unknown arch is a
+    ``KeyError``."""
+    import dataclasses
+    for get, jget in ((configs.get, jconfigs.get),
+                      (configs.get_smoke, jconfigs.get_smoke)):
+        assert dataclasses.asdict(get("xlstm_350m")) == dataclasses.asdict(
+            jget("xlstm_350m"))
+    monkeypatch.setitem(configs._NOT_PORTED, "yi_34b", "dense")
+    for get in (configs.get, configs.get_smoke):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            configs.get(arch)
+            get("yi_34b")
     with pytest.raises(KeyError):
         configs.get("no_such_arch")
     assert configs.get("deepseek_7b").d_model == 4096

@@ -214,7 +214,7 @@ VERBATIM = (
                                    "starcoder2_15b", "yi_34b",
                                    "zamba2_2p7b", "pixtral_12b",
                                    "hubert_xlarge", "deepseek_v2_236b",
-                                   "llama4_maverick_400b")]
+                                   "llama4_maverick_400b", "xlstm_350m")]
     + [f"analysis/{m}" for m in ("__init__.py", "__main__.py",
                                  "_astutil.py", "events_check.py",
                                  "lifecycle.py", "locks.py", "report.py",

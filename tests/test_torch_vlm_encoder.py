@@ -95,19 +95,22 @@ def assert_close(got, want, **tol):
 
 # ============================================================ configs, tree
 
-def test_configs_are_ported():
+def test_configs_are_ported(monkeypatch):
     """Both archs resolve in the port (the reference's configs, verbatim:
-    ``tests/test_torch_package.py``); xlstm still raises."""
-    for arch in ARCHS:
+    ``tests/test_torch_package.py``), and so does xlstm now; an arch
+    marked not ported (a stand-in entry in ``configs._NOT_PORTED``)
+    raises."""
+    for arch in ARCHS + ("xlstm_350m",):
         for get, jget in ((configs.get, jconfigs.get),
                           (configs.get_smoke, jconfigs.get_smoke)):
             assert dataclasses.asdict(get(arch)) == dataclasses.asdict(
                 jget(arch))
     assert configs.get("pixtral_12b").family == "vlm"
     assert configs.get("hubert_xlarge").family == "encoder"
-    for arch in ("xlstm_350m",):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            configs.get(arch)
+    assert configs.get("xlstm_350m").family == "xlstm"
+    monkeypatch.setitem(configs._NOT_PORTED, "pixtral_12b", "vlm")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        configs.get("pixtral_12b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
