@@ -3402,27 +3402,49 @@ def train_launches(cfg, shape, opt_cfg, params):
                                       if p.ndim == 0 or p.shape[-1] % 16)}
 
 
+def host_probe(rt, n: int = 2) -> dict:
+    """A train block's host time to enqueue a step (``step_async`` until
+    it returns) and the step's wall time to the device's end, over ``n``
+    warm steps: where the first is near the second, the host paces the
+    step."""
+    rt._sync()
+    enq, wall = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        rt.step_async()
+        t1 = time.perf_counter()
+        rt._sync()
+        enq.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return {"enqueue_ms": enq, "wall_ms": wall}
+
+
 def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
-                 step0=step0_check):
+                 step0=step0_check, after=None, ckpt_root=None,
+                 profile_n: int = 1):
     """A train block through ``BlockRuntime``: the step-0 check
-    (``step0``), then ``n_steps`` steps counted as the main path, their
-    launches per step held exactly (``train_launches``; none on the
-    CPU).  ``profile``: a profiled warm step after them (True), the last
-    of them run under the profiler (``"last"``: for a step whose
-    extra runs the script cannot spend; the steady time and tok/s then
-    come from the steps before it), or none."""
+    (``step0``; None for none), then ``n_steps`` steps counted as the
+    main path, their launches per step held exactly (``train_launches``;
+    none on the CPU).  ``after(rt, out)``, when given, runs next and
+    returns the runtime the profile steps on.  ``profile``: a profiled
+    warm step after them (True), the last of them run under the
+    profiler (``"last"``: for a step whose extra runs the script cannot
+    spend; the steady time and tok/s then come from the steps before
+    it), or none."""
     progress(f"{name}: init")
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime, JobSpec
-    job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=0)
+    job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=0,
+                  ckpt_namespace=name)
     rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0), job,
-                      devices=[device])
+                      devices=[device], ckpt_root=ckpt_root)
     t0 = time.perf_counter()
     rt.init_state()
     rt._sync()
     init_s = time.perf_counter() - t0
     progress(f"{name}: step-0 check")
-    chk = step0(rt.state["params"], cfg, rt.data.batch(0))
+    chk = (step0(rt.state["params"], cfg, rt.data.batch(0))
+           if step0 is not None else None)
     progress(f"{name}: {n_steps} steps")
     if rt.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -3465,8 +3487,11 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
           f"{name} launches per step {out['launches_per_step']}, want "
           f"{want}")
     if rt.device.type == "cuda":
-        from repro_torch.launch import hlo_analysis
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if after is not None:
+        rt = after(rt, out)
+    if rt.device.type == "cuda":
+        from repro_torch.launch import hlo_analysis
         # model FLOPs (the Monitor's analytic roofline) over the steady
         # step time, on the H100's bf16 peak
         out["model_flops"] = hlo_analysis.model_step_flops(cfg, shape)
@@ -3478,7 +3503,7 @@ def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
             out["warm_step"]["profiled_step_wall_ms"] = \
                 hist[-1]["step_s"] * 1e3
         elif profile:
-            out["warm_step"] = profile_steps(rt.step, 1)
+            out["warm_step"] = profile_steps(rt.step, profile_n)
     emit(name, **out)
     return out
 
@@ -3520,8 +3545,106 @@ def phase_train(device="cuda", smoke=False):
     shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
                         global_batch=2, microbatch=1)
     opt_cfg = OptConfig(state_bits=8, warmup_steps=2, total_steps=100)
+
+    def after(rt, out):
+        # what train_sharded is held to, bit for bit; then the host's
+        # share of two more steps
+        out["state_checksums"] = bit_checksums(rt.state)
+        out["host_probe"] = host_probe(rt)
+        return rt
+
     return _train_phase("train", cfg, shape, opt_cfg, device,
-                        n_steps=2 if smoke else 6, profile=True)
+                        n_steps=2 if smoke else 6, profile=True,
+                        after=after)
+
+
+def _whole(tree):
+    """A tree with each DTensor leaf gathered whole (at (1, 1) its local
+    shard itself)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return tree.full_tensor() if isinstance(tree, DTensor) else tree
+
+
+def phase_train_sharded(device="cuda", smoke=False, train=None):
+    """``train``'s job through the sharded runtime (item 8a): deepseek_7b
+    at full width, 30 layers, int8 moments, 2 x 2048 tokens, seed 0, on a
+    (1, 1) DeviceMesh under a process group of one rank (NCCL on the
+    card, gloo on the CPU; a ``HashStore``, no network), every state leaf
+    a DTensor.  Held bit for bit against ``train``: every loss and grad
+    norm, and the per-leaf checksums of the state after the last step;
+    its launches per step exactly ``train``'s.  Then two steps of
+    ``host_probe`` (``train`` runs the same), a synchronous save and
+    ``suspend()`` (the state freed), a fresh (1, 1) block restoring it
+    leaf for leaf bit for bit, and three profiled warm steps on that
+    block.  The process group is destroyed at the end, so the later
+    phases run as before."""
+    import torch.distributed as dist
+    import repro_torch.configs as configs
+    from repro_torch import device as device_lib
+    from repro_torch.core.block import BlockGrant
+    from repro_torch.core.runtime import BlockRuntime
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    from torch.distributed.tensor import DTensor
+    cfg = (configs.get_smoke("deepseek_7b") if smoke
+           else configs.get("deepseek_7b"))
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
+                        global_batch=2, microbatch=1)
+    opt_cfg = OptConfig(state_bits=8, warmup_steps=2, total_steps=100)
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+
+    def after(rt, out):
+        check(rt.mesh is not None and tuple(rt.mesh.mesh.shape) == (1, 1)
+              and all(isinstance(t, DTensor) for t in _tensors(
+                  rt.state["params"])), "train_sharded: not on a mesh")
+        out["mesh"] = list(rt.mesh.mesh.shape)
+        out["backend"] = dist.get_backend()
+        out["state_checksums"] = bit_checksums(_whole(rt.state))
+        if train is not None:
+            for key in ("losses", "grad_norms", "state_checksums"):
+                out[f"{key}_equal_train"] = out[key] == train[key]
+                check(out[f"{key}_equal_train"],
+                      f"train_sharded {key} differ from train's")
+            out["launches_equal_train"] = (out["launches_per_step"]
+                                           == train["launches_per_step"])
+            check(out["launches_equal_train"],
+                  "train_sharded launches differ from train's")
+            out["steady_step_s_minus_train"] = (out["steady_step_s"]
+                                                - train["steady_step_s"])
+        # the host time the DTensor calls add: against train's probe
+        out["host_probe"] = host_probe(rt)
+        at_suspend = bit_checksums(_whole(rt.state))
+        need = tree_bytes(_whole(rt.state))
+        _disk_check(root, need, "train_sharded")
+        t0 = time.perf_counter()
+        rt.suspend()
+        out["suspend_s"] = time.perf_counter() - t0
+        out["ckpt_gb"] = need / 1e9
+        rt2 = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0),
+                           rt.job, devices=[device], ckpt_root=root)
+        t0 = time.perf_counter()
+        at = rt2.restore()
+        rt2._sync()
+        out["restore_s"] = time.perf_counter() - t0
+        restored = bit_checksums(_whole(rt2.state))
+        out["restore_bitwise_equal"] = (at == rt.step_count
+                                        and restored == at_suspend)
+        check(out["restore_bitwise_equal"],
+              "train_sharded: the restored state differs")
+        return rt2
+
+    try:
+        return _train_phase("train_sharded", cfg, shape, opt_cfg, device,
+                            n_steps=2 if smoke else 6, profile=True,
+                            step0=None, after=after, ckpt_root=root,
+                            profile_n=3)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_train_f32(device="cuda", smoke=False):
@@ -5086,6 +5209,9 @@ def _run_all() -> int:
     _free()
     train = phase_train()
     _free()
+    progress("train_sharded")
+    train_sharded = phase_train_sharded(train=train)
+    _free()
     train_f32 = phase_train_f32()
     _free()
     train_hybrid = phase_train_hybrid()
@@ -5117,7 +5243,9 @@ def _run_all() -> int:
     runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
             "vlm": vlm["launches"], "moe": moe["launches"],
             "xlstm": xlstm["launches"],
-            "train": train["launches"], "train_f32": train_f32["launches"],
+            "train": train["launches"],
+            "train_sharded": train_sharded["launches"],
+            "train_f32": train_f32["launches"],
             "train_hybrid": train_hybrid["launches"],
             "train_encoder": train_encoder["launches"],
             "train_moe": train_moe["launches"],
@@ -5156,6 +5284,8 @@ def _run_all() -> int:
         k = kern[name]
         if name == "fused_adamw":      # i8 on train, f32 on the others
             per_run = {"train": train["launches"]["fused_adamw_i8"],
+                       "train_sharded":
+                           train_sharded["launches"]["fused_adamw_i8"],
                        "train_f32": train_f32["launches"]["fused_adamw_f32"],
                        "train_hybrid":
                            train_hybrid["launches"]["fused_adamw_f32"],

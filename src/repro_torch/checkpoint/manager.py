@@ -25,6 +25,16 @@ tensors in place, so a copy still in flight would save a later state) and
 writes the files on a background thread.  Copies from the card go
 through a pinned staging buffer; files are written, read and checksummed
 one leaf per I/O thread.
+
+A block of several devices holds DTensor leaves, and its checkpoint is
+the same whole leaves.  Every rank runs ``save`` (the ranks' programs
+are the same): each DTensor leaf is gathered whole in turn, and the
+block's first rank copies it to the host and writes the files, so the
+``keep`` rotation and the rename of ``step_<n>.tmp`` happen once; the
+other ranks wait at a barrier until the directory is renamed (at
+``save``, or at ``wait`` after ``save_async``).  ``restore(...,
+shardings=)`` reads each leaf on every rank and keeps the rank's slice
+of it (``plans.Layout``): no collective, and any mesh shape.
 """
 from __future__ import annotations
 
@@ -38,6 +48,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.device import is_writer
 
 # numpy can't serialize bf16/fp8 natively: store a byte view + logical dtype
 _EXOTIC = {"bfloat16", "float8_e4m3fn", "float8_e5m2"}
@@ -83,6 +97,24 @@ def _rebuild(t, it):
     return next(it)
 
 
+def _leaves_up_to(like, shardings):
+    """``shardings``' node at each leaf of ``like``, in ``_flatten``'s
+    order (None where ``shardings`` has none)."""
+    if like is None:
+        return
+    if isinstance(like, dict):
+        for k in sorted(like):
+            yield from _leaves_up_to(
+                like[k], None if shardings is None else shardings.get(k))
+        return
+    if isinstance(like, (list, tuple)):
+        for i, x in enumerate(like):
+            yield from _leaves_up_to(
+                x, None if shardings is None else shardings[i])
+        return
+    yield shardings
+
+
 def _unflatten(like, leaves) -> Any:
     """``like``'s structure with its leaves replaced, in order."""
     return _rebuild(like, iter(leaves))
@@ -111,6 +143,8 @@ class CheckpointManager:
         self._pool = cf.ThreadPoolExecutor(max_workers=1)
         self._io = cf.ThreadPoolExecutor(max_workers=IO_WORKERS)
         self._pending: Optional[cf.Future] = None
+        self._barrier_due = False    # a sharded async save: wait() meets
+                                     # the other ranks after it lands
         self._stage: Optional[torch.Tensor] = None
         #: seconds of the last save's and restore's stages: ``copy_s``
         #: (device to host), ``write_s`` (files and crc32, wall),
@@ -143,45 +177,70 @@ class CheckpointManager:
         return out
 
     def _host_leaves(self, tree, copy: bool):
-        """(structure, [(array to write, logical shape, logical dtype)])."""
+        """(structure, [(array to write, logical shape, logical dtype)],
+        whether the tree is sharded); a rank that does not write gets no
+        arrays."""
         leaves, desc = _flatten(tree)
+        sharded = any(isinstance(x, DTensor) for x in leaves)
+        writer = not sharded or is_writer()
         out = []
         for leaf in leaves:
-            if isinstance(leaf, torch.Tensor):
-                name = _dtype_name(leaf)
-                host = self._to_host(leaf, copy)
-                arr = (_bytes(host).reshape(*leaf.shape, leaf.element_size())
-                       if name in _EXOTIC else host).numpy()
-                out.append((arr, list(leaf.shape), name))
-                continue
-            arr = np.array(leaf) if copy else np.asarray(leaf)
-            name = str(arr.dtype)
-            shape = list(arr.shape)
-            if name in _EXOTIC:
-                arr = arr.view(np.uint8).reshape(*arr.shape, -1)
-            out.append((arr, shape, name))
-        return desc, out
+            if isinstance(leaf, DTensor):
+                whole = leaf.detach().full_tensor()
+                if writer:
+                    out.append(self._host_leaf(whole, copy))
+                del whole
+            elif writer:
+                out.append(self._host_leaf(leaf, copy))
+        return desc, out, sharded
+
+    def _host_leaf(self, leaf, copy: bool):
+        """(array to write, logical shape, logical dtype) of one leaf."""
+        if isinstance(leaf, torch.Tensor):
+            name = _dtype_name(leaf)
+            host = self._to_host(leaf, copy)
+            arr = (_bytes(host).reshape(*leaf.shape, leaf.element_size())
+                   if name in _EXOTIC else host).numpy()
+            return arr, list(leaf.shape), name
+        arr = np.array(leaf) if copy else np.asarray(leaf)
+        name = str(arr.dtype)
+        shape = list(arr.shape)
+        if name in _EXOTIC:
+            arr = arr.view(np.uint8).reshape(*arr.shape, -1)
+        return arr, shape, name
 
     # ------------------------------------------------------------------ save
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
     def save(self, step: int, tree) -> str:
         """Synchronous atomic save.  Returns the checkpoint path."""
         t0 = time.perf_counter()
-        desc, host = self._host_leaves(tree, copy=False)
+        desc, host, sharded = self._host_leaves(tree, copy=False)
         self.timings = {"copy_s": time.perf_counter() - t0}
-        return self._write(step, desc, host)
+        path = (self._write(step, desc, host)
+                if not sharded or is_writer() else self._step_dir(step))
+        if sharded:
+            dist.barrier()
+        return path
 
     def save_async(self, step: int, tree) -> None:
         """Async save: device->host copy happens now; file IO in background."""
         self.wait()
         t0 = time.perf_counter()
-        desc, host = self._host_leaves(tree, copy=True)
+        desc, host, sharded = self._host_leaves(tree, copy=True)
         self.timings = {"copy_s": time.perf_counter() - t0}
-        self._pending = self._pool.submit(self._write, step, desc, host)
+        if not sharded or is_writer():
+            self._pending = self._pool.submit(self._write, step, desc, host)
+        self._barrier_due = sharded
 
     def wait(self) -> None:
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
+        if self._barrier_due:
+            self._barrier_due = False
+            dist.barrier()
 
     def _write_leaf(self, tmp: str, i: int, arr: np.ndarray):
         fname = f"leaf_{i:05d}.npy"
@@ -192,7 +251,7 @@ class CheckpointManager:
 
     def _write(self, step: int, desc: str, host) -> str:
         t0 = time.perf_counter()
-        final = os.path.join(self.dir, f"step_{step:08d}")
+        final = self._step_dir(step)
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -238,7 +297,7 @@ class CheckpointManager:
         return arr, time.perf_counter() - t0
 
     def restore(self, like_tree, step: Optional[int] = None, device=None,
-                verify: bool = True):
+                verify: bool = True, shardings=None):
         """Restore into the structure of ``like_tree``; returns (tree,
         step).
 
@@ -246,7 +305,10 @@ class CheckpointManager:
         dtype (the stored values are cast to it, as the reference casts),
         and its device unless ``device`` is given; a leaf on ``meta``
         needs ``device``.  A numpy leaf restores as numpy, a Python scalar
-        as one.  Logical leaf shapes must match the manifest."""
+        as one.  Logical leaf shapes must match the manifest.
+        ``shardings``: a tree of ``like_tree``'s structure whose leaves are
+        ``plans.Layout`` (or None); such a leaf restores as this rank's
+        DTensor shard of the whole leaf."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -254,6 +316,8 @@ class CheckpointManager:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         leaves, _ = _flatten(like_tree)
+        layouts = (list(_leaves_up_to(like_tree, shardings))
+                   if shardings is not None else [None] * len(leaves))
         if len(manifest["leaves"]) != len(leaves):
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, "
@@ -280,11 +344,12 @@ class CheckpointManager:
                 for meta in manifest["leaves"]]
         out, crc_s, place_s = [], 0.0, 0.0
         try:
-            for fut, meta, like in zip(futs, manifest["leaves"], leaves):
+            for fut, meta, like, lay in zip(futs, manifest["leaves"],
+                                            leaves, layouts):
                 arr, dt = fut.result()
                 crc_s += dt
                 t1 = time.perf_counter()
-                out.append(self._place(arr, meta, like, device))
+                out.append(self._place(arr, meta, like, device, lay))
                 place_s += time.perf_counter() - t1
         finally:
             for fut in futs:
@@ -293,12 +358,17 @@ class CheckpointManager:
                         "place_s": place_s, "crc_s": crc_s}
         return _unflatten(like_tree, out), step
 
-    def _place(self, arr: np.ndarray, meta: Dict[str, Any], like, device):
+    def _place(self, arr: np.ndarray, meta: Dict[str, Any], like, device,
+               layout=None):
         if isinstance(like, torch.Tensor):
             t = torch.from_numpy(arr)
             if meta["dtype"] in _EXOTIC:
                 t = t.view(getattr(torch, meta["dtype"])).reshape(
                     meta["shape"])
+            if layout is not None:
+                t = t[layout.index(tuple(t.shape))].contiguous()
+                return layout.wrap(t.to(device if device is not None
+                                        else like.device, like.dtype))
             return t.to(device if device is not None else like.device,
                         like.dtype)
         if hasattr(like, "dtype"):          # numpy

@@ -1,5 +1,6 @@
 """ClusterController — the paper's master node + administrator (the port
-of ``repro.core.controller``; its chips are CUDA devices).
+of ``repro.core.controller``; its chips are CUDA devices, one a rank
+under a process group).
 
 Owns the chip inventory (Partitioner), the application workflow (Registry),
 per-block runtimes, the Monitor, and the BlockScheduler.  One controller
@@ -72,8 +73,9 @@ class ClusterController:
         if len(self.devices) < topo.n_chips:
             raise ValueError(
                 f"topology needs {topo.n_chips} devices, have "
-                f"{len(self.devices)} (one chip per CUDA device; pass "
-                f"devices= to map several chips onto one device)")
+                f"{len(self.devices)} (one chip per CUDA device, or per "
+                f"rank under a process group; pass devices= to map "
+                f"several chips onto one device)")
         # the event bus is the observable spine: the registry publishes
         # every lifecycle transition, scheduler/controller publish the
         # scheduling decisions, and the Monitor subscribes instead of

@@ -36,8 +36,25 @@ reads K/V ``n_patches`` positions too early.  Here ``cache_len`` is the
 embedded length, ``n_patches + T``, where the reference's own model test
 decodes too.
 
-One device per block: the sharding plans of the reference have no
-counterpart until the multi-GPU slice.
+A train block may span several devices (item 8a).  The process runs as
+one rank of a ``torch.distributed`` process group, every rank runs the
+same launcher and daemon, so every rank reaches the same grant, and the
+block spans every rank: ``_attach`` builds the block's DeviceMesh
+``("data", "model")`` of ``grant.mesh_shape`` over the ranks, and the
+state lies on it as the reference's plan shards it
+(``sharding.plans``): each rank holds its shards of the params, the
+moments and the grads; each group's params are gathered for its use
+(ZeRO-3); the batch is split over ``data`` (each rank its rows of every
+microbatch, ``pipeline.BatchShards``) and the ranks of a ``model``
+column compute the same rows.  ``init_state`` draws every leaf as the
+unsharded init does, one group at a time, and keeps the rank's slices.
+Checkpoints hold whole leaves, so a resume may come with another mesh
+shape.  Under a process group a train block takes this path even at
+(1, 1).  What waits for item 8b: a serve block of several devices
+(``NotImplementedError``), tensor and expert parallelism over ``model``,
+and several blocks on disjoint subsets of the ranks.  A block of several
+devices in a process with no process group raises: nothing runs a
+sharded block on one rank.
 
 Steps are built through ``compile_cache.GLOBAL`` under the reference's
 keys (``_cache_key``), the mesh's fingerprint replaced by the device's.
@@ -67,15 +84,18 @@ import time
 from typing import Any, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.block import BlockGrant
 from repro_torch.core.inflight import InflightWindow
 from repro_torch.data import pipeline
-from repro_torch.device import resolve
+from repro_torch.device import rank_device, resolve
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding import plans
 from repro_torch.train import compile_cache
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as train_lib
@@ -160,32 +180,45 @@ class BlockRuntime(InflightWindow):
 
     def _attach(self, grant: BlockGrant,
                 devices: Optional[Sequence]) -> None:
-        """Bind to the block's device (``cuda`` per chip by default)."""
+        """Bind to the block's devices (``cuda`` per chip by default): one
+        device, or under a process group the block's mesh over every
+        rank."""
         if devices is None:
             devices = ["cuda"] * grant.n_chips
-        assert len(devices) == math.prod(grant.mesh_shape), (
-            len(devices), grant.mesh_shape)
+        n = math.prod(grant.mesh_shape)
+        assert len(devices) == n, (len(devices), grant.mesh_shape)
         devs = [resolve(d) for d in devices]
-        if len(set(devs)) != 1:
+        job = self.job
+        several = len(set(devs)) > 1 or (dist.is_initialized() and n > 1)
+        if job.kind == "serve" and several:
             raise NotImplementedError(
-                "a block spans one device until the multi-GPU slice ports "
-                "the sharding plans")
+                f"a serve block spans one device: serving on {n} devices "
+                f"(cache_specs on the runtime) is item 8b")
+        self.mesh = self.ctx = self.batch_shards = None
+        if job.kind == "train" and dist.is_initialized():
+            self._attach_mesh(grant, devs)
+        elif len(set(devs)) > 1:
+            raise RuntimeError(
+                f"a block of {n} devices needs a process group of {n} "
+                f"ranks (torch.distributed, one rank a device), and this "
+                f"process has none")
+        else:
+            self.device = devs[0]
         self.grant = grant
         self.devices = devs
-        self.device = devs[0]
-        job = self.job
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(job.seed + 1)
         self._prefill_fn = None      # built at the first prefill()
         if job.kind == "train":
-            self._step = self._cached(
+            step = self._cached(
                 self._cache_key("train_step", compile_cache.freeze(job.opt),
                                 ("donate", 0)),
                 lambda: train_lib.make_train_step(job.cfg, job.shape,
                                                   job.opt), "train_step")
-            self.data = pipeline.DataIterator(job.cfg, job.shape,
-                                              seed=job.seed,
-                                              device=self.device)
+            self._step = step if self.ctx is None else self._in_ctx(step)
+            self.data = pipeline.DataIterator(
+                job.cfg, job.shape, seed=job.seed, device=self.device,
+                shardings=self.batch_shards)
         elif job.paged:
             # the DecodeScheduler owns its prefill/decode; built in
             # init_state (it needs the params)
@@ -204,14 +237,58 @@ class BlockRuntime(InflightWindow):
             self._cache_len_dev = torch.zeros((), dtype=torch.int32,
                                               device=self.device)
 
+    def _attach_mesh(self, grant: BlockGrant, devs) -> None:
+        """The block's DeviceMesh over every rank of the process group
+        (8a: one block spans them all), this rank's device, its rows of
+        the batch and the sharding context of its steps."""
+        from repro_torch.launch.mesh import make_block_mesh
+        n, world = math.prod(grant.mesh_shape), dist.get_world_size()
+        if n != world:
+            raise NotImplementedError(
+                f"a block of {n} devices in a process group of {world} "
+                f"ranks: blocks on disjoint subsets of the ranks are item "
+                f"8b (a block spans every rank)")
+        self.device = rank_device(devs[0].type)
+        self.mesh = make_block_mesh(range(world), grant.mesh_shape)
+        self.axes = plans.MeshAxes(dp=("data",), model="model")
+        shape = self.job.shape
+        dp_rank = self.mesh.get_coordinate()[0]
+        self.batch_shards = pipeline.BatchShards(
+            grant.mesh_shape[0], dp_rank, max(1, shape.microbatch))
+        self.ctx = shard_ctx.ShardCtx(
+            self.mesh, ("data",), "model",
+            shards_batch=self.batch_shards.split(shape.global_batch))
+
+    def _in_ctx(self, step):
+        ctx = self.ctx
+
+        def fn(state, batch):
+            with shard_ctx.use(ctx):
+                return step(state, batch)
+        return fn
+
+    def state_layouts(self):
+        """The sharded train state's ``plans.Layout`` tree: the params as
+        the plan shards them, the moments as ``plans.moment_specs``."""
+        job = self.job
+        params = model_lib.abstract_params(job.cfg)
+        p_spec = plans.param_specs(params, self.mesh, self.axes)
+        opt = plans.moment_specs(params, p_spec, self.mesh,
+                                 job.opt.state_bits)
+        lay = plans.layouts({"params": p_spec, "opt": opt}, self.mesh)
+        lay["opt"]["step"] = None
+        return lay
+
     # ------------------------------------------------------------ compile
     def _cache_key(self, family: str, *extra) -> tuple:
         """Logical build signature: everything the built step can depend
         on.  ``seed``/checkpoint fields deliberately excluded."""
         job = self.job
+        where = compile_cache.device_fingerprint(self.device)
+        if self.mesh is not None:
+            where += (("mesh",) + tuple(self.grant.mesh_shape),)
         return (family, compile_cache.freeze(job.cfg),
-                compile_cache.freeze(job.shape),
-                compile_cache.device_fingerprint(self.device)) + extra
+                compile_cache.freeze(job.shape), where) + extra
 
     def _cached(self, key, builder, label: str):
         return compile_cache.GLOBAL.get(
@@ -241,6 +318,11 @@ class BlockRuntime(InflightWindow):
         serve block the empty decode context."""
         job = self.job
         if job.kind == "train":
+            if self.mesh is not None:
+                self.state = train_lib.make_sharded_train_state(
+                    job.cfg, job.seed, job.opt, self.state_layouts(),
+                    params=params, opt_state=opt_state, device=self.device)
+                return
             self.state = train_lib.make_train_state(
                 job.cfg, job.seed, job.opt, params=params,
                 opt_state=opt_state, device=self.device)
@@ -538,10 +620,17 @@ class BlockRuntime(InflightWindow):
                         else self.cache is not None)
             like["decode"] = (self._decode_ctx() if have_ctx
                               else self._abstract_decode())
-        restored, at = ckpt.restore(like, step=step, device=self.device)
+        shardings = None
+        if self.mesh is not None:
+            like["state"] = self._abstract_like()
+            shardings = {"state": self.state_layouts()}
+        restored, at = ckpt.restore(like, step=step, device=self.device,
+                                    shardings=shardings)
         self._release_graphs()       # they bind the tensors replaced here
         state = restored["state"]
-        if job.kind == "train":
+        if self.mesh is not None:
+            self.state = train_lib.sharded_train_state(state)
+        elif job.kind == "train":
             self.state = train_lib.make_train_state(
                 job.cfg, job.seed, job.opt, params=state["params"],
                 opt_state=state["opt"], device=self.device)

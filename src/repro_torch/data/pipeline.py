@@ -3,10 +3,13 @@
 Reproducible numpy batches keyed on (seed, step) with no host-side state,
 byte for byte the reference's; ``batch_shapes``/``prefill_shapes`` give
 each input's (shape, torch dtype); ``DataIterator`` hands a train block
-its batch for a step as tensors on its device.
+its batch for a step as tensors on its device, and under a data-parallel
+layout (``BatchShards``) only the rank's rows of it
+(``make_global_batch``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -88,21 +91,70 @@ def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, *, step: int,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchShards:
+    """A data-parallel rank's rows of a global batch of ``n_micro``
+    microbatches over ``dp`` data ranks: its share of **each**
+    microbatch, rows ``[i*mb + rank*mb/dp, i*mb + (rank+1)*mb/dp)`` of
+    microbatch ``i`` (``mb`` rows each), in microbatch order.  That is
+    the reference's routing group (i, rank): its train step splits the
+    global batch into microbatches of consecutive rows and the MoE layer
+    splits each microbatch into ``dp`` consecutive shards.  When a
+    microbatch's rows do not split over ``dp`` every rank holds the whole
+    batch (``split`` False)."""
+    dp: int
+    rank: int
+    n_micro: int = 1
+
+    def split(self, rows: int) -> bool:
+        n = max(1, self.n_micro)
+        return rows % n == 0 and (rows // n) % self.dp == 0
+
+    def rows(self, rows: int) -> np.ndarray:
+        """The global row ids this rank holds, in its local order."""
+        if not self.split(rows):
+            return np.arange(rows)
+        n = max(1, self.n_micro)
+        mb = rows // n
+        per = mb // self.dp
+        return np.concatenate([np.arange(i * mb + self.rank * per,
+                                         i * mb + (self.rank + 1) * per)
+                               for i in range(n)])
+
+
+def _as_tensor(v: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(
+        v.astype(np.float32) if v.dtype == np.float64 else v)
+
+
+def make_global_batch(np_batch: Dict[str, np.ndarray], shardings: BatchShards,
+                      device) -> Dict[str, torch.Tensor]:
+    """Place a host batch on this rank: its rows of every leaf
+    (``BatchShards.rows``), on ``device``."""
+    out = {}
+    for k, v in np_batch.items():
+        rows = shardings.rows(v.shape[0])
+        out[k] = _as_tensor(np.ascontiguousarray(v[rows])).to(device)
+    return out
+
+
 class DataIterator:
     """Stateless-by-construction iterator: batch(step) is a pure function
     of (seed, step), the reference's ``synthetic_batch`` as tensors on
-    ``device`` (float64 leaves as float32, as the reference casts).
-    ``device`` defaults to ``cuda`` and raises without a card, as the other
-    entry points do."""
+    ``device`` (float64 leaves as float32, as the reference casts), or
+    with ``shardings`` this rank's rows of it.  ``device`` defaults to
+    ``cuda`` and raises without a card, as the other entry points do."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, *, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", shardings: Optional[BatchShards] = None):
         self.cfg, self.shape, self.seed = cfg, shape, seed
         self.device = resolve(device)
+        self.shardings = shardings
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         np_batch = synthetic_batch(self.cfg, self.shape, step=step,
                                    seed=self.seed)
-        return {k: torch.from_numpy(
-                    v.astype(np.float32) if v.dtype == np.float64 else v
-                ).to(self.device) for k, v in np_batch.items()}
+        if self.shardings is not None:
+            return make_global_batch(np_batch, self.shardings, self.device)
+        return {k: _as_tensor(v).to(self.device)
+                for k, v in np_batch.items()}

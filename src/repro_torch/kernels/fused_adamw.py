@@ -44,13 +44,24 @@ def fused_adamw_torch(p, g, m, v, *, lr, scale, bc1, bc2, b1: float,
     v_f = qs.dequantize(v) if quantized else v
     m_f = b1 * m_f + (1 - b1) * g
     v_f = b2 * v_f + (1 - b2) * g * g
-    delta = (m_f / bc1) / (torch.sqrt(v_f / bc2) + eps)
+    delta = (m_f / bc1) / (_sqrt_rn(v_f / bc2) + eps)
     if apply_wd:
         delta = delta + weight_decay * p.float()
     new_p = (p.float() - lr * delta).to(p.dtype)
     if quantized:
         return new_p, qs.quantize(m_f), qs.quantize(v_f)
     return new_p, m_f, v_f
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded fp32 square root, as XLA's and the kernel's
+    ``__fsqrt_rn``.  ATen's vectorized fp32 sqrt on the CPU is off by an
+    ulp on about 0.7% of inputs; the float64 root rounded to fp32 is
+    exact (double rounding is innocuous for sqrt at twice the precision
+    plus two bits).  CUDA's fp32 sqrt is correctly rounded."""
+    if x.device.type == "cuda":
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
 
 
 def _f32(x: float) -> float:

@@ -10,6 +10,15 @@ the daemon runs in background mode and its autostep engine drives the
 block to ``--steps`` (``--pace`` caps it at that many steps a second);
 without it the launcher dispatches the steps itself with ``run_steps``.
 
+Under ``python -m torch.distributed.run --nproc-per-node N`` every rank
+runs this launcher and its own deterministic daemon, so every rank
+reaches the same grant: one block of N chips over every rank (a
+``(data, model)`` mesh of ``mesh_shape_for(N)``), the topology built
+from the world size as the reference's launcher builds it from its
+device count.  ``--device cpu`` runs the ranks over gloo, ``cuda`` over
+NCCL, one card a rank.  Only rank 0 prints.  Without a process group the
+launcher is the one-chip launcher.
+
 Checkpoints: with ``--ckpt-dir`` the block saves asynchronously every
 ``--ckpt-every`` steps under the stable namespace ``cfg.name``, and
 ``--resume`` restores the latest one and trains on to ``--steps``.
@@ -24,6 +33,8 @@ moments; ``config(args)`` is the one the flags name.
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_7b \\
       --smoke --steps 20 --seq-len 64 --global-batch 4 [--device cpu] \\
       [--ckpt-dir DIR --ckpt-every 10 [--resume]] [--autostep [--pace HZ]]
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch deepseek_7b --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -31,7 +42,12 @@ import argparse
 import time
 from typing import Any, Dict, Optional
 
+import os
+
+import torch.distributed as dist
+
 import repro_torch.configs as configs
+from repro_torch import device as device_lib
 from repro_torch.core.block import BlockState
 from repro_torch.core.daemon import ClusterDaemon
 from repro_torch.core.runtime import JobSpec
@@ -90,10 +106,14 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
                                 warmup_steps=max(args.steps // 20, 1),
                                 total_steps=args.steps,
                                 state_bits=state_bits)
-    # a one-chip block granted by the daemon (--autostep needs the
-    # background pump: the engine steps from there)
-    topo = Topology(n_pods=1, pod_x=1, pod_y=1)
-    with ClusterDaemon(topo, devices=[args.device],
+    # one block spanning every rank (one chip without a process group),
+    # granted by the daemon (--autostep needs the background pump: the
+    # engine steps from there)
+    n = device_lib.world_size()
+    devices = ([args.device] * n if device_lib.resolve(args.device).type
+               != "cuda" or n == 1 else device_lib.cuda_devices())
+    topo = Topology(n_pods=1, pod_x=n, pod_y=1)
+    with ClusterDaemon(topo, devices=devices,
                        ckpt_root=args.ckpt_dir or "artifacts/train_ckpt",
                        background=args.autostep) as daemon:
         job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=args.seed,
@@ -103,7 +123,7 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
                       # periodic checkpoints under autostep come from the
                       # engine (client-driven mode saves between chunks)
                       ckpt_every=args.ckpt_every if args.ckpt_dir else 0)
-        app_id, grant = daemon.submit("cli", f"train {cfg.name}", 1,
+        app_id, grant = daemon.submit("cli", f"train {cfg.name}", n,
                                       job=job)
         assert grant is not None, "single-tenant pod must admit immediately"
         rt = daemon.runtime(app_id)
@@ -113,16 +133,23 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
             rt.ckpt.wait()           # an async save may still be landing
 
 
+def _log(*a) -> None:
+    """Print on rank 0 only."""
+    if device_lib.is_writer():
+        print(*a, flush=True)
+
+
 def _train(args, daemon, app_id, grant, rt, cfg, shape) -> Dict[str, Any]:
     n_params = model_lib.count_params(rt.state["params"])
-    print(f"# arch={cfg.name} params={n_params/1e6:.2f}M "
-          f"device={rt.device} block={grant.block_id} "
-          f"tokens/step={shape.global_batch * shape.seq_len}", flush=True)
+    _log(f"# arch={cfg.name} params={n_params/1e6:.2f}M "
+         f"device={rt.device} chips={grant.n_chips} "
+         f"mesh={tuple(grant.mesh_shape)} block={grant.block_id} "
+         f"tokens/step={shape.global_batch * shape.seq_len}")
     start_step = 0
     if args.ckpt_dir and args.resume:
         if daemon.restore(app_id) is not None:
             start_step = rt.step_count
-            print(f"# resumed from step {start_step}", flush=True)
+            _log(f"# resumed from step {start_step}")
 
     history = []
 
@@ -133,9 +160,8 @@ def _train(args, daemon, app_id, grant, rt, cfg, shape) -> Dict[str, Any]:
         step = start_step + len(history)
         history.append(m)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {m['loss']:8.4f} "
-                  f"gnorm {m['grad_norm']:8.3f} lr {m['lr']:.2e}",
-                  flush=True)
+            _log(f"step {step:5d} loss {m['loss']:8.4f} "
+                 f"gnorm {m['grad_norm']:8.3f} lr {m['lr']:.2e}")
 
     daemon.bus.subscribe(on_step, kinds={"step"})
     every = args.ckpt_every if args.ckpt_dir else 0
@@ -168,13 +194,21 @@ def _train(args, daemon, app_id, grant, rt, cfg, shape) -> Dict[str, Any]:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    res = run(args)
-    shape, hist, wall = res["shape"], res["history"], res["wall_s"]
-    tok_s = len(hist) * shape.global_batch * shape.seq_len / max(wall, 1e-9)
-    span = (f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}"
-            if hist else "loss n/a")
-    print(f"# done: {wall:.1f}s, {tok_s:.0f} tok/s, {span}, "
-          f"checkpoints={res['checkpoints']}")
+    started = "RANK" in os.environ and not dist.is_initialized()
+    if started:                     # a rank of torch.distributed.run
+        device_lib.init_distributed(args.device)
+    try:
+        res = run(args)
+        shape, hist, wall = res["shape"], res["history"], res["wall_s"]
+        tok_s = (len(hist) * shape.global_batch * shape.seq_len
+                 / max(wall, 1e-9))
+        span = (f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}"
+                if hist else "loss n/a")
+        _log(f"# done: {wall:.1f}s, {tok_s:.0f} tok/s, {span}, "
+             f"checkpoints={res['checkpoints']}")
+    finally:
+        if started:
+            dist.destroy_process_group()
     return 0
 
 

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.models.transformer import (Transformer,  # re-export
                                             embed_inputs, forward,
                                             init_cache, init_paged_cache)
@@ -58,13 +59,20 @@ def count_active_params(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _xent(logits, labels, mask):
-    """Cross-entropy in fp32 with a validity mask.  logits: (B, S, V)."""
+    """Cross-entropy in fp32 with a validity mask.  logits: (B, S, V).
+
+    A masked mean over the *global* batch: under a data-parallel layout
+    each rank's term is its own ``nll.sum()`` over the count of every
+    shard's valid positions (the shards' counts differ under hubert's
+    random masks), and the terms are summed over the data shards, each
+    rank's gradient flowing through its own term
+    (``shard_ctx.data_sum``)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = (lse - gold) * mask
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return nll.sum() / denom
+    denom = torch.clamp(shard_ctx.data_sum(mask.sum()), min=1.0)
+    return shard_ctx.data_sum(nll.sum() / denom)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any], *,

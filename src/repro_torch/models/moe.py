@@ -12,12 +12,19 @@ weight 0.  Tokens are scattered into (E, C, d) expert buffers by rows
 (no one-hot einsums), the experts run as batched matrix products, and
 the N shared experts are one wide gated MLP whose output is added.
 
-The reference computes routing and capacity per data shard (a leading DP
-dim, from its sharding context) and runs the dispatch and combine under
-``shard_map``.  The port has no sharding context: a block spans one
-device, so DP = 1, the whole batch is one shard, and the reference's
-``constrain_*`` calls (layout hints for the EP all-to-all) have nothing
-to do and are left out.
+Routing and capacity are per data shard, as the reference's: DP is the
+sharding context's data-parallel size (1 without one, and 1 when the T
+tokens do not split into DP shards), each shard of ``Tl = T / DP``
+consecutive tokens routes alone with the capacity of its own ``Tl``.  A
+rank that holds one shard of each microbatch (``ShardCtx.shards_batch``)
+routes its local tokens as that shard; a rank that holds the whole batch
+routes it as DP shards, as the reference's ``(DP, Tl, d)`` reshape does.
+The aux loss is ``E * sum(frac_tokens * frac_probs)`` over every shard's
+tokens, a product of two global means, so under a data-parallel layout
+both fractions are summed over the data shards (``shard_ctx.data_sum``)
+before the product.  The reference's ``constrain_*`` calls (layout hints
+for the EP all-to-all) wait for expert parallelism (item 8b) and are
+left out.
 
 Every valid slot receives exactly one token, so the scatter is a plain
 indexed write into an (E * C + 1, d) buffer whose last row takes every
@@ -47,6 +54,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import _gelu, _he, mlp_fwd, mlp_init
+from repro_torch.sharding import ctx as shard_ctx
 
 
 def moe_init(gen, d_model: int, cfg: MoEConfig, dtype, device):
@@ -95,11 +103,22 @@ def route(xs, router, cfg: MoEConfig):
     return probs, idx, torch.stack(slot_k), torch.stack(weight_k), C
 
 
-def moe_fwd(p, x, cfg: MoEConfig, act: str = "silu"):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d fp32)."""
-    B, S, d = x.shape
+def _shards(T: int):
+    """(routing groups this rank computes, tokens a group, whether the
+    rank holds one data shard of the tokens)."""
+    ctx = shard_ctx.current()
+    DP = shard_ctx.dp_size()
+    if ctx is not None and ctx.shards_batch and DP > 1:
+        return 1, T, True        # the local tokens are this rank's shard
+    if T % DP != 0:
+        DP = 1
+    return DP, T // DP, False
+
+
+def _experts(p, xs, cfg: MoEConfig, act: str):
+    """One routing group: xs (Tl, d) -> (out (Tl, d), probs, idx)."""
+    Tl, d = xs.shape
     E = cfg.n_experts
-    xs = x.reshape(B * S, d)
     probs, idx, slots, weights, C = route(xs, p["router"], cfg)
 
     buf = _scatter_local(xs, slots, E=E, C=C)
@@ -109,14 +128,36 @@ def moe_fwd(p, x, cfg: MoEConfig, act: str = "silu"):
     g = F.silu(g) if act == "silu" else _gelu(g)
     h = torch.bmm(g * u, p["w_down"])                         # (E, C, d)
     out = _combine_local(h.reshape(E * C, d), slots, weights, E=E, C=C)
+    return out, probs, idx
+
+
+def moe_fwd(p, x, cfg: MoEConfig, act: str = "silu"):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss 0-d fp32)."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    xs = x.reshape(B * S, d)
+    n, Tl, sharded = _shards(B * S)
+    if n == 1:
+        out, probs, idx = _experts(p, xs, cfg, act)
+    else:
+        parts = [_experts(p, xs[i * Tl:(i + 1) * Tl], cfg, act)
+                 for i in range(n)]
+        out, probs, idx = (torch.cat(t) for t in zip(*parts))
 
     if cfg.n_shared > 0:
         out = out + mlp_fwd(p["shared"], xs, act, gated=True)
 
     # load-balancing auxiliary loss (Switch-style)
-    frac_tokens = (idx[:, :1] == torch.arange(E, device=x.device)
-                   ).float().mean(0)
-    frac_probs = probs.mean(0)
+    top1 = (idx[:, :1] == torch.arange(E, device=x.device)).float()
+    if sharded:
+        # means over every shard's tokens: sums over the data shards
+        count = shard_ctx.data_sum(torch.tensor(
+            float(B * S), device=x.device))
+        frac_tokens = shard_ctx.data_sum(top1.sum(0)) / count
+        frac_probs = shard_ctx.data_sum(probs.sum(0)) / count
+    else:
+        frac_tokens = top1.mean(0)
+        frac_probs = probs.mean(0)
     aux = cfg.router_aux_coef * E * torch.sum(frac_tokens * frac_probs)
     return out.reshape(B, S, d), aux
 

@@ -39,6 +39,15 @@ With ``cfg.remat == "full"`` and gradients on, each group runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward, as the
 reference wraps its scan body in ``jax.checkpoint``.  ``Transformer`` is
 the ``nn.Module`` that owns one model's parameters on one device.
+
+Under a block of several devices the param leaves are DTensors, each
+rank holding its shards (``sharding.plans``).  ``forward`` unbinds each
+stacked leaf's local shard once, and each group gathers its leaves whole
+(``shard_ctx.full``) inside the checkpointed group function, so remat's
+recompute gathers them again and nothing gathered outlives the group:
+ZeRO-3, the gradients reduce-scattered back onto the shards.  The
+embedding, the head, the final norm and the frontends' leaves are
+gathered at their use, the hybrid's shared block in every group.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
@@ -56,6 +66,8 @@ from repro_torch.models.layers import (_randn, apply_norm, attention_fwd,
                                        mlp_fwd, mlp_init, norm_init,
                                        paged_attention_fwd, _he)
 from repro_torch.models.moe import moe_fwd, moe_init
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding.ctx import full
 
 PORTED_FAMILIES = ("dense", "hybrid", "vlm", "encoder", "moe", "xlstm")
 
@@ -396,16 +408,23 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, device):
 # full-stack params + forward
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+                place=None) -> Dict[str, Any]:
     """Random params from ``seed`` through one ``torch.Generator`` on
     ``device`` (``cuda`` by default, which raises without a card; pass
     ``device="cpu"`` for the host; the ``meta`` device gives shapes only).
     Not the JAX package's numbers: to compare, move its params across with
-    ``repro_torch.interop``."""
+    ``repro_torch.interop``.
+
+    ``place(path, leaf)``, when given, maps each leaf as it is drawn to
+    what the tree keeps of it (a rank's shard: ``place`` slices, the
+    stacked leaves' group slices without their stack dim), so the draws
+    are the unsharded tree's, one group at a time, and no rank ever holds
+    the whole model."""
     _require_ported(cfg)
     dtype = _dtype(cfg)
     device = resolve(device)
+    keep = place or (lambda path, leaf: leaf)
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device)
@@ -413,11 +432,16 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     # one group at a time into preallocated stacked leaves: neither the
     # fp32 draw of the whole stack nor a second copy of it ever exists
     ng = n_groups(cfg)
-    layers = _empty_stack(group_init(None, cfg, dtype, "meta"), ng, device)
+    shapes = flatten(group_init(None, cfg, dtype, "meta"))
+    stack = {path: torch.empty((ng,) + tuple(keep("layers/" + path,
+                                                  leaf).shape),
+                               dtype=leaf.dtype, device=device)
+             for path, leaf in shapes}
     if device.type != "meta":
         for g in range(ng):
-            _put(layers, group_init(gen, cfg, dtype, device), g)
-    params: Dict[str, Any] = {"layers": layers}
+            for path, leaf in flatten(group_init(gen, cfg, dtype, device)):
+                stack[path][g].copy_(keep("layers/" + path, leaf))
+    params: Dict[str, Any] = {"layers": unflatten(stack.items())}
     if cfg.frontend == "frame":
         params["frame_proj"] = _he(gen, (cfg.frontend_dim, cfg.d_model),
                                    dtype, device)
@@ -436,6 +460,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = _he(gen, (cfg.d_model, cfg.vocab_size), dtype,
                                 device)
+    if place is not None:
+        layers = params.pop("layers")
+        params = unflatten((path, keep(path, leaf))
+                           for path, leaf in flatten(params))
+        params["layers"] = layers
     return params
 
 
@@ -454,14 +483,14 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
     has ``"patches"``."""
     _require_ported(cfg)
     if cfg.frontend == "frame":
-        x = _stub_proj(batch["frames"], params["frame_proj"])
+        x = _stub_proj(batch["frames"], full(params["frame_proj"]))
         if "mask" in batch:
             x = torch.where(batch["mask"].bool()[..., None],
-                            params["mask_embed"], x)
+                            full(params["mask_embed"]), x)
         return x
-    tok = params["embed"][batch["tokens"].long()]
+    tok = full(params["embed"])[batch["tokens"].long()]
     if cfg.frontend == "patch" and "patches" in batch:
-        patches = _stub_proj(batch["patches"], params["patch_proj"])
+        patches = _stub_proj(batch["patches"], full(params["patch_proj"]))
         tok = torch.cat([patches, tok], dim=1)
     return tok
 
@@ -486,26 +515,37 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
         if remat:
             # the reference's "dots" policy saves the matmul outputs; here
             # both policies recompute the whole group
+            # the sharding context goes in as an argument: the recompute
+            # runs in the backward, on the autograd engine's device
+            # thread for a CUDA tensor, where the caller's thread-local
+            # context is not installed
             x, a = checkpoint(_train_group, gp, x, cfg, positions, extra,
-                              impl, use_reentrant=False)
+                              impl, shard_ctx.current(),
+                              use_reentrant=False)
         else:
             gc = None if cache is None else _index(cache, g)
-            x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=gc,
-                                cache_len=cache_len, extra=extra,
+            x, a, _ = group_fwd(shard_ctx.full_tree(gp), x, cfg,
+                                positions=positions, cache=gc,
+                                cache_len=cache_len,
+                                extra=shard_ctx.full_tree(extra),
                                 page_table=page_table, seq_lens=seq_lens,
                                 impl=impl)
         aux = aux + a
-    x = apply_norm(params["final_norm"], x, cfg.norm, impl=impl)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    x = apply_norm(shard_ctx.full_tree(params["final_norm"]), x, cfg.norm,
+                   impl=impl)
+    head = (full(params["embed"]).T if cfg.tie_embeddings
+            else full(params["lm_head"]))
     logits = x @ head
     if cfg.logits_softcap > 0:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
     return logits, aux, cache
 
 
-def _train_group(gp, x, cfg, positions, extra, impl):
-    x, a, _ = group_fwd(gp, x, cfg, positions=positions, cache=None,
-                        cache_len=None, extra=extra, impl=impl)
+def _train_group(gp, x, cfg, positions, extra, impl, ctx=None):
+    with shard_ctx.use(ctx):
+        x, a, _ = group_fwd(shard_ctx.full_tree(gp), x, cfg,
+                            positions=positions, cache=None, cache_len=None,
+                            extra=shard_ctx.full_tree(extra), impl=impl)
     return x, a
 
 
@@ -519,9 +559,26 @@ def _index(tree, g: int):
     return tree[g]
 
 
+def _unbind_leaf(leaf):
+    """``torch.unbind(leaf, 0)``; a DTensor's local shard is unbound and
+    each slice wrapped again with its placements one dim lower (the plan
+    leaves the stack dims unsharded)."""
+    if not isinstance(leaf, DTensor):
+        return torch.unbind(leaf, 0)
+    placements = []
+    for pl in leaf.placements:
+        if isinstance(pl, Shard):
+            assert pl.dim > 0, ("a stack dim is sharded", leaf.placements)
+            pl = Shard(pl.dim - 1)
+        placements.append(pl)
+    return [DTensor.from_local(t, leaf.device_mesh, placements,
+                               run_check=False)
+            for t in torch.unbind(leaf.to_local(), 0)]
+
+
 def _unbind(tree, n: int):
     """The stacked tree as ``n`` per-group trees, each leaf unbound once."""
-    flat = [(path, torch.unbind(leaf, 0)) for path, leaf in flatten(tree)]
+    flat = [(path, _unbind_leaf(leaf)) for path, leaf in flatten(tree)]
     return [unflatten((path, parts[g]) for path, parts in flat)
             for g in range(n)]
 

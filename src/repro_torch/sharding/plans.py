@@ -1,0 +1,414 @@
+"""Partition-spec plans: map param/batch/cache trees to partition specs
+(the port of ``repro.sharding.plans``), and specs to DTensor placements.
+
+Axis roles:
+  dp axes   ("pod","data") or ("data",) — data parallel + FSDP (ZeRO-3)
+  model     "model"                     — TP (heads/ff/vocab) + EP (experts)
+
+Rules are keyed on leaf *names* (unique across the model substrate) with the
+base (unstacked) spec; leading stack dims get ``None``.  A dim is only
+sharded if divisible by the axis size — otherwise it is replicated.
+
+A spec keeps the reference's ``PartitionSpec`` form as a tuple: one entry
+per tensor dim, an axis name, a tuple of axis names or ``None`` (a leaf
+whose name has no rule gets ``()``, fully replicated, as ``P()``).  A
+``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with named dims, or a
+``{axis name: size}`` dict in mesh order (the shape arithmetic alone, as
+a ``jax.sharding.AbstractMesh`` gives it).  ``to_placements`` turns a
+spec into one ``Shard(dim)`` or ``Replicate()`` per mesh dim; a tensor
+dim sharded over ``("pod", "data")`` is ``Shard(d)`` on both, pod first.
+
+Two departures serve the port's optimizer, which updates each rank's
+local shard with the fused AdamW kernel (``update_spec``): int8 moments
+quantize in blocks of 256 along the last dim of the whole leaf, so a
+rank's slice of that dim must hold whole blocks.  Where the plan's shard
+of the last dim would cut a block, the update (and the moments' storage)
+moves that mesh axis to the first leading dim it divides (after the
+axes already sharding it), else replicates it; and the scales ``s`` follow ``q``'s last dim where ``q``'s
+shards hold whole blocks (``moment_specs``), where ``opt_state_specs``
+replicates them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+Spec = Tuple[Any, ...]
+
+#: elements of an int8 moment's quantization block (``quantized_state``)
+QBLOCK = 256
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} in mesh order, of a DeviceMesh or such a dict."""
+    if isinstance(mesh, dict):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAxes:
+    dp: Tuple[str, ...]          # e.g. ("pod", "data") or ("data",)
+    model: str                   # "model"
+
+    @staticmethod
+    def from_mesh(mesh) -> "MeshAxes":
+        names = tuple(axis_sizes(mesh))
+        assert "model" in names, names
+        dp = tuple(n for n in names if n != "model")
+        return MeshAxes(dp=dp, model="model")
+
+
+# base spec per leaf name: tuple of roles, one per base dim.
+#   "fsdp"  -> sharded over dp axes (ZeRO-3 param shard)
+#   "model" -> sharded over model axis (TP / EP / vocab)
+#   None    -> replicated
+_RULES: Dict[str, Tuple[Optional[str], ...]] = {
+    # embeddings / heads
+    "embed": ("model", "fsdp"),
+    "lm_head": ("fsdp", "model"),
+    "frame_proj": (None, "fsdp"),
+    "patch_proj": (None, "fsdp"),
+    "mask_embed": (None,),
+    # attention (dense / GQA)
+    "wq": ("fsdp", "model"),
+    "wk": ("fsdp", "model"),
+    "wv": ("fsdp", "model"),
+    "wo": ("model", "fsdp"),
+    # MLA (lora ranks kept replicated; fused head dims column-parallel)
+    "wq_a": ("fsdp", None),
+    "wq_b": ("fsdp", "model"),
+    "wkv_a": ("fsdp", None),
+    "wk_b": ("fsdp", "model"),
+    "wv_b": ("fsdp", "model"),
+    "q_norm": (None,),
+    "kv_norm": (None,),
+    # MLP
+    "w_up": ("fsdp", "model"),
+    "w_gate": ("fsdp", "model"),
+    "w_down": ("model", "fsdp"),
+    # MoE (3D expert weights; detected by the path)
+    "router": ("fsdp", None),
+    # mamba2
+    "w_in": ("fsdp", "model"),
+    "conv_w": (None, "model"),
+    "A_log": (None,),
+    "D": (None,),
+    "dt_bias": (None,),
+    "norm": ("model",),
+    "w_out": ("model", "fsdp"),
+    # xlstm
+    "w_if": ("fsdp", None),
+    "r_gates": (None, None, None),
+    "w_gates": ("fsdp", "model"),
+    "w_ff_gate": ("fsdp", "model"),
+    "w_ff_up": ("fsdp", "model"),
+    "w_ff_down": ("model", "fsdp"),
+    "out_norm": ("model",),
+    # norms
+    "scale": (None,),
+    "bias": (None,),
+}
+
+_MOE_EXPERT_RULES = {           # (E, d, ff) / (E, ff, d): EP over model
+    "w_up": ("model", "fsdp", None),
+    "w_gate": ("model", "fsdp", None),
+    "w_down": ("model", None, "fsdp"),
+}
+
+
+def _leaf_name(keys) -> str:
+    """The last dict key of a leaf's path (a tuple index is no name)."""
+    for k in reversed(keys):
+        if isinstance(k, str):
+            return k
+    return ""
+
+
+def _map_with_path(fn, tree, keys=()):
+    """``fn(keys, leaf)`` over a nested dict (and the tuples of a cache)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, keys + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_with_path(fn, v, keys + (i,))
+                     for i, v in enumerate(tree))
+    return fn(keys, tree)
+
+
+def _dp_size(axes: MeshAxes, sizes: Dict[str, int]) -> int:
+    return math.prod(sizes[a] for a in axes.dp)
+
+
+def _roles_to_spec(roles, shape, axes: MeshAxes, mesh,
+                   no_tp: bool = False) -> Spec:
+    """Resolve role names to mesh axes, honoring divisibility.  With
+    ``no_tp`` the model axis is folded into dp (small models: pure ZeRO-3
+    data parallelism, no tensor parallelism)."""
+    sizes = axis_sizes(mesh)
+    dp_size = _dp_size(axes, sizes)
+    spec = []
+    for role, dim in zip(roles, shape):
+        if no_tp and role == "model":
+            role = None
+        if role == "fsdp" and dim % dp_size == 0:
+            spec.append(axes.dp if len(axes.dp) > 1 else axes.dp[0])
+        elif role == "model" and dim % sizes[axes.model] == 0:
+            spec.append(axes.model)
+        else:
+            spec.append(None)
+    return tuple(spec)
+
+
+def param_specs(params_abstract, mesh, axes: Optional[MeshAxes] = None,
+                no_tp: bool = False):
+    """Spec tree mirroring ``params_abstract`` (anything with ``.shape``)."""
+    axes = axes or MeshAxes.from_mesh(mesh)
+
+    def spec_for(keys, leaf):
+        name = _leaf_name(keys)
+        ndim = len(leaf.shape)
+        if name in _MOE_EXPERT_RULES and "moe" in keys \
+                and "shared" not in keys:
+            stack = ndim - 3
+            return (None,) * stack + _roles_to_spec(
+                _MOE_EXPERT_RULES[name], leaf.shape[stack:], axes, mesh,
+                no_tp)
+        roles = _RULES.get(name)
+        if roles is None:
+            return ()
+        stack = ndim - len(roles)
+        if stack < 0:
+            return ()
+        return (None,) * stack + _roles_to_spec(roles, leaf.shape[stack:],
+                                                axes, mesh, no_tp)
+
+    return _map_with_path(spec_for, params_abstract)
+
+
+def batch_specs(batch_abstract, mesh, axes: Optional[MeshAxes] = None):
+    """Shard every batch leaf on its leading (global-batch) dim over dp."""
+    axes = axes or MeshAxes.from_mesh(mesh)
+    dp_size = _dp_size(axes, axis_sizes(mesh))
+    dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
+
+    def spec_for(keys, leaf):
+        shape = tuple(leaf.shape)
+        if shape and shape[0] % dp_size == 0:
+            return (dp,) + (None,) * (len(shape) - 1)
+        return (None,) * len(shape)
+
+    return _map_with_path(spec_for, batch_abstract)
+
+
+def cache_specs(cache_abstract, cfg, mesh, axes: Optional[MeshAxes] = None,
+                batch_size: int = 0):
+    """KV/state caches: batch over dp when divisible, else sequence over dp
+    (long-context B=1 decode); kv-heads/channels over model when divisible.
+
+    Cache leaves all carry a leading (n_groups[, n_sub]) stack; the batch dim
+    is located per leaf name."""
+    axes = axes or MeshAxes.from_mesh(mesh)
+    sizes = axis_sizes(mesh)
+    dp_size = _dp_size(axes, sizes)
+    model_size = sizes[axes.model]
+    dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
+
+    # per leaf name: (batch_dim_from_end, seq_dim_from_end or None,
+    #                 model_dim_from_end or None)
+    layout = {
+        "k": (4, 3, 2), "v": (4, 3, 2),            # (..., B, S, Hkv, D)
+        "c_kv": (3, 2, None), "k_rope": (3, 2, None),   # (..., B, S, R)
+        "conv": (3, None, 1),                      # (..., B, W-1, C)
+        "ssm": (4, None, 3),                       # (..., B, H, P, N)
+    }
+
+    def spec_for(keys, leaf):
+        name = _leaf_name(keys)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        lay = layout.get(name)
+        if lay is None:
+            # xlstm/slstm tuple states: shard the batch dim if any dim ==
+            # batch_size and divisible
+            for i, d in enumerate(shape):
+                if batch_size and d == batch_size and d % dp_size == 0:
+                    spec[i] = dp
+                    break
+            return tuple(spec)
+        b_i, s_i, m_i = lay
+        if b_i is not None and nd - b_i >= 0 and \
+                shape[nd - b_i] % dp_size == 0:
+            spec[nd - b_i] = dp
+        elif s_i is not None and shape[nd - s_i] % dp_size == 0:
+            spec[nd - s_i] = dp    # sequence-shard the cache (B==1 long ctx)
+        if m_i is not None and shape[nd - m_i] % model_size == 0:
+            spec[nd - m_i] = axes.model
+        return tuple(spec)
+
+    return _map_with_path(spec_for, cache_abstract)
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, dict) and set(x.keys()) == {"q", "s"}
+
+
+def _zip_map(fn, moments, specs):
+    if _is_q(moments) or not isinstance(moments, dict):
+        return fn(moments, specs)
+    return {k: _zip_map(fn, moments[k], specs[k]) for k in moments}
+
+
+def opt_state_specs(opt_abstract, param_spec_tree):
+    """Specs for an optimizer-state tree: m/v mirror their params; int8
+    quantized states {"q","s"} give q the param spec and s the param spec
+    with the (blocked) last dim replicated."""
+
+    def moment_spec(mleaf, pspec):
+        if _is_q(mleaf):
+            nd = len(mleaf["q"].shape)
+            entries = list(pspec) + [None] * (nd - len(pspec))
+            s_spec = tuple(entries[:-1]) + (None,) if nd else ()
+            return {"q": pspec, "s": s_spec}
+        return pspec
+
+    return {"m": _zip_map(moment_spec, opt_abstract["m"], param_spec_tree),
+            "v": _zip_map(moment_spec, opt_abstract["v"], param_spec_tree),
+            "step": ()}
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def to_placements(spec: Spec, mesh) -> tuple:
+    """One placement per mesh dim: ``Shard(d)`` where tensor dim ``d``'s
+    entry names that axis, else ``Replicate()``."""
+    out = []
+    for name in axis_sizes(mesh):
+        dims = [d for d, e in enumerate(spec) if name in _axes_of(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, e in enumerate(spec):
+        for a in _axes_of(e):
+            assert out[d] % sizes[a] == 0, (shape, spec, sizes)
+            out[d] //= sizes[a]
+    return tuple(out)
+
+
+def update_spec(pspec: Spec, shape, mesh) -> Spec:
+    """The spec an int8-moment leaf is updated (and its moments stored)
+    in: ``pspec``, unless the shard of the last dim would cut a
+    quantization block; then each axis sharding the last dim moves to the
+    first leading dim it divides (after the axes already there), or is
+    dropped (that part replicated)."""
+    nd = len(shape)
+    if nd == 0:
+        return pspec
+    spec = list(pspec) + [None] * (nd - len(pspec))
+    if not _axes_of(spec[-1]):
+        return tuple(pspec)
+    if local_shape(shape, tuple(spec), mesh)[-1] % QBLOCK == 0:
+        return tuple(pspec)
+    sizes = axis_sizes(mesh)
+    moved = list(spec[:-1]) + [None]
+    for a in _axes_of(spec[-1]):
+        for d in range(nd - 1):
+            have = _axes_of(moved[d])
+            if shape[d] % (math.prod(sizes[x] for x in have) * sizes[a]):
+                continue
+            order = list(sizes)         # mesh order, as DTensor nests
+            moved[d] = (tuple(sorted(have + (a,), key=order.index))
+                        if have else a)
+            break
+    return tuple(moved)
+
+
+def scale_spec(qspec: Spec, shape, mesh) -> Spec:
+    """The scales' spec beside ``q``'s: the leading dims as ``q``'s, the
+    block dim sharded as ``q``'s last dim where its shards hold whole
+    blocks (a replicated block dim otherwise)."""
+    nd = len(shape)
+    if nd == 0:
+        return ()
+    spec = list(qspec) + [None] * (nd - len(qspec))
+    last = spec[-1]
+    if _axes_of(last) and local_shape(shape, tuple(spec), mesh)[-1] \
+            % QBLOCK:
+        last = None
+    return tuple(spec[:-1]) + (last,)
+
+
+def moment_specs(params_abstract, param_spec_tree, mesh,
+                 state_bits: Optional[int]):
+    """The port's storage specs of the optimizer state: fp32 moments as
+    their params; int8 ones as ``update_spec`` and ``scale_spec`` give
+    them (see the module docstring)."""
+
+    def moment(p, pspec):
+        if state_bits != 8:
+            return pspec
+        q = update_spec(pspec, p.shape, mesh)
+        return {"q": q, "s": scale_spec(q, p.shape, mesh)}
+
+    tree = _zip_map(moment, params_abstract, param_spec_tree)
+    return {"m": tree, "v": tree, "step": ()}
+
+
+# ------------------------------------------------- placements on a mesh
+
+def placement_index(shape, placements, mesh):
+    """The slices of a whole leaf this rank holds under ``placements`` on
+    the DeviceMesh ``mesh`` (even shards; mesh dims split in order, the
+    first outermost, as DTensor lays them out)."""
+    coord = mesh.get_coordinate()
+    sizes = mesh.mesh.shape
+    lo, ext = [0] * len(shape), list(shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            d = pl.dim
+            assert ext[d] % sizes[i] == 0, (shape, placements)
+            ext[d] //= sizes[i]
+            lo[d] += coord[i] * ext[d]
+    return tuple(slice(a, a + e) for a, e in zip(lo, ext))
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A leaf's place on a mesh: the DeviceMesh and one placement per
+    mesh dim (``to_placements``)."""
+    mesh: Any
+    placements: tuple
+
+    def index(self, shape):
+        return placement_index(shape, self.placements, self.mesh)
+
+    def local_shape(self, shape) -> Tuple[int, ...]:
+        return tuple(s.stop - s.start for s in self.index(shape))
+
+    def wrap(self, local):
+        """The DTensor whose shard on this rank is ``local``."""
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False)
+
+    def shard(self, full):
+        """This rank's DTensor of a whole tensor ``full``."""
+        return self.wrap(full[self.index(full.shape)].contiguous())
+
+
+def layouts(spec_tree, mesh):
+    """``Layout`` over a spec tree."""
+    if isinstance(spec_tree, dict):
+        return {k: layouts(v, mesh) for k, v in spec_tree.items()}
+    return Layout(mesh, to_placements(spec_tree, mesh))

@@ -8,14 +8,28 @@ state fits one 80 GB card only that way.
 
 ``apply`` updates the params and the moments IN PLACE (the reference
 returns new trees, which XLA donates) and returns the same objects.
+
+Under a block of several devices the params, grads and moments are
+DTensors: ``init`` builds each rank's moment shards in the plan's
+placements (``init(..., layouts=)``), ``global_norm`` sums each leaf's
+local squares and adds them over the mesh dims the leaf is sharded on
+only (a leaf replicated over ``model`` counts once), and ``apply`` runs
+the fused AdamW kernel on each rank's local shards.  A leaf whose int8
+moments are stored in another layout than the param
+(``plans.update_spec``: a shard of the last dim that would cut a
+quantization block) has its param and grad moved to that layout for the
+update and the param moved back.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections import defaultdict
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.train import quantized_state as qs
@@ -63,16 +77,49 @@ def _tree_map(fn, tree):
             for k, v in tree.items()}
 
 
-def init(params, cfg: Optional[OptConfig] = None) -> Dict[str, Any]:
+def init(params, cfg: Optional[OptConfig] = None,
+         layouts=None) -> Dict[str, Any]:
+    """Fresh moments for ``params``.  ``layouts``: the moments'
+    ``plans.Layout`` tree (``{"m", "v"}`` of ``plans.moment_specs``) when
+    the params are DTensors; each rank then holds its shards."""
     cfg = cfg or OptConfig()
     if cfg.state_bits == 8:
         zeros = qs.zeros_like_quantized
     else:
         def zeros(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    device = next(iter(_leaves(params))).device
-    return {"m": _tree_map(zeros, params), "v": _tree_map(zeros, params),
+    device = _local(next(iter(_leaves(params)))).device
+    if layouts is None:
+        m, v = _tree_map(zeros, params), _tree_map(zeros, params)
+    else:
+        m = _sharded_zeros(zeros, params, layouts["m"], device)
+        v = _sharded_zeros(zeros, params, layouts["v"], device)
+    return {"m": m, "v": v,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _sharded_zeros(zeros, params, layouts, device):
+    """Each param's fresh moment as DTensors in ``layouts``: the local
+    shards of ``zeros`` of the whole leaf (ones for the int8 scales)."""
+    def one(p, lay):
+        whole = zeros(torch.empty(p.shape, dtype=p.dtype, device="meta"))
+        if isinstance(whole, dict):
+            return {k: _local_fill(whole[k], lay[k], device,
+                                   1.0 if k == "s" else 0.0)
+                    for k in whole}
+        return _local_fill(whole, lay, device, 0.0)
+    return {k: (_sharded_zeros(zeros, v, layouts[k], device)
+                if isinstance(v, dict) else one(v, layouts[k]))
+            for k, v in params.items()}
+
+
+def _local_fill(meta, lay, device, value):
+    return lay.wrap(torch.full(lay.local_shape(meta.shape), value,
+                               dtype=meta.dtype, device=device))
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _leaves(tree, is_leaf=lambda x: False):
@@ -100,9 +147,64 @@ def _sq_sum(leaf: torch.Tensor) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.sum(torch.stack(parts))
 
 
+def _sharded_dims(leaf):
+    """The mesh dims (of size > 1) a DTensor leaf is sharded on."""
+    if not isinstance(leaf, DTensor):
+        return ()
+    mesh = leaf.device_mesh
+    return tuple(i for i, pl in enumerate(leaf.placements)
+                 if isinstance(pl, Shard) and mesh.size(i) > 1)
+
+
 def global_norm(tree) -> torch.Tensor:
-    sq = [_sq_sum(leaf) for leaf in _leaves(tree)]
+    leaves = list(_leaves(tree))
+    sq = [_sq_sum(_local(leaf)) for leaf in leaves]
+    # the local sums of the leaves sharded on the same mesh dims, added
+    # over those dims in one collective; the leaves' order kept
+    groups = defaultdict(list)
+    for i, leaf in enumerate(leaves):
+        dims = _sharded_dims(leaf)
+        if dims:
+            groups[dims].append(i)
+    for dims, idx in groups.items():
+        both = torch.stack([sq[i] for i in idx])
+        mesh = leaves[idx[0]].device_mesh
+        for d in dims:
+            dist.all_reduce(both, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sq[i] = both[j]
     return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def _moved(t: DTensor, placements) -> DTensor:
+    """``t`` in ``placements``: a mesh dim that shards another tensor dim
+    is gathered first, then split (no all-to-all)."""
+    via = [a if a == b else Replicate()
+           for a, b in zip(t.placements, placements)]
+    return t.redistribute(t.device_mesh, via).redistribute(t.device_mesh,
+                                                           placements)
+
+
+def _adamw_leaf(p, g, m, v, impl, **kw) -> None:
+    """One leaf's update in place; sharded leaves on their local shards,
+    in the moments' layout."""
+    if not isinstance(p, DTensor):
+        ops.fused_adamw(p, g, m, v, impl=impl, **kw)
+        return
+    first = m["q"] if isinstance(m, dict) else m
+    loc = (lambda t: {k: x.to_local() for k, x in t.items()}
+           if isinstance(t, dict) else t.to_local())
+    if tuple(first.placements) == tuple(p.placements):
+        ops.fused_adamw(p.to_local(), g.to_local(), loc(m), loc(v),
+                        impl=impl, **kw)
+        return
+    pu = _moved(p.detach(), first.placements)
+    gu = _moved(g, first.placements)
+    pl = pu.to_local().contiguous()
+    ops.fused_adamw(pl, gu.to_local(), loc(m), loc(v), impl=impl, **kw)
+    back = _moved(DTensor.from_local(pl, p.device_mesh, first.placements,
+                                     run_check=False), p.placements)
+    p.to_local().copy_(back.to_local())
 
 
 @torch.no_grad()
@@ -125,8 +227,8 @@ def apply(cfg: OptConfig, params, opt_state, grads
                _leaves(opt_state["v"], is_state_leaf))
     impl = "torch" if cfg.fused == "off" else cfg.fused
     for p, g, m, v in flat:
-        ops.fused_adamw(p, g, m, v, lr=lr, scale=scale, bc1=bc1, bc2=bc2,
-                        b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
-                        weight_decay=cfg.weight_decay, impl=impl)
+        _adamw_leaf(p, g, m, v, impl, lr=lr, scale=scale, bc1=bc1, bc2=bc2,
+                    b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                    weight_decay=cfg.weight_decay)
     opt_state["step"] = step
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,5 +1,5 @@
 """Train-step factory: serial microbatch accumulation + remat + AdamW (the
-port of ``repro.train.train_step`` for one device).
+port of ``repro.train.train_step``).
 
 ``train_step(state, batch) -> (state, metrics)``: one optimizer update per
 call; gradients average over ``shape.microbatch`` sequential microbatches.
@@ -15,12 +15,19 @@ microbatch's capacity from its own token count, as the reference's
 per-call capacity) and the xlstm family (its mLSTM chunked scan and
 sLSTM recurrence in plain PyTorch under autograd, as the reference has
 no kernel for them; its RMSNorms are the kernel's).
+
+Under a block of several devices (a ``ShardCtx`` installed around the
+step, the params DTensors) each rank runs the step on its rows of the
+batch: each group's params are gathered for its use and the gradients
+come back reduce-scattered onto the plan's shards, where the
+microbatches accumulate and the optimizer updates them.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
@@ -42,6 +49,57 @@ def make_train_state(cfg: ModelConfig, seed: int, opt_cfg: opt_lib.OptConfig,
     if opt_state is None:
         opt_state = opt_lib.init(params, opt_cfg)
     return {"params": params, "opt": opt_state}
+
+
+def make_sharded_train_state(cfg: ModelConfig, seed: int,
+                             opt_cfg: opt_lib.OptConfig, layouts, *,
+                             params: Optional[Dict[str, Any]] = None,
+                             opt_state: Optional[Dict[str, Any]] = None,
+                             device="cuda") -> Dict[str, Any]:
+    """``make_train_state`` on a mesh: every leaf a DTensor of this rank's
+    shards in ``layouts`` (the runtime's ``state_layouts``).  Random
+    weights are drawn as the unsharded init draws them (one group at a
+    time) and sliced; given whole trees (``params``, ``opt_state``) are
+    sliced."""
+    lay_p = dict(flatten(layouts["params"]))
+
+    def place(path, leaf):
+        lay = lay_p[path]
+        if path.startswith("layers/"):      # a group's slice, no stack dim
+            return leaf[lay.index((1,) + tuple(leaf.shape))[1:]]
+        return leaf[lay.index(tuple(leaf.shape))].clone()
+
+    if params is None:
+        local = model_lib.init_params(cfg, seed=seed, device=device,
+                                      place=place)
+        params = unflatten((path, lay_p[path].wrap(leaf))
+                           for path, leaf in flatten(local))
+    else:
+        params = unflatten((path, lay_p[path].shard(leaf.to(device)))
+                           for path, leaf in flatten(params))
+    if opt_state is None:
+        opt_state = opt_lib.init(params, opt_cfg, layouts=layouts["opt"])
+    else:
+        lay_o = layouts["opt"]
+        opt_state = {
+            "m": _shard_tree(opt_state["m"], lay_o["m"], device),
+            "v": _shard_tree(opt_state["v"], lay_o["v"], device),
+            "step": opt_state["step"].to(device)}
+    return sharded_train_state({"params": params, "opt": opt_state})
+
+
+def _shard_tree(tree, layouts, device):
+    return {k: (_shard_tree(v, layouts[k], device) if isinstance(v, dict)
+                else layouts[k].shard(v.to(device)))
+            for k, v in tree.items()}
+
+
+def sharded_train_state(state: Dict[str, Any]) -> Dict[str, Any]:
+    """A sharded train state whose param leaves are DTensors requiring
+    grad (the runtime's restore gives plain DTensors)."""
+    params = unflatten((path, leaf.detach().requires_grad_(True))
+                       for path, leaf in flatten(state["params"]))
+    return {"params": params, "opt": state["opt"]}
 
 
 def abstract_train_state(cfg: ModelConfig, opt_cfg: opt_lib.OptConfig):
@@ -105,7 +163,9 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
         if n_micro == 1:
             loss, grads = value_and_grad(params, cfg, batch, impl=impl)
         else:
-            acc = {path: torch.zeros(p.shape, device=p.device,
+            # on the local shards of sharded leaves (the accumulator
+            # policy by the whole leaf's size)
+            acc = {path: torch.zeros(_local(p).shape, device=_local(p).device,
                                      dtype=accum_dtype(accum, p,
                                                        accum_threshold))
                    for path, p in flatten(params)}
@@ -115,18 +175,30 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                                       _split_micro(batch, n_micro, i),
                                       impl=impl)
                 for path, gl in flatten(g):
-                    acc[path].add_(gl.to(acc[path].dtype))
+                    acc[path].add_(_local(gl).to(acc[path].dtype))
                 loss = loss + l
                 del g
             # in place where the accumulator is already fp32
-            grads = unflatten((path, a.float().div_(n_micro))
-                              for path, a in acc.items())
+            grads = unflatten(
+                (path, _like(p, acc[path].float().div_(n_micro)))
+                for path, p in flatten(params))
             loss = loss / n_micro
         params, opt, opt_metrics = opt_lib.apply(opt_cfg, params,
                                                  state["opt"], grads)
         return {"params": params, "opt": opt}, {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+_local = opt_lib._local
+
+
+def _like(p, local):
+    """``local`` placed as ``p`` is (a DTensor shard for a DTensor)."""
+    if not isinstance(p, DTensor):
+        return local
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False)
 
 
 def make_eval_step(cfg: ModelConfig, *, impl: str = "auto"):

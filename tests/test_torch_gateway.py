@@ -498,9 +498,10 @@ def test_vlm_serve_and_encoder_train_jobs_are_admitted(gw):
 
 def test_several_chip_activation_answers_with_its_reason(tmp_path):
     """A real block granted two chips on two distinct devices cannot
-    activate in the port (a block spans one device): the submit answers
-    500 with the runtime's reason, the pump thread lives on, and the
-    block's chips come back when it expires."""
+    activate in a process with no process group (a block of several
+    devices runs one rank a device): the submit answers 500 with the
+    runtime's reason, the pump thread lives on, and the block's chips
+    come back when it expires."""
     topo = Topology(n_pods=1, pod_x=2, pod_y=1)
     daemon = ClusterDaemon(topo, devices=["cpu", "meta"],
                            ckpt_root=str(tmp_path / "ckpt"),
@@ -512,7 +513,7 @@ def test_several_chip_activation_answers_with_its_reason(tmp_path):
         s, e = req("POST", "/v1/submit", "tok-alice",
                    {"job_description": "two devices", "n_chips": 2,
                     "job": TRAIN_JOB})
-        assert s == 500 and "spans one device" in e["error"], (s, e)
+        assert s == 500 and "needs a process group" in e["error"], (s, e)
         assert daemon.running
         assert req("GET", "/v1/ping")[0] == 200
         (blk,) = daemon.list_apps()

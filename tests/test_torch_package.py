@@ -183,7 +183,7 @@ def test_every_ctypes_signature_matches_its_c_prototype():
 PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
              "checkpoint/__init__.py", "data/__init__.py",
              "launch/__init__.py", "models/__init__.py", "serve/__init__.py",
-             "train/__init__.py"}
+             "sharding/__init__.py", "train/__init__.py"}
 
 
 def test_every_module_has_its_reference_counterpart():

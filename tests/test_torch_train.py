@@ -462,3 +462,26 @@ def test_chip_smoke_train_phases_rehearse_on_cpu(capsys):
     assert smoke.KERNEL_META["ssd_scan_bwd"]["replaces"] == \
         "src/repro/kernels/ops.py:319"
     assert '"ok": true' not in capsys.readouterr().out
+
+
+def test_chip_smoke_train_sharded_rehearses_on_cpu():
+    """chip_smoke.py's ``train_sharded`` at smoke size on the CPU, under a
+    one-rank gloo group it starts and destroys: ``train``'s job on a
+    (1, 1) DeviceMesh, every param a DTensor, its losses, grad norms and
+    state checksums bit for bit ``train``'s, the checkpoint round trip
+    bit for bit, and no process group left behind."""
+    import torch.distributed as dist
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    train = smoke.phase_train(device="cpu", smoke=True)
+    out = smoke.phase_train_sharded(device="cpu", smoke=True, train=train)
+    assert not dist.is_initialized()
+    assert out["mesh"] == [1, 1] and out["backend"] == "gloo"
+    assert out["losses"] == train["losses"] and len(out["losses"]) == 2
+    assert out["grad_norms"] == train["grad_norms"]
+    assert out["state_checksums"] == train["state_checksums"]
+    assert out["losses_equal_train"] and out["state_checksums_equal_train"]
+    assert out["restore_bitwise_equal"] and out["ckpt_gb"] > 0
+    assert set(out["launches"].values()) == {0}
