@@ -125,7 +125,22 @@ never JAX.  Phases, each printing one JSON line:
 11. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
                      2 microbatches: the fp32 AdamW variant and the serial
                      gradient accumulation;
-12. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
+12. ``blocks``     — two tenant blocks at once in one ``ClusterDaemon``,
+                     each on a mesh and process groups of its own, under
+                     a process group of one rank (NCCL, a ``HashStore``)
+                     whose topology maps 3 chips onto that rank: alice's
+                     train block runs train_f32's job on the sharded
+                     runtime, carol's serve block serve_hybrid's job, two
+                     rounds of ``step_all``; alice saves at step 2, her
+                     chip fails, the controller migrates her onto the
+                     spare chip (her old state released first) and
+                     restores her state bit for bit; her 3 losses and
+                     grad norms train_f32's and carol's 32 tokens
+                     serve_hybrid's, bit for bit, the launches exactly
+                     theirs; failure-to-first-step, save and restore
+                     seconds, peak memory across the migration, each
+                     block's step time co-resident against alone;
+13. ``train_hybrid`` — a train ``BlockRuntime`` on zamba2_2p7b at full width
                      (54 layers, random bf16 weights from the seed, fp32
                      AdamW moments, 2 x 2048 tokens a step, remat): step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
@@ -135,14 +150,14 @@ never JAX.  Phases, each printing one JSON line:
                      then 4 steps, the kernels' launches per step held
                      exactly (the SSD scan's backward kernel among them),
                      tokens/s, step time, peak memory and a profiled step;
-13. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
+14. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
                      encoder: LayerNorm, plain GELU MLP, bidirectional
                      attention at head dim 80, the frame stub, the
                      masked-frame loss) at full size, 48 layers, fp32
                      moments, 8 x 1024 frames a step: step 0 as
                      ``train_hybrid``'s, 5 steps with their launches held
                      exactly (no RMSNorm), frames/s, MFU, a profiled step;
-14. ``train_moe``  — ``repro_torch.launch.train``'s ``run(args, cfg)`` on
+15. ``train_moe``  — ``repro_torch.launch.train``'s ``run(args, cfg)`` on
                      deepseek_v2_236b (MLA, 160 routed experts top-6 and 2
                      shared) at full width, cut to 2 of its 60 layers,
                      random bf16 weights from seed 0, int8 moments, 2 x
@@ -160,14 +175,14 @@ never JAX.  Phases, each printing one JSON line:
                      a leaf, none on a scalar or CUDA-core route),
                      tok/s, peak memory, MFU, a profiled step and the
                      capacity's dropped share;
-15. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full size
+16. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full size
                      (fp32 moments, 4 x 2048 tokens a step, remat): step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
                      under the train phases' limits, the bf16 step 0 read
                      beside it; 3 steps, their launches held exactly, the
                      last one profiled (the device's activity only);
                      tok/s, MFU, peak memory;
-16. ``preempt``    — checkpoints and preempt/resume at full width
+17. ``preempt``    — checkpoints and preempt/resume at full width
                      (``BlockRuntime.suspend``/``resume`` through
                      ``repro_torch.checkpoint.manager``, under a temporary
                      directory): train_hybrid's job suspended after 3
@@ -187,7 +202,7 @@ never JAX.  Phases, each printing one JSON line:
                      resume seconds and GB/s, the async save's overlap
                      with the steps, ``progress_lost`` before and after
                      the save, disk space and peak memory;
-17. ``control``    — the control plane on the card: a background-mode
+18. ``control``    — the control plane on the card: a background-mode
                      ``ClusterDaemon`` on one chip, Alice's train block
                      (train_hybrid's job) autostepping toward 4 steps,
                      preempted after 2 by Bob's priority-1 paged serve
@@ -201,7 +216,7 @@ never JAX.  Phases, each printing one JSON line:
                      admission, preemption, first-token and resume
                      seconds, each block's tok/s inside the daemon and
                      Alice's MFU on the H100 roofline;
-18. ``gateway``    — the web gateway in front of a background
+19. ``gateway``    — the web gateway in front of a background
                      ``ClusterDaemon`` on one chip, every step a real HTTP
                      call: Alice walks the paper's explicit workflow
                      (register, admin review, confirm, activate, run, 2
@@ -2731,6 +2746,16 @@ def hybrid_launches(cfg):
              "rmsnorm": norms}, {**zero, "rmsnorm": norms})
 
 
+def serve_hybrid_argv(device, smoke):
+    """serve_hybrid's launcher flags (``blocks`` runs the same job)."""
+    argv = ["--arch", "zamba2_2p7b", "--batch", "4", "--prompt-len", "1000",
+            "--gen", "32", "--seed", "0", "--device", device]
+    if smoke:
+        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
+                           "--gen", "6", "--device", device]
+    return argv
+
+
 def phase_serve_hybrid(device="cuda", smoke=False):
     """The hybrid family (zamba2_2p7b) through the launcher's entry point
     on the dense plane, then each kernel's launches in one prefill and one
@@ -2741,12 +2766,7 @@ def phase_serve_hybrid(device="cuda", smoke=False):
     from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.models.transformer import flatten, unflatten
-    argv = ["--arch", "zamba2_2p7b", "--batch", "4", "--prompt-len", "1000",
-            "--gen", "32", "--seed", "0", "--device", device]
-    if smoke:
-        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
-                           "--gen", "6", "--device", device]
-    args = serve.parse_args(argv)
+    args = serve.parse_args(serve_hybrid_argv(device, smoke))
     zero_counts()
     _zero_eager_calls()
     res = serve.run(args)
@@ -2845,7 +2865,7 @@ def phase_serve_hybrid(device="cuda", smoke=False):
            "launches_per_prefill": per_call["bf16_auto"],
            "launches_per_decode_step": per_call["decode_bf16_auto"],
            "logits_check": chk, "first_decode_logits_check": chk_dec,
-           "bf16_group_check": groups}
+           "bf16_group_check": groups, "tokens": toks.tolist()}
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = peak
         cache = model.init_cache(cfg, B, P, rt.device)
@@ -3647,8 +3667,9 @@ def phase_train_sharded(device="cuda", smoke=False, train=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_train_f32(device="cuda", smoke=False):
-    """The same width cut to 4 layers, fp32 moments, 2 microbatches."""
+def _train_f32_setup(smoke):
+    """deepseek_7b's width cut to 4 layers, fp32 moments, 2 x 2048 tokens
+    in 2 microbatches (``blocks`` runs the same job)."""
     import repro_torch.configs as configs
     from repro_torch.models.config import ShapeConfig
     from repro_torch.train.optimizer import OptConfig
@@ -3658,8 +3679,292 @@ def phase_train_f32(device="cuda", smoke=False):
     shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
                         global_batch=2, microbatch=2)
     opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    return cfg, shape, opt_cfg
+
+
+def phase_train_f32(device="cuda", smoke=False):
+    """The same width cut to 4 layers, fp32 moments, 2 microbatches; then
+    ``host_probe``'s two steps, which ``blocks`` runs on alice too."""
+    cfg, shape, opt_cfg = _train_f32_setup(smoke)
+
+    def after(rt, out):
+        out["host_probe"] = host_probe(rt)
+        return rt
+
+    # 3 steps at smoke size too: blocks migrates alice after her second
     return _train_phase("train_f32", cfg, shape, opt_cfg, device,
-                        n_steps=2 if smoke else 3, profile=False)
+                        n_steps=3, profile=False, after=after)
+
+
+#: blocks: the chips of the one-rank topology (alice's, carol's, the spare
+#: alice migrates onto), and alice's steps alone after the held ones
+BLOCKS_CHIPS = 3
+ALONE_STEPS = 3
+
+
+def phase_blocks(device="cuda", smoke=False, train=None, serve=None):
+    """Two tenant blocks at once in one controller, each on a mesh and
+    process groups of its own (item 8b), on one card: a process group of
+    one rank (NCCL on the card, gloo on the CPU; a ``HashStore``, no
+    network) and a topology of 3 chips, all on that rank, driven through
+    ``ClusterDaemon``'s deterministic calls on the model clock.  Alice's
+    train block on chip 0 runs train_f32's job (``train``: deepseek_7b
+    at full width cut to 4 layers, fp32 moments, 2 x 2048 tokens in 2
+    microbatches, seed 0) on the sharded runtime at (1, 1); carol's serve
+    block on chip 1 runs serve_hybrid's job (``serve``: zamba2_2p7b at
+    full size on the dense plane, 4 x 1000 prompt tokens, 32 generated,
+    the decode captured).  Both step through ``step_all`` for two rounds;
+    alice saves at step 2; chip 0 fails, and the controller migrates her
+    onto chip 2, her old state released before the restore; her
+    restored state equals her state at the save bit for bit, and she
+    takes her third step; carol decodes on to her 32nd token, then alice
+    takes 3 steps alone timed as train_f32's are, 3 through the daemon
+    and ``host_probe``'s 2 (the sharded step's own time).  Held bit
+    for bit: alice's 3 losses and grad norms against train_f32's, carol's
+    tokens against serve_hybrid's; launches exactly a train_f32 step
+    each alice step, serve_hybrid's prefill and decode step each of
+    carol's; the card's memory across the migration never two copies of
+    alice's state, and back to where it was once both blocks end.  Read:
+    failure-to-first-step, save and restore seconds, the peak memory
+    across the migration and each block's step time co-resident against
+    alone (alice's steps alone and train_f32's steady step, and both
+    blocks' ``host_probe``; carol's
+    decode steps after the migration and serve_hybrid's; this run, this
+    card).  The process group
+    is destroyed at the end, so the later phases run as before."""
+    import torch.distributed as dist
+    from repro_torch import device as device_lib
+    from repro_torch.core.block import BlockState
+    from repro_torch.core.daemon import ClusterDaemon
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.core.topology import Topology
+    from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models.config import ShapeConfig
+    if train is None:
+        train = phase_train_f32(device, smoke)
+        _free(device)
+    if serve is None:
+        serve = phase_serve_hybrid(device, smoke)
+        _free(device)
+    cfg, shape, opt_cfg = _train_f32_setup(smoke)
+    alice_job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=0,
+                        collect_metrics=True)
+    args = serve_lib.parse_args(serve_hybrid_argv(device, smoke))
+    ccfg = serve_lib.config(args)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    carol_job = JobSpec(ccfg, ShapeConfig("cli", "serve", seq_len=P + G,
+                                          global_batch=B),
+                        kind="serve", seed=args.seed)
+    batch = {k: v for k, v in pipeline.synthetic_batch(
+        ccfg, ShapeConfig("cli", "prefill", seq_len=P, global_batch=B),
+        step=0, seed=args.seed).items() if k != "labels"}
+    n_alice = len(train["losses"])
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    dev = device_lib.rank_device(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_blocks_")
+    now = 0.0
+    out = {"chips": BLOCKS_CHIPS, "backend": dist.get_backend(),
+           "world_size": dist.get_world_size()}
+    try:
+        base = _mem(dev)
+        daemon = ClusterDaemon(Topology(n_pods=1, pod_x=BLOCKS_CHIPS,
+                                        pod_y=1),
+                               devices=[device] * BLOCKS_CHIPS,
+                               ckpt_root=root)
+        apps, grants = {}, {}
+        zero_counts()
+        _zero_eager_calls()
+        for user, job in (("alice", alice_job), ("carol", carol_job)):
+            progress(f"blocks: {user} activates")
+            a = daemon.register(user, f"{job.kind} {job.cfg.name}", 1,
+                                arch=job.cfg.name)
+            grants[user] = daemon.review(a)
+            daemon.confirm(a, grants[user].token)
+            daemon.activate(a, job)
+            daemon.run(a)
+            apps[user] = a
+        alice, carol = apps["alice"], apps["carol"]
+        rt_a, rt_c = daemon.runtime(alice), daemon.runtime(carol)
+        groups = [mesh_lib.block_group(rt.mesh) for rt in (rt_a, rt_c)]
+        out["meshes"] = {u: {"coords": [list(c) for c in g.coords],
+                             "ranks": daemon.runtime(apps[u]).ranks,
+                             "mesh": list(daemon.runtime(
+                                 apps[u]).mesh.mesh.shape)}
+                         for u, g in grants.items()}
+        out["own_groups"] = (groups[0] is not groups[1] and all(
+            g is not dist.group.WORLD for g in groups))
+        check(out["own_groups"] and rt_a.ctx is not None
+              and [list(c) for c in grants["alice"].coords] == [[0, 0, 0]]
+              and [list(c) for c in grants["carol"].coords] == [[0, 1, 0]],
+              f"blocks: the grants and meshes {out['meshes']}")
+        state_bytes = tree_bytes(_whole(rt_a.state))
+        _disk_check(root, state_bytes, "blocks")
+        out["mem_gb"] = {"base": base, "both_active": _mem(dev)}
+        launches = {"activation": counts()}
+
+        progress("blocks: carol's prefill")
+        zero_counts()
+        t0 = time.perf_counter()
+        rt_c.prefill(batch)
+        tokens = [rt_c.token.cpu().numpy()]
+        prefill_s = time.perf_counter() - t0
+        launches["carol_prefill"] = counts()
+
+        progress("blocks: two rounds of step_all")
+        hist, co = [], []
+        zero_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = daemon.step_all(rounds=1)
+            tokens.append(rt_c.token.cpu().numpy())
+            co.append({"round_s": time.perf_counter() - t0,
+                       "alice_step_s": res[alice][0]["step_s"],
+                       "carol_step_s": res[carol][0]["step_s"]})
+            hist.append(res[alice][0])
+        launches["co_resident_rounds"] = counts()
+
+        progress("blocks: alice saves, chip 0 fails")
+        t0 = time.perf_counter()
+        daemon.save(alice)
+        save_s = time.perf_counter() - t0
+        at_save = bit_checksums(_whole(rt_a.state))
+        save_timings = dict(rt_a.ckpt.timings)
+        del rt_a
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        mem_before = _mem(dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        failed = daemon.inject_chip_failure((0, 0, 0), now=now)
+        migrate_s = time.perf_counter() - t0
+        peak_migration = _peak(dev)
+        rt_a = daemon.runtime(alice)
+        restore_timings = dict(rt_a.ckpt.timings)
+        blk = daemon.registry.get(alice)
+        restored = bit_checksums(_whole(rt_a.state))
+        out["alice"] = {
+            "migrated_to": [list(c) for c in blk.grant.coords],
+            "restored_step": rt_a.step_count,
+            "restored_bitwise": restored == at_save}
+        check(failed == alice and blk.state == BlockState.RUNNING
+              and out["alice"]["migrated_to"] == [[0, 2, 0]]
+              and rt_a.step_count == 2 and out["alice"]["restored_bitwise"],
+              f"blocks: the migration {out['alice']}")
+        mem_restored = _mem(dev)
+        hist += daemon.run_steps({alice: n_alice - 2})[alice]
+        failure_to_step_s = time.perf_counter() - t0
+        peak = _peak(dev)
+        launches["alice_after_migration"] = counts()
+
+        progress("blocks: carol decodes on, then alice steps alone")
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(G - 3):
+            daemon.run_steps({carol: 1})
+            tokens.append(rt_c.token.cpu().numpy())
+        carol_alone_s = (time.perf_counter() - t0) / (G - 3)
+        launches["carol_decode"] = counts()
+        graph = graph_check("blocks", rt_c.decode_graph, G - 1,
+                            _eager_calls(), device)
+        toks = np.concatenate(tokens, axis=1)
+        # alice's sharded step alone (carol idle), past the steps held
+        # to train_f32: timed as train_f32's steps are (BlockRuntime.step,
+        # to the device's end), then through the daemon, one at a time,
+        # wall clock to its metrics on the host (what her co-resident
+        # rounds are read against), then host_probe's enqueue and wall
+        # times, which train_f32 reads too
+        zero_counts()
+        alone = [rt_a.step()["step_s"] for _ in range(ALONE_STEPS)]
+        alone_daemon = []
+        for _ in range(ALONE_STEPS):
+            t0 = time.perf_counter()
+            daemon.run_steps({alice: 1})
+            alone_daemon.append(time.perf_counter() - t0)
+        launches["alice_alone"] = counts()
+        probe = host_probe(rt_a)
+        del rt_a, rt_c
+        for a in apps.values():
+            daemon.expire(a, now=now)
+        gc.collect()
+        out["mem_gb"]["after_expiry"] = _mem(dev)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+    # held: alice against train_f32, carol against serve_hybrid
+    out["alice"].update(
+        losses=[h["loss"] for h in hist],
+        grad_norms=[h["grad_norm"] for h in hist],
+        step_s=[h["step_s"] for h in hist])
+    out["carol"] = {"tokens": toks.tolist(), "decode_graph": graph,
+                    "prefill_s": prefill_s}
+    for key, want in (("losses", train["losses"]),
+                      ("grad_norms", train["grad_norms"])):
+        out["alice"][f"{key}_equal_train_f32"] = out["alice"][key] == want
+        check(out["alice"][key] == want,
+              f"blocks: alice's {key} {out['alice'][key]}, train_f32's "
+              f"{want}")
+    out["carol"]["tokens_equal_serve_hybrid"] = (out["carol"]["tokens"]
+                                                 == serve["tokens"])
+    check(out["carol"]["tokens_equal_serve_hybrid"],
+          "blocks: carol's tokens differ from serve_hybrid's")
+    zero = {n: 0 for n in COUNTERS}
+    step = train["launches_per_step"]
+    pre, dec = hybrid_launches(ccfg)
+    if dev.type != "cuda":
+        step, pre, dec = zero, zero, zero
+    want = {"activation": zero, "carol_prefill": pre,
+            "co_resident_rounds": {n: 2 * step[n] + 2 * dec[n]
+                                   for n in COUNTERS},
+            "alice_after_migration": {n: (n_alice - 2) * step[n]
+                                      for n in COUNTERS},
+            "carol_decode": {n: (G - 3) * dec[n] for n in COUNTERS},
+            "alice_alone": {n: 2 * ALONE_STEPS * step[n]
+                            for n in COUNTERS}}
+    check(launches == want, f"blocks launches {launches}, want {want}")
+    out["launches_by_segment"] = launches
+    out["launches"] = {n: sum(c[n] for c in launches.values())
+                       for n in COUNTERS}
+    gb = lambda b: None if b is None else b / 1e9   # noqa: E731
+    out["mem_gb"] = {k: gb(v) for k, v in out["mem_gb"].items()}
+    out["mem_gb"].update(before_migration=gb(mem_before),
+                         after_restore=gb(mem_restored),
+                         peak_migration=peak_migration,
+                         peak_migration_and_step=peak,
+                         alice_state=state_bytes / 1e9)
+    if dev.type == "cuda":
+        # the old state went before the new one came: no second copy at
+        # any point of the migration, and nothing of either block left
+        # once both have ended
+        mem = out["mem_gb"]
+        check(mem["peak_migration"] < mem["before_migration"]
+              + mem["alice_state"] / 2
+              and mem["after_restore"] <= mem["before_migration"] + 0.5
+              and mem["after_expiry"] <= mem["base"] + 1.0,
+              f"blocks: the card's memory {mem}")
+    out["migration"] = {"save_s": save_s, "save_timings": save_timings,
+                        "migrate_s": migrate_s,
+                        "restore_timings": restore_timings,
+                        "failure_to_first_step_s": failure_to_step_s}
+    # step times: co-resident (the two rounds of step_all, the first
+    # carrying first-call costs and carol's capture) against alone
+    out["step_time"] = {
+        "co_resident": co,
+        "alice_alone_s": alone,
+        "alice_alone_steady_s": float(np.median(alone[1:])),
+        "train_f32_steady_s": train["steady_step_s"],
+        "alice_alone_daemon_s": alone_daemon,
+        "alice_host_probe": probe,
+        "train_f32_host_probe": train.get("host_probe"),
+        "alice_after_migration_s": out["alice"]["step_s"][2:],
+        "carol_alone_decode_s": serve["decode_s"] / (G - 1),
+        "carol_decode_after_s": carol_alone_s}
+    out["card"] = _CARD
+    emit("blocks", **out)
+    return out
 
 
 def _train_hybrid_setup(smoke):
@@ -5214,6 +5519,9 @@ def _run_all() -> int:
     _free()
     train_f32 = phase_train_f32()
     _free()
+    progress("blocks")
+    blocks = phase_blocks(train=train_f32, serve=hybrid)
+    _free()
     train_hybrid = phase_train_hybrid()
     _free()
     train_encoder = phase_train_encoder()
@@ -5246,6 +5554,7 @@ def _run_all() -> int:
             "train": train["launches"],
             "train_sharded": train_sharded["launches"],
             "train_f32": train_f32["launches"],
+            "blocks": blocks["launches"],
             "train_hybrid": train_hybrid["launches"],
             "train_encoder": train_encoder["launches"],
             "train_moe": train_moe["launches"],
@@ -5267,6 +5576,7 @@ def _run_all() -> int:
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
+              "blocks": [blocks["carol"]["decode_graph"]],
               "gateway": gateway["decode_graphs"]}
 
     def in_graphs(counter):
@@ -5287,6 +5597,7 @@ def _run_all() -> int:
                        "train_sharded":
                            train_sharded["launches"]["fused_adamw_i8"],
                        "train_f32": train_f32["launches"]["fused_adamw_f32"],
+                       "blocks": blocks["launches"]["fused_adamw_f32"],
                        "train_hybrid":
                            train_hybrid["launches"]["fused_adamw_f32"],
                        "train_encoder":

@@ -27,14 +27,17 @@ through a pinned staging buffer; files are written, read and checksummed
 one leaf per I/O thread.
 
 A block of several devices holds DTensor leaves, and its checkpoint is
-the same whole leaves.  Every rank runs ``save`` (the ranks' programs
-are the same): each DTensor leaf is gathered whole in turn, and the
-block's first rank copies it to the host and writes the files, so the
-``keep`` rotation and the rename of ``step_<n>.tmp`` happen once; the
-other ranks wait at a barrier until the directory is renamed (at
-``save``, or at ``wait`` after ``save_async``).  ``restore(...,
-shardings=)`` reads each leaf on every rank and keeps the rank's slice
-of it (``plans.Layout``): no collective, and any mesh shape.
+the same whole leaves.  Every rank of the block runs ``save`` (the
+ranks' programs are the same): each DTensor leaf is gathered whole in
+turn, and the first rank of the block's mesh copies it to the host and
+writes the files, so the ``keep`` rotation and the rename of
+``step_<n>.tmp`` happen once; the block's other ranks wait at a barrier
+on the block's own group until the directory is renamed (at ``save``,
+or at ``wait`` after ``save_async``).  Ranks outside the block take no
+part, and a block that does not hold world rank 0 writes its own.
+``restore(..., shardings=)`` reads each leaf on every rank of the block
+and keeps the rank's slice of it (``plans.Layout``): no collective, and
+any mesh shape, so a block can move onto ranks that never held it.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch.device import is_writer
+from repro_torch.device import is_block_writer
+from repro_torch.launch.mesh import block_group
 
 # numpy can't serialize bf16/fp8 natively: store a byte view + logical dtype
 _EXOTIC = {"bfloat16", "float8_e4m3fn", "float8_e5m2"}
@@ -143,8 +147,9 @@ class CheckpointManager:
         self._pool = cf.ThreadPoolExecutor(max_workers=1)
         self._io = cf.ThreadPoolExecutor(max_workers=IO_WORKERS)
         self._pending: Optional[cf.Future] = None
-        self._barrier_due = False    # a sharded async save: wait() meets
-                                     # the other ranks after it lands
+        self._barrier_due = None     # a sharded async save: the block's
+                                     # group, whose other ranks wait()
+                                     # meets after it lands
         self._stage: Optional[torch.Tensor] = None
         #: seconds of the last save's and restore's stages: ``copy_s``
         #: (device to host), ``write_s`` (files and crc32, wall),
@@ -178,11 +183,12 @@ class CheckpointManager:
 
     def _host_leaves(self, tree, copy: bool):
         """(structure, [(array to write, logical shape, logical dtype)],
-        whether the tree is sharded); a rank that does not write gets no
-        arrays."""
+        the block's mesh or None for a tree of no DTensor); a rank that
+        does not write gets no arrays."""
         leaves, desc = _flatten(tree)
-        sharded = any(isinstance(x, DTensor) for x in leaves)
-        writer = not sharded or is_writer()
+        mesh = next((x.device_mesh for x in leaves
+                     if isinstance(x, DTensor)), None)
+        writer = mesh is None or is_block_writer(mesh)
         out = []
         for leaf in leaves:
             if isinstance(leaf, DTensor):
@@ -192,7 +198,7 @@ class CheckpointManager:
                 del whole
             elif writer:
                 out.append(self._host_leaf(leaf, copy))
-        return desc, out, sharded
+        return desc, out, mesh
 
     def _host_leaf(self, leaf, copy: bool):
         """(array to write, logical shape, logical dtype) of one leaf."""
@@ -216,31 +222,32 @@ class CheckpointManager:
     def save(self, step: int, tree) -> str:
         """Synchronous atomic save.  Returns the checkpoint path."""
         t0 = time.perf_counter()
-        desc, host, sharded = self._host_leaves(tree, copy=False)
+        desc, host, mesh = self._host_leaves(tree, copy=False)
         self.timings = {"copy_s": time.perf_counter() - t0}
         path = (self._write(step, desc, host)
-                if not sharded or is_writer() else self._step_dir(step))
-        if sharded:
-            dist.barrier()
+                if mesh is None or is_block_writer(mesh)
+                else self._step_dir(step))
+        if mesh is not None:
+            dist.barrier(group=block_group(mesh))
         return path
 
     def save_async(self, step: int, tree) -> None:
         """Async save: device->host copy happens now; file IO in background."""
         self.wait()
         t0 = time.perf_counter()
-        desc, host, sharded = self._host_leaves(tree, copy=True)
+        desc, host, mesh = self._host_leaves(tree, copy=True)
         self.timings = {"copy_s": time.perf_counter() - t0}
-        if not sharded or is_writer():
+        if mesh is None or is_block_writer(mesh):
             self._pending = self._pool.submit(self._write, step, desc, host)
-        self._barrier_due = sharded
+        self._barrier_due = None if mesh is None else block_group(mesh)
 
     def wait(self) -> None:
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
-        if self._barrier_due:
-            self._barrier_due = False
-            dist.barrier()
+        if self._barrier_due is not None:
+            group, self._barrier_due = self._barrier_due, None
+            dist.barrier(group=group)
 
     def _write_leaf(self, tmp: str, i: int, arr: np.ndarray):
         fname = f"leaf_{i:05d}.npy"

@@ -1,5 +1,5 @@
 """ClusterController — the paper's master node + administrator (the port
-of ``repro.core.controller``; its chips are CUDA devices, one a rank
+of ``repro.core.controller``; its chips are CUDA devices, each on a rank
 under a process group).
 
 Owns the chip inventory (Partitioner), the application workflow (Registry),
@@ -32,6 +32,25 @@ published on the controller's ``EventBus`` (``repro_torch.core.events``); the
 feeds replay the same stream.  Callers outside ``repro_torch.core`` should go
 through the ``ClusterDaemon`` service layer rather than constructing a
 controller directly.
+
+Under a process group (the paper's LIPI ran an MPI daemon per user; here
+a block has process groups of its own) every rank runs this controller
+as one program: the same calls, in the same order, with an explicit
+``now=`` where a call takes one, so every rank's partitioner (a
+deterministic copy of the reference's) reaches the same grants.  Each
+chip belongs to a rank (``device.chips``), and blocks run at once on
+disjoint subsets of the ranks.  A block's id, token and expiry are drawn
+on rank 0 and broadcast at grant time.  Every rank builds every block's
+mesh (``launch.mesh.make_block_mesh``: creating a group is a call every
+rank makes, in the same order); the block's ranks build its
+``BlockRuntime``, and every other rank an ``OffRankRuntime`` that holds
+nothing of it and follows its step count and saves, so the registry,
+the scheduler's loop and the event stream are the same on every rank.
+A migration or resize rebuilds the block on its new ranks from the
+checkpoint its old first rank names (``BlockRuntime.rebuild``); a
+resume under a process group is such a rebuild.  The daemon's
+background mode ticks on each rank's wall clock, where ranks could
+disagree: ``tick`` without ``now`` raises there (item 8f).
 """
 from __future__ import annotations
 
@@ -45,10 +64,12 @@ from repro_torch.core.events import EventBus
 from repro_torch.core.monitor import Monitor
 from repro_torch.core.partition import AllocationError, mesh_shape_for
 from repro_torch.core.registry import Registry
-from repro_torch.core.runtime import BlockRuntime, JobSpec, SimJobSpec
+from repro_torch.core.runtime import (BlockRuntime, JobSpec, OffRankRuntime,
+                                      SimJobSpec, check_block)
 from repro_torch.core.scheduler import BlockScheduler, SimRuntime
 from repro_torch.core.topology import Coord, Topology
-from repro_torch.device import cuda_devices
+from repro_torch.device import (chips, cuda_devices, from_rank, is_writer,
+                                rank, world_size)
 from repro_torch.federation import (FederatedPartitioner, FederatedPlacer,
                               HealthMonitor, PodRegistry)
 from repro_torch.federation.pods import POD_DEAD, POD_READY, to_local
@@ -68,8 +89,8 @@ class ClusterController:
                  bus: Optional[EventBus] = None,
                  placer: Optional[FederatedPlacer] = None):
         self.topo = topo
-        self.devices = (list(devices) if devices is not None
-                        else cuda_devices())
+        self.devices = chips(list(devices) if devices is not None
+                             else cuda_devices())
         if len(self.devices) < topo.n_chips:
             raise ValueError(
                 f"topology needs {topo.n_chips} devices, have "
@@ -100,7 +121,9 @@ class ClusterController:
         self.placer = placer or FederatedPlacer()
         self.partitioner = FederatedPartitioner(self.pods, self.placer)
         self.health = HealthMonitor(self.pods)
-        self.registry = Registry(state_path=state_path, bus=self.bus)
+        # one state file for the whole control plane: world rank 0's
+        self.registry = Registry(
+            state_path=state_path if is_writer() else None, bus=self.bus)
         # re-attach runtime pods recorded in the registry snapshot (their
         # devices are not persistable — they come back as sim pods on the
         # host's first device, the same replication the CI smokes use)
@@ -132,6 +155,40 @@ class ClusterController:
             pod = self.pods.pod(c[0])
             out.append(pod.devices[pod.topo.chip_index((0, c[1], c[2]))])
         return out
+
+    def _new_grant(self, coords, mesh_shape, duration_s) -> BlockGrant:
+        """A fresh grant, its id, token and expiry rank 0's on every rank
+        (every rank grants in the same order); the ranks' chips must
+        agree, or they have diverged."""
+        grant = BlockGrant.new(coords, mesh_shape, duration_s)
+        if world_size() == 1:
+            return grant
+        agreed = from_rank(0, grant)
+        if agreed.coords != grant.coords:
+            raise RuntimeError(
+                f"the ranks' control planes diverged: rank 0 granted "
+                f"{agreed.coords}, rank {rank()} {grant.coords}")
+        return agreed
+
+    def _runtime(self, grant: BlockGrant, job) -> "BlockRuntime":
+        """The block's runtime on this rank: a ``BlockRuntime`` on its own
+        ranks (every rank without a process group), an ``OffRankRuntime``
+        elsewhere; each enters the block's mesh creation."""
+        devices = self.devices_for(grant.coords)
+        return self._runtime_class(job, grant, devices)(
+            grant, job, devices, self.ckpt_root)
+
+    def _runtime_class(self, job, grant, devices):
+        ranks = check_block(job, grant, devices)
+        return (BlockRuntime if ranks is None or rank() in ranks
+                else OffRankRuntime)
+
+    def _rebuild(self, old, grant: BlockGrant):
+        """The block rebuilt on ``grant`` (``BlockRuntime.rebuild``): on
+        this rank a runtime or a stand-in, as the new grant's ranks say."""
+        devices = self.devices_for(grant.coords)
+        return self._runtime_class(old.job, grant, devices).rebuild(
+            old, grant, devices, self.ckpt_root)
 
     def total_chips(self) -> int:
         """Federation-wide capacity (live pods only)."""
@@ -196,8 +253,8 @@ class ClusterController:
         blk = self.registry.get(app_id)
         tmp_grant_id = f"pending_{app_id}"
         coords = self.partitioner.allocate(n_chips, tmp_grant_id, pod=pod)
-        grant = BlockGrant.new(coords, mesh_shape_for(n_chips),
-                               blk.request.duration_s)
+        grant = self._new_grant(coords, mesh_shape_for(n_chips),
+                                blk.request.duration_s)
         self.partitioner.retag(tmp_grant_id, grant.block_id)
         try:
             self.registry.approve(app_id, grant)
@@ -229,8 +286,8 @@ class ClusterController:
             for app_id in app_ids:
                 blk = self.registry.get(app_id)
                 coords = alloc[f"pending_{app_id}"]
-                grant = BlockGrant.new(coords, mesh_shape_for(len(coords)),
-                                       blk.request.duration_s)
+                grant = self._new_grant(coords, mesh_shape_for(len(coords)),
+                                        blk.request.duration_s)
                 self.partitioner.retag(f"pending_{app_id}", grant.block_id)
                 try:
                     self.registry.approve(app_id, grant)
@@ -289,14 +346,25 @@ class ClusterController:
             if isinstance(job, SimJobSpec):
                 rt = SimRuntime(job.step_s, ckpt_every=job.ckpt_every)
             else:
-                devices = self.devices_for(blk.grant.coords)
-                rt = BlockRuntime(blk.grant, job, devices, self.ckpt_root)
+                rt = self._runtime(blk.grant, job)
                 rt.init_state()
+                self._follow_checkpoints(rt)
                 self._attach_roofline(blk, rt)
             self.runtimes[app_id] = rt
             self.registry.set_state(app_id, BlockState.ACTIVE,
                                     "runtime built")
             return rt
+
+    @staticmethod
+    def _follow_checkpoints(rt) -> None:
+        """A stand-in learns the checkpoints a block starts with (a stable
+        namespace may hold earlier runs') from the block's first rank."""
+        if rt.ranks is None or world_size() == 1:
+            return
+        latest = from_rank(rt.ranks[0], rt._manager().latest_step()
+                           if rt.ckpt is not None else None)
+        if isinstance(rt, OffRankRuntime) and latest is not None:
+            rt.ckpt.saved(latest)
 
     def _attach_roofline(self, blk, rt) -> None:
         """Give the Monitor this block's roofline model (useful FLOPs per
@@ -342,15 +410,21 @@ class ClusterController:
         next ``pump()`` hands to another block.  ``now`` (model time under
         a simulated clock) flows through to the pump's wait accounting."""
         blk = self.registry.get(app_id)
-        rt = self.runtimes.pop(app_id, None)
-        if rt is not None:
-            drain = getattr(rt, "drain", None)
-            if drain is not None:
-                drain()
+        self._end(self.runtimes.pop(app_id, None))
         if blk.grant:
             self.partitioner.release(blk.grant.block_id)
         self.registry.set_state(app_id, BlockState.EXPIRED, "period over")
         self.scheduler.pump(now)
+
+    @staticmethod
+    def _end(rt) -> None:
+        """A block's runtime leaves the controller: its in-flight steps
+        drained, its groups back to the pool (every rank, as every rank
+        builds them)."""
+        for name in ("drain", "release_groups"):
+            fn = getattr(rt, name, None)
+            if fn is not None:
+                fn()
 
     # ------------------------------------------------------- preemption
     def preempt(self, app_id: str, reason: str = "admin preempt",
@@ -423,7 +497,16 @@ class ClusterController:
         rt = self.runtimes.get(app_id)
         if rt is not None:
             try:
-                rt.resume(new_grant, self.devices_for(coords))
+                if getattr(rt, "ranks", None) is not None:
+                    # under a process group the block may come back on
+                    # other ranks, where it is another class of runtime
+                    # (a BlockRuntime or a stand-in): rebuilt there from
+                    # its suspend's save.  Without one it resumes in
+                    # place, the reference's contract: a caller holding
+                    # the runtime across the preemption sees it resumed
+                    rt = self.runtimes[app_id] = self._rebuild(rt, new_grant)
+                else:
+                    rt.resume(new_grant, self.devices_for(coords))
             except Exception:
                 self.partitioner.release(old.block_id)
                 raise
@@ -457,6 +540,12 @@ class ClusterController:
         advance pod health (evicting residents of newly dead pods), admit
         from the waitlist (including auto-resume of preempted blocks),
         sample federation utilization."""
+        if now is None and world_size() > 1:
+            raise NotImplementedError(
+                "tick() on each rank's wall clock: under a process group "
+                "of several ranks every rank ticks at the same model time "
+                "(pass now=); the daemon's background mode across ranks "
+                "is item 8f")
         expired = self.registry.expired(now)
         for app_id in expired:
             self.expire(app_id, now=now)
@@ -480,7 +569,7 @@ class ClusterController:
         n = pod_x * pod_y
         pod = self.pods.attach(
             pod_x, pod_y,
-            list(devices) if devices is not None else [self.devices[0]] * n,
+            chips(devices) if devices is not None else [self.devices[0]] * n,
             name=name, power_budget_chips=power_budget_chips, now=now)
         self.registry.store_pods(self.pods.snapshot())
         self.scheduler.pump(now)
@@ -571,9 +660,7 @@ class ClusterController:
                                        expires_at=blk.grant.expires_at)
                 old_rt = self.runtimes.get(app_id)
                 if old_rt is not None:
-                    self.runtimes[app_id] = BlockRuntime.rebuild(
-                        old_rt, blk.grant, self.devices_for(coords),
-                        self.ckpt_root)
+                    self.runtimes[app_id] = self._rebuild(old_rt, blk.grant)
                 self.registry.persist()
                 self.bus.publish("migrated", app_id=app_id,
                                  block_id=blk.block_id,
@@ -581,10 +668,7 @@ class ClusterController:
                                  from_pod=pod_id, to_pod=coords[0][0],
                                  n_chips=len(coords))
             except AllocationError:
-                rt = self.runtimes.pop(app_id, None)
-                drain = getattr(rt, "drain", None)
-                if drain is not None:
-                    drain()
+                self._end(self.runtimes.pop(app_id, None))
                 self.partitioner.release(blk.grant.block_id)
                 self.registry.set_state(
                     app_id, BlockState.EXPIRED,
@@ -642,15 +726,10 @@ class ClusterController:
                 # a DONE block's runtime must follow its grant onto the new
                 # chips — DONE -> RUNNING is legal, so a stale device set
                 # would execute on the dead chip if the job were restarted
-                self.runtimes[app_id] = BlockRuntime.rebuild(
-                    old_rt, blk.grant, self.devices_for(coords),
-                    self.ckpt_root)
+                self.runtimes[app_id] = self._rebuild(old_rt, blk.grant)
             self.registry.persist()
         except AllocationError:
-            rt = self.runtimes.pop(app_id, None)
-            drain = getattr(rt, "drain", None)
-            if drain is not None:
-                drain()
+            self._end(self.runtimes.pop(app_id, None))
             self.partitioner.release(block_id)
             self.registry.set_state(
                 app_id, BlockState.EXPIRED,
@@ -711,8 +790,7 @@ class ClusterController:
                                token=blk.grant.token,
                                expires_at=blk.grant.expires_at)
         blk.grant = new_grant
-        rt = BlockRuntime.rebuild(old_rt, new_grant,
-                                  self.devices_for(coords), self.ckpt_root)
+        rt = self._rebuild(old_rt, new_grant)
         self.runtimes[app_id] = rt
         self.registry.set_state(app_id, BlockState.ACTIVE, "recovered")
         # return to the pre-failure lifecycle position: an ACTIVE block
@@ -733,8 +811,7 @@ class ClusterController:
                                token=blk.grant.token,
                                expires_at=blk.grant.expires_at)
         blk.grant = new_grant
-        rt = BlockRuntime.rebuild(old_rt, new_grant,
-                                  self.devices_for(coords), self.ckpt_root)
+        rt = self._rebuild(old_rt, new_grant)
         self.runtimes[app_id] = rt
         self._attach_roofline(blk, rt)       # new chip-count denominator
         self.scheduler.pump()   # a shrink may free room for queued blocks

@@ -36,23 +36,34 @@ reads K/V ``n_patches`` positions too early.  Here ``cache_len`` is the
 embedded length, ``n_patches + T``, where the reference's own model test
 decodes too.
 
-A train block may span several devices (item 8a).  The process runs as
-one rank of a ``torch.distributed`` process group, every rank runs the
-same launcher and daemon, so every rank reaches the same grant, and the
-block spans every rank: ``_attach`` builds the block's DeviceMesh
-``("data", "model")`` of ``grant.mesh_shape`` over the ranks, and the
-state lies on it as the reference's plan shards it
-(``sharding.plans``): each rank holds its shards of the params, the
-moments and the grads; each group's params are gathered for its use
-(ZeRO-3); the batch is split over ``data`` (each rank its rows of every
-microbatch, ``pipeline.BatchShards``) and the ranks of a ``model``
-column compute the same rows.  ``init_state`` draws every leaf as the
-unsharded init does, one group at a time, and keeps the rank's slices.
-Checkpoints hold whole leaves, so a resume may come with another mesh
-shape.  Under a process group a train block takes this path even at
-(1, 1).  What waits for item 8b: a serve block of several devices
-(``NotImplementedError``), tensor and expert parallelism over ``model``,
-and several blocks on disjoint subsets of the ranks.  A block of several
+A train block may span several devices (item 8a), and several blocks
+run at once on disjoint subsets of the ranks (item 8b).  The process
+runs as one rank of a ``torch.distributed`` process group, and every
+rank runs the same control plane with the same calls, so every rank
+reaches the same grants (``core.controller``).  A block's chips name
+its ranks (``device.block_ranks``: at most one chip of each rank), and
+``_attach`` builds the block's DeviceMesh ``("data", "model")`` of
+``grant.mesh_shape`` over those ranks only, with groups of its own
+(``launch.mesh.make_block_mesh``, which every rank enters for every
+block); a ``BlockRuntime`` is built only on the block's ranks, and every
+other rank follows the block's lifecycle with an ``OffRankRuntime``,
+which holds nothing of it.  Every rank records each step as the block's
+first rank measured it (``first_ranks_record``), so the quota and
+deadline decisions that read step times agree.  A train block's state
+lies on its mesh as the reference's plan shards it (``sharding.plans``):
+each rank holds its shards of the params, the moments and the grads;
+each group's params are gathered for its use (ZeRO-3); the batch is
+split over ``data``
+(each rank its rows of every microbatch, ``pipeline.BatchShards``) and
+the ranks of a ``model`` column compute the same rows.  ``init_state``
+draws every leaf as the unsharded init does, one group at a time, and
+keeps the rank's slices.  Checkpoints hold whole leaves, written by the
+block's first rank, so a resume or a migration may come with another
+mesh shape and other ranks.  Under a process group a train block takes
+this path even at (1, 1); a serve block spans one chip, and runs on its
+rank's device with a (1, 1) mesh of its own.  What waits: a serve block
+of several devices (``NotImplementedError``, item 8c), tensor and
+expert parallelism over ``model`` (item 8d).  A block of several
 devices in a process with no process group raises: nothing runs a
 sharded block on one rank.
 
@@ -72,14 +83,17 @@ freed memory back to the card, so another block can have it;
 ``resume(grant, devices)`` rebuilds the runtime on the given device and
 restores the suspended state into restore targets on the ``meta`` device
 (no random init).  ``rebuild`` starts a new runtime from an old block's
-checkpoints.  ``suspend()`` also releases the block's captured graphs and
-their memory pools; a resumed block gets its steps from the compile cache
-(a hit) and captures again at its first step.
+checkpoints; under a process group the controller resumes a block that
+way, since the block may come back on other ranks.  ``suspend()`` also
+releases the block's captured graphs and their memory pools; a resumed
+block gets its steps from the compile cache (a hit) and captures again
+at its first step.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -90,7 +104,8 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.block import BlockGrant
 from repro_torch.core.inflight import InflightWindow
 from repro_torch.data import pipeline
-from repro_torch.device import rank_device, resolve
+from repro_torch.device import (block_ranks, device_of, from_rank, rank,
+                                rank_device, world_size)
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
@@ -181,23 +196,18 @@ class BlockRuntime(InflightWindow):
     def _attach(self, grant: BlockGrant,
                 devices: Optional[Sequence]) -> None:
         """Bind to the block's devices (``cuda`` per chip by default): one
-        device, or under a process group the block's mesh over every
-        rank."""
+        device, or under a process group the block's mesh over its
+        ranks."""
         if devices is None:
             devices = ["cuda"] * grant.n_chips
-        n = math.prod(grant.mesh_shape)
-        assert len(devices) == n, (len(devices), grant.mesh_shape)
-        devs = [resolve(d) for d in devices]
         job = self.job
-        several = len(set(devs)) > 1 or (dist.is_initialized() and n > 1)
-        if job.kind == "serve" and several:
-            raise NotImplementedError(
-                f"a serve block spans one device: serving on {n} devices "
-                f"(cache_specs on the runtime) is item 8b")
+        devs = [device_of(d) for d in devices]
         self.mesh = self.ctx = self.batch_shards = None
-        if job.kind == "train" and dist.is_initialized():
+        self.ranks = check_block(job, grant, devices)
+        if self.ranks is not None:
             self._attach_mesh(grant, devs)
         elif len(set(devs)) > 1:
+            n = len(devs)
             raise RuntimeError(
                 f"a block of {n} devices needs a process group of {n} "
                 f"ranks (torch.distributed, one rank a device), and this "
@@ -238,23 +248,25 @@ class BlockRuntime(InflightWindow):
                                               device=self.device)
 
     def _attach_mesh(self, grant: BlockGrant, devs) -> None:
-        """The block's DeviceMesh over every rank of the process group
-        (8a: one block spans them all), this rank's device, its rows of
-        the batch and the sharding context of its steps."""
+        """The block's DeviceMesh over its ranks, this rank's device and,
+        for a train block, its rows of the batch and the sharding context
+        of its steps."""
         from repro_torch.launch.mesh import make_block_mesh
-        n, world = math.prod(grant.mesh_shape), dist.get_world_size()
-        if n != world:
-            raise NotImplementedError(
-                f"a block of {n} devices in a process group of {world} "
-                f"ranks: blocks on disjoint subsets of the ranks are item "
-                f"8b (a block spans every rank)")
+        self.mesh = make_block_mesh(self.ranks, grant.mesh_shape)
+        self.groups_released = False
+        coord = self.mesh.get_coordinate()
+        if coord is None:
+            raise RuntimeError(
+                f"rank {rank()} is outside the block on ranks "
+                f"{self.ranks}: a rank outside a block follows it with an "
+                f"OffRankRuntime")
         self.device = rank_device(devs[0].type)
-        self.mesh = make_block_mesh(range(world), grant.mesh_shape)
+        if self.job.kind != "train":
+            return
         self.axes = plans.MeshAxes(dp=("data",), model="model")
         shape = self.job.shape
-        dp_rank = self.mesh.get_coordinate()[0]
         self.batch_shards = pipeline.BatchShards(
-            grant.mesh_shape[0], dp_rank, max(1, shape.microbatch))
+            grant.mesh_shape[0], coord[0], max(1, shape.microbatch))
         self.ctx = shard_ctx.ShardCtx(
             self.mesh, ("data",), "model",
             shards_batch=self.batch_shards.split(shape.global_batch))
@@ -285,7 +297,7 @@ class BlockRuntime(InflightWindow):
         on.  ``seed``/checkpoint fields deliberately excluded."""
         job = self.job
         where = compile_cache.device_fingerprint(self.device)
-        if self.mesh is not None:
+        if self.ctx is not None:
             where += (("mesh",) + tuple(self.grant.mesh_shape),)
         return (family, compile_cache.freeze(job.cfg),
                 compile_cache.freeze(job.shape), where) + extra
@@ -318,7 +330,7 @@ class BlockRuntime(InflightWindow):
         serve block the empty decode context."""
         job = self.job
         if job.kind == "train":
-            if self.mesh is not None:
+            if self.ctx is not None:
                 self.state = train_lib.make_sharded_train_state(
                     job.cfg, job.seed, job.opt, self.state_layouts(),
                     params=params, opt_state=opt_state, device=self.device)
@@ -487,6 +499,9 @@ class BlockRuntime(InflightWindow):
 
     def _token_ready(self, token) -> bool:
         ev = self._event(token)
+        if ev is not None and on_several_ranks(self):
+            ev.synchronize()         # every rank harvests alike
+            return True
         return ev is None or ev.query()
 
     def _token_wait(self, token) -> None:
@@ -498,7 +513,7 @@ class BlockRuntime(InflightWindow):
         rec = super()._completion_record(dispatch_t, token)
         if isinstance(token, tuple):
             rec.update({k: float(v) for k, v in token[1].items()})
-        return rec
+        return first_ranks_record(self, rec)
 
     # ----------------------------------------------------------- persist
     def _manager(self) -> CheckpointManager:
@@ -576,6 +591,20 @@ class BlockRuntime(InflightWindow):
         drained = self.drain()
         ckpt.wait()                      # an async save may still be landing
         self.save(async_=False)
+        self.release()
+        return {"step": self.step_count, "drained_steps": len(drained)}
+
+    def release(self) -> None:
+        """Drop every device reference of the block (its state, cache,
+        decode graphs and batches) and hand the freed memory back to the
+        card, after the in-flight steps and an async save have landed;
+        the step count and the checkpoints stay.  What a suspend does
+        after its save, and what a migration does to the old runtime
+        before the new one restores: a failed chip's memory is gone
+        anyway, and the block's state is not held twice."""
+        self.drain()
+        if self.ckpt is not None:
+            self.ckpt.wait()
         self._release_graphs()
         self.state = None
         self.cache = None
@@ -592,8 +621,13 @@ class BlockRuntime(InflightWindow):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             torch.cuda.empty_cache()
+        self.release_groups()
         self.suspended = True
-        return {"step": self.step_count, "drained_steps": len(drained)}
+
+    def release_groups(self) -> None:
+        """The block's mesh back to the pool (``launch.mesh``), as every
+        rank does for the block when it moves or ends."""
+        release_groups(self)
 
     def resume(self, grant: BlockGrant, devices: Sequence) -> int:
         """Rebuild after preemption on ``devices`` and restore the
@@ -621,14 +655,14 @@ class BlockRuntime(InflightWindow):
             like["decode"] = (self._decode_ctx() if have_ctx
                               else self._abstract_decode())
         shardings = None
-        if self.mesh is not None:
+        if self.ctx is not None:
             like["state"] = self._abstract_like()
             shardings = {"state": self.state_layouts()}
         restored, at = ckpt.restore(like, step=step, device=self.device,
                                     shardings=shardings)
         self._release_graphs()       # they bind the tensors replaced here
         state = restored["state"]
-        if self.mesh is not None:
+        if self.ctx is not None:
             self.state = train_lib.sharded_train_state(state)
         elif job.kind == "train":
             self.state = train_lib.make_train_state(
@@ -653,17 +687,236 @@ class BlockRuntime(InflightWindow):
         return at
 
     @classmethod
-    def rebuild(cls, old: "BlockRuntime", grant: BlockGrant,
-                devices: Sequence, ckpt_root: str) -> "BlockRuntime":
-        """Failure migration: a new runtime on ``devices`` with the old
-        block's state restored from its checkpoints (adopting its
-        namespace), or a fresh init when it has none."""
-        rt = cls(grant, old.job, devices, ckpt_root)
+    def rebuild(cls, old, grant: BlockGrant, devices: Sequence,
+                ckpt_root: str) -> "BlockRuntime":
+        """Failure migration, resize and, under a process group, the
+        controller's resume: the old runtime's device state released
+        first (a failed chip's memory is gone anyway, and the block's
+        state is not held twice), then a new runtime on ``devices`` with
+        the block's latest checkpoint restored (the same namespace, its
+        manager adopted), or a fresh init when it has none.  Under a
+        process group the old block's first rank names the checkpoint for
+        every rank, after its last save has landed, so a rank that joins
+        the block reads a finished one; ``old`` is then an
+        ``OffRankRuntime`` on a rank that was outside the block."""
+        old.release()
         old_ckpt = old._manager()
-        old_ckpt.wait()
-        if old_ckpt.latest_step() is None:
-            rt.init_state()
-        else:
-            rt.ckpt = old_ckpt      # same namespace: adopt checkpoint history
-            rt.restore()
+        step = old_ckpt.latest_step()
+        if old.ranks is not None:
+            step = from_rank(old.ranks[0], step)
+        rt = cls(grant, old.job, devices, ckpt_root)
+        if step is not None and isinstance(old_ckpt, type(rt.ckpt)):
+            rt.ckpt = old_ckpt      # same namespace: adopt its history
+        rt.adopt(step)
         return rt
+
+    def adopt(self, step: Optional[int]) -> None:
+        """Take up the block at checkpoint ``step`` (fresh at None)."""
+        if step is None:
+            self.init_state()
+        else:
+            self.restore(step)
+
+
+def release_groups(rt) -> None:
+    """``rt``'s block mesh, if it has one, back to the pool, once for each
+    time the runtime took one up (a suspended block that then ends gives
+    back nothing a second time: another block may hold the mesh by
+    then)."""
+    if rt.mesh is not None and not rt.groups_released:
+        from repro_torch.launch.mesh import release_block_mesh
+        release_block_mesh(rt.mesh)
+        rt.groups_released = True
+
+
+def on_several_ranks(rt) -> bool:
+    """Whether ``rt``'s block runs under a process group of several ranks,
+    where every rank's control plane must see the same completions: its
+    scheduler harvests each step in the same order on every rank (a
+    completion is waited for, never polled), and every rank records the
+    step as the block's first rank measured it."""
+    return rt.ranks is not None and world_size() > 1
+
+
+def first_ranks_record(rt, rec: Dict[str, float]) -> Dict[str, float]:
+    """A step's completion record (``step_s`` and the metrics) as the
+    block's first rank has it, on every rank: the monitor turns it into
+    chip-seconds and the step-time EWMA, which the scheduler's quota
+    check and deadline order read, so a rank outside the block (whose
+    steps finish as they are dispatched) and the block's other ranks
+    (whose clocks differ) decide as the first rank does.  A broadcast
+    over the world, which every rank enters as it harvests the step."""
+    return from_rank(rt.ranks[0], rec) if on_several_ranks(rt) else rec
+
+
+def check_block(job: JobSpec, grant: BlockGrant,
+                devices: Sequence) -> Optional[list]:
+    """What every rank checks of a block before it builds or follows it,
+    the same on each: a serve block spans one chip (item 8c) and a block
+    at most one chip of each rank.  Returns the block's ranks under a
+    process group, else None."""
+    n = math.prod(grant.mesh_shape)
+    if len(devices) != n:
+        raise ValueError(f"a block of mesh {tuple(grant.mesh_shape)} needs "
+                         f"{n} devices, got {len(devices)}")
+    if job.kind == "serve" and n > 1:
+        raise NotImplementedError(
+            f"a serve block spans one device: serving on {n} devices "
+            f"(a decode step on a mesh) is item 8c")
+    return block_ranks(devices) if dist.is_initialized() else None
+
+
+class OffRankRuntime(InflightWindow):
+    """A block as a rank outside it follows it (under a process group).
+
+    Every rank runs the same control plane, so every rank's scheduler
+    dispatches, harvests, saves, suspends and migrates every block; on a
+    rank outside a block those calls reach this stand-in, which holds
+    nothing of the block (no state, no device, no group) and runs no
+    collective of it, and only keeps what the registry, the scheduler's
+    loop and the event stream read: the step count, the saved steps and
+    the in-flight window.  It enters the block's mesh creation with the
+    block's ranks (``make_block_mesh``), as every rank must.  Its window's
+    steps finish as they are dispatched, and each completion records the
+    step time and metrics the block's first rank measured
+    (``first_ranks_record``).  A serve block's generate
+    surface answers on the block's own rank only: on this rank it raises
+    (item 8f)."""
+
+    device = None
+    state = None
+
+    def __init__(self, grant: BlockGrant, job: JobSpec,
+                 devices: Optional[Sequence] = None,
+                 ckpt_root: Optional[str] = None):
+        from repro_torch.launch.mesh import make_block_mesh
+        self.job = job
+        self.ranks = check_block(job, grant, devices)
+        if self.ranks is None or rank() in self.ranks:
+            raise RuntimeError(
+                f"an OffRankRuntime follows a block from a rank outside "
+                f"it, under a process group (rank {rank()}, block ranks "
+                f"{self.ranks})")
+        self.mesh = make_block_mesh(self.ranks, grant.mesh_shape)
+        self.groups_released = False
+        self.grant = grant
+        self.ckpt = (_SavedSteps(ckpt_root, job.ckpt_namespace
+                                 or grant.block_id)
+                     if ckpt_root is not None else None)
+        self.step_count = 0
+        self.last_saved_step = 0
+        self.suspended = False
+        self._init_window()
+
+    # the in-flight window: a step "finishes" as it is dispatched
+    def _launch(self):
+        self.step_count += 1
+
+    def _token_ready(self, token) -> bool:
+        return True
+
+    def _token_wait(self, token) -> None:
+        pass
+
+    def _completion_record(self, dispatch_t: float, token) -> Dict[str, float]:
+        return first_ranks_record(
+            self, super()._completion_record(dispatch_t, token))
+
+    def init_state(self, *args, **kwargs) -> None:
+        pass
+
+    def _manager(self) -> "_SavedSteps":
+        if self.ckpt is None:
+            raise ValueError("this block has no checkpoint root: build it "
+                             "with BlockRuntime(..., ckpt_root=...)")
+        return self.ckpt
+
+    def save(self, async_: bool = True) -> None:
+        self._manager().saved(self.step_count)
+        self.last_saved_step = self.step_count
+
+    @property
+    def progress_lost(self) -> int:
+        return max(0, self.step_count - self.last_saved_step)
+
+    def suspend(self) -> Dict[str, float]:
+        drained = self.drain()
+        self.save(async_=False)
+        self.release()
+        return {"step": self.step_count, "drained_steps": len(drained)}
+
+    def release(self) -> None:
+        self.drain()
+        self.release_groups()
+        self.suspended = True
+
+    def release_groups(self) -> None:
+        release_groups(self)
+
+    def restore(self, step: Optional[int] = None) -> int:
+        at = self._manager().latest_step() if step is None else step
+        if at is None:
+            raise FileNotFoundError(f"no checkpoints under "
+                                    f"{self._manager().dir}")
+        self.adopt(at)
+        return at
+
+    def adopt(self, step: Optional[int]) -> None:
+        if step is not None:
+            self._manager().saved(step)
+        self.step_count = self.last_saved_step = step or 0
+
+    rebuild = classmethod(BlockRuntime.rebuild.__func__)
+
+    # a serve block's generate surface is its own rank's
+    idle_serve = False
+
+    @property
+    def sessions(self):
+        if self.job.kind == "serve":
+            raise self._elsewhere("sessions")
+        return None
+
+    def _elsewhere(self, what: str):
+        return NotImplementedError(
+            f"{what}: a serve block answers on its own rank "
+            f"{self.ranks}, and this rank ({rank()}) is outside it "
+            f"(item 8f)")
+
+    def harvest(self) -> list:
+        if self.job.kind == "serve":
+            raise self._elsewhere("harvest")
+        return []
+
+    def start_session(self, *args, **kwargs):
+        raise self._elsewhere("start_session")
+
+    def feed(self, *args, **kwargs):
+        raise self._elsewhere("feed")
+
+    def prefill(self, *args, **kwargs):
+        raise self._elsewhere("prefill")
+
+
+class _SavedSteps:
+    """An ``OffRankRuntime``'s view of its block's checkpoints: the steps
+    saved through the control plane, which every rank sees in the same
+    order (the files are the block's first rank's, and a rank outside
+    the block does not wait for them)."""
+
+    def __init__(self, root: str, namespace: str):
+        self.dir = os.path.join(root, namespace)
+        self._steps: list = []
+
+    def saved(self, step: int) -> None:
+        if step not in self._steps:
+            self._steps = sorted(self._steps + [step])
+
+    def steps(self) -> list:
+        return list(self._steps)
+
+    def latest_step(self) -> Optional[int]:
+        return self._steps[-1] if self._steps else None
+
+    def wait(self) -> None:
+        pass

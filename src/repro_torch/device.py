@@ -9,12 +9,22 @@ A block of several devices runs SPMD: one process (rank) per device,
 each running the same launcher, joined in one ``torch.distributed``
 process group (NCCL for the card, gloo for the CPU).  On the card a rank
 drives ``cuda:<LOCAL_RANK>``.
+
+Under a process group every rank runs the same control plane, and each
+chip of its topology belongs to one rank (``Chip``; by default chip *i*
+is rank *i*, and with more chips than ranks the chips wrap round onto
+the ranks, as a card phase maps three chips onto its one rank).  A
+block runs on the ranks of its chips (``block_ranks``), at most one chip
+of each, and writes its checkpoints from the first of them
+(``is_block_writer``); what the whole control plane writes comes from
+world rank 0 (``is_writer``).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import List, Optional
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -86,6 +96,73 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def rank() -> int:
+    """This process's rank (0 without a process group)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def is_writer() -> bool:
-    """Rank 0 of the process group (the only rank without one)."""
-    return not dist.is_initialized() or dist.get_rank() == 0
+    """Rank 0 of the process group (the only rank without one): the
+    writer of what the whole control plane writes, such as the registry's
+    state file."""
+    return rank() == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Chip:
+    """One chip of a control plane's topology under a process group: the
+    rank that drives it and the device it names (a rank runs a block on
+    ``rank_device(device.type)``, its own card)."""
+    rank: int
+    device: Any
+
+    def __str__(self) -> str:
+        return f"{self.device}@rank{self.rank}"
+
+
+def chips(devices: Sequence) -> List:
+    """The control plane's chips: under a process group each entry as a
+    ``Chip`` (given ones kept, chip *i* of the rest on rank *i* modulo
+    the world size); without one, ``devices`` as they are."""
+    if not dist.is_initialized():
+        return list(devices)
+    world = dist.get_world_size()
+    return [d if isinstance(d, Chip) else Chip(i % world, d)
+            for i, d in enumerate(devices)]
+
+
+def block_ranks(devices: Sequence) -> List[int]:
+    """The ranks of a block's chips, in the block's order (a plain device
+    at position *i* is rank *i* modulo the world size, as ``chips``).
+    Raises if two of them are one rank's: a rank drives one device of a
+    block."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    ranks = [d.rank if isinstance(d, Chip) else i % world
+             for i, d in enumerate(devices)]
+    if len(set(ranks)) != len(ranks):
+        raise ValueError(
+            f"a block holds at most one chip of each rank: its chips "
+            f"{[str(d) for d in devices]} map onto ranks {ranks}")
+    return ranks
+
+
+def device_of(d) -> torch.device:
+    """The device a chip entry names (a ``Chip``'s, or the entry)."""
+    return resolve(d.device if isinstance(d, Chip) else d)
+
+
+def is_block_writer(mesh) -> bool:
+    """The first rank of a block's mesh: the rank that writes the block's
+    checkpoints."""
+    return int(mesh.mesh.flatten()[0]) == rank()
+
+
+def from_rank(src: int, value):
+    """``value`` as rank ``src`` has it, on every rank (a broadcast over
+    the world group, which every rank enters in the same order); the
+    value itself without a process group of several ranks."""
+    if world_size() == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]

@@ -110,6 +110,11 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
     # granted by the daemon (--autostep needs the background pump: the
     # engine steps from there)
     n = device_lib.world_size()
+    if args.autostep and n > 1:
+        raise NotImplementedError(
+            "--autostep under a process group of several ranks: the "
+            "daemon's background mode ticks on each rank's wall clock, "
+            "where the ranks could disagree (item 8f)")
     devices = ([args.device] * n if device_lib.resolve(args.device).type
                != "cuda" or n == 1 else device_lib.cuda_devices())
     topo = Topology(n_pods=1, pod_x=n, pod_y=1)

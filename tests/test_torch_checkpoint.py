@@ -567,10 +567,14 @@ def test_progress_lost_counts_steps_past_the_last_save(tmp_path):
 
 
 def test_rebuild_adopts_the_old_blocks_namespace(tmp_path):
-    """``rebuild`` on new devices restores the old block's latest
-    checkpoint through its manager (same namespace and history); a block
-    with no checkpoint is rebuilt from a fresh init."""
+    """``rebuild`` on new devices releases the old runtime's state first,
+    then restores the old block's latest checkpoint through its manager
+    (same namespace and history), and steps on as the block would have;
+    a block with no checkpoint is rebuilt from a fresh init."""
     _, job = train_jobs("deepseek_7b", None, None)
+    twin = BlockRuntime(grant(), job, devices=["cpu"])
+    twin.init_state()
+    want = [twin.step()["loss"] for _ in range(3)]
     old = BlockRuntime(grant(), job, devices=["cpu"],
                        ckpt_root=str(tmp_path / "a"))
     old.init_state()
@@ -578,9 +582,10 @@ def test_rebuild_adopts_the_old_blocks_namespace(tmp_path):
     old.save()                             # async: rebuild waits for it
     state = leaf_bits(old.state)
     new = BlockRuntime.rebuild(old, grant(), ["cpu"], str(tmp_path / "b"))
+    assert old.state is None and old.suspended
     assert new.ckpt is old.ckpt and new.ckpt.namespace == old.grant.block_id
     assert new.step_count == 2 and leaf_bits(new.state) == state
-    assert new.step()["loss"] == old.step()["loss"]
+    assert new.step()["loss"] == want[2]
 
     bare = BlockRuntime(grant(), job, devices=["cpu"],
                         ckpt_root=str(tmp_path / "c"))

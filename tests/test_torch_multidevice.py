@@ -590,7 +590,7 @@ def test_a_serve_block_of_two_devices_names_8b():
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime
     grant = BlockGrant.new([(0, 0, 0), (0, 1, 0)], (1, 2), 60.0)
-    with pytest.raises(NotImplementedError, match="item 8b"):
+    with pytest.raises(NotImplementedError, match="item 8c"):
         BlockRuntime(grant, _job("serve"), devices=["cpu", "meta"])
 
 
