@@ -64,6 +64,19 @@ never JAX.  Phases, each printing one JSON line:
                      tokens/s and TTFT, then the same traffic with the
                      rounds run eagerly from the same (empty) state: every
                      session's tokens and the pool's bits equal;
+5b. ``serve_sharded`` — the serve block on a mesh (item 8c) under a
+                     process group of one rank (NCCL, a ``HashStore``):
+                     serve_dense's job through the launcher on a (1, 1)
+                     DeviceMesh, every param a DTensor gathered a group
+                     at a time inside the captured decode's graph, its
+                     tokens serve_dense's bit for bit and its launches
+                     exactly; warm prefill and decode, the graph's
+                     capture time and pool, the host's enqueue of a
+                     replay and of an eager step, peak memory; a save
+                     and ``suspend()`` halfway, a fresh block restoring
+                     the decode context bit for bit and decoding the
+                     rest equal; serve_paged's 12 sessions on a (1, 1)
+                     mesh, their tokens and launches serve_paged's;
 6. ``serve_hybrid`` — ``repro_torch.launch.serve`` on zamba2_2p7b (the
                      hybrid family: Mamba2 + shared attention) at full
                      width, 54 layers, random bf16 weights from the seed:
@@ -2514,7 +2527,8 @@ def dense_plane(name, argv, device, positions=None, cfg=None, extra=None,
            # the prompt's positions (a VLM's patches among them)
            "prefill_tok_s": B * P / res["prefill_s"],
            "decode_tok_s": B * (G - 1) / res["decode_s"],
-           "launches": launches, "decode_graph": graph}
+           "launches": launches, "decode_graph": graph,
+           "tokens": toks.tolist()}
     if positions is not None:
         out["positions"] = positions(rt, batch, args)
 
@@ -2549,16 +2563,51 @@ def dense_plane(name, argv, device, positions=None, cfg=None, extra=None,
     return out
 
 
-def phase_serve_dense(device="cuda", smoke=False):
-    """deepseek_7b's dense data plane through the launcher's entry point
-    (``dense_plane``), and a sampling job's captured decode against its
-    eager one on both planes at smoke size."""
+def serve_dense_argv(device, smoke):
+    """serve_dense's launcher flags (``serve_sharded`` runs the same
+    job)."""
     argv = ["--arch", "deepseek_7b", "--batch", "4", "--prompt-len", "512",
             "--gen", "32", "--seed", "0", "--device", device]
     if smoke:
         argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
                            "--gen", "6", "--device", device]
-    out = dense_plane("serve_dense", argv, device)
+    return argv
+
+
+def eager_probe(rt, n: int = 2) -> dict:
+    """A dense-plane block's decode step run eagerly (its step function on
+    a copy of its cache, at its position): the host's time to enqueue it
+    and its wall time to the device's end, over ``n`` warm steps; where
+    the first is near the second, the host paces the eager step.  The
+    probe's launches are not the main path's."""
+    saved = counts()
+    fn, params = rt.decode_graph.fn, rt.state["params"]
+    cache, tok = _clone(rt.cache), rt.token.clone()
+    pos = torch.full((), rt.cache_len, dtype=torch.int32, device=rt.device)
+    fn(params, tok, cache, pos, None)
+    rt._sync()
+    enq, wall = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn(params, tok, cache, pos, None)
+        t1 = time.perf_counter()
+        rt._sync()
+        enq.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    set_counts(saved)
+    return {"enqueue_ms": enq, "wall_ms": wall}
+
+
+def phase_serve_dense(device="cuda", smoke=False):
+    """deepseek_7b's dense data plane through the launcher's entry point
+    (``dense_plane``; besides, ``eager_probe``'s host time of its eager
+    decode step), and a sampling job's captured decode against its eager
+    one on both planes at smoke size."""
+    out = dense_plane(
+        "serve_dense", serve_dense_argv(device, smoke), device,
+        extra=lambda rt, batch, args, out: (
+            {"host_probe_eager": eager_probe(rt)}
+            if rt.device.type == "cuda" else {}))
     out["sampled_vs_eager"] = sampled_vs_eager(device)
     emit("serve_dense", **out)
     return out
@@ -3667,6 +3716,196 @@ def phase_train_sharded(device="cuda", smoke=False, train=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_serve_sharded(device="cuda", smoke=False, dense=None, paged=None):
+    """The serve block on a mesh (item 8c) on one card: a process group of
+    one rank (NCCL on the card, gloo on the CPU; a ``HashStore``, no
+    network), so the block runs on a (1, 1) DeviceMesh, every param a
+    DTensor gathered a group at a time inside the step (and inside the
+    captured decode's graph).  The dense plane: serve_dense's job
+    (``dense``: deepseek_7b at full width, 30 layers, random bf16 weights
+    from seed 0, 4 x 512 prompt tokens, 32 generated) through
+    ``repro_torch.launch.serve``'s ``run``; its tokens serve_dense's bit
+    for bit, its prefill's and each captured decode step's launches
+    exactly serve_dense's (one capture, a replay a step); warm prefill and
+    decode steps profiled, the graph's capture time and pool, the host's
+    enqueue of a replay (``host_probe``) and of an eager step
+    (``eager_probe``, beside serve_dense's), peak memory.  Then the decode
+    again from the prompt, a synchronous save and ``suspend()`` halfway,
+    a fresh (1, 1) block restoring the decode context bit for bit and
+    decoding the remaining tokens: serve_dense's.  The paged plane:
+    serve_paged's job and traffic (``paged``: 12 sessions through 8
+    slots) on a (1, 1) mesh, every session's tokens serve_paged's and the
+    launches exactly its.  The process group is destroyed at the end, so
+    the later phases run as before."""
+    import torch.distributed as dist
+    from repro_torch import device as device_lib
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.block import BlockGrant
+    from repro_torch.core.runtime import BlockRuntime
+    from repro_torch.launch import serve
+    from torch.distributed.tensor import DTensor
+    if dense is None:
+        dense = phase_serve_dense(device, smoke)
+        _free(device)
+    if paged is None:
+        paged = phase_serve_paged(device, smoke)
+        _free(device)
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_sharded_")
+    dev = device_lib.rank_device(device)
+    on_card = dev.type == "cuda"
+
+    def sharded(rt, what):
+        check(rt.mesh is not None and tuple(rt.mesh.mesh.shape) == (1, 1)
+              and all(isinstance(t, DTensor)
+                      for t in _tensors(rt.state["params"])),
+              f"serve_sharded {what}: not on a mesh")
+
+    out = {"backend": dist.get_backend(), "mesh": [1, 1], "card": _CARD}
+    try:
+        # ---- the dense plane through the launcher
+        args = serve.parse_args(serve_dense_argv(device, smoke))
+        B, P, G = args.batch, args.prompt_len, args.gen
+        zero_counts()
+        _zero_eager_calls()
+        res = serve.run(args)
+        launches = counts()
+        rt = res["runtime"]
+        sharded(rt, "dense")
+        graph = graph_check("serve_sharded", rt.decode_graph, G - 1,
+                            _eager_calls(), device)
+        toks = res["tokens"]
+        d = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+             "prefill_tok_s": B * P / res["prefill_s"],
+             "decode_tok_s": B * (G - 1) / res["decode_s"],
+             "launches": launches, "decode_graph": graph,
+             "tokens_equal_serve_dense": toks.tolist() == dense["tokens"],
+             "launches_equal_serve_dense": launches == dense["launches"],
+             "launches_per_replay_equal_serve_dense": (
+                 graph["launches_per_replay"]
+                 == dense["decode_graph"]["launches_per_replay"])}
+        check(d["tokens_equal_serve_dense"],
+              "serve_sharded: the tokens differ from serve_dense's")
+        check(d["launches_equal_serve_dense"]
+              and d["launches_per_replay_equal_serve_dense"],
+              f"serve_sharded launches {launches}, graph {graph}; "
+              f"serve_dense's {dense['launches']}, {dense['decode_graph']}")
+        batch = {k: torch.as_tensor(v, device=rt.device)
+                 for k, v in res["batch"].items()}
+        if on_card:
+            d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            saved = counts()
+            d["warm_prefill"] = profile_steps(lambda: rt.prefill(batch), 2)
+            rt.prefill(batch)
+            d["warm_decode_step"] = profile_steps(rt.step, 3)
+            d["host_probe"] = host_probe(rt)
+            d["host_probe_eager"] = eager_probe(rt)
+            set_counts(saved)
+            d["serve_dense"] = {
+                k: dense.get(k) for k in ("prefill_s", "decode_s",
+                                          "warm_decode_step",
+                                          "warm_decode_step_eager",
+                                          "host_probe_eager", "peak_mem_gb")}
+            d["serve_dense"]["decode_graph"] = {
+                k: dense["decode_graph"][k] for k in ("capture_ms",
+                                                      "pool_mb")}
+
+        # ---- halfway: a synchronous save and a suspend, a fresh block
+        # restores the decode context and decodes the rest
+        saved = counts()
+        half = (G - 1) // 2
+        rt.prefill(batch)
+        for _ in range(half):
+            rt.step()
+        check(rt.token.cpu().numpy().tolist()
+              == toks[:, half:half + 1].tolist(),
+              "serve_sharded: the decode from the prompt again differs")
+        rt.ckpt = CheckpointManager(root, "serve_sharded", keep=1)
+        at_save = bit_checksums(_whole(rt._decode_ctx()))
+        save_step = rt.step_count
+        need = tree_bytes(_whole(rt._payload()["state"]))
+        _disk_check(root, need, "serve_sharded")
+        t0 = time.perf_counter()
+        rt.suspend()
+        d["suspend_s"] = time.perf_counter() - t0
+        d["ckpt_gb"] = need / 1e9
+        job = dataclasses.replace(rt.job, ckpt_namespace="serve_sharded")
+        del res, rt
+        _free(device)
+        rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0), job,
+                          devices=[device], ckpt_root=root)
+        t0 = time.perf_counter()
+        at = rt.restore()
+        rt._sync()
+        d["restore_s"] = time.perf_counter() - t0
+        sharded(rt, "restored")
+        d["restore_bitwise_equal"] = (
+            at == save_step and bit_checksums(_whole(rt._decode_ctx()))
+            == at_save)
+        check(d["restore_bitwise_equal"],
+              "serve_sharded: the restored decode context differs")
+        rest = []
+        for _ in range(G - 1 - half):
+            rt.step()
+            rest.append(rt.token.cpu().numpy())
+        d["resumed_tokens_equal_serve_dense"] = (
+            np.concatenate(rest, axis=1).tolist()
+            == toks[:, half + 1:].tolist())
+        check(d["resumed_tokens_equal_serve_dense"],
+              "serve_sharded: the tokens after the restore differ")
+        del rt
+        set_counts(saved)
+        _free(device)
+        out["dense"] = d
+
+        # ---- the paged plane: serve_paged's traffic
+        job = _paged_job(smoke)
+        rt = _block(job, device)
+        rt.init_state()
+        sharded(rt, "paged")
+        prompts = _paged_prompts(job.cfg, smoke)
+        max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
+        zero_counts()
+        _zero_eager_calls()
+        emissions, elapsed, ttft = _paged_traffic(rt, prompts, max_new)
+        launches = counts()
+        sch = rt.sessions
+        got = {s.sid: list(s.generated) for s in sch.sessions.values()}
+        pg = {"decode_rounds": rt.paged_rounds["decoded"],
+              "admissions": sch.admissions, "elapsed_s": elapsed,
+              "tok_s": sum(1 for e in emissions if e["event"] == "token")
+              / elapsed,
+              "ttft_p50_s": float(np.percentile(ttft, 50)),
+              "ttft_p99_s": float(np.percentile(ttft, 99)),
+              "launches": launches,
+              "decode_graph": graph_check(
+                  "serve_sharded paged", sch.decode_graph,
+                  rt.paged_rounds["decoded"], _eager_calls(), device),
+              "tokens_equal_serve_paged": got == paged["session_tokens"],
+              "launches_equal_serve_paged": launches == paged["launches"],
+              "serve_paged": {k: paged[k] for k in (
+                  "decode_rounds", "elapsed_s", "tok_s", "ttft_p50_s")}}
+        check(pg["tokens_equal_serve_paged"],
+              "serve_sharded: the paged sessions' tokens differ from "
+              "serve_paged's")
+        check(pg["launches_equal_serve_paged"]
+              and pg["decode_rounds"] == paged["decode_rounds"],
+              f"serve_sharded paged launches {launches}, serve_paged's "
+              f"{paged['launches']}")
+        if on_card:
+            pg["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del rt, sch
+        out["paged"] = pg
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {n: out["dense"]["launches"][n]
+                       + out["paged"]["launches"][n] for n in COUNTERS}
+    emit("serve_sharded", **out)
+    return out
+
+
 def _train_f32_setup(smoke):
     """deepseek_7b's width cut to 4 layers, fp32 moments, 2 x 2048 tokens
     in 2 microbatches (``blocks`` runs the same job)."""
@@ -3742,6 +3981,7 @@ def phase_blocks(device="cuda", smoke=False, train=None, serve=None):
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve as serve_lib
     from repro_torch.models.config import ShapeConfig
+    from torch.distributed.tensor import DTensor
     if train is None:
         train = phase_train_f32(device, smoke)
         _free(device)
@@ -3796,7 +4036,12 @@ def phase_blocks(device="cuda", smoke=False, train=None, serve=None):
                          for u, g in grants.items()}
         out["own_groups"] = (groups[0] is not groups[1] and all(
             g is not dist.group.WORLD for g in groups))
+        # carol's serve block on her (1, 1) mesh too: her params
+        # DTensors, gathered inside her captured decode (item 8c)
+        out["carol_sharded"] = all(isinstance(t, DTensor) for t in
+                                   _tensors(rt_c.state["params"]))
         check(out["own_groups"] and rt_a.ctx is not None
+              and rt_c.ctx is not None and out["carol_sharded"]
               and [list(c) for c in grants["alice"].coords] == [[0, 0, 0]]
               and [list(c) for c in grants["carol"].coords] == [[0, 1, 0]],
               f"blocks: the grants and meshes {out['meshes']}")
@@ -5500,6 +5745,9 @@ def _run_all() -> int:
     progress("serve_paged")
     paged = phase_serve_paged()
     _free()
+    progress("serve_sharded")
+    serve_sharded = phase_serve_sharded(dense=dense, paged=paged)
+    _free()
     progress("serve_hybrid")
     hybrid = phase_serve_hybrid()
     _free()
@@ -5548,7 +5796,9 @@ def _run_all() -> int:
           f"paged path launches {pl}")
     # serve_hybrid's counts, and the train phases' per step, were held
     # exactly in their phases
-    runs = {"dense": nl, "paged": pl, "hybrid": hybrid["launches"],
+    runs = {"dense": nl, "paged": pl,
+            "serve_sharded": serve_sharded["launches"],
+            "hybrid": hybrid["launches"],
             "vlm": vlm["launches"], "moe": moe["launches"],
             "xlstm": xlstm["launches"],
             "train": train["launches"],
@@ -5569,6 +5819,8 @@ def _run_all() -> int:
     # replays times its launches per replay
     graphs = {"dense": [dense["decode_graph"]],
               "paged": [paged["decode_graph"]],
+              "serve_sharded": [serve_sharded["dense"]["decode_graph"],
+                                serve_sharded["paged"]["decode_graph"]],
               "hybrid": [hybrid["decode_graph"]],
               "vlm": [vlm["decode_graph"]],
               "moe": [moe["decode_graph"]],

@@ -31,13 +31,18 @@ the same whole leaves.  Every rank of the block runs ``save`` (the
 ranks' programs are the same): each DTensor leaf is gathered whole in
 turn, and the first rank of the block's mesh copies it to the host and
 writes the files, so the ``keep`` rotation and the rename of
-``step_<n>.tmp`` happen once; the block's other ranks wait at a barrier
-on the block's own group until the directory is renamed (at ``save``,
-or at ``wait`` after ``save_async``).  Ranks outside the block take no
+``step_<n>.tmp`` happen once; it starts after a barrier on the block's
+own group (every rank done reading what the save may replace), and the
+block's other ranks wait at a second one until the directory is renamed
+(at ``save``, or at ``wait`` after ``save_async``).  Ranks outside the block take no
 part, and a block that does not hold world rank 0 writes its own.
 ``restore(..., shardings=)`` reads each leaf on every rank of the block
 and keeps the rank's slice of it (``plans.Layout``): no collective, and
-any mesh shape, so a block can move onto ranks that never held it.
+any mesh shape, so a block can move onto ranks that never held it.  A
+serve block's decode context is such leaves too: its cache's rows (each
+rank's, as DTensors of ``plans.cache_layouts``) gathered whole, and its
+token (the whole batch's on every rank) and pool written as they are
+by the first rank.
 """
 from __future__ import annotations
 
@@ -224,6 +229,7 @@ class CheckpointManager:
         t0 = time.perf_counter()
         desc, host, mesh = self._host_leaves(tree, copy=False)
         self.timings = {"copy_s": time.perf_counter() - t0}
+        self._all_here(mesh)
         path = (self._write(step, desc, host)
                 if mesh is None or is_block_writer(mesh)
                 else self._step_dir(step))
@@ -237,9 +243,20 @@ class CheckpointManager:
         t0 = time.perf_counter()
         desc, host, mesh = self._host_leaves(tree, copy=True)
         self.timings = {"copy_s": time.perf_counter() - t0}
+        self._all_here(mesh)
         if mesh is None or is_block_writer(mesh):
             self._pending = self._pool.submit(self._write, step, desc, host)
         self._barrier_due = None if mesh is None else block_group(mesh)
+
+    @staticmethod
+    def _all_here(mesh) -> None:
+        """A sharded save's ranks all reach it before its writer touches
+        the block's directory: a rank still reading the step this save
+        rewrites (a restore just before, as a resize's, on a block whose
+        leaves are all replicated, so that the save gathers nothing that
+        would wait for it) finishes first."""
+        if mesh is not None:
+            dist.barrier(group=block_group(mesh))
 
     def wait(self) -> None:
         if self._pending is not None:

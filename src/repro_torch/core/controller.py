@@ -175,11 +175,11 @@ class ClusterController:
         ranks (every rank without a process group), an ``OffRankRuntime``
         elsewhere; each enters the block's mesh creation."""
         devices = self.devices_for(grant.coords)
-        return self._runtime_class(job, grant, devices)(
+        return self._runtime_class(grant, devices)(
             grant, job, devices, self.ckpt_root)
 
-    def _runtime_class(self, job, grant, devices):
-        ranks = check_block(job, grant, devices)
+    def _runtime_class(self, grant, devices):
+        ranks = check_block(grant, devices)
         return (BlockRuntime if ranks is None or rank() in ranks
                 else OffRankRuntime)
 
@@ -187,7 +187,7 @@ class ClusterController:
         """The block rebuilt on ``grant`` (``BlockRuntime.rebuild``): on
         this rank a runtime or a stand-in, as the new grant's ranks say."""
         devices = self.devices_for(grant.coords)
-        return self._runtime_class(old.job, grant, devices).rebuild(
+        return self._runtime_class(grant, devices).rebuild(
             old, grant, devices, self.ckpt_root)
 
     def total_chips(self) -> int:

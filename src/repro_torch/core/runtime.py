@@ -36,8 +36,9 @@ reads K/V ``n_patches`` positions too early.  Here ``cache_len`` is the
 embedded length, ``n_patches + T``, where the reference's own model test
 decodes too.
 
-A train block may span several devices (item 8a), and several blocks
-run at once on disjoint subsets of the ranks (item 8b).  The process
+A block may span several devices (item 8a for a train block, 8c for a
+serve block), and several blocks run at once on disjoint subsets of the
+ranks (item 8b).  The process
 runs as one rank of a ``torch.distributed`` process group, and every
 rank runs the same control plane with the same calls, so every rank
 reaches the same grants (``core.controller``).  A block's chips name
@@ -59,21 +60,30 @@ the ranks of a ``model`` column compute the same rows.  ``init_state``
 draws every leaf as the unsharded init does, one group at a time, and
 keeps the rank's slices.  Checkpoints hold whole leaves, written by the
 block's first rank, so a resume or a migration may come with another
-mesh shape and other ranks.  Under a process group a train block takes
-this path even at (1, 1); a serve block spans one chip, and runs on its
-rank's device with a (1, 1) mesh of its own.  What waits: a serve block
-of several devices (``NotImplementedError``, item 8c), tensor and
-expert parallelism over ``model`` (item 8d).  A block of several
-devices in a process with no process group raises: nothing runs a
-sharded block on one rank.
+mesh shape and other ranks.  A serve block's params lie and are
+gathered as a train block's, forward only.  On the dense plane each
+rank of a ``data`` row holds its rows of the prompt batch and the cache
+(``plans.cache_layouts``; every rank the whole batch where the rows do
+not split over ``data``), the MoE layers routing each data shard's rows
+as one group, as the reference's do, and the decode step
+(``serve_step.on_mesh``) takes and gives the whole batch's tokens, so
+``token`` is the whole batch's on every rank.  On the paged plane every
+rank holds the whole page pool and runs every slot with no sharding
+context (one routing group a round, as the reference's scheduler), the
+block's first rank's tokens broadcast each round.  The decode context
+checkpoints as whole leaves too.  Under a process group a block takes
+this path even at (1, 1).  What waits: tensor and expert parallelism
+over ``model`` (item 8d).  A block of several devices in a process with
+no process group raises: nothing runs a sharded block on one rank.
 
 Steps are built through ``compile_cache.GLOBAL`` under the reference's
 keys (``_cache_key``), the mesh's fingerprint replaced by the device's.
 A dense serve block's decode step runs as a ``CapturedStep``: the first
 step on the card captures it as a CUDA graph with the block's params,
 cache and a device ``cache_len`` scalar bound (and a sampling job's
-generator registered), and every later step refills the scalar and
-replays the graph (on the CPU the step runs eagerly).  The train step
+generator registered; on a mesh, the gathers inside it), and every
+later step refills the scalar and replays the graph (on the CPU the step
+runs eagerly).  The train step
 and prefill run eagerly.
 
 Preemption: ``suspend()`` drains the in-flight window, writes a
@@ -99,6 +109,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.utils import _pytree as pytree
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.block import BlockGrant
@@ -203,7 +215,7 @@ class BlockRuntime(InflightWindow):
         job = self.job
         devs = [device_of(d) for d in devices]
         self.mesh = self.ctx = self.batch_shards = None
-        self.ranks = check_block(job, grant, devices)
+        self.ranks = check_block(grant, devices)
         if self.ranks is not None:
             self._attach_mesh(grant, devs)
         elif len(set(devs)) > 1:
@@ -239,6 +251,8 @@ class BlockRuntime(InflightWindow):
                                 ("donate", 2)),
                 lambda: serve_lib.make_decode_step(
                     job.cfg, sample=job.decode_sample), "decode_step")
+            if self.ctx is not None:
+                decode = serve_lib.on_mesh(decode, self.ctx, self.rows)
             # the graph binds this block's params (0), cache (2) and
             # position scalar (3) (and a sampling job's generator), so it
             # is the block's own
@@ -249,8 +263,11 @@ class BlockRuntime(InflightWindow):
 
     def _attach_mesh(self, grant: BlockGrant, devs) -> None:
         """The block's DeviceMesh over its ranks, this rank's device and,
-        for a train block, its rows of the batch and the sharding context
-        of its steps."""
+        for a train block or the dense serve plane, its rows of the batch
+        and the sharding context of its steps (the paged plane's rounds
+        run with none: every rank runs every slot, the MoE layers routing
+        a round's tokens as one group, as the reference's context-free
+        scheduler does)."""
         from repro_torch.launch.mesh import make_block_mesh
         self.mesh = make_block_mesh(self.ranks, grant.mesh_shape)
         self.groups_released = False
@@ -261,15 +278,19 @@ class BlockRuntime(InflightWindow):
                 f"{self.ranks}: a rank outside a block follows it with an "
                 f"OffRankRuntime")
         self.device = rank_device(devs[0].type)
-        if self.job.kind != "train":
-            return
         self.axes = plans.MeshAxes(dp=("data",), model="model")
+        if self.job.paged:
+            return
         shape = self.job.shape
         self.batch_shards = pipeline.BatchShards(
             grant.mesh_shape[0], coord[0], max(1, shape.microbatch))
-        self.ctx = shard_ctx.ShardCtx(
-            self.mesh, ("data",), "model",
-            shards_batch=self.batch_shards.split(shape.global_batch))
+        B = shape.global_batch
+        split = self.batch_shards.split(B)
+        self.ctx = shard_ctx.ShardCtx(self.mesh, ("data",), "model",
+                                      shards_batch=split)
+        if self.job.kind == "serve":
+            rows = self.batch_shards.rows(B)
+            self.rows = (int(rows[0]), int(rows[-1]) + 1, B)
 
     def _in_ctx(self, step):
         ctx = self.ctx
@@ -280,16 +301,28 @@ class BlockRuntime(InflightWindow):
         return fn
 
     def state_layouts(self):
-        """The sharded train state's ``plans.Layout`` tree: the params as
-        the plan shards them, the moments as ``plans.moment_specs``."""
+        """The sharded state's ``plans.Layout`` tree: the params as the
+        plan shards them and, for a train block, the moments as
+        ``plans.moment_specs``."""
         job = self.job
         params = model_lib.abstract_params(job.cfg)
         p_spec = plans.param_specs(params, self.mesh, self.axes)
+        if job.kind != "train":
+            return {"params": plans.layouts(p_spec, self.mesh)}
         opt = plans.moment_specs(params, p_spec, self.mesh,
                                  job.opt.state_bits)
         lay = plans.layouts({"params": p_spec, "opt": opt}, self.mesh)
         lay["opt"]["step"] = None
         return lay
+
+    def cache_layouts(self):
+        """The dense serve plane's cache on the mesh: this rank's rows of
+        the batch (``plans.cache_layouts``)."""
+        shape = self.job.shape
+        return plans.cache_layouts(
+            serve_lib.abstract_cache(self.job.cfg, shape.global_batch,
+                                     shape.seq_len),
+            self.mesh, self.axes, split=self.ctx.shards_batch)
 
     # ------------------------------------------------------------ compile
     def _cache_key(self, family: str, *extra) -> tuple:
@@ -297,7 +330,7 @@ class BlockRuntime(InflightWindow):
         on.  ``seed``/checkpoint fields deliberately excluded."""
         job = self.job
         where = compile_cache.device_fingerprint(self.device)
-        if self.ctx is not None:
+        if self.mesh is not None:
             where += (("mesh",) + tuple(self.grant.mesh_shape),)
         return (family, compile_cache.freeze(job.cfg),
                 compile_cache.freeze(job.shape), where) + extra
@@ -344,17 +377,25 @@ class BlockRuntime(InflightWindow):
             self.sessions = self._make_scheduler(self.state["params"])
             self.token = self.sessions.last_tokens_dev
             return
-        self.cache = model_lib.init_cache(job.cfg, job.shape.global_batch,
+        B = job.shape.global_batch
+        lo, hi, _ = self.rows if self.ctx is not None else (0, B, B)
+        self.cache = model_lib.init_cache(job.cfg, hi - lo,
                                           job.shape.seq_len, self.device)
         self.cache_len = 0
-        self.token = torch.zeros((job.shape.global_batch, 1),
-                                 dtype=torch.int32, device=self.device)
+        self.token = torch.zeros((B, 1), dtype=torch.int32,
+                                 device=self.device)
 
     def _install_params(self, params: Optional[Dict[str, Any]]) -> None:
         """A serve block's model around ``params`` (random from
-        ``job.seed`` when None)."""
-        self.model = model_lib.Transformer(self.job.cfg, params,
-                                           seed=self.job.seed,
+        ``job.seed`` when None); on a mesh, every leaf a DTensor of this
+        rank's shards (``model.place_params``: the unsharded init's
+        draws, or the given tree, sliced)."""
+        job = self.job
+        if self.mesh is not None:
+            params = model_lib.place_params(
+                job.cfg, self.state_layouts()["params"], seed=job.seed,
+                params=params, device=self.device)
+        self.model = model_lib.Transformer(job.cfg, params, seed=job.seed,
                                            device=self.device)
         self.state = {"params": self.model.params}
 
@@ -365,11 +406,20 @@ class BlockRuntime(InflightWindow):
                     max_seq_len=job.max_seq_len or job.shape.seq_len)
 
     def _make_scheduler(self, params, init_pool: bool = True):
+        """The paged plane's scheduler; on a mesh of several ranks each
+        round's tokens are the block's first rank's, broadcast over the
+        block's group."""
         from repro_torch.serve.decode_scheduler import DecodeScheduler
         job = self.job
+        group = None
+        if self.mesh is not None and len(self.ranks) > 1:
+            from repro_torch.launch.mesh import block_group
+            group = block_group(self.mesh)
         return DecodeScheduler(job.cfg, params, sample=job.decode_sample,
                                seed=job.seed, init_pool=init_pool,
-                               device=self.device, **self._paged_geometry())
+                               device=self.device, group=group,
+                               src=self.ranks[0] if group else 0,
+                               **self._paged_geometry())
 
     def prefill(self, batch: Dict[str, Any]) -> None:
         """Dense serve blocks: process a prompt batch into the KV cache and
@@ -382,11 +432,18 @@ class BlockRuntime(InflightWindow):
                 self._cache_key("prefill_step"),
                 lambda: serve_lib.make_prefill_step(self.job.cfg),
                 "prefill_step")
-        batch = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in batch.items() if k in ("tokens", "patches")}
-        logits, self.cache = self._prefill_fn(self.state["params"], batch,
-                                              self.cache)
-        self.token = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()
+                 if k in ("tokens", "patches")}
+        if self.batch_shards is not None:       # this rank's rows
+            batch = pipeline.make_global_batch(batch, self.batch_shards,
+                                               self.device)
+        else:
+            batch = {k: v.to(self.device) for k, v in batch.items()}
+        with shard_ctx.use(self.ctx):
+            logits, self.cache = self._prefill_fn(self.state["params"],
+                                                  batch, self.cache)
+            self.token = shard_ctx.gather_rows(
+                torch.argmax(logits, -1)[:, None].to(torch.int32))
         # patches + tokens: the module docstring's one departure
         self.cache_len = model_lib.embedded_len(self.job.cfg, batch)
 
@@ -530,7 +587,11 @@ class BlockRuntime(InflightWindow):
         int32 0-d leaf, as the reference's."""
         if self.job.paged:
             return {"paged": self.sessions.state_tree()}
-        return {"cache": self.cache, "token": self.token,
+        cache = self.cache
+        if self.ctx is not None:        # this rank's rows of each leaf
+            cache = pytree.tree_map(lambda lay, t: lay.wrap(t),
+                                    self.cache_layouts(), cache)
+        return {"cache": cache, "token": self.token,
                 "cache_len": torch.tensor(self.cache_len,
                                           dtype=torch.int32)}
 
@@ -655,14 +716,18 @@ class BlockRuntime(InflightWindow):
             like["decode"] = (self._decode_ctx() if have_ctx
                               else self._abstract_decode())
         shardings = None
-        if self.ctx is not None:
+        if self.mesh is not None:
             like["state"] = self._abstract_like()
             shardings = {"state": self.state_layouts()}
+            if job.kind == "serve":
+                like["decode"] = self._abstract_decode()
+                if not job.paged:
+                    shardings["decode"] = {"cache": self.cache_layouts()}
         restored, at = ckpt.restore(like, step=step, device=self.device,
                                     shardings=shardings)
         self._release_graphs()       # they bind the tensors replaced here
         state = restored["state"]
-        if self.ctx is not None:
+        if self.mesh is not None and job.kind == "train":
             self.state = train_lib.sharded_train_state(state)
         elif job.kind == "train":
             self.state = train_lib.make_train_state(
@@ -679,7 +744,9 @@ class BlockRuntime(InflightWindow):
                 self.sessions.load_state(dec["paged"])
                 self.token = self.sessions.last_tokens_dev
             else:
-                self.cache = dec["cache"]
+                self.cache = pytree.tree_map(lambda t: (
+                    t.to_local() if isinstance(t, DTensor) else t),
+                    dec["cache"])
                 self.token = dec["token"]
                 self.cache_len = int(dec["cache_len"])
         self.step_count = int(restored["step_count"])
@@ -749,20 +816,15 @@ def first_ranks_record(rt, rec: Dict[str, float]) -> Dict[str, float]:
     return from_rank(rt.ranks[0], rec) if on_several_ranks(rt) else rec
 
 
-def check_block(job: JobSpec, grant: BlockGrant,
-                devices: Sequence) -> Optional[list]:
+def check_block(grant: BlockGrant, devices: Sequence) -> Optional[list]:
     """What every rank checks of a block before it builds or follows it,
-    the same on each: a serve block spans one chip (item 8c) and a block
-    at most one chip of each rank.  Returns the block's ranks under a
-    process group, else None."""
+    the same on each: a device for each chip of its mesh, and at most one
+    chip of each rank.  Returns the block's ranks under a process group,
+    else None."""
     n = math.prod(grant.mesh_shape)
     if len(devices) != n:
         raise ValueError(f"a block of mesh {tuple(grant.mesh_shape)} needs "
                          f"{n} devices, got {len(devices)}")
-    if job.kind == "serve" and n > 1:
-        raise NotImplementedError(
-            f"a serve block spans one device: serving on {n} devices "
-            f"(a decode step on a mesh) is item 8c")
     return block_ranks(devices) if dist.is_initialized() else None
 
 
@@ -780,8 +842,8 @@ class OffRankRuntime(InflightWindow):
     steps finish as they are dispatched, and each completion records the
     step time and metrics the block's first rank measured
     (``first_ranks_record``).  A serve block's generate
-    surface answers on the block's own rank only: on this rank it raises
-    (item 8f)."""
+    surface answers on the block's own ranks only: on this rank it
+    raises (item 8f)."""
 
     device = None
     state = None
@@ -791,7 +853,7 @@ class OffRankRuntime(InflightWindow):
                  ckpt_root: Optional[str] = None):
         from repro_torch.launch.mesh import make_block_mesh
         self.job = job
-        self.ranks = check_block(job, grant, devices)
+        self.ranks = check_block(grant, devices)
         if self.ranks is None or rank() in self.ranks:
             raise RuntimeError(
                 f"an OffRankRuntime follows a block from a rank outside "

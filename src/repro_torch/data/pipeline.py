@@ -5,7 +5,8 @@ byte for byte the reference's; ``batch_shapes``/``prefill_shapes`` give
 each input's (shape, torch dtype); ``DataIterator`` hands a train block
 its batch for a step as tensors on its device, and under a data-parallel
 layout (``BatchShards``) only the rank's rows of it
-(``make_global_batch``).
+(``make_global_batch``), as a dense serve block on a mesh takes its rows
+of a prompt batch.
 """
 from __future__ import annotations
 
@@ -127,14 +128,19 @@ def _as_tensor(v: np.ndarray) -> torch.Tensor:
         v.astype(np.float32) if v.dtype == np.float64 else v)
 
 
-def make_global_batch(np_batch: Dict[str, np.ndarray], shardings: BatchShards,
+def make_global_batch(np_batch: Dict[str, Any], shardings: BatchShards,
                       device) -> Dict[str, torch.Tensor]:
-    """Place a host batch on this rank: its rows of every leaf
-    (``BatchShards.rows``), on ``device``."""
+    """Place a batch on this rank: its rows of every leaf
+    (``BatchShards.rows``), on ``device``.  The leaves are numpy arrays
+    (a train block's synthetic batch) or tensors (a serve block's
+    prompt, on any device)."""
     out = {}
     for k, v in np_batch.items():
         rows = shardings.rows(v.shape[0])
-        out[k] = _as_tensor(np.ascontiguousarray(v[rows])).to(device)
+        if isinstance(v, torch.Tensor):
+            out[k] = v[torch.as_tensor(rows, device=v.device)].to(device)
+        else:
+            out[k] = _as_tensor(np.ascontiguousarray(v[rows])).to(device)
     return out
 
 

@@ -3,7 +3,8 @@
 ``ClusterDaemon`` service layer (register -> admit -> activate ->
 prefill -> decode steps -> download), so the launcher exercises the same
 lifecycle, dispatcher and monitoring as any other tenant of the public
-cluster.  The daemon's topology is one chip on ``--device``.
+cluster.  The daemon's topology is one chip on ``--device`` (a chip a
+rank under a process group).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_7b \
       --smoke --batch 4 --prompt-len 64 --gen 32 [--device cpu]
@@ -23,16 +24,33 @@ sLSTM states, not K/V, and each decode step updates them.  An encoder
 ``run(args, cfg)`` serves a config the caller made (one cut in depth,
 say) with the flags' traffic; ``config(args)`` is the one the flags
 name.
+
+Under ``python -m torch.distributed.run --nproc-per-node N`` every rank
+runs this launcher and its own deterministic daemon, so every rank
+reaches the same grant: one serve block of N chips over every rank (a
+``(data, model)`` mesh of ``mesh_shape_for(N)``), the params sharded as
+the reference's plan shards them and gathered a group at a time, each
+rank decoding its rows of the batch where they split over ``data``.
+``--device cpu`` runs the ranks over gloo, ``cuda`` over NCCL, one card
+a rank.  Only rank 0 prints.  Without a process group the launcher is
+the one-chip launcher.
+
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.serve --arch deepseek_7b \
+      --smoke --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 import repro_torch.configs as configs
+from repro_torch import device as device_lib
 from repro_torch.core.daemon import ClusterDaemon
 from repro_torch.core.runtime import JobSpec
 from repro_torch.core.topology import Topology
@@ -70,14 +88,18 @@ def run(args: argparse.Namespace,
         raise SystemExit("encoder-only arch has no decode path")
     B, P, G = args.batch, args.prompt_len, args.gen
 
-    topo = Topology(n_pods=1, pod_x=1, pod_y=1)
-    daemon = ClusterDaemon(topo, devices=[args.device],
+    # one block spanning every rank (one chip without a process group)
+    n = device_lib.world_size()
+    devices = ([args.device] * n if device_lib.resolve(args.device).type
+               != "cuda" or n == 1 else device_lib.cuda_devices())
+    topo = Topology(n_pods=1, pod_x=n, pod_y=1)
+    daemon = ClusterDaemon(topo, devices=devices,
                            ckpt_root="artifacts/serve_ckpt")
     # cache sized for prompt + generation
     job = JobSpec(cfg, ShapeConfig("cli", "serve", seq_len=P + G,
                                    global_batch=B),
                   kind="serve", seed=args.seed, decode_sample=args.sample)
-    app_id, grant = daemon.submit("cli", f"serve {cfg.name}", 1, job=job)
+    app_id, grant = daemon.submit("cli", f"serve {cfg.name}", n, job=job)
     assert grant is not None, "single-tenant pod must admit immediately"
     rt = daemon.runtime(app_id)
 
@@ -106,19 +128,34 @@ def run(args: argparse.Namespace,
             "steps": res["steps"]}
 
 
+def _log(*a) -> None:
+    """Print on rank 0 only."""
+    if device_lib.is_writer():
+        print(*a, flush=True)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    res = run(args)
-    cfg, B, P, G = res["cfg"], args.batch, args.prompt_len, args.gen
-    t_prefill, t_decode = res["prefill_s"], res["decode_s"]
-    print(f"# arch={cfg.name} batch={B} prompt={P} gen={G} "
-          f"block={res['grant'].block_id} device={res['runtime'].device}")
-    print(f"# prefill: {t_prefill*1e3:.1f} ms "
-          f"({B*P/t_prefill:.0f} tok/s)")
-    print(f"# decode:  {t_decode*1e3:.1f} ms "
-          f"({B*(G-1)/max(t_decode,1e-9):.0f} tok/s) "
-          f"steps={res['steps']}")
-    print("# first generations:", res["tokens"][:2, :10].tolist())
+    started = "RANK" in os.environ and not dist.is_initialized()
+    if started:                     # a rank of torch.distributed.run
+        device_lib.init_distributed(args.device)
+    try:
+        res = run(args)
+        cfg, B, P, G = res["cfg"], args.batch, args.prompt_len, args.gen
+        t_prefill, t_decode = res["prefill_s"], res["decode_s"]
+        _log(f"# arch={cfg.name} batch={B} prompt={P} gen={G} "
+             f"block={res['grant'].block_id} device={res['runtime'].device} "
+             f"chips={res['grant'].n_chips} "
+             f"mesh={tuple(res['grant'].mesh_shape)}")
+        _log(f"# prefill: {t_prefill*1e3:.1f} ms "
+             f"({B*P/t_prefill:.0f} tok/s)")
+        _log(f"# decode:  {t_decode*1e3:.1f} ms "
+             f"({B*(G-1)/max(t_decode,1e-9):.0f} tok/s) "
+             f"steps={res['steps']}")
+        _log("# first generations:", res["tokens"][:2, :10].tolist())
+    finally:
+        if started:
+            dist.destroy_process_group()
     return 0
 
 

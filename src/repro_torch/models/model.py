@@ -11,6 +11,12 @@
 
 Caches and pools are updated in place and returned.  ``impl`` selects the
 kernels or their plain versions for the whole stack (``kernels.ops``).
+
+On a block's mesh the params are DTensors (``place_params``) and every
+function here gathers them a group at a time, forward only on the serve
+paths (``sharding.ctx.full``); the dense serve plane runs under the
+block's sharding context on this rank's rows of the batch and cache,
+the paged plane with no context on every slot.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from repro_torch.models.transformer import (Transformer,  # re-export
                                             init_cache, init_paged_cache)
 
 init_params = transformer.init_params
+place_params = transformer.place_params
 check_paged_support = transformer.check_paged_support
 
 

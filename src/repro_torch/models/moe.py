@@ -19,11 +19,15 @@ consecutive tokens routes alone with the capacity of its own ``Tl``.  A
 rank that holds one shard of each microbatch (``ShardCtx.shards_batch``)
 routes its local tokens as that shard; a rank that holds the whole batch
 routes it as DP shards, as the reference's ``(DP, Tl, d)`` reshape does.
+A serve block's dense plane runs under its block's context, so its
+prefill and decode route as the reference's under the block's mesh; the
+paged plane runs with none, so a round's tokens route as one group, as
+the reference's context-free scheduler routes them.
 The aux loss is ``E * sum(frac_tokens * frac_probs)`` over every shard's
 tokens, a product of two global means, so under a data-parallel layout
 both fractions are summed over the data shards (``shard_ctx.data_sum``)
 before the product.  The reference's ``constrain_*`` calls (layout hints
-for the EP all-to-all) wait for expert parallelism (item 8b) and are
+for the EP all-to-all) wait for expert parallelism (item 8d) and are
 left out.
 
 Every valid slot receives exactly one token, so the scatter is a plain

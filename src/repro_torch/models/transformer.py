@@ -468,6 +468,31 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return params
 
 
+def place_params(cfg: ModelConfig, layouts, *, seed: int = 0,
+                 params: Optional[Dict[str, Any]] = None, device="cuda"):
+    """The param tree on a mesh: every leaf a DTensor of this rank's
+    shards in ``layouts`` (a tree of ``plans.Layout`` by the params'
+    paths).  Random weights are drawn as the unsharded init draws them,
+    one group at a time, and sliced (``init_params``' ``place``); a given
+    whole tree is sliced, and a given tree of DTensors (a sharded
+    restore's) is kept as it is."""
+    lay = dict(flatten(layouts))
+
+    def place(path, leaf):
+        if path.startswith("layers/"):      # a group's slice, no stack dim
+            return leaf[lay[path].index((1,) + tuple(leaf.shape))[1:]]
+        return leaf[lay[path].index(tuple(leaf.shape))].clone()
+
+    if params is None:
+        local = init_params(cfg, seed=seed, device=device, place=place)
+        return unflatten((path, lay[path].wrap(leaf))
+                         for path, leaf in flatten(local))
+    return unflatten(
+        (path, leaf if isinstance(leaf, DTensor)
+         else lay[path].shard(leaf.to(device)))
+        for path, leaf in flatten(params))
+
+
 def _stub_proj(inputs, w):
     """``inputs.astype(bf16) @ w`` as ``jnp`` computes it: the inputs
     rounded to bf16, then the product in ``w``'s dtype (with fp32 params
@@ -622,7 +647,9 @@ class Transformer(nn.Module):
     ``params`` rebuilds the nested dict of the same tensors.
     ``params=None`` draws random weights from ``seed``.  The leaves
     require gradients only with ``requires_grad=True`` (a train block);
-    serving keeps them frozen."""
+    serving keeps them frozen.  On a mesh the given leaves are DTensors
+    (``place_params``), each parameter a DTensor of this rank's shards,
+    and ``forward`` gathers them a group at a time."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
                  seed: int = 0, device="cuda", requires_grad: bool = False):

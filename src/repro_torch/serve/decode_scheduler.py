@@ -34,6 +34,16 @@ bucket per page count and runs eagerly, as does everything on the CPU.
 table, per-slot lengths and host session metadata) through the
 ``CheckpointManager``; ``abstract_state`` is its restore target, and
 ``init_pool=False`` builds a scheduler for ``load_state`` with no pool.
+
+On a block's mesh the params are DTensors, gathered a group at a time
+forward only, and every rank of the block holds the whole pool and runs
+every slot; no sharding context is installed, so the MoE layers route a
+round's (or an admission's) tokens as one group, as the reference's
+scheduler jits its steps with none.  With ``group`` (the block's group,
+several ranks) each admission's first token and each round's tokens are
+broadcast from the block's first rank ``src`` before the host reads
+them, so every rank's bookkeeping (EOS, lengths, pages, emissions) is
+the same, sampling included.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve
 from repro_torch.models import model as model_lib
@@ -187,11 +198,13 @@ class DecodeScheduler:
     def __init__(self, cfg: ModelConfig, params, *, page_size: int = 16,
                  n_pages: int = 0, max_slots: int = 8, max_seq_len: int = 128,
                  sample: bool = False, seed: int = 0, time_fn=time.monotonic,
-                 init_pool: bool = True, device="cuda"):
+                 init_pool: bool = True, device="cuda", group=None,
+                 src: int = 0):
         model_lib.check_paged_support(cfg)
         self.cfg = cfg
         self.params = params
         self.device = resolve(device)
+        self._group, self._src = group, src
         geo = paged_geometry(cfg, page_size=page_size, n_pages=n_pages,
                              max_slots=max_slots, max_seq_len=max_seq_len)
         self.page_size = geo["page_size"]
@@ -260,7 +273,14 @@ class DecodeScheduler:
         first, self.pool = self._admit_fn(
             self.params, tokens, self.pool, pages, last_idx,
             self._gen if self.sample else None)
-        return int(first)
+        return int(self._agreed(first.reshape(1))[0])
+
+    def _agreed(self, tokens):
+        """``tokens`` as the block's first rank has them (every rank's
+        without a group)."""
+        if self._group is not None:
+            dist.broadcast(tokens, src=self._src, group=self._group)
+        return tokens
 
     def _decode_step(self, tokens, page_table, seq_lens):
         """One batched paged decode step over every slot, through the
@@ -431,9 +451,9 @@ class DecodeScheduler:
             staged = self._staged[name]
             staged.copy_(torch.from_numpy(getattr(self, name)))
             buf.copy_(staged, non_blocking=True)
-        nxt = self._decode_step(self._inputs["tokens"],
-                                self._inputs["page_table"],
-                                self._inputs["seq_lens"])
+        nxt = self._agreed(self._decode_step(self._inputs["tokens"],
+                                             self._inputs["page_table"],
+                                             self._inputs["seq_lens"]))
         self.last_tokens_dev = nxt
         nxt_host = nxt.cpu().numpy()        # host sync: EOS/feedback point
         for i in active:

@@ -5,11 +5,21 @@ step and the model asks it for the data-parallel size, gathers its
 sharded params (``full``) and sums over the data shards (``data_sum``),
 all of which do nothing when no context is installed (one device).
 
+A serve step gathers forward only: ``full`` of a DTensor with no
+gradient to place (grad off, or no context installed, as the paged
+plane's rounds run) is a plain all-gather.  The dense serve plane's
+context splits the batch's rows over ``data`` where they split
+(``shards_batch``), and ``gather_rows`` puts the ranks' rows of a step's
+output back together in order; its ``data_sum`` rules are the train
+step's (the aux loss of a MoE layer summed over the data shards whose
+ranks computed different rows, nothing where every rank holds the
+whole batch).
+
 The ``constrain_*`` helpers are the reference's layout hints for XLA's
 partitioner.  Under the port's layout (item 8a) every rank computes its
 data shard's rows whole, with each param group gathered for its use, so
 they are identities here; tensor and expert parallelism over ``model``
-(item 8b) gives them effect.
+(item 8d) gives them effect.
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.sharding.plans import axis_sizes
 
@@ -76,12 +86,16 @@ def use(ctx: Optional[ShardCtx]):
 
 
 def full(x):
-    """A param leaf whole for its use: a DTensor is all-gathered (its
-    gradient reduce-scattered back onto the shards, ``grad_placements``);
-    a plain tensor is returned as it is."""
+    """A param leaf whole for its use: a DTensor is all-gathered (under a
+    context with gradients on, its gradient reduce-scattered back onto
+    the shards, ``grad_placements``; else forward only); a plain tensor
+    is returned as it is."""
     if not isinstance(x, DTensor):
         return x
-    return x.full_tensor(grad_placements=current().grad_placements())
+    ctx = current()
+    if ctx is None or not torch.is_grad_enabled():
+        return x.full_tensor()
+    return x.full_tensor(grad_placements=ctx.grad_placements())
 
 
 def full_tree(tree):
@@ -108,6 +122,20 @@ class _DataSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+def gather_rows(x):
+    """The rows of every data shard of a step's output ``x`` (this rank's
+    rows of the batch first dim), in rank order: the whole batch's, on
+    every rank.  ``x`` itself with no context or where every rank holds
+    the whole batch.  A forward-only all-gather over the data axes."""
+    ctx = current()
+    if ctx is None or not ctx.shards_batch:
+        return x
+    placements = tuple(Shard(0) if a in ctx.dp else Replicate()
+                       for a in ctx.sizes)
+    return DTensor.from_local(x, ctx.mesh, placements,
+                              run_check=False).full_tensor()
 
 
 def data_sum(x):

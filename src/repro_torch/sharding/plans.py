@@ -253,6 +253,40 @@ def cache_specs(cache_abstract, cfg, mesh, axes: Optional[MeshAxes] = None,
     return _map_with_path(spec_for, cache_abstract)
 
 
+#: top-level cache keys whose leaves are stacked twice, (n_groups, n_sub,
+#: batch, ...): the hybrid's Mamba2 and the xlstm's mLSTM sublayers
+_SUB_STACKED = ("mamba", "mlstm")
+
+
+def cache_batch_dim(keys) -> int:
+    """The batch dim of the cache leaf at path ``keys``: after the group
+    stack, and the sublayer stack under ``_SUB_STACKED``."""
+    return 2 if keys and keys[0] in _SUB_STACKED else 1
+
+
+def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
+                  split: bool = True):
+    """A dense serve block's cache under the port's layout (item 8a): a
+    ``Layout`` for every leaf of the cache tree (its dicts and tuples
+    kept), the batch dim over dp when the batch's rows split over the
+    data ranks (``split``), else whole, and every other dim whole.
+    Where ``cache_specs`` puts kv-heads over ``model``, the model axis's
+    ranks compute the same rows here (heads over ``model`` come with
+    tensor parallelism, item 8d); where it sequence-shards a batch that
+    does not split, a softmax would have to be merged across ranks: not
+    ported."""
+    axes = axes or MeshAxes.from_mesh(mesh)
+    dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
+
+    def layout_for(keys, leaf):
+        spec = [None] * len(leaf.shape)
+        if split:
+            spec[cache_batch_dim(keys)] = dp
+        return Layout(mesh, to_placements(tuple(spec), mesh))
+
+    return _map_with_path(layout_for, cache_abstract)
+
+
 def _is_q(x) -> bool:
     return isinstance(x, dict) and set(x.keys()) == {"q", "s"}
 

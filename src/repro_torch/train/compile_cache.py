@@ -7,9 +7,8 @@ ids, donate signature) — and hands back the previously built ``jax.jit``
 wrapper, so a block resumed on the same chips recompiles nothing.
 ``freeze``, ``mesh_fingerprint``, ``CompileCache`` and ``GLOBAL`` are the
 reference's, unchanged: hits and misses are announced as kind="compile"
-events on the bus attached via ``set_bus``.  The port's blocks hold one
-device each, so their keys carry ``device_fingerprint`` where the
-reference's carry the mesh's.
+events on the bus attached via ``set_bus``.  The port's keys carry this
+rank's ``device_fingerprint`` where the reference's carry the mesh's.
 
 What the port caches is the step function; what ``jax.jit`` gives the
 reference beyond the cache is a ``CapturedStep``: the step captured once
@@ -19,6 +18,12 @@ the addresses of the tensors it was captured with (one block's params,
 cache and inputs), so the cache entry is shared and the graphs are per
 block: each block wraps the cached function in a ``CapturedStep`` of its
 own, and a resumed block captures again.
+
+On a block's mesh a step's params are DTensors: a graph binds each one's
+local shard, and the gathers of a dense decode step (the params a group
+at a time, the next tokens over ``data``) are captured inside its graph.
+The keys of a block on a mesh carry its mesh shape beside its device's
+fingerprint (the runtime's ``_cache_key``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import time
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import (flash_attention, fused_adamw,
@@ -315,8 +321,10 @@ class CapturedStep:
             if not isinstance(t, torch.Tensor):
                 sig.append(("value", t))
             elif i in static:
-                sig.append(("bound", t.data_ptr(), tuple(t.shape),
-                            t.stride(), t.dtype, t.device))
+                # a DTensor (a block's param on a mesh) binds its shard
+                loc = t.to_local() if isinstance(t, DTensor) else t
+                sig.append(("bound", loc.data_ptr(), tuple(loc.shape),
+                            loc.stride(), t.dtype, t.device))
             else:
                 sig.append(("input", tuple(t.shape), t.stride(), t.dtype,
                             t.device))

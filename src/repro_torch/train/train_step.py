@@ -61,22 +61,8 @@ def make_sharded_train_state(cfg: ModelConfig, seed: int,
     weights are drawn as the unsharded init draws them (one group at a
     time) and sliced; given whole trees (``params``, ``opt_state``) are
     sliced."""
-    lay_p = dict(flatten(layouts["params"]))
-
-    def place(path, leaf):
-        lay = lay_p[path]
-        if path.startswith("layers/"):      # a group's slice, no stack dim
-            return leaf[lay.index((1,) + tuple(leaf.shape))[1:]]
-        return leaf[lay.index(tuple(leaf.shape))].clone()
-
-    if params is None:
-        local = model_lib.init_params(cfg, seed=seed, device=device,
-                                      place=place)
-        params = unflatten((path, lay_p[path].wrap(leaf))
-                           for path, leaf in flatten(local))
-    else:
-        params = unflatten((path, lay_p[path].shard(leaf.to(device)))
-                           for path, leaf in flatten(params))
+    params = model_lib.place_params(cfg, layouts["params"], seed=seed,
+                                    params=params, device=device)
     if opt_state is None:
         opt_state = opt_lib.init(params, opt_cfg, layouts=layouts["opt"])
     else:

@@ -287,10 +287,10 @@ class Port:
         meshes = [tuple(x.device_mesh.mesh.flatten().tolist())
                   for x in gc.get_objects() if isinstance(x, DTensor)]
         out["checks"]["no_foreign_tensors"] = all(m in held for m in meshes)
-        # the scan sees a train block's state where the rank holds one
+        # the scan sees a block's state where the rank holds one (carol's
+        # params are DTensors on her (1, 1) mesh too)
         out["checks"]["scan_sees_own_tensors"] = bool(meshes) == any(
-            ctl.runtimes[a].job.kind == "train" for a in apps.values()
-            if mine(ctl.runtimes[a]))
+            mine(ctl.runtimes[a]) for a in apps.values())
         out["checks"]["stand_ins_hold_nothing"] = all(
             rt.state is None and rt.device is None
             for rt in ctl.runtimes.values() if not mine(rt))
@@ -563,12 +563,12 @@ def fake_world():
         dist.destroy_process_group()
 
 
-def _job(kind):
+def _job(kind, paged=False):
     import repro_torch.configs as C
     from repro_torch.core.runtime import JobSpec
     from repro_torch.models.config import ShapeConfig
     return JobSpec(C.get_smoke("deepseek_7b"),
-                   ShapeConfig("s", kind, 16, 2), kind=kind)
+                   ShapeConfig("s", kind, 16, 2), kind=kind, paged=paged)
 
 
 def test_chips_map_onto_ranks(fake_world):
@@ -609,16 +609,27 @@ def test_a_block_holding_two_chips_of_one_rank_raises(fake_world):
                      _job("train"))
 
 
-def test_a_serve_block_of_two_devices_names_8c_under_a_process_group(
-        fake_world):
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_serve_blocks_stand_in_holds_nothing_and_names_8f(fake_world,
+                                                            paged):
+    """A serve block of two ranks as a rank outside it follows it: no
+    state, no device, no group, and its generate surface names item 8f
+    (the daemon's service mode across ranks)."""
     from repro_torch.core.block import BlockGrant
-    from repro_torch.core.runtime import BlockRuntime, OffRankRuntime
+    from repro_torch.core.runtime import OffRankRuntime
     from repro_torch.device import Chip
-    grant = BlockGrant.new([(0, 0, 0), (0, 1, 0)], (1, 2), 60.0)
-    for cls in (BlockRuntime, OffRankRuntime):
-        with pytest.raises(NotImplementedError, match="item 8c"):
-            cls(grant, _job("serve"), devices=[Chip(0, "cpu"),
-                                               Chip(1, "cpu")])
+    grant = BlockGrant.new([(0, 1, 0), (0, 2, 0)], (2, 1), 60.0)
+    rt = OffRankRuntime(grant, _job("serve", paged),
+                        devices=[Chip(1, "cpu"), Chip(2, "cpu")])
+    assert rt.ranks == [1, 2] and rt.mesh.get_coordinate() is None
+    assert rt.state is None and rt.device is None
+    rt.init_state()
+    assert rt.state is None
+    for call in (lambda: rt.start_session([1, 2]), rt.feed, rt.harvest,
+                 lambda: rt.prefill({}), lambda: rt.sessions):
+        with pytest.raises(NotImplementedError, match="item 8f"):
+            call()
+    rt.release()
 
 
 def test_tick_without_a_model_time_raises_across_ranks(fake_world):

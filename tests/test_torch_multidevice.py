@@ -578,20 +578,12 @@ def test_microbatch_rows_are_the_reference_routing_groups():
     np.testing.assert_array_equal(shards.rows(G), np.arange(G))
 
 
-def _job(kind):
+def _job(kind, paged=False):
     import repro_torch.configs as C
     from repro_torch.core.runtime import JobSpec
     from repro_torch.models.config import ShapeConfig
     return JobSpec(C.get_smoke("deepseek_7b"),
-                   ShapeConfig("s", kind, 16, 2), kind=kind)
-
-
-def test_a_serve_block_of_two_devices_names_8b():
-    from repro_torch.core.block import BlockGrant
-    from repro_torch.core.runtime import BlockRuntime
-    grant = BlockGrant.new([(0, 0, 0), (0, 1, 0)], (1, 2), 60.0)
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        BlockRuntime(grant, _job("serve"), devices=["cpu", "meta"])
+                   ShapeConfig("s", kind, 16, 2), kind=kind, paged=paged)
 
 
 def test_a_block_of_two_devices_without_a_process_group_raises():
@@ -602,3 +594,15 @@ def test_a_block_of_two_devices_without_a_process_group_raises():
     grant = BlockGrant.new([(0, 0, 0), (0, 1, 0)], (1, 2), 60.0)
     with pytest.raises(RuntimeError, match="needs a process group of 2"):
         BlockRuntime(grant, _job("train"), devices=["cpu", "meta"])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_a_serve_block_of_two_devices_without_a_process_group_raises(paged):
+    """As a train block's: serving on a mesh needs a process group."""
+    import torch.distributed as dist
+    from repro_torch.core.block import BlockGrant
+    from repro_torch.core.runtime import BlockRuntime
+    assert not dist.is_initialized()
+    grant = BlockGrant.new([(0, 0, 0), (0, 1, 0)], (1, 2), 60.0)
+    with pytest.raises(RuntimeError, match="needs a process group of 2"):
+        BlockRuntime(grant, _job("serve", paged), devices=["cpu", "meta"])

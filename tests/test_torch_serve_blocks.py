@@ -1,0 +1,703 @@
+"""The port's serve block over several devices (item 8c), on gloo ranks on
+the CPU, against the JAX package's serve block on the same mesh shapes.
+
+The reference runs in two subprocesses with 4 forced host devices each
+(``REF``, parts "a" and "b", at once): each first draws its configs'
+params (``init_state``, as the reference's runtime does) and saves them
+at step 0, then serves each config on the meshes below through its
+``BlockRuntime``: a 4 x 16 prompt, prefilled and decoded 3 greedy steps
+on the dense plane, and 3 sessions through 4 slots on the paged plane.
+The port's worlds of 4, 2 and 1 gloo ranks (``RANKS``: subprocesses
+joined through a ``FileStore`` in the test's directory, each with
+``torch.set_num_threads(1)``, a subprocess timeout and a collective
+timeout) restore those step-0 checkpoints as they land, serve the same
+traffic on the same meshes and print one JSON line each, which the tests
+below read through a module-scoped fixture.  Everything runs at once.
+
+The configs are the smoke configs in fp32.  Tolerances, each beside what
+the reference against itself gives:
+* greedy tokens and paged emissions: equal (the reference's own
+  deepseek_7b tokens are equal on every mesh);
+* prefill logits against the reference's on the same mesh: atol 1e-4
+  times the logits' largest magnitude (measured: 5.7e-7 to 1.3e-6; the
+  reference's own logits at (2, 1) against (1, 1): 0 for deepseek_7b,
+  1.2e-6 for xlstm_350m); xlstm_350m's at 1e-3 (measured 3.9e-4, on one
+  device as on the mesh: the sLSTM's bf16 stacking, see below), its
+  (2, 1) logits the port's (1, 1) ones bit for bit;
+* llama4_maverick_400b's dense plane routes each data shard's rows as a
+  group of its own, so the reference's own (2, 1) and (1, 1) tokens
+  differ, and the port's (2, 1) tokens are the reference's (2, 1) ones.
+  Its paged plane routes a round's tokens as one group on every mesh.
+  A batch of 3 at dp = 2 does not split over the data ranks: every rank
+  computes all 3 rows, the prefill routing 2 groups of 24 tokens as the
+  reference does (its decode at that shape fails inside ``shard_map``,
+  so the port's decode is held to run only);
+* checkpoints: a dense serve block suspended at (2, 1) after 2 decode
+  steps resumes at (1, 2) on other ranks and at (1, 1) on one rank, and
+  is migrated by ``inject_chip_failure``: its decode context's whole
+  leaves bit for bit the suspended block's and the (1, 1) run's at that
+  step, the next tokens the uninterrupted run's; a reference checkpoint
+  saved at (2, 1) restores into the port and decodes equal, and the
+  port's restores into the reference, leaf for leaf.
+* the launcher on 2 ranks (a (1, 2) mesh), bf16 smoke config: 1 rank's
+  tokens.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+ENV = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+           JAX_PLATFORMS="cpu")
+TIMEOUT_S = 200
+
+torch.set_num_threads(1)
+
+COMMON = r'''
+import dataclasses, json, os, sys, time
+import numpy as np
+
+PROMPT, GEN, SLOTS = 16, 3, 4
+PROMPTS = ([3, 1, 4, 1, 5], [9, 2, 6, 5, 3, 5, 8, 9, 7, 9], [2, 7, 1])
+LL = "llama4_maverick_400b"
+DS = "deepseek_7b"
+# part a: deepseek_7b (both planes) and the dense plane of MLA, the
+# hybrid and the xlstm; part b: llama4 (both planes, and a batch of 3)
+MESHES = {DS: ((1, 1), (2, 1), (1, 2), (2, 2)), "deepseek_v2_236b": ((2, 1),),
+          "zamba2_2p7b": ((2, 1),), "xlstm_350m": ((1, 1), (2, 1)),
+          LL: ((1, 1), (2, 1), (2, 2))}
+PAGED = (DS, LL)
+INITS = {"a": [(DS, 4, False), (DS, 4, True), ("deepseek_v2_236b", 4, False),
+               ("zamba2_2p7b", 4, False), ("xlstm_350m", 4, False)],
+         "b": [(LL, 4, False), (LL, 4, True), (LL, 3, False)]}
+
+
+def fp32(C, arch):
+    return dataclasses.replace(C.get_smoke(arch), param_dtype="float32")
+
+
+def ns(arch, B=4, paged=False):
+    return f"{arch}_{B}{'p' if paged else ''}"
+
+
+def serve_job(C, Job, Shape, arch, B=4, paged=False):
+    return Job(fp32(C, arch), Shape("s", "serve", seq_len=PROMPT + GEN + 1,
+                                    global_batch=B),
+               kind="serve", paged=paged, page_size=8, max_slots=SLOTS,
+               ckpt_namespace=ns(arch, B, paged))
+
+
+def prompt(C, Shape, pipeline, arch, B=4):
+    return {k: v for k, v in pipeline.synthetic_batch(
+        fp32(C, arch), Shape("p", "prefill", seq_len=PROMPT, global_batch=B),
+        step=0, seed=0).items() if k != "labels"}
+'''
+
+REF = COMMON + r'''
+import jax
+import repro.configs as C
+from repro.checkpoint.manager import CheckpointManager
+from repro.core.block import BlockGrant
+from repro.core.runtime import BlockRuntime, JobSpec
+from repro.data import pipeline
+from repro.models.config import ShapeConfig
+
+root, part = sys.argv[1], sys.argv[2]
+res = {}
+
+
+def block(arch, mesh, B=4, paged=False):
+    n = mesh[0] * mesh[1]
+    grant = BlockGrant.new([(0, i, 0) for i in range(n)], mesh, 600.0)
+    return BlockRuntime(grant, serve_job(C, JobSpec, ShapeConfig, arch, B,
+                                         paged), jax.devices()[:n], root)
+
+
+def dense(arch, mesh, B=4, gen=GEN, save_at=None):
+    rt = block(arch, mesh, B)
+    rt.restore(step=0)
+    batch = prompt(C, ShapeConfig, pipeline, arch, B)
+    cache0 = rt.cache
+    rt.prefill(batch)
+    logits, _ = rt._prefill_fn(rt.state["params"], batch, cache0)
+    np.save(os.path.join(root, f"logits_{arch}_{B}_{mesh[0]}{mesh[1]}.npy"),
+            np.asarray(logits))
+    toks = [np.asarray(rt.token)[:, 0].tolist()]
+    for _ in range(gen):
+        rt.step()
+        toks.append(np.asarray(rt.token)[:, 0].tolist())
+        if rt.step_count == save_at:
+            CheckpointManager(root, "ref_suspended").save(rt.step_count,
+                                                          rt._payload())
+    return toks
+
+
+def paged(arch, mesh):
+    rt = block(arch, mesh, paged=True)
+    rt.restore(step=0)
+    for p in PROMPTS:
+        rt.start_session(p, max_new_tokens=4)
+    out = []
+    while not rt.idle_serve:
+        out += [[e["session"], e["token"]] for e in rt.feed(1)
+                if e["event"] == "token"]
+    return out
+
+
+for arch, B, pg in INITS[part]:
+    rt = block(arch, (1, 1), B, pg)
+    rt.init_state()
+    rt.save(async_=False)
+open(os.path.join(root, f"init_done_{part}"), "w").close()
+for arch, meshes in MESHES.items():
+    if (arch == LL) != (part == "b"):
+        continue
+    for m in meshes:
+        key = f"{arch}_{m[0]}{m[1]}"
+        res[key] = dense(arch, m, save_at=2 if (arch, m) == (DS, (2, 1))
+                         else None)
+        if arch in PAGED and m != (1, 1):
+            res[key + "_paged"] = paged(arch, m)
+if part == "b":
+    res[f"{LL}_3_21"] = dense(LL, (2, 1), B=3, gen=0)
+print("RESULT " + json.dumps(res))
+'''
+
+RANKS = COMMON + r'''
+import hashlib, shutil
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+rank, world, store, root, ref = (int(sys.argv[1]), int(sys.argv[2]),
+                                 sys.argv[3], sys.argv[4], sys.argv[5])
+from repro_torch import device as D
+D.init_distributed("cpu", store=dist.FileStore(store, world), rank=rank,
+                   world_size=world, timeout_s=180)
+import repro_torch.configs as C
+from repro_torch.core.block import BlockGrant
+from repro_torch.core.controller import ClusterController
+from repro_torch.core.runtime import BlockRuntime, JobSpec, OffRankRuntime
+from repro_torch.core.topology import Topology
+from repro_torch.data import pipeline
+from repro_torch.device import Chip
+from repro_torch.models.config import ShapeConfig
+from repro_torch.models.transformer import flatten
+from repro_torch.serve import serve_step
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.sharding.plans import cache_batch_dim
+from torch.distributed.tensor import DTensor
+
+res = {}
+
+
+def wait_for(path):
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > 150:
+            raise TimeoutError(f"the reference wrote no {path}")
+        time.sleep(0.2)
+
+
+def from_ref(name, step=0, as_=None):
+    """The reference's checkpoint ``name`` at ``step``, copied under this
+    world's root (as namespace ``as_``) by its rank 0."""
+    src = os.path.join(ref, name, f"step_{step:08d}")
+    wait_for(src)
+    dst = os.path.join(root, as_ or name, f"step_{step:08d}")
+    if rank == 0 and not os.path.exists(dst):
+        shutil.copytree(src, dst)
+    dist.barrier()
+
+
+def job(arch, B=4, paged=False):
+    return serve_job(C, JobSpec, ShapeConfig, arch, B, paged)
+
+
+def runtime(j, mesh, ranks):
+    """``j``'s block of ``mesh`` on ``ranks``, as every rank builds it."""
+    n = mesh[0] * mesh[1]
+    grant = BlockGrant.new([(0, r, 0) for r in ranks], mesh, 600.0)
+    devices = [Chip(r, "cpu") for r in ranks]
+    cls = BlockRuntime if rank in ranks else OffRankRuntime
+    return cls(grant, j, devices, root)
+
+
+def rebuild(old, mesh, ranks):
+    grant = BlockGrant.new([(0, r, 0) for r in ranks], mesh, 600.0)
+    devices = [Chip(r, "cpu") for r in ranks]
+    cls = BlockRuntime if rank in ranks else OffRankRuntime
+    return cls.rebuild(old, grant, devices, root)
+
+
+def whole(t):
+    return t.detach().full_tensor() if isinstance(t, DTensor) else t
+
+
+def digest(t):
+    t = torch.as_tensor(whole(t)).contiguous()
+    return hashlib.sha256(t.reshape(-1).view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def ctx_digests(rt):
+    """The block's decode context, leaf by leaf whole (every rank of the
+    block takes part)."""
+    return {p: digest(t) for p, t in flatten(rt._decode_ctx())}
+
+
+def tokens(rt):
+    return rt.token[:, 0].tolist()
+
+
+def tap_logits(rt):
+    """``rt``'s prefill with its logits kept, gathered whole."""
+    step, box = serve_step.make_prefill_step(rt.job.cfg), {}
+
+    def fn(params, batch, cache):
+        logits, cache = step(params, batch, cache)
+        box["logits"] = shard_ctx.gather_rows(logits)
+        return logits, cache
+    rt._prefill_fn = fn
+    return box
+
+
+def dense(arch, mesh, ranks=None, B=4, gen=GEN, keep=False):
+    ranks = list(range(mesh[0] * mesh[1])) if ranks is None else ranks
+    rt = runtime(job(arch, B), mesh, ranks)
+    if rank not in ranks:
+        return None, rt
+    rt.restore(step=0)
+    box = tap_logits(rt)
+    rt.prefill(prompt(C, ShapeConfig, pipeline, arch, B))
+    if rank == ranks[0]:
+        np.save(os.path.join(root, f"logits_{arch}_{B}_{mesh[0]}{mesh[1]}"
+                             f"_{world}.npy"), box["logits"].numpy())
+    toks = [tokens(rt)]
+    for _ in range(gen):
+        rt.step()
+        toks.append(tokens(rt))
+    out = {"tokens": toks,
+           "params_are_dtensors": all(isinstance(t, DTensor) for _, t in
+                                      flatten(rt.state["params"])),
+           "cache_rows": [leaf.shape[cache_batch_dim(path.split("/"))]
+                          for path, leaf in flatten(rt.cache)]}
+    if not keep:
+        rt.release()
+    return out, rt
+
+
+def paged(arch, mesh):
+    rt = runtime(job(arch, paged=True), mesh, list(range(mesh[0] * mesh[1])))
+    rt.restore(step=0)
+    for p in PROMPTS:
+        rt.start_session(p, max_new_tokens=4)
+    out = []
+    while not rt.idle_serve:
+        out += [[e["session"], e["token"]] for e in rt.feed(1)
+                if e["event"] == "token"]
+    rt.release()
+    return out
+
+
+def meshes_of(n):
+    return [(a, m) for a, ms in MESHES.items() for m in ms
+            if m[0] * m[1] == n]
+
+
+wait_for(os.path.join(ref, "init_done_a"))
+wait_for(os.path.join(ref, "init_done_b"))
+if rank == 0:
+    for arch, B, pg in INITS["a"] + INITS["b"]:
+        shutil.copytree(os.path.join(ref, ns(arch, B, pg)),
+                        os.path.join(root, ns(arch, B, pg)))
+dist.barrier()
+for arch, m in meshes_of(world):
+    key = f"{arch}_{m[0]}{m[1]}"
+    res[key], _ = dense(arch, m)
+    if arch in PAGED and m != (1, 1):
+        res[key + "_paged"] = paged(arch, m)
+
+if world == 1:
+    # the (1, 1) run's decode context after 2 steps
+    out, rt = dense(DS, (1, 1), gen=2, keep=True)
+    res["ctx_11_at_2"] = ctx_digests(rt)
+elif world == 2:
+    # a batch of 3 at dp = 2: every rank holds the whole batch
+    res[f"{LL}_3_21"], _ = dense(LL, (2, 1), B=3)
+    # the reference's checkpoint saved at (2, 1) after 2 steps, restored
+    # here at (2, 1) and at (1, 2), and decoded a step
+    from_ref("ref_suspended", 2)
+    for m in ((2, 1), (1, 2)):
+        j = dataclasses.replace(job(DS), ckpt_namespace="ref_suspended")
+        rt = runtime(j, m, [0, 1])
+        assert rt.restore() == 2
+        rt.step()
+        res[f"ref_ckpt_{m[0]}{m[1]}"] = tokens(rt)
+        rt.release()
+else:
+    # a dense block suspended at (2, 1) on ranks 0, 1 after 2 steps
+    # resumes at (1, 2) on ranks 2, 3 (which never held it), then at
+    # (1, 1) on rank 1; ranks outside each block follow it with a
+    # stand-in that holds nothing
+    out, rt = dense(DS, (2, 1), ranks=[0, 1], gen=2, keep=True)
+    seen = {"suspended": ctx_digests(rt) if rank in (0, 1) else None}
+    rt.suspend()
+    for name, mesh, ranks in (("resumed_12", (1, 2), [2, 3]),
+                              ("resumed_11", (1, 1), [1])):
+        rt = rebuild(rt, mesh, ranks)
+        if rank in ranks:
+            seen[name] = {"ctx": ctx_digests(rt), "step": rt.step_count}
+            rt.step()
+            seen[name]["next"] = tokens(rt)
+        else:
+            seen[name] = {"stand_in": rt.state is None and rt.device is None}
+    rt.save(async_=False)           # step 3 on rank 1, for the reference
+    res["suspend"] = seen
+    rt.release()
+    # migration: a 2-chip dense serve block through the controller, its
+    # first chip failed after 2 decode steps and a save
+    ctl = ClusterController(Topology(n_pods=1, pod_x=4, pod_y=1),
+                            devices=["cpu"] * world, ckpt_root=root)
+    j = dataclasses.replace(job(DS), ckpt_namespace="migrated")
+    from_ref(ns(DS), as_="migrated")
+    a = ctl.register("dave", "serve", 2, arch=DS)
+    g = ctl.review(a)
+    ctl.confirm(a, g.token)
+    ctl.activate(a, j)
+    ctl.run(a)
+    rt = ctl.runtimes[a]
+    rt.restore(step=0)
+    mine = isinstance(rt, BlockRuntime)
+    mig = {"mesh": list(g.mesh_shape), "ranks_before": rt.ranks}
+    if mine:
+        rt.prefill(prompt(C, ShapeConfig, pipeline, DS))
+    ctl.step_all(rounds=2)
+    rt.save(async_=False)
+    if mine:
+        mig["saved"] = ctx_digests(rt)
+    failed = ctl.inject_chip_failure(tuple(g.coords[0]), now=100.0)
+    rt = ctl.runtimes[a]
+    mig.update(failed=failed == a, ranks_after=rt.ranks,
+               step=rt.step_count)
+    if isinstance(rt, BlockRuntime):
+        mig["restored"] = ctx_digests(rt)
+    ctl.step_all(rounds=1)
+    if isinstance(rt, BlockRuntime):
+        mig["next"] = tokens(rt)
+    ctl.expire(a, now=100.0)
+    res["migration"] = mig
+if world in (1, 2):
+    from repro_torch.launch import serve as launch_serve
+    args = launch_serve.parse_args(
+        ["--arch", DS, "--smoke", "--device", "cpu", "--batch", "4",
+         "--prompt-len", "16", "--gen", "4"])
+    r = launch_serve.run(args)
+    res["launcher"] = {"tokens": r["tokens"].tolist(),
+                       "mesh": list(r["grant"].mesh_shape)}
+print("RESULT " + json.dumps({"rank": rank, **res}))
+dist.destroy_process_group()
+'''
+
+
+def _collect(procs, deadline):
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(5, deadline - time.time())))
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0, f"process failed:\n{so[-2000:]}\n" \
+                                  f"{se[-6000:]}"
+    res = []
+    for so, _ in outs:
+        line = [x for x in so.splitlines() if x.startswith("RESULT ")]
+        res.append(json.loads(line[-1][len("RESULT "):]))
+    return res
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{"ref": the reference's results (both parts), 4, 2, 1: each port
+    world's lines by rank, "dir": the test's directory}."""
+    tmp = tmp_path_factory.mktemp("serve_blocks")
+    ref = tmp / "ref"
+    ref.mkdir()
+    script = tmp / "ranks.py"
+    script.write_text(RANKS)
+    deadline = time.time() + TIMEOUT_S
+    refs = [subprocess.Popen(
+        [sys.executable, "-c", REF, str(ref), part], cwd=str(tmp),
+        env=dict(ENV, XLA_FLAGS="--xla_force_host_platform_device_count=4"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for part in ("a", "b")]
+    try:
+        worlds = {}
+        for world in (4, 2, 1):
+            root = tmp / f"port{world}"
+            root.mkdir()
+            worlds[world] = [subprocess.Popen(
+                [sys.executable, str(script), str(r), str(world),
+                 str(tmp / f"store{world}"), str(root), str(ref)],
+                cwd=str(root), env=ENV, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for r in range(world)]
+        out = {w: _collect(ps, deadline) for w, ps in worlds.items()}
+        a, b = _collect(refs, deadline)
+    finally:
+        for p in refs:
+            p.kill()
+    out["ref"] = {**a, **b}
+    out["dir"] = tmp
+    return out
+
+
+def _first(lines, key):
+    """``key`` as the first rank that has it has it, after checking that
+    every rank holding it holds the same."""
+    vals = [r[key] for r in lines if r.get(key) is not None]
+    assert vals, key
+    assert all(v == vals[0] for v in vals), (key, vals)
+    return vals[0]
+
+
+CASES = [("deepseek_7b", "21", 2), ("deepseek_7b", "12", 2),
+         ("deepseek_7b", "22", 4), ("llama4_maverick_400b", "21", 2),
+         ("llama4_maverick_400b", "22", 4), ("deepseek_v2_236b", "21", 2),
+         ("zamba2_2p7b", "21", 2), ("xlstm_350m", "21", 2)]
+
+
+@pytest.mark.parametrize("arch,mesh,world", CASES,
+                         ids=[f"{a}-{m}" for a, m, _ in CASES])
+def test_dense_tokens_equal_the_references_on_the_same_mesh(runs, arch, mesh,
+                                                            world):
+    got = _first(runs[world], f"{arch}_{mesh}")
+    assert got["params_are_dtensors"]
+    assert got["tokens"] == runs["ref"][f"{arch}_{mesh}"]
+    # each cache leaf holds the rank's rows: 4 over data
+    assert set(got["cache_rows"]) == {4 // int(mesh[0])}
+
+
+@pytest.mark.parametrize("arch,mesh,world", CASES,
+                         ids=[f"{a}-{m}" for a, m, _ in CASES])
+def test_prefill_logits_agree_with_the_references(runs, arch, mesh, world):
+    got = np.load(runs["dir"] / f"port{world}" /
+                  f"logits_{arch}_4_{mesh}_{world}.npy")
+    want = np.load(runs["dir"] / "ref" / f"logits_{arch}_4_{mesh}.npy")
+    assert got.shape == want.shape == (4, got.shape[1])
+    # the xlstm's sLSTM stacks h in bf16 in both packages, which turns
+    # their last-bit differences into bf16 steps (the port's one-device
+    # logits part from the reference's by the same 3.9e-4 of their range)
+    tol = 1e-3 if arch == "xlstm_350m" else 1e-4
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
+def test_xlstm_logits_on_a_mesh_are_its_one_device_ones(runs):
+    got = np.load(runs["dir"] / "port2" / "logits_xlstm_350m_4_21_2.npy")
+    one = np.load(runs["dir"] / "port1" / "logits_xlstm_350m_4_11_1.npy")
+    np.testing.assert_array_equal(got, one)
+    assert _first(runs[1], "xlstm_350m_11")["tokens"] == \
+        runs["ref"]["xlstm_350m_11"]
+
+
+PAGED_CASES = [("deepseek_7b", "21", 2), ("deepseek_7b", "12", 2),
+               ("deepseek_7b", "22", 4), ("llama4_maverick_400b", "21", 2),
+               ("llama4_maverick_400b", "22", 4)]
+
+
+@pytest.mark.parametrize("arch,mesh,world", PAGED_CASES,
+                         ids=[f"{a}-{m}" for a, m, _ in PAGED_CASES])
+def test_paged_emissions_equal_the_references(runs, arch, mesh, world):
+    got = _first(runs[world], f"{arch}_{mesh}_paged")
+    want = runs["ref"][f"{arch}_{mesh}_paged"]
+    assert len(want) == 12 and got == want
+    # one routing group a round whatever the mesh
+    assert want == runs["ref"][f"{arch}_21_paged"]
+
+
+def test_moe_dense_routing_groups_are_held(runs):
+    """llama4's dense plane routes per data shard: the reference's own
+    (2, 1) tokens differ from its (1, 1) ones, and the port's follow each
+    mesh's."""
+    ref = runs["ref"]
+    L = "llama4_maverick_400b"
+    assert ref[f"{L}_21"] != ref[f"{L}_11"]
+    assert _first(runs[1], f"{L}_11")["tokens"] == ref[f"{L}_11"]
+    assert _first(runs[2], f"{L}_21")["tokens"] == ref[f"{L}_21"]
+    assert ref[f"{L}_22"] == ref[f"{L}_21"]
+
+
+def test_a_batch_of_three_at_dp2_is_held_whole(runs):
+    L = "llama4_maverick_400b"
+    got = _first(runs[2], f"{L}_3_21")
+    want = runs["ref"][f"{L}_3_21"]
+    # every rank holds and computes the whole batch of 3
+    assert set(got["cache_rows"]) == {3}
+    assert got["tokens"][0] == want[0]
+    np.testing.assert_allclose(
+        np.load(runs["dir"] / "port2" / f"logits_{L}_3_21_2.npy"),
+        np.load(runs["dir"] / "ref" / f"logits_{L}_3_21.npy"), rtol=0,
+        atol=1e-4 * np.abs(np.load(runs["dir"] / "ref" /
+                                   f"logits_{L}_3_21.npy")).max())
+    toks = np.asarray(got["tokens"])
+    assert toks.shape == (4, 3) and toks.min() >= 0
+
+
+def test_a_suspended_block_resumes_on_other_meshes_and_ranks(runs):
+    by_rank = {r["rank"]: r["suspend"] for r in runs[4]}
+    saved = by_rank[0]["suspended"]
+    assert by_rank[1]["suspended"] == saved
+    # bit for bit the (1, 1) run's context at that step
+    assert saved == _first(runs[1], "ctx_11_at_2")
+    want_next = runs["ref"]["deepseek_7b_21"][3]
+    for name, ranks in (("resumed_12", (2, 3)), ("resumed_11", (1,))):
+        for r in range(4):
+            got = by_rank[r][name]
+            if r in ranks:
+                assert got["ctx"] == saved and got["step"] == 2, (name, r)
+                assert got["next"] == want_next, (name, r)
+            else:
+                assert got == {"stand_in": True}, (name, r)
+
+
+def test_a_migrated_block_restores_its_context_and_decodes_on(runs):
+    lines = runs[4]
+    mig = [r["migration"] for r in lines]
+    first = mig[0]
+    assert first["mesh"] == [1, 2] and first["failed"]
+    assert all(m["ranks_before"] == first["ranks_before"] for m in mig)
+    assert all(m["ranks_after"] == first["ranks_after"] for m in mig)
+    # off the failed chip (rank 0), onto a rank that never held the block
+    assert first["ranks_before"] == [0, 1]
+    assert 0 not in first["ranks_after"] and \
+        set(first["ranks_after"]) - {0, 1}
+    saved = _first(mig, "saved")
+    # at (1, 2) both ranks compute the whole batch: the (1, 1) run's bits
+    assert saved == _first(runs[1], "ctx_11_at_2")
+    assert _first(mig, "restored") == saved
+    assert all(m["step"] == 2 for m in mig)
+    assert _first(mig, "next") == runs["ref"]["deepseek_7b_21"][3]
+
+
+def test_a_reference_checkpoint_restores_into_the_port_and_decodes_equal(
+        runs):
+    want = runs["ref"]["deepseek_7b_21"][3]
+    assert _first(runs[2], "ref_ckpt_21") == want
+    assert _first(runs[2], "ref_ckpt_12") == want
+
+
+def test_a_port_checkpoint_restores_into_the_reference(runs):
+    """The block resumed on one rank saved its context at step 3 in the
+    reference's format: the JAX package restores it leaf for leaf."""
+    import jax
+    import repro.configs as JC
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro.models import model as jmodel
+    from repro.serve import serve_step as jserve
+    cfg = dataclasses.replace(JC.get_smoke("deepseek_7b"),
+                              param_dtype="float32")
+    like = {"state": {"params": jmodel.abstract_params(cfg)},
+            "step_count": 0,
+            "decode": {"cache": jserve.abstract_cache(cfg, 4, 20),
+                       "token": jax.ShapeDtypeStruct((4, 1), np.int32),
+                       "cache_len": jax.ShapeDtypeStruct((), np.int32)}}
+    tree, at = JManager(str(runs["dir"] / "port4"), "deepseek_7b_4").restore(
+        like)
+    assert at == 3 and tree["step_count"] == 3
+    assert int(tree["decode"]["cache_len"]) == 16 + 3
+    by_rank = {r["rank"]: r["suspend"] for r in runs[4]}
+    assert np.asarray(tree["decode"]["token"])[:, 0].tolist() == \
+        by_rank[1]["resumed_11"]["next"]
+
+
+def test_the_launcher_on_two_ranks_gives_one_ranks_tokens(runs):
+    two = _first(runs[2], "launcher")
+    one = _first(runs[1], "launcher")
+    assert two["mesh"] == [1, 2] and one["mesh"] == [1, 1]
+    assert np.asarray(two["tokens"]).shape == (4, 4)
+    assert two["tokens"] == one["tokens"]
+
+
+# ------------------------------------------------------------- in process
+
+def test_cache_layouts_split_the_batch_dim_of_every_family():
+    """The batch dim ``plans.cache_layouts`` shards is the one a cache of
+    one more row grows in, for every family's cache."""
+    import repro_torch.configs as C
+    from repro_torch.models import model
+    from repro_torch.models.transformer import flatten
+    from repro_torch.sharding import plans
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = {"data": 2, "model": 2}
+    for arch in ("deepseek_7b", "llama4_maverick_400b", "deepseek_v2_236b",
+                 "zamba2_2p7b", "xlstm_350m", "pixtral_12b"):
+        cfg = C.get_smoke(arch)
+        four = model.init_cache(cfg, 4, 8, "meta")
+        five = dict(flatten(model.init_cache(cfg, 5, 8, "meta")))
+        lays = dict(flatten(plans.cache_layouts(four, mesh)))
+        whole = dict(flatten(plans.cache_layouts(four, mesh, split=False)))
+        assert lays.keys() == five.keys() and len(lays) >= 2
+        for path, leaf in flatten(four):
+            grows = [d for d, (a, b) in enumerate(zip(leaf.shape,
+                                                      five[path].shape))
+                     if a != b]
+            assert len(grows) == 1, (arch, path)
+            assert lays[path].placements == (Shard(grows[0]), Replicate()), \
+                (arch, path)
+            assert whole[path].placements == (Replicate(), Replicate())
+
+
+def test_sampled_rows_draw_what_the_whole_batch_draws():
+    from repro_torch.serve.serve_step import pick
+    logits = torch.randn(6, 50, generator=torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(5)
+    whole = pick(logits, sample=True, gen=g)
+    for lo, hi in ((0, 3), (3, 6), (0, 6)):
+        g = torch.Generator().manual_seed(5)
+        got = pick(logits[lo:hi], sample=True, gen=g, rows=(lo, hi, 6))
+        assert torch.equal(got, whole[lo:hi])
+    assert torch.equal(pick(logits, sample=False, rows=(0, 3, 6)),
+                       torch.argmax(logits, -1).int())
+
+
+def test_chip_smoke_serve_sharded_phase_on_cpu():
+    """``chip_smoke.py``'s serve_sharded phase at smoke size on the CPU
+    (gloo, one rank): the dense plane's tokens serve_dense's, the decode
+    context across a save, a suspend and a restore bit for bit and the
+    tokens after it serve_dense's, the paged sessions' tokens
+    serve_paged's; the process group destroyed after it."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    code = f"""
+import sys
+sys.path.insert(0, {os.path.abspath(root)!r})
+import torch
+torch.set_num_threads(1)
+import chip_smoke as c
+dense = c.phase_serve_dense(device="cpu", smoke=True)
+paged = c.phase_serve_paged(device="cpu", smoke=True)
+out = c.phase_serve_sharded(device="cpu", smoke=True, dense=dense,
+                            paged=paged)
+d, p = out["dense"], out["paged"]
+assert d["tokens_equal_serve_dense"] and d["launches_equal_serve_dense"]
+assert d["restore_bitwise_equal"] and d["resumed_tokens_equal_serve_dense"]
+assert p["tokens_equal_serve_paged"] and p["launches_equal_serve_paged"]
+assert p["decode_rounds"] == paged["decode_rounds"] > 0
+assert set(out["launches"].values()) == {{0}}
+import torch.distributed as dist
+assert not dist.is_initialized()
+print("SERVE_SHARDED_OK")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=ENV, cwd=root)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    assert "SERVE_SHARDED_OK" in r.stdout
