@@ -11,10 +11,13 @@
 #   bash benchmarks/chip_smoke_ab.sh build/arch_parent build/arch_change [OUT]
 #
 # on a machine with one card.  Each run's stdout and stderr go to
-# OUT/ab_<run>.out and .err (OUT: build/ab by default).
+# OUT/ab_<run>.out and .err (OUT: build/ab by default).  A fourth
+# argument runs that script of each tree instead of chip_smoke.py (one
+# that prints progress stamps alike: benchmarks/sharded_phases.py).
 set -u
 parent=$1
 change=$2
+script=${4:-chip_smoke.py}
 mkdir -p "${3:-build/ab}"
 out=$(cd "${3:-build/ab}" && pwd)
 python3 -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
@@ -23,7 +26,7 @@ for run in parent1 change1 change2 parent2; do
   case $run in parent*) d=$parent;; *) d=$change;; esac
   rm -rf "$d/build"
   t0=$(date +%s.%N)
-  (cd "$d" && timeout 1200 python3 chip_smoke.py > "$out/ab_$run.out" \
+  (cd "$d" && timeout 1200 python3 "$script" > "$out/ab_$run.out" \
      2> "$out/ab_$run.err")
   rc=$?
   t1=$(date +%s.%N)

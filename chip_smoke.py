@@ -76,7 +76,13 @@ never JAX.  Phases, each printing one JSON line:
                      and ``suspend()`` halfway, a fresh block restoring
                      the decode context bit for bit and decoding the
                      rest equal; serve_paged's 12 sessions on a (1, 1)
-                     mesh, their tokens and launches serve_paged's;
+                     mesh, their tokens and launches serve_paged's; the
+                     dense plane through the tensor-parallel path of
+                     item 8d at M = 1 (its ``tp`` dict: M, heads, the
+                     rules that kept 8a's layout, the bytes gathered
+                     over ``model`` a step, 0 by construction at M = 1,
+                     and the leaves ``full`` handed back as their model
+                     shard);
 6. ``serve_hybrid`` — ``repro_torch.launch.serve`` on zamba2_2p7b (the
                      hybrid family: Mamba2 + shared attention) at full
                      width, 54 layers, random bf16 weights from the seed:
@@ -3636,6 +3642,26 @@ def _whole(tree):
     return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
+def tp_summary(tp, measured, planned, tp_leaves):
+    """A block's tensor-parallel layout over ``model`` (item 8d) as the
+    sharded phases print it: M, the heads a rank computes, the parts
+    computed sharded, the rules that kept a part in 8a's layout, the
+    bytes ``shard_ctx.full`` brought over ``model`` a step (counted on
+    the host: a captured step's gathers count once, at its capture)
+    beside the plan's count, and one group's gathered bytes beside the
+    group whole.  At M = 1 those bytes are 0 by construction, a model
+    axis of one rank having nothing to bring (``model_bytes_structural``:
+    their check is of the layout, not a reading); ``tp_leaves`` counts
+    the leaves ``full`` handed back as their model shard, the tensor-
+    parallel gather path, which runs at M = 1 too."""
+    return {**tp.summary(), "model_bytes_a_step": measured,
+            "model_bytes_a_step_planned": planned,
+            "model_bytes_structural": tp.model == 1,
+            "tp_leaves": tp_leaves,
+            "group_gb": tp.group_bytes / 1e9,
+            "group_gb_whole": tp.group_bytes_whole / 1e9}
+
+
 def phase_train_sharded(device="cuda", smoke=False, train=None):
     """``train``'s job through the sharded runtime (item 8a): deepseek_7b
     at full width, 30 layers, int8 moments, 2 x 2048 tokens, seed 0, on a
@@ -3647,14 +3673,20 @@ def phase_train_sharded(device="cuda", smoke=False, train=None):
     ``host_probe`` (``train`` runs the same), a synchronous save and
     ``suspend()`` (the state freed), a fresh (1, 1) block restoring it
     leaf for leaf bit for bit, and three profiled warm steps on that
-    block.  The process group is destroyed at the end, so the later
-    phases run as before."""
+    block.  The block runs the tensor-parallel path of item 8d at M = 1
+    (every leaf's model shard is the leaf, every join of the model
+    column skipped): its ``tp`` dict gives the layout, the bytes
+    gathered over ``model`` a step (0 by construction at M = 1) and the
+    leaves ``full`` handed back as their model shard a step.  The
+    process group is destroyed at the end, so the later phases run as
+    before."""
     import torch.distributed as dist
     import repro_torch.configs as configs
     from repro_torch import device as device_lib
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime
     from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding import ctx as shard_ctx
     from repro_torch.train.optimizer import OptConfig
     from torch.distributed.tensor import DTensor
     cfg = (configs.get_smoke("deepseek_7b") if smoke
@@ -3665,12 +3697,21 @@ def phase_train_sharded(device="cuda", smoke=False, train=None):
     device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
                                 world_size=1)
     root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
 
     def after(rt, out):
         check(rt.mesh is not None and tuple(rt.mesh.mesh.shape) == (1, 1)
               and all(isinstance(t, DTensor) for t in _tensors(
                   rt.state["params"])), "train_sharded: not on a mesh")
         out["mesh"] = list(rt.mesh.mesh.shape)
+        out["tp"] = tp_summary(
+            rt.tp, shard_ctx.GATHERED["model_bytes"] / len(out["losses"]),
+            rt.tp.step_bytes(shape.microbatch, remat=cfg.remat != "none"),
+            shard_ctx.GATHERED["tp_leaves"] / len(out["losses"]))
+        check(out["tp"]["model"] == 1 and rt.tp.computes("attn")
+              and out["tp"]["model_bytes_a_step"] == 0
+              and out["tp"]["tp_leaves"] > 0,
+              f"train_sharded: tensor-parallel layout {out['tp']}")
         out["backend"] = dist.get_backend()
         out["state_checksums"] = bit_checksums(_whole(rt.state))
         if train is not None:
@@ -3743,6 +3784,7 @@ def phase_serve_sharded(device="cuda", smoke=False, dense=None, paged=None):
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime
     from repro_torch.launch import serve
+    from repro_torch.sharding import ctx as shard_ctx
     from torch.distributed.tensor import DTensor
     if dense is None:
         dense = phase_serve_dense(device, smoke)
@@ -3769,10 +3811,18 @@ def phase_serve_sharded(device="cuda", smoke=False, dense=None, paged=None):
         B, P, G = args.batch, args.prompt_len, args.gen
         zero_counts()
         _zero_eager_calls()
+        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
         res = serve.run(args)
         launches = counts()
         rt = res["runtime"]
         sharded(rt, "dense")
+        out["tp"] = {"dense": tp_summary(
+            rt.tp, shard_ctx.GATHERED["model_bytes"], rt.tp.step_bytes(1),
+            shard_ctx.GATHERED["tp_leaves"])}
+        check(rt.tp.model == 1 and rt.tp.computes("attn")
+              and out["tp"]["dense"]["model_bytes_a_step"] == 0
+              and out["tp"]["dense"]["tp_leaves"] > 0,
+              f"serve_sharded: tensor-parallel layout {out['tp']}")
         graph = graph_check("serve_sharded", rt.decode_graph, G - 1,
                             _eager_calls(), device)
         toks = res["tokens"]
@@ -3864,6 +3914,8 @@ def phase_serve_sharded(device="cuda", smoke=False, dense=None, paged=None):
         rt = _block(job, device)
         rt.init_state()
         sharded(rt, "paged")
+        out["tp"]["paged"] = tp_summary(rt.tp, 0, rt.tp.step_bytes(1), 0)
+        check(rt.tp.kept == ("paged",), f"serve_sharded paged: {rt.tp}")
         prompts = _paged_prompts(job.cfg, smoke)
         max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
         zero_counts()

@@ -39,10 +39,12 @@ part, and a block that does not hold world rank 0 writes its own.
 ``restore(..., shardings=)`` reads each leaf on every rank of the block
 and keeps the rank's slice of it (``plans.Layout``): no collective, and
 any mesh shape, so a block can move onto ranks that never held it.  A
-serve block's decode context is such leaves too: its cache's rows (each
-rank's, as DTensors of ``plans.cache_layouts``) gathered whole, and its
-token (the whole batch's on every rank) and pool written as they are
-by the first rank.
+serve block's decode context is such leaves too: its cache's rows and,
+where the attention computes sharded over ``model``, kv heads (each
+rank's, as DTensors of ``plans.cache_layouts``) gathered whole, in the
+reference's format, and its token (the whole batch's on every rank) and
+pool written as they are by the first rank; a restore on any mesh gives
+each rank its rows and heads of them.
 """
 from __future__ import annotations
 

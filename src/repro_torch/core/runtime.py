@@ -55,26 +55,33 @@ lies on its mesh as the reference's plan shards it (``sharding.plans``):
 each rank holds its shards of the params, the moments and the grads;
 each group's params are gathered for its use (ZeRO-3); the batch is
 split over ``data``
-(each rank its rows of every microbatch, ``pipeline.BatchShards``) and
-the ranks of a ``model`` column compute the same rows.  ``init_state``
+(each rank its rows of every microbatch, ``pipeline.BatchShards``), and
+the ranks of a ``model`` column split the heads, the MLP widths, the
+vocabulary and the experts between them (item 8d: the block's
+``plans.tp_layout``, built into its ``ShardCtx``; where the layout keeps
+a part in 8a's layout, every rank of the column computes it whole).
+``init_state``
 draws every leaf as the unsharded init does, one group at a time, and
 keeps the rank's slices.  Checkpoints hold whole leaves, written by the
 block's first rank, so a resume or a migration may come with another
 mesh shape and other ranks.  A serve block's params lie and are
 gathered as a train block's, forward only.  On the dense plane each
-rank of a ``data`` row holds its rows of the prompt batch and the cache
-(``plans.cache_layouts``; every rank the whole batch where the rows do
-not split over ``data``), the MoE layers routing each data shard's rows
-as one group, as the reference's do, and the decode step
+rank holds its rows of the prompt batch and the cache (``data``;
+every rank the whole batch where the rows do not split) and, where the
+attention computes sharded over ``model``, the cache of its kv heads
+only (``plans.cache_layouts``, ``init_cache``'s ``kv_split``), the MoE
+layers routing each data shard's rows as one group, as the reference's
+do, and the decode step
 (``serve_step.on_mesh``) takes and gives the whole batch's tokens, so
 ``token`` is the whole batch's on every rank.  On the paged plane every
 rank holds the whole page pool and runs every slot with no sharding
 context (one routing group a round, as the reference's scheduler), the
 block's first rank's tokens broadcast each round.  The decode context
-checkpoints as whole leaves too.  Under a process group a block takes
-this path even at (1, 1).  What waits: tensor and expert parallelism
-over ``model`` (item 8d).  A block of several devices in a process with
-no process group raises: nothing runs a sharded block on one rank.
+checkpoints as whole leaves too, and restores as each rank's rows and
+heads of them on any mesh.  Under a process group a block takes this
+path even at (1, 1), where every collective of the model column is
+skipped.  A block of several devices in a process with no process
+group raises: nothing runs a sharded block on one rank.
 
 Steps are built through ``compile_cache.GLOBAL`` under the reference's
 keys (``_cache_key``), the mesh's fingerprint replaced by the device's.
@@ -214,7 +221,7 @@ class BlockRuntime(InflightWindow):
             devices = ["cuda"] * grant.n_chips
         job = self.job
         devs = [device_of(d) for d in devices]
-        self.mesh = self.ctx = self.batch_shards = None
+        self.mesh = self.ctx = self.batch_shards = self.tp = None
         self.ranks = check_block(grant, devices)
         if self.ranks is not None:
             self._attach_mesh(grant, devs)
@@ -279,6 +286,8 @@ class BlockRuntime(InflightWindow):
                 f"OffRankRuntime")
         self.device = rank_device(devs[0].type)
         self.axes = plans.MeshAxes(dp=("data",), model="model")
+        self.tp = plans.tp_layout(self.job.cfg, self.mesh,
+                                  paged=self.job.paged)
         if self.job.paged:
             return
         shape = self.job.shape
@@ -287,7 +296,7 @@ class BlockRuntime(InflightWindow):
         B = shape.global_batch
         split = self.batch_shards.split(B)
         self.ctx = shard_ctx.ShardCtx(self.mesh, ("data",), "model",
-                                      shards_batch=split)
+                                      shards_batch=split, tp=self.tp)
         if self.job.kind == "serve":
             rows = self.batch_shards.rows(B)
             self.rows = (int(rows[0]), int(rows[-1]) + 1, B)
@@ -317,12 +326,14 @@ class BlockRuntime(InflightWindow):
 
     def cache_layouts(self):
         """The dense serve plane's cache on the mesh: this rank's rows of
-        the batch (``plans.cache_layouts``)."""
+        the batch and, where the attention computes sharded over
+        ``model``, its kv heads (``plans.cache_layouts``)."""
         shape = self.job.shape
         return plans.cache_layouts(
             serve_lib.abstract_cache(self.job.cfg, shape.global_batch,
                                      shape.seq_len),
-            self.mesh, self.axes, split=self.ctx.shards_batch)
+            self.mesh, self.axes, split=self.ctx.shards_batch, tp=self.tp)
+
 
     # ------------------------------------------------------------ compile
     def _cache_key(self, family: str, *extra) -> tuple:
@@ -379,8 +390,11 @@ class BlockRuntime(InflightWindow):
             return
         B = job.shape.global_batch
         lo, hi, _ = self.rows if self.ctx is not None else (0, B, B)
-        self.cache = model_lib.init_cache(job.cfg, hi - lo,
-                                          job.shape.seq_len, self.device)
+        # the kv heads split over ``model`` where the attention is
+        heads = self.tp is not None and self.tp.computes("attn")
+        self.cache = model_lib.init_cache(
+            job.cfg, hi - lo, job.shape.seq_len, self.device,
+            kv_split=self.tp.model if heads else 1)
         self.cache_len = 0
         self.token = torch.zeros((B, 1), dtype=torch.int32,
                                  device=self.device)

@@ -30,7 +30,10 @@ runs this launcher and its own deterministic daemon, so every rank
 reaches the same grant: one serve block of N chips over every rank (a
 ``(data, model)`` mesh of ``mesh_shape_for(N)``), the params sharded as
 the reference's plan shards them and gathered a group at a time, each
-rank decoding its rows of the batch where they split over ``data``.
+rank decoding its rows of the batch where they split over ``data`` and
+its share of the heads, MLP widths, vocabulary and experts over
+``model`` (item 8d; the first line gives the layout,
+``launch.train.tp_line``).
 ``--device cpu`` runs the ranks over gloo, ``cuda`` over NCCL, one card
 a rank.  Only rank 0 prints.  Without a process group the launcher is
 the one-chip launcher.
@@ -55,6 +58,7 @@ from repro_torch.core.daemon import ClusterDaemon
 from repro_torch.core.runtime import JobSpec
 from repro_torch.core.topology import Topology
 from repro_torch.data import pipeline
+from repro_torch.launch.train import tp_line
 from repro_torch.models.config import ModelConfig, ShapeConfig
 
 
@@ -146,7 +150,8 @@ def main(argv=None) -> int:
         _log(f"# arch={cfg.name} batch={B} prompt={P} gen={G} "
              f"block={res['grant'].block_id} device={res['runtime'].device} "
              f"chips={res['grant'].n_chips} "
-             f"mesh={tuple(res['grant'].mesh_shape)}")
+             f"mesh={tuple(res['grant'].mesh_shape)} "
+             f"{tp_line(res['runtime'])}")
         _log(f"# prefill: {t_prefill*1e3:.1f} ms "
              f"({B*P/t_prefill:.0f} tok/s)")
         _log(f"# decode:  {t_decode*1e3:.1f} ms "

@@ -15,7 +15,9 @@ runs this launcher and its own deterministic daemon, so every rank
 reaches the same grant: one block of N chips over every rank (a
 ``(data, model)`` mesh of ``mesh_shape_for(N)``), the topology built
 from the world size as the reference's launcher builds it from its
-device count.  ``--device cpu`` runs the ranks over gloo, ``cuda`` over
+device count.  The first line gives the block's tensor-parallel layout
+over ``model`` (``tp_line``: M, the heads a rank computes, what it
+computes sharded and the rules that kept a part gathered whole).  ``--device cpu`` runs the ranks over gloo, ``cuda`` over
 NCCL, one card a rank.  Only rank 0 prints.  Without a process group the
 launcher is the one-chip launcher.
 
@@ -138,6 +140,12 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
             rt.ckpt.wait()           # an async save may still be landing
 
 
+def tp_line(rt) -> str:
+    """The block's tensor-parallel layout (``plans.TPLayout.summary``),
+    ``tp=None`` for a block on one device without a process group."""
+    return f"tp={rt.tp.summary() if rt.tp is not None else None}"
+
+
 def _log(*a) -> None:
     """Print on rank 0 only."""
     if device_lib.is_writer():
@@ -149,7 +157,8 @@ def _train(args, daemon, app_id, grant, rt, cfg, shape) -> Dict[str, Any]:
     _log(f"# arch={cfg.name} params={n_params/1e6:.2f}M "
          f"device={rt.device} chips={grant.n_chips} "
          f"mesh={tuple(grant.mesh_shape)} block={grant.block_id} "
-         f"tokens/step={shape.global_batch * shape.seq_len}")
+         f"tokens/step={shape.global_batch * shape.seq_len} "
+         f"{tp_line(rt)}")
     start_step = 0
     if args.ckpt_dir and args.resume:
         if daemon.restore(app_id) is not None:

@@ -9,6 +9,14 @@ Matmuls run in the param dtype with fp32 softmax/norm accumulation.
 Caches and page pools are updated in place (the JAX functions return new
 arrays, which XLA donates); the functions still return them so call sites
 read like the reference's.
+
+Under tensor parallelism over ``model`` (``tp=True``, item 8d) the GQA
+attention and the MLP get a rank's shards of their weights: the heads a
+rank computes are read off ``wq`` and ``wk``'s widths (H/M query and
+Hkv/M kv heads, a decode cache of those kv heads), ``wq``/``wk``/``wv``
+and ``w_up``/``w_gate`` are column-parallel after ``copy_in``, and
+``wo`` and ``w_down`` row-parallel before ``reduce_out``
+(``sharding.ctx``).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import AttentionConfig
+from repro_torch.sharding import ctx as shard_ctx
 
 
 def _randn(shape, gen, device, dtype, std: float):
@@ -97,8 +106,11 @@ def attention_init(gen, d_model: int, a: AttentionConfig, dtype, device):
 
 
 def _qkv(p, x, a: AttentionConfig, positions):
+    """q (B, H, S, D), k (B, Hkv, S, D), v (B, Hkv, S, Dv) of the heads
+    ``p``'s projections hold (all of them, or a rank's share)."""
     B, S, _ = x.shape
-    H, Hkv, D, vd = a.n_heads, a.n_kv_heads, a.head_dim, a.v_dim
+    D, vd = a.head_dim, a.v_dim
+    H, Hkv = p["wq"].shape[-1] // D, p["wk"].shape[-1] // D
     q = (x @ p["wq"]).reshape(B, S, H, D)
     k = (x @ p["wk"]).reshape(B, S, Hkv, D)
     v = (x @ p["wv"]).reshape(B, S, Hkv, vd)
@@ -108,19 +120,23 @@ def _qkv(p, x, a: AttentionConfig, positions):
 
 
 def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
-                  cache_len=None, causal=None, impl: str = "auto"):
+                  cache_len=None, causal=None, impl: str = "auto",
+                  tp: bool = False):
     """x: (B, S, d).  cache: dict(k,v: (B, Smax, Hkv, D)).
 
     Returns (out, cache).  In prefill mode (cache given, S>1) the K/V are
     written at positions [0, S) and the rest of the cache is zeroed; in
     decode (S==1) at position ``cache_len``, a 0-d integer tensor on the
     cache's device (written through a device index: no host sync; an int
-    is taken too).
+    is taken too).  ``tp``: ``p`` holds a rank's heads (and the cache
+    its kv heads), summed over the model column after ``wo``.
     """
     B, S, _ = x.shape
-    H, vd = a.n_heads, a.v_dim
     causal = a.causal if causal is None else causal
+    if tp:
+        x = shard_ctx.copy_in(x)
     q, k, v = _qkv(p, x, a, positions)
+    H = q.shape[1]
 
     if cache is None:
         o = ops.flash_attention(q, k, v, causal=causal,
@@ -142,8 +158,8 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
         cache["v"][:, :S] = v.transpose(1, 2).to(cache["v"].dtype)
         cache["k"][:, S:] = 0
         cache["v"][:, S:] = 0
-    o = o.transpose(1, 2).reshape(B, S, H * vd)
-    return o @ p["wo"], cache
+    o = o.transpose(1, 2).reshape(B, S, H * a.v_dim) @ p["wo"]
+    return (shard_ctx.reduce_out(o) if tp else o), cache
 
 
 def paged_attention_fwd(p, x, a: AttentionConfig, *, pages, page_table,
@@ -273,7 +289,11 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_fwd(p, x, act: str, gated: bool):
+def mlp_fwd(p, x, act: str, gated: bool, tp: bool = False):
+    """``tp``: ``p`` holds a rank's share of the width, summed over the
+    model column after ``w_down``."""
+    if tp:
+        x = shard_ctx.copy_in(x)
     h = x @ p["w_up"]
     if gated:
         g = x @ p["w_gate"]
@@ -281,4 +301,5 @@ def mlp_fwd(p, x, act: str, gated: bool):
         h = g * h
     else:
         h = _gelu(h) if act == "gelu" else F.silu(h)
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return shard_ctx.reduce_out(out) if tp else out

@@ -16,7 +16,10 @@ On a block's mesh the params are DTensors (``place_params``) and every
 function here gathers them a group at a time, forward only on the serve
 paths (``sharding.ctx.full``); the dense serve plane runs under the
 block's sharding context on this rank's rows of the batch and cache,
-the paged plane with no context on every slot.
+the paged plane with no context on every slot.  Under vocab parallelism
+(item 8d) the loss reads the rank's vocabulary's logits
+(``_xent``'s vocab-parallel form) and the serve functions return the
+whole vocabulary's (``transformer.vocab_whole``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import ctx as shard_ctx
 from repro_torch.models.transformer import (Transformer,  # re-export
                                             embed_inputs, forward,
-                                            init_cache, init_paged_cache)
+                                            init_cache, init_paged_cache,
+                                            vocab_whole)
 
 init_params = transformer.init_params
 place_params = transformer.place_params
@@ -73,10 +77,27 @@ def _xent(logits, labels, mask):
     shard's valid positions (the shards' counts differ under hubert's
     random masks), and the terms are summed over the data shards, each
     rank's gradient flowing through its own term
-    (``shard_ctx.data_sum``)."""
+    (``shard_ctx.data_sum``).
+
+    Vocab-parallel where ``logits`` are a rank's vocabulary's (the
+    context's layout computes "vocab" over a model axis of M > 1): the
+    shift is the column's maximum (no gradient: it cancels), and the sum
+    of the exponentials and the gold logit (zero on the ranks whose
+    vocabulary does not hold the label) are each summed over the column
+    (``reduce_out``), all in fp32."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if shard_ctx.tp_on("vocab") and shard_ctx.model_size() > 1:
+        V = lf.shape[-1]
+        m = shard_ctx.max_over_model(lf.detach().amax(-1))
+        s = shard_ctx.reduce_out(torch.exp(lf - m[..., None]).sum(-1))
+        lse = torch.log(s) + m
+        local = labels.long() - shard_ctx.model_rank() * V
+        mine = (local >= 0) & (local < V)
+        g = torch.gather(lf, -1, torch.where(mine, local, 0)[..., None])
+        gold = shard_ctx.reduce_out(torch.where(mine, g[..., 0], 0.0))
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = (lse - gold) * mask
     denom = torch.clamp(shard_ctx.data_sum(mask.sum()), min=1.0)
     return shard_ctx.data_sum(nll.sum() / denom)
@@ -134,7 +155,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, Any], cache, *,
     positions = torch.arange(S, device=x.device)
     logits, _, cache = forward(params, cfg, x, positions=positions,
                                cache=cache, cache_len=0, impl=impl)
-    return logits[:, -1], cache
+    return vocab_whole(logits[:, -1]), cache
 
 
 @torch.no_grad()
@@ -152,7 +173,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_len, *,
     positions = cache_len + torch.arange(1, device=x.device)
     logits, _, cache = forward(params, cfg, x, positions=positions,
                                cache=cache, cache_len=cache_len, impl=impl)
-    return logits[:, -1], cache
+    return vocab_whole(logits[:, -1]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +195,7 @@ def decode_step_paged(params, cfg: ModelConfig, token, cache, page_table,
                                cache=cache, cache_len=None,
                                page_table=page_table, seq_lens=seq_lens,
                                impl=impl)
-    return logits[:, -1], cache
+    return vocab_whole(logits[:, -1]), cache
 
 
 def write_prefill_to_pages(pool, dense_cache, page_ids, page_size: int):

@@ -26,9 +26,19 @@ the reference's context-free scheduler routes them.
 The aux loss is ``E * sum(frac_tokens * frac_probs)`` over every shard's
 tokens, a product of two global means, so under a data-parallel layout
 both fractions are summed over the data shards (``shard_ctx.data_sum``)
-before the product.  The reference's ``constrain_*`` calls (layout hints
-for the EP all-to-all) wait for expert parallelism (item 8d) and are
-left out.
+before the product.
+
+Expert parallelism over ``model`` (item 8d, where the context's
+``plans.TPLayout`` computes "experts"): every rank of a model column
+routes the same tokens with the replicated router, as without it,
+builds the whole (E * C, d) dispatch buffer from its input after
+``copy_in``, and runs the three batched products on its E/M experts'
+rows with its local expert weights; ``gather_out`` puts the experts'
+rows back together in expert order before the combine, whose k-order
+sum is unchanged.  Where the reference's ``constrain_expert_buffers``
+lays the buffers over ``model`` and GSPMD moves them, the rank reads its
+own experts' rows and gathers the outputs.  The shared expert is an MLP
+computed sharded over its width ("shared").
 
 Every valid slot receives exactly one token, so the scatter is a plain
 indexed write into an (E * C + 1, d) buffer whose last row takes every
@@ -120,18 +130,25 @@ def _shards(T: int):
 
 
 def _experts(p, xs, cfg: MoEConfig, act: str):
-    """One routing group: xs (Tl, d) -> (out (Tl, d), probs, idx)."""
+    """One routing group: xs (Tl, d) -> (out (Tl, d), probs, idx).  The
+    experts run are those whose weights ``p`` holds: all E, or a rank's
+    E/M under expert parallelism."""
     Tl, d = xs.shape
-    E = cfg.n_experts
+    E, El = cfg.n_experts, p["w_gate"].shape[0]
     probs, idx, slots, weights, C = route(xs, p["router"], cfg)
 
-    buf = _scatter_local(xs, slots, E=E, C=C)
-    ebuf = buf.reshape(E, C, d)
-    g = torch.bmm(ebuf, p["w_gate"])                          # (E, C, F)
+    ep = shard_ctx.tp_on("experts")
+    buf = _scatter_local(shard_ctx.copy_in(xs) if ep else xs, slots, E=E,
+                         C=C)
+    lo = shard_ctx.model_rank() * El * C if ep else 0
+    ebuf = buf[lo:lo + El * C].reshape(El, C, d)
+    g = torch.bmm(ebuf, p["w_gate"])                          # (El, C, F)
     u = torch.bmm(ebuf, p["w_up"])
     g = F.silu(g) if act == "silu" else _gelu(g)
-    h = torch.bmm(g * u, p["w_down"])                         # (E, C, d)
-    out = _combine_local(h.reshape(E * C, d), slots, weights, E=E, C=C)
+    h = torch.bmm(g * u, p["w_down"]).reshape(El * C, d)
+    if ep:
+        h = shard_ctx.gather_out(h, 0)                        # (E * C, d)
+    out = _combine_local(h, slots, weights, E=E, C=C)
     return out, probs, idx
 
 
@@ -149,7 +166,8 @@ def moe_fwd(p, x, cfg: MoEConfig, act: str = "silu"):
         out, probs, idx = (torch.cat(t) for t in zip(*parts))
 
     if cfg.n_shared > 0:
-        out = out + mlp_fwd(p["shared"], xs, act, gated=True)
+        out = out + mlp_fwd(p["shared"], xs, act, gated=True,
+                            tp=shard_ctx.tp_on("shared"))
 
     # load-balancing auxiliary loss (Switch-style)
     top1 = (idx[:, :1] == torch.arange(E, device=x.device)).float()

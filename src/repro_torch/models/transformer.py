@@ -42,12 +42,20 @@ the ``nn.Module`` that owns one model's parameters on one device.
 
 Under a block of several devices the param leaves are DTensors, each
 rank holding its shards (``sharding.plans``).  ``forward`` unbinds each
-stacked leaf's local shard once, and each group gathers its leaves whole
+stacked leaf's local shard once, and each group gathers its leaves
 (``shard_ctx.full``) inside the checkpointed group function, so remat's
 recompute gathers them again and nothing gathered outlives the group:
 ZeRO-3, the gradients reduce-scattered back onto the shards.  The
 embedding, the head, the final norm and the frontends' leaves are
-gathered at their use, the hybrid's shared block in every group.
+gathered at their use, the hybrid's shared block in every group.  Under
+tensor and expert parallelism (item 8d; the context's
+``plans.TPLayout``) the leaves it computes sharded are gathered over the
+data axes only: each rank runs its heads, MLP widths and experts, looks
+up its rows of the vocabulary (``embed_inputs``: ids outside them give
+zero rows, summed over the model column) and gives the logits of its
+vocabulary, (B, S, V/M), which the loss reads as they are and the serve
+paths gather whole (``vocab_whole``); a dense decode cache holds the
+rank's kv heads (``init_cache``'s ``kv_split``).
 """
 from __future__ import annotations
 
@@ -199,6 +207,8 @@ def shared_extra_init(gen, cfg: ModelConfig, dtype, device):
 
 def _attn_fwd(p, h, cfg, *, positions, cache, cache_len, causal=None,
               page_table=None, seq_lens=None, impl: str = "auto"):
+    """The sublayer's attention: paged, MLA, or GQA (computed sharded over
+    ``model`` where the context's layout says)."""
     # `is not None`: an all-zeros page table is a valid (trash-only) table
     if page_table is not None:
         return paged_attention_fwd(p, h, cfg.attention, pages=cache,
@@ -209,7 +219,7 @@ def _attn_fwd(p, h, cfg, *, positions, cache, cache_len, causal=None,
                        cache=cache, cache_len=cache_len, impl=impl)
     return attention_fwd(p, h, cfg.attention, positions=positions,
                          cache=cache, cache_len=cache_len, causal=causal,
-                         impl=impl)
+                         impl=impl, tp=shard_ctx.tp_on("attn"))
 
 
 def _dense_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
@@ -222,7 +232,8 @@ def _dense_sublayer_fwd(p, x, cfg, *, positions, cache, cache_len,
                              impl=impl)
     x = x + a
     h = apply_norm(p["ln2"], x, cfg.norm, impl=impl)
-    x = x + mlp_fwd(p["mlp"], h, cfg.act, cfg.mlp_gated)
+    x = x + mlp_fwd(p["mlp"], h, cfg.act, cfg.mlp_gated,
+                    tp=shard_ctx.tp_on("mlp"))
     return x, new_cache
 
 
@@ -302,18 +313,20 @@ def group_fwd(gp, x, cfg: ModelConfig, *, positions, cache, cache_len,
 # caches
 # ---------------------------------------------------------------------------
 
-def _attn_cache_init(cfg: ModelConfig, lead, device):
+def _attn_cache_init(cfg: ModelConfig, lead, device, kv_split: int = 1):
     """One attention cache with leading dims ``lead``: MLA's compressed
-    {"c_kv", "k_rope"}, else {"k", "v"}."""
+    {"c_kv", "k_rope"}, else {"k", "v"} of ``n_kv_heads / kv_split``
+    heads (a rank's share under tensor parallelism)."""
     a, dt = cfg.attention, _dtype(cfg)
     if a.is_mla:
         return {"c_kv": torch.zeros(lead + (a.kv_lora_rank,), dtype=dt,
                                     device=device),
                 "k_rope": torch.zeros(lead + (a.qk_rope_head_dim,),
                                       dtype=dt, device=device)}
-    return {"k": torch.zeros(lead + (a.n_kv_heads, a.head_dim), dtype=dt,
+    Hkv = a.n_kv_heads // kv_split
+    return {"k": torch.zeros(lead + (Hkv, a.head_dim), dtype=dt,
                              device=device),
-            "v": torch.zeros(lead + (a.n_kv_heads, a.v_dim), dtype=dt,
+            "v": torch.zeros(lead + (Hkv, a.v_dim), dtype=dt,
                              device=device)}
 
 
@@ -354,22 +367,26 @@ def _mlstm_zero_carry(cfg: ModelConfig, lead, device):
                        device=device))
 
 
-def init_cache(cfg: ModelConfig, batch: int, smax: int, device):
+def init_cache(cfg: ModelConfig, batch: int, smax: int, device,
+               kv_split: int = 1):
     """Stacked (n_groups, ...) cache: the dense family's (and the VLM's)
     KV cache; the moe family's, MLA's compressed {"c_kv", "k_rope"} or,
     with dense layers between, {"dense": kv, "moe": kv}; the xlstm's
     recurrent states (``_xlstm_cache_init``; no KV cache, so ``smax`` is
     unused); or the hybrid's {"mamba": {"conv", "ssm"} stacked (n_groups,
     m, ...), "attn": {"k", "v"}}; None for the encoder, which does not
-    decode."""
+    decode.  ``kv_split``: the GQA kv heads are split over that many
+    ranks of a model column, this rank holding its share (the attention
+    computed sharded, ``plans.TPLayout``)."""
     dt, ng = _dtype(cfg), n_groups(cfg)
     if cfg.family == "encoder":
         return None
     if cfg.family == "xlstm":
         return _xlstm_cache_init(cfg, batch, device)
-    kv = _attn_cache_init(cfg, (ng, batch, smax), device)
+    kv = _attn_cache_init(cfg, (ng, batch, smax), device, kv_split)
     if cfg.family == "moe" and cfg.d_ff > 0:
-        return {"dense": _attn_cache_init(cfg, (ng, batch, smax), device),
+        return {"dense": _attn_cache_init(cfg, (ng, batch, smax), device,
+                                          kv_split),
                 "moe": kv}
     if cfg.family != "hybrid":
         return kv
@@ -513,11 +530,34 @@ def embed_inputs(params, cfg: ModelConfig, batch: Dict[str, Any]):
             x = torch.where(batch["mask"].bool()[..., None],
                             full(params["mask_embed"]), x)
         return x
-    tok = full(params["embed"])[batch["tokens"].long()]
+    tok = _lookup(full(params["embed"], "embed"), batch["tokens"].long())
     if cfg.frontend == "patch" and "patches" in batch:
         patches = _stub_proj(batch["patches"], full(params["patch_proj"]))
         tok = torch.cat([patches, tok], dim=1)
     return tok
+
+
+def _lookup(embed, ids):
+    """The embedding rows of ``ids``; vocab-parallel where ``embed`` is a
+    rank's rows of the table: ids outside them give zero rows, and the
+    model column's rows are summed (one of them nonzero, so the sum is
+    the row exactly)."""
+    if not shard_ctx.tp_on("vocab") or shard_ctx.model_size() == 1:
+        return embed[ids]
+    V = embed.shape[0]
+    local = ids - shard_ctx.model_rank() * V
+    mine = (local >= 0) & (local < V)
+    rows = embed[torch.where(mine, local, 0)]
+    return shard_ctx.reduce_out(torch.where(mine[..., None], rows, 0))
+
+
+def vocab_whole(logits):
+    """Logits of the whole vocabulary: those of a rank's vocabulary
+    (``forward``'s under vocab parallelism) gathered over the model
+    column, in rank order; ``logits`` itself otherwise."""
+    if not shard_ctx.tp_on("vocab"):
+        return logits
+    return shard_ctx.gather_out(logits, -1)
 
 
 def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
@@ -529,7 +569,8 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
     pool from ``init_paged_cache`` and decode runs the paged-attention path
     (the table and lengths are shared across groups; each group works on
     its own pool slice).  Returns (logits (B, S, V), aux_loss, cache); the
-    cache is updated in place.
+    cache is updated in place.  Under vocab parallelism the logits are
+    the rank's vocabulary's, (B, S, V/M) (``vocab_whole``).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     extra = params.get("extra")
@@ -549,17 +590,19 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
                               use_reentrant=False)
         else:
             gc = None if cache is None else _index(cache, g)
-            x, a, _ = group_fwd(shard_ctx.full_tree(gp), x, cfg,
+            x, a, _ = group_fwd(shard_ctx.full_tree(gp, "layers"), x, cfg,
                                 positions=positions, cache=gc,
                                 cache_len=cache_len,
-                                extra=shard_ctx.full_tree(extra),
+                                extra=shard_ctx.full_tree(extra, "extra"),
                                 page_table=page_table, seq_lens=seq_lens,
                                 impl=impl)
         aux = aux + a
-    x = apply_norm(shard_ctx.full_tree(params["final_norm"]), x, cfg.norm,
-                   impl=impl)
-    head = (full(params["embed"]).T if cfg.tie_embeddings
-            else full(params["lm_head"]))
+    x = apply_norm(shard_ctx.full_tree(params["final_norm"], "final_norm"),
+                   x, cfg.norm, impl=impl)
+    head = (full(params["embed"], "embed").T if cfg.tie_embeddings
+            else full(params["lm_head"], "lm_head"))
+    if shard_ctx.tp_on("vocab"):
+        x = shard_ctx.copy_in(x)
     logits = x @ head
     if cfg.logits_softcap > 0:
         logits = torch.tanh(logits / cfg.logits_softcap) * cfg.logits_softcap
@@ -568,9 +611,10 @@ def forward(params, cfg: ModelConfig, x, *, positions, cache=None,
 
 def _train_group(gp, x, cfg, positions, extra, impl, ctx=None):
     with shard_ctx.use(ctx):
-        x, a, _ = group_fwd(shard_ctx.full_tree(gp), x, cfg,
+        x, a, _ = group_fwd(shard_ctx.full_tree(gp, "layers"), x, cfg,
                             positions=positions, cache=None, cache_len=None,
-                            extra=shard_ctx.full_tree(extra), impl=impl)
+                            extra=shard_ctx.full_tree(extra, "extra"),
+                            impl=impl)
     return x, a
 
 

@@ -3,7 +3,9 @@ port of ``repro.serve.serve_step``).  Sampling draws from an explicit
 ``torch.Generator``.  ``abstract_cache`` is a decode cache's restore target
 on the ``meta`` device.  ``on_mesh`` runs a decode step on a block's mesh:
 each rank decodes its rows of the batch under the block's sharding
-context, and the next tokens come back whole."""
+context (its share of the heads and vocabulary under tensor parallelism,
+the logits whole again before ``pick``), and the next tokens come back
+whole."""
 from __future__ import annotations
 
 from typing import Optional, Tuple

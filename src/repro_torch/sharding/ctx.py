@@ -2,24 +2,38 @@
 
 Model code is mesh-agnostic; the runtime installs a ``ShardCtx`` around a
 step and the model asks it for the data-parallel size, gathers its
-sharded params (``full``) and sums over the data shards (``data_sum``),
-all of which do nothing when no context is installed (one device).
+sharded params (``full``), sums over the data shards (``data_sum``) and
+joins the ranks of a ``model`` column (``copy_in``, ``reduce_out``,
+``gather_out``), all of which do nothing when no context is installed
+(one device).
+
+Tensor and expert parallelism over ``model`` (item 8d): a context built
+with the block's ``plans.TPLayout`` (``tp``) has ``full`` gather each
+leaf the layout computes sharded over the data axes only, so every rank
+of a model column holds and computes its 1/M of the heads, the MLP
+widths, the vocabulary and the experts, and the ranks join their
+results with explicit collectives over the column's group, as Megatron
+does: ``copy_in`` at the entry of every sharded region (identity
+forward, all-reduce backward), ``reduce_out`` after every row-parallel
+product and the vocab-parallel lookup and cross-entropy sums
+(all-reduce forward, identity backward), ``gather_out`` after the
+experts and for serve logits (all-gather forward, the local slice
+backward).  Outside those regions every rank of a model column holds
+and computes the same activations.  Every leaf the layout keeps in 8a's
+layout (``TPLayout.kept``), and every leaf under a context without a
+layout, is gathered whole over both axes.  With M = 1 the three
+Functions return their input.  They are the reference's ``constrain_*``
+layout hints made explicit: GSPMD inserts the same collectives there.
 
 A serve step gathers forward only: ``full`` of a DTensor with no
 gradient to place (grad off, or no context installed, as the paged
-plane's rounds run) is a plain all-gather.  The dense serve plane's
+plane's rounds run) is a plain gather.  The dense serve plane's
 context splits the batch's rows over ``data`` where they split
 (``shards_batch``), and ``gather_rows`` puts the ranks' rows of a step's
 output back together in order; its ``data_sum`` rules are the train
 step's (the aux loss of a MoE layer summed over the data shards whose
 ranks computed different rows, nothing where every rank holds the
 whole batch).
-
-The ``constrain_*`` helpers are the reference's layout hints for XLA's
-partitioner.  Under the port's layout (item 8a) every rank computes its
-data shard's rows whole, with each param group gathered for its use, so
-they are identities here; tensor and expert parallelism over ``model``
-(item 8d) gives them effect.
 """
 from __future__ import annotations
 
@@ -41,26 +55,40 @@ class ShardCtx:
     """``mesh``: the block's DeviceMesh.  ``shards_batch``: each rank holds
     its own rows of every microbatch (``data.pipeline.BatchShards``); when
     False every rank holds the whole batch and computes it all, so the
-    data axes carry no sum."""
+    data axes carry no sum.  ``tp``: the block's ``plans.TPLayout``, what
+    the ranks of a model column compute sharded (None: nothing, 8a's
+    layout)."""
 
     def __init__(self, mesh, dp_axes: Tuple[str, ...], model_axis: str,
-                 shards_batch: bool = True):
+                 shards_batch: bool = True, tp=None):
         self.mesh = mesh
         self.dp = dp_axes
         self.model = model_axis
         self.shards_batch = shards_batch
+        self.tp = tp
+        # read once: a DeviceMesh's shape is a tensor, and the model
+        # code asks for it at every join and gather
+        self._sizes = axis_sizes(mesh)
 
     @property
     def sizes(self):
-        return axis_sizes(self.mesh)
+        return self._sizes
 
-    def grad_placements(self):
+    def grad_placements(self, placements=None):
         """How a gathered param's gradient lies over the mesh: a partial
-        sum over the data axes whose ranks computed different rows, and
-        the same on every rank of ``model`` (whose ranks computed the
-        same rows under 8a)."""
-        return tuple(Partial() if (a in self.dp and self.shards_batch)
-                     else Replicate() for a in self.sizes)
+        sum over the data axes whose ranks computed different rows; over
+        ``model`` the same on every rank, whose ranks compute the same
+        activations outside the sharded regions, or, for a leaf computed
+        sharded (its DTensor ``placements`` given), the rank's own
+        shard."""
+        out = []
+        for i, a in enumerate(self.sizes):
+            if a in self.dp:
+                out.append(Partial() if self.shards_batch else Replicate())
+            else:
+                out.append(placements[i] if placements is not None
+                           else Replicate())
+        return tuple(out)
 
     def summed_dims(self):
         """The mesh dims (of size > 1) that a sum over the data shards
@@ -69,6 +97,13 @@ class ShardCtx:
             return []
         return [i for i, (a, n) in enumerate(self.sizes.items())
                 if a in self.dp and n > 1]
+
+    def model_group(self):
+        """The process group of this rank's model column (None at
+        M = 1)."""
+        if self.sizes[self.model] == 1:
+            return None
+        return self.mesh.get_group(self.model)
 
 
 def current() -> Optional[ShardCtx]:
@@ -85,25 +120,69 @@ def use(ctx: Optional[ShardCtx]):
         _STATE.ctx = prev
 
 
-def full(x):
-    """A param leaf whole for its use: a DTensor is all-gathered (under a
-    context with gradients on, its gradient reduce-scattered back onto
-    the shards, ``grad_placements``; else forward only); a plain tensor
-    is returned as it is."""
+#: ``model_bytes``: bytes ``full`` brought over ``model``: of each leaf
+#: gathered whole over a model axis of M > 1, the (M - 1) / M other
+#: ranks hold (``plans.TPLayout.step_bytes`` counts the same; 0 at
+#: M = 1, where there is nothing to bring); ``tp_leaves``: the leaves
+#: ``full`` handed back as their ``model`` shard, at any M
+GATHERED = {"model_bytes": 0, "tp_leaves": 0}
+#: bytes the model column's joins brought to this rank: a ring
+#: all-reduce of an n-byte tensor 2 (M - 1) / M n, an all-gather of
+#: n-byte shards (M - 1) n (``launch.hlo_analysis.tp_traffic`` computes
+#: the same)
+JOINED = {"model_bytes": 0}
+
+
+def _joined(x, M: int, gather: bool = False) -> None:
+    n = x.numel() * x.element_size()
+    JOINED["model_bytes"] += (M - 1) * n if gather else 2 * (M - 1) * n // M
+
+
+def _model_dim(mesh) -> Optional[int]:
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def full(x, path: Optional[str] = None):
+    """A param leaf for its use: a DTensor is gathered (under a context
+    with gradients on, its gradient reduce-scattered back onto the
+    shards, ``grad_placements``; else forward only); a plain tensor is
+    returned as it is.  Where the context's layout computes the leaf at
+    ``path`` sharded over a model axis of M > 1 (``TPLayout.leaves``),
+    only the data axes are gathered and the rank's ``model`` shard comes
+    back (at M = 1 the shard is the leaf); every other leaf comes back
+    whole."""
     if not isinstance(x, DTensor):
         return x
     ctx = current()
-    if ctx is None or not torch.is_grad_enabled():
+    grad = ctx is not None and torch.is_grad_enabled()
+    mesh, pl = x.device_mesh, x.placements
+    m = _model_dim(mesh)
+    if ctx is not None and ctx.tp is not None and path in ctx.tp.leaves:
+        GATHERED["tp_leaves"] += 1
+        keep = tuple(p if i == m else Replicate() for i, p in enumerate(pl))
+        y = x.redistribute(mesh, keep)
+        return (y.to_local(grad_placements=ctx.grad_placements(keep))
+                if grad else y.to_local())
+    if m is not None and isinstance(pl[m], Shard) and mesh.size(m) > 1:
+        n = mesh.size(m)
+        GATHERED["model_bytes"] += x.numel() * x.element_size() * (n - 1) \
+            // n
+    if not grad:
         return x.full_tensor()
     return x.full_tensor(grad_placements=ctx.grad_placements())
 
 
-def full_tree(tree):
+def full_tree(tree, prefix: str = ""):
+    """``full`` of every leaf of a param tree, each known by its path
+    under ``prefix`` (``transformer.flatten``'s, the stack dims
+    dropped)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: full_tree(v) for k, v in tree.items()}
-    return full(tree)
+        return {k: full_tree(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return full(tree, prefix)
 
 
 class _DataSum(torch.autograd.Function):
@@ -148,21 +227,6 @@ def data_sum(x):
     return _DataSum.apply(x, ctx.mesh, dims)
 
 
-def constrain_tokens_3d(x):
-    """(B, S, d) residual-stream activations: batch over dp."""
-    return x
-
-
-def constrain_experts(x):
-    """(E, C, d) expert buffers: experts over the model axis (EP)."""
-    return x
-
-
-def constrain_logits(x):
-    """(B, S, V) logits: batch over dp, vocab over model."""
-    return x
-
-
 def _dp_size(ctx: ShardCtx) -> int:
     sizes = ctx.sizes
     return math.prod(sizes[a] for a in ctx.dp)
@@ -174,11 +238,117 @@ def dp_size() -> int:
     return _dp_size(ctx) if ctx is not None else 1
 
 
-def constrain_moe_shards(x):
-    """(DP, Tl, ...) per-shard routing tensors: leading dim over dp."""
-    return x
+# ------------------------------------------------ the model column's joins
+
+def tp_on(kind: str) -> bool:
+    """Whether the installed context's layout computes ``kind``
+    (``plans._tp_kind``) sharded over ``model``."""
+    ctx = current()
+    return ctx is not None and ctx.tp is not None and ctx.tp.computes(kind)
 
 
-def constrain_expert_buffers(x):
-    """(DP, E, C, d) expert buffers: shards over dp, experts over model."""
-    return x
+def model_size() -> int:
+    """M, the size of the context's model axis (1 without a context)."""
+    ctx = current()
+    return 1 if ctx is None else ctx.sizes[ctx.model]
+
+
+def model_rank() -> int:
+    """This rank's place along the model axis (0 without a context)."""
+    ctx = current()
+    if ctx is None:
+        return 0
+    return ctx.mesh.get_coordinate()[list(ctx.sizes).index(ctx.model)]
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the model column,
+    where each rank's sharded region gave its own part of it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        _joined(g, dist.get_world_size(ctx.group))
+        return g, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce (sum) over the model column forward, the gradient
+    passed through: every rank's copy of the sum gives its own addend
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        _joined(out, dist.get_world_size(group))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOut(torch.autograd.Function):
+    """The column's shards concatenated along ``dim`` in rank order
+    forward; backward, this rank's slice of the gradient (the same on
+    every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        n = dist.get_world_size(group)
+        ctx.dim, ctx.index, ctx.size = dim, index, x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        _joined(x, n, gather=True)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
+
+
+def _model_group():
+    ctx = current()
+    return None if ctx is None else ctx.model_group()
+
+
+def copy_in(x):
+    """The entry of a region computed sharded over ``model``."""
+    group = _model_group()
+    return x if group is None else _CopyIn.apply(x, group)
+
+
+def reduce_out(x):
+    """The model column's partial results summed (a row-parallel
+    product's, the vocab-parallel lookup's and cross-entropy's)."""
+    group = _model_group()
+    return x if group is None else _ReduceOut.apply(x, group)
+
+
+def gather_out(x, dim: int):
+    """The model column's shards of ``x`` whole along ``dim`` (the
+    experts' rows, the vocabulary of serve logits)."""
+    group = _model_group()
+    if group is None:
+        return x
+    return _GatherOut.apply(x, group, dim % x.ndim, model_rank())
+
+
+def max_over_model(x):
+    """``x``'s elementwise maximum over the model column, forward only
+    (a softmax's shift)."""
+    group = _model_group()
+    if group is None:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    _joined(out, dist.get_world_size(group))
+    return out

@@ -139,6 +139,15 @@ def _map_with_path(fn, tree, keys=()):
     return fn(keys, tree)
 
 
+def _dict_leaves(tree, keys=()):
+    """(keys, leaf) of a nested dict's leaves (a spec tuple is a leaf)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _dict_leaves(v, keys + (k,))
+    else:
+        yield keys, tree
+
+
 def _dp_size(axes: MeshAxes, sizes: Dict[str, int]) -> int:
     return math.prod(sizes[a] for a in axes.dp)
 
@@ -187,6 +196,164 @@ def param_specs(params_abstract, mesh, axes: Optional[MeshAxes] = None,
                                                 axes, mesh, no_tp)
 
     return _map_with_path(spec_for, params_abstract)
+
+
+# ------------------------------------------ tensor and expert parallelism
+
+#: the families whose heads, MLP widths, vocabulary and experts compute
+#: sharded over ``model``; every leaf of the others (the hybrid's Mamba2
+#: channels and shared block, the xlstm's cells) keeps 8a's layout
+TP_FAMILIES = ("dense", "vlm", "encoder", "moe")
+
+
+def _tp_kind(keys) -> Optional[str]:
+    """What a param leaf at path ``keys`` computes under tensor or expert
+    parallelism: "vocab" (the embedding and the LM head), "attn" (a
+    GQA or MLA attention's projections), "mlp", "shared" (a MoE layer's
+    shared expert), "experts"; None for a leaf every rank uses whole
+    (norms, the router, the frontends' stubs)."""
+    name = _leaf_name(keys)
+    if len(keys) == 1 and name in ("embed", "lm_head"):
+        return "vocab"
+    if name in _MOE_EXPERT_RULES and "moe" in keys:
+        return "shared" if "shared" in keys else "experts"
+    if "attn" in keys:
+        return "attn"
+    if "mlp" in keys and name in _MOE_EXPERT_RULES:
+        return "mlp"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """What a block computes sharded over ``model`` (item 8d), from
+    ``tp_layout``.  ``model``: M, the model axis's size.  ``kinds``: the
+    leaf kinds (``_tp_kind``) each rank holds and computes a 1/M share
+    of.  ``leaves``: the param paths of those kinds (``flatten``'s, the
+    stack dims dropped): ``shard_ctx.full`` gathers them over the data
+    axes only and hands each rank its ``model`` shard.  ``heads``: the
+    (query, kv) heads a rank's attention computes.  ``kept``: the rules
+    that kept a part in 8a's layout (gathered whole over ``model``, every
+    rank of a model column computing it whole).  ``bytes_top`` and
+    ``bytes_groups``: the bytes ``full`` brings over ``model`` in one
+    forward, for the leaves outside the stack and the groups' leaves
+    (the hybrid's shared block once a group): a leaf gathered whole
+    over ``model`` brings the (M - 1) / M of it the other ranks hold.
+    ``group_bytes``: the bytes of one group's leaves a rank holds once
+    ``full`` has gathered them (the hybrid's shared block among them),
+    beside ``group_bytes_whole``, the group whole, as 8a gathers it."""
+    model: int
+    kinds: frozenset
+    leaves: frozenset
+    heads: Tuple[int, int]
+    kept: Tuple[str, ...]
+    bytes_top: int
+    bytes_groups: int
+    group_bytes: int
+    group_bytes_whole: int
+
+    def computes(self, kind: str) -> bool:
+        return kind in self.kinds
+
+    def step_bytes(self, n_micro: int = 1, remat: bool = False) -> int:
+        """The bytes ``full`` brings over ``model`` in a step of
+        ``n_micro`` forwards (a train step's microbatches; 1 for a
+        prefill or a decode step); with ``remat`` the groups are gathered
+        again in the backward."""
+        return n_micro * (self.bytes_top
+                          + self.bytes_groups * (2 if remat else 1))
+
+    def summary(self) -> Dict[str, Any]:
+        """The layout as the launchers and ``chip_smoke.py`` print it."""
+        return {"model": self.model, "heads": list(self.heads),
+                "sharded": sorted(self.kinds), "kept_8a": list(self.kept)}
+
+
+def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
+    """The layout rule of tensor parallelism (TP: heads, MLP widths and
+    the vocabulary) and expert parallelism (EP: the MoE experts) over
+    ``model``, in one place:
+
+    * a GQA attention computes sharded only where ``n_heads`` and
+      ``n_kv_heads`` both divide by M: a rank cannot run attention on
+      part of a head, though the plan shards the fused ``H * hd`` dim
+      wherever it divides; else its leaves are gathered whole over
+      ``model`` (rule "heads");
+    * the MLP, a MoE layer's shared expert, the vocabulary (embedding
+      and LM head) and the experts compute sharded where their dim
+      divides by M, as ``_roles_to_spec`` decides (rules "mlp",
+      "shared", "vocab", "experts" where it does not);
+    * these keep 8a's layout, each a named rule: MLA attention ("mla"),
+      the families outside ``TP_FAMILIES`` ("family"), the paged serve
+      plane ("paged": its rounds run with no sharding context), and the
+      frame and patch stubs ("frontend": never sharded over ``model``).
+
+    The plan's specs are the reference's whatever this says; a leaf
+    computes sharded only where its spec puts ``model`` on a dim."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import n_groups
+    sizes = axis_sizes(mesh)
+    M = sizes["model"]
+    a, moe = cfg.attention, cfg.moe
+    kinds, kept = set(), []
+    if paged:
+        kept.append("paged")
+    elif cfg.family not in TP_FAMILIES:
+        kept.append(f"family: {cfg.family}")
+    else:
+        dims = {"mlp": cfg.d_ff, "vocab": cfg.vocab_size}
+        if moe is not None:
+            dims["experts"] = moe.n_experts
+            if moe.n_shared:
+                dims["shared"] = moe.n_shared * moe.shared_ff
+        for kind, n in dims.items():
+            if n and n % M == 0:
+                kinds.add(kind)
+            elif n:
+                kept.append(f"{kind}: {n} % {M}")
+        if a.is_mla:
+            kept.append("mla")
+        elif a.n_heads % M or a.n_kv_heads % M:
+            kept.append(f"heads: {a.n_heads}/{a.n_kv_heads} % {M}")
+        else:
+            kinds.add("attn")
+    if cfg.frontend in ("frame", "patch"):
+        kept.append(f"frontend: {cfg.frontend}")
+    heads = (0, 0) if a is None else (
+        (a.n_heads // M, a.n_kv_heads // M) if "attn" in kinds
+        else (a.n_heads, a.n_kv_heads))
+
+    params = model_lib.abstract_params(cfg)
+    specs = dict(_dict_leaves(param_specs(params, mesh)))
+    ng = n_groups(cfg)
+    leaves, top, groups, group, whole = set(), 0, 0, 0, 0
+    for keys, leaf in _dict_leaves(params):
+        path = "/".join(keys)
+        on_model = "model" in [x for e in specs[keys] for x in _axes_of(e)]
+        kind = _tp_kind(keys[1:] if keys[0] == "layers" else keys)
+        nbytes = leaf.numel() * leaf.element_size()
+        if keys[0] in ("layers", "extra"):
+            one = nbytes // ng if keys[0] == "layers" else nbytes
+            whole += one
+            group += one // M if kind in kinds else one
+        if kind in kinds:
+            assert on_model, (path, specs[keys])
+            leaves.add(path)
+            continue
+        if not on_model or M == 1:
+            continue
+        brought = nbytes * (M - 1) // M
+        if keys[0] == "layers":
+            groups += brought
+        elif keys[0] == "extra":        # applied by every group
+            groups += brought * ng
+        else:
+            top += brought * (2 if path == "embed" and cfg.tie_embeddings
+                              else 1)
+    return TPLayout(model=M, kinds=frozenset(kinds),
+                    leaves=frozenset(leaves), heads=heads, kept=tuple(kept),
+                    bytes_top=top, bytes_groups=groups, group_bytes=group,
+                    group_bytes_whole=whole)
 
 
 def batch_specs(batch_abstract, mesh, axes: Optional[MeshAxes] = None):
@@ -265,23 +432,28 @@ def cache_batch_dim(keys) -> int:
 
 
 def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
-                  split: bool = True):
-    """A dense serve block's cache under the port's layout (item 8a): a
-    ``Layout`` for every leaf of the cache tree (its dicts and tuples
-    kept), the batch dim over dp when the batch's rows split over the
-    data ranks (``split``), else whole, and every other dim whole.
-    Where ``cache_specs`` puts kv-heads over ``model``, the model axis's
-    ranks compute the same rows here (heads over ``model`` come with
-    tensor parallelism, item 8d); where it sequence-shards a batch that
+                  split: bool = True, tp: Optional[TPLayout] = None):
+    """A dense serve block's cache on its mesh: a ``Layout`` for every
+    leaf of the cache tree (its dicts and tuples kept), the batch dim
+    over dp when the batch's rows split over the data ranks (``split``),
+    else whole; the kv heads of the ``k`` and ``v`` leaves over
+    ``model`` where ``tp`` computes the attention sharded (the model dim
+    of ``cache_specs``), each rank holding its heads' rows; every other
+    dim whole (8a's layout: without ``tp``, and for MLA's compressed
+    cache and the recurrent states, every rank of a model column holds
+    the whole leaf).  Where ``cache_specs`` sequence-shards a batch that
     does not split, a softmax would have to be merged across ranks: not
     ported."""
     axes = axes or MeshAxes.from_mesh(mesh)
     dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
+    heads = tp is not None and tp.computes("attn")
 
     def layout_for(keys, leaf):
         spec = [None] * len(leaf.shape)
         if split:
             spec[cache_batch_dim(keys)] = dp
+        if heads and _leaf_name(keys) in ("k", "v"):
+            spec[-2] = axes.model           # (..., B, S, Hkv, D)
         return Layout(mesh, to_placements(tuple(spec), mesh))
 
     return _map_with_path(layout_for, cache_abstract)

@@ -157,6 +157,12 @@ def _sharded_dims(leaf):
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The gradients' global L2 norm, each element counted once: a
+    sharded leaf's local sum is added over the mesh dims it is sharded
+    on, ``model`` among them for the leaves computed sharded there (item
+    8d) and for those gathered whole, whose gradient comes back onto the
+    same shards; over a dim a leaf is replicated on, its ranks hold the
+    same elements and are not added."""
     leaves = list(_leaves(tree))
     sq = [_sq_sum(_local(leaf)) for leaf in leaves]
     # the local sums of the leaves sharded on the same mesh dims, added

@@ -20,7 +20,10 @@ Under a block of several devices (a ``ShardCtx`` installed around the
 step, the params DTensors) each rank runs the step on its rows of the
 batch: each group's params are gathered for its use and the gradients
 come back reduce-scattered onto the plan's shards, where the
-microbatches accumulate and the optimizer updates them.
+microbatches accumulate and the optimizer updates them.  A leaf the
+block's layout computes sharded over ``model`` (item 8d) is gathered
+over the data axes only, and its gradient comes back as the rank's
+shard of it, on the same DTensor placements.
 """
 from __future__ import annotations
 

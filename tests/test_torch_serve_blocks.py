@@ -33,16 +33,22 @@ the reference against itself gives:
   reference does (its decode at that shape fails inside ``shard_map``,
   so the port's decode is held to run only);
 * checkpoints: a dense serve block suspended at (2, 1) after 2 decode
-  steps resumes at (1, 2) on other ranks and at (1, 1) on one rank, and
-  is migrated by ``inject_chip_failure``: its decode context's whole
+  steps resumes at (1, 2) on other ranks (each rank restoring its half
+  of the kv heads) and at (1, 1) on one rank: its decode context's whole
   leaves bit for bit the suspended block's and the (1, 1) run's at that
-  step, the next tokens the uninterrupted run's; a reference checkpoint
-  saved at (2, 1) restores into the port and decodes equal, and the
-  port's restores into the reference, leaf for leaf.
-* the launcher on 2 ranks (a (1, 2) mesh), bf16 smoke config: 1 rank's
-  tokens.
+  step, the next tokens the uninterrupted run's; a block at (1, 2)
+  migrated by ``inject_chip_failure``: its context the (1, 2) run's at
+  that step, bit for bit, and the reference's (1, 2) context there
+  within 1e-4 of its range; a reference checkpoint saved at (2, 1)
+  restores into the port and decodes equal, and the port's restores
+  into the reference, leaf for leaf.
+* the launcher on 2 ranks (a (1, 2) mesh, tensor parallel over
+  ``model``): 1 rank's tokens in fp32; in bf16 the reference's, at
+  (1, 1) and (1, 2), on the launcher's params (saved by the one-rank
+  world, restored by part a of the reference) and prompt.
 """
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -99,6 +105,26 @@ def prompt(C, Shape, pipeline, arch, B=4):
     return {k: v for k, v in pipeline.synthetic_batch(
         fp32(C, arch), Shape("p", "prefill", seq_len=PROMPT, global_batch=B),
         step=0, seed=0).items() if k != "labels"}
+
+
+# ``repro_torch.launch.serve``'s block and prompt for these arguments
+# (bf16 smoke config, seed 0, greedy), its params under "launcher_bf16"
+LAUNCH = {"batch": 4, "prompt_len": 16, "gen": 4}
+
+
+def launcher_job(C, Job, Shape):
+    cfg = C.get_smoke(DS)
+    return cfg, Job(cfg, Shape("cli", "serve",
+                               seq_len=LAUNCH["prompt_len"] + LAUNCH["gen"],
+                               global_batch=LAUNCH["batch"]),
+                    kind="serve", seed=0, ckpt_namespace="launcher_bf16")
+
+
+def launcher_prompt(C, Shape, pipeline):
+    return {k: v for k, v in pipeline.synthetic_batch(
+        C.get_smoke(DS), Shape("cli", "prefill", seq_len=LAUNCH["prompt_len"],
+                               global_batch=LAUNCH["batch"]),
+        step=0, seed=0).items() if k != "labels"}
 '''
 
 REF = COMMON + r'''
@@ -121,7 +147,9 @@ def block(arch, mesh, B=4, paged=False):
                                          paged), jax.devices()[:n], root)
 
 
-def dense(arch, mesh, B=4, gen=GEN, save_at=None):
+def dense(arch, mesh, B=4, gen=GEN, save_as=None):
+    """Greedy tokens a step; with ``save_as``, the context saved under that
+    namespace after 2 decode steps."""
     rt = block(arch, mesh, B)
     rt.restore(step=0)
     batch = prompt(C, ShapeConfig, pipeline, arch, B)
@@ -134,9 +162,9 @@ def dense(arch, mesh, B=4, gen=GEN, save_at=None):
     for _ in range(gen):
         rt.step()
         toks.append(np.asarray(rt.token)[:, 0].tolist())
-        if rt.step_count == save_at:
-            CheckpointManager(root, "ref_suspended").save(rt.step_count,
-                                                          rt._payload())
+        if save_as is not None and rt.step_count == 2:
+            CheckpointManager(root, save_as).save(rt.step_count,
+                                                  rt._payload())
     return toks
 
 
@@ -157,17 +185,40 @@ for arch, B, pg in INITS[part]:
     rt.init_state()
     rt.save(async_=False)
 open(os.path.join(root, f"init_done_{part}"), "w").close()
+SAVES = {(DS, (2, 1)): "ref_suspended", (DS, (1, 2)): "ref_ctx_12"}
 for arch, meshes in MESHES.items():
     if (arch == LL) != (part == "b"):
         continue
     for m in meshes:
         key = f"{arch}_{m[0]}{m[1]}"
-        res[key] = dense(arch, m, save_at=2 if (arch, m) == (DS, (2, 1))
-                         else None)
+        res[key] = dense(arch, m, save_as=SAVES.get((arch, m)))
         if arch in PAGED and m != (1, 1):
             res[key + "_paged"] = paged(arch, m)
 if part == "b":
     res[f"{LL}_3_21"] = dense(LL, (2, 1), B=3, gen=0)
+if part == "a":
+    # the port launcher's bf16 params (saved by the one-rank port world)
+    # on the launcher's prompt, at (1, 1) and (1, 2): its tokens a row
+    port1 = os.path.join(os.path.dirname(root), "port1")
+    t0 = time.time()
+    while not os.path.exists(os.path.join(port1, "launcher_saved")):
+        if time.time() - t0 > 180:
+            raise TimeoutError("the port saved no launcher params")
+        time.sleep(0.2)
+    cfg, job = launcher_job(C, JobSpec, ShapeConfig)
+    batch = launcher_prompt(C, ShapeConfig, pipeline)
+    res["launcher_bf16"] = {}
+    for m in ((1, 1), (1, 2)):
+        n = m[0] * m[1]
+        grant = BlockGrant.new([(0, i, 0) for i in range(n)], m, 600.0)
+        rt = BlockRuntime(grant, job, jax.devices()[:n], port1)
+        rt.restore(step=0)
+        rt.prefill(batch)
+        toks = [np.asarray(rt.token)[:, 0].tolist()]
+        for _ in range(LAUNCH["gen"] - 1):
+            rt.step()
+            toks.append(np.asarray(rt.token)[:, 0].tolist())
+        res["launcher_bf16"][f"{m[0]}{m[1]}"] = np.asarray(toks).T.tolist()
 print("RESULT " + json.dumps(res))
 '''
 
@@ -333,6 +384,11 @@ if world == 1:
 elif world == 2:
     # a batch of 3 at dp = 2: every rank holds the whole batch
     res[f"{LL}_3_21"], _ = dense(LL, (2, 1), B=3)
+    # the (1, 2) run's decode context after 2 steps: each rank decodes
+    # its half of the heads
+    out, rt = dense(DS, (1, 2), gen=2, keep=True)
+    res["ctx_12_at_2"] = ctx_digests(rt)
+    rt.release()
     # the reference's checkpoint saved at (2, 1) after 2 steps, restored
     # here at (2, 1) and at (1, 2), and decoded a step
     from_ref("ref_suspended", 2)
@@ -398,11 +454,30 @@ else:
 if world in (1, 2):
     from repro_torch.launch import serve as launch_serve
     args = launch_serve.parse_args(
-        ["--arch", DS, "--smoke", "--device", "cpu", "--batch", "4",
-         "--prompt-len", "16", "--gen", "4"])
+        ["--arch", DS, "--smoke", "--device", "cpu",
+         "--batch", str(LAUNCH["batch"]),
+         "--prompt-len", str(LAUNCH["prompt_len"]),
+         "--gen", str(LAUNCH["gen"])])
     r = launch_serve.run(args)
+    r32 = launch_serve.run(args, fp32(C, DS))
     res["launcher"] = {"tokens": r["tokens"].tolist(),
+                       "tokens_f32": r32["tokens"].tolist(),
                        "mesh": list(r["grant"].mesh_shape)}
+    if world == 1:
+        # the launcher's block built alike, its params saved for the
+        # reference, and its tokens
+        _, j = launcher_job(C, JobSpec, ShapeConfig)
+        rt = runtime(j, (1, 1), [0])
+        rt.init_state()
+        rt.save(async_=False)
+        open(os.path.join(root, "launcher_saved"), "w").close()
+        rt.prefill(launcher_prompt(C, ShapeConfig, pipeline))
+        toks = [tokens(rt)]
+        for _ in range(LAUNCH["gen"] - 1):
+            rt.step()
+            toks.append(tokens(rt))
+        res["launcher"]["block_tokens"] = np.asarray(toks).T.tolist()
+        rt.release()
 print("RESULT " + json.dumps({"rank": rank, **res}))
 dist.destroy_process_group()
 '''
@@ -582,11 +657,44 @@ def test_a_migrated_block_restores_its_context_and_decodes_on(runs):
     assert 0 not in first["ranks_after"] and \
         set(first["ranks_after"]) - {0, 1}
     saved = _first(mig, "saved")
-    # at (1, 2) both ranks compute the whole batch: the (1, 1) run's bits
-    assert saved == _first(runs[1], "ctx_11_at_2")
+    # at (1, 2) each rank decodes its half of the heads (the row-parallel
+    # sums in another order than one device's): the uninterrupted (1, 2)
+    # run's bits, and the reference's (1, 2) context at that step
+    assert saved == _first(runs[2], "ctx_12_at_2")
     assert _first(mig, "restored") == saved
     assert all(m["step"] == 2 for m in mig)
     assert _first(mig, "next") == runs["ref"]["deepseek_7b_21"][3]
+    mine = _decode_ctx_of(runs["dir"] / "port4", "migrated")
+    ref = _decode_ctx_of(runs["dir"] / "ref", "ref_ctx_12")
+    assert int(mine["cache_len"]) == int(ref["cache_len"]) == 16 + 2
+    assert np.asarray(mine["token"]).tolist() == \
+        np.asarray(ref["token"]).tolist()
+    for k in ("k", "v"):
+        got = np.ascontiguousarray(np.asarray(mine["cache"][k]))
+        want = np.asarray(ref["cache"][k])
+        assert hashlib.sha256(got.tobytes()).hexdigest() == saved[f"cache/{k}"]
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * np.abs(want).max(), err_msg=k)
+
+
+def _decode_ctx_of(root, name, step=2):
+    """The decode context of deepseek_7b's fp32 serve block saved under
+    ``name`` at ``step``, as the JAX package restores it."""
+    import jax
+    import repro.configs as JC
+    from repro.checkpoint.manager import CheckpointManager as JManager
+    from repro.models import model as jmodel
+    from repro.serve import serve_step as jserve
+    cfg = dataclasses.replace(JC.get_smoke("deepseek_7b"),
+                              param_dtype="float32")
+    like = {"state": {"params": jmodel.abstract_params(cfg)},
+            "step_count": 0,
+            "decode": {"cache": jserve.abstract_cache(cfg, 4, 20),
+                       "token": jax.ShapeDtypeStruct((4, 1), np.int32),
+                       "cache_len": jax.ShapeDtypeStruct((), np.int32)}}
+    tree, at = JManager(str(root), name).restore(like, step=step)
+    assert at == step
+    return tree["decode"]
 
 
 def test_a_reference_checkpoint_restores_into_the_port_and_decodes_equal(
@@ -621,11 +729,23 @@ def test_a_port_checkpoint_restores_into_the_reference(runs):
 
 
 def test_the_launcher_on_two_ranks_gives_one_ranks_tokens(runs):
+    """At (1, 2) each rank computes half the heads, MLP widths and
+    vocabulary (tensor parallel over ``model``), and the row-parallel
+    sums add in another order than one device's.  In fp32 the tokens are
+    the port's one rank's.  In the launcher's bf16 they are the
+    reference's on the same params and prompt, one device's and the
+    (1, 2) mesh's alike, every token."""
     two = _first(runs[2], "launcher")
     one = _first(runs[1], "launcher")
     assert two["mesh"] == [1, 2] and one["mesh"] == [1, 1]
     assert np.asarray(two["tokens"]).shape == (4, 4)
-    assert two["tokens"] == one["tokens"]
+    assert np.asarray(two["tokens_f32"]).shape == (4, 4)
+    assert two["tokens_f32"] == one["tokens_f32"]
+    # the params the reference ran are the launcher's: a block built
+    # alike gives the one-rank launcher's tokens
+    assert one["block_tokens"] == one["tokens"]
+    ref = runs["ref"]["launcher_bf16"]
+    assert two["tokens"] == ref["12"] == ref["11"]
 
 
 # ------------------------------------------------------------- in process
