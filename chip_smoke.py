@@ -252,6 +252,20 @@ never JAX.  Phases, each printing one JSON line:
                      served, every body and frame encoded without
                      ``default=``; HTTP TTFT and tok/s beside the direct
                      run, the preempt and resume seconds.
+20. ``service``    — the daemon's service mode across ranks: the same
+                     gateway through ``core.service``'s leader under a
+                     one-rank process group (every command, tick and
+                     engine round an entry of its log, passed through
+                     the control group); Alice's train_hybrid job under
+                     autostep to 2 steps, Bob's 12 sessions with a
+                     preemption and a resume, then ``launch.train
+                     --autostep`` on train_f32's job for 3 steps.  Held:
+                     Alice's and the launcher's losses and grad norms
+                     train_hybrid's and train_f32's, Bob's tokens
+                     serve_paged's, bit for bit, the launches exactly, the
+                     log's entries above 0 and no tripwire; HTTP TTFT
+                     against the gateway phase's, the leader's host time
+                     per entry, the log's entries and bytes.
 
 Then one JSON line (``decode_capture``) giving each decode path's step
 wall time, idle share and tok/s run eagerly and as graph replays, its
@@ -5303,6 +5317,311 @@ def _gateway_jobs(smoke):
     return alice, bob
 
 
+class _Front:
+    """The gateway phases' client side: the HTTP client, root's
+    cluster-wide SSE feed on a thread of its own (every frame kept), and
+    the waits and status checks every call goes through."""
+
+    def __init__(self, url, name):
+        import threading
+        self.name = name
+        self.client = HttpClient(url)
+        self.frames, self.generate, self.error = [], 0, None
+        self.watcher = threading.Thread(target=self._watch, daemon=True,
+                                        name=f"{name}-root-feed")
+
+    def _on_frame(self, frame):
+        self.frames.append(frame)
+        if frame["event"] == "generate":
+            self.generate += 1
+
+    def _watch(self):
+        try:
+            self.client.stream("GET", "/v1/events/stream?after=0&kinds="
+                               + ",".join(GATEWAY_KINDS), "tok-root",
+                               on_frame=self._on_frame)
+        except Exception as e:          # read by the main thread
+            self.error = repr(e)
+
+    def wait_for(self, cond, what):
+        deadline = time.monotonic() + GATEWAY_TIMEOUT_S
+        while not cond():
+            check(self.error is None,
+                  f"{self.name}: root's feed failed: {self.error}")
+            check(time.monotonic() < deadline,
+                  f"{self.name}: no {what} in {GATEWAY_TIMEOUT_S:.0f} s")
+            time.sleep(0.005)
+
+    def ok(self, status, out, what, code=200):
+        check(status == code,
+              f"{self.name}: {what} answered {status}: {out}")
+        return out
+
+    def req(self, *a):
+        return self.client.req(*a)
+
+
+def _bob_traffic(front, daemon, log, root, bob_job, prompts, max_new):
+    """Bob submits serve_paged's job and opens its sessions as concurrent
+    generate requests (all but the last an SSE stream, the last a
+    long-poll); after a third of the tokens root preempts his block and
+    posts its resume (the pump's tick re-admits a preempted block as soon
+    as the chip is free, so whichever lands first resumes him); his block
+    expires once every session has finished.  Returns what the checks
+    read (``_bob_held``)."""
+    import threading
+    name, ok = front.name, front.ok
+    n_tokens = len(prompts) * max_new
+    progress(f"{name}: bob's {len(prompts)} sessions over http")
+    zero_counts()
+    _zero_eager_calls()
+    t_bob = time.time()
+    b = ok(*front.req("POST", "/v1/submit", "tok-bob", {
+        "job_description": "serve deepseek_7b over http", "n_chips": 1,
+        "job": bob_job}), "bob's submit", 201)
+    bob = b["app_id"]
+    check(b["admitted"] and b["state"] == "running", f"{name}: bob {b}")
+    rt = daemon.runtime(bob)
+    bob_bytes = tree_bytes(rt.state) + tree_bytes(rt.sessions.pool)
+    graph_before = rt.sessions.decode_graph
+    del rt
+    _disk_check(root, bob_bytes, name)
+    polled = len(prompts) - 1        # this one long-polls
+    gen = f"/v1/blocks/{bob}/generate"
+    sessions = [None] * len(prompts)
+
+    def sse_session(i):
+        t_send = time.perf_counter()
+        try:
+            frames = front.client.stream("POST", gen, "tok-bob", {
+                "prompt": prompts[i], "max_new_tokens": max_new})
+            sessions[i] = {"send": t_send, "frames": frames}
+        except Exception as e:
+            sessions[i] = {"error": repr(e)}
+
+    def poll_session(i):
+        """``stream: false``; a long-poll that ends before its session
+        does (its wait is capped at 30 s, and the preemption falls inside
+        it) goes on over the block's feed from a cursor taken before the
+        submission."""
+        t_send = time.perf_counter()
+        try:
+            _, page = front.req("GET", f"/v1/blocks/{bob}/events?"
+                                "kinds=state", "tok-bob")
+            cursor = page["next_after"]
+            s, out = front.req("POST", gen, "tok-bob", {
+                "prompt": prompts[i], "max_new_tokens": max_new,
+                "stream": False})
+            check(s == 200, f"{name}: long-poll answered {s}: {out}")
+            tokens, done = list(out["tokens"]), out["done"]
+            polls = 1
+            while not done:
+                _, page = front.req(
+                    "GET", f"/v1/blocks/{bob}/events?after={cursor}"
+                    "&kinds=generate,session&timeout_s=30", "tok-bob")
+                cursor = page["next_after"]
+                polls += 1
+                for ev in page["events"]:
+                    if ev.get("session") != out["session"]:
+                        continue
+                    if (ev["kind"] == "generate"
+                            and ev["index"] >= len(tokens)):
+                        tokens.append(ev["token"])
+                    done = done or ev["kind"] == "generate" and ev["done"]
+            sessions[i] = {"send": t_send, "tokens": tokens,
+                           "polls": polls, "end": time.perf_counter()}
+        except BaseException as e:
+            sessions[i] = {"error": repr(e)}
+
+    threads = [threading.Thread(
+        target=poll_session if i == polled else sse_session, args=(i,),
+        name=f"{name}-session-{i}", daemon=True)
+        for i in range(len(prompts))]
+    t_traffic = time.perf_counter()
+    for th in threads:
+        th.start()
+    front.wait_for(lambda: front.generate >= n_tokens // 3,
+                   "third of bob's tokens")
+    progress(f"{name}: root preempts bob")
+    t_pre = time.perf_counter()
+    t_pre_wall = time.time()
+    pr = ok(*front.req("POST", f"/v1/blocks/{bob}/preempt", "tok-root",
+                       {"reason": "admin over http"}), "root's preempt")
+    preempt_http_s = time.perf_counter() - t_pre
+    t_res = time.perf_counter()
+    res_status, res_out = front.req("POST", f"/v1/blocks/{bob}/resume",
+                                    "tok-root", {})
+    resume_http_s = time.perf_counter() - t_res
+    for th in threads:
+        th.join(GATEWAY_TIMEOUT_S)
+    check(not any(th.is_alive() for th in threads),
+          f"{name}: a session's request never ended")
+    t_end = max(s["frames"][-1]["t"] if "frames" in s else s["end"]
+                for s in sessions if s and "error" not in s)
+    front.wait_for(lambda: len(_events(log, bob, "session",
+                                       action="finished")) == len(prompts),
+                   "the end of bob's sessions")
+    rt = daemon.runtime(bob)
+    out = {"app_id": bob, "t_bob": t_bob, "bytes": bob_bytes,
+           "sessions": sessions, "polled": polled, "t_traffic": t_traffic,
+           "t_end": t_end, "preempt": pr, "t_pre_wall": t_pre_wall,
+           "preempt_http_s": preempt_http_s, "res_status": res_status,
+           "res_out": res_out, "resume_http_s": resume_http_s,
+           "graphs": (graph_before, rt.sessions.decode_graph),
+           "admissions": rt.sessions.admissions,
+           "paged_rounds": dict(rt.paged_rounds)}
+    del rt
+    out["launches"] = counts()
+    ok(*front.req("POST", f"/v1/blocks/{bob}/expire", "tok-bob", {}),
+       "bob's expire")
+    return out
+
+
+def _bob_held(name, b, log, dev, bob_cfg, want, max_new, paged):
+    """Bob's checks: every session's tokens (serve_paged's, ``want``),
+    frames and end, one preemption and one resume, a compile-cache hit,
+    his launches exactly his admissions' and those of the rounds that
+    decoded (every step event is a round; one the engine dispatched after
+    his last active session ended decodes nothing and is counted apart).
+    Returns his part of the phase's record and his decode graphs."""
+    bob, sessions, polled = b["app_id"], b["sessions"], b["polled"]
+    bad = [i for i, s in enumerate(sessions) if s is None or "error" in s]
+    check(not bad, f"{name}: sessions {bad} failed: "
+          f"{[sessions[i] for i in bad]}")
+    ttft, got = [], []
+    for i, sess in enumerate(sessions):
+        if i == polled:
+            got.append(sess["tokens"])
+            continue
+        frames = sess["frames"]
+        ids = [f["id"] for f in frames]
+        gens = [f for f in frames if f["event"] == "generate"]
+        check(ids == sorted(set(ids))
+              and [f["data"]["index"] for f in gens] == list(range(max_new))
+              and gens[-1]["data"]["done"] and frames[-1] is gens[-1],
+              f"{name}: session {i}'s stream: ids {ids}, indices "
+              f"{[f['data']['index'] for f in gens]}")
+        got.append([f["data"]["token"] for f in gens])
+        ttft.append(gens[0]["t"] - sess["send"])
+    check(got == want, f"{name}: bob's tokens over http differ from "
+          f"serve_paged's in sessions "
+          f"{[i for i in range(len(want)) if got[i] != want[i]]}")
+    pre = _events(log, bob, "preempted")
+    res = _events(log, bob, "resumed")
+    check(b["preempt"]["state"] == "preempted" and len(pre) == len(res) == 1
+          and pre[0].seq < res[0].seq,
+          f"{name}: root's preempt {b['preempt']}, events preempted {pre}, "
+          f"resumed {res}")
+    res_status = b["res_status"]
+    resumed_by = "root" if res_status == 200 else "tick"
+    check(res_status == 200 or (res_status == 409 and res[0].t
+                                <= b["t_pre_wall"] + b["preempt_http_s"]
+                                + b["resume_http_s"]),
+          f"{name}: root's resume answered {res_status}: {b['res_out']}")
+    # (the paged plane's steps are cached under no block id: Bob's block
+    # is the only one on the card after his preemption)
+    comp = [e.payload["action"] for e in list(log) if e.kind == "compile"
+            and e.seq > pre[0].seq]
+    check("miss" not in comp and "hit" in comp,
+          f"{name}: bob's compile-cache events after his preemption {comp}")
+    graphs = [g.stats() for g in {id(g): g for g in b["graphs"]}.values()]
+    rounds = len(_events(log, bob, "step"))
+    decoded, empty = b["paged_rounds"]["decoded"], b["paged_rounds"]["empty"]
+    check(decoded + empty == rounds,
+          f"{name}: bob's {rounds} step events against his block's rounds "
+          f"{b['paged_rounds']}")
+    zero = {n: 0 for n in COUNTERS}
+    if dev.type == "cuda":
+        check(len(graphs) == 2 and all(
+            g["captures"] == 1 and g["eager_calls"] == 0 for g in graphs)
+            and sum(g["replays"] for g in graphs) == decoded
+            and _eager_calls() == 0,
+            f"{name}: bob's decode graphs {graphs} for {decoded} rounds "
+            f"that decoded ({empty} empty), {_eager_calls()} eager decode "
+            f"steps")
+        pre_l, _, per_round = dense_launches(bob_cfg)
+    else:
+        check(sum(g["eager_calls"] for g in graphs) == decoded,
+              f"{name}: bob's {decoded} rounds that decoded ({empty} "
+              f"empty) on the CPU, graphs {graphs}")
+        pre_l = per_round = zero
+    want_bob = {n: b["admissions"] * pre_l[n] + decoded * per_round[n]
+                for n in COUNTERS}
+    check(b["launches"] == want_bob,
+          f"{name}: bob's launches {b['launches']}, want {want_bob} "
+          f"({b['admissions']} admissions, {decoded} rounds that decoded)")
+    n_tokens = len(want) * max_new
+    traffic_s = b["t_end"] - b["t_traffic"]
+    gap_s = res[0].t - b["t_pre_wall"]
+    bob_out = {
+        "arch": bob_cfg.name, "sessions": len(sessions),
+        "sse_sessions": len(ttft), "max_new_tokens": max_new,
+        "admissions": b["admissions"], "rounds": rounds,
+        "decoded_rounds": decoded, "empty_rounds": empty,
+        "tokens": n_tokens, "state_gb": b["bytes"] / 1e9,
+        "long_poll_requests": sessions[polled]["polls"],
+        "decode_graphs": graphs,
+        "submit_to_first_token_s":
+            _events(log, bob, "generate")[0].t - b["t_bob"],
+        "http": {"ttft_p50_s": float(np.percentile(ttft, 50)),
+                 "ttft_p99_s": float(np.percentile(ttft, 99)),
+                 "tok_s": n_tokens / traffic_s,
+                 "tok_s_outside_preemption": n_tokens / (traffic_s - gap_s)},
+        "direct": {"ttft_p50_s": paged["ttft_p50_s"],
+                   "ttft_p99_s": paged["ttft_p99_s"],
+                   "tok_s": paged["tok_s"]}}
+    admin = {"resumed_by": resumed_by, "resume_status": res_status,
+             "preempt_http_s": b["preempt_http_s"],
+             "resume_http_s": b["resume_http_s"],
+             "preempt_event_s": pre[0].t - b["t_pre_wall"],
+             "preempted_to_resumed_event_s": res[0].t - pre[0].t,
+             "preempt_call_to_resumed_event_s": gap_s,
+             "compile_after_preempt": comp}
+    return bob_out, admin, graphs
+
+
+def _front_held(name, front, log, apps, strict):
+    """Root's feed in the bus's order with each app's states, the
+    dashboard and the trace served, and no tensor hidden as a string,
+    server side and client side."""
+    frames = front.frames
+    ids = [f["id"] for f in frames]
+    bus = [e for e in list(log) if e.kind in GATEWAY_KINDS]
+    check(ids == [e.seq for e in bus] and ids == sorted(set(ids)),
+          f"{name}: root's feed ids {ids[:20]}... are not the bus's "
+          f"{[e.seq for e in bus][:20]}...")
+    for app in apps:
+        seen = [f["data"]["state"] for f in frames if f["event"] == "state"
+                and f["data"]["app_id"] == app]
+        check(seen == [e.payload["state"] for e in _events(log, app,
+                                                            "state")],
+              f"{name}: {app}'s states on root's feed {seen}")
+    check(strict.failures == [] and strict.encoded > 0,
+          f"{name}: the strict encoder failed: {strict.failures}")
+    for obj in front.client.bodies:
+        text = json.dumps(obj)
+        check("tensor(" not in text, f"{name}: a tensor written out as a "
+              f"string in {text[:300]}")
+
+
+def _root_surfaces(front, log):
+    """``/ui``, ``/ui/app.js`` and ``/v1/trace`` fetched, and root's feed
+    read up to the bus's last event of its kinds."""
+    ui = front.client.raw("GET", "/ui")
+    app_js = front.client.raw("GET", "/ui/app.js")
+    trace = front.ok(*front.req("GET", "/v1/trace", "tok-root"),
+                     "root's trace")
+    last = max(e.seq for e in list(log) if e.kind in GATEWAY_KINDS)
+    front.wait_for(lambda: front.frames and front.frames[-1]["id"] >= last,
+                   "root's feed to reach the bus's last event")
+    check(ui[0] == 200 and ui[1].startswith("text/html")
+          and b"/ui/app.js" in ui[2] and app_js[0] == 200
+          and app_js[1].startswith("text/javascript"),
+          f"{front.name}: /ui {ui[:2]}, /ui/app.js {app_js[:2]}")
+    check(isinstance(trace.get("traceEvents"), list),
+          f"{front.name}: /v1/trace is no Chrome trace: {list(trace)[:5]}")
+
+
 def phase_gateway(device="cuda", smoke=False, paged=None):
     """The web gateway on the card: a background ``ClusterDaemon`` on one
     chip behind a ``GatewayServer`` on 127.0.0.1, every step of the
@@ -5311,22 +5630,16 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
     review, confirm with the capability token, activate, run, 2 steps,
     download, expire); then Bob submits serve_paged's job and opens its 12
     sessions as 12 concurrent generate requests (11 SSE streams, one
-    long-poll); after a third of the tokens root preempts his block and
-    posts its resume (the pump's tick re-admits a preempted block as soon
-    as the chip is free, so whichever lands first resumes him); root
-    keeps the cluster-wide SSE feed open throughout.  Held: Alice's
-    launches exactly 2 train_hybrid steps', her download's 2 steps, her
-    MFU in ``/v1/cluster``, under 1% of her state left after her expire;
-    each of Bob's sessions streams serve_paged's tokens (``paged``) bit
-    for bit, ends at its final token with no frame lost or repeated across
-    the preemption, his launches exactly his admissions' and those of
-    the rounds that decoded (every step event is a round; one the engine
-    dispatched after his last active session ended decodes nothing and
-    is counted apart), one resume, a compile-cache hit; root's frames the bus's for his kinds, in
-    order; ``/ui`` served, ``/v1/trace`` a Chrome trace; every response
-    body and frame encoded without ``default=`` (no tensor hidden as a
-    string).  The only reads of the daemon are for these checks."""
-    import threading
+    long-poll) with a preemption and a resume among them
+    (``_bob_traffic``); root keeps the cluster-wide SSE feed open
+    throughout.  Held: Alice's launches exactly 2 train_hybrid steps', her
+    download's 2 steps, her MFU in ``/v1/cluster``, under 1% of her state
+    left after her expire; Bob's sessions, preemption and launches
+    (``_bob_held``: serve_paged's tokens, ``paged``, bit for bit); root's
+    frames the bus's for his kinds, in order; ``/ui`` served,
+    ``/v1/trace`` a Chrome trace; every response body and frame encoded
+    without ``default=`` (no tensor hidden as a string).  The only reads
+    of the daemon are for these checks."""
     from repro_torch.core.daemon import ClusterDaemon
     from repro_torch.core.topology import Topology
     from repro_torch.gateway import GatewayServer, ProfileStore, UserProfile
@@ -5351,7 +5664,6 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
     want = list(paged["session_tokens"].values())   # in prompt order
     check(len(want) == len(prompts), "gateway: serve_paged's sessions")
     n_alice_steps = 2
-    n_tokens = len(prompts) * max_new
     dev = torch.device(device)
     root = tempfile.mkdtemp(prefix="chip_smoke_gateway_")
     strict = StrictJSON()
@@ -5367,194 +5679,57 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
     server = GatewayServer(daemon, ProfileStore([
         UserProfile(u, tok, priority=p, admin=a)
         for u, tok, p, a in GATEWAY_USERS])).start()
-    client = HttpClient(server.url)
-    watched = {"frames": [], "generate": 0, "error": None}
-
-    def on_watch(frame):
-        watched["frames"].append(frame)
-        if frame["event"] == "generate":
-            watched["generate"] += 1
-
-    def watch():
-        try:
-            client.stream("GET", "/v1/events/stream?after=0&kinds="
-                          + ",".join(GATEWAY_KINDS), "tok-root",
-                          on_frame=on_watch)
-        except Exception as e:          # read by the main thread
-            watched["error"] = repr(e)
-
-    def wait_for(cond, what):
-        deadline = time.monotonic() + GATEWAY_TIMEOUT_S
-        while not cond():
-            check(watched["error"] is None,
-                  f"gateway: root's feed failed: {watched['error']}")
-            check(time.monotonic() < deadline,
-                  f"gateway: no {what} in {GATEWAY_TIMEOUT_S:.0f} s")
-            time.sleep(0.005)
-
-    def ok(status, out, what, code=200):
-        check(status == code, f"gateway: {what} answered {status}: {out}")
-        return out
-
-    watcher = threading.Thread(target=watch, name="gateway-root-feed",
-                               daemon=True)
+    front = _Front(server.url, "gateway")
+    ok = front.ok
     t0 = time.perf_counter()
-    sessions = [None] * len(prompts)
     try:
-        watcher.start()
+        front.watcher.start()
         # ------------------------------------------------ Alice, train
         progress("gateway: alice's explicit workflow")
         zero_counts()
         t_alice = time.time()
-        r = ok(*client.req("POST", "/v1/register", "tok-alice", {
+        r = ok(*front.req("POST", "/v1/register", "tok-alice", {
             "job_description": "train zamba2_2p7b over http",
             "n_chips": 1}), "alice's register", 201)
         alice = r["app_id"]
         check(r["state"] == "requested", f"gateway: alice {r}")
-        rv = ok(*client.req("POST", f"/v1/blocks/{alice}/review",
-                            "tok-root", {}), "root's review")
-        st = ok(*client.req("GET", f"/v1/blocks/{alice}", "tok-alice"),
+        rv = ok(*front.req("POST", f"/v1/blocks/{alice}/review",
+                           "tok-root", {}), "root's review")
+        st = ok(*front.req("GET", f"/v1/blocks/{alice}", "tok-alice"),
                 "alice's status")
         check(rv["approved"] and st["token"], f"gateway: review {rv}")
-        ok(*client.req("POST", f"/v1/blocks/{alice}/confirm", "tok-alice",
-                       {"token": st["token"]}), "alice's confirm")
-        ok(*client.req("POST", f"/v1/blocks/{alice}/activate", "tok-alice",
-                       {"job": alice_job}), "alice's activate")
-        ok(*client.req("POST", f"/v1/blocks/{alice}/run", "tok-alice", {}),
+        ok(*front.req("POST", f"/v1/blocks/{alice}/confirm", "tok-alice",
+                      {"token": st["token"]}), "alice's confirm")
+        ok(*front.req("POST", f"/v1/blocks/{alice}/activate", "tok-alice",
+                      {"job": alice_job}), "alice's activate")
+        ok(*front.req("POST", f"/v1/blocks/{alice}/run", "tok-alice", {}),
            "alice's run")
         t_steps = time.perf_counter()
-        stepped = ok(*client.req("POST", f"/v1/blocks/{alice}/steps",
-                                 "tok-alice", {"rounds": n_alice_steps}),
+        stepped = ok(*front.req("POST", f"/v1/blocks/{alice}/steps",
+                                "tok-alice", {"rounds": n_alice_steps}),
                      "alice's steps")
         steps_http_s = time.perf_counter() - t_steps
-        dl = ok(*client.req("GET", f"/v1/blocks/{alice}/download",
-                            "tok-alice"), "alice's download")
-        cl = ok(*client.req("GET", "/v1/cluster", "tok-alice"),
+        dl = ok(*front.req("GET", f"/v1/blocks/{alice}/download",
+                           "tok-alice"), "alice's download")
+        cl = ok(*front.req("GET", "/v1/cluster", "tok-alice"),
                 "alice's cluster view")
         alice_launches = counts()
         alice_block = daemon.registry.get(alice).block_id
         alice_bytes = tree_bytes(daemon.runtime(alice).state)
-        ok(*client.req("POST", f"/v1/blocks/{alice}/expire", "tok-alice",
-                       {}), "alice's expire")
+        ok(*front.req("POST", f"/v1/blocks/{alice}/expire", "tok-alice",
+                      {}), "alice's expire")
         gc.collect()
         after_alice = _mem(dev)
-
         # -------------------------------------------------- Bob, serve
-        progress("gateway: bob's 12 sessions over http")
-        zero_counts()
-        _zero_eager_calls()
-        t_bob = time.time()
-        b = ok(*client.req("POST", "/v1/submit", "tok-bob", {
-            "job_description": "serve deepseek_7b over http", "n_chips": 1,
-            "job": bob_job}), "bob's submit", 201)
-        bob = b["app_id"]
-        check(b["admitted"] and b["state"] == "running",
-              f"gateway: bob {b}")
-        rt = daemon.runtime(bob)
-        bob_bytes = tree_bytes(rt.state) + tree_bytes(rt.sessions.pool)
-        graph_before = rt.sessions.decode_graph
-        del rt
-        _disk_check(root, bob_bytes, "gateway")
-        polled = len(prompts) - 1        # this one long-polls
-        gen = f"/v1/blocks/{bob}/generate"
-
-        def sse_session(i):
-            t_send = time.perf_counter()
-            try:
-                frames = client.stream("POST", gen, "tok-bob", {
-                    "prompt": prompts[i], "max_new_tokens": max_new})
-                sessions[i] = {"send": t_send, "frames": frames}
-            except Exception as e:
-                sessions[i] = {"error": repr(e)}
-
-        def poll_session(i):
-            """``stream: false``; a long-poll that ends before its session
-            does (its wait is capped at 30 s, and the preemption falls
-            inside it) goes on over the block's feed from a cursor taken
-            before the submission."""
-            t_send = time.perf_counter()
-            try:
-                _, page = client.req("GET", f"/v1/blocks/{bob}/events?"
-                                     "kinds=state", "tok-bob")
-                cursor = page["next_after"]
-                s, out = client.req("POST", gen, "tok-bob", {
-                    "prompt": prompts[i], "max_new_tokens": max_new,
-                    "stream": False})
-                check(s == 200, f"gateway: long-poll answered {s}: {out}")
-                tokens, done = list(out["tokens"]), out["done"]
-                polls = 1
-                while not done:
-                    _, page = client.req(
-                        "GET", f"/v1/blocks/{bob}/events?after={cursor}"
-                        "&kinds=generate,session&timeout_s=30", "tok-bob")
-                    cursor = page["next_after"]
-                    polls += 1
-                    for ev in page["events"]:
-                        if ev.get("session") != out["session"]:
-                            continue
-                        if (ev["kind"] == "generate"
-                                and ev["index"] >= len(tokens)):
-                            tokens.append(ev["token"])
-                        done = done or ev["kind"] == "generate" and ev[
-                            "done"]
-                sessions[i] = {"send": t_send, "tokens": tokens,
-                               "polls": polls, "end": time.perf_counter()}
-            except BaseException as e:
-                sessions[i] = {"error": repr(e)}
-
-        threads = [threading.Thread(
-            target=poll_session if i == polled else sse_session, args=(i,),
-            name=f"gateway-session-{i}", daemon=True)
-            for i in range(len(prompts))]
-        t_traffic = time.perf_counter()
-        for th in threads:
-            th.start()
-        wait_for(lambda: watched["generate"] >= n_tokens // 3,
-                 "third of bob's tokens")
-        progress("gateway: root preempts bob")
-        t_pre = time.perf_counter()
-        t_pre_wall = time.time()
-        pr = ok(*client.req("POST", f"/v1/blocks/{bob}/preempt",
-                            "tok-root", {"reason": "admin over http"}),
-                "root's preempt")
-        preempt_http_s = time.perf_counter() - t_pre
-        t_res = time.perf_counter()
-        res_status, res_out = client.req("POST", f"/v1/blocks/{bob}/resume",
-                                         "tok-root", {})
-        resume_http_s = time.perf_counter() - t_res
-        for th in threads:
-            th.join(GATEWAY_TIMEOUT_S)
-        check(not any(th.is_alive() for th in threads),
-              "gateway: a session's request never ended")
-        t_end = max(s["frames"][-1]["t"] if "frames" in s else s["end"]
-                    for s in sessions if s and "error" not in s)
-        wait_for(lambda: _events(log, bob, "session", action="finished")
-                 and len(_events(log, bob, "session", action="finished"))
-                 == len(prompts), "the end of bob's sessions")
-        rt = daemon.runtime(bob)
-        graph_after = rt.sessions.decode_graph
-        admissions = rt.sessions.admissions
-        paged_rounds = dict(rt.paged_rounds)
-        del rt
-        bob_launches = counts()
-        ok(*client.req("POST", f"/v1/blocks/{bob}/expire", "tok-bob", {}),
-           "bob's expire")
-
-        # ----------------------------------------- root's other surfaces
-        ui = client.raw("GET", "/ui")
-        app_js = client.raw("GET", "/ui/app.js")
-        trace = ok(*client.req("GET", "/v1/trace", "tok-root"),
-                   "root's trace")
-        last = max(e.seq for e in list(log) if e.kind in GATEWAY_KINDS)
-        wait_for(lambda: watched["frames"]
-                 and watched["frames"][-1]["id"] >= last,
-                 "root's feed to reach the bus's last event")
+        b = _bob_traffic(front, daemon, log, root, bob_job, prompts,
+                         max_new)
+        _root_surfaces(front, log)
         elapsed = time.perf_counter() - t0
     finally:
         server.stop()
         daemon.stop()
         gw_server.json, gw_handlers.json = encoders
-        watcher.join(10.0)
+        front.watcher.join(10.0)
         shutil.rmtree(root, ignore_errors=True)
 
     # Alice: her workflow, launches, download, MFU, memory
@@ -5571,119 +5746,16 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
     mfu = roofline.get("mfu")
     check(mfu is not None and mfu > 0,
           f"gateway: alice's MFU in /v1/cluster {roofline}")
-    zero = {n: 0 for n in COUNTERS}
-    per_step = (train_launches(cfg, shape, opt_cfg,
-                               model_lib.abstract_params(cfg))
-                if dev.type == "cuda" else zero)
-    want_alice = {n: n_alice_steps * per_step[n] for n in COUNTERS}
+    want_alice = _alice_launches(cfg, shape, opt_cfg, dev, n_alice_steps)
     check(alice_launches == want_alice,
           f"gateway: alice's launches {alice_launches}, want {want_alice}")
     if base is not None:
         check(after_alice - base < 0.01 * alice_bytes,
               f"gateway: {(after_alice - base) / 1e9:.3f} GB left after "
               f"alice's expire, her state {alice_bytes / 1e9:.3f} GB")
-
-    # Bob: every session's tokens, frames and end
-    bad = [i for i, s in enumerate(sessions) if s is None or "error" in s]
-    check(not bad, f"gateway: sessions {bad} failed: "
-          f"{[sessions[i] for i in bad]}")
-    ttft, got = [], []
-    for i, sess in enumerate(sessions):
-        if i == polled:
-            got.append(sess["tokens"])
-            continue
-        frames = sess["frames"]
-        ids = [f["id"] for f in frames]
-        gens = [f for f in frames if f["event"] == "generate"]
-        check(ids == sorted(set(ids))
-              and [f["data"]["index"] for f in gens] == list(range(max_new))
-              and gens[-1]["data"]["done"] and frames[-1] is gens[-1],
-              f"gateway: session {i}'s stream: ids {ids}, indices "
-              f"{[f['data']['index'] for f in gens]}")
-        got.append([f["data"]["token"] for f in gens])
-        ttft.append(gens[0]["t"] - sess["send"])
-    check(got == want, f"gateway: bob's tokens over http differ from "
-          f"serve_paged's in sessions "
-          f"{[i for i in range(len(want)) if got[i] != want[i]]}")
-    # one preemption, one resume, a compile-cache hit
-    pre = _events(log, bob, "preempted")
-    res = _events(log, bob, "resumed")
-    check(pr["state"] == "preempted" and len(pre) == len(res) == 1
-          and pre[0].seq < res[0].seq,
-          f"gateway: root's preempt {pr}, events preempted {pre}, resumed "
-          f"{res}")
-    resumed_by = "root" if res_status == 200 else "tick"
-    check(res_status == 200 or (res_status == 409 and res[0].t
-                                <= t_pre_wall + preempt_http_s
-                                + resume_http_s),
-          f"gateway: root's resume answered {res_status}: {res_out}")
-    # (the paged plane's steps are cached under no block id: Bob's block
-    # is the only one on the card after his preemption)
-    comp = [e.payload["action"] for e in list(log) if e.kind == "compile"
-            and e.seq > pre[0].seq]
-    check("miss" not in comp and "hit" in comp,
-          f"gateway: bob's compile-cache events after his preemption "
-          f"{comp}")
-    # launches: his admissions and the rounds that decoded, in two
-    # graphs.  Every step event is a round; a round the engine dispatched
-    # after the last active session ended decodes nothing (no graph
-    # call), so it is counted apart
-    graphs = [g.stats() for g in {id(g): g for g in (
-        graph_before, graph_after)}.values()]
-    rounds = len(_events(log, bob, "step"))
-    decoded, empty = paged_rounds["decoded"], paged_rounds["empty"]
-    check(decoded + empty == rounds,
-          f"gateway: bob's {rounds} step events against his block's "
-          f"rounds {paged_rounds}")
-    if dev.type == "cuda":
-        check(len(graphs) == 2 and all(
-            g["captures"] == 1 and g["eager_calls"] == 0 for g in graphs)
-            and sum(g["replays"] for g in graphs) == decoded
-            and _eager_calls() == 0,
-            f"gateway: bob's decode graphs {graphs} for {decoded} rounds "
-            f"that decoded ({empty} empty), {_eager_calls()} eager decode "
-            f"steps")
-        pre_l, _, per_round = dense_launches(bob_cfg)
-    else:
-        check(sum(g["eager_calls"] for g in graphs) == decoded,
-              f"gateway: bob's {decoded} rounds that decoded ({empty} "
-              f"empty) on the CPU, graphs {graphs}")
-        pre_l = per_round = zero
-    want_bob = {n: admissions * pre_l[n] + decoded * per_round[n]
-                for n in COUNTERS}
-    check(bob_launches == want_bob,
-          f"gateway: bob's launches {bob_launches}, want {want_bob} "
-          f"({admissions} admissions, {decoded} rounds that decoded)")
-
-    # root: the feed in bus order, the dashboard, the trace
-    frames = watched["frames"]
-    ids = [f["id"] for f in frames]
-    bus = [e for e in list(log) if e.kind in GATEWAY_KINDS]
-    check(ids == [e.seq for e in bus] and ids == sorted(set(ids)),
-          f"gateway: root's feed ids {ids[:20]}... are not the bus's "
-          f"{[e.seq for e in bus][:20]}...")
-    for app in (alice, bob):
-        seen = [f["data"]["state"] for f in frames if f["event"] == "state"
-                and f["data"]["app_id"] == app]
-        check(seen == [e.payload["state"] for e in _events(log, app,
-                                                            "state")],
-              f"gateway: {app}'s states on root's feed {seen}")
-    check(ui[0] == 200 and ui[1].startswith("text/html")
-          and b"/ui/app.js" in ui[2] and app_js[0] == 200
-          and app_js[1].startswith("text/javascript"),
-          f"gateway: /ui {ui[:2]}, /ui/app.js {app_js[:2]}")
-    check(isinstance(trace.get("traceEvents"), list),
-          f"gateway: /v1/trace is no Chrome trace: {list(trace)[:5]}")
-    # no tensor hidden as a string, server side and client side
-    check(strict.failures == [] and strict.encoded > 0,
-          f"gateway: the strict encoder failed: {strict.failures}")
-    for obj in client.bodies:
-        text = json.dumps(obj)
-        check("tensor(" not in text, f"gateway: a tensor written out as a "
-              f"string in {text[:300]}")
-
-    traffic_s = t_end - t_traffic
-    gap_s = res[0].t - t_pre_wall
+    bob_out, admin, graphs = _bob_held("gateway", b, log, dev, bob_cfg,
+                                       want, max_new, paged)
+    _front_held("gateway", front, log, (alice, b["app_id"]), strict)
     out = {
         "alice": {"arch": cfg.name, "n_layers": cfg.n_layers,
                   "steps": n_alice_steps,
@@ -5693,37 +5765,223 @@ def phase_gateway(device="cuda", smoke=False, paged=None):
                   "state_gb": alice_bytes / 1e9, "mfu": mfu,
                   "mem_after_expire_gb": (None if base is None else
                                           (after_alice - base) / 1e9)},
-        "bob": {"arch": bob_cfg.name, "sessions": len(prompts),
-                "sse_sessions": len(ttft), "max_new_tokens": max_new,
-                "admissions": admissions, "rounds": rounds,
-                "decoded_rounds": decoded, "empty_rounds": empty,
-                "tokens": n_tokens, "state_gb": bob_bytes / 1e9,
-                "long_poll_requests": sessions[polled]["polls"],
-                "decode_graphs": graphs,
-                "submit_to_first_token_s":
-                    _events(log, bob, "generate")[0].t - t_bob,
-                "http": {"ttft_p50_s": float(np.percentile(ttft, 50)),
-                         "ttft_p99_s": float(np.percentile(ttft, 99)),
-                         "tok_s": n_tokens / traffic_s,
-                         "tok_s_outside_preemption":
-                             n_tokens / (traffic_s - gap_s)},
-                "direct": {"ttft_p50_s": paged["ttft_p50_s"],
-                           "ttft_p99_s": paged["ttft_p99_s"],
-                           "tok_s": paged["tok_s"]}},
-        "admin": {"resumed_by": resumed_by, "resume_status": res_status,
-                  "preempt_http_s": preempt_http_s,
-                  "resume_http_s": resume_http_s,
-                  "preempt_event_s": pre[0].t - t_pre_wall,
-                  "preempted_to_resumed_event_s": res[0].t - pre[0].t,
-                  "preempt_call_to_resumed_event_s": gap_s,
-                  "compile_after_preempt": comp},
-        "http_requests": client.requests, "sse_frames": client.frames,
-        "root_feed_frames": len(frames), "strict_encodes": strict.encoded,
+        "bob": bob_out, "admin": admin,
+        "http_requests": front.client.requests,
+        "sse_frames": front.client.frames,
+        "root_feed_frames": len(front.frames),
+        "strict_encodes": strict.encoded,
         "phase_s": elapsed, "launches": {
-            n: alice_launches[n] + bob_launches[n] for n in COUNTERS},
-        "launches_by_user": {"alice": alice_launches, "bob": bob_launches},
+            n: alice_launches[n] + b["launches"][n] for n in COUNTERS},
+        "launches_by_user": {"alice": alice_launches, "bob": b["launches"]},
         "card": _CARD}
     emit("gateway", **out)
+    out["decode_graphs"] = graphs
+    return out
+
+
+def _alice_launches(cfg, shape, opt_cfg, dev, n_steps):
+    """``n_steps`` train steps' launches (none on the CPU)."""
+    from repro_torch.models import model as model_lib
+    per_step = (train_launches(cfg, shape, opt_cfg,
+                               model_lib.abstract_params(cfg))
+                if dev.type == "cuda" else {n: 0 for n in COUNTERS})
+    return {n: n_steps * per_step[n] for n in COUNTERS}
+
+
+#: service: the launcher's steps on train_f32's job
+SERVICE_LAUNCHER_STEPS = 3
+
+
+def phase_service(device="cuda", smoke=False, train=None, paged=None,
+                  f32=None, gateway=None):
+    """The daemon's service mode across ranks (item 8f) on one card: the
+    gateway phase's scenario through ``core.service``'s leader under a
+    process group of one rank (NCCL on the card, gloo on the CPU; a
+    ``HashStore``), where every command, tick and engine round is an
+    entry of the leader's log, pickled and passed through the control
+    group as it is across ranks.  Alice submits train_hybrid's job with
+    autostep to 2 steps (``train``: zamba2_2p7b at full width, on the
+    sharded runtime at (1, 1)); Bob runs the gateway phase's traffic
+    (``_bob_traffic``: serve_paged's 12 sessions as concurrent generate
+    requests, a preemption and a resume); then ``launch.train.run`` with
+    ``--autostep`` trains train_f32's job (``f32``: deepseek_7b at full
+    width cut to 4 layers, fp32 moments) for 3 steps under the same
+    group.  Held bit for bit: Alice's losses and grad norms against
+    train_hybrid's, Bob's tokens against serve_paged's (``paged``), the
+    launcher's losses and grad norms against train_f32's; launches
+    exactly as the gateway phase counts them; ``log_entries`` above 0 and
+    no tripwire fired; root's feed, ``/ui`` and the trace as in the
+    gateway phase.  Read: HTTP TTFT p50 and p99 against the gateway
+    phase's (``gateway``), the leader's host time per entry (pickle and
+    broadcast), ``log_entries`` and ``log_bytes``.  The process group is
+    destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch import device as device_lib
+    from repro_torch.core.service import ServiceDaemon
+    from repro_torch.core.topology import Topology
+    from repro_torch.gateway import GatewayServer, ProfileStore, UserProfile
+    from repro_torch.gateway import handlers as gw_handlers
+    from repro_torch.gateway import server as gw_server
+    from repro_torch.launch import train as launch_train
+    if train is None:
+        train = phase_train_hybrid(device, smoke)
+        _free(device)
+    if paged is None:
+        paged = phase_serve_paged(device, smoke)
+        _free(device)
+    if f32 is None:
+        f32 = phase_train_f32(device, smoke)
+        _free(device)
+    cfg, shape, opt_cfg = _train_hybrid_setup(smoke)
+    alice_job, bob_job = _gateway_jobs(smoke)
+    bob_cfg = _paged_job(smoke).cfg
+    prompts = _paged_prompts(bob_cfg, smoke)
+    max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
+    want = list(paged["session_tokens"].values())
+    n_alice = 2
+    dev = torch.device(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    strict = StrictJSON()
+    saved = (gw_server.json, gw_handlers.json, gw_handlers.parse_job)
+    parse = gw_handlers.parse_job
+
+    def parse_job(spec):
+        # a train job's step events carry its loss and grad norm
+        job = parse(spec)
+        if getattr(job, "kind", None) == "train":
+            job = dataclasses.replace(job, collect_metrics=True)
+        return job
+
+    gw_server.json = gw_handlers.json = strict
+    gw_handlers.parse_job = parse_job
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    before = dict(device_lib.CONTROL)
+    log = []
+    daemon = server = None
+    out = {"backend": dist.get_backend(),
+           "world_size": dist.get_world_size()}
+    try:
+        daemon = ServiceDaemon(Topology(n_pods=1, pod_x=1, pod_y=1),
+                               devices=[device], ckpt_root=root,
+                               background=True)
+        daemon.bus.subscribe(log.append)
+        server = GatewayServer(daemon, ProfileStore([
+            UserProfile(u, tok, priority=p, admin=a)
+            for u, tok, p, a in GATEWAY_USERS])).start()
+        front = _Front(server.url, "service")
+        ok = front.ok
+        t0 = time.perf_counter()
+        front.watcher.start()
+        # --------------------------------------- Alice, train, autostep
+        progress("service: alice's train_hybrid job under autostep")
+        zero_counts()
+        a = ok(*front.req("POST", "/v1/submit", "tok-alice", {
+            "job_description": "train zamba2_2p7b under autostep",
+            "n_chips": 1, "job": alice_job,
+            "autostep": {"until_steps": n_alice}}), "alice's submit", 201)
+        alice = a["app_id"]
+        check(a["admitted"] and a["autostep"]["until_steps"] == n_alice,
+              f"service: alice {a}")
+        front.wait_for(lambda: any(
+            f["event"] == "state" and f["data"]["app_id"] == alice
+            and f["data"]["state"] == "done" for f in list(front.frames)),
+            "alice's last step")
+        alice_launches = counts()
+        ok(*front.req("POST", f"/v1/blocks/{alice}/expire", "tok-alice",
+                      {}), "alice's expire")
+        # -------------------------------------------------- Bob, serve
+        b = _bob_traffic(front, daemon, log, root, bob_job, prompts,
+                         max_new)
+        _root_surfaces(front, log)
+        elapsed = time.perf_counter() - t0
+        server.stop()
+        daemon.stop()
+        server = None
+        out["log"] = daemon.log_stats()
+        # ------------------------------ the launcher, under autostep
+        progress("service: launch.train --autostep on train_f32's job")
+        fcfg, fshape, fopt = _train_f32_setup(smoke)
+        args = launch_train.parse_args([
+            "--arch", "deepseek_7b", "--steps", str(SERVICE_LAUNCHER_STEPS),
+            "--seq-len", str(fshape.seq_len),
+            "--global-batch", str(fshape.global_batch),
+            "--microbatch", str(fshape.microbatch), "--autostep",
+            "--device", device, "--log-every", "1000",
+            "--ckpt-dir", root, "--ckpt-every", "0"])
+        zero_counts()
+        res = launch_train.run(args, fcfg, opt=fopt)
+        launcher_launches = counts()
+        out["launcher_log"] = res["daemon"].log_stats()
+    finally:
+        if server is not None:
+            server.stop()
+        if daemon is not None:
+            daemon.stop()
+        gw_server.json, gw_handlers.json, gw_handlers.parse_job = saved
+        shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+    front.watcher.join(10.0)
+
+    # Alice: autostep to 2 steps, bit for bit train_hybrid's
+    steps = _events(log, alice, "step")
+    losses = [e.payload["metrics"]["loss"] for e in steps]
+    norms = [e.payload["metrics"]["grad_norm"] for e in steps]
+    check(losses == train["losses"][:n_alice]
+          and norms == train["grad_norms"][:n_alice],
+          f"service: alice's losses {losses} and grad norms {norms} are "
+          f"not train_hybrid's {train['losses'][:n_alice]}, "
+          f"{train['grad_norms'][:n_alice]}")
+    auto = [e.payload["action"] for e in _events(log, alice, "autostep")]
+    check(auto == ["enabled", "done"], f"service: alice's autostep {auto}")
+    want_alice = _alice_launches(cfg, shape, opt_cfg, dev, n_alice)
+    check(alice_launches == want_alice,
+          f"service: alice's launches {alice_launches}, want {want_alice}")
+    bob_out, admin, graphs = _bob_held("service", b, log, dev, bob_cfg,
+                                       want, max_new, paged)
+    _front_held("service", front, log, (alice, b["app_id"]), strict)
+    # the launcher: bit for bit train_f32's
+    hist = res["history"]
+    got = ([h["loss"] for h in hist], [h["grad_norm"] for h in hist])
+    check(got == (f32["losses"], f32["grad_norms"]),
+          f"service: the launcher's losses and grad norms {got} are not "
+          f"train_f32's {f32['losses']}, {f32['grad_norms']}")
+    want_l = _alice_launches(fcfg, fshape, fopt, dev, SERVICE_LAUNCHER_STEPS)
+    check(launcher_launches == want_l,
+          f"service: the launcher's launches {launcher_launches}, want "
+          f"{want_l}")
+    for what in ("log", "launcher_log"):
+        lg = out[what]
+        check(lg["log_entries"] > 0 and lg["diverged"] is None,
+              f"service: the leader's {what} {lg}")
+    sent = {k: device_lib.CONTROL[k] - before[k] for k in before}
+    check(sent["entries"] == out["log"]["log_entries"]
+          + out["launcher_log"]["log_entries"],
+          f"service: the control channel carried {sent}, the logs "
+          f"{out['log']}, {out['launcher_log']}")
+    lg = out["log"]
+    out.update({
+        "alice": {"arch": cfg.name, "steps": n_alice, "losses": losses,
+                  "grad_norms": norms,
+                  "step_s": [e.payload["step_s"] for e in steps]},
+        "bob": bob_out, "admin": admin,
+        "launcher": {"arch": fcfg.name, "n_layers": fcfg.n_layers,
+                     "steps": len(hist), "losses": got[0],
+                     "grad_norms": got[1], "wall_s": res["wall_s"]},
+        "leader_send_us_per_entry": 1e6 * lg["send_s"] / lg["log_entries"],
+        "log_bytes_per_entry": lg["log_bytes"] / lg["log_entries"],
+        "ttft_vs_gateway": (None if gateway is None else {
+            "gateway_p50_s": gateway["bob"]["http"]["ttft_p50_s"],
+            "gateway_p99_s": gateway["bob"]["http"]["ttft_p99_s"],
+            "service_p50_s": bob_out["http"]["ttft_p50_s"],
+            "service_p99_s": bob_out["http"]["ttft_p99_s"]}),
+        "http_requests": front.client.requests, "phase_s": elapsed,
+        "launches": {n: alice_launches[n] + b["launches"][n]
+                     + launcher_launches[n] for n in COUNTERS},
+        "launches_by_user": {"alice": alice_launches, "bob": b["launches"],
+                             "launcher": launcher_launches},
+        "card": _CARD})
+    emit("service", **out)
     out["decode_graphs"] = graphs
     return out
 
@@ -5837,6 +6095,10 @@ def _run_all() -> int:
     _free()
     progress("gateway")
     gateway = phase_gateway(paged=paged)
+    _free()
+    progress("service")
+    service = phase_service(train=train_hybrid, paged=paged, f32=train_f32,
+                            gateway=gateway)
 
     nl = dense["launches"]
     check(nl["flash_attention"] >= 30 and nl["rmsnorm"] >= 61,
@@ -5862,7 +6124,7 @@ def _run_all() -> int:
             "train_moe": train_moe["launches"],
             "train_xlstm": train_xlstm["launches"],
             "preempt": preempt["launches"], "control": control["launches"],
-            "gateway": gateway["launches"]}
+            "gateway": gateway["launches"], "service": service["launches"]}
 
     def launched(counter):
         return {run: c[counter] for run, c in runs.items()}
@@ -5881,7 +6143,8 @@ def _run_all() -> int:
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
               "blocks": [blocks["carol"]["decode_graph"]],
-              "gateway": gateway["decode_graphs"]}
+              "gateway": gateway["decode_graphs"],
+              "service": service["decode_graphs"]}
 
     def in_graphs(counter):
         if counter not in COUNTERS:    # fused_adamw: train only, eager
@@ -5911,7 +6174,8 @@ def _run_all() -> int:
                            train_xlstm["launches"]["fused_adamw_f32"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],
                        "control": control["launches"]["fused_adamw_f32"],
-                       "gateway": gateway["launches"]["fused_adamw_f32"]}
+                       "gateway": gateway["launches"]["fused_adamw_f32"],
+                       "service": service["launches"]["fused_adamw_f32"]}
         else:
             per_run = launched(name)
         total = sum(per_run.values())

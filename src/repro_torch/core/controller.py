@@ -48,9 +48,15 @@ nothing of it and follows its step count and saves, so the registry,
 the scheduler's loop and the event stream are the same on every rank.
 A migration or resize rebuilds the block on its new ranks from the
 checkpoint its old first rank names (``BlockRuntime.rebuild``); a
-resume under a process group is such a rebuild.  The daemon's
-background mode ticks on each rank's wall clock, where ranks could
-disagree: ``tick`` without ``now`` raises there (item 8f).
+resume under a process group is such a rebuild.  A direct caller
+across ranks gives every call that takes one a ``now`` (``tick``
+without it raises there: each rank's wall clock is its own); the
+daemon's background mode across ranks is ``core.service``'s
+``ServiceDaemon``, whose leader on rank 0 orders every command, tick
+and engine round into a log that every other rank replays, each entry
+at the leader's ``now``.  A paged serve block's sessions are followed
+on every rank (``OffRankRuntime``), so its generate surface answers
+from any rank.
 """
 from __future__ import annotations
 
@@ -542,10 +548,11 @@ class ClusterController:
         sample federation utilization."""
         if now is None and world_size() > 1:
             raise NotImplementedError(
-                "tick() on each rank's wall clock: under a process group "
-                "of several ranks every rank ticks at the same model time "
-                "(pass now=); the daemon's background mode across ranks "
-                "is item 8f")
+                "tick() without now= under a process group of several "
+                "ranks would read each rank's own clock: every rank ticks "
+                "at the same time, so pass now=, or run the daemon's "
+                "background mode through core.service.ServiceDaemon, "
+                "whose leader gives every tick its now")
         expired = self.registry.expired(now)
         for app_id in expired:
             self.expire(app_id, now=now)
@@ -799,9 +806,12 @@ class ClusterController:
             self.registry.set_state(app_id, BlockState.RUNNING, "resumed")
         return rt
 
-    def resize_block(self, app_id: str, new_n_chips: int) -> BlockRuntime:
+    def resize_block(self, app_id: str, new_n_chips: int,
+                     now: Optional[float] = None) -> BlockRuntime:
         """Elastic scaling: grow/shrink a running block; state is resharded
-        onto the new sub-mesh via checkpoint restore."""
+        onto the new sub-mesh via checkpoint restore.  ``now`` is the
+        admission pump's clock afterwards (its wait and slack order), as
+        ``expire``'s."""
         blk = self.registry.get(app_id)
         old_rt = self.runtimes[app_id]
         old_rt.save(async_=False)
@@ -814,7 +824,7 @@ class ClusterController:
         rt = self._rebuild(old_rt, new_grant)
         self.runtimes[app_id] = rt
         self._attach_roofline(blk, rt)       # new chip-count denominator
-        self.scheduler.pump()   # a shrink may free room for queued blocks
+        self.scheduler.pump(now)   # a shrink may free room for queued blocks
         return rt
 
     # ------------------------------------------------------- interference

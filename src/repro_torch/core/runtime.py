@@ -416,8 +416,7 @@ class BlockRuntime(InflightWindow):
     def _paged_geometry(self) -> Dict[str, int]:
         job = self.job
         return dict(page_size=job.page_size, n_pages=job.n_pages,
-                    max_slots=job.max_slots,
-                    max_seq_len=job.max_seq_len or job.shape.seq_len)
+                    max_slots=job.max_slots, max_seq_len=_max_seq_len(job))
 
     def _make_scheduler(self, params, init_pool: bool = True):
         """The paged plane's scheduler; on a mesh of several ranks each
@@ -479,7 +478,9 @@ class BlockRuntime(InflightWindow):
         synchronously and return their emissions (buffered ones first)."""
         if self.sessions is None:
             raise ValueError("feed() needs a paged serve job")
-        out = self.harvest()
+        # client-driven: the block's own ranks' emissions (``harvest``'s
+        # broadcast to every rank is the engine's, round by round)
+        out, self._emissions = self._emissions, []
         for _ in range(rounds):
             out.extend(self._round())
             self.step_count += 1
@@ -493,8 +494,15 @@ class BlockRuntime(InflightWindow):
         return out
 
     def harvest(self) -> list:
-        """Drain emissions buffered by window-dispatched decode steps."""
+        """Drain emissions buffered by window-dispatched decode steps.
+        Under a process group of several ranks a paged block's emissions
+        are its first rank's, on every rank (``emissions_from``, a
+        broadcast every rank enters as it harvests), so every rank's bus
+        publishes the same tokens and session edges."""
         out, self._emissions = self._emissions, []
+        if self.job.paged and on_several_ranks(self):
+            from repro_torch.serve.decode_scheduler import emissions_from
+            out = emissions_from(self.ranks[0], out)
         return out
 
     @property
@@ -765,6 +773,9 @@ class BlockRuntime(InflightWindow):
                 self.cache_len = int(dec["cache_len"])
         self.step_count = int(restored["step_count"])
         self.last_saved_step = self.step_count   # state == checkpoint now
+        if job.paged and on_several_ranks(self):
+            # the restored sessions, for the ranks outside the block
+            from_rank(self.ranks[0], SessionTable.of(self.sessions))
         return at
 
     @classmethod
@@ -788,6 +799,8 @@ class BlockRuntime(InflightWindow):
         rt = cls(grant, old.job, devices, ckpt_root)
         if step is not None and isinstance(old_ckpt, type(rt.ckpt)):
             rt.ckpt = old_ckpt      # same namespace: adopt its history
+        if hasattr(rt, "paged_rounds") and hasattr(old, "paged_rounds"):
+            rt.paged_rounds = dict(old.paged_rounds)   # kept, as a resume's
         rt.adopt(step)
         return rt
 
@@ -855,9 +868,15 @@ class OffRankRuntime(InflightWindow):
     block's ranks (``make_block_mesh``), as every rank must.  Its window's
     steps finish as they are dispatched, and each completion records the
     step time and metrics the block's first rank measured
-    (``first_ranks_record``).  A serve block's generate
-    surface answers on the block's own ranks only: on this rank it
-    raises (item 8f)."""
+    (``first_ranks_record``).  A paged serve block's sessions are
+    followed here too (``SessionTable``: ids, and which sessions are
+    queued or running, with no state and no device), so the daemon's
+    generate command takes the same session id on every rank, the
+    engine's ``idle_serve`` reads as on the block's ranks, and
+    ``harvest`` returns the block's emissions (its first rank's,
+    broadcast each round), which every rank's bus publishes.  A dense
+    serve block's prefill, and a client-driven ``feed``, run on the
+    block's own ranks only: here they raise."""
 
     device = None
     state = None
@@ -882,6 +901,8 @@ class OffRankRuntime(InflightWindow):
         self.step_count = 0
         self.last_saved_step = 0
         self.suspended = False
+        self.table = (SessionTable(_max_seq_len(job))
+                      if job.kind == "serve" and job.paged else None)
         self._init_window()
 
     # the in-flight window: a step "finishes" as it is dispatched
@@ -941,37 +962,118 @@ class OffRankRuntime(InflightWindow):
         if step is not None:
             self._manager().saved(step)
         self.step_count = self.last_saved_step = step or 0
+        if self.table is not None:
+            # the sessions the block's ranks restored (``restore``), or
+            # none for a fresh block
+            self.table = (from_rank(self.ranks[0], None)
+                          if step is not None
+                          else SessionTable(_max_seq_len(self.job)))
 
     rebuild = classmethod(BlockRuntime.rebuild.__func__)
 
-    # a serve block's generate surface is its own rank's
-    idle_serve = False
-
+    # ------------------------------------------------ generate sessions
     @property
     def sessions(self):
-        if self.job.kind == "serve":
-            raise self._elsewhere("sessions")
-        return None
+        """A paged serve block's session table (what the daemon's
+        generate command and ``has_work`` read), else None as on the
+        block's ranks."""
+        return self.table
+
+    @property
+    def idle_serve(self) -> bool:
+        """As on the block's ranks: a paged block with no queued or
+        running session (so the engine dispatches no round there)."""
+        return self.table is not None and not self.table.has_work
+
+    def start_session(self, prompt: Sequence[int], max_new_tokens: int = 16,
+                      eos_id: Optional[int] = None) -> str:
+        if self.table is None:
+            raise ValueError("block has no generate surface "
+                             "(needs a paged serve job)")
+        return self.table.submit(prompt, max_new_tokens=max_new_tokens,
+                                 eos_id=eos_id)
+
+    def harvest(self) -> list:
+        """The block's emissions since the last harvest, its first rank's
+        (the broadcast its ranks enter in ``BlockRuntime.harvest``)."""
+        if self.table is None:
+            return []
+        from repro_torch.serve.decode_scheduler import emissions_from
+        out = emissions_from(self.ranks[0], None)
+        self.table.follow(out)
+        return out
 
     def _elsewhere(self, what: str):
         return NotImplementedError(
-            f"{what}: a serve block answers on its own rank "
-            f"{self.ranks}, and this rank ({rank()}) is outside it "
-            f"(item 8f)")
-
-    def harvest(self) -> list:
-        if self.job.kind == "serve":
-            raise self._elsewhere("harvest")
-        return []
-
-    def start_session(self, *args, **kwargs):
-        raise self._elsewhere("start_session")
+            f"{what}: a serve block runs it on its own ranks "
+            f"{self.ranks}, and this rank ({rank()}) is outside them; "
+            f"only a paged block's sessions are followed on every rank")
 
     def feed(self, *args, **kwargs):
         raise self._elsewhere("feed")
 
     def prefill(self, *args, **kwargs):
         raise self._elsewhere("prefill")
+
+
+def _max_seq_len(job: JobSpec) -> int:
+    """A paged job's per-session context cap."""
+    return job.max_seq_len or job.shape.seq_len
+
+
+class SessionTable:
+    """A paged serve block's sessions as a rank outside the block follows
+    them: the next session id, and which sessions are queued and running,
+    kept from the submissions (``submit``, the ``DecodeScheduler``'s
+    checks and ids) and the block's emissions (``follow``: admitted,
+    evicted, finished).  After each harvest ``has_work`` is the
+    scheduler's."""
+
+    def __init__(self, max_seq_len: int, next_id: int = 0,
+                 queued: Sequence[str] = (), running: Sequence[str] = ()):
+        self.max_seq_len = max_seq_len
+        self.next_id = next_id
+        self.queued = list(queued)
+        self.running = set(running)
+
+    @classmethod
+    def of(cls, sched) -> "SessionTable":
+        """A ``DecodeScheduler``'s sessions as a table."""
+        return cls(sched.max_seq_len, sched._next_id,
+                   [s.sid for s in sched.queued],
+                   [s.sid for s in sched.slots if s is not None])
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queued or self.running)
+
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
+               eos_id: Optional[int] = None) -> str:
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        if len(prompt) >= self.max_seq_len:
+            raise ValueError(
+                f"prompt length {len(prompt)} >= max_seq_len "
+                f"{self.max_seq_len}")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        sid = f"g{self.next_id:06d}"
+        self.next_id += 1
+        self.queued.append(sid)
+        return sid
+
+    def follow(self, emissions: Sequence[Dict[str, Any]]) -> None:
+        for em in emissions:
+            event, sid = em["event"], em["session"]
+            if event == "admitted":
+                self.queued.remove(sid)
+                self.running.add(sid)
+            elif event == "evicted":
+                self.running.discard(sid)
+                self.queued.insert(0, sid)
+            elif event == "finished":
+                self.running.discard(sid)
 
 
 class _SavedSteps:

@@ -18,12 +18,20 @@ block runs on the ranks of its chips (``block_ranks``), at most one chip
 of each, and writes its checkpoints from the first of them
 (``is_block_writer``); what the whole control plane writes comes from
 world rank 0 (``is_writer``).
+
+The daemon's service mode across ranks (``core.service``) orders every
+mutation on rank 0 and sends it to the other ranks over a control
+channel: a gloo group over every rank (``control_group``), made beside
+the world group, so its entries stay on the host even where the world
+group is NCCL, and ``to_ranks``, a ``broadcast_object_list`` over it,
+counted in entries and bytes (``CONTROL``).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
 import os
+import pickle
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -88,6 +96,7 @@ def init_distributed(device="cuda", *, timeout_s: float = DEFAULT_TIMEOUT_S,
     if backend == "nccl":
         kw["device_id"] = dev
     dist.init_process_group(**kw)
+    control_group(timeout_s)
     return dev
 
 
@@ -166,3 +175,43 @@ def from_rank(src: int, value):
     box = [value]
     dist.broadcast_object_list(box, src=src)
     return box[0]
+
+
+#: the control channel's traffic in this process: entries and pickled
+#: bytes sent (rank 0) or received (every other rank) by ``to_ranks``
+CONTROL = {"entries": 0, "bytes": 0}
+
+_CONTROL = (None, None)      # (the world group it was made beside, it)
+
+
+def control_group(timeout_s: float = DEFAULT_TIMEOUT_S):
+    """The control channel's group: gloo over every rank, made once beside
+    the world group (``init_distributed`` makes it as it starts the world;
+    a world begun elsewhere gets it at the first call, which every rank
+    makes at the same point, as every group's creation)."""
+    global _CONTROL
+    world = dist.group.WORLD
+    if _CONTROL[0] is not world:
+        _CONTROL = (world, dist.new_group(
+            backend="gloo", timeout=datetime.timedelta(seconds=timeout_s)))
+    return _CONTROL[1]
+
+
+def to_ranks(value=None, src: int = 0, what: str = "the value"):
+    """``value`` from rank ``src`` on every rank, over the control group
+    (a ``broadcast_object_list`` of its pickle, which ``src`` makes
+    first, so ``what`` that does not pickle raises a ``TypeError`` there
+    before any rank waits); counted in ``CONTROL``.  Also at world 1,
+    where it passes through the group all the same."""
+    data = None
+    if rank() == src:
+        try:
+            data = pickle.dumps(value)
+        except Exception as e:
+            raise TypeError(f"{what} do not pickle, so rank {src} cannot "
+                            f"send them to the other ranks: {e!r}") from e
+    box = [data]
+    dist.broadcast_object_list(box, src=src, group=control_group())
+    CONTROL["entries"] += 1
+    CONTROL["bytes"] += len(box[0])
+    return pickle.loads(box[0])

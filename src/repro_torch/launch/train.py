@@ -9,9 +9,16 @@ The daemon's topology is one chip on ``--device``.  With ``--autostep``
 the daemon runs in background mode and its autostep engine drives the
 block to ``--steps`` (``--pace`` caps it at that many steps a second);
 without it the launcher dispatches the steps itself with ``run_steps``.
+Under a process group ``--autostep`` runs the daemon's service mode
+across ranks (``core.service``): rank 0's daemon leads, in background
+mode, and drives the loop below; every other rank ``follow()``s its
+log.  Each rank returns its own record, the same losses on every rank
+(each step's metrics as the block's first rank measured them); at
+world 1 too the leader's log passes through the control group.
 
 Under ``python -m torch.distributed.run --nproc-per-node N`` every rank
-runs this launcher and its own deterministic daemon, so every rank
+runs this launcher and, without ``--autostep``, its own deterministic
+daemon, so every rank
 reaches the same grant: one block of N chips over every rank (a
 ``(data, model)`` mesh of ``mesh_shape_for(N)``), the topology built
 from the world size as the reference's launcher builds it from its
@@ -36,7 +43,8 @@ moments; ``config(args)`` is the one the flags name.
       --smoke --steps 20 --seq-len 64 --global-batch 4 [--device cpu] \\
       [--ckpt-dir DIR --ckpt-every 10 [--resume]] [--autostep [--pace HZ]]
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
-      --nproc-per-node 2 -m repro_torch.launch.train --arch deepseek_7b --smoke --device cpu
+      --nproc-per-node 2 -m repro_torch.launch.train --arch deepseek_7b \\
+      --smoke --device cpu [--autostep]
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from repro_torch import device as device_lib
 from repro_torch.core.block import BlockState
 from repro_torch.core.daemon import ClusterDaemon
 from repro_torch.core.runtime import JobSpec
+from repro_torch.core.service import ServiceDaemon
 from repro_torch.core.topology import Topology
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
@@ -92,10 +101,12 @@ def config(args: argparse.Namespace) -> ModelConfig:
 
 
 def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
-        state_bits: Optional[int] = None) -> Dict[str, Any]:
+        state_bits: Optional[int] = None,
+        opt: Optional[opt_lib.OptConfig] = None) -> Dict[str, Any]:
     """Train ``cfg`` (``config(args)`` when None) to ``--steps`` (from the
     latest checkpoint with ``--resume``), the AdamW moments fp32 (as the
-    flags give them) or, with ``state_bits=8``, int8; returns the daemon,
+    flags give them) or, with ``state_bits=8``, int8, or with the
+    optimizer config ``opt`` the caller made; returns the daemon,
     the block's app id and runtime, each step's metrics, the step the run
     started at, the wall time of the loop and the checkpoints on disk.
     However the loop ends, an async save it started lands, and the daemon
@@ -104,25 +115,24 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
     shape = ShapeConfig("cli", "train", seq_len=args.seq_len,
                         global_batch=args.global_batch,
                         microbatch=args.microbatch)
-    opt_cfg = opt_lib.OptConfig(lr=args.lr,
-                                warmup_steps=max(args.steps // 20, 1),
-                                total_steps=args.steps,
-                                state_bits=state_bits)
+    opt_cfg = opt or opt_lib.OptConfig(
+        lr=args.lr, warmup_steps=max(args.steps // 20, 1),
+        total_steps=args.steps, state_bits=state_bits)
     # one block spanning every rank (one chip without a process group),
     # granted by the daemon (--autostep needs the background pump: the
-    # engine steps from there)
+    # engine steps from there; under a process group, rank 0's)
     n = device_lib.world_size()
-    if args.autostep and n > 1:
-        raise NotImplementedError(
-            "--autostep under a process group of several ranks: the "
-            "daemon's background mode ticks on each rank's wall clock, "
-            "where the ranks could disagree (item 8f)")
     devices = ([args.device] * n if device_lib.resolve(args.device).type
                != "cuda" or n == 1 else device_lib.cuda_devices())
     topo = Topology(n_pods=1, pod_x=n, pod_y=1)
-    with ClusterDaemon(topo, devices=devices,
-                       ckpt_root=args.ckpt_dir or "artifacts/train_ckpt",
-                       background=args.autostep) as daemon:
+    service = args.autostep and dist.is_initialized()
+    lead = not service or device_lib.rank() == 0
+    with (ServiceDaemon if service else ClusterDaemon)(
+            topo, devices=devices,
+            ckpt_root=args.ckpt_dir or "artifacts/train_ckpt",
+            background=args.autostep and lead) as daemon:
+        if not lead:
+            return _follow(daemon, cfg, shape)
         job = JobSpec(cfg, shape, kind="train", opt=opt_cfg, seed=args.seed,
                       collect_metrics=True,
                       # stable namespace so --resume finds earlier runs
@@ -137,7 +147,45 @@ def run(args: argparse.Namespace, cfg: Optional[ModelConfig] = None, *,
         try:
             return _train(args, daemon, app_id, grant, rt, cfg, shape)
         finally:
-            rt.ckpt.wait()           # an async save may still be landing
+            _landed(daemon, app_id, rt)   # an async save may still land
+
+
+def _landed(daemon, app_id, rt) -> None:
+    """The block's async save landed: under the service mode an entry of
+    the leader's log (a sharded save's ranks meet at a barrier as it
+    lands), else here."""
+    if isinstance(daemon, ServiceDaemon):
+        daemon.wait_saves(app_id)
+    else:
+        rt.ckpt.wait()
+
+
+def _follow(daemon, cfg, shape) -> Dict[str, Any]:
+    """A rank other than 0 under ``--autostep``: rank 0's log followed to
+    its end, and this rank's record of the run (the block's runtime here,
+    each step's metrics from this rank's bus)."""
+    history, seen = [], {}
+
+    def on_step(ev):
+        history.append({"step_s": ev.payload["step_s"],
+                        **(ev.payload["metrics"] or {})})
+
+    def on_state(ev):
+        if ev.payload["state"] == "running":
+            seen.setdefault("app_id", ev.app_id)
+            seen.setdefault("runtime", daemon.runtime(ev.app_id))
+
+    daemon.bus.subscribe(on_step, kinds={"step"})
+    daemon.bus.subscribe(on_state, kinds={"state"})
+    t0 = time.perf_counter()
+    daemon.follow()
+    wall = time.perf_counter() - t0
+    rt = seen["runtime"]
+    return {"cfg": cfg, "shape": shape, "runtime": rt,
+            "grant": daemon.registry.get(seen["app_id"]).grant,
+            "daemon": daemon, "app_id": seen["app_id"], "history": history,
+            "start_step": rt.step_count - len(history), "wall_s": wall,
+            "checkpoints": rt.ckpt.steps()}
 
 
 def tp_line(rt) -> str:
@@ -197,7 +245,7 @@ def _train(args, daemon, app_id, grant, rt, cfg, shape) -> Dict[str, Any]:
             if every:
                 daemon.save(app_id, async_=True)
     wall = time.perf_counter() - t0
-    rt.ckpt.wait()
+    _landed(daemon, app_id, rt)
     res = daemon.download(app_id)
     daemon.expire(app_id)
     return {"cfg": cfg, "shape": shape, "runtime": rt, "grant": grant,

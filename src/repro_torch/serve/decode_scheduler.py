@@ -43,7 +43,8 @@ scheduler jits its steps with none.  With ``group`` (the block's group,
 several ranks) each admission's first token and each round's tokens are
 broadcast from the block's first rank ``src`` before the host reads
 them, so every rank's bookkeeping (EOS, lengths, pages, emissions) is
-the same, sampling included.
+the same, sampling included.  The ranks outside the block receive the
+emissions, once a harvest, from its first rank (``emissions_from``).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.device import resolve
+from repro_torch.device import from_rank, resolve
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import TRACER
@@ -186,6 +187,17 @@ def _make_admit(cfg: ModelConfig, page_size: int, sample: bool):
     return fn
 
 
+def emissions_from(src: int, emissions):
+    """A paged block's emissions since its last harvest (the rounds'
+    tokens and admitted, evicted and finished edges, host values) as the
+    block's first rank ``src`` has them, on every rank of the world: one
+    broadcast a harvest, which the block's ranks and the ranks outside it
+    enter alike, so every rank's bus publishes the same ``generate`` and
+    ``session`` events (the tokens themselves were agreed inside the
+    block's group by ``_agreed``, round by round)."""
+    return from_rank(src, emissions)
+
+
 def _to_device(tree, device):
     """A pool tree (nested dicts of tensors or numpy arrays) on
     ``device``."""
@@ -281,6 +293,9 @@ class DecodeScheduler:
         if self._group is not None:
             dist.broadcast(tokens, src=self._src, group=self._group)
         return tokens
+
+    # (the emissions those tokens make reach the ranks outside the
+    # block through ``emissions_from``, once a harvest)
 
     def _decode_step(self, tokens, page_table, seq_lens):
         """One batched paged decode step over every slot, through the

@@ -611,13 +611,21 @@ def test_a_block_holding_two_chips_of_one_rank_raises(fake_world):
 
 @pytest.mark.parametrize("paged", [False, True])
 def test_a_serve_blocks_stand_in_holds_nothing_and_names_8f(fake_world,
-                                                            paged):
-    """A serve block of two ranks as a rank outside it follows it: no
-    state, no device, no group, and its generate surface names item 8f
-    (the daemon's service mode across ranks)."""
+                                                            paged,
+                                                            monkeypatch):
+    """A serve block of two ranks as a rank outside it follows it (item
+    8f, the daemon's service mode across ranks): no state, no device, no
+    group.  A paged block's sessions are mirrored: ``start_session`` takes
+    the scheduler's ids and checks, ``sessions.has_work`` and
+    ``idle_serve`` follow the emissions ``harvest`` receives from the
+    block's first rank (its broadcast stood in for here: a fake group
+    carries nothing).  A dense block has no session surface, as on its
+    own ranks, and its prefill, like a client-driven ``feed``, raises
+    here."""
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import OffRankRuntime
     from repro_torch.device import Chip
+    from repro_torch.serve import decode_scheduler
     grant = BlockGrant.new([(0, 1, 0), (0, 2, 0)], (2, 1), 60.0)
     rt = OffRankRuntime(grant, _job("serve", paged),
                         devices=[Chip(1, "cpu"), Chip(2, "cpu")])
@@ -625,19 +633,58 @@ def test_a_serve_blocks_stand_in_holds_nothing_and_names_8f(fake_world,
     assert rt.state is None and rt.device is None
     rt.init_state()
     assert rt.state is None
-    for call in (lambda: rt.start_session([1, 2]), rt.feed, rt.harvest,
-                 lambda: rt.prefill({}), lambda: rt.sessions):
-        with pytest.raises(NotImplementedError, match="item 8f"):
+    for call in (rt.feed, lambda: rt.prefill({})):
+        with pytest.raises(NotImplementedError, match="outside them"):
             call()
+    if not paged:
+        assert rt.sessions is None and rt.idle_serve is False
+        assert rt.harvest() == []
+        with pytest.raises(ValueError, match="no generate surface"):
+            rt.start_session([1, 2])
+        rt.release()
+        return
+    assert rt.idle_serve is True and not rt.sessions.has_work
+    assert [rt.start_session([1, 2]), rt.start_session([3])] == \
+        ["g000000", "g000001"]
+    with pytest.raises(ValueError, match="non-empty"):
+        rt.start_session([])
+    with pytest.raises(ValueError, match="max_seq_len"):
+        rt.start_session(list(range(16)))
+    assert rt.sessions.has_work and rt.idle_serve is False
+    sent = [[{"event": "admitted", "session": "g000000"},
+             {"event": "token", "session": "g000000", "token": 7},
+             {"event": "admitted", "session": "g000001"},
+             {"event": "finished", "session": "g000000"}],
+            [{"event": "evicted", "session": "g000001"}],
+            [{"event": "admitted", "session": "g000001"},
+             {"event": "finished", "session": "g000001"}]]
+    seen = []
+
+    def first_ranks(src, emissions):
+        assert src == 1 and emissions is None
+        seen.append(sent[len(seen)])
+        return seen[-1]
+
+    monkeypatch.setattr(decode_scheduler, "emissions_from", first_ranks)
+    assert rt.harvest() == sent[0]
+    assert rt.sessions.running == {"g000001"} and not rt.sessions.queued
+    assert rt.harvest() == sent[1]
+    assert rt.sessions.queued == ["g000001"] and rt.idle_serve is False
+    assert rt.harvest() == sent[2] and rt.idle_serve is True
+    assert rt.start_session([4]) == "g000002"
     rt.release()
 
 
 def test_tick_without_a_model_time_raises_across_ranks(fake_world):
+    """Under several ranks a direct caller gives ``tick`` the time (each
+    rank's wall clock is its own); the message points at the leader's
+    daemon, which gives every tick its ``now``."""
     from repro_torch.core.controller import ClusterController
     from repro_torch.core.topology import Topology
     ctl = ClusterController(Topology(n_pods=1, pod_x=4, pod_y=1),
                             devices=["cpu"] * 4, ckpt_root="unused")
-    with pytest.raises(NotImplementedError, match="item 8f"):
+    with pytest.raises(NotImplementedError,
+                       match="core.service.ServiceDaemon"):
         ctl.tick()
     assert ctl.tick(now=0.0) == []
 

@@ -178,9 +178,11 @@ def test_every_ctypes_signature_matches_its_c_prototype():
 
 
 #: files the port has and the JAX package has not: the device and interop
-#: helpers, the CUDA build and sources, and the ``__init__.py`` of the seven
+#: helpers, the CUDA build and sources, the daemon's service mode across
+#: ranks (one JAX process needs none), and the ``__init__.py`` of the seven
 #: packages that the JAX package keeps as namespace packages
 PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
+             "core/service.py",
              "checkpoint/__init__.py", "data/__init__.py",
              "launch/__init__.py", "models/__init__.py", "serve/__init__.py",
              "sharding/__init__.py", "train/__init__.py"}
