@@ -141,6 +141,25 @@ never JAX.  Phases, each printing one JSON line:
                      peak memory, the kernels' launches per step (held
                      exactly, as in every train phase) and a profiled
                      warm step;
+10b. ``train_overlap`` — the compressed cross-pod gradient all-reduce
+                     (item 9): deepseek_7b at full width cut to 8 of 30
+                     layers, 2 x 2048 tokens in 2 microbatches, on a
+                     (1, 1, 1) ``("pod", "data", "model")`` mesh of one
+                     NCCL rank; with int8 moments, then fp32, the serial
+                     step, then ``make_train_step(overlap_comm=True)``
+                     from the same seed: step 0's loss bit for bit, its
+                     grad norm within the last microbatch's residual,
+                     the launches the serial path's, with fp32 moments
+                     the 6 losses within rtol/atol 0.05 (int8's diverge
+                     on both paths: printed), the codec on the card the
+                     CPU's bit for bit; step times, peak memories, the
+                     error feedback's bytes, the codec's profiled device
+                     time;
+10c. ``dryrun``     — the port's dry run (item 10) of ``train``'s job in
+                     a CPU subprocess on a fake process group: status
+                     ``ok``, its state bytes ``train``'s exactly, its
+                     predicted peak and roofline step time beside
+                     ``train``'s measured ones;
 11. ``train_f32``   — the same width cut to 4 layers with fp32 moments and
                      2 microbatches: the fp32 AdamW variant and the serial
                      gradient accumulation;
@@ -3636,9 +3655,10 @@ def phase_train(device="cuda", smoke=False):
     opt_cfg = OptConfig(state_bits=8, warmup_steps=2, total_steps=100)
 
     def after(rt, out):
-        # what train_sharded is held to, bit for bit; then the host's
-        # share of two more steps
+        # what train_sharded is held to, bit for bit, and what the dry
+        # run's state is held to; then the host's share of two more steps
         out["state_checksums"] = bit_checksums(rt.state)
+        out["state_bytes"] = tree_bytes(rt.state)
         out["host_probe"] = host_probe(rt)
         return rt
 
@@ -5986,6 +6006,331 @@ def phase_service(device="cuda", smoke=False, train=None, paged=None,
     return out
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+OVERLAP_LAYERS = 8
+OVERLAP_STEPS = 6
+
+
+def _overlap_path(cfg, shape, opt_cfg, mesh, ctx, data, dev, overlap,
+                  n_steps):
+    """One path of ``train_overlap``: ``n_steps`` steps from seed 0
+    on the (1, 1, 1) mesh, its launches counted as the main path's; step
+    0's compressed-reduce readings (the last microbatch's scales and the
+    leaves' sizes) kept on the host."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import ctx as shard_ctx
+    from repro_torch.sharding import plans
+    from repro_torch.train import train_step as train_lib
+    lay = plans.state_layouts(model_lib.abstract_params(cfg), mesh,
+                              plans.MeshAxes(dp=("data",), model="model"),
+                              state_bits=opt_cfg.state_bits)
+    state = train_lib.make_sharded_train_state(cfg, 0, opt_cfg, lay,
+                                               device=dev)
+    kw = dict(overlap_comm=True, mesh=mesh) if overlap else {}
+    step = train_lib.make_train_step(cfg, shape, opt_cfg, **kw)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    hist, reduce0 = [], None
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        with shard_ctx.use(ctx):
+            state, m = step(state, data.batch(i))
+        hist.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "step_s": time.perf_counter() - t0})
+        if opt_cfg.state_bits == 8:
+            hist[-1]["eps_exposed"] = _eps_exposed(state["opt"])
+        if overlap and i == 0:
+            pr = step.pod_reduce
+            reduce0 = {"scales": pr["scales"].double().cpu().tolist(),
+                       "numels": list(pr["numels"]),
+                       "ef_bytes": pr["ef_bytes"]}
+    n = len(hist)
+    launches = counts()
+    steady = [h["step_s"] for h in hist[1:]]
+    out = {"losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist],
+           "step_s": [h["step_s"] for h in hist],
+           "steady_step_s": float(np.median(steady)),
+           "launches": launches,
+           "launches_per_step": {k: c / n for k, c in launches.items()},
+           "peak_mem_gb": _peak(dev)}
+    if opt_cfg.state_bits == 8:
+        out["eps_exposed"] = [h["eps_exposed"] for h in hist]
+    if reduce0 is not None:
+        out["step0_reduce"] = reduce0
+    return out, state, step
+
+
+def _eps_exposed(opt):
+    """With int8 moments: the share of elements whose second moment's
+    code is 0 while their first moment's is not.  A zero gradient there
+    (the compressed reduce gives exact zeros where every microbatch's
+    code was 0) makes the next update m / eps (``fused_adamw_torch``):
+    one mechanism for the int8 moments' climb, read, not held."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.optimizer import _leaves
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    hit = n = 0
+    for m, v in zip(_leaves(opt["m"], lambda x: "q" in x),
+                    _leaves(opt["v"], lambda x: "q" in x)):
+        qm, qv = local(m["q"]), local(v["q"])
+        hit += int(((qv == 0) & (qm != 0)).sum())
+        n += qv.numel()
+    return hit / max(n, 1)
+
+
+def _codec_on_card_and_host(g):
+    """The compressed reduce's arithmetic on one gradient leaf on its
+    device and on the CPU: the eager codec (``quantize``) and the pod
+    reduce's (``pod_scales``, ``pod_quantize_``), codes, scales and
+    residuals compared bit for bit."""
+    from repro_torch.train import grad_compression as gcomp
+
+    def run(x):
+        codes, scale = gcomp.quantize(x)
+        e = x.float()
+        s = gcomp.pod_scales(torch.amax(torch.abs(e)))
+        q = gcomp.pod_quantize_(e, s)
+        return codes, scale, q.to(torch.int8), s, e
+
+    here, host = run(g), run(g.cpu())
+    same = [bool(torch.equal(a.cpu().reshape(-1).view(torch.uint8),
+                             b.reshape(-1).view(torch.uint8)))
+            for a, b in zip(here, host)]
+    return {"shape": list(g.shape), "codes_equal": same[0] and same[2],
+            "scales_equal": same[1] and same[3], "residual_equal": same[4],
+            "bitwise_equal": all(same)}
+
+
+def _step0_held(name, serial, over, n_micro):
+    """Step 0 of the two paths, before any optimizer step: the same
+    forward, so the same loss bit for bit; the gradients part by the
+    last microbatch's residual over ``n_micro`` (|dg| <= scale / 2 an
+    element, from the scales the overlapped step records)."""
+    r0 = over["step0_reduce"]
+    resid = float(np.sqrt(sum(n * (s / 2) ** 2 for n, s in zip(
+        r0["numels"], r0["scales"])))) / n_micro
+    gap = abs(over["grad_norms"][0] - serial["grad_norms"][0])
+    out = {"loss_bitwise_equal": over["losses"][0] == serial["losses"][0],
+           "grad_norm_gap": gap, "residual_bound": resid,
+           # fp32 rounding of the two accumulators' sums on top
+           "within_bound": gap <= resid * (1 + 1e-3)}
+    check(out["loss_bitwise_equal"],
+          f"{name}: step 0 loss {over['losses'][0]} against the serial "
+          f"{serial['losses'][0]}")
+    check(out["within_bound"],
+          f"{name}: step 0 grad norms part by {gap}, above the residual's "
+          f"bound {resid}")
+    return out
+
+
+def phase_train_overlap(device="cuda", smoke=False, train=None):
+    """The compressed cross-pod gradient all-reduce (item 9) on one card:
+    deepseek_7b at full width cut to ``OVERLAP_LAYERS`` of 30 layers
+    (the error feedback and the fp32 accumulator hold 8 bytes a param
+    beside the state's, so the 30 layers' 6.9e9 params do not fit one
+    card; 8 layers hold 2.46e9), 2 x 2048 tokens in 2 microbatches,
+    random bf16 weights from seed 0, on a (1, 1, 1) ``("pod", "data",
+    "model")`` DeviceMesh under a process group of one rank (NCCL on
+    the card, gloo on the CPU; a ``HashStore``).  With int8 moments, then
+    with fp32 ones: the serial step (the pod a summed data axis), then
+    ``make_train_step(overlap_comm=True, mesh=)`` from the same seed,
+    each microbatch's gradients quantized to int8 with error feedback
+    and the codes all-gathered over the one pod asynchronously.
+
+    Held, for both moments: step 0's loss the serial path's bit for bit
+    (the forward is the same), step 0's grad norm within the last
+    microbatch's residual of it (``_step0_held``), the flash, RMSNorm
+    and AdamW launches per step the serial path's and
+    ``train_launches``'.  With fp32 moments, as the reference's own test
+    of the path runs (``tests/test_train.py``), the 6 losses within its
+    bound of the serial ones (rtol 0.05, atol 0.05).  With int8 moments
+    both paths climb, the overlapped one faster (an open question,
+    ROADMAP queue 3; ``tests/test_torch_grad_compression.py`` holds the
+    int8 overlapped step, step by step, to the reference's reducer and
+    int8 update at smoke size), so their losses are printed, not held,
+    beside each step's share of elements whose int8 second moment's
+    code is 0 while the first moment's is not (``_eps_exposed``).  The codec on the card the CPU's, codes, scales and residuals
+    bit for bit, on the largest leaf (the embedding) and a small one
+    (the final norm's scale).  Printed: the steady step times, the peak
+    memories, the error feedback's bytes, and the codec's device time
+    on one microbatch's gradients (profiled, ``profile_steps``) beside
+    the int8 overlapped step's (profiled).  The process group is
+    destroyed at the end."""
+    import torch.distributed as dist
+    import repro_torch.configs as configs
+    from repro_torch import device as device_lib
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import make_block_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.transformer import flatten
+    from repro_torch.sharding import ctx as shard_ctx
+    from repro_torch.sharding import plans
+    from repro_torch.train import grad_compression as gcomp
+    from repro_torch.train import train_step as train_lib
+    from repro_torch.train.optimizer import OptConfig
+    progress("train_overlap: init")
+    cfg = (configs.get_smoke("deepseek_7b") if smoke else
+           dataclasses.replace(configs.get("deepseek_7b"),
+                               n_layers=OVERLAP_LAYERS))
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
+                        global_batch=2, microbatch=2)
+    n_steps = 2 if smoke else OVERLAP_STEPS
+    dev = device_lib.init_distributed(device, store=dist.HashStore(),
+                                      rank=0, world_size=1)
+    try:
+        mesh = make_block_mesh([0], (1, 1, 1), ("pod", "data", "model"))
+        ctx = shard_ctx.ShardCtx(mesh, ("pod", "data"), "model",
+                                 tp=plans.tp_layout(cfg, mesh))
+        data = pipeline.DataIterator(
+            cfg, shape, seed=0, device=dev,
+            shardings=pipeline.batch_shards(mesh, ("pod", "data"), 2))
+        out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+               "mesh": [1, 1, 1], "backend": dist.get_backend(),
+               "seq_len": shape.seq_len, "global_batch": shape.global_batch,
+               "microbatch": shape.microbatch, "steps": n_steps,
+               "launches": {k: 0 for k in COUNTERS}}
+        for moments, bits in (("int8", 8), ("f32", None)):
+            name = f"train_overlap {moments}"
+            opt_cfg = OptConfig(state_bits=bits, warmup_steps=2,
+                                total_steps=100)
+            progress(f"{name}: serial path")
+            serial, state, _ = _overlap_path(cfg, shape, opt_cfg, mesh, ctx,
+                                             data, dev, False, n_steps)
+            want = (train_launches(cfg, shape, opt_cfg, state["params"])
+                    if dev.type == "cuda" else {n: 0 for n in COUNTERS})
+            del state
+            _free(device)
+            progress(f"{name}: overlapped path")
+            over, state, step = _overlap_path(cfg, shape, opt_cfg, mesh,
+                                              ctx, data, dev, True, n_steps)
+            run = {"serial": serial, "overlap": over,
+                   "step0": _step0_held(name, serial, over,
+                                        shape.microbatch)}
+            for path in (serial, over):
+                check(path["launches_per_step"] == want,
+                      f"{name} launches per step "
+                      f"{path['launches_per_step']}, want {want}")
+            run["launches_equal_serial"] = (over["launches_per_step"]
+                                            == serial["launches_per_step"])
+            run["losses_close"] = bool(np.allclose(
+                over["losses"], serial["losses"], rtol=0.05, atol=0.05))
+            if bits is None:
+                check(run["losses_close"]
+                      and all(np.isfinite(over["losses"])),
+                      f"{name}: losses {over['losses']} against the "
+                      f"serial {serial['losses']}")
+            for k in COUNTERS:
+                out["launches"][k] += (serial["launches"][k]
+                                       + over["launches"][k])
+            out[moments] = run
+            if bits is None:
+                del state, step
+                _free(device)
+                continue
+            r0 = over["step0_reduce"]
+            out["ef_bytes"] = r0["ef_bytes"]
+            progress(f"{name}: codec on the card and the host")
+            with shard_ctx.use(ctx.pod_local("pod")):
+                _, grads = train_lib.value_and_grad(
+                    state["params"], cfg, train_lib._split_micro(
+                        data.batch(0), shape.microbatch, 0))
+            leaves = dict((p, g.to_local()) for p, g in flatten(grads))
+            del grads
+            big = max(leaves, key=lambda p: leaves[p].numel())
+            out["codec"] = {p: _codec_on_card_and_host(leaves[p])
+                            for p in (big, "final_norm/scale")}
+            check(all(c["bitwise_equal"] for c in out["codec"].values()),
+                  f"train_overlap: the codec on the card differs from "
+                  f"the CPU's: {out['codec']}")
+            if dev.type == "cuda":
+                progress(f"{name}: profiles")
+                local = list(leaves.values())
+                out["codec_profile"] = profile_steps(
+                    lambda: gcomp.start_pod_reduce(
+                        local, [torch.zeros(g.shape, dtype=torch.float32,
+                                            device=dev) for g in local],
+                        mesh).wait(), n=3)
+                del local
+            del leaves
+            _free(device)
+            if dev.type == "cuda":
+                def one():
+                    nonlocal state
+                    with shard_ctx.use(ctx):
+                        state, _ = step(state, data.batch(0))
+                out["warm_step"] = profile_steps(one, n=2)
+                out["codec_share_of_step_device"] = (
+                    out["codec_profile"]["device_ms"] * shape.microbatch
+                    / out["warm_step"]["device_ms"])
+            del state, step
+            _free(device)
+        emit("train_overlap", card=_CARD, **out)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dryrun(train, smoke=False, timeout_s: float = 900.0):
+    """The port's dry run (item 10) of ``train``'s own job, in a CPU
+    subprocess (no card: ``CUDA_VISIBLE_DEVICES`` empty): ``python -m
+    repro_torch.launch.dryrun`` on deepseek_7b, 2 x 2048 tokens,
+    microbatch 1, int8 moments, a (1, 1) mesh of a fake process group,
+    its step run on fake tensors.  Held: it exits 0 with status ``ok``,
+    and its state bytes are those of ``train``'s state on the card,
+    exactly.  Printed: its predicted peak beside ``train``'s measured
+    ``torch.cuda.max_memory_allocated``, its roofline step time beside
+    ``train``'s steady step, and its wall time."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", "deepseek_7b", "--kind", "train", "--shape",
+           "chip_train", "--seq-len", str(train["seq_len"]),
+           "--global-batch", str(train["global_batch"]),
+           "--microbatch", str(train["microbatch"]),
+           "--state-bits", str(train["state_bits"]), "--mesh-shape", "1,1"]
+    if smoke:
+        cmd.append("--smoke")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                       timeout=timeout_s, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    lines = [x for x in r.stdout.splitlines() if x.startswith("{")]
+    check(r.returncode == 0 and bool(lines),
+          f"dryrun: exit {r.returncode}: {r.stderr[-2000:]}")
+    line = json.loads(lines[-1])
+    check(line.get("status") == "ok", f"dryrun: status {line.get('status')}")
+    mem, roof = line["memory"], line["roofline"]
+    out = {"wall_s": wall, "entry": line["entry"],
+           "mesh_layout": line["mesh_layout"], "kernels": line["kernels"],
+           "state_bytes": mem["state_bytes"],
+           "train_state_bytes": train["state_bytes"],
+           "state_bytes_equal": mem["state_bytes"] == train["state_bytes"],
+           "predicted_peak_gb": mem["peak_bytes_per_device"] / 1e9,
+           "measured_peak_gb": train.get("peak_mem_gb"),
+           "predicted_step_s": roof["step_time_s"],
+           "bottleneck": roof["bottleneck"],
+           "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+           "collective_s": roof["collective_s"],
+           "measured_steady_step_s": train["steady_step_s"],
+           "flops": roof["hlo_flops"], "bytes": roof["hlo_bytes"]}
+    check(out["state_bytes_equal"],
+          f"dryrun: state bytes {mem['state_bytes']}, train's "
+          f"{train['state_bytes']}")
+    emit("dryrun", card=_CARD, **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -6075,6 +6420,11 @@ def _run_all() -> int:
     progress("train_sharded")
     train_sharded = phase_train_sharded(train=train)
     _free()
+    progress("train_overlap")
+    train_overlap = phase_train_overlap(train=train)
+    _free()
+    progress("dryrun")
+    phase_dryrun(train)
     train_f32 = phase_train_f32()
     _free()
     progress("blocks")
@@ -6117,6 +6467,7 @@ def _run_all() -> int:
             "xlstm": xlstm["launches"],
             "train": train["launches"],
             "train_sharded": train_sharded["launches"],
+            "train_overlap": train_overlap["launches"],
             "train_f32": train_f32["launches"],
             "blocks": blocks["launches"],
             "train_hybrid": train_hybrid["launches"],
@@ -6163,6 +6514,9 @@ def _run_all() -> int:
             per_run = {"train": train["launches"]["fused_adamw_i8"],
                        "train_sharded":
                            train_sharded["launches"]["fused_adamw_i8"],
+                       "train_overlap":
+                           train_overlap["launches"]["fused_adamw_i8"]
+                           + train_overlap["launches"]["fused_adamw_f32"],
                        "train_f32": train_f32["launches"]["fused_adamw_f32"],
                        "blocks": blocks["launches"]["fused_adamw_f32"],
                        "train_hybrid":

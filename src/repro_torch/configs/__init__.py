@@ -74,3 +74,23 @@ def get_smoke(name: str) -> ModelConfig:
 
 def shape(name: str) -> ShapeConfig:
     return SHAPES_BY_NAME[name]
+
+
+# --- assigned-cell table: which (arch, shape) cells execute vs. skip -------
+
+def cell_status(arch: str, shape_name: str) -> str:
+    """'run' or a skip reason (documented in DESIGN.md §Arch-applicability)."""
+    arch = canonical(arch)
+    cfg = get(arch)
+    if shape_name in ("decode_32k", "long_500k") and cfg.is_encoder:
+        return "skip: encoder-only arch has no autoregressive decode"
+    if shape_name == "long_500k" and cfg.family not in ("xlstm", "hybrid"):
+        return "skip: full-attention arch; 500k ctx needs sub-quadratic mixing"
+    return "run"
+
+
+def all_cells():
+    """Yield (arch, shape_name, status) for the full 40-cell assignment."""
+    for a in ARCH_IDS:
+        for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            yield a, s, cell_status(a, s)

@@ -314,15 +314,10 @@ class BlockRuntime(InflightWindow):
         plan shards them and, for a train block, the moments as
         ``plans.moment_specs``."""
         job = self.job
-        params = model_lib.abstract_params(job.cfg)
-        p_spec = plans.param_specs(params, self.mesh, self.axes)
-        if job.kind != "train":
-            return {"params": plans.layouts(p_spec, self.mesh)}
-        opt = plans.moment_specs(params, p_spec, self.mesh,
-                                 job.opt.state_bits)
-        lay = plans.layouts({"params": p_spec, "opt": opt}, self.mesh)
-        lay["opt"]["step"] = None
-        return lay
+        return plans.state_layouts(
+            model_lib.abstract_params(job.cfg), self.mesh, self.axes,
+            train=job.kind == "train",
+            state_bits=job.opt.state_bits if job.kind == "train" else None)
 
     def cache_layouts(self):
         """The dense serve plane's cache on the mesh: this rank's rows of

@@ -2,7 +2,8 @@
 
 Reproducible numpy batches keyed on (seed, step) with no host-side state,
 byte for byte the reference's; ``batch_shapes``/``prefill_shapes`` give
-each input's (shape, torch dtype); ``DataIterator`` hands a train block
+each input's (shape, torch dtype), ``input_specs`` the dry run's stand-ins
+for them (``meta`` tensors); ``DataIterator`` hands a train block
 its batch for a step as tensors on its device, and under a data-parallel
 layout (``BatchShards``) only the rank's rows of it
 (``make_global_batch``), as a dense serve block on a mesh takes its rows
@@ -46,6 +47,15 @@ def prefill_shapes(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
         return {"tokens": ((B, S - N_PATCHES), torch.int32),
                 "patches": ((B, N_PATCHES, cfg.frontend_dim), torch.bfloat16)}
     return {"tokens": ((B, S), torch.int32)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` tensors of every input's shape and dtype, the reference's
+    ``ShapeDtypeStruct`` stand-ins (the dry run; nothing allocated)."""
+    shapes = (batch_shapes(cfg, shape) if shape.kind == "train"
+              else prefill_shapes(cfg, shape))
+    return {k: torch.empty(s, dtype=d, device="meta")
+            for k, (s, d) in shapes.items()}
 
 
 def _lcg_sequences(rng, B: int, S: int, V: int) -> np.ndarray:
@@ -121,6 +131,22 @@ class BatchShards:
         return np.concatenate([np.arange(i * mb + self.rank * per,
                                          i * mb + (self.rank + 1) * per)
                                for i in range(n)])
+
+
+def batch_shards(mesh, dp_axes, n_micro: int = 1) -> BatchShards:
+    """This rank's ``BatchShards`` on ``mesh`` (a DeviceMesh) with the
+    batch split over ``dp_axes`` in mesh order, the first the slowest: on
+    a ``("pod", "data", "model")`` mesh over ``("pod", "data")`` each
+    rank takes its (pod, data) share of every microbatch, pod-major (the
+    reference's ``P(("pod", "data"))``)."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    dp, rank = 1, 0
+    for a in names:
+        if a in dp_axes:
+            n = int(mesh.mesh.shape[names.index(a)])
+            dp, rank = dp * n, rank * n + coord[names.index(a)]
+    return BatchShards(dp, rank, max(1, n_micro))
 
 
 def _as_tensor(v: np.ndarray) -> torch.Tensor:

@@ -23,6 +23,15 @@ the backward kernel; its plain version is differentiated by autograd.
 kernel (the counterpart of autodiff of ``ops._ssd_jnp``); its plain
 version is differentiated by autograd.  A call that needs no gradient runs
 the forward alone.
+
+Fake tensors (``torch._subclasses.fake_tensor``, the dry run's,
+``launch.dryrun``): a kernel's call on them is counted as the kernel
+computes it and never launched nor replaced by its plain version (the
+plain flash attention's S x S scores would put into a dry run's peak a
+matrix the kernel never holds).  Its FLOPs and bytes, by the formulas of
+``PERF.md``'s bound column (every input read once, every output written
+once), add to ``FAKE_COST``; only its outputs are allocated.  A real CPU
+tensor still takes the plain version, a CUDA tensor the kernel.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adamw as _fo
@@ -90,9 +101,11 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
                     scale: Optional[float] = None, q_offset: int = 0,
                     impl: str = "auto"):
     """q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D); v: (B, Hkv, Sk, Dv)."""
-    use = _use_kernel(impl, q)
     kw = dict(causal=causal, sliding_window=sliding_window, scale=scale,
               q_offset=q_offset)
+    if _is_fake(q):
+        return _FakeFlash.apply(q, k, v, kw, _needs_grad(q, k, v))
+    use = _use_kernel(impl, q)
     if use:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if _needs_grad(q, k, v):
@@ -138,6 +151,8 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens, *,
     (B, maxp) int32; seq_lens: (B,) int32 valid entries per slot (the new
     token's K/V already written at ``seq_lens - 1``).  Returns
     (B, Hq, 1, Dv)."""
+    if _is_fake(q):
+        return _fake_paged(q, k_pages, v_pages, page_table)
     if _use_kernel(impl, q):
         o = _pa.paged_attention_cuda(
             q[:, :, 0].contiguous(), k_pages, v_pages,
@@ -170,6 +185,8 @@ class _RMSNorm(torch.autograd.Function):
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str = "auto"):
+    if _is_fake(x):
+        return _FakeRMSNorm.apply(x, scale)
     if _use_kernel(impl, x):
         x, scale = x.contiguous(), scale.contiguous()
         if _needs_grad(x, scale):
@@ -196,6 +213,9 @@ def fused_adamw(p, g, m, v, *, lr, scale, bc1, bc2, b1, b2, eps,
         apply_wd = p.ndim >= 2
     kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
               apply_wd=apply_wd)
+    if _is_fake(p):
+        _fake_adamw(p, g, m)
+        return p, m, v
     if _use_kernel(impl, p):
         scalars = torch.stack([torch.as_tensor(x, dtype=torch.float32,
                                                device=p.device).reshape(())
@@ -244,6 +264,8 @@ def ssd_scan(x, dt, A, B, C, D, *, chunk: int = 256, h0=None,
     """Chunked state-space-dual scan.  Shapes as in ``ref.ssd_scan``: x
     (Bt, S, H, P); dt (Bt, S, H); A, D (H,); B, C (Bt, S, N); h0 (Bt, H, P,
     N) or None.  Returns (y in x's dtype, the fp32 final state)."""
+    if _is_fake(x):
+        return _FakeSSDScan.apply(x, dt, A, B, C, D, h0, chunk)
     if not _use_kernel(impl, x):
         return _ssd.ssd_scan_torch(x, dt, A, B, C, D, chunk=chunk, h0=h0)
     dt, A, D = (t.float().contiguous() for t in (dt, A, D))
@@ -372,3 +394,162 @@ def mlstm_decode_step(q, k, v, i_gate, f_gate, carry):
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, qf)) * scale,
                         torch.exp(-m_new))
     return (num / den[..., None]).to(q.dtype), (C, n, m_new)
+
+
+# ===========================================================================
+# Fake tensors: the kernels' costs, nothing launched
+# ===========================================================================
+
+#: the kernels' calls on fake tensors: their FLOPs and bytes (the bound
+#: column's formulas) and calls by kernel; the dry run resets and reads it
+FAKE_COST = {"flops": 0.0, "bytes": 0.0, "calls": {}}
+
+
+def reset_fake_cost() -> None:
+    FAKE_COST.update(flops=0.0, bytes=0.0, calls={})
+
+
+def _is_fake(t) -> bool:
+    return isinstance(t, FakeTensor)
+
+
+def _cost(name: str, flops: float, nbytes: float) -> None:
+    FAKE_COST["flops"] += flops
+    FAKE_COST["bytes"] += nbytes
+    FAKE_COST["calls"][name] = FAKE_COST["calls"].get(name, 0) + 1
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def attention_pairs(B: int, H: int, Sq: int, Sk: int, *, causal: bool,
+                    sliding_window: int = 0, q_offset: int = 0) -> int:
+    """(query, key) pairs an attention computes: for query i at position
+    ``q_offset + i`` the keys the mask keeps (``flash_attention._mask``),
+    every pair without a mask."""
+    import numpy as np
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(pos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = (np.maximum(pos - sliding_window + 1, 0) if sliding_window > 0
+          else np.zeros(Sq, np.int64))
+    return B * H * int(np.clip(hi - lo, 0, None).sum())
+
+
+class _FakeFlash(torch.autograd.Function):
+    """The flash kernels on fake tensors: forward 2 (D + Dv) FLOPs a
+    pair, q, k, v read and o (and the fp32 lse kept for the backward)
+    written; backward 2 (3 D + 2 Dv) a pair, q, k, v, o, do and lse read
+    and dq, dk, dv written."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, grad):
+        B, Hq, Sq, D = q.shape
+        Dv = v.shape[-1]
+        pairs = attention_pairs(B, Hq, Sq, k.shape[2], causal=kw["causal"],
+                                sliding_window=kw["sliding_window"],
+                                q_offset=kw["q_offset"])
+        o = q.new_empty((B, Hq, Sq, Dv))
+        lse = q.new_empty((B, Hq, Sq), dtype=torch.float32) if grad else None
+        _cost("flash_attention", pairs * 2 * (D + Dv),
+              _nbytes(q, k, v, o, lse))
+        ctx.pairs = pairs
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        D, Dv = q.shape[-1], v.shape[-1]
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        _cost("flash_attention_bwd", ctx.pairs * 2 * (3 * D + 2 * Dv),
+              _nbytes(q, k, v, o, do, lse, dq, dk, dv))
+        return dq, dk, dv, None, None
+
+
+class _FakeRMSNorm(torch.autograd.Function):
+    """RMSNorm on fake tensors: forward 4 FLOPs an element, x and the
+    scale read and y written; backward 10, x, the scale and g read and dx
+    and dscale written."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        y = torch.empty_like(x)
+        _cost("rmsnorm", 4 * x.numel(), _nbytes(x, scale, y))
+        ctx.save_for_backward(x, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, ds = torch.empty_like(x), torch.empty_like(scale)
+        _cost("rmsnorm_bwd", 10 * x.numel(), _nbytes(x, scale, g, dx, ds))
+        return dx, ds
+
+
+def _ssd_chunks(S: int, chunk: int):
+    Q = min(chunk, S)
+    return [Q] * (S // Q) + ([S % Q] if S % Q else [])
+
+
+class _FakeSSDScan(torch.autograd.Function):
+    """The SSD scan on fake tensors: the chunked form's operations over
+    the chunks of this sequence (C.B^T and the weighted sum per head, the
+    inter-chunk product and the state update; backward, the causal
+    triangle's two products and five (P, N) products of a chunk per
+    head, C.B^T and two products with dCB per chunk), every input read
+    once and every output written once."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, chunk):
+        Bt, S, H, P = x.shape
+        N = B.shape[-1]
+        y = torch.empty_like(x)
+        h = x.new_empty((Bt, H, P, N), dtype=torch.float32)
+        flops = Bt * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P
+                             for q in _ssd_chunks(S, chunk))
+        _cost("ssd_scan", flops, _nbytes(x, dt, A, B, C, D, h0, y, h))
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, B, C, D, h0 = ctx.saved_tensors
+        Bt, S, H, P = x.shape
+        N = B.shape[-1]
+        grads = tuple(None if t is None else torch.empty_like(t)
+                      for t in (x, dt, A, B, C, D, h0))
+        flops = Bt * sum(H * (2 * q * (q + 1) * P + 10 * q * P * N)
+                         + 3 * q * (q + 1) * N
+                         for q in _ssd_chunks(S, ctx.chunk))
+        _cost("ssd_scan_bwd", flops,
+              _nbytes(x, dt, A, B, C, D, h0, dy, dh, *grads))
+        return grads + (None,)
+
+
+def _fake_adamw(p, g, m) -> None:
+    """The fused AdamW on fake tensors: 20 FLOPs an element; p read and
+    written, g read, the moments read and written (fp32, or int8 codes
+    and one fp32 scale a 256-block each)."""
+    n = p.numel()
+    if isinstance(m, dict):
+        mom = 2 * (2 * n + 2 * _nbytes(m["s"]))
+    else:
+        mom = 2 * 2 * _nbytes(m)
+    _cost("fused_adamw", 20 * n, 2 * _nbytes(p) + _nbytes(g) + mom)
+
+
+def _fake_paged(q, k_pages, v_pages, page_table):
+    """Paged decode on fake tensors: the most the page table can hold
+    (a fake tensor carries no lengths), every slot's pages of K and V
+    read once, q read and o written."""
+    B, Hq, _, D = q.shape
+    page, Hkv = k_pages.shape[1], k_pages.shape[2]
+    Dv = v_pages.shape[-1]
+    keys = B * page_table.shape[1] * page
+    o = q.new_empty((B, Hq, 1, Dv))
+    _cost("paged_attention", keys * Hq * 2 * (D + Dv),
+          _nbytes(q, o, page_table) + keys * Hkv * (D + Dv)
+          * k_pages.element_size())
+    return o

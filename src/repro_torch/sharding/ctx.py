@@ -52,23 +52,50 @@ _STATE = threading.local()
 
 
 class ShardCtx:
-    """``mesh``: the block's DeviceMesh.  ``shards_batch``: each rank holds
-    its own rows of every microbatch (``data.pipeline.BatchShards``); when
-    False every rank holds the whole batch and computes it all, so the
-    data axes carry no sum.  ``tp``: the block's ``plans.TPLayout``, what
-    the ranks of a model column compute sharded (None: nothing, 8a's
-    layout)."""
+    """``mesh``: the block's DeviceMesh.  ``dp_axes``: the axes the batch
+    splits over whose gradients and loss terms are summed (on a
+    ``("pod", "data", "model")`` mesh the serial step's ``("pod",
+    "data")``: the reference's GSPMD psum over pods).  ``local``: axes
+    the batch splits over whose ranks keep their own gradients and loss,
+    unsummed (the overlapped step's ``pod``, reduced afterwards by the
+    compressed pod reduce, ``train.grad_compression``).  Every mesh axis
+    is one of ``dp_axes``, ``local`` or ``model_axis``.
+    ``shards_batch``: each rank holds its own rows of every microbatch
+    (``data.pipeline.BatchShards``); when False every rank holds the
+    whole batch and computes it all, so the data axes carry no sum.
+    ``tp``: the block's ``plans.TPLayout``, what the ranks of a model
+    column compute sharded (None: nothing, 8a's layout)."""
 
     def __init__(self, mesh, dp_axes: Tuple[str, ...], model_axis: str,
-                 shards_batch: bool = True, tp=None):
+                 shards_batch: bool = True, tp=None,
+                 local: Tuple[str, ...] = ()):
         self.mesh = mesh
-        self.dp = dp_axes
+        self.dp = tuple(dp_axes)
         self.model = model_axis
+        self.local = tuple(local)
         self.shards_batch = shards_batch
         self.tp = tp
         # read once: a DeviceMesh's shape is a tensor, and the model
         # code asks for it at every join and gather
         self._sizes = axis_sizes(mesh)
+        other = [a for a in self._sizes
+                 if a not in self.dp + self.local + (model_axis,)]
+        if other:
+            raise ValueError(
+                f"mesh axes {other} are neither summed data axes "
+                f"({self.dp}), pod-local axes ({self.local}) nor the model "
+                f"axis {model_axis!r}: a gradient over them would be "
+                f"left apart silently")
+
+    def pod_local(self, pod_axis: str) -> "ShardCtx":
+        """This context with ``pod_axis`` moved from the summed data axes
+        to the pod-local ones (the overlapped train step's)."""
+        if pod_axis in self.local:
+            return self
+        return ShardCtx(self.mesh, tuple(a for a in self.dp
+                                         if a != pod_axis),
+                        self.model, self.shards_batch, self.tp,
+                        self.local + (pod_axis,))
 
     @property
     def sizes(self):
@@ -77,14 +104,18 @@ class ShardCtx:
     def grad_placements(self, placements=None):
         """How a gathered param's gradient lies over the mesh: a partial
         sum over the data axes whose ranks computed different rows; over
-        ``model`` the same on every rank, whose ranks compute the same
-        activations outside the sharded regions, or, for a leaf computed
-        sharded (its DTensor ``placements`` given), the rank's own
-        shard."""
+        a pod-local axis each rank's own (declared replicated, so no
+        collective touches it: the values differ until the compressed
+        pod reduce); over ``model`` the same on every rank, whose ranks
+        compute the same activations outside the sharded regions, or,
+        for a leaf computed sharded (its DTensor ``placements`` given),
+        the rank's own shard."""
         out = []
         for i, a in enumerate(self.sizes):
             if a in self.dp:
                 out.append(Partial() if self.shards_batch else Replicate())
+            elif a in self.local:
+                out.append(Replicate())
             else:
                 out.append(placements[i] if placements is not None
                            else Replicate())

@@ -618,3 +618,18 @@ def layouts(spec_tree, mesh):
     if isinstance(spec_tree, dict):
         return {k: layouts(v, mesh) for k, v in spec_tree.items()}
     return Layout(mesh, to_placements(spec_tree, mesh))
+
+
+def state_layouts(params_abstract, mesh, axes: Optional[MeshAxes] = None,
+                  *, train: bool = True, state_bits: Optional[int] = None,
+                  no_tp: bool = False):
+    """A block's sharded state as a ``Layout`` tree: the params as the
+    plan shards them (``param_specs``) and, for a train block, the
+    moments as ``moment_specs`` (the step counter whole, ``None``)."""
+    p_spec = param_specs(params_abstract, mesh, axes, no_tp=no_tp)
+    if not train:
+        return {"params": layouts(p_spec, mesh)}
+    opt = moment_specs(params_abstract, p_spec, mesh, state_bits)
+    lay = layouts({"params": p_spec, "opt": opt}, mesh)
+    lay["opt"]["step"] = None
+    return lay

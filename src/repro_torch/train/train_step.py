@@ -3,9 +3,9 @@ port of ``repro.train.train_step``).
 
 ``train_step(state, batch) -> (state, metrics)``: one optimizer update per
 call; gradients average over ``shape.microbatch`` sequential microbatches.
-The state's params and moments are updated in place.  The reference's
-``overlap_comm`` (a compressed cross-pod all-reduce folded into the
-accumulation) waits for the multi-GPU slices and raises here.  Every
+The state's params and moments are updated in place.  ``overlap_comm``
+folds the compressed cross-pod all-reduce into the accumulation
+(``make_train_step``; ``train.grad_compression``).  Every
 ported family trains: the dense GQA decoder, the VLM (next-token loss on
 the text after the patches), the encoder (masked-frame loss,
 bidirectional attention), the hybrid (Mamba2 + shared attention, whose
@@ -30,11 +30,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.transformer import flatten, unflatten
+from repro_torch.sharding import ctx as shard_ctx
+from repro_torch.train import grad_compression as gc
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -136,37 +139,110 @@ def _split_micro(batch, n_micro: int, i: int):
 def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                     opt_cfg: opt_lib.OptConfig, *, accum: str = "f32",
                     accum_threshold: int = MIXED_ACCUM_MIN_SIZE,
-                    overlap_comm: bool = False, impl: str = "auto"):
+                    overlap_comm: bool = False, mesh=None,
+                    pod_axis: str = "pod", impl: str = "auto"):
     """``accum``: gradient-accumulator dtype across microbatches, "f32"
     (default) or "mixed" (bf16 for leaves of >= 4M elements).  ``impl``
     selects the kernels or their plain versions for the whole step
-    (``kernels.ops``)."""
-    if overlap_comm:
-        raise NotImplementedError(
-            "overlap_comm (the compressed cross-pod gradient all-reduce) is "
-            "not yet ported: it comes with the multi-GPU slices")
-    n_micro = max(1, shape.microbatch)
+    (``kernels.ops``).
 
-    def train_step(state, batch):
-        params = state["params"]
-        if n_micro == 1:
-            loss, grads = value_and_grad(params, cfg, batch, impl=impl)
-        else:
-            # on the local shards of sharded leaves (the accumulator
-            # policy by the whole leaf's size)
-            acc = {path: torch.zeros(_local(p).shape, device=_local(p).device,
-                                     dtype=accum_dtype(accum, p,
-                                                       accum_threshold))
-                   for path, p in flatten(params)}
-            loss = torch.zeros((), device=next(iter(acc.values())).device)
-            for i in range(n_micro):
+    ``overlap_comm``: each microbatch's pod-local gradients (reduced over
+    the data axes only) go through the int8 compressed pod reduce
+    (``grad_compression.start_pod_reduce``), issued asynchronously and
+    waited on before its result is accumulated, so it runs under the
+    next microbatch's forward and backward.  Requires ``mesh`` (a
+    DeviceMesh) holding ``pod_axis``, a pure replica axis: the params
+    and moments replicated over it, the batch split over it
+    (``data.pipeline.batch_shards``).  The step runs under the block's
+    ``ShardCtx`` the caller installs (the serial step's: ``pod_axis``
+    among its summed data axes), with ``pod_axis`` made pod-local
+    (``ShardCtx.pod_local``).  The error feedback starts at zero each
+    step and is carried from microbatch to microbatch; the last
+    microbatch's residual is dropped, as the reference drops it, so
+    every pod's gradient, and so its params, stay bitwise the same.  The
+    loss is the mean over the pods.  ``n_micro == 1`` takes the
+    compressed path too.  The step's ``pod_reduce`` dict holds the last
+    step's readings: the pods, the last microbatch's scales, the error
+    feedback's bytes."""
+    n_micro = max(1, shape.microbatch)
+    if overlap_comm:
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if pod_axis not in names:
+            raise AssertionError((pod_axis, None if mesh is None else names))
+    pod_reduce: Dict[str, Any] = {}
+
+    def zeros_like_local(params, dtype_of):
+        return {path: torch.zeros(_local(p).shape, device=_local(p).device,
+                                  dtype=dtype_of(p))
+                for path, p in flatten(params)}
+
+    def acc_dtype(p):
+        # the accumulator policy by the whole leaf's size
+        return accum_dtype(accum, p, accum_threshold)
+
+    def accum_serial(params, batch):
+        # on the local shards of sharded leaves
+        acc = zeros_like_local(params, acc_dtype)
+        loss = torch.zeros((), device=next(iter(acc.values())).device)
+        for i in range(n_micro):
+            l, g = value_and_grad(params, cfg,
+                                  _split_micro(batch, n_micro, i), impl=impl)
+            for path, gl in flatten(g):
+                acc[path].add_(_local(gl).to(acc[path].dtype))
+            loss = loss + l
+            del g
+        return acc, loss
+
+    def accum_overlapped(params, batch):
+        ctx = shard_ctx.current()
+        if ctx is None:
+            raise ValueError("overlap_comm runs under the block's ShardCtx "
+                             "(shard_ctx.use) on its pod mesh")
+        ctx = ctx.pod_local(pod_axis)
+        acc = zeros_like_local(params, acc_dtype)
+        paths = list(acc)
+        errs = [torch.zeros_like(a, dtype=torch.float32)
+                for a in acc.values()]
+        losses, pending = [], None
+
+        def add(i, reduced):
+            acc[paths[i]].add_(reduced.to(acc[paths[i]].dtype))
+
+        for i in range(n_micro):
+            with shard_ctx.use(ctx):
                 l, g = value_and_grad(params, cfg,
                                       _split_micro(batch, n_micro, i),
                                       impl=impl)
-                for path, gl in flatten(g):
-                    acc[path].add_(_local(gl).to(acc[path].dtype))
-                loss = loss + l
-                del g
+            local = [_local(gl) for _, gl in flatten(g)]
+            del g
+            if pending is not None:
+                pending.wait(add)
+            pending = gc.start_pod_reduce(local, errs, mesh, pod_axis)
+            del local
+            losses.append(l)
+        pending.wait(add)
+        pod_reduce.update(
+            n_pods=pending.n_pods,
+            scales=pending.scales, numels=[e.numel() for e in errs],
+            ef_bytes=sum(e.numel() * e.element_size() for e in errs))
+        del errs
+        # each microbatch's loss the mean over the pods, added in order
+        means = torch.stack(losses)
+        dist.all_reduce(means, group=mesh.get_group(pod_axis))
+        means = means / torch.tensor(float(pending.n_pods),
+                                     device=means.device)
+        loss = torch.zeros((), device=means.device)
+        for m in means:
+            loss = loss + m
+        return acc, loss
+
+    def train_step(state, batch):
+        params = state["params"]
+        if n_micro == 1 and not overlap_comm:
+            loss, grads = value_and_grad(params, cfg, batch, impl=impl)
+        else:
+            acc, loss = (accum_overlapped if overlap_comm
+                         else accum_serial)(params, batch)
             # in place where the accumulator is already fp32
             grads = unflatten(
                 (path, _like(p, acc[path].float().div_(n_micro)))
@@ -176,6 +252,7 @@ def make_train_step(cfg: ModelConfig, shape: ShapeConfig,
                                                  state["opt"], grads)
         return {"params": params, "opt": opt}, {"loss": loss, **opt_metrics}
 
+    train_step.pod_reduce = pod_reduce
     return train_step
 
 

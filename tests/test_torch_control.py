@@ -25,6 +25,7 @@ the port, bit for bit.
 import dataclasses
 import importlib
 import inspect
+import json
 import os
 import subprocess
 import sys
@@ -557,9 +558,25 @@ def test_serve_launcher_through_the_daemon():
 @pytest.mark.parametrize("kind,seq,batch", [("train", 2048, 2),
                                             ("prefill", 512, 4),
                                             ("decode", 1024, 8)])
-def test_block_roofline_is_analytic_on_h100_peaks(arch, kind, seq, batch):
-    """The port's roofline: the reference's model FLOPs for the same
-    config and shape, on the H100's bf16 peak, never a dry run's."""
+def test_block_roofline_is_analytic_on_h100_peaks(arch, kind, seq, batch,
+                                                  monkeypatch, tmp_path):
+    """The port's roofline with no port sweep present: the reference's
+    model FLOPs for the same config and shape, on the H100's bf16 peak.
+    A TPU dry run's line (in a directory named as the reference's
+    ``artifacts/dryrun/``) is never read: only the port's own directory
+    is searched."""
+    port, ref = tmp_path / "dryrun_torch", tmp_path / "dryrun"
+    port.mkdir()
+    ref.mkdir()
+    (ref / "sweep.jsonl").write_text(json.dumps(
+        {"arch": arch, "shape": "s", "status": "ok", "mesh": "single",
+         "roofline": {"step_time_s": 9.0, "bottleneck": "collective"}})
+        + "\n")
+    monkeypatch.setattr(hlo_analysis, "DRYRUN_DIR", str(port))
+    searched = []
+    real_glob = hlo_analysis.glob.glob
+    monkeypatch.setattr(hlo_analysis.glob, "glob",
+                        lambda p: searched.append(p) or real_glob(p))
     want = jhlo.model_step_flops(jconfigs.get(arch),
                                  JShape("s", kind, seq, batch))
     shape = ShapeConfig("s", kind, seq, batch)
@@ -569,7 +586,12 @@ def test_block_roofline_is_analytic_on_h100_peaks(arch, kind, seq, batch):
     assert hlo_analysis.HBM_BW == 3.35e12
     assert got["source"] == "analytic" and got["bottleneck"] == "compute"
     assert got["step_time_s"] == want / 989e12
-    assert not hasattr(hlo_analysis, "dryrun_roofline")
+    assert searched == [str(port / "*.jsonl")]
+    default = os.path.normpath(os.path.join(
+        os.path.dirname(hlo_analysis.__file__), "..", "..", "..",
+        "artifacts", "dryrun_torch"))
+    monkeypatch.undo()
+    assert os.path.normpath(hlo_analysis.DRYRUN_DIR) == default
 
 
 def test_monitor_mfu_of_a_smoke_block_after_two_steps(tmp_path):

@@ -226,7 +226,8 @@ VERBATIM = (
                                       "placer", "pods")]
     + [f"engine/{m}.py" for m in ("__init__", "autostep", "pacing")]
     + [f"gateway/{m}.py" for m in ("__init__", "auth", "profiles",
-                                   "ratelimit", "server")])
+                                   "ratelimit", "server")]
+    + [f"launch/{m}.py" for m in ("hlo_parse", "attribute")])
 
 
 @pytest.mark.parametrize("path", VERBATIM)

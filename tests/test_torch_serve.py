@@ -309,8 +309,8 @@ def test_launcher_main_on_cpu(capsys, sample):
 
 
 def test_runtime_rejects_what_later_slices_port(setup, tmp_path):
-    """``overlap_comm`` waits for the multi-GPU slices and an unknown kind
-    is refused.  The checkpoint calls work: with a ``ckpt_root`` a serve
+    """``overlap_comm`` without a mesh holding a pod axis and an unknown
+    kind are refused.  The checkpoint calls work: with a ``ckpt_root`` a serve
     and a train block save, suspend, resume and restore at their step;
     without one they raise."""
     from repro_torch.train import optimizer as opt_lib
@@ -336,7 +336,9 @@ def test_runtime_rejects_what_later_slices_port(setup, tmp_path):
         assert rt.suspend()["step"] == 1 and rt.state is None
         assert rt.resume(grant, ["cpu"]) == 1 and not rt.suspended
         assert rt.restore() == 1 and rt.step_count == 1
-    with pytest.raises(NotImplementedError, match="overlap_comm"):
+    # overlap_comm is ported: without a mesh holding a pod axis it is
+    # the reference's assertion
+    with pytest.raises(AssertionError):
         train_lib.make_train_step(cfg, shape, opt_lib.OptConfig(),
                                   overlap_comm=True)
 
