@@ -154,7 +154,12 @@ never JAX.  Phases, each printing one JSON line:
                      on both paths: printed), the codec on the card the
                      CPU's bit for bit; step times, peak memories, the
                      error feedback's bytes, the codec's profiled device
-                     time;
+                     time; with int8 moments two more runs that tell the
+                     overlap's ordering from the algorithm: (a) the
+                     overlapped step with the device synchronized around
+                     each pod reduce, (b) a serial step through
+                     ``compressed_psum_pod``, their losses printed beside
+                     the serial and overlapped ones;
 10c. ``dryrun``     — the port's dry run (item 10) of ``train``'s job in
                      a CPU subprocess on a fake process group: status
                      ``ok``, its state bytes ``train``'s exactly, its
@@ -188,6 +193,26 @@ never JAX.  Phases, each printing one JSON line:
                      then 4 steps, the kernels' launches per step held
                      exactly (the SSD scan's backward kernel among them),
                      tokens/s, step time, peak memory and a profiled step;
+13b. ``hybrid_sharded`` — the hybrid family through the sharded runtime
+                     (item 8g, part 1) under a process group of one rank
+                     (NCCL, a ``HashStore``): train_hybrid's job and
+                     serve_hybrid's launcher job on a (1, 1) DeviceMesh,
+                     the Mamba2 heads, shared attention, MLP and
+                     vocabulary on the tensor-parallel path at M = 1;
+                     the losses, grad norms, tokens, prefill and first
+                     decode logits and launches theirs, bit for bit;
+13c. ``serve_long`` — zamba2_2p7b at full width, B = 1, on long_500k's
+                     524288-position cache (48.3 GB of K/V): a
+                     32768-token prefill and 16 captured greedy decode
+                     steps, unsharded, then through the sharded runtime
+                     at (1, 1) (item 8g, part 3: the sequence-split
+                     cache's path, its merge a no-op at one rank),
+                     tokens and logits bit for bit; the chunked decode
+                     attention against the whole softmax on one layer's
+                     full-size cache; the decode step against its bound,
+                     the peak memory against the dry run's for the same
+                     cell, each kernel's largest tensor against 2^31
+                     elements;
 14. ``train_encoder`` — a train ``BlockRuntime`` on hubert_xlarge (the
                      encoder: LayerNorm, plain GELU MLP, bidirectional
                      attention at head dim 80, the frame stub, the
@@ -2269,6 +2294,13 @@ def dense_launches(cfg):
             {**zero, "paged_attention": L, "rmsnorm": norms})
 
 
+def digest(t) -> str:
+    """The sha256 of a tensor's bytes, read on the host."""
+    import hashlib
+    b = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(b.numpy().tobytes()).hexdigest()
+
+
 def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
@@ -2893,6 +2925,9 @@ def phase_serve_hybrid(device="cuda", smoke=False):
             logits[key] = (lg.float(), step.float())
             del cache
     del params32
+    # the kernels' bf16 prefill and first decode step, for hybrid_sharded
+    digests = {"prefill": digest(logits["bf16_auto"][0]),
+               "decode": digest(logits["bf16_auto"][1])}
     groups = hybrid_group_check(params, cfg, tokens, first)
     set_counts(launches)
     check(bool((first[:, 0].cpu().numpy() == toks[:, 0]).all()),
@@ -2953,7 +2988,8 @@ def phase_serve_hybrid(device="cuda", smoke=False):
            "launches_per_prefill": per_call["bf16_auto"],
            "launches_per_decode_step": per_call["decode_bf16_auto"],
            "logits_check": chk, "first_decode_logits_check": chk_dec,
-           "bf16_group_check": groups, "tokens": toks.tolist()}
+           "bf16_group_check": groups, "tokens": toks.tolist(),
+           "logits_digests": digests}
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = peak
         cache = model.init_cache(cfg, B, P, rt.device)
@@ -4322,6 +4358,420 @@ def phase_train_hybrid(device="cuda", smoke=False):
     return _train_phase("train_hybrid", cfg, shape, opt_cfg, device,
                         n_steps=2 if smoke else 4, profile=True,
                         step0=step0_upcast_check)
+
+
+def phase_hybrid_sharded(device="cuda", smoke=False, train=None,
+                         serve=None):
+    """The hybrid family through the sharded runtime (item 8g, part 1):
+    zamba2_2p7b under a process group of one rank (NCCL on the card,
+    gloo on the CPU; a ``HashStore``), so its blocks run on a (1, 1)
+    DeviceMesh with every param a DTensor and the tensor-parallel path
+    of its Mamba2 heads, shared attention, MLP and vocabulary at M = 1
+    (every join a no-op, every leaf's model shard the leaf).  The train
+    block: train_hybrid's job (``train``: 54 layers at full width, fp32
+    moments, 2 x 2048 tokens), its losses and grad norms train_hybrid's
+    bit for bit and its launches per step exactly theirs.  The serve
+    block: serve_hybrid's job through the launcher (``serve``: 4 x 1000
+    prompt tokens, 32 generated, the decode captured), its tokens
+    serve_hybrid's bit for bit, its launches and the graph's launches a
+    replay exactly theirs; the prefill's and the first decode step's
+    logits, from the block's params under its context, serve_hybrid's
+    (``logits_digests``) bit for bit.  The process group is destroyed
+    at the end."""
+    import torch.distributed as dist
+    from repro_torch import device as device_lib
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import model
+    from repro_torch.sharding import ctx as shard_ctx
+    from torch.distributed.tensor import DTensor
+    if train is None:
+        train = phase_train_hybrid(device, smoke)
+        _free(device)
+    if serve is None:
+        serve = phase_serve_hybrid(device, smoke)
+        _free(device)
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    out = {"backend": dist.get_backend(), "mesh": [1, 1], "card": _CARD}
+
+    def sharded(rt, what):
+        check(rt.mesh is not None and tuple(rt.mesh.mesh.shape) == (1, 1)
+              and all(isinstance(t, DTensor)
+                      for t in _tensors(rt.state["params"]))
+              and rt.tp.model == 1 and rt.tp.kept == ()
+              and rt.tp.kinds == {"attn", "mlp", "vocab", "mamba"},
+              f"hybrid_sharded {what}: not on the tensor-parallel path, "
+              f"{rt.tp}")
+
+    try:
+        cfg, shape, opt_cfg = _train_hybrid_setup(smoke)
+        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
+
+        def after(rt, o):
+            sharded(rt, "train")
+            o["tp"] = tp_summary(
+                rt.tp, shard_ctx.GATHERED["model_bytes"] / len(o["losses"]),
+                rt.tp.step_bytes(shape.microbatch, remat=True),
+                shard_ctx.GATHERED["tp_leaves"] / len(o["losses"]))
+            check(o["tp"]["model_bytes_a_step"] == 0
+                  and o["tp"]["tp_leaves"] > 0,
+                  f"hybrid_sharded train: {o['tp']}")
+            for key in ("losses", "grad_norms", "launches_per_step"):
+                o[f"{key}_equal_train_hybrid"] = o[key] == train[key]
+                check(o[f"{key}_equal_train_hybrid"],
+                      f"hybrid_sharded train: {key} {o[key]}, "
+                      f"train_hybrid's {train[key]}")
+            # the host time the DTensor calls add: enqueue against wall
+            o["host_probe"] = host_probe(rt)
+            return rt
+
+        tr = _train_phase("hybrid_sharded_train", cfg, shape, opt_cfg,
+                          device, n_steps=train["steps"], profile=False,
+                          step0=None, after=after)
+        out["train"] = {k: tr[k] for k in (
+            "losses", "grad_norms", "steady_step_s", "tok_s", "host_probe",
+            "launches_per_step", "tp", "losses_equal_train_hybrid",
+            "grad_norms_equal_train_hybrid",
+            "launches_per_step_equal_train_hybrid")}
+        out["train"]["train_hybrid_steady_step_s"] = train["steady_step_s"]
+        _free(device)
+
+        progress("hybrid_sharded: serve")
+        args = serve_launcher.parse_args(serve_hybrid_argv(device, smoke))
+        B, P, G = args.batch, args.prompt_len, args.gen
+        zero_counts()
+        _zero_eager_calls()
+        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
+        res = serve_launcher.run(args)
+        launches = counts()
+        rt = res["runtime"]
+        sharded(rt, "serve")
+        graph = graph_check("hybrid_sharded serve", rt.decode_graph, G - 1,
+                            _eager_calls(), device)
+        toks = res["tokens"]
+        tokens = torch.as_tensor(res["batch"]["tokens"], device=rt.device)
+        d = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+             "launches": launches, "decode_graph": graph,
+             "tp": tp_summary(rt.tp, shard_ctx.GATHERED["model_bytes"],
+                              rt.tp.step_bytes(1),
+                              shard_ctx.GATHERED["tp_leaves"]),
+             "tokens_equal_serve_hybrid": toks.tolist() == serve["tokens"],
+             "launches_equal_serve_hybrid": launches == serve["launches"],
+             "launches_per_replay_equal_serve_hybrid": (
+                 graph["launches_per_replay"]
+                 == serve["decode_graph"]["launches_per_replay"])}
+        check(d["tokens_equal_serve_hybrid"],
+              "hybrid_sharded: the tokens differ from serve_hybrid's")
+        check(d["launches_equal_serve_hybrid"]
+              and d["launches_per_replay_equal_serve_hybrid"],
+              f"hybrid_sharded serve launches {launches}, graph {graph}; "
+              f"serve_hybrid's {serve['launches']}, "
+              f"{serve['decode_graph']}")
+        # the logits: the block's params under its context, from a fresh
+        # cache as serve_hybrid's check ran them (not the main path)
+        saved = counts()
+        with shard_ctx.use(rt.ctx):
+            cache = model.init_cache(cfg := rt.job.cfg, B, P + 1, rt.device)
+            params = rt.state["params"]
+            lg, _ = model.prefill(params, cfg, {"tokens": tokens}, cache)
+            first = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            step, _ = model.decode_step(params, cfg, first, cache, P)
+            del cache
+        set_counts(saved)
+        d["logits_digests"] = {"prefill": digest(lg.float()),
+                               "decode": digest(step.float())}
+        d["logits_equal_serve_hybrid"] = (d["logits_digests"]
+                                          == serve["logits_digests"])
+        check(d["logits_equal_serve_hybrid"],
+              "hybrid_sharded: the prefill or first decode logits differ "
+              "from serve_hybrid's")
+        if rt.device.type == "cuda":
+            d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            # a fresh decode context in the graph's own cache, then warm
+            # replays, as serve_hybrid profiles its own
+            restart(rt)
+            rt.prefill({"tokens": tokens})
+            d["warm_decode_step"] = profile_steps(rt.step, 3)
+            d["serve_hybrid_warm_decode_step_ms"] = serve[
+                "warm_decode_step"]["wall_ms"]
+            set_counts(saved)
+        out["serve"] = d
+        del res, rt, params
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = {n: tr["launches"][n] + d["launches"][n]
+                       for n in COUNTERS}
+    emit("hybrid_sharded", **out)
+    return out
+
+
+#: serve_long: long_500k's positions, prefill_32k's prompt, decode steps
+LONG_POSITIONS = 524288
+LONG_PROMPT = 32768
+LONG_STEPS = 16
+#: what a 32768-token hybrid prefill's activations and logits may take
+#: beside the params and the cache (its logits alone 2.1 GB in bf16)
+LONG_WORKSPACE = 12e9
+
+
+def _long_run(name, job, device, tokens, steps):
+    """One B = 1 serve block of ``job`` on ``device`` (the sharded
+    runtime under a process group, else the unsharded one): a prefill of
+    ``tokens`` (its logits kept), ``steps`` captured greedy decode steps,
+    then one more decode step run eagerly under the block's context for
+    its logits; the launches of the prefill and the captured steps, the
+    decode graph, peak memory and a profiled warm decode step."""
+    from repro_torch.core.block import BlockGrant
+    from repro_torch.core.runtime import BlockRuntime
+    from repro_torch.models import model
+    from repro_torch.serve import serve_step as serve_lib
+    from repro_torch.sharding import ctx as shard_ctx
+    cfg = job.cfg
+    rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0), job,
+                      devices=[device])
+    t0 = time.perf_counter()
+    rt.init_state()
+    rt._sync()
+    init_s = time.perf_counter() - t0
+    box, pf = {}, serve_lib.make_prefill_step(cfg)
+
+    def prefill(params, batch, cache):
+        logits, cache = pf(params, batch, cache)
+        box["logits"] = logits
+        return logits, cache
+    rt._prefill_fn = prefill
+    if rt.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    _zero_eager_calls()
+    progress(f"{name}: prefill {tokens.shape[1]} tokens")
+    t0 = time.perf_counter()
+    rt.prefill({"tokens": tokens})
+    rt._sync()
+    prefill_s = time.perf_counter() - t0
+    pre_launches = counts()
+    progress(f"{name}: {steps} decode steps")
+    toks = [rt.token]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        rt.step()
+        toks.append(rt.token)
+    decode_s = time.perf_counter() - t0
+    launches = counts()
+    graph = graph_check(name, rt.decode_graph, steps, _eager_calls(),
+                        device)
+    out = {"init_s": init_s, "prefill_s": prefill_s, "decode_s": decode_s,
+           "decode_step_ms": decode_s / steps * 1e3,
+           "tokens": [int(t[0, 0]) for t in toks],
+           "launches": launches, "launches_prefill": pre_launches,
+           "decode_graph": graph, "cache_len": rt.cache_len,
+           "seq_split": bool(rt.ctx is not None and rt.ctx.seq_split),
+           "sharded": rt.mesh is not None}
+    if rt.mesh is not None:
+        out["tp"] = rt.tp.summary()
+        check(rt.tp.computes("mamba") and rt.tp.computes("attn"),
+              f"{name}: the hybrid is not on the tensor-parallel path")
+    if rt.device.type == "cuda":
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    saved = counts()
+    with torch.no_grad(), shard_ctx.use(rt.ctx):
+        lg, _ = model.decode_step(rt.state["params"], cfg, rt.token,
+                                  rt.cache, rt.cache_len)
+    out["logits_digests"] = {"prefill": digest(box["logits"].float()),
+                             "eager_step": digest(lg.float())}
+    out["logits_finite"] = bool(torch.isfinite(lg.float()).all()
+                                and torch.isfinite(
+                                    box["logits"].float()).all())
+    if rt.device.type == "cuda":
+        rt.cache_len += 1
+        out["warm_decode_step"] = profile_steps(rt.step, 2)
+    set_counts(saved)
+    rt.release()
+    del rt, box
+    return out
+
+
+def phase_serve_long(device="cuda", smoke=False):
+    """zamba2_2p7b at full width, B = 1, on long_500k's cache (item 8g,
+    part 3): a cache of ``LONG_POSITIONS`` positions (48.3 GB of K/V in
+    bf16 beside 5.4 GB of params; halved to the largest power of two
+    that fits beside ``LONG_WORKSPACE`` if the card's free memory does
+    not hold it), a ``LONG_PROMPT``-token prefill (prefill_32k's length)
+    and ``LONG_STEPS`` captured greedy decode steps, first on the
+    unsharded ``BlockRuntime``, then through the sharded runtime at
+    (1, 1) under a process group of one rank (NCCL; every join and
+    every merge a no-op at one rank): the tokens, the prefill's logits
+    and one more eager decode step's bit for bit the unsharded run's,
+    the launches exactly one prefill's and the captured steps'.  Then
+    the chunked ``decode_attention`` (``ops.DECODE_CHUNK`` positions a
+    chunk) against the whole softmax in one chunk on one layer's
+    full-size cache, every position valid (rtol ``LONG_RTOL`` in fp32).
+    Printed: the decode step's wall and device ms against its bound
+    (the params and the whole cache read once at the memory rate: the
+    step masks, not skips, the positions past ``cache_len``), the peak
+    memory against the dry run's computed state and peak for the same
+    cell at (1, 1) (``python -m repro_torch.launch.dryrun`` in a CPU
+    subprocess started first), and the largest tensor each kernel of
+    the path takes against 2^31 elements."""
+    import torch.distributed as dist
+    import repro_torch.configs as configs
+    from repro_torch import device as device_lib
+    from repro_torch.core.runtime import JobSpec
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.models.config import ShapeConfig
+    cfg = (configs.get_smoke("zamba2_2p7b") if smoke
+           else configs.get("zamba2_2p7b"))
+    P, steps = (24, 4) if smoke else (LONG_PROMPT, LONG_STEPS)
+    smax = 64 if smoke else LONG_POSITIONS
+    dev = torch.device(device)
+    params_b = tree_bytes(model.abstract_params(cfg))
+
+    def cache_b(n):
+        return tree_bytes(model.init_cache(cfg, 1, n, "meta"))
+
+    free = (torch.cuda.mem_get_info()[0] if dev.type == "cuda"
+            else float("inf"))
+    want = smax
+    while params_b + cache_b(smax) + LONG_WORKSPACE > free and smax > P * 2:
+        smax //= 2
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": 1,
+           "positions": smax, "positions_wanted": want,
+           "cut": smax != want, "prompt_len": P, "decode_steps": steps,
+           "params_gb": params_b / 1e9, "cache_gb": cache_b(smax) / 1e9,
+           "free_gb_at_start": free / 1e9, "card": _CARD}
+    # the dry run of the same cell at (1, 1), on the CPU beside the card
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", "zamba2_2p7b", "--kind", "decode", "--shape",
+           "long_500k", "--seq-len", str(smax), "--global-batch", "1",
+           "--mesh-shape", "1,1"] + (["--smoke"] if smoke else [])
+    dry = subprocess.Popen(
+        cmd, env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                      PYTHONPATH=os.path.join(ROOT, "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    try:
+        job = JobSpec(cfg, ShapeConfig("long_500k", "serve", seq_len=smax,
+                                       global_batch=1), kind="serve",
+                      seed=0)
+        tokens = torch.as_tensor(pipeline.synthetic_batch(
+            cfg, ShapeConfig("p", "prefill", seq_len=P, global_batch=1),
+            step=0, seed=0)["tokens"], device=dev)
+        plain = _long_run("serve_long unsharded", job, device, tokens,
+                          steps)
+        _free(device)
+        device_lib.init_distributed(device, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+        try:
+            mesh = _long_run("serve_long", job, device, tokens, steps)
+        finally:
+            dist.destroy_process_group()
+        _free(device)
+        for key in ("tokens", "logits_digests", "launches"):
+            out[f"{key}_equal_unsharded"] = mesh[key] == plain[key]
+            check(out[f"{key}_equal_unsharded"],
+                  f"serve_long: the sharded run's {key} differ from the "
+                  f"unsharded run's")
+        check(mesh["logits_finite"] and mesh["sharded"]
+              and not plain["sharded"], "serve_long: logits or runs")
+        pre, dec = hybrid_launches(cfg)
+        if dev.type != "cuda":
+            pre = dec = {n: 0 for n in COUNTERS}
+        check(mesh["launches_prefill"] == pre and mesh["launches"] == {
+            n: pre[n] + steps * dec[n] for n in COUNTERS},
+              f"serve_long launches {mesh['launches']}: not one prefill "
+              f"and {steps} decode steps")
+        out["unsharded"], out["sharded"] = plain, mesh
+        out["launches"] = {n: plain["launches"][n] + mesh["launches"][n]
+                           for n in COUNTERS}
+        # the decode step's bound: the params and the whole cache read
+        nbytes = params_b + cache_b(smax)
+        out["decode_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        out["decode_bytes"] = nbytes
+        if dev.type == "cuda":
+            w = mesh["warm_decode_step"]
+            out["decode_wall_ms"], out["decode_device_ms"] = (
+                w["wall_ms"], w["device_ms"])
+        out["attention_check"] = _long_attention_check(cfg, smax, dev)
+        out["int32"] = _long_int32(cfg, P)
+        check(all(v["elements"] < 2 ** 31 for v in out["int32"].values()),
+              f"serve_long: a kernel's tensor past 2^31 elements "
+              f"{out['int32']}")
+    finally:
+        try:
+            so, se = dry.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            dry.kill()
+            so, se = dry.communicate()
+    lines = [x for x in so.splitlines() if x.startswith("{")]
+    check(dry.returncode == 0 and bool(lines),
+          f"serve_long dryrun: exit {dry.returncode}: {se[-2000:]}")
+    line = json.loads(lines[-1])
+    check(line.get("status") == "ok", f"serve_long dryrun: {line}")
+    out["dryrun"] = {"state_gb": line["memory"]["state_bytes"] / 1e9,
+                     "peak_gb": line["memory"]["peak_bytes_per_device"]
+                     / 1e9, "cache": line["cache"], "gaps": line["gaps"],
+                     "step_s": line["roofline"]["step_time_s"]}
+    emit("serve_long", **out)
+    return out
+
+
+#: the chunked decode attention against the whole softmax, in fp32
+LONG_RTOL = 1e-5
+
+
+def _long_attention_check(cfg, smax, dev):
+    """``ops.decode_attention`` over one layer's full-size cache, every
+    position valid, in chunks of ``ops.DECODE_CHUNK`` against one chunk
+    (the whole softmax), on the same bf16 inputs: the fp32 partial
+    results (normalised output and log-sum-exp) within ``LONG_RTOL``."""
+    from repro_torch.kernels import ops
+    a = cfg.attention
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16)
+    k = randn(1, smax, a.n_kv_heads, a.head_dim)
+    v = randn(1, smax, a.n_kv_heads, a.head_dim)
+    q = randn(1, a.n_heads, 1, a.head_dim)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    chunk = min(ops.DECODE_CHUNK, smax // 4)
+
+    def run(c):
+        return ops.decode_attention(q, kt, vt, smax, chunk=c, partials=True)
+    got, want = run(chunk), run(smax)
+    (e_o, r_o), (e_l, r_l) = (close(got[0], want[0], LONG_RTOL),
+                              close(got[1], want[1], LONG_RTOL))
+    out = {"shape": [1, a.n_heads, a.n_kv_heads, smax, a.head_dim],
+           "chunk": chunk, "chunks": -(-smax // chunk),
+           "rtol": LONG_RTOL, "max_abs_err": max(e_o, e_l),
+           "worst_over_tol": max(r_o, r_l)}
+    out["passed"] = out["worst_over_tol"] <= 1
+    check(out["passed"], f"serve_long: chunked decode attention {out}")
+    if dev.type == "cuda":
+        out["ms"] = time_ms(lambda: run(chunk), iters=3, warmup=1)
+        out["whole_ms"] = time_ms(lambda: run(smax), iters=3, warmup=1)
+        out["bound_ms"] = ((k.numel() + v.numel()) * 2
+                           / HBM_BYTES_PER_S * 1e3)
+    del k, v, kt, vt, got, want
+    return out
+
+
+def _long_int32(cfg, P):
+    """The largest tensor, in elements, each kernel of serve_long's path
+    takes (B = 1): the SSD scan's x (P, H, head_dim), flash attention's q
+    (H, P, head_dim), the RMSNorm's rows (P, d_inner): each kernel
+    indexes its inputs with 32-bit offsets (``csrc/``)."""
+    di = cfg.ssm.expand * cfg.d_model
+    H = di // cfg.ssm.head_dim
+    a = cfg.attention
+    sizes = {"ssd_scan": P * H * cfg.ssm.head_dim,
+             "flash_attention": P * a.n_heads * a.head_dim,
+             "rmsnorm": P * di}
+    return {k: {"elements": n, "share_of_2_31": n / 2 ** 31}
+            for k, n in sizes.items()}
 
 
 MOE_TRAIN_LAYERS = 2
@@ -6016,11 +6466,12 @@ OVERLAP_STEPS = 6
 
 
 def _overlap_path(cfg, shape, opt_cfg, mesh, ctx, data, dev, overlap,
-                  n_steps):
+                  n_steps, step=None):
     """One path of ``train_overlap``: ``n_steps`` steps from seed 0
     on the (1, 1, 1) mesh, its launches counted as the main path's; step
     0's compressed-reduce readings (the last microbatch's scales and the
-    leaves' sizes) kept on the host."""
+    leaves' sizes) kept on the host.  ``step``: a train step of the
+    caller's in place of ``make_train_step``'s."""
     from repro_torch.models import model as model_lib
     from repro_torch.sharding import ctx as shard_ctx
     from repro_torch.sharding import plans
@@ -6031,7 +6482,8 @@ def _overlap_path(cfg, shape, opt_cfg, mesh, ctx, data, dev, overlap,
     state = train_lib.make_sharded_train_state(cfg, 0, opt_cfg, lay,
                                                device=dev)
     kw = dict(overlap_comm=True, mesh=mesh) if overlap else {}
-    step = train_lib.make_train_step(cfg, shape, opt_cfg, **kw)
+    if step is None:
+        step = train_lib.make_train_step(cfg, shape, opt_cfg, **kw)
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -6046,7 +6498,7 @@ def _overlap_path(cfg, shape, opt_cfg, mesh, ctx, data, dev, overlap,
                      "step_s": time.perf_counter() - t0})
         if opt_cfg.state_bits == 8:
             hist[-1]["eps_exposed"] = _eps_exposed(state["opt"])
-        if overlap and i == 0:
+        if overlap and i == 0 and hasattr(step, "pod_reduce"):
             pr = step.pod_reduce
             reduce0 = {"scales": pr["scales"].double().cpu().tolist(),
                        "numels": list(pr["numels"]),
@@ -6066,6 +6518,86 @@ def _overlap_path(cfg, shape, opt_cfg, mesh, ctx, data, dev, overlap,
     if reduce0 is not None:
         out["step0_reduce"] = reduce0
     return out, state, step
+
+
+@contextlib.contextmanager
+def _synced_pod_reduce(dev):
+    """Run (a) of the int8 overlapped climb's experiment: the overlapped
+    step with the device synchronized after each ``start_pod_reduce``
+    and before each ``PodReduce.wait``, so no kernel of the pod reduce
+    runs beside another microbatch's."""
+    from repro_torch.train import grad_compression as gcomp
+    start, wait = gcomp.start_pod_reduce, gcomp.PodReduce.wait
+
+    def synced_start(*a, **kw):
+        out = start(*a, **kw)
+        _sync(dev)
+        return out
+
+    def synced_wait(self, *a, **kw):
+        _sync(dev)
+        return wait(self, *a, **kw)
+
+    gcomp.start_pod_reduce, gcomp.PodReduce.wait = synced_start, synced_wait
+    try:
+        yield
+    finally:
+        gcomp.start_pod_reduce, gcomp.PodReduce.wait = start, wait
+
+
+def _compressed_serial_step(cfg, shape, opt_cfg, mesh):
+    """Run (b) of the int8 overlapped climb's experiment: a serial train
+    step whose microbatch gradients each pass synchronously through the
+    port's ``grad_compression.compressed_psum_pod`` (the pod made
+    pod-local, the error feedback zero each step and carried from
+    microbatch to microbatch, as the overlapped step's), summed in fp32,
+    then the optimizer's update: the overlapped step's arithmetic with
+    no collective in flight."""
+    import torch.distributed as dist
+    from repro_torch.models.transformer import flatten, unflatten
+    from repro_torch.sharding import ctx as shard_ctx
+    from repro_torch.train import grad_compression as gcomp
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as train_lib
+    n_micro = max(1, shape.microbatch)
+
+    def step(state, batch):
+        params = state["params"]
+        ctx = shard_ctx.current().pod_local("pod")
+        acc = err = None
+        losses = []
+        for i in range(n_micro):
+            with shard_ctx.use(ctx):
+                l, g = train_lib.value_and_grad(
+                    params, cfg, train_lib._split_micro(batch, n_micro, i))
+            local = {p: train_lib._local(t) for p, t in flatten(g)}
+            del g
+            if err is None:
+                err = {p: torch.zeros(t.shape, dtype=torch.float32,
+                                      device=t.device)
+                       for p, t in local.items()}
+                acc = {p: torch.zeros_like(e) for p, e in err.items()}
+            red, err = gcomp.compressed_psum_pod(local, err, mesh)
+            del local
+            for p in acc:
+                acc[p].add_(red[p])
+            del red
+            losses.append(l)
+        means = torch.stack(losses)
+        n_pods = mesh.size(list(mesh.mesh_dim_names).index("pod"))
+        dist.all_reduce(means, group=mesh.get_group("pod"))
+        means = means / torch.tensor(float(n_pods), device=means.device)
+        loss = torch.zeros((), device=means.device)
+        for m in means:
+            loss = loss + m
+        grads = unflatten((p, train_lib._like(t, acc[p].div_(n_micro)))
+                          for p, t in flatten(params))
+        del acc, err
+        params, opt, metrics = opt_lib.apply(opt_cfg, params, state["opt"],
+                                             grads)
+        return ({"params": params, "opt": opt},
+                {"loss": loss / n_micro, **metrics})
+    return step
 
 
 def _eps_exposed(opt):
@@ -6238,6 +6770,7 @@ def phase_train_overlap(device="cuda", smoke=False, train=None):
                 del state, step
                 _free(device)
                 continue
+
             r0 = over["step0_reduce"]
             out["ef_bytes"] = r0["ef_bytes"]
             progress(f"{name}: codec on the card and the host")
@@ -6275,6 +6808,35 @@ def phase_train_overlap(device="cuda", smoke=False, train=None):
                     / out["warm_step"]["device_ms"])
             del state, step
             _free(device)
+            # the int8 climb's experiment: (a) the overlapped step with
+            # the device synchronized around each pod reduce, (b) the
+            # compressed reduce run serially; both from the same seed
+            progress(f"{name}: (a) synchronized overlapped path")
+            with _synced_pod_reduce(dev):
+                synced, _, _ = _overlap_path(cfg, shape, opt_cfg, mesh, ctx,
+                                             data, dev, True, n_steps)
+            _free(device)
+            progress(f"{name}: (b) serial compressed path")
+            comp, _, _ = _overlap_path(
+                cfg, shape, opt_cfg, mesh, ctx, data, dev, True, n_steps,
+                step=_compressed_serial_step(cfg, shape, opt_cfg, mesh))
+            _free(device)
+            for path in (synced, comp):
+                check(path["launches_per_step"] == want,
+                      f"{name} (a)/(b) launches per step "
+                      f"{path['launches_per_step']}, want {want}")
+                for k in COUNTERS:
+                    out["launches"][k] += path["launches"][k]
+            run["climb"] = {
+                "serial": serial["losses"], "overlap": over["losses"],
+                "a_synced_overlap": synced["losses"],
+                "b_serial_compressed": comp["losses"],
+                "a_equals_overlap": synced["losses"] == over["losses"],
+                "b_equals_overlap": comp["losses"] == over["losses"],
+                "grad_norms": {"serial": serial["grad_norms"],
+                               "overlap": over["grad_norms"],
+                               "a_synced_overlap": synced["grad_norms"],
+                               "b_serial_compressed": comp["grad_norms"]}}
         emit("train_overlap", card=_CARD, **out)
         return out
     finally:
@@ -6432,6 +6994,12 @@ def _run_all() -> int:
     _free()
     train_hybrid = phase_train_hybrid()
     _free()
+    progress("hybrid_sharded")
+    hybrid_sharded = phase_hybrid_sharded(train=train_hybrid, serve=hybrid)
+    _free()
+    progress("serve_long")
+    serve_long = phase_serve_long()
+    _free()
     train_encoder = phase_train_encoder()
     _free()
     train_moe = phase_train_moe()
@@ -6471,6 +7039,8 @@ def _run_all() -> int:
             "train_f32": train_f32["launches"],
             "blocks": blocks["launches"],
             "train_hybrid": train_hybrid["launches"],
+            "hybrid_sharded": hybrid_sharded["launches"],
+            "serve_long": serve_long["launches"],
             "train_encoder": train_encoder["launches"],
             "train_moe": train_moe["launches"],
             "train_xlstm": train_xlstm["launches"],
@@ -6490,6 +7060,9 @@ def _run_all() -> int:
               "vlm": [vlm["decode_graph"]],
               "moe": [moe["decode_graph"]],
               "xlstm": [xlstm["decode_graph"]],
+              "hybrid_sharded": [hybrid_sharded["serve"]["decode_graph"]],
+              "serve_long": [serve_long[k]["decode_graph"]
+                             for k in ("unsharded", "sharded")],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
@@ -6521,6 +7094,8 @@ def _run_all() -> int:
                        "blocks": blocks["launches"]["fused_adamw_f32"],
                        "train_hybrid":
                            train_hybrid["launches"]["fused_adamw_f32"],
+                       "hybrid_sharded":
+                           hybrid_sharded["launches"]["fused_adamw_f32"],
                        "train_encoder":
                            train_encoder["launches"]["fused_adamw_f32"],
                        "train_moe": train_moe["launches"]["fused_adamw_i8"],

@@ -67,9 +67,14 @@ block's first rank, so a resume or a migration may come with another
 mesh shape and other ranks.  A serve block's params lie and are
 gathered as a train block's, forward only.  On the dense plane each
 rank holds its rows of the prompt batch and the cache (``data``;
-every rank the whole batch where the rows do not split) and, where the
-attention computes sharded over ``model``, the cache of its kv heads
-only (``plans.cache_layouts``, ``init_cache``'s ``kv_split``), the MoE
+every rank the whole batch where the rows do not split, and then, for
+a GQA cache whose positions split over the data ranks, its slice of
+the positions, ``ShardCtx.seq_split``, as the reference's cache spec
+shards them) and, where the attention or Mamba2 computes sharded over
+``model``, the cache of its kv heads and Mamba2 heads only
+(``plans.cache_layouts``, ``init_cache``'s ``kv_split``,
+``mamba_split`` and ``seq_split``; a rank's ``conv`` state holds its
+heads' channels, joined whole for a checkpoint, ``_conv``), the MoE
 layers routing each data shard's rows as one group, as the reference's
 do, and the decode step
 (``serve_step.on_mesh``) takes and gives the whole batch's tokens, so
@@ -126,6 +131,7 @@ from repro_torch.data import pipeline
 from repro_torch.device import (block_ranks, device_of, from_rank, rank,
                                 rank_device, world_size)
 from repro_torch.models import model as model_lib
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
 from repro_torch.sharding import ctx as shard_ctx
@@ -264,7 +270,8 @@ class BlockRuntime(InflightWindow):
             # position scalar (3) (and a sampling job's generator), so it
             # is the block's own
             self._step = compile_cache.CapturedStep(
-                decode, static=(0, 2, 3), donate=(2,))
+                decode, static=(0, 2, 3), donate=(2,),
+                warm_inplace=self._appended)
             self._cache_len_dev = torch.zeros((), dtype=torch.int32,
                                               device=self.device)
 
@@ -295,11 +302,26 @@ class BlockRuntime(InflightWindow):
             grant.mesh_shape[0], coord[0], max(1, shape.microbatch))
         B = shape.global_batch
         split = self.batch_shards.split(B)
+        # a serve batch that does not split over data: its cache's
+        # positions do, where the reference's cache spec shards them
+        seq = (self.job.kind == "serve" and not split and plans.seq_splits(
+            self.job.cfg, B, shape.seq_len, grant.mesh_shape[0]))
         self.ctx = shard_ctx.ShardCtx(self.mesh, ("data",), "model",
-                                      shards_batch=split, tp=self.tp)
+                                      shards_batch=split, tp=self.tp,
+                                      seq_split=seq)
         if self.job.kind == "serve":
             rows = self.batch_shards.rows(B)
             self.rows = (int(rows[0]), int(rows[-1]) + 1, B)
+
+    def _appended(self, t) -> bool:
+        """Whether ``t`` is one of the dense decode cache's attention
+        leaves (GQA ``k``/``v``, MLA ``c_kv``/``k_rope``), which a decode
+        step writes only at row ``cache_len``, from its other inputs: the
+        captured step's warm-up writes them in place
+        (``CapturedStep.warm_inplace``)."""
+        return any(t is leaf for path, leaf in transformer.flatten(
+            self.cache or {}) if path.split("/")[-1] in (
+                "k", "v", "c_kv", "k_rope"))
 
     def _in_ctx(self, step):
         ctx = self.ctx
@@ -321,13 +343,28 @@ class BlockRuntime(InflightWindow):
 
     def cache_layouts(self):
         """The dense serve plane's cache on the mesh: this rank's rows of
-        the batch and, where the attention computes sharded over
-        ``model``, its kv heads (``plans.cache_layouts``)."""
+        the batch, or of a batch that does not split its slice of the
+        positions; where the attention or Mamba2 computes sharded over
+        ``model``, its kv heads and ``ssm`` heads
+        (``plans.cache_layouts``; the ``conv`` state's layout is its
+        whole leaf, ``_conv``)."""
         shape = self.job.shape
         return plans.cache_layouts(
             serve_lib.abstract_cache(self.job.cfg, shape.global_batch,
                                      shape.seq_len),
-            self.mesh, self.axes, split=self.ctx.shards_batch, tp=self.tp)
+            self.mesh, self.axes, split=self.ctx.shards_batch, tp=self.tp,
+            seq=self.ctx.seq_split)
+
+    def _conv(self, cache, fn):
+        """``cache`` with its Mamba2 ``conv`` state passed through ``fn``
+        (``transformer.conv_whole`` for a save, ``conv_of_rank`` after a
+        restore) where the block computes Mamba2's heads sharded: a rank
+        holds its heads' channels, the checkpoint the whole leaf."""
+        if not (self.tp is not None and self.tp.computes("mamba")):
+            return cache
+        with shard_ctx.use(self.ctx):
+            conv = fn(cache["mamba"]["conv"], self.job.cfg)
+        return {**cache, "mamba": {**cache["mamba"], "conv": conv}}
 
 
     # ------------------------------------------------------------ compile
@@ -385,11 +422,16 @@ class BlockRuntime(InflightWindow):
             return
         B = job.shape.global_batch
         lo, hi, _ = self.rows if self.ctx is not None else (0, B, B)
-        # the kv heads split over ``model`` where the attention is
-        heads = self.tp is not None and self.tp.computes("attn")
+        # the kv heads and Mamba2 heads split over ``model`` where they
+        # compute sharded, the positions over ``data`` where they split
+        tp = self.tp
         self.cache = model_lib.init_cache(
             job.cfg, hi - lo, job.shape.seq_len, self.device,
-            kv_split=self.tp.model if heads else 1)
+            kv_split=tp.model if tp and tp.computes("attn") else 1,
+            mamba_split=tp.model if tp and tp.computes("mamba") else 1,
+            seq_split=(self.batch_shards.dp
+                       if self.ctx is not None and self.ctx.seq_split
+                       else 1))
         self.cache_len = 0
         self.token = torch.zeros((B, 1), dtype=torch.int32,
                                  device=self.device)
@@ -606,8 +648,9 @@ class BlockRuntime(InflightWindow):
             return {"paged": self.sessions.state_tree()}
         cache = self.cache
         if self.ctx is not None:        # this rank's rows of each leaf
-            cache = pytree.tree_map(lambda lay, t: lay.wrap(t),
-                                    self.cache_layouts(), cache)
+            cache = pytree.tree_map(
+                lambda lay, t: lay.wrap(t), self.cache_layouts(),
+                self._conv(cache, transformer.conv_whole))
         return {"cache": cache, "token": self.token,
                 "cache_len": torch.tensor(self.cache_len,
                                           dtype=torch.int32)}
@@ -764,6 +807,9 @@ class BlockRuntime(InflightWindow):
                 self.cache = pytree.tree_map(lambda t: (
                     t.to_local() if isinstance(t, DTensor) else t),
                     dec["cache"])
+                if self.ctx is not None:
+                    self.cache = self._conv(self.cache,
+                                            transformer.conv_of_rank)
                 self.token = dec["token"]
                 self.cache_len = int(dec["cache_len"])
         self.step_count = int(restored["step_count"])

@@ -12,7 +12,8 @@ CUDA tensor, the plain version for a CPU tensor.  ``impl="kernel"`` on a
 CPU tensor raises.  ``impl="torch"`` is the plain version on any device;
 the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``,
 ``ssd_decode_step``, ``mlstm_scan`` and ``mlstm_decode_step`` never had a
-TPU kernel and are plain PyTorch only.
+TPU kernel and are plain PyTorch only (``decode_attention`` in chunks of
+positions, merged as a sequence-split cache's ranks merge theirs).
 
 Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
 backward is the flash backward (the counterpart of the custom VJP
@@ -119,26 +120,70 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
 # Decode attention (single new token vs. a dense cache)
 # ===========================================================================
 
+#: positions of a dense decode cache scored at a time (``decode_attention``)
+DECODE_CHUNK = 32768
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
-                     sliding_window: int = 0):
+                     sliding_window: int = 0, offset=0,
+                     chunk: int = DECODE_CHUNK, partials: bool = False):
     """q: (B, Hq, 1, D); caches: (B, Hkv, Smax, D|Dv).  Attends over the
     first ``cache_len`` entries (the new token's K/V already written at
     ``cache_len - 1``); ``cache_len`` an int or a 0-d tensor on q's
-    device (the mask is a comparison, so no host sync)."""
+    device (the mask is a comparison, so no host sync).
+
+    The cache is scored ``chunk`` positions at a time, each chunk's
+    softmax taken whole in fp32 as the reference's, and the chunks'
+    partial results merged (``merge_attention``): a chunk's K and V are
+    upcast alone, so a long cache's fp32 temporaries stay a chunk's.
+    With one chunk the result is the whole softmax's bit for bit.  Every
+    position is scored and masked, as the reference's: a captured step
+    reads ``cache_len`` on the device, so the chunks past it cannot be
+    skipped.  ``offset``: the cache holds the positions from ``offset``
+    on (a rank's slice of a sequence-split cache; an int or a 0-d
+    tensor).  ``partials``: return the (o, lse) ``merge_attention``
+    takes, o (B, Hkv, G, Dv) and lse (B, Hkv, G) in fp32, for the merge
+    over the ranks that hold the other slices."""
     B, Hq, _, D = q.shape
     _, Hkv, Smax, Dv = v_cache.shape
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float()) * scale
-    pos = torch.arange(Smax, device=q.device)
-    mask = pos < cache_len
-    if sliding_window > 0:
-        mask &= pos >= (cache_len - sliding_window)
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    os_, lses = [], []
+    for lo in range(0, Smax, chunk):
+        hi = min(lo + chunk, Smax)
+        s = torch.einsum("bhgd,bhkd->bhgk", qf,
+                         k_cache[:, :, lo:hi].float()) * scale
+        pos = torch.arange(lo, hi, device=q.device) + offset
+        mask = pos < cache_len
+        if sliding_window > 0:
+            mask &= pos >= (cache_len - sliding_window)
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        os_.append(torch.einsum("bhgk,bhkd->bhgd", p,
+                                v_cache[:, :, lo:hi].float()))
+        lses.append(torch.logsumexp(s, dim=-1))
+        del s, p
+    o, lse = merge_attention(torch.stack(os_), torch.stack(lses))
+    if partials:
+        return o, lse
     return o.reshape(B, Hq, 1, Dv).to(q.dtype)
+
+
+def merge_attention(o, lse):
+    """Partial attention results over disjoint sets of positions merged
+    into the result over all of them: o (n, ..., Dv) each normalised over
+    its own positions, lse (n, ...) each one's log-sum-exp of the
+    scores.  A set whose every position is masked has lse ~ ``NEG_INF``
+    and weight 0.  One set is returned as it is.  The decode's chunks
+    and the data ranks' slices of a sequence-split cache merge here."""
+    if o.shape[0] == 1:
+        return o[0], lse[0]
+    m = lse.amax(0)
+    w = torch.exp(lse - m)
+    tot = w.sum(0)
+    return ((o * w[..., None]).sum(0) / tot[..., None],
+            m + torch.log(tot))
 
 
 # ===========================================================================

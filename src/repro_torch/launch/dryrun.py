@@ -30,7 +30,16 @@ reference's convention), those on groups across pods apart; the rank's
 state bytes and its peak bytes under ``MemTracker``, against one card's
 80 GB (``fits``); and ``hlo_analysis.Roofline.to_dict()`` on the H100's
 peaks.  ``gaps`` names what the port keeps whole where the reference
-shards it (item 8g): the dry run reports what the port holds.
+shards it (item 8g): the dry run reports what the port holds.  Since
+item 8g's parts 1 and 3 (the hybrid): the MLA heads and MLA's
+compressed cache's sequence (rules "mla" and "mla: sequence"), the
+xlstm's channels ("family: xlstm"), heads and widths that do not divide
+by M ("heads", "mamba", "mlp", ...) and the paged plane ("paged").  A
+serve batch that does not split over the data ranks holds its GQA
+cache's positions split over them, as the reference's ``cache_specs``
+(``ShardCtx.seq_split``); a Mamba2 ``conv`` state holds a rank's heads'
+channels and the whole B and C, where the reference's spec cuts the
+channels into contiguous chunks (its line's ``cache`` gives the bytes).
 
 Usage (on the CPU; nothing is set at import):
   python -m repro_torch.launch.dryrun --arch deepseek_7b --shape train_4k --mesh single
@@ -61,6 +70,7 @@ from repro_torch.data import pipeline
 from repro_torch.kernels import ops
 from repro_torch.launch import hlo_analysis
 from repro_torch.models import model as model_lib
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.serve import serve_step as serve_lib
 from repro_torch.sharding import ctx as shard_ctx
@@ -260,6 +270,43 @@ def _fake_inputs(shapes: Dict[str, Any], rows: int) -> Dict[str, Any]:
     return out
 
 
+def cache_bytes(cfg: ModelConfig, cache, B: int, smax: int, mesh,
+                axes) -> Optional[Dict[str, Any]]:
+    """A serve cell's decode cache on this rank, leaf name by leaf name
+    (``k``, ``v``, ``conv``, ``ssm``, ...; the stacks summed): the bytes
+    the port holds (``bytes``) and the bytes the reference's
+    ``cache_specs`` would put on a rank (``reference_bytes``, computed:
+    its partition arithmetic on the whole leaf's shape), and each leaf
+    whose two differ with the reason (``departs``).  None for a model
+    without a cache (the encoder)."""
+    if cache is None:
+        return None
+    whole = dict(transformer.flatten(model_lib.init_cache(cfg, B, smax,
+                                                          "meta")))
+    out: Dict[str, Dict[str, int]] = {"bytes": {}, "reference_bytes": {}}
+    for path, leaf in transformer.flatten(cache):
+        # the leaf's name, as the spec rules read it (a tuple's items
+        # are named by the key above them)
+        name = [k for k in path.split("/") if not k.isdigit()][-1]
+        spec = plans.cache_specs({name: whole[path]}, cfg, mesh, axes,
+                                 batch_size=B)[name]
+        ref = math.prod(plans.local_shape(whole[path].shape, spec,
+                                          mesh)) * leaf.element_size()
+        for key, n in (("bytes", leaf.numel() * leaf.element_size()),
+                       ("reference_bytes", ref)):
+            out[key][name] = out[key].get(name, 0) + int(n)
+    out["departs"] = {n: _DEPARTS.get(n, "kept whole (see gaps)")
+                      for n, b in out["bytes"].items()
+                      if b != out["reference_bytes"][n]}
+    return out
+
+
+#: why a cache leaf's bytes on a rank are not the reference spec's
+_DEPARTS = {"conv": "a rank holds its Mamba2 heads' x channels and the "
+                    "whole B and C, where the reference's spec cuts the "
+                    "channels into contiguous chunks"}
+
+
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                microbatch: Optional[int] = None,
                cfg: Optional[ModelConfig] = None,
@@ -301,14 +348,22 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     B = shape.global_batch
     split = shards.split(B)
     rows = len(shards.rows(B))
-    if not split and shards.dp > 1:
-        gaps.append(f"8g: a batch of {B} rows does not split over "
-                    f"{shards.dp} data ranks: every rank holds the whole "
-                    f"batch" + ("" if shape.kind == "train" else
-                                " and its cache (the reference shards the "
-                                "cache's sequence over data)"))
+    # a serve batch that does not split: the cache's positions do where
+    # the reference's cache spec shards them (a GQA cache)
+    seq = (shape.kind != "train" and not split
+           and plans.seq_splits(cfg, B, shape.seq_len, shards.dp))
+    if not split and shards.dp > 1 and not seq:
+        if shape.kind == "train":
+            gaps.append(f"8g: a batch of {B} rows does not split over "
+                        f"{shards.dp} data ranks: every rank holds the "
+                        f"whole batch")
+        elif cfg.attention is not None and cfg.attention.is_mla:
+            gaps.append(f"8g: mla: sequence: a batch of {B} rows does not "
+                        f"split over {shards.dp} data ranks: every rank "
+                        f"holds MLA's whole compressed cache (the "
+                        f"reference shards its sequence over data)")
     ctx = shard_ctx.ShardCtx(mesh, axes.dp, "model", shards_batch=split,
-                             tp=tp)
+                             tp=tp, seq_split=seq)
     params_abs = model_lib.abstract_params(cfg)
     if shape.kind == "train":
         bits = state_bits if state_bits is not None else over.get(
@@ -330,11 +385,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         lay = plans.state_layouts(params_abs, mesh, axes, train=False)
         params = model_lib.place_params(cfg, lay["params"], seed=0,
                                         device="cpu")
-        heads = tp is not None and tp.computes("attn")
         smax = shape.seq_len
-        cache = model_lib.init_cache(cfg, rows, smax, "cpu",
-                                     kv_split=tp.model if heads else 1)
+        cache = model_lib.init_cache(
+            cfg, rows, smax, "cpu",
+            kv_split=tp.model if tp and tp.computes("attn") else 1,
+            mamba_split=tp.model if tp and tp.computes("mamba") else 1,
+            seq_split=shards.dp if seq else 1)
         state = {"params": params, "cache": cache}
+        cache_meta = cache_bytes(cfg, cache, B, smax, mesh, axes)
         if shape.kind == "prefill":
             pf = serve_lib.make_prefill_step(cfg)
             batch = _fake_inputs(pipeline.prefill_shapes(cfg, shape), rows)
@@ -363,6 +421,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "microbatch": shape.microbatch if shape.kind == "train" else None,
         "rows_per_rank": rows,
     }
+    if shape.kind != "train":
+        meta["cache"] = cache_meta
     return Cell(run, state, meta, gaps), meta
 
 

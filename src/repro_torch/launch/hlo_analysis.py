@@ -305,8 +305,12 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     Activations are in the params' dtype, the vocab-parallel
     cross-entropy's three (B, S) all-reduces (its shift, its sum of
     exponentials, its gold logit) in fp32; the data axes' traffic is
-    left out.  The joins' part is what ``shard_ctx.JOINED`` counts as
-    they run, the gathers' what ``shard_ctx.GATHERED`` counts."""
+    left out.  A hybrid's Mamba2 sublayers each join as a region and
+    gather their column's ``y`` for the gated norm (its gradient summed
+    back); their ``w_in``, ``conv_w`` and ``norm`` are gathered whole
+    (``plans.MAMBA_SLICED``, in ``TPLayout.step_bytes``).  The joins'
+    part is what ``shard_ctx.JOINED`` counts as they run, the gathers'
+    what ``shard_ctx.GATHERED`` counts."""
     from repro_torch.models import transformer
     from repro_torch.models.moe import capacity
     from repro_torch.sharding import plans
@@ -324,7 +328,7 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     act = T * cfg.d_model * item
     # per group, forward: the all-reduces and the experts' all-gather;
     # backward: one all-reduce a sharded region (``copy_in``)
-    regions = {"attn": 0, "mlp": 0, "shared": 0, "experts": 0}
+    regions = {"attn": 0, "mlp": 0, "shared": 0, "experts": 0, "mamba": 0}
     if cfg.family == "moe":
         regions["attn"] = 2 if cfg.d_ff > 0 else 1
         regions["mlp"] = 1 if cfg.d_ff > 0 else 0
@@ -332,10 +336,16 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
         regions["experts"] = 1
     elif cfg.family in plans.TP_FAMILIES:
         regions["attn"] = regions["mlp"] = 1
+        if cfg.family == "hybrid":
+            regions["mamba"] = cfg.hybrid.mamba_per_group
     on = {k: n for k, n in regions.items() if tp.computes(k)}
     ng = transformer.n_groups(cfg)
     reduced = sum(n for k, n in on.items() if k != "experts")
     fwd = ng * reduced * act * ar
+    # a Mamba2 sublayer's gated norm gathers its column's y (d_inner
+    # wide, ``shard_ctx.gather_sum``) and sums its gradient back
+    y_whole = T * (cfg.ssm.expand * cfg.d_model if cfg.ssm else 0) * item
+    fwd += ng * on.get("mamba", 0) * y_whole * ag
     if "experts" in on:
         m = cfg.moe
         E_C = m.n_experts * capacity(T, m)
@@ -343,7 +353,8 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     vocab = tp.computes("vocab")
     top_fwd = act * ar if vocab and cfg.frontend != "frame" else 0
     if train:
-        bwd = ng * sum(on.values()) * act * ar + (act * ar if vocab else 0)
+        bwd = (ng * sum(on.values()) * act * ar + (act * ar if vocab else 0)
+               + ng * on.get("mamba", 0) * y_whole * ar)
         xent = 3 * T * 4 * ar if vocab else 0
         # remat's recompute stops at the group's last saved tensor
         # (PyTorch's non-reentrant checkpoint): a dense group's closing
@@ -424,6 +435,13 @@ def main() -> None:
         for name, shape in shapes.items():
             got = tp_traffic(ds, shape, {"data": 1, "model": m})
             print(json.dumps({"deepseek_7b": f"(1, {m})", "step": name,
+                              "gb_8a": got["8a"] / 1e9,
+                              "gb_8d": got["8d"] / 1e9}))
+    zb = configs.get("zamba2_2p7b")
+    for m in (2, 16):
+        for name, shape in shapes.items():
+            got = tp_traffic(zb, shape, {"data": 1, "model": m})
+            print(json.dumps({"zamba2_2p7b": f"(1, {m})", "step": name,
                               "gb_8a": got["8a"] / 1e9,
                               "gb_8d": got["8d"] / 1e9}))
     lay = plans.tp_layout(configs.get("llama4_maverick_400b"),

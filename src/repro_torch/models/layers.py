@@ -130,6 +130,15 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
     cache's device (written through a device index: no host sync; an int
     is taken too).  ``tp``: ``p`` holds a rank's heads (and the cache
     its kv heads), summed over the model column after ``wo``.
+
+    Under a context whose cache is sequence-split over the data ranks
+    (``ShardCtx.seq_split``) the cache holds this rank's slice of the
+    positions, ``[lo, lo + Smax_local)``: every rank computes the whole
+    batch, a prefill writes the prompt's positions in its slice, a
+    decode step's K/V are written only by the rank whose slice holds
+    ``cache_len`` (a select on the device, so a captured step holds
+    for any position), and each rank attends over its slice, the
+    ranks' partial results merged (``ops.merge_attention``).
     """
     B, S, _ = x.shape
     causal = a.causal if causal is None else causal
@@ -138,28 +147,58 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
     q, k, v = _qkv(p, x, a, positions)
     H = q.shape[1]
 
+    lo = None if cache is None else shard_ctx.seq_offset(cache["k"].shape[1])
     if cache is None:
         o = ops.flash_attention(q, k, v, causal=causal,
                                 sliding_window=a.sliding_window, impl=impl)
     elif S == 1:  # decode
         cache_len = torch.as_tensor(cache_len, device=cache["k"].device)
-        idx = cache_len.reshape(1).long()
-        cache["k"].index_copy_(1, idx, k.transpose(1, 2).to(
-            cache["k"].dtype))
-        cache["v"].index_copy_(1, idx, v.transpose(1, 2).to(
-            cache["v"].dtype))
-        o = ops.decode_attention(
-            q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-            cache_len + 1, sliding_window=a.sliding_window)
+        if lo is None:
+            idx = cache_len.reshape(1).long()
+            cache["k"].index_copy_(1, idx, k.transpose(1, 2).to(
+                cache["k"].dtype))
+            cache["v"].index_copy_(1, idx, v.transpose(1, 2).to(
+                cache["v"].dtype))
+            o = ops.decode_attention(
+                q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+                cache_len + 1, sliding_window=a.sliding_window)
+        else:
+            _write_owned(cache, k, v, cache_len - lo)
+            o, lse = ops.decode_attention(
+                q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
+                cache_len + 1, sliding_window=a.sliding_window, offset=lo,
+                partials=True)
+            o, _ = ops.merge_attention(shard_ctx.gather_data(o),
+                                       shard_ctx.gather_data(lse))
+            o = o.reshape(B, H, 1, a.v_dim).to(q.dtype)
     else:  # prefill into cache
         o = ops.flash_attention(q, k, v, causal=causal,
                                 sliding_window=a.sliding_window, impl=impl)
-        cache["k"][:, :S] = k.transpose(1, 2).to(cache["k"].dtype)
-        cache["v"][:, :S] = v.transpose(1, 2).to(cache["v"].dtype)
-        cache["k"][:, S:] = 0
-        cache["v"][:, S:] = 0
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        if lo is not None:          # this rank's positions of the prompt
+            Sl = cache["k"].shape[1]
+            kt, vt = kt[:, lo:lo + Sl], vt[:, lo:lo + Sl]
+        n = kt.shape[1]
+        cache["k"][:, :n] = kt.to(cache["k"].dtype)
+        cache["v"][:, :n] = vt.to(cache["v"].dtype)
+        cache["k"][:, n:] = 0
+        cache["v"][:, n:] = 0
     o = o.transpose(1, 2).reshape(B, S, H * a.v_dim) @ p["wo"]
     return (shard_ctx.reduce_out(o) if tp else o), cache
+
+
+def _write_owned(cache, k, v, local):
+    """A decode step's K/V, k (B, Hkv, 1, D) and v (B, Hkv, 1, Dv), at
+    row ``local`` (a 0-d device tensor) of a rank's slice of a
+    sequence-split cache, where the slice holds that row; a rank whose
+    slice does not writes its row back as it was (no host sync)."""
+    Sl = cache["k"].shape[1]
+    inside = (local >= 0) & (local < Sl)
+    j = local.clamp(0, Sl - 1).reshape(1).long()
+    for name, t in (("k", k), ("v", v)):
+        c = cache[name]
+        new = t.transpose(1, 2).to(c.dtype)
+        c.index_copy_(1, j, torch.where(inside, new, c.index_select(1, j)))
 
 
 def paged_attention_fwd(p, x, a: AttentionConfig, *, pages, page_table,

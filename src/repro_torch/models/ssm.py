@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import SSMConfig, XLSTMConfig
 from repro_torch.models.layers import _he
+from repro_torch.sharding import ctx as shard_ctx
 
 
 # ---------------------------------------------------------------------------
@@ -68,37 +69,88 @@ def mamba2_init(gen, d_model: int, cfg: SSMConfig, dtype, device):
     }
 
 
+def mamba_columns(cfg: SSMConfig, d_model: int, M: int, r: int):
+    """The columns of ``w_in`` (``[z, x, B, C, dt]``) and the channels of
+    ``conv_w`` and the ``conv`` state (``[x, B, C]``) that rank ``r`` of
+    a model column of M computes its H / M heads with: its heads' ``z``,
+    ``x`` and ``dt``, and the whole ``B`` and ``C`` (one group, needed by
+    every head).  Index lists, in the whole leaf's order."""
+    di, H, N = _dims(cfg, d_model)
+    Hl = H // M
+    h0, dl = r * Hl, Hl * cfg.head_dim
+    x0 = h0 * cfg.head_dim
+    z = list(range(x0, x0 + dl))
+    x = [di + i for i in z]
+    bc = list(range(2 * di, 2 * di + 2 * N))
+    dt = list(range(2 * di + 2 * N + h0, 2 * di + 2 * N + h0 + Hl))
+    return z + x + bc + dt, [i - di for i in x + bc]
+
+
 def mamba2_fwd(p, x, cfg: SSMConfig, d_model: int, *, state=None,
                impl: str = "auto"):
+    """Under tensor parallelism over ``model`` (the context's layout
+    computes "mamba"; ``plans.MAMBA_SLICED``) a
+    rank computes its H / M heads: ``x`` enters the sharded region
+    (``copy_in``), the rank takes its columns of the whole ``w_in`` and
+    ``conv_w`` and its heads' ``A_log``, ``D`` and ``dt_bias``
+    (``mamba_columns``), runs the conv and the scan on its heads (a
+    decode state of its heads' conv channels and ``ssm`` rows), and
+    ``w_out``'s rows are its heads'.  The gated norm is over all of
+    ``d_inner``: the column's ``y`` is gathered (``gather_sum``; its
+    gradient summed back), normalised whole by the ``rmsnorm`` kernel
+    with the whole ``norm``, and the rank keeps its heads' share, so
+    the norm's numbers are one device's.  The row-parallel ``w_out``
+    product is summed over the column (``reduce_out``).  At M = 1 every
+    one of these is the whole and every join a no-op."""
     B, S, _ = x.shape
     di, H, N = _dims(cfg, d_model)
-    zxbcdt = x @ p["w_in"]
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:di + di + 2 * N]
-    dt = zxbcdt[..., -H:]
+    tp = shard_ctx.tp_on("mamba")
+    M, r = (shard_ctx.model_size(), shard_ctx.model_rank()) if tp else (1, 0)
+    Hl, dl = H // M, di // M
+    w_in, conv_w = p["w_in"], p["conv_w"]
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    if tp:
+        x = shard_ctx.copy_in(x)
+    if M > 1:
+        cols, chans = mamba_columns(cfg, d_model, M, r)
+        dev = w_in.device
+        w_in = w_in.index_select(1, torch.tensor(cols, device=dev))
+        conv_w = conv_w.index_select(1, torch.tensor(chans, device=dev))
+        heads = slice(r * Hl, (r + 1) * Hl)
+        A_log, D, dt_bias = A_log[heads], D[heads], dt_bias[heads]
+    zxbcdt = x @ w_in
+    z = zxbcdt[..., :dl]
+    xbc = zxbcdt[..., dl:dl + dl + 2 * N]
+    dt = zxbcdt[..., -Hl:]
 
     conv_tail = None if state is None else state["conv"]
-    xbc, new_tail = causal_conv(xbc, p["conv_w"], conv_tail)
+    xbc, new_tail = causal_conv(xbc, conv_w, conv_tail)
     xbc = F.silu(xbc)
-    # views of the conv output (row stride di + 2N): the kernel reads them
+    # views of the conv output (row stride dl + 2N): the kernel reads them
     # through their strides
-    xs = xbc[..., :di].reshape(B, S, H, cfg.head_dim)
-    Bm = xbc[..., di:di + N]
-    Cm = xbc[..., di + N:]
-    dt = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    xs = xbc[..., :dl].reshape(B, S, Hl, cfg.head_dim)
+    Bm = xbc[..., dl:dl + N]
+    Cm = xbc[..., dl + N:]
+    dt = F.softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log)
 
     h0 = None if state is None else state["ssm"]
     if S == 1 and state is not None:
         y, h = ops.ssd_decode_step(xs[:, 0], dt[:, 0], A, Bm[:, 0],
-                                   Cm[:, 0], p["D"], h0)
+                                   Cm[:, 0], D, h0)
         y = y[:, None]
     else:
-        y, h = ops.ssd_scan(xs, dt, A, Bm, Cm, p["D"], chunk=cfg.chunk,
+        y, h = ops.ssd_scan(xs, dt, A, Bm, Cm, D, chunk=cfg.chunk,
                             h0=h0, impl=impl)
-    y = y.reshape(B, S, di)
-    y = ops.rmsnorm(y, p["norm"], impl=impl) * F.silu(z)
-    out = y @ p["w_out"]
+    y = y.reshape(B, S, dl)
+    if M > 1:
+        y = ops.rmsnorm(shard_ctx.gather_sum(y, -1), p["norm"],
+                        impl=impl)[..., r * dl:(r + 1) * dl]
+    else:
+        y = ops.rmsnorm(y, p["norm"], impl=impl)
+    out = (y * F.silu(z)) @ p["w_out"]
+    if tp:
+        out = shard_ctx.reduce_out(out)
     if state is None:
         return out, {"conv": new_tail, "ssm": h}
     state["conv"].copy_(new_tail)

@@ -55,7 +55,12 @@ up its rows of the vocabulary (``embed_inputs``: ids outside them give
 zero rows, summed over the model column) and gives the logits of its
 vocabulary, (B, S, V/M), which the loss reads as they are and the serve
 paths gather whole (``vocab_whole``); a dense decode cache holds the
-rank's kv heads (``init_cache``'s ``kv_split``).
+rank's kv heads (``init_cache``'s ``kv_split``).  The hybrid's Mamba2
+sublayers compute the rank's heads (``ssm.mamba2_fwd``; its decode
+state the rank's ``ssm`` heads and ``conv`` channels, ``mamba_split``,
+``ssm.mamba_columns``), its shared block by the attention's and MLP's
+rules.  A B = 1 serve cache may hold a slice of the positions on each
+data rank (``seq_split``; ``layers.attention_fwd``).
 """
 from __future__ import annotations
 
@@ -368,31 +373,68 @@ def _mlstm_zero_carry(cfg: ModelConfig, lead, device):
 
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device,
-               kv_split: int = 1):
+               kv_split: int = 1, mamba_split: int = 1,
+               seq_split: int = 1):
     """Stacked (n_groups, ...) cache: the dense family's (and the VLM's)
     KV cache; the moe family's, MLA's compressed {"c_kv", "k_rope"} or,
     with dense layers between, {"dense": kv, "moe": kv}; the xlstm's
     recurrent states (``_xlstm_cache_init``; no KV cache, so ``smax`` is
     unused); or the hybrid's {"mamba": {"conv", "ssm"} stacked (n_groups,
     m, ...), "attn": {"k", "v"}}; None for the encoder, which does not
-    decode.  ``kv_split``: the GQA kv heads are split over that many
-    ranks of a model column, this rank holding its share (the attention
-    computed sharded, ``plans.TPLayout``)."""
+    decode.  A rank's share of a block's cache (``plans.cache_layouts``):
+    ``kv_split``, the GQA kv heads split over that many ranks of a model
+    column (the attention computed sharded, ``plans.TPLayout``);
+    ``mamba_split``, the Mamba2 heads so split (the ``ssm`` state's
+    heads, the ``conv`` state's channels of those heads and the whole B
+    and C, ``ssm.mamba_columns``); ``seq_split``, the GQA cache's positions
+    split over that many data ranks (``ShardCtx.seq_split``)."""
     dt, ng = _dtype(cfg), n_groups(cfg)
     if cfg.family == "encoder":
         return None
     if cfg.family == "xlstm":
         return _xlstm_cache_init(cfg, batch, device)
-    kv = _attn_cache_init(cfg, (ng, batch, smax), device, kv_split)
+    lead = (ng, batch, smax // seq_split)
+    kv = _attn_cache_init(cfg, lead, device, kv_split)
     if cfg.family == "moe" and cfg.d_ff > 0:
-        return {"dense": _attn_cache_init(cfg, (ng, batch, smax), device,
-                                          kv_split),
+        return {"dense": _attn_cache_init(cfg, lead, device, kv_split),
                 "moe": kv}
     if cfg.family != "hybrid":
         return kv
     lead = (ng, cfg.hybrid.mamba_per_group)
     spec = ssm.mamba2_state_spec(cfg.ssm, cfg.d_model, batch, dt)
+    if mamba_split > 1:
+        (cs, cdt), (ss, sdt) = spec["conv"], spec["ssm"]
+        di = cfg.ssm.expand * cfg.d_model
+        n = di // mamba_split + 2 * cfg.ssm.state_dim
+        spec = {"conv": (cs[:-1] + (n,), cdt),
+                "ssm": ((ss[0], ss[1] // mamba_split) + ss[2:], sdt)}
     return {"mamba": _zeros(spec, lead, device), "attn": kv}
+
+
+def conv_whole(conv, cfg: ModelConfig):
+    """The whole ``conv`` state leaf, in the reference's channel order,
+    from each rank's channels (``ssm.mamba_columns``) under the installed
+    context whose layout computes "mamba" sharded: the column's ``x``
+    channels gathered in rank order, then ``B`` and ``C`` (the same on
+    every rank).  Forward only; ``conv`` itself at M = 1."""
+    M = shard_ctx.model_size()
+    if M == 1 or not shard_ctx.tp_on("mamba"):
+        return conv
+    dl = cfg.ssm.expand * cfg.d_model // M
+    x = shard_ctx.gather_out(conv[..., :dl].contiguous(), -1)
+    return torch.cat([x, conv[..., dl:]], -1)
+
+
+def conv_of_rank(conv, cfg: ModelConfig):
+    """This rank's channels (``ssm.mamba_columns``) of a whole ``conv``
+    state leaf under the installed context; ``conv`` itself at M = 1."""
+    M = shard_ctx.model_size()
+    if M == 1 or not shard_ctx.tp_on("mamba"):
+        return conv
+    _, chans = ssm.mamba_columns(cfg.ssm, cfg.d_model, M,
+                                 shard_ctx.model_rank())
+    idx = torch.tensor(chans, device=conv.device)
+    return conv.index_select(conv.ndim - 1, idx)
 
 
 def check_paged_support(cfg: ModelConfig) -> None:

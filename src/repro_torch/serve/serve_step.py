@@ -3,9 +3,10 @@ port of ``repro.serve.serve_step``).  Sampling draws from an explicit
 ``torch.Generator``.  ``abstract_cache`` is a decode cache's restore target
 on the ``meta`` device.  ``on_mesh`` runs a decode step on a block's mesh:
 each rank decodes its rows of the batch under the block's sharding
-context (its share of the heads and vocabulary under tensor parallelism,
-the logits whole again before ``pick``), and the next tokens come back
-whole."""
+context (its share of the heads, Mamba2 heads and vocabulary under tensor
+parallelism, the logits whole again before ``pick``; a batch that does
+not split, its slice of the cache's positions), and the next tokens come
+back whole."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -69,7 +70,11 @@ def on_mesh(decode_step, ctx, rows: Rows):
     as it is: the whole (B, 1) token in, this rank's rows ``rows`` of it
     decoded under the block's sharding context ``ctx`` against a cache
     of those rows, and the next tokens gathered whole over ``data``
-    (inside a captured step's graph)."""
+    (inside a captured step's graph).  A batch whose rows do not split
+    is decoded whole on every rank (``rows`` all of it) against its
+    cache as the context lays it out: a slice of the positions where
+    ``ctx.seq_split``, the attention's partial results merged over the
+    data ranks inside the step."""
     lo, hi, _ = rows
 
     def fn(params, token, cache, cache_len,

@@ -64,17 +64,21 @@ class ShardCtx:
     (``data.pipeline.BatchShards``); when False every rank holds the
     whole batch and computes it all, so the data axes carry no sum.
     ``tp``: the block's ``plans.TPLayout``, what the ranks of a model
-    column compute sharded (None: nothing, 8a's layout)."""
+    column compute sharded (None: nothing, 8a's layout).  ``seq_split``:
+    a serve block whose batch every rank holds whole keeps a slice of its
+    GQA cache's positions on each rank of the data axes, in the order of
+    ``data_index`` (``plans.cache_layouts``' ``seq``)."""
 
     def __init__(self, mesh, dp_axes: Tuple[str, ...], model_axis: str,
                  shards_batch: bool = True, tp=None,
-                 local: Tuple[str, ...] = ()):
+                 local: Tuple[str, ...] = (), seq_split: bool = False):
         self.mesh = mesh
         self.dp = tuple(dp_axes)
         self.model = model_axis
         self.local = tuple(local)
         self.shards_batch = shards_batch
         self.tp = tp
+        self.seq_split = seq_split and not shards_batch
         # read once: a DeviceMesh's shape is a tensor, and the model
         # code asks for it at every join and gather
         self._sizes = axis_sizes(mesh)
@@ -95,13 +99,13 @@ class ShardCtx:
         return ShardCtx(self.mesh, tuple(a for a in self.dp
                                          if a != pod_axis),
                         self.model, self.shards_batch, self.tp,
-                        self.local + (pod_axis,))
+                        self.local + (pod_axis,), self.seq_split)
 
     @property
     def sizes(self):
         return self._sizes
 
-    def grad_placements(self, placements=None):
+    def grad_placements(self, placements=None, model_partial: bool = False):
         """How a gathered param's gradient lies over the mesh: a partial
         sum over the data axes whose ranks computed different rows; over
         a pod-local axis each rank's own (declared replicated, so no
@@ -109,17 +113,32 @@ class ShardCtx:
         pod reduce); over ``model`` the same on every rank, whose ranks
         compute the same activations outside the sharded regions, or,
         for a leaf computed sharded (its DTensor ``placements`` given),
-        the rank's own shard."""
+        the rank's own shard, or, for a leaf gathered whole of which each
+        rank computes its share (``model_partial``: a Mamba2 sublayer's
+        ``plans.MAMBA_SLICED``), each rank's part of a sum."""
         out = []
         for i, a in enumerate(self.sizes):
             if a in self.dp:
                 out.append(Partial() if self.shards_batch else Replicate())
             elif a in self.local:
                 out.append(Replicate())
+            elif model_partial:
+                out.append(Partial())
             else:
                 out.append(placements[i] if placements is not None
                            else Replicate())
         return tuple(out)
+
+    def data_index(self) -> int:
+        """This rank's place among the data ranks, the data axes taken
+        in mesh order (the first outermost, as DTensor lays a dim sharded
+        over them)."""
+        coord = self.mesh.get_coordinate()
+        i = 0
+        for d, (a, n) in enumerate(self.sizes.items()):
+            if a in self.dp:
+                i = i * n + coord[d]
+        return i
 
     def summed_dims(self):
         """The mesh dims (of size > 1) that a sum over the data shards
@@ -182,14 +201,17 @@ def full(x, path: Optional[str] = None):
     ``path`` sharded over a model axis of M > 1 (``TPLayout.leaves``),
     only the data axes are gathered and the rank's ``model`` shard comes
     back (at M = 1 the shard is the leaf); every other leaf comes back
-    whole."""
+    whole, its gradient a sum over the model column where the layout
+    says each rank computes only its share of it (``TPLayout.partial``).
+    """
     if not isinstance(x, DTensor):
         return x
     ctx = current()
     grad = ctx is not None and torch.is_grad_enabled()
     mesh, pl = x.device_mesh, x.placements
     m = _model_dim(mesh)
-    if ctx is not None and ctx.tp is not None and path in ctx.tp.leaves:
+    tp = None if ctx is None else ctx.tp
+    if tp is not None and path in tp.leaves:
         GATHERED["tp_leaves"] += 1
         keep = tuple(p if i == m else Replicate() for i, p in enumerate(pl))
         y = x.redistribute(mesh, keep)
@@ -201,7 +223,8 @@ def full(x, path: Optional[str] = None):
             // n
     if not grad:
         return x.full_tensor()
-    return x.full_tensor(grad_placements=ctx.grad_placements())
+    return x.full_tensor(grad_placements=ctx.grad_placements(
+        model_partial=tp is not None and path in tp.partial))
 
 
 def full_tree(tree, prefix: str = ""):
@@ -246,6 +269,31 @@ def gather_rows(x):
                        for a in ctx.sizes)
     return DTensor.from_local(x, ctx.mesh, placements,
                               run_check=False).full_tensor()
+
+
+def gather_data(x):
+    """Every data rank's ``x`` stacked along a new first dim, in the
+    order of ``ShardCtx.data_index``, forward only: the partial results
+    of a decode attention over a sequence-split cache, for their merge
+    (``kernels.ops.merge_attention``).  ``x[None]`` with no context or
+    one data rank."""
+    ctx = current()
+    if ctx is None or _dp_size(ctx) == 1:
+        return x[None]
+    placements = tuple(Shard(0) if a in ctx.dp else Replicate()
+                       for a in ctx.sizes)
+    return DTensor.from_local(x[None].contiguous(), ctx.mesh, placements,
+                              run_check=False).full_tensor()
+
+
+def seq_offset(local_len: int) -> Optional[int]:
+    """The first position of this rank's slice of a sequence-split cache
+    of ``local_len`` positions a rank (``ShardCtx.seq_split``); None
+    where the cache's sequence is whole."""
+    ctx = current()
+    if ctx is None or not ctx.seq_split:
+        return None
+    return ctx.data_index() * local_len
 
 
 def data_sum(x):
@@ -346,6 +394,31 @@ class _GatherOut(torch.autograd.Function):
             None, None
 
 
+class _GatherSum(torch.autograd.Function):
+    """The column's shards concatenated along ``dim`` in rank order
+    forward, for a computation each rank runs on the whole of which it
+    keeps only its share; backward, the ranks' gradients of the whole
+    summed, and this rank's slice of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.dim, ctx.index = group, dim, index
+        ctx.size = x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        _joined(x, n, gather=True)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        _joined(g, dist.get_world_size(ctx.group))
+        return g.narrow(ctx.dim, ctx.index * ctx.size, ctx.size), None, \
+            None, None
+
+
 def _model_group():
     ctx = current()
     return None if ctx is None else ctx.model_group()
@@ -371,6 +444,17 @@ def gather_out(x, dim: int):
     if group is None:
         return x
     return _GatherOut.apply(x, group, dim % x.ndim, model_rank())
+
+
+def gather_sum(x, dim: int):
+    """The model column's shards of ``x`` whole along ``dim``, where
+    each rank then computes on the whole and keeps its share (a Mamba2
+    sublayer's gated norm over all of ``d_inner``): all-gather forward,
+    the gradient summed over the column backward."""
+    group = _model_group()
+    if group is None:
+        return x
+    return _GatherSum.apply(x, group, dim % x.ndim, model_rank())
 
 
 def max_over_model(x):

@@ -200,18 +200,32 @@ def param_specs(params_abstract, mesh, axes: Optional[MeshAxes] = None,
 
 # ------------------------------------------ tensor and expert parallelism
 
-#: the families whose heads, MLP widths, vocabulary and experts compute
-#: sharded over ``model``; every leaf of the others (the hybrid's Mamba2
-#: channels and shared block, the xlstm's cells) keeps 8a's layout
-TP_FAMILIES = ("dense", "vlm", "encoder", "moe")
+#: the families whose heads, MLP widths, vocabulary, experts and Mamba2
+#: heads compute sharded over ``model``; every leaf of the others (the
+#: xlstm's cells) keeps 8a's layout
+TP_FAMILIES = ("dense", "vlm", "encoder", "moe", "hybrid")
+
+#: the leaves of a Mamba2 sublayer whose heads compute sharded that are
+#: gathered whole, each rank taking its heads' share: ``w_in``'s fused
+#: columns ``[z, x, B, C, dt]`` and ``conv_w``'s channels ``[x, B, C]``
+#: are cut by the plan into contiguous chunks that do not line up with
+#: heads, and B and C are needed whole by every head; the gated norm's
+#: ``norm`` is for the norm over all of ``d_inner`` (``models.ssm``);
+#: ``A_log``, ``D`` and ``dt_bias`` are replicated by the plan.  Its
+#: ``w_out``, whose rows are head-aligned, comes back as the rank's
+#: model shard.
+MAMBA_SLICED = ("w_in", "conv_w", "norm", "A_log", "D", "dt_bias")
 
 
 def _tp_kind(keys) -> Optional[str]:
     """What a param leaf at path ``keys`` computes under tensor or expert
     parallelism: "vocab" (the embedding and the LM head), "attn" (a
     GQA or MLA attention's projections), "mlp", "shared" (a MoE layer's
-    shared expert), "experts"; None for a leaf every rank uses whole
-    (norms, the router, the frontends' stubs)."""
+    shared expert), "experts", "mamba" (a Mamba2 sublayer's leaves the
+    plan puts on ``model``: ``w_in``, ``conv_w``, ``norm``, ``w_out``);
+    None for a leaf every rank uses whole (norms, the router, the
+    frontends' stubs, Mamba2's replicated ``A_log``, ``D``,
+    ``dt_bias``)."""
     name = _leaf_name(keys)
     if len(keys) == 1 and name in ("embed", "lm_head"):
         return "vocab"
@@ -221,6 +235,8 @@ def _tp_kind(keys) -> Optional[str]:
         return "attn"
     if "mlp" in keys and name in _MOE_EXPERT_RULES:
         return "mlp"
+    if "mamba" in keys and name in ("w_in", "conv_w", "norm", "w_out"):
+        return "mamba"
     return None
 
 
@@ -230,15 +246,19 @@ class TPLayout:
     ``tp_layout``.  ``model``: M, the model axis's size.  ``kinds``: the
     leaf kinds (``_tp_kind``) each rank holds and computes a 1/M share
     of.  ``leaves``: the param paths of those kinds (``flatten``'s, the
-    stack dims dropped): ``shard_ctx.full`` gathers them over the data
-    axes only and hands each rank its ``model`` shard.  ``heads``: the
-    (query, kv) heads a rank's attention computes.  ``kept``: the rules
-    that kept a part in 8a's layout (gathered whole over ``model``, every
+    stack dims dropped) that ``shard_ctx.full`` gathers over the data
+    axes only, handing each rank its ``model`` shard.  ``partial``: the
+    paths gathered whole of which a rank computes only its share (a
+    Mamba2 sublayer's ``MAMBA_SLICED``), so their gradients are each
+    rank's part, summed over the model column.  ``heads``: the (query,
+    kv) heads a rank's attention computes.  ``kept``: the rules that
+    kept a part in 8a's layout (gathered whole over ``model``, every
     rank of a model column computing it whole).  ``bytes_top`` and
     ``bytes_groups``: the bytes ``full`` brings over ``model`` in one
     forward, for the leaves outside the stack and the groups' leaves
-    (the hybrid's shared block once a group): a leaf gathered whole
-    over ``model`` brings the (M - 1) / M of it the other ranks hold.
+    (the hybrid's shared block once a group): a leaf gathered whole over
+    ``model`` (kept, or in ``partial``) brings the (M - 1) / M of it the
+    other ranks hold.
     ``group_bytes``: the bytes of one group's leaves a rank holds once
     ``full`` has gathered them (the hybrid's shared block among them),
     beside ``group_bytes_whole``, the group whole, as 8a gathers it."""
@@ -251,6 +271,7 @@ class TPLayout:
     bytes_groups: int
     group_bytes: int
     group_bytes_whole: int
+    partial: frozenset
 
     def computes(self, kind: str) -> bool:
         return kind in self.kinds
@@ -270,32 +291,42 @@ class TPLayout:
 
 
 def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
-    """The layout rule of tensor parallelism (TP: heads, MLP widths and
-    the vocabulary) and expert parallelism (EP: the MoE experts) over
-    ``model``, in one place:
+    """The layout rule of tensor parallelism (TP: heads, MLP widths,
+    Mamba2 heads and the vocabulary) and expert parallelism (EP: the MoE
+    experts) over ``model``, in one place:
 
     * a GQA attention computes sharded only where ``n_heads`` and
       ``n_kv_heads`` both divide by M: a rank cannot run attention on
       part of a head, though the plan shards the fused ``H * hd`` dim
       wherever it divides; else its leaves are gathered whole over
       ``model`` (rule "heads");
+    * a Mamba2 sublayer computes sharded where its head count H =
+      ``d_inner / head_dim`` divides by M, each rank its H / M heads
+      (``MAMBA_SLICED`` says which leaves it gathers whole); else every
+      rank computes all of it (rule "mamba", naming H and M);
     * the MLP, a MoE layer's shared expert, the vocabulary (embedding
       and LM head) and the experts compute sharded where their dim
       divides by M, as ``_roles_to_spec`` decides (rules "mlp",
       "shared", "vocab", "experts" where it does not);
     * these keep 8a's layout, each a named rule: MLA attention ("mla"),
-      the families outside ``TP_FAMILIES`` ("family"), the paged serve
-      plane ("paged": its rounds run with no sharding context), and the
-      frame and patch stubs ("frontend": never sharded over ``model``).
+      the families outside ``TP_FAMILIES`` ("family": the xlstm's
+      cells), the paged serve plane ("paged": its rounds run with no
+      sharding context), and the frame and patch stubs ("frontend":
+      never sharded over ``model``).
 
-    The plan's specs are the reference's whatever this says; a leaf
-    computes sharded only where its spec puts ``model`` on a dim."""
+    The hybrid's shared attention block and its MLP compute sharded by
+    the attention's and the MLP's rules.  The plan's specs are the
+    reference's whatever this says; a leaf computes sharded only where
+    its spec puts ``model`` on a dim."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.transformer import n_groups
     sizes = axis_sizes(mesh)
     M = sizes["model"]
     a, moe = cfg.attention, cfg.moe
     kinds, kept = set(), []
+    H_m = 0
+    if cfg.ssm is not None:
+        H_m = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
     if paged:
         kept.append("paged")
     elif cfg.family not in TP_FAMILIES:
@@ -317,6 +348,10 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
             kept.append(f"heads: {a.n_heads}/{a.n_kv_heads} % {M}")
         else:
             kinds.add("attn")
+        if H_m and H_m % M:
+            kept.append(f"mamba: {H_m} % {M}")
+        elif H_m:
+            kinds.add("mamba")
     if cfg.frontend in ("frame", "patch"):
         kept.append(f"frontend: {cfg.frontend}")
     heads = (0, 0) if a is None else (
@@ -326,17 +361,22 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
     params = model_lib.abstract_params(cfg)
     specs = dict(_dict_leaves(param_specs(params, mesh)))
     ng = n_groups(cfg)
-    leaves, top, groups, group, whole = set(), 0, 0, 0, 0
+    leaves, partial = set(), set()
+    top, groups, group, whole = 0, 0, 0, 0
     for keys, leaf in _dict_leaves(params):
         path = "/".join(keys)
         on_model = "model" in [x for e in specs[keys] for x in _axes_of(e)]
         kind = _tp_kind(keys[1:] if keys[0] == "layers" else keys)
         nbytes = leaf.numel() * leaf.element_size()
+        sliced = ("mamba" in kinds and "mamba" in keys
+                  and _leaf_name(keys) in MAMBA_SLICED)
+        if sliced:
+            partial.add(path)
         if keys[0] in ("layers", "extra"):
             one = nbytes // ng if keys[0] == "layers" else nbytes
             whole += one
-            group += one // M if kind in kinds else one
-        if kind in kinds:
+            group += one // M if kind in kinds and not sliced else one
+        if kind in kinds and not sliced:
             assert on_model, (path, specs[keys])
             leaves.add(path)
             continue
@@ -353,7 +393,7 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
     return TPLayout(model=M, kinds=frozenset(kinds),
                     leaves=frozenset(leaves), heads=heads, kept=tuple(kept),
                     bytes_top=top, bytes_groups=groups, group_bytes=group,
-                    group_bytes_whole=whole)
+                    group_bytes_whole=whole, partial=frozenset(partial))
 
 
 def batch_specs(batch_abstract, mesh, axes: Optional[MeshAxes] = None):
@@ -432,31 +472,63 @@ def cache_batch_dim(keys) -> int:
 
 
 def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
-                  split: bool = True, tp: Optional[TPLayout] = None):
+                  split: bool = True, tp: Optional[TPLayout] = None,
+                  seq: bool = False):
     """A dense serve block's cache on its mesh: a ``Layout`` for every
-    leaf of the cache tree (its dicts and tuples kept), the batch dim
-    over dp when the batch's rows split over the data ranks (``split``),
-    else whole; the kv heads of the ``k`` and ``v`` leaves over
-    ``model`` where ``tp`` computes the attention sharded (the model dim
-    of ``cache_specs``), each rank holding its heads' rows; every other
-    dim whole (8a's layout: without ``tp``, and for MLA's compressed
-    cache and the recurrent states, every rank of a model column holds
-    the whole leaf).  Where ``cache_specs`` sequence-shards a batch that
-    does not split, a softmax would have to be merged across ranks: not
-    ported."""
+    leaf of the cache tree (its dicts and tuples kept).
+
+    * The batch dim over dp when the batch's rows split over the data
+      ranks (``split``); else, with ``seq``, the sequence dim of the GQA
+      ``k`` and ``v`` leaves over dp, each rank holding a slice of the
+      positions (the reference's ``cache_specs`` for a batch that does
+      not split, "B==1 long ctx"; ``ShardCtx.seq_split``); else whole.
+    * Over ``model``, where ``tp`` computes the part sharded (the model
+      dims of ``cache_specs``): the kv heads of ``k`` and ``v`` (each
+      rank holding its heads' rows), and the heads of the Mamba2
+      ``ssm`` state.
+    * The Mamba2 ``conv`` state departs: ``cache_specs`` cuts its
+      channels into contiguous chunks, which do not line up with heads,
+      and a rank computing its heads needs their ``x`` channels and the
+      whole ``B`` and ``C``; so a rank holds those
+      (``ssm.mamba_columns``), and its layout here is the whole
+      leaf over ``model``, the checkpoint's: ``transformer.conv_whole``
+      joins the ranks' channels for a save, and a restore cuts them.
+
+    Every other dim is whole: without ``tp``, and for MLA's compressed
+    cache and the xlstm's recurrent states, every rank of a model column
+    holds the whole leaf (8a's layout); MLA's compressed cache keeps its
+    sequence whole too (rule "mla: sequence")."""
     axes = axes or MeshAxes.from_mesh(mesh)
     dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
     heads = tp is not None and tp.computes("attn")
+    mamba = tp is not None and tp.computes("mamba")
 
     def layout_for(keys, leaf):
         spec = [None] * len(leaf.shape)
+        name = _leaf_name(keys)
         if split:
             spec[cache_batch_dim(keys)] = dp
-        if heads and _leaf_name(keys) in ("k", "v"):
-            spec[-2] = axes.model           # (..., B, S, Hkv, D)
+        elif seq and name in ("k", "v"):
+            spec[-3] = dp                   # (..., B, S, Hkv, D)
+        if heads and name in ("k", "v"):
+            spec[-2] = axes.model
+        if mamba and name == "ssm":
+            spec[-3] = axes.model           # (..., B, H, P, N)
         return Layout(mesh, to_placements(tuple(spec), mesh))
 
     return _map_with_path(layout_for, cache_abstract)
+
+
+def seq_splits(cfg, batch: int, smax: int, dp: int) -> bool:
+    """Whether a dense serve block's cache holds its sequence over the
+    data ranks: its batch does not split over the ``dp`` data ranks, its
+    ``smax`` positions do, and it has a GQA ``k``/``v`` cache (the
+    reference's ``cache_specs`` rule; MLA's compressed cache and the
+    xlstm's states keep theirs whole)."""
+    a = cfg.attention
+    return (dp > 1 and batch % dp != 0 and smax % dp == 0
+            and cfg.family != "xlstm" and not cfg.is_encoder
+            and a is not None and not a.is_mla)
 
 
 def _is_q(x) -> bool:

@@ -239,6 +239,16 @@ class CapturedStep:
     recorded, taken back (the warm-up's and the capture's kernels are not
     steps) and added again on every replay.
 
+    ``warm_inplace(t)``, when given, names the donated tensors the
+    warm-up may write in place instead of on a copy: a leaf the step
+    writes only where what it writes does not depend on what was there,
+    so the replay after the warm-up writes the same values over the
+    warm-up's and reads what it would have read (a decode cache's K/V,
+    written at row ``cache_len`` from the step's other inputs; a
+    recurrent state, read before it is written, is copied).  A long
+    context's cache is then held once, not twice, while the step is
+    captured.
+
     On the CPU, or with ``capture=False`` (a check's eager reference),
     the step runs eagerly (``eager_calls``, and the module's
     ``EAGER_CALLS``).  On the card a capture or replay that fails raises:
@@ -246,9 +256,11 @@ class CapturedStep:
     """
 
     def __init__(self, fn, *, static: Sequence[int] = (),
-                 donate: Sequence[int] = (), capture: bool = True):
+                 donate: Sequence[int] = (), capture: bool = True,
+                 warm_inplace=None):
         assert set(donate) <= set(static), (donate, static)
         self.fn = fn
+        self.warm_inplace = warm_inplace
         self.static, self.donate = tuple(static), tuple(donate)
         self.capture = capture
         self.captures = self.replays = self.eager_calls = 0
@@ -345,7 +357,9 @@ class CapturedStep:
                 self._inputs.append((i, cap[i]))
             elif isinstance(t, torch.Tensor):
                 self._bound.append(t)
-        warm = [t.clone() if i in donate else t for i, t in enumerate(cap)]
+        inplace = self.warm_inplace or (lambda t: False)
+        warm = [t.clone() if i in donate and not inplace(t) else t
+                for i, t in enumerate(cap)]
         gens = [g for g in leaves if isinstance(g, torch.Generator)]
         gen_states = [g.get_state() for g in gens]
         before = counters()

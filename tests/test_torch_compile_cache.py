@@ -318,6 +318,41 @@ def test_captured_step_wiring_with_a_stand_in_graph(stand_in,
     assert all(r() is None for r in refs)
 
 
+def append_step(w, x, cache, state, n):
+    """A decode-like toy step: a row of ``cache`` written at ``n`` from
+    the step's other inputs, then read whole (the attention's K/V), and
+    a recurrent ``state`` read before it is written."""
+    y = torch.tanh(x @ w + state)
+    cache.index_copy_(0, n.reshape(1).long(), y[:1])
+    state.add_(cache.sum(0, keepdim=True) * 0.1)
+    return y[:, :1] + cache.sum(), cache, state
+
+
+def test_warm_inplace_writes_append_only_leaves_in_place(stand_in):
+    """``warm_inplace`` names the donated leaves the warm-up writes in
+    place (no copy of a long cache while a step is captured); the
+    recurrent state is still warmed on a copy, and three calls give the
+    eager step's outputs, cache and state bit for bit."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
+    cache, state = torch.zeros((5, 4)), torch.zeros((1, 4))
+    n = torch.zeros((), dtype=torch.int32)
+    ref = (cache.clone(), state.clone())
+    step = cc.CapturedStep(append_step, static=(0, 2, 3, 4), donate=(2, 3),
+                           warm_inplace=lambda t: t is cache)
+    for i in range(3):
+        x = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+        n.fill_(i)
+        want, _, _ = append_step(w, x.clone(), *ref, n.clone())
+        got, c, st = step(w, x, cache, state, n)
+        assert c is cache and st is state
+        assert torch.equal(got, want) and torch.equal(cache, ref[0])
+        assert torch.equal(state, ref[1])
+    ids = stand_in[0].warmups[0]
+    assert ids[2] == id(cache) and ids[3] != id(state)
+    assert (step.captures, step.replays) == (1, 3)
+
+
 def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(pytree.tree_leaves(a),
                                                    pytree.tree_leaves(b)))

@@ -554,6 +554,100 @@ def test_pod_traffic_is_what_the_ranks_move(runs):
     assert want["serial"]["operand"] > 7 * want["overlap"]["operand"]
 
 
+# ------------------------------------- item 8g: zamba2's cells, B = 1
+
+ZAMBA = r'''
+import json, sys
+from repro_torch.launch import dryrun
+from repro_torch.models.config import ShapeConfig
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+out = {}
+dryrun.fake_world(256)
+mesh = dryrun.block_mesh(None, False)
+for shape in ("train_4k", "prefill_32k", "decode_32k"):
+    # the layout and its gaps only: a train_4k cell's step takes minutes
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cell, meta = dryrun.lower_cell("zamba2_2p7b", shape,
+                                       multi_pod=False, mesh=mesh)
+    out[shape] = {"gaps": cell.gaps, "cache": meta.get("cache")}
+out["long_500k"] = dryrun.run_cell("zamba2_2p7b", "long_500k",
+                                   multi_pod=False)
+# a B = 1 decode of MLA (its compressed cache keeps its sequence whole)
+# and of the hybrid, at smoke size on (2, 2)
+dryrun.fake_world(4)
+small = dryrun.block_mesh((2, 2), False)
+b1 = ShapeConfig("b1", "decode", seq_len=32, global_batch=1)
+import repro_torch.configs as C
+for arch in ("deepseek_v2_236b", "zamba2_2p7b"):
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        cell, meta = dryrun.lower_cell(arch, "b1", multi_pod=False,
+                                       cfg=C.get_smoke(arch), shape=b1,
+                                       mesh=small)
+    out[f"b1_{arch}"] = {"gaps": cell.gaps, "cache": meta["cache"]}
+print("RESULT " + json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def zamba_cells():
+    r = subprocess.run([sys.executable, "-c", ZAMBA], env=ENV,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    line = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def test_zamba2_cells_on_16x16_keep_no_hybrid_or_b1_gap(zamba_cells):
+    """zamba2_2p7b's four cells on the 16x16 mesh: no ``family: hybrid``
+    rule and no B = 1 gap (its Mamba2 heads, shared attention, MLP and
+    vocabulary compute sharded over ``model``; long_500k's one row holds
+    its cache's positions over ``data``)."""
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        gaps = zamba_cells[shape]["gaps"]
+        assert gaps == [], (shape, gaps)
+    assert zamba_cells["long_500k"]["status"] == "ok"
+
+
+def test_long_500k_cache_is_the_reference_specs_but_conv(zamba_cells):
+    """long_500k's per-rank ``k``, ``v`` and ``ssm`` bytes are the
+    reference's ``cache_specs`` arithmetic: 9 groups x 524288 / 16
+    positions x 32 / 16 kv heads x 80 x 2 bytes each of K and V (0.19
+    GB together, not 48.3 GB) and 9 x 5 Mamba2 states of 80 / 16 heads
+    x 64 x 64 fp32; the ``conv`` state departs by heads, named, its
+    bytes a rank's 5120 / 16 x channels and 2 x 64 of B and C."""
+    line = zamba_cells["long_500k"]
+    cache = line["cache"]
+    kv = 9 * (524288 // 16) * (32 // 16) * 80 * 2
+    assert cache["bytes"]["k"] == cache["bytes"]["v"] == kv
+    assert cache["bytes"]["k"] + cache["bytes"]["v"] == 188_743_680
+    assert cache["bytes"]["ssm"] == 9 * 5 * (80 // 16) * 64 * 64 * 4
+    for name in ("k", "v", "ssm"):
+        assert cache["bytes"][name] == cache["reference_bytes"][name]
+    assert cache["bytes"]["conv"] == 9 * 5 * 3 * (5120 // 16 + 128) * 2
+    assert cache["reference_bytes"]["conv"] == 9 * 5 * 3 * (5248 // 16) * 2
+    assert set(cache["departs"]) == {"conv"}
+    assert "contiguous chunks" in cache["departs"]["conv"]
+    # the rank's state: the params' shard and this cache
+    assert line["memory"]["state_bytes"] < 0.25e9
+    for shape in ("prefill_32k", "decode_32k"):
+        c = zamba_cells[shape]["cache"]
+        assert set(c["departs"]) == {"conv"}, shape
+
+
+def test_b1_decode_gaps_name_what_is_still_kept(zamba_cells):
+    """A B = 1 decode on (2, 2): the hybrid's GQA cache holds its
+    positions over ``data`` (no gap); MLA keeps its heads (rule "mla")
+    and its compressed cache's sequence whole (rule "mla: sequence")."""
+    z = zamba_cells["b1_zamba2_2p7b"]
+    assert z["gaps"] == [] and set(z["cache"]["departs"]) == {"conv"}
+    v2 = zamba_cells["b1_deepseek_v2_236b"]
+    assert len(v2["gaps"]) == 2
+    assert v2["gaps"][0].startswith("8g: mla kept in 8a's layout")
+    assert v2["gaps"][1].startswith("8g: mla: sequence: a batch of 1 rows")
+    assert set(v2["cache"]["departs"]) == {"c_kv", "k_rope"}
+
+
 # ------------------------------------------------------------ chip_smoke
 
 def test_chip_smoke_overlap_and_dryrun_phases_rehearse_on_cpu():

@@ -804,10 +804,21 @@ def test_the_layout_rule_names_every_part_it_keeps():
             for a in ("deepseek_v2_236b", "zamba2_2p7b", "xlstm_350m",
                       "hubert_xlarge", "pixtral_12b")}
     assert kept == {"deepseek_v2_236b": ("mla",),
-                    "zamba2_2p7b": ("family: hybrid",),
+                    "zamba2_2p7b": (),
                     "xlstm_350m": ("family: xlstm",),
                     "hubert_xlarge": ("frontend: frame",),
                     "pixtral_12b": ("frontend: patch",)}
+    # the hybrid computes its Mamba2 heads sharded where H divides by M
+    # (zamba2's 80 heads at M = 16), else keeps them whole by the named
+    # rule (M = 32: its attention heads, MLP width and vocabulary still
+    # divide)
+    zamba = C.get("zamba2_2p7b")
+    z16 = plans.tp_layout(zamba, {"data": 1, "model": 16})
+    assert z16.kinds == {"attn", "mlp", "vocab", "mamba"} and z16.kept == ()
+    assert z16.heads == (2, 2) and z16.partial
+    z32 = plans.tp_layout(zamba, {"data": 1, "model": 32})
+    assert z32.kept == ("mamba: 80 % 32",) and "mamba" not in z32.kinds
+    assert not z32.partial
     paged = plans.tp_layout(C.get_smoke("deepseek_7b"), mesh, paged=True)
     assert paged.kept == ("paged",) and not paged.kinds
     v2 = plans.tp_layout(C.get_smoke("deepseek_v2_236b"), mesh)
@@ -822,29 +833,48 @@ def test_the_layout_rule_names_every_part_it_keeps():
 
 
 def test_cache_layouts_put_kv_heads_over_model_where_attention_is_tp():
+    """The kv heads of ``k``/``v`` over ``model`` where the attention
+    computes sharded (the hybrid's shared attention now too), the
+    Mamba2 ``ssm`` state's heads where Mamba2 does, and every leaf's
+    local shape ``init_cache``'s with the same splits; the ``conv``
+    state's layout is its whole leaf (the checkpoint's), while a rank
+    holds its heads' ``x`` channels and the whole B and C."""
     import repro_torch.configs as C
     from repro_torch.models import model
+    from repro_torch.models.ssm import mamba_columns
     from repro_torch.models.transformer import flatten
     from repro_torch.sharding import plans
     from torch.distributed.tensor import Replicate, Shard
     mesh = {"data": 2, "model": 2}
     for arch, heads in (("deepseek_7b", True),
                         ("llama4_maverick_400b", True),
-                        ("deepseek_v2_236b", False), ("zamba2_2p7b", False)):
+                        ("deepseek_v2_236b", False), ("zamba2_2p7b", True)):
         cfg = C.get_smoke(arch)
         lay = plans.tp_layout(cfg, mesh)
+        mamba = lay.computes("mamba")
+        assert mamba == (arch == "zamba2_2p7b")
         cache = model.init_cache(cfg, 4, 8, "meta")
         lays = dict(flatten(plans.cache_layouts(cache, mesh, tp=lay)))
         local = dict(flatten(model.init_cache(
-            cfg, 2, 8, "meta", kv_split=2 if heads else 1)))
+            cfg, 2, 8, "meta", kv_split=2 if heads else 1,
+            mamba_split=2 if mamba else 1)))
         for path, leaf in flatten(cache):
-            on_heads = heads and path.split("/")[-1] in ("k", "v")
-            want = Shard(leaf.ndim - 2) if on_heads else Replicate()
+            name = path.split("/")[-1]
+            want = Replicate()
+            if heads and name in ("k", "v"):
+                want = Shard(leaf.ndim - 2)
+            elif mamba and name == "ssm":
+                want = Shard(leaf.ndim - 3)
             assert lays[path].placements[1] == want, (arch, path)
             shape = list(leaf.shape)
             for pl, n in zip(lays[path].placements, mesh.values()):
                 if isinstance(pl, Shard):
                     shape[pl.dim] //= n
+            if mamba and name == "conv":
+                di, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
+                ch = mamba_columns(cfg.ssm, cfg.d_model, 2, 1)[1]
+                assert len(ch) == di // 2 + 2 * N == shape[-1] - di // 2
+                shape[-1] = len(ch)
             assert shape == list(local[path].shape), (arch, path)
 
 
