@@ -205,9 +205,12 @@ never JAX.  Phases, each printing one JSON line:
                      524288-position cache (48.3 GB of K/V): a
                      32768-token prefill and 16 captured greedy decode
                      steps, unsharded, then through the sharded runtime
-                     at (1, 1) (item 8g, part 3: the sequence-split
-                     cache's path, its merge a no-op at one rank),
-                     tokens and logits bit for bit; the chunked decode
+                     at (1, 1) on the sequence-split cache's path (item
+                     8g, part 3), taken at one data rank by the phase's
+                     own context (``seq_split_forced``: the runtime's
+                     rule keeps a batch that splits over one data rank
+                     whole) and printed (``seq_split``), tokens and
+                     logits bit for bit; the chunked decode
                      attention against the whole softmax on one layer's
                      full-size cache; the decode step against its bound,
                      the peak memory against the dry run's for the same
@@ -236,8 +239,34 @@ never JAX.  Phases, each printing one JSON line:
                      backward once a layer, 4 RMSNorms a layer forward,
                      again in the recompute and backward, one int8 AdamW
                      a leaf, none on a scalar or CUDA-core route),
-                     tok/s, peak memory, MFU, a profiled step and the
-                     capacity's dropped share;
+                     tok/s, peak memory, MFU, a profiled step, the
+                     capacity's dropped share and ``host_probe``'s
+                     enqueue against wall;
+15b. ``moe_sharded`` — deepseek_v2_236b through the sharded runtime
+                     under a process group of one rank (NCCL, a
+                     ``HashStore``): serve_moe's launcher job (7 layers,
+                     4 x 512 prompt tokens, 32 generated, the decode
+                     captured), then train_moe's (2 layers, int8
+                     moments, 2 x 2048 tokens, 6 steps) on a (1, 1)
+                     DeviceMesh, MLA's heads (item 8g, part 2), the
+                     experts, the shared expert and the vocabulary on the
+                     tensor-parallel path at M = 1; the tokens, the
+                     prefill's and first decode step's logits, the
+                     losses, grad norms and launches theirs, bit for bit;
+                     the steady train step and host enqueue, the replay's
+                     wall and device time and peak memory beside theirs;
+15c. ``serve_long_mla`` — deepseek_v2_236b at full width cut to 2
+                     layers, B = 1, a cache of 131072 positions (its
+                     published 128K context): a 32768-token prefill and
+                     16 captured greedy decode steps, unsharded, then
+                     through the sharded runtime at (1, 1) on the
+                     sequence-split path at one data rank (as
+                     ``serve_long``), tokens and logits bit for bit; the
+                     absorbed decode's attention over four slices merged
+                     against the whole softmax on one layer's full-size
+                     compressed cache; the decode step against its
+                     bound, the peak memory against the dry run's, each
+                     kernel's largest tensor against 2^31 elements;
 16. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full size
                      (fp32 moments, 4 x 2048 tokens a step, remat): step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
@@ -328,6 +357,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2298,7 +2328,7 @@ def digest(t) -> str:
     """The sha256 of a tensor's bytes, read on the host."""
     import hashlib
     b = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
-    return hashlib.sha256(b.numpy().tobytes()).hexdigest()
+    return hashlib.sha256(memoryview(b.numpy())).hexdigest()
 
 
 def _clone(tree):
@@ -3060,7 +3090,10 @@ def moe_reads(rt, batch, args, out):
     expert, even at C = 1), beside the bytes of the chosen experts alone;
     on the card, the decode step's idle share and the expert products'
     share of the warm prefill (three batched products of one layer timed
-    alone, times the layers, over the prefill's device time)."""
+    alone, times the layers, over the prefill's device time).  The
+    prefill's and the decode step's logits (``logits_digests``, their
+    values the tap leaves as they are) are what ``moe_sharded`` holds its
+    own to."""
     import torch.nn.functional as F
     from repro_torch.models import model, moe
     cfg, params = rt.job.cfg, rt.state["params"]
@@ -3082,11 +3115,13 @@ def moe_reads(rt, batch, args, out):
         logits, cache = model.prefill(params, cfg, batch, cache)
         pre, taps[:] = list(taps), []
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-        model.decode_step(params, cfg, tok, cache, P)
+        step, _ = model.decode_step(params, cfg, tok, cache, P)
         dec = list(taps)
     finally:
         moe.route = route
-    del cache, logits
+    digests = {"prefill": digest(logits.float()),
+               "decode": digest(step.float())}
+    del cache, logits, step
     set_counts(saved)
 
     def drops(rows):
@@ -3102,7 +3137,8 @@ def moe_reads(rt, batch, args, out):
     chosen = [r[3] for r in dec]
     active = weights - expert_bytes * (cfg.n_layers * m.n_experts
                                        - sum(chosen))
-    res = {"capacity_drop": {"prefill": drops(pre), "decode": drops(dec)},
+    res = {"logits_digests": digests,
+           "capacity_drop": {"prefill": drops(pre), "decode": drops(dec)},
            "decode_bound": {
                "weights_gb": weights / 1e9,
                "bound_ms": weights / HBM_BYTES_PER_S * 1e3,
@@ -3128,6 +3164,21 @@ def moe_reads(rt, batch, args, out):
     return res
 
 
+def _moe_serve_argv(device, smoke):
+    """serve_moe's launcher flags and config (``moe_sharded`` runs the
+    same job): deepseek_v2_236b cut to ``MOE_LAYERS``, or its smoke
+    config."""
+    import repro_torch.configs as configs
+    arch = "deepseek_v2_236b"
+    if smoke:
+        return (["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
+                 "24", "--gen", "6", "--device", device],
+                configs.get_smoke(arch))
+    return (["--arch", arch, "--batch", "4", "--prompt-len", "512", "--gen",
+             "32", "--seed", "0", "--device", device],
+            configs.get(arch).replace(n_layers=MOE_LAYERS))
+
+
 def phase_serve_moe(device="cuda", smoke=False):
     """deepseek_v2_236b (the moe family with MLA attention: 2 shared and
     160 routed experts a layer, top-6) at full width, cut in depth to
@@ -3142,14 +3193,8 @@ def phase_serve_moe(device="cuda", smoke=False):
     Besides: ``moe_reads``."""
     import repro_torch.configs as configs
     arch = "deepseek_v2_236b"
-    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "512", "--gen",
-            "32", "--seed", "0", "--device", device]
-    full = configs.get(arch)
-    cfg = full.replace(n_layers=MOE_LAYERS)
-    if smoke:
-        argv = ["--arch", arch, "--smoke", "--batch", "2", "--prompt-len",
-                "24", "--gen", "6", "--device", device]
-        full = cfg = configs.get_smoke(arch)
+    argv, cfg = _moe_serve_argv(device, smoke)
+    full = configs.get_smoke(arch) if smoke else configs.get(arch)
     out = dense_plane("serve_moe", argv, device, cfg=cfg, extra=moe_reads,
                       logits_pair=moe_prefill_pair)
     a = cfg.attention
@@ -4512,23 +4557,64 @@ LONG_STEPS = 16
 #: what a 32768-token hybrid prefill's activations and logits may take
 #: beside the params and the cache (its logits alone 2.1 GB in bf16)
 LONG_WORKSPACE = 12e9
+#: serve_long_mla: deepseek_v2_236b's published 128K context
+#: (arXiv:2405.04434), prefill_32k's prompt, ``LONG_STEPS`` decode steps
+MLA_LONG_POSITIONS = 131072
+#: what a 32768-token MLA prefill may take beside the params and the
+#: cache: the per-head q, K and V (1.6, 1.6 and 1.1 GB in bf16), the
+#: expert buffers (2.5 GB) and the logits (6.7 GB in bf16)
+MLA_LONG_WORKSPACE = 32e9
 
 
-def _long_run(name, job, device, tokens, steps):
+@contextlib.contextmanager
+def seq_split_forced():
+    """The sharded runtime's sharding contexts built inside hold the
+    dense serve plane's cache positions split over the data ranks
+    (``ShardCtx.seq_split``) whatever the batch.  At (1, 1) a batch of 1
+    splits over the one data rank, so the runtime's own rule
+    (``plans.seq_splits``: more than one data rank) keeps the positions
+    whole; under this the B = 1 runs take the sequence-split path at one
+    rank: the slice's offset, the owner-only write of a decode step's
+    row, the partial results merged over the data ranks.  A phase's
+    override, not an option of the program."""
+    from repro_torch.sharding import ctx as shard_ctx
+    real = shard_ctx.ShardCtx
+
+    class SeqSplit(real):
+        def __init__(self, mesh, dp_axes, model_axis, shards_batch=True,
+                     tp=None, local=(), seq_split=False):
+            super().__init__(mesh, dp_axes, model_axis, shards_batch=False,
+                             tp=tp, local=local, seq_split=True)
+
+    shard_ctx.ShardCtx = SeqSplit
+    try:
+        yield
+    finally:
+        shard_ctx.ShardCtx = real
+
+
+def _long_run(name, job, device, tokens, steps, kinds):
     """One B = 1 serve block of ``job`` on ``device`` (the sharded
-    runtime under a process group, else the unsharded one): a prefill of
-    ``tokens`` (its logits kept), ``steps`` captured greedy decode steps,
-    then one more decode step run eagerly under the block's context for
-    its logits; the launches of the prefill and the captured steps, the
-    decode graph, peak memory and a profiled warm decode step."""
+    runtime under a process group, on the sequence-split path at its
+    one data rank, ``seq_split_forced``; else the unsharded one): a
+    prefill of ``tokens`` (its logits kept), ``steps`` captured greedy
+    decode steps, then one more decode step run eagerly under the
+    block's context for its logits; the launches of the prefill and the
+    captured steps, the decode graph, peak memory and a profiled warm
+    decode step.  ``kinds``: what the sharded block must compute on the
+    tensor-parallel path."""
+    import torch.distributed as dist
     from repro_torch.core.block import BlockGrant
     from repro_torch.core.runtime import BlockRuntime
     from repro_torch.models import model
+    from repro_torch.models.transformer import flatten
     from repro_torch.serve import serve_step as serve_lib
     from repro_torch.sharding import ctx as shard_ctx
     cfg = job.cfg
-    rt = BlockRuntime(BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0), job,
-                      devices=[device])
+    grant = BlockGrant.new([(0, 0, 0)], (1, 1), 3600.0)
+    with (seq_split_forced() if dist.is_initialized()
+          else contextlib.nullcontext()):
+        rt = BlockRuntime(grant, job, devices=[device])
     t0 = time.perf_counter()
     rt.init_state()
     rt._sync()
@@ -4569,19 +4655,26 @@ def _long_run(name, job, device, tokens, steps):
            "sharded": rt.mesh is not None}
     if rt.mesh is not None:
         out["tp"] = rt.tp.summary()
-        check(rt.tp.computes("mamba") and rt.tp.computes("attn"),
-              f"{name}: the hybrid is not on the tensor-parallel path")
+        out["cache_positions_a_rank"] = sorted(
+            {t.shape[-2] if p.split("/")[-1] in ("c_kv", "k_rope")
+             else t.shape[-3] for p, t in flatten(rt.cache)
+             if p.split("/")[-1] in ("k", "v", "c_kv", "k_rope")})
+        check(all(rt.tp.computes(k) for k in kinds) and rt.tp.kept == ()
+              and out["seq_split"],
+              f"{name}: not on the tensor-parallel and sequence-split "
+              f"paths, {rt.tp}, seq_split {out['seq_split']}")
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     saved = counts()
     with torch.no_grad(), shard_ctx.use(rt.ctx):
         lg, _ = model.decode_step(rt.state["params"], cfg, rt.token,
                                   rt.cache, rt.cache_len)
-    out["logits_digests"] = {"prefill": digest(box["logits"].float()),
-                             "eager_step": digest(lg.float())}
-    out["logits_finite"] = bool(torch.isfinite(lg.float()).all()
-                                and torch.isfinite(
-                                    box["logits"].float()).all())
+    # in their own dtype: a 32768-token prefill's logits are 6.7 GB in
+    # bf16 at deepseek_v2's vocabulary
+    out["logits_digests"] = {"prefill": digest(box["logits"]),
+                             "eager_step": digest(lg)}
+    out["logits_finite"] = bool(torch.isfinite(lg).all()
+                                and torch.isfinite(box["logits"]).all())
     if rt.device.type == "cuda":
         rt.cache_len += 1
         out["warm_decode_step"] = profile_steps(rt.step, 2)
@@ -4591,40 +4684,33 @@ def _long_run(name, job, device, tokens, steps):
     return out
 
 
-def phase_serve_long(device="cuda", smoke=False):
-    """zamba2_2p7b at full width, B = 1, on long_500k's cache (item 8g,
-    part 3): a cache of ``LONG_POSITIONS`` positions (48.3 GB of K/V in
-    bf16 beside 5.4 GB of params; halved to the largest power of two
-    that fits beside ``LONG_WORKSPACE`` if the card's free memory does
-    not hold it), a ``LONG_PROMPT``-token prefill (prefill_32k's length)
-    and ``LONG_STEPS`` captured greedy decode steps, first on the
+def _long_phase(name, cfg, device, smoke, *, P, steps, smax, workspace,
+                launches, kinds, attention_check, int32, dry_args):
+    """A B = 1 long-context serve phase (``serve_long``,
+    ``serve_long_mla``): a cache of ``smax`` positions (halved to the
+    largest power of two that fits beside ``workspace`` if the card's
+    free memory does not hold it, the cut printed), a ``P``-token
+    prefill and ``steps`` captured greedy decode steps, first on the
     unsharded ``BlockRuntime``, then through the sharded runtime at
-    (1, 1) under a process group of one rank (NCCL; every join and
-    every merge a no-op at one rank): the tokens, the prefill's logits
-    and one more eager decode step's bit for bit the unsharded run's,
-    the launches exactly one prefill's and the captured steps'.  Then
-    the chunked ``decode_attention`` (``ops.DECODE_CHUNK`` positions a
-    chunk) against the whole softmax in one chunk on one layer's
-    full-size cache, every position valid (rtol ``LONG_RTOL`` in fp32).
-    Printed: the decode step's wall and device ms against its bound
-    (the params and the whole cache read once at the memory rate: the
-    step masks, not skips, the positions past ``cache_len``), the peak
-    memory against the dry run's computed state and peak for the same
-    cell at (1, 1) (``python -m repro_torch.launch.dryrun`` in a CPU
+    (1, 1) under a process group of one rank (NCCL; every join a no-op
+    at one rank) on the sequence-split path (``seq_split_forced``): the
+    tokens, the prefill's logits and one more eager decode step's bit
+    for bit the unsharded run's, the launches exactly one prefill's and
+    the captured steps' (``launches``: one prefill's and one decode
+    step's).  Then ``attention_check(cfg, smax, dev)``.  Printed: the
+    decode step's wall and device ms against its bound (the params and
+    the whole cache read once at the memory rate: the step masks, not
+    skips, the positions past ``cache_len``), the peak memory against
+    the dry run's computed state and peak for the same cell at (1, 1)
+    (``python -m repro_torch.launch.dryrun`` with ``dry_args`` in a CPU
     subprocess started first), and the largest tensor each kernel of
-    the path takes against 2^31 elements."""
+    the path takes against 2^31 elements (``int32(cfg, P)``)."""
     import torch.distributed as dist
-    import repro_torch.configs as configs
     from repro_torch import device as device_lib
     from repro_torch.core.runtime import JobSpec
     from repro_torch.data import pipeline
-    from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.models.config import ShapeConfig
-    cfg = (configs.get_smoke("zamba2_2p7b") if smoke
-           else configs.get("zamba2_2p7b"))
-    P, steps = (24, 4) if smoke else (LONG_PROMPT, LONG_STEPS)
-    smax = 64 if smoke else LONG_POSITIONS
     dev = torch.device(device)
     params_b = tree_bytes(model.abstract_params(cfg))
 
@@ -4634,7 +4720,7 @@ def phase_serve_long(device="cuda", smoke=False):
     free = (torch.cuda.mem_get_info()[0] if dev.type == "cuda"
             else float("inf"))
     want = smax
-    while params_b + cache_b(smax) + LONG_WORKSPACE > free and smax > P * 2:
+    while params_b + cache_b(smax) + workspace > free and smax > P * 2:
         smax //= 2
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": 1,
            "positions": smax, "positions_wanted": want,
@@ -4642,44 +4728,45 @@ def phase_serve_long(device="cuda", smoke=False):
            "params_gb": params_b / 1e9, "cache_gb": cache_b(smax) / 1e9,
            "free_gb_at_start": free / 1e9, "card": _CARD}
     # the dry run of the same cell at (1, 1), on the CPU beside the card
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-           "--arch", "zamba2_2p7b", "--kind", "decode", "--shape",
-           "long_500k", "--seq-len", str(smax), "--global-batch", "1",
-           "--mesh-shape", "1,1"] + (["--smoke"] if smoke else [])
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--kind",
+           "decode", "--seq-len", str(smax), "--global-batch", "1",
+           "--mesh-shape", "1,1"] + dry_args + (["--smoke"] if smoke
+                                                else [])
     dry = subprocess.Popen(
         cmd, env=dict(os.environ, CUDA_VISIBLE_DEVICES="",
                       PYTHONPATH=os.path.join(ROOT, "src")),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
     try:
-        job = JobSpec(cfg, ShapeConfig("long_500k", "serve", seq_len=smax,
+        job = JobSpec(cfg, ShapeConfig(name, "serve", seq_len=smax,
                                        global_batch=1), kind="serve",
                       seed=0)
         tokens = torch.as_tensor(pipeline.synthetic_batch(
             cfg, ShapeConfig("p", "prefill", seq_len=P, global_batch=1),
             step=0, seed=0)["tokens"], device=dev)
-        plain = _long_run("serve_long unsharded", job, device, tokens,
-                          steps)
+        plain = _long_run(f"{name} unsharded", job, device, tokens, steps,
+                          kinds)
         _free(device)
         device_lib.init_distributed(device, store=dist.HashStore(),
                                     rank=0, world_size=1)
         try:
-            mesh = _long_run("serve_long", job, device, tokens, steps)
+            mesh = _long_run(name, job, device, tokens, steps, kinds)
         finally:
             dist.destroy_process_group()
         _free(device)
         for key in ("tokens", "logits_digests", "launches"):
             out[f"{key}_equal_unsharded"] = mesh[key] == plain[key]
             check(out[f"{key}_equal_unsharded"],
-                  f"serve_long: the sharded run's {key} differ from the "
+                  f"{name}: the sharded run's {key} differ from the "
                   f"unsharded run's")
         check(mesh["logits_finite"] and mesh["sharded"]
-              and not plain["sharded"], "serve_long: logits or runs")
-        pre, dec = hybrid_launches(cfg)
+              and not plain["sharded"] and mesh["seq_split"]
+              and not plain["seq_split"], f"{name}: logits or runs")
+        pre, dec = launches
         if dev.type != "cuda":
             pre = dec = {n: 0 for n in COUNTERS}
         check(mesh["launches_prefill"] == pre and mesh["launches"] == {
             n: pre[n] + steps * dec[n] for n in COUNTERS},
-              f"serve_long launches {mesh['launches']}: not one prefill "
+              f"{name} launches {mesh['launches']}: not one prefill "
               f"and {steps} decode steps")
         out["unsharded"], out["sharded"] = plain, mesh
         out["launches"] = {n: plain["launches"][n] + mesh["launches"][n]
@@ -4692,10 +4779,10 @@ def phase_serve_long(device="cuda", smoke=False):
             w = mesh["warm_decode_step"]
             out["decode_wall_ms"], out["decode_device_ms"] = (
                 w["wall_ms"], w["device_ms"])
-        out["attention_check"] = _long_attention_check(cfg, smax, dev)
-        out["int32"] = _long_int32(cfg, P)
+        out["attention_check"] = attention_check(cfg, smax, dev)
+        out["int32"] = int32(cfg, P)
         check(all(v["elements"] < 2 ** 31 for v in out["int32"].values()),
-              f"serve_long: a kernel's tensor past 2^31 elements "
+              f"{name}: a kernel's tensor past 2^31 elements "
               f"{out['int32']}")
     finally:
         try:
@@ -4705,15 +4792,66 @@ def phase_serve_long(device="cuda", smoke=False):
             so, se = dry.communicate()
     lines = [x for x in so.splitlines() if x.startswith("{")]
     check(dry.returncode == 0 and bool(lines),
-          f"serve_long dryrun: exit {dry.returncode}: {se[-2000:]}")
+          f"{name} dryrun: exit {dry.returncode}: {se[-2000:]}")
     line = json.loads(lines[-1])
-    check(line.get("status") == "ok", f"serve_long dryrun: {line}")
+    check(line.get("status") == "ok", f"{name} dryrun: {line}")
     out["dryrun"] = {"state_gb": line["memory"]["state_bytes"] / 1e9,
                      "peak_gb": line["memory"]["peak_bytes_per_device"]
                      / 1e9, "cache": line["cache"], "gaps": line["gaps"],
                      "step_s": line["roofline"]["step_time_s"]}
-    emit("serve_long", **out)
+    emit(name, **out)
     return out
+
+
+def phase_serve_long(device="cuda", smoke=False):
+    """zamba2_2p7b at full width, B = 1, on long_500k's cache (item 8g,
+    part 3; ``_long_phase``): a cache of ``LONG_POSITIONS`` positions
+    (48.3 GB of K/V in bf16 beside 4.0 GB of params), a
+    ``LONG_PROMPT``-token prefill (prefill_32k's length) and
+    ``LONG_STEPS`` captured greedy decode steps, unsharded, then on the
+    sharded runtime's sequence-split path at one data rank; then the
+    chunked ``decode_attention`` (``ops.DECODE_CHUNK`` positions a
+    chunk) against the whole softmax in one chunk on one layer's
+    full-size cache, every position valid (rtol ``LONG_RTOL`` in
+    fp32)."""
+    import repro_torch.configs as configs
+    cfg = (configs.get_smoke("zamba2_2p7b") if smoke
+           else configs.get("zamba2_2p7b"))
+    P, steps = (24, 4) if smoke else (LONG_PROMPT, LONG_STEPS)
+    return _long_phase(
+        "serve_long", cfg, device, smoke, P=P, steps=steps,
+        smax=64 if smoke else LONG_POSITIONS, workspace=LONG_WORKSPACE,
+        launches=hybrid_launches(cfg), kinds=("attn", "mamba"),
+        attention_check=_long_attention_check, int32=_long_int32,
+        dry_args=["--arch", "zamba2_2p7b", "--shape", "long_500k"])
+
+
+def phase_serve_long_mla(device="cuda", smoke=False):
+    """deepseek_v2_236b at full width cut to ``MOE_TRAIN_LAYERS`` of its
+    60 layers (train_moe's cut; 17.99 GB of params), B = 1, on a cache
+    of ``MLA_LONG_POSITIONS`` positions, its published 128K context
+    (0.30 GB of compressed cache at 2 layers), through ``_long_phase``
+    (item 8g, part 2): a ``LONG_PROMPT``-token prefill and
+    ``LONG_STEPS`` captured greedy decode steps, unsharded, then on the
+    sharded runtime at (1, 1), MLA's heads on the tensor-parallel path
+    and its compressed cache on the sequence-split path at one data
+    rank; then the absorbed decode's attention over four slices of one
+    layer's full-size compressed cache merged as the data ranks merge
+    them, against the whole softmax (``_long_mla_attention_check``)."""
+    import repro_torch.configs as configs
+    cfg = (configs.get_smoke("deepseek_v2_236b") if smoke
+           else configs.get("deepseek_v2_236b").replace(
+               n_layers=MOE_TRAIN_LAYERS))
+    P, steps = (24, 4) if smoke else (LONG_PROMPT, LONG_STEPS)
+    pre, dec, _ = dense_launches(cfg)
+    return _long_phase(
+        "serve_long_mla", cfg, device, smoke, P=P, steps=steps,
+        smax=64 if smoke else MLA_LONG_POSITIONS,
+        workspace=MLA_LONG_WORKSPACE, launches=(pre, dec),
+        kinds=("attn", "experts", "shared", "vocab"),
+        attention_check=_long_mla_attention_check, int32=_long_mla_int32,
+        dry_args=["--arch", "deepseek_v2_236b", "--shape", "long_128k",
+                  "--n-layers", str(cfg.n_layers)])
 
 
 #: the chunked decode attention against the whole softmax, in fp32
@@ -4770,6 +4908,78 @@ def _long_int32(cfg, P):
     sizes = {"ssd_scan": P * H * cfg.ssm.head_dim,
              "flash_attention": P * a.n_heads * a.head_dim,
              "rmsnorm": P * di}
+    return {k: {"elements": n, "share_of_2_31": n / 2 ** 31}
+            for k, n in sizes.items()}
+
+
+#: the slices the absorbed decode's attention is split into for its
+#: check, as four data ranks hold them
+MLA_LONG_SLICES = 4
+
+
+def _long_mla_attention_check(cfg, smax, dev):
+    """``layers.mla_decode_attention`` over one layer's full-size
+    compressed cache, every position valid, in ``MLA_LONG_SLICES``
+    slices each with its offset, merged as the data ranks merge their
+    partial results (``ops.merge_attention``), against one call over
+    the whole cache (the reference's whole softmax), on the same bf16
+    inputs: the fp32 partial results (normalised output and
+    log-sum-exp) within ``LONG_RTOL``."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import mla_decode_attention
+    a = cfg.attention
+    H, R, Dr = a.n_heads, a.kv_lora_rank, a.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(a.head_dim + Dr)
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16)
+    c, r = randn(1, smax, R), randn(1, smax, Dr)
+    q_abs, q_rope = randn(1, H, 1, R), randn(1, H, 1, Dr)
+    sl = smax // MLA_LONG_SLICES
+
+    def whole():
+        return mla_decode_attention(q_abs, q_rope, c, r, smax, scale,
+                                    partials=True)
+
+    def merged():
+        parts = [mla_decode_attention(
+            q_abs, q_rope, c[:, lo:lo + sl], r[:, lo:lo + sl], smax, scale,
+            offset=lo, partials=True) for lo in range(0, smax, sl)]
+        return ops.merge_attention(torch.stack([p[0] for p in parts]),
+                                   torch.stack([p[1] for p in parts]))
+    got, want = merged(), whole()
+    (e_o, r_o), (e_l, r_l) = (close(got[0], want[0], LONG_RTOL),
+                              close(got[1], want[1], LONG_RTOL))
+    out = {"shape": [1, H, smax, R, Dr], "slices": MLA_LONG_SLICES,
+           "rtol": LONG_RTOL, "max_abs_err": max(e_o, e_l),
+           "worst_over_tol": max(r_o, r_l)}
+    out["passed"] = out["worst_over_tol"] <= 1
+    check(out["passed"], f"serve_long_mla: merged absorbed decode {out}")
+    if dev.type == "cuda":
+        out["ms"] = time_ms(merged, iters=3, warmup=1)
+        out["whole_ms"] = time_ms(whole, iters=3, warmup=1)
+        out["bound_ms"] = ((c.numel() + r.numel()) * 2
+                           / HBM_BYTES_PER_S * 1e3)
+    del c, r, got, want
+    return out
+
+
+def _long_mla_int32(cfg, P):
+    """The largest tensor, in elements, each kernel of serve_long_mla's
+    path takes (B = 1): flash attention's q and K (H, P, Dn + Dr), the
+    RMSNorm's rows (P, d_model); and the expert buffer the three batched
+    products read, (E, C, d_model) at the prompt's capacity C, beside
+    them: each kernel indexes its inputs with 32-bit offsets
+    (``csrc/``)."""
+    from repro_torch.models.moe import capacity
+    a, m = cfg.attention, cfg.moe
+    sizes = {"flash_attention": P * a.n_heads
+             * (a.head_dim + a.qk_rope_head_dim),
+             "rmsnorm": P * cfg.d_model,
+             "expert_buffer": m.n_experts * capacity(P, m) * cfg.d_model}
     return {k: {"elements": n, "share_of_2_31": n / 2 ** 31}
             for k, n in sizes.items()}
 
@@ -4903,15 +5113,186 @@ def phase_train_moe(device="cuda", smoke=False):
     check(out["launches_per_step"] == want,
           f"train_moe launches per step {out['launches_per_step']}, want "
           f"{want}")
+    saved = counts()
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["model_flops"] = hlo_analysis.model_step_flops(cfg, shape)
         out["mfu"] = out["model_flops"] / steady / hlo_analysis.PEAK_FLOPS
-        saved = counts()
         out["warm_step"] = profile_steps(rt.step, 1)
-        set_counts(saved)
+    # the host's time to enqueue a step against its wall time, for
+    # moe_sharded's beside it
+    out["host_probe"] = host_probe(rt)
+    set_counts(saved)
     del rt, res
     emit("train_moe", **out)
+    return out
+
+
+def phase_moe_sharded(device="cuda", smoke=False, serve=None, train=None):
+    """The moe family with MLA through the sharded runtime (item 8g, part
+    2): deepseek_v2_236b under a process group of one rank (NCCL on the
+    card, gloo on the CPU; a ``HashStore``), so its blocks run on a
+    (1, 1) DeviceMesh with every param a DTensor and the tensor-parallel
+    path of MLA's heads, the routed experts, the shared expert and the
+    vocabulary at M = 1 (every join a no-op, every leaf's model shard
+    the leaf; MLA's down-projections and norms gathered whole, their
+    gradients summed over a column of one).  The serve block:
+    serve_moe's launcher job (``serve``: 7 layers, 4 x 512 prompt
+    tokens, 32 generated, the decode captured), its tokens serve_moe's
+    bit for bit, its launches and the graph's launches a replay exactly
+    theirs; the prefill's and the first decode step's logits, from the
+    block's params under its context, serve_moe's (``logits_digests``)
+    bit for bit; the warm replay's wall and device time and the peak
+    memory beside serve_moe's.  The train block: train_moe's launcher
+    job (``train``: 2 layers, int8 moments, 2 x 2048 tokens, 6 steps),
+    its losses and grad norms train_moe's bit for bit and its launches
+    per step exactly theirs; the steady step and ``host_probe``'s
+    enqueue against train_moe's.  The process group is destroyed at the
+    end."""
+    import torch.distributed as dist
+    import repro_torch.configs as configs
+    from repro_torch import device as device_lib
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model
+    from repro_torch.sharding import ctx as shard_ctx
+    from torch.distributed.tensor import DTensor
+    if serve is None:
+        serve = phase_serve_moe(device, smoke)
+        _free(device)
+    if train is None:
+        train = phase_train_moe(device, smoke)
+        _free(device)
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    out = {"backend": dist.get_backend(), "mesh": [1, 1], "card": _CARD}
+
+    def sharded(rt, what):
+        check(rt.mesh is not None and tuple(rt.mesh.mesh.shape) == (1, 1)
+              and all(isinstance(t, DTensor)
+                      for t in _tensors(rt.state["params"]))
+              and rt.tp.model == 1 and rt.tp.kept == ()
+              and rt.tp.kinds == {"attn", "experts", "shared", "vocab"}
+              and len(rt.tp.partial) == 4,
+              f"moe_sharded {what}: not on the tensor-parallel path, "
+              f"{rt.tp}")
+
+    try:
+        progress("moe_sharded: serve")
+        argv, cfg = _moe_serve_argv(device, smoke)
+        args = serve_launcher.parse_args(argv)
+        B, P, G = args.batch, args.prompt_len, args.gen
+        zero_counts()
+        _zero_eager_calls()
+        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
+        res = serve_launcher.run(args, cfg)
+        launches = counts()
+        rt = res["runtime"]
+        sharded(rt, "serve")
+        graph = graph_check("moe_sharded serve", rt.decode_graph, G - 1,
+                            _eager_calls(), device)
+        tokens = torch.as_tensor(res["batch"]["tokens"], device=rt.device)
+        d = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+             "launches": launches, "decode_graph": graph,
+             "tp": tp_summary(rt.tp, shard_ctx.GATHERED["model_bytes"],
+                              rt.tp.step_bytes(1),
+                              shard_ctx.GATHERED["tp_leaves"]),
+             "tokens_equal_serve_moe": res["tokens"].tolist()
+             == serve["tokens"],
+             "launches_equal_serve_moe": launches == serve["launches"],
+             "launches_per_replay_equal_serve_moe": (
+                 graph["launches_per_replay"]
+                 == serve["decode_graph"]["launches_per_replay"])}
+        check(d["tokens_equal_serve_moe"],
+              "moe_sharded: the tokens differ from serve_moe's")
+        check(d["launches_equal_serve_moe"]
+              and d["launches_per_replay_equal_serve_moe"],
+              f"moe_sharded serve launches {launches}, graph {graph}; "
+              f"serve_moe's {serve['launches']}, {serve['decode_graph']}")
+        # the logits: the block's params under its context, from a fresh
+        # cache as serve_moe's reads ran them (not the main path)
+        saved = counts()
+        with shard_ctx.use(rt.ctx):
+            cache = model.init_cache(cfg, B, P + 1, rt.device)
+            params = rt.state["params"]
+            lg, _ = model.prefill(params, cfg, {"tokens": tokens}, cache)
+            first = torch.argmax(lg, -1)[:, None].to(torch.int32)
+            step, _ = model.decode_step(params, cfg, first, cache, P)
+            del cache
+        d["logits_digests"] = {"prefill": digest(lg.float()),
+                               "decode": digest(step.float())}
+        del lg, step
+        d["logits_equal_serve_moe"] = (d["logits_digests"]
+                                       == serve["logits_digests"])
+        check(d["logits_equal_serve_moe"],
+              "moe_sharded: the prefill or first decode logits differ "
+              "from serve_moe's")
+        if rt.device.type == "cuda":
+            d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            d["serve_moe_peak_mem_gb"] = serve["peak_mem_gb"]
+            restart(rt)
+            rt.prefill({"tokens": tokens})
+            d["warm_decode_step"] = profile_steps(rt.step, 3)
+            d["serve_moe_warm_decode_step"] = {
+                k: serve["warm_decode_step"][k]
+                for k in ("wall_ms", "device_ms", "idle_share")}
+        set_counts(saved)
+        out["serve"] = d
+        del res, rt, params
+        _free(device)
+
+        progress("moe_sharded: train")
+        targv = ["--arch", "deepseek_v2_236b", "--steps",
+                 str(train["steps"]), "--seq-len", str(train["seq_len"]),
+                 "--global-batch", "2", "--microbatch", "1", "--seed", "0",
+                 "--log-every", "1", "--device", device]
+        tcfg = configs.get_smoke("deepseek_v2_236b")
+        if smoke:
+            targv.append("--smoke")
+        else:
+            tcfg = configs.get("deepseek_v2_236b").replace(
+                n_layers=MOE_TRAIN_LAYERS)
+        targs = launch_train.parse_args(targv)
+        zero_counts()
+        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
+        tres = launch_train.run(targs, tcfg, state_bits=8)
+        tl = counts()
+        trt, hist = tres["runtime"], tres["history"]
+        sharded(trt, "train")
+        n = len(hist)
+        t = {"losses": [h["loss"] for h in hist],
+             "grad_norms": [h["grad_norm"] for h in hist],
+             "step_s": [h["step_s"] for h in hist],
+             "steady_step_s": float(np.mean([h["step_s"]
+                                             for h in hist[1:]])),
+             "launches": tl,
+             "launches_per_step": {k: c / n for k, c in tl.items()},
+             "tp": tp_summary(
+                 trt.tp, shard_ctx.GATHERED["model_bytes"] / n,
+                 trt.tp.step_bytes(1, remat=True),
+                 shard_ctx.GATHERED["tp_leaves"] / n)}
+        check(t["tp"]["model_bytes_a_step"] == 0
+              and t["tp"]["tp_leaves"] > 0, f"moe_sharded train: {t['tp']}")
+        for key in ("losses", "grad_norms", "launches_per_step"):
+            t[f"{key}_equal_train_moe"] = t[key] == train[key]
+            check(t[f"{key}_equal_train_moe"],
+                  f"moe_sharded train: {key} {t[key]}, train_moe's "
+                  f"{train[key]}")
+        t["train_moe_steady_step_s"] = train["steady_step_s"]
+        saved = counts()
+        if trt.device.type == "cuda":
+            t["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            t["train_moe_peak_mem_gb"] = train["peak_mem_gb"]
+        # the host time the DTensor calls add: enqueue against wall
+        t["host_probe"] = host_probe(trt)
+        t["train_moe_host_probe"] = train["host_probe"]
+        set_counts(saved)
+        out["train"] = t
+        del tres, trt
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = {k: d["launches"][k] + tl[k] for k in COUNTERS}
+    emit("moe_sharded", **out)
     return out
 
 
@@ -7004,6 +7385,12 @@ def _run_all() -> int:
     _free()
     train_moe = phase_train_moe()
     _free()
+    progress("moe_sharded")
+    moe_sharded = phase_moe_sharded(serve=moe, train=train_moe)
+    _free()
+    progress("serve_long_mla")
+    serve_long_mla = phase_serve_long_mla()
+    _free()
     train_xlstm = phase_train_xlstm()
     _free()
     preempt = phase_preempt(train=train_hybrid)
@@ -7043,6 +7430,8 @@ def _run_all() -> int:
             "serve_long": serve_long["launches"],
             "train_encoder": train_encoder["launches"],
             "train_moe": train_moe["launches"],
+            "moe_sharded": moe_sharded["launches"],
+            "serve_long_mla": serve_long_mla["launches"],
             "train_xlstm": train_xlstm["launches"],
             "preempt": preempt["launches"], "control": control["launches"],
             "gateway": gateway["launches"], "service": service["launches"]}
@@ -7063,6 +7452,9 @@ def _run_all() -> int:
               "hybrid_sharded": [hybrid_sharded["serve"]["decode_graph"]],
               "serve_long": [serve_long[k]["decode_graph"]
                              for k in ("unsharded", "sharded")],
+              "moe_sharded": [moe_sharded["serve"]["decode_graph"]],
+              "serve_long_mla": [serve_long_mla[k]["decode_graph"]
+                                 for k in ("unsharded", "sharded")],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
@@ -7099,6 +7491,8 @@ def _run_all() -> int:
                        "train_encoder":
                            train_encoder["launches"]["fused_adamw_f32"],
                        "train_moe": train_moe["launches"]["fused_adamw_i8"],
+                       "moe_sharded":
+                           moe_sharded["train"]["launches"]["fused_adamw_i8"],
                        "train_xlstm":
                            train_xlstm["launches"]["fused_adamw_f32"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],

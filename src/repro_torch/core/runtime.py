@@ -68,9 +68,10 @@ mesh shape and other ranks.  A serve block's params lie and are
 gathered as a train block's, forward only.  On the dense plane each
 rank holds its rows of the prompt batch and the cache (``data``;
 every rank the whole batch where the rows do not split, and then, for
-a GQA cache whose positions split over the data ranks, its slice of
-the positions, ``ShardCtx.seq_split``, as the reference's cache spec
-shards them) and, where the attention or Mamba2 computes sharded over
+an attention cache whose positions split over the data ranks, GQA's or
+MLA's compressed one, its slice of the positions,
+``ShardCtx.seq_split``, as the reference's cache spec shards them) and,
+where the attention or Mamba2 computes sharded over
 ``model``, the cache of its kv heads and Mamba2 heads only
 (``plans.cache_layouts``, ``init_cache``'s ``kv_split``,
 ``mamba_split`` and ``seq_split``; a rank's ``conv`` state holds its

@@ -31,13 +31,13 @@ state bytes and its peak bytes under ``MemTracker``, against one card's
 80 GB (``fits``); and ``hlo_analysis.Roofline.to_dict()`` on the H100's
 peaks.  ``gaps`` names what the port keeps whole where the reference
 shards it (item 8g): the dry run reports what the port holds.  Since
-item 8g's parts 1 and 3 (the hybrid): the MLA heads and MLA's
-compressed cache's sequence (rules "mla" and "mla: sequence"), the
-xlstm's channels ("family: xlstm"), heads and widths that do not divide
-by M ("heads", "mamba", "mlp", ...) and the paged plane ("paged").  A
-serve batch that does not split over the data ranks holds its GQA
-cache's positions split over them, as the reference's ``cache_specs``
-(``ShardCtx.seq_split``); a Mamba2 ``conv`` state holds a rank's heads'
+item 8g's parts 1 to 3 (the hybrid and MLA): the xlstm's channels
+("family: xlstm"), heads and widths that do not divide by M ("heads",
+"mla: heads", "mamba", "mlp", ...) and the paged plane ("paged").  A
+serve batch that does not split over the data ranks holds its attention
+cache's positions (GQA's K/V, MLA's compressed cache) split over them,
+as the reference's ``cache_specs`` (``ShardCtx.seq_split``); a Mamba2
+``conv`` state holds a rank's heads'
 channels and the whole B and C, where the reference's spec cuts the
 channels into contiguous chunks (its line's ``cache`` gives the bytes).
 
@@ -349,19 +349,13 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     split = shards.split(B)
     rows = len(shards.rows(B))
     # a serve batch that does not split: the cache's positions do where
-    # the reference's cache spec shards them (a GQA cache)
+    # the reference's cache spec shards them (an attention cache)
     seq = (shape.kind != "train" and not split
            and plans.seq_splits(cfg, B, shape.seq_len, shards.dp))
-    if not split and shards.dp > 1 and not seq:
-        if shape.kind == "train":
-            gaps.append(f"8g: a batch of {B} rows does not split over "
-                        f"{shards.dp} data ranks: every rank holds the "
-                        f"whole batch")
-        elif cfg.attention is not None and cfg.attention.is_mla:
-            gaps.append(f"8g: mla: sequence: a batch of {B} rows does not "
-                        f"split over {shards.dp} data ranks: every rank "
-                        f"holds MLA's whole compressed cache (the "
-                        f"reference shards its sequence over data)")
+    if not split and shards.dp > 1 and shape.kind == "train":
+        gaps.append(f"8g: a batch of {B} rows does not split over "
+                    f"{shards.dp} data ranks: every rank holds the "
+                    f"whole batch")
     ctx = shard_ctx.ShardCtx(mesh, axes.dp, "model", shards_batch=split,
                              tp=tp, seq_split=seq)
     params_abs = model_lib.abstract_params(cfg)
@@ -430,10 +424,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              microbatch: Optional[int] = None, smoke: bool = False,
              shape: Optional[ShapeConfig] = None,
              mesh_shape: Optional[tuple] = None,
-             state_bits: Optional[int] = None) -> Dict[str, Any]:
+             state_bits: Optional[int] = None,
+             n_layers: Optional[int] = None) -> Dict[str, Any]:
     """One cell's dry run on a fake process group of its mesh's ranks:
-    its line (module docstring)."""
+    its line (module docstring).  ``n_layers``: the arch cut to that many
+    layers, as a block's own job may cut it."""
     cfg = configs.get_smoke(arch) if smoke else None
+    if n_layers:
+        cfg = (cfg or configs.get(arch)).replace(n_layers=n_layers)
     if shape is None:
         status = configs.cell_status(arch, shape_name)
     elif shape.kind == "decode" and (cfg or configs.get(arch)).is_encoder:
@@ -509,6 +507,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--state-bits", type=int, default=None)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="the arch cut to this many layers")
     ap.add_argument("--mesh-shape", default=None,
                     help="e.g. 1,1 or 2,2,1: a mesh of that many fake ranks "
                     "(axes (data, model) or (pod, data, model))")
@@ -544,7 +544,8 @@ def main(argv=None) -> int:
                 res = run_cell(arch, shape_name, multi_pod=mp,
                                microbatch=args.microbatch, smoke=args.smoke,
                                shape=shape, mesh_shape=mesh_shape,
-                               state_bits=args.state_bits)
+                               state_bits=args.state_bits,
+                               n_layers=args.n_layers)
             except Exception as e:
                 res = {"arch": arch, "shape": shape_name,
                        "mesh": "multi" if mp else "single",

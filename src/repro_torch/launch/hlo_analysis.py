@@ -308,9 +308,14 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     left out.  A hybrid's Mamba2 sublayers each join as a region and
     gather their column's ``y`` for the gated norm (its gradient summed
     back); their ``w_in``, ``conv_w`` and ``norm`` are gathered whole
-    (``plans.MAMBA_SLICED``, in ``TPLayout.step_bytes``).  The joins'
-    part is what ``shard_ctx.JOINED`` counts as they run, the gathers'
-    what ``shard_ctx.GATHERED`` counts."""
+    (``plans.MAMBA_SLICED``, in ``TPLayout.step_bytes``).  An MLA
+    attention joins as one region, its H / M heads' ``wq_b``, ``wk_b``,
+    ``wv_b`` and ``wo`` the rank's shards; its ``plans.MLA_WHOLE``
+    leaves, replicated over ``model`` by the plan, bring nothing.  The
+    gradients of ``TPLayout.partial``'s leaves, summed over the column
+    by DTensor in the backward, are left out with the data axes'
+    traffic.  The joins' part is what ``shard_ctx.JOINED`` counts as
+    they run, the gathers' what ``shard_ctx.GATHERED`` counts."""
     from repro_torch.models import transformer
     from repro_torch.models.moe import capacity
     from repro_torch.sharding import plans
@@ -444,6 +449,18 @@ def main() -> None:
             print(json.dumps({"zamba2_2p7b": f"(1, {m})", "step": name,
                               "gb_8a": got["8a"] / 1e9,
                               "gb_8d": got["8d"] / 1e9}))
+    v2 = configs.get("deepseek_v2_236b")
+    for m in (2, 16):
+        for name, shape in shapes.items():
+            got = tp_traffic(v2, shape, {"data": 1, "model": m})
+            print(json.dumps({"deepseek_v2_236b": f"(1, {m})",
+                              "step": name, "gb_8a": got["8a"] / 1e9,
+                              "gb_8d": got["8d"] / 1e9}))
+        lay = plans.tp_layout(v2, {"data": 1, "model": m})
+        print(json.dumps({"deepseek_v2_236b": f"(1, {m})",
+                          "group_gb_8d": lay.group_bytes / 1e9,
+                          "group_gb_8a": lay.group_bytes_whole / 1e9,
+                          **lay.summary()}))
     lay = plans.tp_layout(configs.get("llama4_maverick_400b"),
                           {"data": 1, "model": 8})
     print(json.dumps({"llama4_maverick_400b": "(1, 8)",

@@ -11,12 +11,13 @@ arrays, which XLA donates); the functions still return them so call sites
 read like the reference's.
 
 Under tensor parallelism over ``model`` (``tp=True``, item 8d) the GQA
-attention and the MLP get a rank's shards of their weights: the heads a
-rank computes are read off ``wq`` and ``wk``'s widths (H/M query and
-Hkv/M kv heads, a decode cache of those kv heads), ``wq``/``wk``/``wv``
-and ``w_up``/``w_gate`` are column-parallel after ``copy_in``, and
-``wo`` and ``w_down`` row-parallel before ``reduce_out``
-(``sharding.ctx``).
+attention, MLA and the MLP get a rank's shards of their weights: the
+heads a rank computes are read off ``wq`` and ``wk``'s widths (H/M query
+and Hkv/M kv heads, a decode cache of those kv heads) or MLA's ``wk_b``
+(H/M heads over the whole compressed cache), ``wq``/``wk``/``wv``,
+MLA's ``wq_b``/``wk_b``/``wv_b`` and ``w_up``/``w_gate`` are
+column-parallel after ``copy_in``, and ``wo`` and ``w_down``
+row-parallel before ``reduce_out`` (``sharding.ctx``).
 """
 from __future__ import annotations
 
@@ -163,7 +164,8 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
                 q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
                 cache_len + 1, sliding_window=a.sliding_window)
         else:
-            _write_owned(cache, k, v, cache_len - lo)
+            _write_owned(cache, {"k": k.transpose(1, 2),
+                                 "v": v.transpose(1, 2)}, cache_len - lo)
             o, lse = ops.decode_attention(
                 q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
                 cache_len + 1, sliding_window=a.sliding_window, offset=lo,
@@ -187,18 +189,20 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
     return (shard_ctx.reduce_out(o) if tp else o), cache
 
 
-def _write_owned(cache, k, v, local):
-    """A decode step's K/V, k (B, Hkv, 1, D) and v (B, Hkv, 1, Dv), at
+def _write_owned(cache, rows, local):
+    """A decode step's new rows, ``rows[name]`` (B, 1, ...) for each
+    cache leaf named (GQA's ``k``/``v``, MLA's ``c_kv``/``k_rope``), at
     row ``local`` (a 0-d device tensor) of a rank's slice of a
-    sequence-split cache, where the slice holds that row; a rank whose
-    slice does not writes its row back as it was (no host sync)."""
-    Sl = cache["k"].shape[1]
-    inside = (local >= 0) & (local < Sl)
-    j = local.clamp(0, Sl - 1).reshape(1).long()
-    for name, t in (("k", k), ("v", v)):
+    sequence-split cache (its dim 1), where the slice holds that row; a
+    rank whose slice does not writes its row back as it was (no host
+    sync)."""
+    for name, t in rows.items():
         c = cache[name]
-        new = t.transpose(1, 2).to(c.dtype)
-        c.index_copy_(1, j, torch.where(inside, new, c.index_select(1, j)))
+        Sl = c.shape[1]
+        inside = (local >= 0) & (local < Sl)
+        j = local.clamp(0, Sl - 1).reshape(1).long()
+        c.index_copy_(1, j, torch.where(inside, t.to(c.dtype),
+                                        c.index_select(1, j)))
 
 
 def paged_attention_fwd(p, x, a: AttentionConfig, *, pages, page_table,
@@ -247,7 +251,7 @@ def mla_init(gen, d_model: int, a: AttentionConfig, dtype, device):
 
 
 def mla_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
-            cache_len=None, impl: str = "auto"):
+            cache_len=None, impl: str = "auto", tp: bool = False):
     """MLA forward.  cache: dict(c_kv: (B, Smax, R), k_rope: (B, Smax, Dr)),
     updated in place.
 
@@ -257,10 +261,28 @@ def mla_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
     writes row ``cache_len`` (a 0-d tensor on the cache's device, written
     through a device index, or an int) and scores against the compressed
     cache with the up-projections absorbed, in fp32 einsums, as the
-    reference does outside any kernel."""
+    reference does outside any kernel (``mla_decode_attention``).
+
+    ``tp``: ``p`` holds a rank's heads, H/M of them, read off ``wk_b``'s
+    width, of ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` (summed over the
+    model column after ``wo``), and the down-projections and their norms
+    whole (``plans.MLA_WHOLE``): every rank computes ``cq``, ``c_kv`` and
+    ``k_rope`` whole and holds the whole compressed cache.
+
+    Under a context whose cache is sequence-split over the data ranks
+    (``ShardCtx.seq_split``) the compressed cache holds this rank's slice
+    of the positions, ``[lo, lo + Smax_local)``, as in
+    ``attention_fwd``: a prefill writes the prompt's rows in its slice,
+    a decode step's row is written only by the rank whose slice holds
+    ``cache_len``, each rank scores its slice, and the ranks' fp32
+    partial results are merged (``ops.merge_attention``) before the cast
+    and ``wv_b``."""
     B, S, _ = x.shape
-    H, Dn, Dr, Dv, R = (a.n_heads, a.head_dim, a.qk_rope_head_dim,
-                        a.v_dim, a.kv_lora_rank)
+    Dn, Dr, Dv, R = (a.head_dim, a.qk_rope_head_dim, a.v_dim,
+                     a.kv_lora_rank)
+    if tp:
+        x = shard_ctx.copy_in(x)
+    H = p["wk_b"].shape[-1] // Dn
     scale = 1.0 / math.sqrt(Dn + Dr)
     cq = ops.rmsnorm(x @ p["wq_a"], p["q_norm"], impl=impl)
     q = (cq @ p["wq_b"]).reshape(B, S, H, Dn + Dr)
@@ -275,22 +297,30 @@ def mla_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
     k_rope = apply_rope(kv_a[..., None, R:].transpose(1, 2), positions,
                         a.rope_theta)                          # (B,1,S,Dr)
 
+    lo = None if cache is None else shard_ctx.seq_offset(
+        cache["c_kv"].shape[1])
     if cache is not None and S == 1:
         # ---- absorbed decode: score against the compressed cache ----
         c_cache, r_cache = cache["c_kv"], cache["k_rope"]
         cache_len = torch.as_tensor(cache_len, device=c_cache.device)
-        idx = cache_len.reshape(1).long()
-        c_cache.index_copy_(1, idx, c_kv.to(c_cache.dtype))
-        r_cache.index_copy_(1, idx, k_rope[:, 0].to(r_cache.dtype))
+        if lo is None:
+            idx = cache_len.reshape(1).long()
+            c_cache.index_copy_(1, idx, c_kv.to(c_cache.dtype))
+            r_cache.index_copy_(1, idx, k_rope[:, 0].to(r_cache.dtype))
+        else:
+            _write_owned(cache, {"c_kv": c_kv, "k_rope": k_rope[:, 0]},
+                         cache_len - lo)
         wk_b = p["wk_b"].reshape(R, H, Dn)
         q_abs = torch.einsum("bshd,rhd->bhsr", q_nope, wk_b)   # (B,H,1,R)
-        s = (torch.einsum("bhsr,btr->bhst", q_abs.float(), c_cache.float())
-             + torch.einsum("bhsd,btd->bhst", q_rope.float(),
-                            r_cache.float())) * scale
-        pos = torch.arange(c_cache.shape[1], device=c_cache.device)
-        s = torch.where(pos < cache_len + 1, s, ops.NEG_INF)
-        w = torch.softmax(s, dim=-1)
-        o_c = torch.einsum("bhst,btr->bhsr", w, c_cache.float())
+        if lo is None:
+            o_c = mla_decode_attention(q_abs, q_rope, c_cache, r_cache,
+                                       cache_len + 1, scale)
+        else:
+            o_c, lse = mla_decode_attention(
+                q_abs, q_rope, c_cache, r_cache, cache_len + 1, scale,
+                offset=lo, partials=True)
+            o_c, _ = ops.merge_attention(shard_ctx.gather_data(o_c),
+                                         shard_ctx.gather_data(lse))
         wv_b = p["wv_b"].reshape(R, H, Dv)
         o = torch.einsum("bhsr,rhd->bshd", o_c.to(x.dtype), wv_b)
     else:
@@ -303,12 +333,43 @@ def mla_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
                                 impl=impl)
         o = o.transpose(1, 2)
         if cache is not None:
-            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
-            cache["k_rope"][:, :S] = k_rope[:, 0].to(cache["k_rope"].dtype)
-            cache["c_kv"][:, S:] = 0
-            cache["k_rope"][:, S:] = 0
+            ck, kr = c_kv, k_rope[:, 0]
+            if lo is not None:      # this rank's positions of the prompt
+                Sl = cache["c_kv"].shape[1]
+                ck, kr = ck[:, lo:lo + Sl], kr[:, lo:lo + Sl]
+            n = ck.shape[1]
+            cache["c_kv"][:, :n] = ck.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :n] = kr.to(cache["k_rope"].dtype)
+            cache["c_kv"][:, n:] = 0
+            cache["k_rope"][:, n:] = 0
     out = o.reshape(B, S, H * Dv) @ p["wo"]
-    return out, cache
+    return (shard_ctx.reduce_out(out) if tp else out), cache
+
+
+def mla_decode_attention(q_abs, q_rope, c_cache, r_cache, cache_len,
+                         scale: float, offset=None, partials: bool = False):
+    """The absorbed decode's attention over MLA's compressed cache, in
+    fp32, the reference's einsums: q_abs (B, H, 1, R), the query with
+    ``wk_b`` absorbed, and q_rope (B, H, 1, Dr) scored against c_cache
+    (B, Smax, R) and r_cache (B, Smax, Dr), the positions from
+    ``cache_len`` on masked (a 0-d tensor or an int), softmax, and the
+    weights applied to c_cache: o_c (B, H, 1, R), normalised.
+    ``offset``: the cache holds the positions from ``offset`` on (a
+    rank's slice of a sequence-split cache).  ``partials``: also the
+    scores' log-sum-exp (B, H, 1), for ``ops.merge_attention`` over the
+    ranks that hold the other slices."""
+    s = (torch.einsum("bhsr,btr->bhst", q_abs.float(), c_cache.float())
+         + torch.einsum("bhsd,btd->bhst", q_rope.float(),
+                        r_cache.float())) * scale
+    pos = torch.arange(c_cache.shape[1], device=c_cache.device)
+    if offset is not None:
+        pos = pos + offset
+    s = torch.where(pos < cache_len, s, ops.NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bhst,btr->bhsr", w, c_cache.float())
+    if partials:
+        return o_c, torch.logsumexp(s, dim=-1)
+    return o_c
 
 
 # ---------------------------------------------------------------------------

@@ -59,8 +59,10 @@ rank's kv heads (``init_cache``'s ``kv_split``).  The hybrid's Mamba2
 sublayers compute the rank's heads (``ssm.mamba2_fwd``; its decode
 state the rank's ``ssm`` heads and ``conv`` channels, ``mamba_split``,
 ``ssm.mamba_columns``), its shared block by the attention's and MLP's
-rules.  A B = 1 serve cache may hold a slice of the positions on each
-data rank (``seq_split``; ``layers.attention_fwd``).
+rules.  MLA computes the rank's heads over the whole compressed cache
+(``layers.mla_fwd``).  A B = 1 serve cache, GQA's or MLA's, may hold a
+slice of the positions on each data rank (``seq_split``;
+``layers.attention_fwd``, ``layers.mla_fwd``).
 """
 from __future__ import annotations
 
@@ -212,8 +214,8 @@ def shared_extra_init(gen, cfg: ModelConfig, dtype, device):
 
 def _attn_fwd(p, h, cfg, *, positions, cache, cache_len, causal=None,
               page_table=None, seq_lens=None, impl: str = "auto"):
-    """The sublayer's attention: paged, MLA, or GQA (computed sharded over
-    ``model`` where the context's layout says)."""
+    """The sublayer's attention: paged, MLA or GQA (the last two computed
+    sharded over ``model`` where the context's layout says)."""
     # `is not None`: an all-zeros page table is a valid (trash-only) table
     if page_table is not None:
         return paged_attention_fwd(p, h, cfg.attention, pages=cache,
@@ -221,7 +223,8 @@ def _attn_fwd(p, h, cfg, *, positions, cache, cache_len, causal=None,
                                    impl=impl)
     if cfg.attention.is_mla:
         return mla_fwd(p, h, cfg.attention, positions=positions,
-                       cache=cache, cache_len=cache_len, impl=impl)
+                       cache=cache, cache_len=cache_len, impl=impl,
+                       tp=shard_ctx.tp_on("attn"))
     return attention_fwd(p, h, cfg.attention, positions=positions,
                          cache=cache, cache_len=cache_len, causal=causal,
                          impl=impl, tp=shard_ctx.tp_on("attn"))
@@ -386,8 +389,10 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device,
     column (the attention computed sharded, ``plans.TPLayout``);
     ``mamba_split``, the Mamba2 heads so split (the ``ssm`` state's
     heads, the ``conv`` state's channels of those heads and the whole B
-    and C, ``ssm.mamba_columns``); ``seq_split``, the GQA cache's positions
-    split over that many data ranks (``ShardCtx.seq_split``)."""
+    and C, ``ssm.mamba_columns``); ``seq_split``, the attention cache's
+    positions (GQA's K/V or MLA's compressed cache) split over that many
+    data ranks (``ShardCtx.seq_split``).  MLA's compressed cache has no
+    heads: ``kv_split`` leaves it whole."""
     dt, ng = _dtype(cfg), n_groups(cfg)
     if cfg.family == "encoder":
         return None

@@ -66,8 +66,9 @@ class ShardCtx:
     ``tp``: the block's ``plans.TPLayout``, what the ranks of a model
     column compute sharded (None: nothing, 8a's layout).  ``seq_split``:
     a serve block whose batch every rank holds whole keeps a slice of its
-    GQA cache's positions on each rank of the data axes, in the order of
-    ``data_index`` (``plans.cache_layouts``' ``seq``)."""
+    attention cache's positions (GQA's K/V, MLA's compressed cache) on
+    each rank of the data axes, in the order of ``data_index``
+    (``plans.cache_layouts``' ``seq``)."""
 
     def __init__(self, mesh, dp_axes: Tuple[str, ...], model_axis: str,
                  shards_batch: bool = True, tp=None,

@@ -216,6 +216,17 @@ TP_FAMILIES = ("dense", "vlm", "encoder", "moe", "hybrid")
 #: model shard.
 MAMBA_SLICED = ("w_in", "conv_w", "norm", "A_log", "D", "dt_bias")
 
+#: the leaves of an MLA attention whose heads compute sharded that every
+#: rank of a model column holds whole, as the plan replicates them over
+#: ``model``: the query and KV down-projections and their norms give
+#: ``cq``, ``c_kv`` and ``k_rope``, which every head reads whole.  Each
+#: rank computes them whole and uses them for its heads only, so their
+#: gradients are each rank's part, summed over the column
+#: (``TPLayout.partial``).  ``wq_b``, ``wk_b`` and ``wv_b``, whose
+#: columns are head-major, and ``wo``, whose rows are, come back as the
+#: rank's model shard: the plan's contiguous chunks are whole heads.
+MLA_WHOLE = ("wq_a", "q_norm", "wkv_a", "kv_norm")
+
 
 def _tp_kind(keys) -> Optional[str]:
     """What a param leaf at path ``keys`` computes under tensor or expert
@@ -249,8 +260,9 @@ class TPLayout:
     stack dims dropped) that ``shard_ctx.full`` gathers over the data
     axes only, handing each rank its ``model`` shard.  ``partial``: the
     paths gathered whole of which a rank computes only its share (a
-    Mamba2 sublayer's ``MAMBA_SLICED``), so their gradients are each
-    rank's part, summed over the model column.  ``heads``: the (query,
+    Mamba2 sublayer's ``MAMBA_SLICED``, an MLA attention's
+    ``MLA_WHOLE``), so their gradients are each rank's part, summed over
+    the model column.  ``heads``: the (query,
     kv) heads a rank's attention computes.  ``kept``: the rules that
     kept a part in 8a's layout (gathered whole over ``model``, every
     rank of a model column computing it whole).  ``bytes_top`` and
@@ -300,6 +312,10 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
       part of a head, though the plan shards the fused ``H * hd`` dim
       wherever it divides; else its leaves are gathered whole over
       ``model`` (rule "heads");
+    * an MLA attention computes sharded where ``n_heads`` H divides by
+      M, each rank its H / M heads (``MLA_WHOLE`` says which leaves it
+      gathers whole); else every rank computes all of it (rule "mla:
+      heads", naming H and M);
     * a Mamba2 sublayer computes sharded where its head count H =
       ``d_inner / head_dim`` divides by M, each rank its H / M heads
       (``MAMBA_SLICED`` says which leaves it gathers whole); else every
@@ -308,11 +324,10 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
       and LM head) and the experts compute sharded where their dim
       divides by M, as ``_roles_to_spec`` decides (rules "mlp",
       "shared", "vocab", "experts" where it does not);
-    * these keep 8a's layout, each a named rule: MLA attention ("mla"),
-      the families outside ``TP_FAMILIES`` ("family": the xlstm's
-      cells), the paged serve plane ("paged": its rounds run with no
-      sharding context), and the frame and patch stubs ("frontend":
-      never sharded over ``model``).
+    * these keep 8a's layout, each a named rule: the families outside
+      ``TP_FAMILIES`` ("family": the xlstm's cells), the paged serve
+      plane ("paged": its rounds run with no sharding context), and the
+      frame and patch stubs ("frontend": never sharded over ``model``).
 
     The hybrid's shared attention block and its MLP compute sharded by
     the attention's and the MLP's rules.  The plan's specs are the
@@ -342,8 +357,10 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
                 kinds.add(kind)
             elif n:
                 kept.append(f"{kind}: {n} % {M}")
-        if a.is_mla:
-            kept.append("mla")
+        if a.is_mla and a.n_heads % M:
+            kept.append(f"mla: heads {a.n_heads} % {M}")
+        elif a.is_mla:
+            kinds.add("attn")
         elif a.n_heads % M or a.n_kv_heads % M:
             kept.append(f"heads: {a.n_heads}/{a.n_kv_heads} % {M}")
         else:
@@ -368,8 +385,11 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
         on_model = "model" in [x for e in specs[keys] for x in _axes_of(e)]
         kind = _tp_kind(keys[1:] if keys[0] == "layers" else keys)
         nbytes = leaf.numel() * leaf.element_size()
-        sliced = ("mamba" in kinds and "mamba" in keys
-                  and _leaf_name(keys) in MAMBA_SLICED)
+        name = _leaf_name(keys)
+        sliced = (("mamba" in kinds and "mamba" in keys
+                   and name in MAMBA_SLICED)
+                  or ("attn" in kinds and "attn" in keys
+                      and name in MLA_WHOLE))
         if sliced:
             partial.add(path)
         if keys[0] in ("layers", "extra"):
@@ -479,9 +499,10 @@ def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
 
     * The batch dim over dp when the batch's rows split over the data
       ranks (``split``); else, with ``seq``, the sequence dim of the GQA
-      ``k`` and ``v`` leaves over dp, each rank holding a slice of the
-      positions (the reference's ``cache_specs`` for a batch that does
-      not split, "B==1 long ctx"; ``ShardCtx.seq_split``); else whole.
+      ``k`` and ``v`` leaves and of MLA's compressed ``c_kv`` and
+      ``k_rope`` over dp, each rank holding a slice of the positions
+      (the reference's ``cache_specs`` for a batch that does not split,
+      "B==1 long ctx"; ``ShardCtx.seq_split``); else whole.
     * Over ``model``, where ``tp`` computes the part sharded (the model
       dims of ``cache_specs``): the kv heads of ``k`` and ``v`` (each
       rank holding its heads' rows), and the heads of the Mamba2
@@ -494,10 +515,11 @@ def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
       leaf over ``model``, the checkpoint's: ``transformer.conv_whole``
       joins the ranks' channels for a save, and a restore cuts them.
 
-    Every other dim is whole: without ``tp``, and for MLA's compressed
-    cache and the xlstm's recurrent states, every rank of a model column
-    holds the whole leaf (8a's layout); MLA's compressed cache keeps its
-    sequence whole too (rule "mla: sequence")."""
+    Every other dim is whole: without ``tp``, and for the xlstm's
+    recurrent states, every rank of a model column holds the whole leaf
+    (8a's layout); MLA's compressed cache has no head dim, so every rank
+    of a model column holds its data slice of it whole (the reference's
+    spec puts no model axis on it)."""
     axes = axes or MeshAxes.from_mesh(mesh)
     dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
     heads = tp is not None and tp.computes("attn")
@@ -510,6 +532,8 @@ def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
             spec[cache_batch_dim(keys)] = dp
         elif seq and name in ("k", "v"):
             spec[-3] = dp                   # (..., B, S, Hkv, D)
+        elif seq and name in ("c_kv", "k_rope"):
+            spec[-2] = dp                   # (..., B, S, R)
         if heads and name in ("k", "v"):
             spec[-2] = axes.model
         if mamba and name == "ssm":
@@ -522,13 +546,12 @@ def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
 def seq_splits(cfg, batch: int, smax: int, dp: int) -> bool:
     """Whether a dense serve block's cache holds its sequence over the
     data ranks: its batch does not split over the ``dp`` data ranks, its
-    ``smax`` positions do, and it has a GQA ``k``/``v`` cache (the
-    reference's ``cache_specs`` rule; MLA's compressed cache and the
-    xlstm's states keep theirs whole)."""
-    a = cfg.attention
+    ``smax`` positions do, and it has an attention cache, GQA's
+    ``k``/``v`` or MLA's ``c_kv``/``k_rope`` (the reference's
+    ``cache_specs`` rule; the xlstm's states keep theirs whole)."""
     return (dp > 1 and batch % dp != 0 and smax % dp == 0
             and cfg.family != "xlstm" and not cfg.is_encoder
-            and a is not None and not a.is_mla)
+            and cfg.attention is not None)
 
 
 def _is_q(x) -> bool:

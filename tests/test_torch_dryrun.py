@@ -573,8 +573,7 @@ for shape in ("train_4k", "prefill_32k", "decode_32k"):
     out[shape] = {"gaps": cell.gaps, "cache": meta.get("cache")}
 out["long_500k"] = dryrun.run_cell("zamba2_2p7b", "long_500k",
                                    multi_pod=False)
-# a B = 1 decode of MLA (its compressed cache keeps its sequence whole)
-# and of the hybrid, at smoke size on (2, 2)
+# a B = 1 decode of MLA and of the hybrid, at smoke size on (2, 2)
 dryrun.fake_world(4)
 small = dryrun.block_mesh((2, 2), False)
 b1 = ShapeConfig("b1", "decode", seq_len=32, global_batch=1)
@@ -637,15 +636,17 @@ def test_long_500k_cache_is_the_reference_specs_but_conv(zamba_cells):
 
 def test_b1_decode_gaps_name_what_is_still_kept(zamba_cells):
     """A B = 1 decode on (2, 2): the hybrid's GQA cache holds its
-    positions over ``data`` (no gap); MLA keeps its heads (rule "mla")
-    and its compressed cache's sequence whole (rule "mla: sequence")."""
+    positions over ``data`` (no gap); MLA computes its heads over
+    ``model`` and holds its compressed cache's positions over ``data``,
+    the reference spec's bytes (no gap, no departure)."""
     z = zamba_cells["b1_zamba2_2p7b"]
     assert z["gaps"] == [] and set(z["cache"]["departs"]) == {"conv"}
     v2 = zamba_cells["b1_deepseek_v2_236b"]
-    assert len(v2["gaps"]) == 2
-    assert v2["gaps"][0].startswith("8g: mla kept in 8a's layout")
-    assert v2["gaps"][1].startswith("8g: mla: sequence: a batch of 1 rows")
-    assert set(v2["cache"]["departs"]) == {"c_kv", "k_rope"}
+    assert v2["gaps"] == []
+    assert v2["cache"]["departs"] == {}
+    assert v2["cache"]["bytes"] == v2["cache"]["reference_bytes"]
+    # 2 layers x 32 / 2 positions x 16 lanes x 2 bytes
+    assert v2["cache"]["bytes"]["c_kv"] == 2 * 16 * 16 * 2
 
 
 # ------------------------------------------------------------ chip_smoke

@@ -36,8 +36,8 @@ sharded).  Tolerances, those of ``tests/test_torch_multidevice.py`` and
   (``test_llama4_22_matches_the_reference_22``);
 * hubert_xlarge (the frame stub kept whole, a vocab-parallel LM head),
   pixtral_12b (the patch stub kept whole, its GQA heads split) and
-  deepseek_v2_236b (MLA kept whole, its experts and shared expert
-  split): losses and grad norms at rtol 1e-4 over 3 free-running steps,
+  deepseek_v2_236b (MLA's heads, its experts and shared expert split):
+  losses and grad norms at rtol 1e-4 over 3 free-running steps,
   the params after 3 steps at atol 2e-3; besides, the loss and every
   grad of one step against the whole params on one device;
 * the dense serve plane: greedy tokens equal, prefill logits within 1e-4
@@ -586,8 +586,8 @@ TRAIN_CASES = [("deepseek_7b", "12", 2), ("deepseek_7b", "22", 4),
                ("llama4_maverick_400b", "14", 4)]
 TRAIN_IDS = [f"{a}-{m}" for a, m, _ in TRAIN_CASES]
 # the encoder (the frame stub kept whole, a vocab-parallel LM head), the
-# VLM (the patch stub kept whole, GQA 4 / 2 heads split) and MLA (kept
-# whole) with its experts and shared expert split
+# VLM (the patch stub kept whole, GQA 4 / 2 heads split) and MLA (its
+# heads split) with its experts and shared expert split
 OTHER_CASES = [("hubert_xlarge", "12", 2), ("pixtral_12b", "12", 2),
                ("deepseek_v2_236b", "12", 2)]
 
@@ -755,7 +755,7 @@ def test_a_context_saved_at_12_is_the_references_format(runs):
 def test_other_families_at_12_give_one_devices_loss_and_grads(runs, arch):
     """The encoder (the frame stub kept whole, a vocab-parallel LM head),
     the VLM (the patch stub kept whole, GQA 4 / 2 heads split) and MLA
-    (kept whole) with its experts and shared expert split: the loss at
+    (its heads split) with its experts and shared expert split: the loss at
     rtol 1e-5 and every grad at rtol 1e-4, atol 1e-6 against the whole
     params on one device, as ``tests/test_torch_multidevice.py`` holds
     hubert on two ranks against one."""
@@ -803,7 +803,7 @@ def test_the_layout_rule_names_every_part_it_keeps():
     kept = {a: plans.tp_layout(C.get_smoke(a), mesh).kept
             for a in ("deepseek_v2_236b", "zamba2_2p7b", "xlstm_350m",
                       "hubert_xlarge", "pixtral_12b")}
-    assert kept == {"deepseek_v2_236b": ("mla",),
+    assert kept == {"deepseek_v2_236b": (),
                     "zamba2_2p7b": (),
                     "xlstm_350m": ("family: xlstm",),
                     "hubert_xlarge": ("frontend: frame",),
@@ -822,10 +822,13 @@ def test_the_layout_rule_names_every_part_it_keeps():
     paged = plans.tp_layout(C.get_smoke("deepseek_7b"), mesh, paged=True)
     assert paged.kept == ("paged",) and not paged.kinds
     v2 = plans.tp_layout(C.get_smoke("deepseek_v2_236b"), mesh)
-    assert v2.kinds == {"experts", "shared", "vocab"}
-    # the plan's specs stay the reference's: the MLA leaves are sharded
-    # over model there, and gathered whole here
-    assert v2.bytes_groups > 0
+    assert v2.kinds == {"attn", "experts", "shared", "vocab"}
+    # MLA's heads compute sharded: every leaf the plan puts on model is
+    # the rank's shard, so nothing is brought over model; its
+    # down-projections and norms, replicated over model, are gathered
+    # whole with their gradients summed over the column
+    assert v2.bytes_groups == 0
+    assert v2.partial == {f"layers/attn/{n}" for n in plans.MLA_WHOLE}
     # at M = 1 every part computes "sharded", on its whole width
     one = plans.tp_layout(C.get_smoke("deepseek_7b"), {"data": 1, "model": 1})
     assert one.kinds == {"attn", "mlp", "vocab"} and one.heads == (4, 4)
