@@ -274,6 +274,19 @@ never JAX.  Phases, each printing one JSON line:
                      beside it; 3 steps, their launches held exactly, the
                      last one profiled (the device's activity only);
                      tok/s, MFU, peak memory;
+16b. ``xlstm_sharded`` — xlstm_350m through the sharded runtime under a
+                     process group of one rank (NCCL, a ``HashStore``) on
+                     a (1, 1) DeviceMesh, the tensor-parallel path of its
+                     mLSTM and sLSTM heads, the sLSTM's feed-forward and
+                     the tied vocabulary at M = 1: train_xlstm's job, a
+                     step and a warm step's host enqueue against its wall
+                     (``host_probe``), their losses and grad norms and
+                     the launches a step train_xlstm's bit for bit;
+                     serve_xlstm's job through the launcher, its tokens,
+                     launches, launches a replay and the prefill's and
+                     first decode step's logits serve_xlstm's bit for
+                     bit; the layout (``tp_summary``), warm replays and
+                     peak memory beside serve_xlstm's;
 17. ``preempt``    — checkpoints and preempt/resume at full width
                      (``BlockRuntime.suspend``/``resume`` through
                      ``repro_torch.checkpoint.manager``, under a temporary
@@ -3267,6 +3280,17 @@ def slstm_share(fn) -> dict:
             "card": _CARD}
 
 
+def serve_xlstm_argv(device, smoke):
+    """serve_xlstm's launcher flags (``xlstm_sharded`` runs the same
+    job)."""
+    argv = ["--arch", "xlstm_350m", "--batch", "4", "--prompt-len", "2048",
+            "--gen", "32", "--seed", "0", "--device", device]
+    if smoke:
+        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
+                           "--gen", "6", "--device", device]
+    return argv
+
+
 def phase_serve_xlstm(device="cuda", smoke=False):
     """The xlstm family (xlstm_350m: 24 layers, 3 groups of 7 mLSTM and 1
     sLSTM) through the launcher's entry point on the dense plane at full
@@ -3284,12 +3308,7 @@ def phase_serve_xlstm(device="cuda", smoke=False):
     from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.models.transformer import flatten, unflatten
-    argv = ["--arch", "xlstm_350m", "--batch", "4", "--prompt-len", "2048",
-            "--gen", "32", "--seed", "0", "--device", device]
-    if smoke:
-        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
-                           "--gen", "6", "--device", device]
-    args = serve.parse_args(argv)
+    args = serve.parse_args(serve_xlstm_argv(device, smoke))
     zero_counts()
     _zero_eager_calls()
     res = serve.run(args)
@@ -3335,6 +3354,9 @@ def phase_serve_xlstm(device="cuda", smoke=False):
             logits[key] = (lg.float(), step.float())
             del cache
     del params32
+    # the main path's own logits (bf16, the kernels), for xlstm_sharded
+    digests = {"prefill": digest(logits["bf16_auto"][0]),
+               "decode": digest(logits["bf16_auto"][1])}
     subs = xlstm_sublayer_check(params, cfg, tokens, first)
     set_counts(launches)
     check(bool((first[:, 0].cpu().numpy() == toks[:, 0]).all()),
@@ -3399,7 +3421,8 @@ def phase_serve_xlstm(device="cuda", smoke=False):
            "launches_per_prefill": per_call["bf16_auto"],
            "launches_per_decode_step": per_call["decode_bf16_auto"],
            "logits_check": chk, "first_decode_logits_check": chk_dec,
-           "bf16_sublayer_check": subs}
+           "bf16_sublayer_check": subs, "tokens": toks.tolist(),
+           "logits_digests": digests}
     if rt.device.type == "cuda":
         out["peak_mem_gb"] = peak
         progress("serve_xlstm: warm prefill and decode profiles")
@@ -3592,20 +3615,24 @@ def train_launches(cfg, shape, opt_cfg, params):
 
 
 def host_probe(rt, n: int = 2) -> dict:
-    """A train block's host time to enqueue a step (``step_async`` until
-    it returns) and the step's wall time to the device's end, over ``n``
+    """A block's host time to enqueue a step (``step_async`` until it
+    returns) and the step's wall time to the device's end, over ``n``
     warm steps: where the first is near the second, the host paces the
-    step."""
+    step.  A train step's loss and grad norm, read after its wall
+    time."""
     rt._sync()
-    enq, wall = [], []
+    out = {"enqueue_ms": [], "wall_ms": []}
     for _ in range(n):
         t0 = time.perf_counter()
-        rt.step_async()
+        m = rt.step_async()
         t1 = time.perf_counter()
         rt._sync()
-        enq.append((t1 - t0) * 1e3)
-        wall.append((time.perf_counter() - t0) * 1e3)
-    return {"enqueue_ms": enq, "wall_ms": wall}
+        out["enqueue_ms"].append((t1 - t0) * 1e3)
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        if "loss" in m:                 # a train step's metrics
+            out.setdefault("losses", []).append(float(m["loss"]))
+            out.setdefault("grad_norms", []).append(float(m["grad_norm"]))
+    return out
 
 
 def _train_phase(name, cfg, shape, opt_cfg, device, n_steps, profile,
@@ -4405,6 +4432,80 @@ def phase_train_hybrid(device="cuda", smoke=False):
                         step0=step0_upcast_check)
 
 
+def _sharded_serve(name, ref_name, ref, argv, device, sharded, cfg=None):
+    """A ``*_sharded`` phase's serve block: the launcher's job (``argv``;
+    ``cfg`` a cut config) under the phase's one-rank process group, its
+    layout checked by ``sharded(rt, what)``, held to the unsharded phase
+    ``ref_name``'s results ``ref``: its tokens bit for bit, its launches
+    and the graph's launches a replay exactly theirs; the prefill's and
+    the first decode step's logits, from the block's params under its
+    context and a fresh cache as ``ref``'s check ran them (not the main
+    path), bit for bit (``logits_digests``); on the card the peak memory
+    and the warm replay's wall and device time beside ``ref``'s."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import model
+    from repro_torch.sharding import ctx as shard_ctx
+    progress(f"{name}: serve")
+    args = serve_launcher.parse_args(argv)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    zero_counts()
+    _zero_eager_calls()
+    shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
+    res = serve_launcher.run(args, cfg)
+    launches = counts()
+    rt = res["runtime"]
+    sharded(rt, "serve")
+    graph = graph_check(f"{name} serve", rt.decode_graph, G - 1,
+                        _eager_calls(), device)
+    tokens = torch.as_tensor(res["batch"]["tokens"], device=rt.device)
+    d = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+         "launches": launches, "decode_graph": graph,
+         "tp": tp_summary(rt.tp, shard_ctx.GATHERED["model_bytes"],
+                          rt.tp.step_bytes(1),
+                          shard_ctx.GATHERED["tp_leaves"]),
+         f"tokens_equal_{ref_name}": res["tokens"].tolist() == ref["tokens"],
+         f"launches_equal_{ref_name}": launches == ref["launches"],
+         f"launches_per_replay_equal_{ref_name}": (
+             graph["launches_per_replay"]
+             == ref["decode_graph"]["launches_per_replay"])}
+    check(d[f"tokens_equal_{ref_name}"],
+          f"{name}: the tokens differ from {ref_name}'s")
+    check(d[f"launches_equal_{ref_name}"]
+          and d[f"launches_per_replay_equal_{ref_name}"],
+          f"{name} serve launches {launches}, graph {graph}; {ref_name}'s "
+          f"{ref['launches']}, {ref['decode_graph']}")
+    saved = counts()
+    with shard_ctx.use(rt.ctx):
+        cfg = rt.job.cfg
+        cache = model.init_cache(cfg, B, P + 1, rt.device)
+        params = rt.state["params"]
+        lg, _ = model.prefill(params, cfg, {"tokens": tokens}, cache)
+        first = torch.argmax(lg, -1)[:, None].to(torch.int32)
+        step, _ = model.decode_step(params, cfg, first, cache, P)
+        del cache
+    d["logits_digests"] = {"prefill": digest(lg.float()),
+                           "decode": digest(step.float())}
+    del lg, step
+    d[f"logits_equal_{ref_name}"] = (d["logits_digests"]
+                                     == ref["logits_digests"])
+    check(d[f"logits_equal_{ref_name}"],
+          f"{name}: the prefill or first decode logits differ from "
+          f"{ref_name}'s")
+    if rt.device.type == "cuda":
+        d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        d[f"{ref_name}_peak_mem_gb"] = ref["peak_mem_gb"]
+        # a fresh decode context in the graph's own cache, then warm
+        # replays, as the unsharded phase profiles its own
+        restart(rt)
+        rt.prefill({"tokens": tokens})
+        d["warm_decode_step"] = profile_steps(rt.step, 3)
+        d[f"{ref_name}_warm_decode_step"] = {
+            k: ref["warm_decode_step"][k]
+            for k in ("wall_ms", "device_ms", "idle_share")}
+    set_counts(saved)
+    return d
+
+
 def phase_hybrid_sharded(device="cuda", smoke=False, train=None,
                          serve=None):
     """The hybrid family through the sharded runtime (item 8g, part 1):
@@ -4425,8 +4526,6 @@ def phase_hybrid_sharded(device="cuda", smoke=False, train=None,
     at the end."""
     import torch.distributed as dist
     from repro_torch import device as device_lib
-    from repro_torch.launch import serve as serve_launcher
-    from repro_torch.models import model
     from repro_torch.sharding import ctx as shard_ctx
     from torch.distributed.tensor import DTensor
     if train is None:
@@ -4481,67 +4580,9 @@ def phase_hybrid_sharded(device="cuda", smoke=False, train=None,
         out["train"]["train_hybrid_steady_step_s"] = train["steady_step_s"]
         _free(device)
 
-        progress("hybrid_sharded: serve")
-        args = serve_launcher.parse_args(serve_hybrid_argv(device, smoke))
-        B, P, G = args.batch, args.prompt_len, args.gen
-        zero_counts()
-        _zero_eager_calls()
-        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
-        res = serve_launcher.run(args)
-        launches = counts()
-        rt = res["runtime"]
-        sharded(rt, "serve")
-        graph = graph_check("hybrid_sharded serve", rt.decode_graph, G - 1,
-                            _eager_calls(), device)
-        toks = res["tokens"]
-        tokens = torch.as_tensor(res["batch"]["tokens"], device=rt.device)
-        d = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
-             "launches": launches, "decode_graph": graph,
-             "tp": tp_summary(rt.tp, shard_ctx.GATHERED["model_bytes"],
-                              rt.tp.step_bytes(1),
-                              shard_ctx.GATHERED["tp_leaves"]),
-             "tokens_equal_serve_hybrid": toks.tolist() == serve["tokens"],
-             "launches_equal_serve_hybrid": launches == serve["launches"],
-             "launches_per_replay_equal_serve_hybrid": (
-                 graph["launches_per_replay"]
-                 == serve["decode_graph"]["launches_per_replay"])}
-        check(d["tokens_equal_serve_hybrid"],
-              "hybrid_sharded: the tokens differ from serve_hybrid's")
-        check(d["launches_equal_serve_hybrid"]
-              and d["launches_per_replay_equal_serve_hybrid"],
-              f"hybrid_sharded serve launches {launches}, graph {graph}; "
-              f"serve_hybrid's {serve['launches']}, "
-              f"{serve['decode_graph']}")
-        # the logits: the block's params under its context, from a fresh
-        # cache as serve_hybrid's check ran them (not the main path)
-        saved = counts()
-        with shard_ctx.use(rt.ctx):
-            cache = model.init_cache(cfg := rt.job.cfg, B, P + 1, rt.device)
-            params = rt.state["params"]
-            lg, _ = model.prefill(params, cfg, {"tokens": tokens}, cache)
-            first = torch.argmax(lg, -1)[:, None].to(torch.int32)
-            step, _ = model.decode_step(params, cfg, first, cache, P)
-            del cache
-        set_counts(saved)
-        d["logits_digests"] = {"prefill": digest(lg.float()),
-                               "decode": digest(step.float())}
-        d["logits_equal_serve_hybrid"] = (d["logits_digests"]
-                                          == serve["logits_digests"])
-        check(d["logits_equal_serve_hybrid"],
-              "hybrid_sharded: the prefill or first decode logits differ "
-              "from serve_hybrid's")
-        if rt.device.type == "cuda":
-            d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            # a fresh decode context in the graph's own cache, then warm
-            # replays, as serve_hybrid profiles its own
-            restart(rt)
-            rt.prefill({"tokens": tokens})
-            d["warm_decode_step"] = profile_steps(rt.step, 3)
-            d["serve_hybrid_warm_decode_step_ms"] = serve[
-                "warm_decode_step"]["wall_ms"]
-            set_counts(saved)
+        d = _sharded_serve("hybrid_sharded", "serve_hybrid", serve,
+                           serve_hybrid_argv(device, smoke), device, sharded)
         out["serve"] = d
-        del res, rt, params
     finally:
         dist.destroy_process_group()
     out["launches"] = {n: tr["launches"][n] + d["launches"][n]
@@ -5152,9 +5193,7 @@ def phase_moe_sharded(device="cuda", smoke=False, serve=None, train=None):
     import torch.distributed as dist
     import repro_torch.configs as configs
     from repro_torch import device as device_lib
-    from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import model
     from repro_torch.sharding import ctx as shard_ctx
     from torch.distributed.tensor import DTensor
     if serve is None:
@@ -5178,67 +5217,10 @@ def phase_moe_sharded(device="cuda", smoke=False, serve=None, train=None):
               f"{rt.tp}")
 
     try:
-        progress("moe_sharded: serve")
         argv, cfg = _moe_serve_argv(device, smoke)
-        args = serve_launcher.parse_args(argv)
-        B, P, G = args.batch, args.prompt_len, args.gen
-        zero_counts()
-        _zero_eager_calls()
-        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
-        res = serve_launcher.run(args, cfg)
-        launches = counts()
-        rt = res["runtime"]
-        sharded(rt, "serve")
-        graph = graph_check("moe_sharded serve", rt.decode_graph, G - 1,
-                            _eager_calls(), device)
-        tokens = torch.as_tensor(res["batch"]["tokens"], device=rt.device)
-        d = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
-             "launches": launches, "decode_graph": graph,
-             "tp": tp_summary(rt.tp, shard_ctx.GATHERED["model_bytes"],
-                              rt.tp.step_bytes(1),
-                              shard_ctx.GATHERED["tp_leaves"]),
-             "tokens_equal_serve_moe": res["tokens"].tolist()
-             == serve["tokens"],
-             "launches_equal_serve_moe": launches == serve["launches"],
-             "launches_per_replay_equal_serve_moe": (
-                 graph["launches_per_replay"]
-                 == serve["decode_graph"]["launches_per_replay"])}
-        check(d["tokens_equal_serve_moe"],
-              "moe_sharded: the tokens differ from serve_moe's")
-        check(d["launches_equal_serve_moe"]
-              and d["launches_per_replay_equal_serve_moe"],
-              f"moe_sharded serve launches {launches}, graph {graph}; "
-              f"serve_moe's {serve['launches']}, {serve['decode_graph']}")
-        # the logits: the block's params under its context, from a fresh
-        # cache as serve_moe's reads ran them (not the main path)
-        saved = counts()
-        with shard_ctx.use(rt.ctx):
-            cache = model.init_cache(cfg, B, P + 1, rt.device)
-            params = rt.state["params"]
-            lg, _ = model.prefill(params, cfg, {"tokens": tokens}, cache)
-            first = torch.argmax(lg, -1)[:, None].to(torch.int32)
-            step, _ = model.decode_step(params, cfg, first, cache, P)
-            del cache
-        d["logits_digests"] = {"prefill": digest(lg.float()),
-                               "decode": digest(step.float())}
-        del lg, step
-        d["logits_equal_serve_moe"] = (d["logits_digests"]
-                                       == serve["logits_digests"])
-        check(d["logits_equal_serve_moe"],
-              "moe_sharded: the prefill or first decode logits differ "
-              "from serve_moe's")
-        if rt.device.type == "cuda":
-            d["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            d["serve_moe_peak_mem_gb"] = serve["peak_mem_gb"]
-            restart(rt)
-            rt.prefill({"tokens": tokens})
-            d["warm_decode_step"] = profile_steps(rt.step, 3)
-            d["serve_moe_warm_decode_step"] = {
-                k: serve["warm_decode_step"][k]
-                for k in ("wall_ms", "device_ms", "idle_share")}
-        set_counts(saved)
+        d = _sharded_serve("moe_sharded", "serve_moe", serve, argv, device,
+                           sharded, cfg)
         out["serve"] = d
-        del res, rt, params
         _free(device)
 
         progress("moe_sharded: train")
@@ -5308,6 +5290,20 @@ def xlstm_step0_check(params, cfg, batch):
     return step0_upcast_check(params, cfg, batch, hold_bf16=False)
 
 
+def _train_xlstm_setup(smoke):
+    """train_xlstm's job: xlstm_350m whole (24 layers), 4 x 2048 tokens a
+    step (2 x 32 at smoke size), one microbatch, fp32 moments."""
+    import repro_torch.configs as configs
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    cfg = (configs.get_smoke("xlstm_350m") if smoke
+           else configs.get("xlstm_350m"))
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
+                        global_batch=2 if smoke else 4, microbatch=1)
+    opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    return cfg, shape, opt_cfg
+
+
 def phase_train_xlstm(device="cuda", smoke=False):
     """xlstm_350m at full size (24 layers, random bf16 weights from seed
     0), fp32 AdamW moments, 4 x 2048 tokens a step, one microbatch,
@@ -5319,17 +5315,116 @@ def phase_train_xlstm(device="cuda", smoke=False):
     flash), the last of them profiled (a step takes ~17 s, the host
     launching ~500k small kernels, most of them the sLSTM's); tok/s,
     MFU and peak memory."""
-    import repro_torch.configs as configs
-    from repro_torch.models.config import ShapeConfig
-    from repro_torch.train.optimizer import OptConfig
-    cfg = (configs.get_smoke("xlstm_350m") if smoke
-           else configs.get("xlstm_350m"))
-    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
-                        global_batch=2 if smoke else 4, microbatch=1)
-    opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
+    cfg, shape, opt_cfg = _train_xlstm_setup(smoke)
     return _train_phase("train_xlstm", cfg, shape, opt_cfg, device,
                         n_steps=2 if smoke else 3, profile="last",
                         step0=xlstm_step0_check)
+
+
+#: xlstm_sharded's train steps before its ``host_probe`` step (a step
+#: takes 17-30 s on the card, the host launching the sLSTM's loop): with
+#: the probe, train_xlstm's first two, and the phase stays under 90 s
+XLSTM_SHARDED_STEPS = 1
+
+
+def phase_xlstm_sharded(device="cuda", smoke=False, train=None,
+                        serve=None):
+    """The xLSTM family through the sharded runtime (item 8g, last part):
+    xlstm_350m under a process group of one rank (NCCL on the card, gloo
+    on the CPU; a ``HashStore``), so its blocks run on a (1, 1)
+    DeviceMesh with every param a DTensor and the tensor-parallel path
+    of its mLSTM and sLSTM heads, the sLSTM's feed-forward and the tied
+    vocabulary at M = 1 (every join a no-op, every leaf's model shard
+    the leaf).  The train block: train_xlstm's job (``train``: 24 layers,
+    fp32 moments, 4 x 2048 tokens), XLSTM_SHARDED_STEPS steps, their
+    launches per step exactly train_xlstm's, then one ``host_probe``
+    step (its enqueue against its wall time, a warm step); every step's
+    loss and grad norm train_xlstm's bit for bit.  The serve block:
+    serve_xlstm's job through the launcher (``serve``: 4 x 2048 prompt
+    tokens, 32 generated, the decode captured), its tokens serve_xlstm's
+    bit for bit, its launches and the graph's launches a replay exactly
+    theirs; the prefill's and the first decode step's logits, from the
+    block's params under its context, serve_xlstm's (``logits_digests``)
+    bit for bit.  The process group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch import device as device_lib
+    from repro_torch.sharding import ctx as shard_ctx
+    from torch.distributed.tensor import DTensor
+    if train is None:
+        train = phase_train_xlstm(device, smoke)
+        _free(device)
+    if serve is None:
+        serve = phase_serve_xlstm(device, smoke)
+        _free(device)
+    device_lib.init_distributed(device, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    out = {"backend": dist.get_backend(), "mesh": [1, 1], "card": _CARD}
+    n = min(XLSTM_SHARDED_STEPS, train["steps"] - 1)
+
+    def sharded(rt, what):
+        check(rt.mesh is not None and tuple(rt.mesh.mesh.shape) == (1, 1)
+              and all(isinstance(t, DTensor)
+                      for t in _tensors(rt.state["params"]))
+              and rt.tp.model == 1 and rt.tp.kept == ()
+              and rt.tp.kinds == {"mlstm", "slstm", "slstm_ff", "vocab"},
+              f"xlstm_sharded {what}: not on the tensor-parallel path, "
+              f"{rt.tp}")
+
+    try:
+        cfg, shape, opt_cfg = _train_xlstm_setup(smoke)
+        shard_ctx.GATHERED.update(model_bytes=0, tp_leaves=0)
+
+        def after(rt, o):
+            sharded(rt, "train")
+            o["tp"] = tp_summary(
+                rt.tp, shard_ctx.GATHERED["model_bytes"] / len(o["losses"]),
+                rt.tp.step_bytes(shape.microbatch, remat=True),
+                shard_ctx.GATHERED["tp_leaves"] / len(o["losses"]))
+            check(o["tp"]["model_bytes_a_step"] == 0
+                  and o["tp"]["tp_leaves"] > 0,
+                  f"xlstm_sharded train: {o['tp']}")
+            key = "launches_per_step"
+            o[f"{key}_equal_train_xlstm"] = o[key] == train[key]
+            check(o[f"{key}_equal_train_xlstm"],
+                  f"xlstm_sharded train: {key} {o[key]}, train_xlstm's "
+                  f"{train[key]}")
+            # the host time the DTensor calls add: enqueue against wall,
+            # a warm step, held as the steps before it
+            o["host_probe"] = probe = host_probe(rt, 1)
+            o["warm_step_s"] = probe["wall_ms"][0] / 1e3
+            for key in ("losses", "grad_norms"):
+                got = o[key] + probe[key]
+                o[f"{key}_equal_train_xlstm"] = \
+                    got == train[key][:len(got)]
+                check(o[f"{key}_equal_train_xlstm"],
+                      f"xlstm_sharded train: {key} {got}, train_xlstm's "
+                      f"{train[key][:len(got)]}")
+            return rt
+
+        tr = _train_phase("xlstm_sharded_train", cfg, shape, opt_cfg,
+                          device, n_steps=n, profile=False, step0=None,
+                          after=after)
+        out["train"] = {k: tr[k] for k in (
+            "losses", "grad_norms", "step_s", "warm_step_s", "host_probe",
+            "launches_per_step", "tp",
+            "losses_equal_train_xlstm", "grad_norms_equal_train_xlstm",
+            "launches_per_step_equal_train_xlstm")}
+        if "peak_mem_gb" in tr:
+            out["train"]["peak_mem_gb"] = tr["peak_mem_gb"]
+            out["train"]["train_xlstm_peak_mem_gb"] = train["peak_mem_gb"]
+        out["train"]["train_xlstm_step_s"] = train["step_s"]
+        out["train"]["train_xlstm_steady_step_s"] = train["steady_step_s"]
+        _free(device)
+
+        d = _sharded_serve("xlstm_sharded", "serve_xlstm", serve,
+                           serve_xlstm_argv(device, smoke), device, sharded)
+        out["serve"] = d
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = {k: tr["launches"][k] + d["launches"][k]
+                       for k in COUNTERS}
+    emit("xlstm_sharded", **out)
+    return out
 
 
 # ---------------------------------------------------------------- preempt
@@ -7393,6 +7488,9 @@ def _run_all() -> int:
     _free()
     train_xlstm = phase_train_xlstm()
     _free()
+    progress("xlstm_sharded")
+    xlstm_sharded = phase_xlstm_sharded(train=train_xlstm, serve=xlstm)
+    _free()
     preempt = phase_preempt(train=train_hybrid)
     _free()
     progress("control")
@@ -7433,6 +7531,7 @@ def _run_all() -> int:
             "moe_sharded": moe_sharded["launches"],
             "serve_long_mla": serve_long_mla["launches"],
             "train_xlstm": train_xlstm["launches"],
+            "xlstm_sharded": xlstm_sharded["launches"],
             "preempt": preempt["launches"], "control": control["launches"],
             "gateway": gateway["launches"], "service": service["launches"]}
 
@@ -7455,6 +7554,7 @@ def _run_all() -> int:
               "moe_sharded": [moe_sharded["serve"]["decode_graph"]],
               "serve_long_mla": [serve_long_mla[k]["decode_graph"]
                                  for k in ("unsharded", "sharded")],
+              "xlstm_sharded": [xlstm_sharded["serve"]["decode_graph"]],
               "preempt": [preempt[k]["decode_graph_after_resume"]
                           for k in ("serve_paged", "serve_hybrid")],
               "control": [control["bob"]["decode_graph"]],
@@ -7495,6 +7595,8 @@ def _run_all() -> int:
                            moe_sharded["train"]["launches"]["fused_adamw_i8"],
                        "train_xlstm":
                            train_xlstm["launches"]["fused_adamw_f32"],
+                       "xlstm_sharded":
+                           xlstm_sharded["launches"]["fused_adamw_f32"],
                        "preempt": preempt["launches"]["fused_adamw_f32"],
                        "control": control["launches"]["fused_adamw_f32"],
                        "gateway": gateway["launches"]["fused_adamw_f32"],

@@ -423,13 +423,15 @@ class BlockRuntime(InflightWindow):
             return
         B = job.shape.global_batch
         lo, hi, _ = self.rows if self.ctx is not None else (0, B, B)
-        # the kv heads and Mamba2 heads split over ``model`` where they
-        # compute sharded, the positions over ``data`` where they split
+        # the kv heads, Mamba2 and xLSTM heads split over ``model``
+        # where they compute sharded, the positions over ``data`` where
+        # they split
         tp = self.tp
         self.cache = model_lib.init_cache(
             job.cfg, hi - lo, job.shape.seq_len, self.device,
             kv_split=tp.model if tp and tp.computes("attn") else 1,
             mamba_split=tp.model if tp and tp.computes("mamba") else 1,
+            xlstm_split=tp.model if tp and tp.computes("mlstm") else 1,
             seq_split=(self.batch_shards.dp
                        if self.ctx is not None and self.ctx.seq_split
                        else 1))

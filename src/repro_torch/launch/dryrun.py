@@ -31,15 +31,17 @@ state bytes and its peak bytes under ``MemTracker``, against one card's
 80 GB (``fits``); and ``hlo_analysis.Roofline.to_dict()`` on the H100's
 peaks.  ``gaps`` names what the port keeps whole where the reference
 shards it (item 8g): the dry run reports what the port holds.  Since
-item 8g's parts 1 to 3 (the hybrid and MLA): the xlstm's channels
-("family: xlstm"), heads and widths that do not divide by M ("heads",
-"mla: heads", "mamba", "mlp", ...) and the paged plane ("paged").  A
+item 8g (the hybrid, MLA and the xLSTM): heads and widths that do not
+divide by M ("heads", "mla: heads", "mamba", "xlstm: heads", "mlp",
+"slstm_ff", ...) and the paged plane ("paged").  A
 serve batch that does not split over the data ranks holds its attention
 cache's positions (GQA's K/V, MLA's compressed cache) split over them,
 as the reference's ``cache_specs`` (``ShardCtx.seq_split``); a Mamba2
 ``conv`` state holds a rank's heads'
 channels and the whole B and C, where the reference's spec cuts the
-channels into contiguous chunks (its line's ``cache`` gives the bytes).
+channels into contiguous chunks; the xLSTM's recurrent states hold a
+rank's heads and its mLSTM ``conv`` tail is whole (its line's ``cache``
+gives the bytes, ``_DEPARTS`` the reasons).
 
 Usage (on the CPU; nothing is set at import):
   python -m repro_torch.launch.dryrun --arch deepseek_7b --shape train_4k --mesh single
@@ -295,16 +297,29 @@ def cache_bytes(cfg: ModelConfig, cache, B: int, smax: int, mesh,
         for key, n in (("bytes", leaf.numel() * leaf.element_size()),
                        ("reference_bytes", ref)):
             out[key][name] = out[key].get(name, 0) + int(n)
-    out["departs"] = {n: _DEPARTS.get(n, "kept whole (see gaps)")
+    out["departs"] = {n: _DEPARTS.get((cfg.family, n),
+                                      "kept whole (see gaps)")
                       for n, b in out["bytes"].items()
                       if b != out["reference_bytes"][n]}
     return out
 
 
-#: why a cache leaf's bytes on a rank are not the reference spec's
-_DEPARTS = {"conv": "a rank holds its Mamba2 heads' x channels and the "
-                    "whole B and C, where the reference's spec cuts the "
-                    "channels into contiguous chunks"}
+#: why a cache leaf's bytes on a rank are not the reference spec's, by
+#: (family, leaf name)
+_DEPARTS = {
+    ("hybrid", "conv"): "a rank holds its Mamba2 heads' x channels and "
+                        "the whole B and C, where the reference's spec "
+                        "cuts the channels into contiguous chunks",
+    ("xlstm", "conv"): "every rank holds the mLSTM's conv tail whole: "
+                       "each computes xm and the conv whole, as every "
+                       "head reads all of it, where the reference's spec "
+                       "cuts the channels over model",
+    ("xlstm", "mlstm"): "a rank holds its heads' rows of the mLSTM's "
+                        "(C, n, m), where the reference's spec holds "
+                        "them by batch only",
+    ("xlstm", "slstm"): "a rank holds its heads' rows of the sLSTM's "
+                        "(h, c, n, m), where the reference's spec holds "
+                        "them by batch only"}
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -384,6 +399,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
             cfg, rows, smax, "cpu",
             kv_split=tp.model if tp and tp.computes("attn") else 1,
             mamba_split=tp.model if tp and tp.computes("mamba") else 1,
+            xlstm_split=tp.model if tp and tp.computes("mlstm") else 1,
             seq_split=shards.dp if seq else 1)
         state = {"params": params, "cache": cache}
         cache_meta = cache_bytes(cfg, cache, B, smax, mesh, axes)

@@ -312,9 +312,16 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     attention joins as one region, its H / M heads' ``wq_b``, ``wk_b``,
     ``wv_b`` and ``wo`` the rank's shards; its ``plans.MLA_WHOLE``
     leaves, replicated over ``model`` by the plan, bring nothing.  The
-    gradients of ``TPLayout.partial``'s leaves, summed over the column
-    by DTensor in the backward, are left out with the data axes'
-    traffic.  The joins' part is what ``shard_ctx.JOINED`` counts as
+    An xLSTM group's mLSTM sublayers each join as a region (entered with
+    ``copy_in``, left with ``reduce_out``) and gather their column's
+    ``h`` (``inner`` wide, ``gather_sum``) for the output norm; its
+    sLSTM enters with ``copy_in`` and gathers its column's ``h``
+    (``d_model`` wide, ``gather_out``: no backward collective), and its
+    feed-forward, where it computes sharded, joins as a region of its
+    own, the group's last join.  The gradients of ``TPLayout.partial``'s
+    leaves, summed over the column by DTensor in the backward, are left
+    out with the data axes' traffic.  The joins' part is what
+    ``shard_ctx.JOINED`` counts as
     they run, the gathers' what ``shard_ctx.GATHERED`` counts."""
     from repro_torch.models import transformer
     from repro_torch.models.moe import capacity
@@ -339,7 +346,7 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
         regions["mlp"] = 1 if cfg.d_ff > 0 else 0
         regions["shared"] = 1 if cfg.moe.n_shared else 0
         regions["experts"] = 1
-    elif cfg.family in plans.TP_FAMILIES:
+    elif cfg.family != "xlstm":
         regions["attn"] = regions["mlp"] = 1
         if cfg.family == "hybrid":
             regions["mamba"] = cfg.hybrid.mamba_per_group
@@ -351,6 +358,21 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     # wide, ``shard_ctx.gather_sum``) and sums its gradient back
     y_whole = T * (cfg.ssm.expand * cfg.d_model if cfg.ssm else 0) * item
     fwd += ng * on.get("mamba", 0) * y_whole * ag
+    # the xLSTM's regions, per group: forward and backward
+    x_fwd = x_bwd = 0
+    if cfg.family == "xlstm":
+        n_m = cfg.xlstm.slstm_every - 1
+        h_whole = T * int(cfg.xlstm.proj_factor * cfg.d_model) * item
+        if tp.computes("mlstm"):
+            x_fwd += n_m * (act * ar + h_whole * ag)
+            x_bwd += n_m * (act * ar + h_whole * ar)
+        if tp.computes("slstm"):
+            x_fwd += act * ag
+            x_bwd += act * ar
+        if tp.computes("slstm_ff"):
+            x_fwd += act * ar
+            x_bwd += act * ar
+    fwd += ng * x_fwd
     if "experts" in on:
         m = cfg.moe
         E_C = m.n_experts * capacity(T, m)
@@ -359,13 +381,15 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     top_fwd = act * ar if vocab and cfg.frontend != "frame" else 0
     if train:
         bwd = (ng * sum(on.values()) * act * ar + (act * ar if vocab else 0)
-               + ng * on.get("mamba", 0) * y_whole * ar)
+               + ng * on.get("mamba", 0) * y_whole * ar + ng * x_bwd)
         xent = 3 * T * 4 * ar if vocab else 0
         # remat's recompute stops at the group's last saved tensor
         # (PyTorch's non-reentrant checkpoint): a dense group's closing
         # all-reduce, the MLP's, is not run again; a MoE group's aux loss
-        # saves tensors after its last join
-        last = act * ar if "mlp" in on and cfg.family != "moe" else 0
+        # saves tensors after its last join; an xLSTM group's last join
+        # is its feed-forward's, where that computes sharded
+        last = act * ar if (("mlp" in on and cfg.family != "moe")
+                            or tp.computes("slstm_ff")) else 0
         d8 = (fwd + (fwd - ng * last if remat else 0) + top_fwd + xent
               + bwd)
     else:
@@ -458,6 +482,18 @@ def main() -> None:
                               "gb_8d": got["8d"] / 1e9}))
         lay = plans.tp_layout(v2, {"data": 1, "model": m})
         print(json.dumps({"deepseek_v2_236b": f"(1, {m})",
+                          "group_gb_8d": lay.group_bytes / 1e9,
+                          "group_gb_8a": lay.group_bytes_whole / 1e9,
+                          **lay.summary()}))
+    xl = configs.get("xlstm_350m")
+    for m in (2, 4):
+        for name, shape in shapes.items():
+            got = tp_traffic(xl, shape, {"data": 1, "model": m})
+            print(json.dumps({"xlstm_350m": f"(1, {m})", "step": name,
+                              "gb_8a": got["8a"] / 1e9,
+                              "gb_8d": got["8d"] / 1e9}))
+        lay = plans.tp_layout(xl, {"data": 1, "model": m})
+        print(json.dumps({"xlstm_350m": f"(1, {m})",
                           "group_gb_8d": lay.group_bytes / 1e9,
                           "group_gb_8a": lay.group_bytes_whole / 1e9,
                           **lay.summary()}))

@@ -199,19 +199,59 @@ def mlstm_init(gen, d_model: int, cfg: XLSTMConfig, dtype, device):
     }
 
 
+def mlstm_columns(d_model: int, cfg: XLSTMConfig, M: int, r: int):
+    """The columns of ``w_up`` (``[xm, z]``) and of ``w_if`` (``[i,
+    f]``, each head-major) that rank ``r`` of a model column of M
+    computes its H / M heads with: all of ``xm`` (every head's ``q`` and
+    ``k`` read all of the conv's output, its ``v`` all of ``xm``) and
+    its heads' ``z``; its heads' ``i`` and ``f``.  Index lists, in the
+    whole leaf's order."""
+    inner, _, Dv, H = _mlstm_dims(d_model, cfg)
+    Hl = H // M
+    z0 = inner + r * Hl * Dv
+    up = list(range(inner)) + list(range(z0, z0 + Hl * Dv))
+    heads = list(range(r * Hl, (r + 1) * Hl))
+    return up, heads + [H + h for h in heads]
+
+
 def mlstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
               impl: str = "auto"):
+    """Under tensor parallelism over ``model`` (the context's layout
+    computes "mlstm"; ``plans.MLSTM_SLICED``) a rank computes its H / M
+    heads: ``x`` enters the sharded region (``copy_in``), the rank takes
+    its columns of the whole ``w_up`` and ``w_if``
+    (``mlstm_columns``), computes ``xm`` and the conv whole (a decode
+    state of the whole conv tail), and ``wq``, ``wk``, ``wv`` (columns)
+    and ``w_down`` (rows) are its heads'.  The scan and the decode step
+    run on its heads (a decode state of its heads' ``(C, n, m)``).  The
+    output norm is over all of ``inner``: the column's ``h`` is gathered
+    (``gather_sum``; its gradient summed back), normalised whole by the
+    ``rmsnorm`` kernel with the whole ``out_norm``, and the rank keeps
+    its heads' share, gated by its own ``z``.  The row-parallel
+    ``w_down`` product is summed over the column (``reduce_out``).  At
+    M = 1 every one of these is the whole and every join a no-op."""
     B, S, _ = x.shape
     inner, Dk, Dv, H = _mlstm_dims(d_model, cfg)
-    up = x @ p["w_up"]
+    tp = shard_ctx.tp_on("mlstm")
+    M, r = (shard_ctx.model_size(), shard_ctx.model_rank()) if tp else (1, 0)
+    Hl, dl = H // M, inner // M
+    w_up, w_if = p["w_up"], p["w_if"]
+    if tp:
+        x = shard_ctx.copy_in(x)
+    if M > 1:
+        up_cols, if_cols = mlstm_columns(d_model, cfg, M, r)
+        dev = w_up.device
+        w_up = w_up.index_select(1, torch.tensor(up_cols, device=dev))
+        w_if = w_if.index_select(1, torch.tensor(if_cols, device=dev))
+    up = x @ w_up
     xm, z = up[..., :inner], up[..., inner:]
     conv_tail = None if state is None else state["conv"]
     xc, new_tail = causal_conv(xm, p["conv_w"], conv_tail)
     xc = F.silu(xc)
-    q = (xc @ p["wq"]).reshape(B, S, H, Dk).transpose(1, 2)
-    k = (xc @ p["wk"]).reshape(B, S, H, Dk).transpose(1, 2)
-    v = (xm @ p["wv"]).reshape(B, S, H, Dv).transpose(1, 2)
-    gates = (xc @ p["w_if"]).reshape(B, S, 2, H)
+    q = (xc @ p["wq"]).reshape(B, S, Hl, Dk).transpose(1, 2)
+    k = (xc @ p["wk"]).reshape(B, S, Hl, Dk).transpose(1, 2)
+    v = (xm @ p["wv"]).reshape(B, S, Hl, Dv).transpose(1, 2)
+    gates = (xc @ w_if).reshape(B, S, 2, Hl)
     ig = gates[:, :, 0].transpose(1, 2)      # (B, H, S)
     fg = gates[:, :, 1].transpose(1, 2)
 
@@ -224,9 +264,15 @@ def mlstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
     else:
         h, new_carry = ops.mlstm_scan(q, k, v, ig, fg, chunk=cfg.chunk,
                                       carry=carry, impl=impl)
-    h = h.transpose(1, 2).reshape(B, S, inner)
-    h = ops.rmsnorm(h, p["out_norm"], impl=impl) * F.silu(z)
-    out = h @ p["w_down"]
+    h = h.transpose(1, 2).reshape(B, S, dl)
+    if M > 1:
+        h = ops.rmsnorm(shard_ctx.gather_sum(h, -1), p["out_norm"],
+                        impl=impl)[..., r * dl:(r + 1) * dl]
+    else:
+        h = ops.rmsnorm(h, p["out_norm"], impl=impl)
+    out = (h * F.silu(z)) @ p["w_down"]
+    if tp:
+        out = shard_ctx.reduce_out(out)
     if state is None:
         return out, {"conv": new_tail, "mlstm": new_carry}
     state["conv"].copy_(new_tail)
@@ -236,12 +282,15 @@ def mlstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
 
 
 def mlstm_state_spec(cfg: XLSTMConfig, d_model: int, batch: int,
-                     dtype=torch.bfloat16):
+                     dtype=torch.bfloat16, split: int = 1):
     """The decode state's shapes and dtypes.  As for Mamba2's, the conv
     tail takes ``dtype`` (the param dtype), where the reference's is bf16
     whatever the model's dtype and its prefill hands back one in the
-    compute dtype."""
+    compute dtype.  ``split``: the heads split over that many ranks of a
+    model column (a rank's ``(C, n, m)`` hold its H / split heads; the
+    conv tail is whole)."""
     inner, Dk, Dv, H = _mlstm_dims(d_model, cfg)
+    H //= split
     f32 = torch.float32
     return {"conv": ((batch, MLSTM_CONV_WIDTH - 1, inner), dtype),
             "mlstm": (((batch, H, Dk, Dv), f32), ((batch, H, Dk), f32),
@@ -273,6 +322,16 @@ def slstm_init(gen, d_model: int, cfg: XLSTMConfig, dtype, device):
     }
 
 
+def slstm_columns(d_model: int, cfg: XLSTMConfig, M: int, r: int):
+    """The columns of ``w_gates`` (``[z, i, f, o]``, each head-major)
+    that rank ``r`` of a model column of M computes its H / M heads
+    with: its heads' columns of each of the four gates.  An index list,
+    in the whole leaf's order."""
+    dl = d_model // M
+    return [g * d_model + c for g in range(4)
+            for c in range(r * dl, (r + 1) * dl)]
+
+
 def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
               impl: str = "auto"):
     """The recurrence runs one position at a time, as the reference's
@@ -281,13 +340,38 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
     ``SLSTM_STACK_DTYPE`` (bf16, as the reference stacks it).  The
     steps' gates are ``unbind`` views, whose backward stacks the steps'
     gradients once (indexing ``gates_x[t]`` would write a zero tensor of
-    every step's gates for each step)."""
+    every step's gates for each step).
+
+    Under tensor parallelism over ``model`` (the context's layout
+    computes "slstm"; ``plans.SLSTM_SLICED``) a rank computes its H / M
+    heads: ``x`` enters the sharded region (``copy_in``), the rank takes
+    its heads' columns of the whole ``w_gates`` (``slstm_columns``) and
+    its heads of ``r_gates``, and runs the recurrence on them (a decode
+    state of its heads' ``(h, c, n, m)``) with no collective inside the
+    loop: ``r_gates`` is block-diagonal by head.  The column's ``h`` is
+    then joined whole (``gather_out``: what follows is computed whole
+    and alike on every rank, so the join's gradient is the rank's slice
+    of it) and normalised whole.  The feed-forward is a region of its
+    own where the layout computes "slstm_ff" (``copy_in``, the rank's
+    columns of ``w_ff_gate`` and ``w_ff_up`` and rows of ``w_ff_down``,
+    ``reduce_out``), else every rank computes it whole.  At M = 1 every
+    one of these is the whole and every join a no-op."""
     B, S, _ = x.shape
-    H = cfg.n_heads
-    Dh = d_model // H
+    tp = shard_ctx.tp_on("slstm")
+    M, rk = (shard_ctx.model_size(), shard_ctx.model_rank()) if tp else (1, 0)
+    H = cfg.n_heads // M
+    Dh = d_model // cfg.n_heads
     f32 = torch.float32
+    w_gates, r_gates = p["w_gates"], p["r_gates"]
+    if tp:
+        x = shard_ctx.copy_in(x)
+    if M > 1:
+        cols = slstm_columns(d_model, cfg, M, rk)
+        w_gates = w_gates.index_select(
+            1, torch.tensor(cols, device=w_gates.device))
+        r_gates = r_gates[rk * H:(rk + 1) * H]
     # S steps of (4, H, B, Dh) gates, each contiguous
-    gates_x = (x @ p["w_gates"]).reshape(B, S, 4, H, Dh).float().permute(
+    gates_x = (x @ w_gates).reshape(B, S, 4, H, Dh).float().permute(
         1, 2, 3, 0, 4).contiguous().unbind(0)
     if state is None:
         h = torch.zeros((H, B, Dh), dtype=f32, device=x.device)
@@ -296,7 +380,7 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
         m = torch.zeros_like(h)
     else:
         h, c, n, m = (t.float().transpose(0, 1) for t in state["slstm"])
-    r = p["r_gates"].float()                            # (H, Dh, 4 Dh)
+    r = r_gates.float()                                 # (H, Dh, 4 Dh)
     # torch.maximum against a tensor splits the gradient at a tie, as
     # jnp.maximum does (clamp_min would give it all to |n|)
     one = torch.ones((), dtype=f32, device=x.device)
@@ -317,11 +401,19 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
         m = m_new
         hs.append(h.to(SLSTM_STACK_DTYPE))
     # (S, H, B, Dh) -> (B, S, H * Dh)
-    y = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, d_model).to(
+    y = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, H * Dh).to(
         x.dtype)
+    if tp:
+        y = shard_ctx.gather_out(y, -1)
     y = ops.rmsnorm(y, p["out_norm"], impl=impl)
-    ff = F.silu(y @ p["w_ff_gate"]) * (y @ p["w_ff_up"])
-    out = ff @ p["w_ff_down"]
+    w_gate, w_up, w_down = p["w_ff_gate"], p["w_ff_up"], p["w_ff_down"]
+    ff_tp = shard_ctx.tp_on("slstm_ff")
+    if ff_tp:
+        y = shard_ctx.copy_in(y)
+    ff = F.silu(y @ w_gate) * (y @ w_up)
+    out = ff @ w_down
+    if ff_tp:
+        out = shard_ctx.reduce_out(out)
     new = tuple(t.transpose(0, 1) for t in (h, c, n, m))
     if state is None:
         return out, {"slstm": new}
@@ -330,7 +422,10 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
     return out, state
 
 
-def slstm_state_spec(cfg: XLSTMConfig, d_model: int, batch: int):
+def slstm_state_spec(cfg: XLSTMConfig, d_model: int, batch: int,
+                     split: int = 1):
+    """``split``: the heads split over that many ranks of a model column
+    (a rank's states hold its H / split heads)."""
     H = cfg.n_heads
-    s = ((batch, H, d_model // H), torch.float32)
+    s = ((batch, H // split, d_model // H), torch.float32)
     return {"slstm": (s, s, s, s)}

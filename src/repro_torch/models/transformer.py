@@ -60,7 +60,9 @@ sublayers compute the rank's heads (``ssm.mamba2_fwd``; its decode
 state the rank's ``ssm`` heads and ``conv`` channels, ``mamba_split``,
 ``ssm.mamba_columns``), its shared block by the attention's and MLP's
 rules.  MLA computes the rank's heads over the whole compressed cache
-(``layers.mla_fwd``).  A B = 1 serve cache, GQA's or MLA's, may hold a
+(``layers.mla_fwd``).  The xLSTM's mLSTM and sLSTM sublayers compute
+the rank's heads (``ssm.mlstm_fwd``, ``ssm.slstm_fwd``; its decode
+states the rank's heads, ``xlstm_split``).  A B = 1 serve cache, GQA's or MLA's, may hold a
 slice of the positions on each data rank (``seq_split``;
 ``layers.attention_fwd``, ``layers.mla_fwd``).
 """
@@ -349,25 +351,29 @@ def _zeros(spec, lead, device):
     return torch.zeros(lead + shape, dtype=dtype, device=device)
 
 
-def _xlstm_cache_init(cfg: ModelConfig, batch: int, device):
+def _xlstm_cache_init(cfg: ModelConfig, batch: int, device,
+                      split: int = 1):
     """{"mlstm": {"conv", "mlstm": (C, n, m)} stacked (n_groups, k-1,
     ...), "slstm": {"slstm": (h, c, n, m)} stacked (n_groups, ...)}, as
     the reference's: the mLSTM's carry from ``_mlstm_zero_carry``, the
-    sLSTM's n from ones."""
+    sLSTM's n from ones; the states of H / ``split`` heads."""
     ng, dt = n_groups(cfg), _dtype(cfg)
     lead = (ng, cfg.xlstm.slstm_every - 1)
     spec = ssm.mlstm_state_spec(cfg.xlstm, cfg.d_model, batch, dt)
     mlstm = {"conv": _zeros(spec["conv"], lead, device),
-             "mlstm": _mlstm_zero_carry(cfg, lead + (batch,), device)}
-    slstm = _zeros(ssm.slstm_state_spec(cfg.xlstm, cfg.d_model, batch),
-                   (ng,), device)
+             "mlstm": _mlstm_zero_carry(cfg, lead + (batch,), device,
+                                        split)}
+    slstm = _zeros(ssm.slstm_state_spec(cfg.xlstm, cfg.d_model, batch,
+                                        split), (ng,), device)
     slstm["slstm"][2].fill_(1.0)
     return {"mlstm": mlstm, "slstm": slstm}
 
 
-def _mlstm_zero_carry(cfg: ModelConfig, lead, device):
-    """(C, n, m) with leading dims ``lead``: zeros, and m = -inf."""
+def _mlstm_zero_carry(cfg: ModelConfig, lead, device, split: int = 1):
+    """(C, n, m) of H / ``split`` heads with leading dims ``lead``:
+    zeros, and m = -inf."""
     _, Dk, Dv, H = ssm._mlstm_dims(cfg.d_model, cfg.xlstm)
+    H //= split
     f32 = torch.float32
     return (torch.zeros(lead + (H, Dk, Dv), dtype=f32, device=device),
             torch.zeros(lead + (H, Dk), dtype=f32, device=device),
@@ -377,7 +383,7 @@ def _mlstm_zero_carry(cfg: ModelConfig, lead, device):
 
 def init_cache(cfg: ModelConfig, batch: int, smax: int, device,
                kv_split: int = 1, mamba_split: int = 1,
-               seq_split: int = 1):
+               seq_split: int = 1, xlstm_split: int = 1):
     """Stacked (n_groups, ...) cache: the dense family's (and the VLM's)
     KV cache; the moe family's, MLA's compressed {"c_kv", "k_rope"} or,
     with dense layers between, {"dense": kv, "moe": kv}; the xlstm's
@@ -391,13 +397,16 @@ def init_cache(cfg: ModelConfig, batch: int, smax: int, device,
     heads, the ``conv`` state's channels of those heads and the whole B
     and C, ``ssm.mamba_columns``); ``seq_split``, the attention cache's
     positions (GQA's K/V or MLA's compressed cache) split over that many
-    data ranks (``ShardCtx.seq_split``).  MLA's compressed cache has no
+    data ranks (``ShardCtx.seq_split``); ``xlstm_split``, the xLSTM's
+    heads so split (the mLSTM's ``(C, n, m)`` and the sLSTM's ``(h, c,
+    n, m)`` of the rank's heads; the mLSTM's conv tail whole, every rank
+    computing all of its channels).  MLA's compressed cache has no
     heads: ``kv_split`` leaves it whole."""
     dt, ng = _dtype(cfg), n_groups(cfg)
     if cfg.family == "encoder":
         return None
     if cfg.family == "xlstm":
-        return _xlstm_cache_init(cfg, batch, device)
+        return _xlstm_cache_init(cfg, batch, device, xlstm_split)
     lead = (ng, batch, smax // seq_split)
     kv = _attn_cache_init(cfg, lead, device, kv_split)
     if cfg.family == "moe" and cfg.d_ff > 0:

@@ -200,11 +200,6 @@ def param_specs(params_abstract, mesh, axes: Optional[MeshAxes] = None,
 
 # ------------------------------------------ tensor and expert parallelism
 
-#: the families whose heads, MLP widths, vocabulary, experts and Mamba2
-#: heads compute sharded over ``model``; every leaf of the others (the
-#: xlstm's cells) keeps 8a's layout
-TP_FAMILIES = ("dense", "vlm", "encoder", "moe", "hybrid")
-
 #: the leaves of a Mamba2 sublayer whose heads compute sharded that are
 #: gathered whole, each rank taking its heads' share: ``w_in``'s fused
 #: columns ``[z, x, B, C, dt]`` and ``conv_w``'s channels ``[x, B, C]``
@@ -227,16 +222,57 @@ MAMBA_SLICED = ("w_in", "conv_w", "norm", "A_log", "D", "dt_bias")
 #: rank's model shard: the plan's contiguous chunks are whole heads.
 MLA_WHOLE = ("wq_a", "q_norm", "wkv_a", "kv_norm")
 
+#: the leaves of an mLSTM sublayer whose heads compute sharded that are
+#: gathered whole, each rank taking its heads' share
+#: (``ssm.mlstm_columns``): ``w_up``'s columns ``[xm, z]`` (every head
+#: reads all of ``xm``, so a rank computes it and the conv whole, and
+#: takes its heads' ``z``), ``conv_w``, ``w_if`` (replicated by the
+#: plan; the rank takes its heads' ``i`` and ``f`` columns) and the
+#: output norm's ``out_norm``, for the norm over all of ``inner``.  Its
+#: ``wq``, ``wk`` and ``wv``, whose columns are head-major, and
+#: ``w_down``, whose rows are, come back as the rank's model shard.
+MLSTM_SLICED = ("w_up", "conv_w", "w_if", "out_norm")
+
+#: the leaves of an sLSTM sublayer whose heads compute sharded that are
+#: gathered whole, each rank taking its heads' share
+#: (``ssm.slstm_columns``): ``w_gates``, whose columns ``[z, i, f, o]``
+#: the plan cuts by gate and not by head, and ``r_gates`` (replicated by
+#: the plan, block-diagonal by head).  Its ``out_norm`` is gathered
+#: whole and used whole and alike on every rank, after the heads' ``h``
+#: is joined (``shard_ctx.gather_out``).
+SLSTM_SLICED = ("w_gates", "r_gates")
+
+#: the sLSTM's feed-forward leaves: they compute sharded (kind
+#: "slstm_ff") where the plan shards them, the feed-forward width
+#: ``int(4 / 3 d)`` dividing by M
+SLSTM_FF = ("w_ff_gate", "w_ff_up", "w_ff_down")
+
+
+def _sliced(keys, kinds) -> bool:
+    """Whether the param leaf at path ``keys`` is gathered whole while
+    each rank computes only its share of it (``TPLayout.partial``)."""
+    name = _leaf_name(keys)
+    return (("mamba" in kinds and "mamba" in keys and name in MAMBA_SLICED)
+            or ("attn" in kinds and "attn" in keys and name in MLA_WHOLE)
+            or ("mlstm" in kinds and "mlstm" in keys
+                and name in MLSTM_SLICED)
+            or ("slstm" in kinds and "slstm" in keys
+                and name in SLSTM_SLICED))
+
 
 def _tp_kind(keys) -> Optional[str]:
     """What a param leaf at path ``keys`` computes under tensor or expert
     parallelism: "vocab" (the embedding and the LM head), "attn" (a
     GQA or MLA attention's projections), "mlp", "shared" (a MoE layer's
     shared expert), "experts", "mamba" (a Mamba2 sublayer's leaves the
-    plan puts on ``model``: ``w_in``, ``conv_w``, ``norm``, ``w_out``);
-    None for a leaf every rank uses whole (norms, the router, the
-    frontends' stubs, Mamba2's replicated ``A_log``, ``D``,
-    ``dt_bias``)."""
+    plan puts on ``model``: ``w_in``, ``conv_w``, ``norm``, ``w_out``),
+    "mlstm" (an mLSTM sublayer's: ``w_up``, ``conv_w``, ``wq``, ``wk``,
+    ``wv``, ``out_norm``, ``w_down``), "slstm" (an sLSTM sublayer's
+    ``w_gates``), "slstm_ff" (its feed-forward, ``SLSTM_FF``); None for
+    a leaf every rank uses whole (norms, the router, the frontends'
+    stubs, Mamba2's replicated ``A_log``, ``D``, ``dt_bias``, the
+    xLSTM's replicated ``w_if`` and ``r_gates``, the sLSTM's
+    ``out_norm``)."""
     name = _leaf_name(keys)
     if len(keys) == 1 and name in ("embed", "lm_head"):
         return "vocab"
@@ -248,6 +284,13 @@ def _tp_kind(keys) -> Optional[str]:
         return "mlp"
     if "mamba" in keys and name in ("w_in", "conv_w", "norm", "w_out"):
         return "mamba"
+    if "mlstm" in keys and name in ("w_up", "conv_w", "wq", "wk", "wv",
+                                    "out_norm", "w_down"):
+        return "mlstm"
+    if "slstm" in keys and name == "w_gates":
+        return "slstm"
+    if "slstm" in keys and name in SLSTM_FF:
+        return "slstm_ff"
     return None
 
 
@@ -261,9 +304,11 @@ class TPLayout:
     axes only, handing each rank its ``model`` shard.  ``partial``: the
     paths gathered whole of which a rank computes only its share (a
     Mamba2 sublayer's ``MAMBA_SLICED``, an MLA attention's
-    ``MLA_WHOLE``), so their gradients are each rank's part, summed over
+    ``MLA_WHOLE``, the xLSTM's ``MLSTM_SLICED`` and ``SLSTM_SLICED``),
+    so their gradients are each rank's part, summed over
     the model column.  ``heads``: the (query,
-    kv) heads a rank's attention computes.  ``kept``: the rules that
+    kv) heads a rank's attention computes (the xLSTM's: its mLSTM and
+    sLSTM heads, twice).  ``kept``: the rules that
     kept a part in 8a's layout (gathered whole over ``model``, every
     rank of a model column computing it whole).  ``bytes_top`` and
     ``bytes_groups``: the bytes ``full`` brings over ``model`` in one
@@ -320,14 +365,20 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
       ``d_inner / head_dim`` divides by M, each rank its H / M heads
       (``MAMBA_SLICED`` says which leaves it gathers whole); else every
       rank computes all of it (rule "mamba", naming H and M);
+    * the xLSTM's mLSTM and sLSTM sublayers compute sharded where its
+      ``n_heads`` H divides by M, each rank its H / M heads
+      (``MLSTM_SLICED`` and ``SLSTM_SLICED`` say which leaves it
+      gathers whole); else every rank computes all of them (rule
+      "xlstm: heads", naming H and M).  The sLSTM's feed-forward is a
+      region of its own, sharded where its width divides by M (rule
+      "slstm_ff" where it does not);
     * the MLP, a MoE layer's shared expert, the vocabulary (embedding
       and LM head) and the experts compute sharded where their dim
       divides by M, as ``_roles_to_spec`` decides (rules "mlp",
       "shared", "vocab", "experts" where it does not);
-    * these keep 8a's layout, each a named rule: the families outside
-      ``TP_FAMILIES`` ("family": the xlstm's cells), the paged serve
-      plane ("paged": its rounds run with no sharding context), and the
-      frame and patch stubs ("frontend": never sharded over ``model``).
+    * these keep 8a's layout, each a named rule: the paged serve plane
+      ("paged": its rounds run with no sharding context), and the frame
+      and patch stubs ("frontend": never sharded over ``model``).
 
     The hybrid's shared attention block and its MLP compute sharded by
     the attention's and the MLP's rules.  The plan's specs are the
@@ -344,10 +395,10 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
         H_m = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
     if paged:
         kept.append("paged")
-    elif cfg.family not in TP_FAMILIES:
-        kept.append(f"family: {cfg.family}")
     else:
         dims = {"mlp": cfg.d_ff, "vocab": cfg.vocab_size}
+        if cfg.xlstm is not None:
+            dims["slstm_ff"] = int(cfg.d_model * 4 / 3)
         if moe is not None:
             dims["experts"] = moe.n_experts
             if moe.n_shared:
@@ -357,7 +408,11 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
                 kinds.add(kind)
             elif n:
                 kept.append(f"{kind}: {n} % {M}")
-        if a.is_mla and a.n_heads % M:
+        if cfg.xlstm is not None and cfg.xlstm.n_heads % M:
+            kept.append(f"xlstm: heads {cfg.xlstm.n_heads} % {M}")
+        elif cfg.xlstm is not None:             # no attention
+            kinds.update(("mlstm", "slstm"))
+        elif a.is_mla and a.n_heads % M:
             kept.append(f"mla: heads {a.n_heads} % {M}")
         elif a.is_mla:
             kinds.add("attn")
@@ -371,9 +426,13 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
             kinds.add("mamba")
     if cfg.frontend in ("frame", "patch"):
         kept.append(f"frontend: {cfg.frontend}")
-    heads = (0, 0) if a is None else (
-        (a.n_heads // M, a.n_kv_heads // M) if "attn" in kinds
-        else (a.n_heads, a.n_kv_heads))
+    if cfg.xlstm is not None:
+        H = cfg.xlstm.n_heads
+        heads = (H // M, H // M) if "mlstm" in kinds else (H, H)
+    else:
+        heads = (0, 0) if a is None else (
+            (a.n_heads // M, a.n_kv_heads // M) if "attn" in kinds
+            else (a.n_heads, a.n_kv_heads))
 
     params = model_lib.abstract_params(cfg)
     specs = dict(_dict_leaves(param_specs(params, mesh)))
@@ -385,11 +444,7 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
         on_model = "model" in [x for e in specs[keys] for x in _axes_of(e)]
         kind = _tp_kind(keys[1:] if keys[0] == "layers" else keys)
         nbytes = leaf.numel() * leaf.element_size()
-        name = _leaf_name(keys)
-        sliced = (("mamba" in kinds and "mamba" in keys
-                   and name in MAMBA_SLICED)
-                  or ("attn" in kinds and "attn" in keys
-                      and name in MLA_WHOLE))
+        sliced = _sliced(keys, kinds)
         if sliced:
             partial.add(path)
         if keys[0] in ("layers", "extra"):
@@ -515,15 +570,25 @@ def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
       leaf over ``model``, the checkpoint's: ``transformer.conv_whole``
       joins the ranks' channels for a save, and a restore cuts them.
 
-    Every other dim is whole: without ``tp``, and for the xlstm's
-    recurrent states, every rank of a model column holds the whole leaf
-    (8a's layout); MLA's compressed cache has no head dim, so every rank
-    of a model column holds its data slice of it whole (the reference's
-    spec puts no model axis on it)."""
+    * The xLSTM's recurrent states depart too, where ``tp`` computes
+      its heads sharded: a rank holds its heads' rows of the mLSTM's
+      ``(C, n, m)`` and of the sLSTM's ``(h, c, n, m)`` (the head dim
+      after the batch), where ``cache_specs`` holds them by batch only;
+      and the mLSTM's ``conv`` tail whole, every rank computing all of
+      its channels, where ``cache_specs`` cuts them over ``model``.
+      Heads are contiguous rows, so a save joins them whole and a
+      restore cuts them again through these layouts.
+
+    Every other dim is whole: without ``tp``, every rank of a model
+    column holds the whole leaf (8a's layout); MLA's compressed cache
+    has no head dim, so every rank of a model column holds its data
+    slice of it whole (the reference's spec puts no model axis on
+    it)."""
     axes = axes or MeshAxes.from_mesh(mesh)
     dp = axes.dp if len(axes.dp) > 1 else axes.dp[0]
     heads = tp is not None and tp.computes("attn")
     mamba = tp is not None and tp.computes("mamba")
+    xlstm = tp is not None and tp.computes("mlstm")
 
     def layout_for(keys, leaf):
         spec = [None] * len(leaf.shape)
@@ -538,6 +603,8 @@ def cache_layouts(cache_abstract, mesh, axes: Optional[MeshAxes] = None,
             spec[-2] = axes.model
         if mamba and name == "ssm":
             spec[-3] = axes.model           # (..., B, H, P, N)
+        if xlstm and name in ("mlstm", "slstm"):
+            spec[cache_batch_dim(keys) + 1] = axes.model    # (..., B, H..)
         return Layout(mesh, to_placements(tuple(spec), mesh))
 
     return _map_with_path(layout_for, cache_abstract)
@@ -548,7 +615,8 @@ def seq_splits(cfg, batch: int, smax: int, dp: int) -> bool:
     data ranks: its batch does not split over the ``dp`` data ranks, its
     ``smax`` positions do, and it has an attention cache, GQA's
     ``k``/``v`` or MLA's ``c_kv``/``k_rope`` (the reference's
-    ``cache_specs`` rule; the xlstm's states keep theirs whole)."""
+    ``cache_specs`` rule; the xlstm's recurrent states have no
+    positions)."""
     return (dp > 1 and batch % dp != 0 and smax % dp == 0
             and cfg.family != "xlstm" and not cfg.is_encoder
             and cfg.attention is not None)

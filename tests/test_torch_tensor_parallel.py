@@ -805,9 +805,12 @@ def test_the_layout_rule_names_every_part_it_keeps():
                       "hubert_xlarge", "pixtral_12b")}
     assert kept == {"deepseek_v2_236b": (),
                     "zamba2_2p7b": (),
-                    "xlstm_350m": ("family: xlstm",),
+                    "xlstm_350m": ("slstm_ff: 85 % 2",),
                     "hubert_xlarge": ("frontend: frame",),
                     "pixtral_12b": ("frontend: patch",)}
+    # the xLSTM computes its heads and vocabulary sharded (the smoke
+    # config's 2 heads at M = 2); its sLSTM's feed-forward, 85 wide,
+    # stays whole by the named rule
     # the hybrid computes its Mamba2 heads sharded where H divides by M
     # (zamba2's 80 heads at M = 16), else keeps them whole by the named
     # rule (M = 32: its attention heads, MLP width and vocabulary still
