@@ -16,7 +16,11 @@ never JAX.  Phases, each printing one JSON line:
                      card, element by element, at the main paths'
                      full-width shapes and at edge cases (among them the
                      paged plane's admission prefill shapes, the other
-                     dense configs' head groups, ragged and all-zero
+                     configs' head groups (flash at llama4's, starcoder2's
+                     and yi's 4 x 512 prefills, its backward at pixtral's
+                     GQA train shape, the paged round at groups 4, 5, 7,
+                     8 and 12, each timed; the paged kernel's ptxas lines
+                     by instance in the build line), ragged and all-zero
                      quantization blocks, the SSD scan's ragged and short
                      sequences, initial states and extreme timesteps),
                      (among them MLA's prefill and train shapes at head
@@ -24,7 +28,8 @@ never JAX.  Phases, each printing one JSON line:
                      unaligned, D = 136 and Dv = 64 cases at D > 128,
                      each launch's route counted; the RMSNorm backward at
                      MLA's norm widths, 1536 and 512; the int8 AdamW on
-                     a 2.52e9-element expert leaf; the RMSNorm and its
+                     a 2.52e9-element expert leaf and on pixtral_12b's
+                     w_up, embedding and head; the RMSNorm and its
                      backward at xlstm_350m's 8192 rows of 1024 and
                      2048, the fp32 AdamW on its leaves of last dims 8
                      and 1365), with its time, the
@@ -133,6 +138,27 @@ never JAX.  Phases, each printing one JSON line:
                      update, and the recurrent states within 5% of theirs
                      (``xlstm_sublayer_check``); the sLSTM blocks' share
                      of a warm prefill;
+8b. ``serve_llama4`` — ``run`` on llama4_maverick_400b (the moe family
+                     with GQA 40 / 8: a dense layer, then a MoE layer of
+                     128 routed experts top-1 and a shared one) at full
+                     width, cut to one group (2 of its 48 layers, 37.1
+                     GB), held as ``serve_moe`` (4 x 512 prompt tokens,
+                     32 generated, the logits with the plain run's
+                     routing replayed, the drops, the decode bound);
+8c. ``serve_llama4_paged`` — the same cut on the paged plane, held as
+                     ``serve_paged`` (serve_paged's traffic, the rounds
+                     captured over the {dense, moe} pool, the logits with
+                     the routing replayed), the paged kernel at the
+                     group of 5; the choices the capacity dropped of the
+                     live and the idle slots, the prompts' tokens and
+                     their page padding; the round against its bound;
+8d. ``serve_dense_groups`` — starcoder2_15b (LayerNorm and a plain GELU
+                     MLP: no RMSNorm launch; GQA 48 / 4) and yi_34b (GQA
+                     56 / 8, 68.8 GB) whole, each through the dense
+                     plane (4 x 512 prompt tokens, 16 generated, held as
+                     ``serve_dense``) and the paged plane (12 sessions
+                     of 8 tokens, held as ``serve_paged``), each block
+                     freed before the next is built;
 10. ``train``       — a train ``BlockRuntime`` on deepseek_7b at full width
                      (30 layers, random bf16 weights from the seed, int8
                      AdamW moments, 2 x 2048 tokens a step, remat): the
@@ -223,6 +249,15 @@ never JAX.  Phases, each printing one JSON line:
                      moments, 8 x 1024 frames a step: step 0 as
                      ``train_hybrid``'s, 5 steps with their launches held
                      exactly (no RMSNorm), frames/s, MFU, a profiled step;
+14b. ``train_vlm`` — a train ``BlockRuntime`` on pixtral_12b at full
+                     width, cut to 20 of its 40 layers, int8 moments, 2 x
+                     2048 positions a step (the stub's 256 patches, then
+                     text): step 0 as ``train_hybrid``'s, run before the
+                     block's state exists, then 5 steps with their
+                     launches held exactly (the flash backward's dk/dv
+                     summed over the group of 4 on the tensor cores),
+                     tok/s, MFU, peak memory and what it leaves free, a
+                     profiled step;
 15. ``train_moe``  — ``repro_torch.launch.train``'s ``run(args, cfg)`` on
                      deepseek_v2_236b (MLA, 160 routed experts top-6 and 2
                      shared) at full width, cut to 2 of its 60 layers,
@@ -267,8 +302,10 @@ never JAX.  Phases, each printing one JSON line:
                      compressed cache; the decode step against its
                      bound, the peak memory against the dry run's, each
                      kernel's largest tensor against 2^31 elements;
-16. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full size
-                     (fp32 moments, 4 x 2048 tokens a step, remat): step 0
+16. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full width,
+                     cut to one group (8 of its 24 layers: its sLSTM
+                     loop paces the step from the host), fp32 moments,
+                     4 x 2048 tokens a step, remat: step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
                      under the train phases' limits, the bf16 step 0 read
                      beside it; 3 steps, their launches held exactly, the
@@ -448,6 +485,11 @@ COUNTERS = {
     "rmsnorm_bwd_scalar": ("rmsnorm", "BWD_LAUNCHES_SCALAR"),
     "ssd_scan_bwd_scalar": ("ssd_scan", "BWD_LAUNCHES_SCALAR"),
 }
+
+# the GQA prefills the kernels phase times beside deepseek_7b's (4 x 512,
+# D 128) and the paged decode's groups beside its (8 slots): (name, query
+# heads, kv heads)
+GQA_PREFILLS = (("llama4", 40, 8), ("starcoder2", 48, 4), ("yi", 56, 8))
 
 # guard limits, in ms at the main path's shape: a redesigned kernel slower
 # than this has lost its redesign (the routes before read 1.23, 0.0795 and
@@ -887,9 +929,10 @@ def phase_build():
 SASS_FAMILIES = ("fused_adamw", "paged_decode")
 # kernels whose registers, shared memory and spills the build line gives
 # by name (ptxas -v): the SSD scan's, its backward's, the RMSNorm
-# backward's and the flash backward's
+# backward's, the flash backward's and the paged decode's (an instance a
+# head chunk GC)
 PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_bwd", "rmsnorm_dscale",
-                 "flash_bwd")
+                 "flash_bwd", "paged_decode")
 
 
 def sass_counts(lib: str) -> dict:
@@ -1543,7 +1586,8 @@ def check_train_kernels(out, edge, edges):
                                    / 1e9)
     fa["max_err"] = max(fa["max_err"], fa["train_shape"]["o_max_err"],
                         *(out[f"flash_attention_{k}"]["max_err"]
-                          for k in ("hybrid", "vlm", "encoder")))
+                          for k in ("hybrid", "vlm", "encoder",
+                                    *(g[0] for g in GQA_PREFILLS))))
     err, ratio = worst(got, want, 2e-2)
     check(ratio <= 1.0 and all(bool(torch.isfinite(t).all()) for t in got),
           f"flash_attention_bwd full width: max_abs_err {err}, {ratio} x tol")
@@ -1588,6 +1632,18 @@ def check_train_kernels(out, edge, edges):
                       (2, 32, 32, 2048, 2048, 80, 80), True, fwd_ok, worst)
     flash_train_shape(out, "encoder_train_shape",
                       (8, 16, 16, 1024, 1024, 80, 80), False, fwd_ok, worst)
+    # pixtral_12b's train shape, GQA 32 / 8: dk and dv summed over the
+    # group of 4, each launch's route counted
+    from repro_torch.kernels import flash_attention as fa_mod
+    n0 = (fa_mod.BWD_LAUNCHES, fa_mod.BWD_LAUNCHES_CUDA_CORE)
+    row = flash_train_shape(out, "vlm_train_shape",
+                            (2, 32, 8, 2048, 2048, 128, 128), True, fwd_ok,
+                            worst)
+    cc = fa_mod.BWD_LAUNCHES_CUDA_CORE - n0[1]
+    row["routes"] = {"wgmma": fa_mod.BWD_LAUNCHES - n0[0] - cc,
+                     "cuda_core": cc}
+    check(cc == 0, f"flash_attention_bwd vlm_train: {cc} launches on the "
+          f"CUDA-core route")
     # deepseek_v2_236b's MLA train shape and the backward's cases at D > 128
     check_mla_flash_bwd(out, edge, fwd_ok, worst)
     for name, args, kw2 in [
@@ -1763,7 +1819,8 @@ def flash_train_shape(out, key, args, causal, fwd_ok, worst):
     flops = pairs * 2 * (3 * D + 2 * Dv)
     b_ms, b_by = bound(2 * 2 * elems + 4 * lse.numel(), flops)
     ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                        enable_gqa=H != k.shape[1])
     row = {
         "shape": [B, H, S, D], "v_head_dim": Dv, "causal": causal,
         "max_err": err,
@@ -1834,7 +1891,9 @@ def check_mla_flash_bwd(out, edge, fwd_ok, worst):
 
 def check_adamw_kernel(out, edges):
     """Both fused AdamW instances (int8 and fp32 moments) at deepseek_7b's
-    largest, widest and smallest leaves (timed) and at edge cases.  Each
+    largest, widest and smallest leaves (timed) and at edge cases; the
+    int8 one also at pixtral_12b's ``VLM_ADAMW_LEAVES`` (timed) and at
+    deepseek_v2_236b's expert leaf.  Each
     vector-route case also runs the scalar route on a copy of p one
     element off alignment: that route is held by the same check, it is
     no nearer the plain version than the vector route, both give the same
@@ -1861,57 +1920,60 @@ def check_adamw_kernel(out, edges):
               f"fused_adamw {case}: the two routes' bits differ")
         return chk, sgot, schk
 
+    def timed_leaf(variant, quant, leaf, shape):
+        """One leaf checked on both routes, the kernel timed on each, the
+        plain version and (fp32 moments) the library yardstick."""
+        progress(f"kernels: fused_adamw {variant} {leaf}")
+        inputs, got, want, route = adamw_case(shape, quant)
+        p, g, m, v, sc, hyper = inputs
+        chk, sgot, schk = both_routes(f"{variant} {leaf}", inputs, got,
+                                      want, route, "vector")
+        n = p.numel()
+        nb = n // shape[-1] * -(-shape[-1] // 256)
+        nbytes = 10 * n + 16 * nb if quant else 22 * n
+        b_ms, b_by = bound(nbytes, 20 * n, F32_FLOPS)
+        lr, scale, bc1, bc2 = sc
+        del want
+        row = {"shape": list(shape), "route": route, **chk,
+               "kernel_ms": time_ms(lambda: fused_adamw_cuda(
+                   got[0], g, got[1], got[2], sc, **hyper)),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "was_route": {"route": "scalar", **schk,
+                             "kernel_ms": time_ms(lambda: (
+                                 fused_adamw_cuda(sgot[0], g, sgot[1],
+                                                  sgot[2], sc, **hyper)))}}
+        del got, sgot
+        row["plain_ms"] = time_ms(lambda: fused_adamw_torch(
+            p, g, m, v, lr=lr, scale=scale, bc1=bc1, bc2=bc2, **hyper),
+            iters=3)
+        del m, v
+        if not quant:
+            # yardstick, not the same function: one fused
+            # torch.optim.AdamW step on the same bf16 param and grad
+            # keeps bf16 moments (as the param), not fp32 ones, so it
+            # moves 14 bytes an element where the kernel moves 22;
+            # library_bound_ms is its own byte bound
+            lp = torch.nn.Parameter(p.clone())
+            lp.grad = g.clone()
+            optim = torch.optim.AdamW([lp], lr=ADAM_SCALARS[0],
+                                      betas=(ADAM_HYPER["b1"],
+                                             ADAM_HYPER["b2"]),
+                                      eps=ADAM_HYPER["eps"],
+                                      weight_decay=ADAM_HYPER[
+                                          "weight_decay"], fused=True)
+            row["library_ms"] = time_ms(optim.step, iters=5)
+            row["library_bound_ms"] = bound(14 * n, 20 * n, F32_FLOPS)[0]
+            del lp, optim
+        del p, g
+        torch.cuda.empty_cache()
+        return row
+
     leaves = {"layers/mlp/w_up": (30, 4096, 11008), "embed": (102400, 4096),
               "final_norm/scale": (4096,)}
     res = {}
     for variant, quant in (("i8", True), ("f32", False)):
-        per_leaf = {}
-        for leaf, shape in leaves.items():
-            progress(f"kernels: fused_adamw {variant} {leaf}")
-            inputs, got, want, route = adamw_case(shape, quant)
-            p, g, m, v, sc, hyper = inputs
-            chk, sgot, schk = both_routes(f"{variant} {leaf}", inputs, got,
-                                          want, route, "vector")
-            n = p.numel()
-            nb = n // shape[-1] * -(-shape[-1] // 256)
-            nbytes = 10 * n + 16 * nb if quant else 22 * n
-            b_ms, b_by = bound(nbytes, 20 * n, F32_FLOPS)
-            lr, scale, bc1, bc2 = sc
-            del want
-            row = {"shape": list(shape), "route": route, **chk,
-                   "kernel_ms": time_ms(lambda: fused_adamw_cuda(
-                       got[0], g, got[1], got[2], sc, **hyper)),
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-                   "was_route": {"route": "scalar", **schk,
-                                 "kernel_ms": time_ms(lambda: (
-                                     fused_adamw_cuda(sgot[0], g, sgot[1],
-                                                      sgot[2], sc,
-                                                      **hyper)))}}
-            del got, sgot
-            row["plain_ms"] = time_ms(lambda: fused_adamw_torch(
-                p, g, m, v, lr=lr, scale=scale, bc1=bc1, bc2=bc2, **hyper),
-                iters=3)
-            del m, v
-            if not quant:
-                # yardstick, not the same function: one fused
-                # torch.optim.AdamW step on the same bf16 param and grad
-                # keeps bf16 moments (as the param), not fp32 ones, so it
-                # moves 14 bytes an element where the kernel moves 22;
-                # library_bound_ms is its own byte bound
-                lp = torch.nn.Parameter(p.clone())
-                lp.grad = g.clone()
-                optim = torch.optim.AdamW([lp], lr=ADAM_SCALARS[0],
-                                          betas=(ADAM_HYPER["b1"],
-                                                 ADAM_HYPER["b2"]),
-                                          eps=ADAM_HYPER["eps"],
-                                          weight_decay=ADAM_HYPER[
-                                              "weight_decay"], fused=True)
-                row["library_ms"] = time_ms(optim.step, iters=5)
-                row["library_bound_ms"] = bound(14 * n, 20 * n, F32_FLOPS)[0]
-                del lp, optim
-            per_leaf[leaf] = row
-            del p, g
-            torch.cuda.empty_cache()
+        per_leaf = {leaf: timed_leaf(variant, quant, leaf, shape)
+                    for leaf, shape in leaves.items()}
         res[variant] = per_leaf
         for name, shape, kw2, expect in [
                 ("ragged_L300", (7, 300), {}, "scalar"),
@@ -1964,6 +2026,16 @@ def check_adamw_kernel(out, edges):
                 "library_bound_ms": f32["library_bound_ms"]},
         "variants": res}
     out["fused_adamw"]["moe_expert_leaf"] = check_adamw_expert_leaf()
+    out["fused_adamw"]["vlm_i8_leaves"] = {
+        leaf: timed_leaf("i8", True, f"pixtral_12b {leaf}", shape)
+        for leaf, shape in VLM_ADAMW_LEAVES.items()}
+
+
+# pixtral_12b's largest int8 leaves as train_vlm steps them, at its
+# VLM_TRAIN_LAYERS layers: the MLP's up projection, the embedding and the
+# head (its rows 131072 wide, 512 quant blocks each)
+VLM_ADAMW_LEAVES = {"layers/mlp/w_up": (20, 5120, 14336),
+                    "embed": (131072, 5120), "lm_head": (5120, 131072)}
 
 
 # deepseek_v2_236b's largest leaves at train_moe's 2 layers: each routed
@@ -2099,6 +2171,36 @@ def check_paged_kernel(out, edge, edges):
                       "kernel_ms": time_ms(lambda: paged_attention_cuda(
                           qm, kp, vp, pt, sl))}}
     del q, kp, vp, pt, sl, got, want, again, qm, cc
+    # the other GQA groups' rounds at full width, the same lengths: held,
+    # bit for bit over two calls and timed (llama4's G = 5 runs the GC = 5
+    # instance, starcoder2's G = 12 two GC = 6 blocks a kv head, yi's
+    # G = 7 the GC = 7 instance; 32 / 8 and 64 / 8 the GC = 4 and GC = 8
+    # instances beside them, on the same kv bytes)
+    for key, hq, hkv in GQA_PREFILLS + (("g4", 32, 8), ("g8", 64, 8)):
+        (q, kp, vp, pt, sl), got, want, route = paged_case(lens, hq, hkv,
+                                                           128, 128)
+        err, ratio = close(got, want, 2e-2)
+        again = paged_attention_cuda(q, kp, vp, pt, sl)
+        check(route == "split" and ratio <= 1.0 and bool(torch.equal(
+            got.view(torch.int16), again.view(torch.int16))),
+              f"paged_attention {key} ({hq} / {hkv}): {route} route, "
+              f"max_abs_err {err}, {ratio} x tol, or two calls differ")
+        nbytes = (2 * (q.numel() + got.numel()) + 2 * live * hkv * 2 * D
+                  + 4 * (len(lens) + sum(-(-n // 16) for n in lens)))
+        b_ms, b_by = bound(nbytes, live * hq * 2 * 2 * D)
+        G = hq // hkv
+        out["paged_attention"][key] = {
+            "shape": {"Hq": hq, "Hkv": hkv, "group": G, "gc": paged_gc(G)},
+            "route": route, "max_err": err, "err_over_tol": ratio,
+            "bitwise_reproducible": True,
+            "kernel_ms": time_ms(lambda: paged_attention_cuda(
+                q, kp, vp, pt, sl)),
+            "plain_ms": time_ms(lambda: paged_attention_torch(
+                q, kp, vp, pt, sl)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        out["paged_attention"]["max_err"] = max(
+            out["paged_attention"]["max_err"], err)
+        del q, kp, vp, pt, sl, got, want, again
     for name, args, kw2, expect in [
             ("empty_and_len1_slots", ([0, 1, 16, 17], 8, 8, 128, 128), {},
              "split"),
@@ -2234,6 +2336,12 @@ def phase_kernels():
     # deepseek_v2_236b's MLA prefill: q and k at 128 + 64 = 192, v at 128
     out["flash_attention_mla"] = flash_row(4, 128, 128, 512, 512, 192, 128)
     check_mla_flash(out["flash_attention_mla"], edge)
+    # the other GQA groups' prefills at 4 x 512: llama4_maverick_400b's
+    # 40 / 8 (G = 5), starcoder2_15b's 48 / 4 (G = 12), yi_34b's 56 / 8
+    # (G = 7)
+    for key, hq, hkv in GQA_PREFILLS:
+        out[f"flash_attention_{key}"] = flash_row(4, hq, hkv, 512, 512, 128,
+                                                  128)
     # the kernels line's error is the worst over the main paths' prefill
     # shapes; serve_moe's is MLA's
     out["flash_attention"]["max_err"] = max(
@@ -2272,7 +2380,8 @@ def phase_kernels():
     # Mamba2 gated norm's 5120; deepseek_v2_236b's prefill (2048 rows) and
     # decode (4) at d_model 5120 and MLA's q_norm (1536) and kv_norm (512);
     # xlstm_350m's prefill (8192 rows) and decode (4) at d_model 1024 and
-    # the mLSTM out_norm's 2048
+    # the mLSTM out_norm's 2048; yi_34b's prefill, decode and paged round
+    # (8 slots) at d_model 7168, and llama4's paged round at 5120
     for rows, d, key in ((2048, 4096, "rmsnorm"), (4, 4096, "rmsnorm_decode"),
                          (4096, 4096, "rmsnorm_train"),
                          (8192, 5120, "rmsnorm_vlm"),
@@ -2289,7 +2398,11 @@ def phase_kernels():
                          (8192, 1024, "rmsnorm_xlstm_d1024"),
                          (8192, 2048, "rmsnorm_xlstm_d2048"),
                          (4, 1024, "rmsnorm_xlstm_decode_d1024"),
-                         (4, 2048, "rmsnorm_xlstm_decode_d2048")):
+                         (4, 2048, "rmsnorm_xlstm_decode_d2048"),
+                         (2048, 7168, "rmsnorm_yi_d7168"),
+                         (4, 7168, "rmsnorm_yi_decode_d7168"),
+                         (8, 7168, "rmsnorm_yi_round_d7168"),
+                         (8, 5120, "rmsnorm_llama4_round_d5120")):
         (x, s), got, want = rms_case(rows, d)
         err, ratio = close(got, want, 2e-2)
         check(ratio <= 1.0, f"rmsnorm ({rows}, {d}): max_abs_err {err}, "
@@ -2328,10 +2441,12 @@ def dense_launches(cfg):
     MoE sublayer alike) runs one flash attention (prefill only) or one
     paged attention (a paged round) and two RMSNorms, four with MLA (its
     q_norm and kv_norm too; its absorbed decode is plain einsums), the
-    final norm one."""
+    final norm one; a LayerNorm config none."""
     zero = {n: 0 for n in COUNTERS}
     per = 4 if cfg.attention.is_mla else 2
-    L, norms = cfg.n_layers, per * cfg.n_layers + 1
+    # LayerNorm (starcoder2_15b's) is plain PyTorch: no RMSNorm launch
+    per = per if cfg.norm == "rms" else 0
+    L, norms = cfg.n_layers, per * cfg.n_layers + int(cfg.norm == "rms")
     return ({**zero, "flash_attention": L, "rmsnorm": norms},
             {**zero, "rmsnorm": norms},
             {**zero, "paged_attention": L, "rmsnorm": norms})
@@ -2518,12 +2633,16 @@ class RoutingTape:
     the backward) gets the same entry as its first call in every mode,
     and is held to route as that call did (``recompute_changed`` counts
     the choices and slots that differ, over every run).  ``dropped`` is
-    each layer's count of choices the capacity dropped in the last run."""
+    each layer's count of choices the capacity dropped in the last run.
+    ``tally`` routes afresh and, every call on its own, adds the (token, k)
+    choices the capacity dropped and the choices made to ``tallies``: the
+    rows in ``live`` under ``where[0]``, the others under ``where[1]``
+    (``set("tally", live, where)`` before each call)."""
 
     def __init__(self):
         from repro_torch.models import moe
         self.moe, self.route = moe, moe.route
-        self.rec = {}
+        self.rec, self.tallies = {}, {}
         self.recompute_changed = 0
         self.set("record")
 
@@ -2534,9 +2653,10 @@ class RoutingTape:
     def __exit__(self, *exc):
         self.moe.route = self.route
 
-    def set(self, mode):
+    def set(self, mode, live=None, where=None):
         self.mode, self.first = mode, {}
         self.tokens_changed, self.slots_changed, self.dropped = [], [], []
+        self.live, self.where = live, where
 
     def replayed(self, xs, router, mcfg, idx, slots, C):
         """``moe.route``'s outputs at the recorded ``idx`` and ``slots``:
@@ -2554,6 +2674,13 @@ class RoutingTape:
             r = self.replayed(xs, router, mcfg, *self.rec[key])
         else:
             r = self.route(xs, router, mcfg)
+        if self.mode == "tally":
+            dropped = (r[2] == mcfg.n_experts * r[4]).sum(0)     # (T,)
+            for where, rows in zip(self.where, (self.live, ~self.live)):
+                d, n = self.tallies.setdefault(where, (0, 0))
+                self.tallies[where] = (d + int(dropped[rows].sum()),
+                                       n + r[2].shape[0] * int(rows.sum()))
+            return r
         if key in self.first:           # the layer's recompute
             idx, slots = self.first[key]
             self.recompute_changed += int((r[1] != idx).sum()
@@ -2570,6 +2697,11 @@ class RoutingTape:
             self.slots_changed.append(int((r[2] != slots).sum()))
         return r
 
+    def tally_summary(self):
+        return {k: {"dropped": d, "choices": n,
+                    "dropped_share": d / n if n else None}
+                for k, (d, n) in self.tallies.items()}
+
 
 def moe_prefill_pair(params, cfg, batch, B, P, device):
     """``prefill_pair`` for the moe family.  Routing is a discrete choice:
@@ -2582,21 +2714,25 @@ def moe_prefill_pair(params, cfg, batch, B, P, device):
     kernels' run with its own routing (the runtime's first tokens) is
     read beside it, with the tokens and choices whose routing changed."""
     from repro_torch.models import model
-    with RoutingTape() as tape:
-        want, _ = model.prefill(params, cfg, batch,
-                                model.init_cache(cfg, B, P, device),
-                                impl="torch")
-        tape.set("replay")
-        got, _ = model.prefill(params, cfg, batch,
-                               model.init_cache(cfg, B, P, device))
+
+    def run(impl):
+        return model.prefill(params, cfg, batch,
+                             model.init_cache(cfg, B, P, device),
+                             impl=impl)[0]
+
+    own = {}
+
+    def own_routing(tape, want):
         tape.set("compare")
-        free, _ = model.prefill(params, cfg, batch,
-                                model.init_cache(cfg, B, P, device))
-    read = {"routing": "the plain run's, replayed",
-            "own_routing": {**logits_check(free, want),
-                            "tokens_rerouted_by_layer": tape.tokens_changed,
-                            "choices_reslotted_by_layer":
-                                tape.slots_changed}}
+        own["logits"] = run("auto")
+        return {"own_routing": {**logits_check(own["logits"], want),
+                                "tokens_rerouted_by_layer":
+                                    tape.tokens_changed,
+                                "choices_reslotted_by_layer":
+                                    tape.slots_changed}}
+
+    got, want, read = logits_pair(cfg, run, then=own_routing)
+    free = own["logits"]
     return got, want, free, read
 
 
@@ -2728,15 +2864,60 @@ def phase_serve_dense(device="cuda", smoke=False):
 
 
 def phase_serve_paged(device="cuda", smoke=False):
-    """The paged data plane: 12 generate sessions through 8 slots."""
-    from repro_torch.models import model
+    """The paged data plane: 12 generate sessions through 8 slots
+    (``paged_plane`` on deepseek_7b)."""
     job = _paged_job(smoke)
+    out, tokens = paged_plane(
+        "serve_paged", job, _paged_prompts(job.cfg, smoke),
+        PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS, device)
+    emit("serve_paged", **out)
+    # each session's tokens, for the control phase (not printed)
+    out["session_tokens"] = tokens
+    return out
+
+
+def logits_pair(cfg, run, then=None):
+    """``run(impl)``'s logits with the kernels and with their plain
+    versions, (kernels, plain, what was read), their launches restored
+    out of the main path's counts.  A moe family's plain run's routing is
+    recorded and replayed into the kernels' run (``RoutingTape``:
+    near-tied experts swap in bf16), its drops read from the plain run;
+    ``then(tape, plain)``, when given, runs last with the recording and
+    adds its keys to what was read."""
+    saved = counts()
+    read = {}
+    if cfg.family == "moe":
+        with RoutingTape() as tape:
+            want = run("torch")
+            read["plain_dropped_by_layer"] = list(tape.dropped)
+            tape.set("replay")
+            got = run("auto")
+            if then is not None:
+                read.update(then(tape, want))
+        read["routing"] = "the plain run's, replayed"
+    else:
+        want = run("torch")
+        got = run("auto")
+    set_counts(saved)
+    return got, want, read
+
+
+def paged_plane(name, job, prompts, max_new, device):
+    """A paged serve ``BlockRuntime`` on ``job``: the prompts submitted at
+    once through its slots, the decode rounds as graph replays, the
+    launches exactly, the logits of two admission prefills (two prompt
+    buckets, the second ending in a partial 64-row kv tile) and of the
+    first decode round against ``impl="torch"`` (``logits_pair``),
+    tokens/s and TTFT, then the same traffic with the rounds run eagerly
+    from the same (empty) state: every session's tokens and the pool's
+    bits equal; for a moe family, its drops over that traffic
+    (``RoutingTape``'s tally).  Returns the phase's record and each session's
+    tokens."""
+    from repro_torch.models import model
     cfg = job.cfg
-    max_new = PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS
     rt = _block(job, device)
     rt.init_state()
     sch = rt.sessions
-    prompts = _paged_prompts(cfg, smoke)
     n_sess, lens = len(prompts), [len(p) for p in prompts]
 
     # hold the first admission prefill, the first one of another prompt
@@ -2752,36 +2933,29 @@ def phase_serve_paged(device="cuda", smoke=False):
         done = tap["admit_checks"]
         if not done or (len(done) == 1 and S != done[0]["bucket"]
                         and S % 64):
-            saved = counts()
-            res = []
-            for impl in ("auto", "torch"):
+            def run(impl):
                 x = model.embed_inputs(sch.params, cfg, {"tokens": tokens})
                 lg, _, _ = model.forward(
                     sch.params, cfg, x,
                     positions=torch.arange(S, device=x.device),
                     cache=model.init_cache(cfg, 1, S, x.device),
                     cache_len=0, impl=impl)
-                res.append(lg[0, last_idx][None])
-            set_counts(saved)
-            tap["admit_checks"].append(
-                {"bucket": S, **logits_check(res[0], res[1])})
+                return lg[0, last_idx][None]
+            got, want, read = logits_pair(cfg, run)
+            done.append({"bucket": S, **logits_check(got, want), **read})
         return admit(tokens, pages, last_idx)
 
     def tapped_decode(tokens, page_table, seq_lens):
         if tap["rounds"] == 0:
-            saved = counts()
-            res = []
-            for impl in ("auto", "torch"):
-                copy = {k: v.clone() for k, v in sch.pool.items()}
-                lg, _ = model.decode_step_paged(sch.params, cfg, tokens, copy,
-                                                page_table, seq_lens,
-                                                impl=impl)
-                res.append(lg)
-                del copy
-            set_counts(saved)
+            def run(impl):
+                lg, _ = model.decode_step_paged(
+                    sch.params, cfg, tokens, _clone(sch.pool), page_table,
+                    seq_lens, impl=impl)
+                return lg
+            got, want, read = logits_pair(cfg, run)
             live = seq_lens > 0
             tap["check"] = {"slots": int(live.sum()),
-                            **logits_check(res[0][live], res[1][live])}
+                            **logits_check(got[live], want[live]), **read}
         tap["rounds"] += 1
         return decode(tokens, page_table, seq_lens)
 
@@ -2791,33 +2965,35 @@ def phase_serve_paged(device="cuda", smoke=False):
     emissions, elapsed, ttft = _paged_traffic(rt, prompts, max_new)
     launches = counts()
     rounds = tap["rounds"]
-    graph = graph_check("serve_paged", sch.decode_graph, rounds,
-                        _eager_calls(), device)
+    graph = graph_check(name, sch.decode_graph, rounds, _eager_calls(),
+                        device)
     pre, _, per_round = dense_launches(cfg)
     if rt.device.type != "cuda":
         pre = per_round = {n: 0 for n in COUNTERS}
     check(launches == {n: sch.admissions * pre[n] + rounds * per_round[n]
                        for n in COUNTERS},
-          f"paged main path launches {launches}: not {sch.admissions} "
+          f"{name} main path launches {launches}: not {sch.admissions} "
           f"admissions {pre} and {rounds} rounds {per_round}")
     want_tokens = {s.sid: list(s.generated) for s in sch.sessions.values()}
     want_pool = bit_checksums(sch.pool)
     finished = [e for e in emissions if e["event"] == "finished"]
     n_tokens = sum(1 for e in emissions if e["event"] == "token")
     check(len(finished) == n_sess and sch.finished == n_sess,
-          f"{len(finished)} of {n_sess} sessions finished")
-    check(n_tokens == n_sess * max_new, f"{n_tokens} tokens generated")
+          f"{name}: {len(finished)} of {n_sess} sessions finished")
+    check(n_tokens == n_sess * max_new,
+          f"{name}: {n_tokens} tokens generated")
     for sess in sch.sessions.values():
         check(len(sess.generated) == max_new and all(
             0 <= t < cfg.vocab_size for t in sess.generated),
-              f"session {sess.sid} tokens")
+              f"{name}: session {sess.sid} tokens")
     chk, admits = tap["check"], tap["admit_checks"]
     check(chk is not None and chk["passed"],
-          f"first paged decode round logits: {chk}")
+          f"{name}: first paged decode round logits: {chk}")
     check(len(admits) == 2 and all(c["passed"] for c in admits),
-          f"admission prefill logits: {admits}")
-    out = {"arch": cfg.name, "sessions": n_sess, "slots": 8,
-           "prompt_lens": lens, "max_new_tokens": max_new,
+          f"{name}: admission prefill logits: {admits}")
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "sessions": n_sess,
+           "slots": job.max_slots, "prompt_lens": lens,
+           "max_new_tokens": max_new,
            "n_pages": sch.n_pages, "decode_rounds": rounds,
            "admissions": sch.admissions, "evictions": sch.evictions,
            "elapsed_s": elapsed, "tokens": n_tokens,
@@ -2827,8 +3003,7 @@ def phase_serve_paged(device="cuda", smoke=False):
            "launches": launches, "decode_graph": graph,
            "logits_check": chk, "admission_logits_checks": admits}
     if rt.device.type == "cuda":
-        out["pool_gb"] = sum(v.numel() * v.element_size()
-                             for v in sch.pool.values()) / 1e9
+        out["pool_gb"] = tree_bytes(sch.pool) / 1e9
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["warm_decode_round"] = _warm_round(rt, prompts, max_new)
 
@@ -2842,7 +3017,26 @@ def phase_serve_paged(device="cuda", smoke=False):
     _free(device)
     rt.sessions = sch = rt._make_scheduler(rt.state["params"])
     sch.decode_graph.capture = False
-    ems, eager_s, eager_ttft = _paged_traffic(rt, prompts, max_new)
+    tally = None
+    if cfg.family == "moe":
+        # the eager rounds' routing, tapped: the drops of the live slots
+        # and the idle ones, of the prompt's tokens and its page padding
+        tally = RoutingTape()
+        admit, decode = sch._admit_prefill, sch._decode_step
+
+        def tally_admit(tokens, pages, last_idx):
+            tally.set("tally", torch.arange(
+                tokens.shape[1], device=tokens.device) <= last_idx,
+                ("admission_prompt", "admission_pad"))
+            return admit(tokens, pages, last_idx)
+
+        def tally_decode(tokens, page_table, seq_lens):
+            tally.set("tally", seq_lens > 0, ("decode_live", "decode_idle"))
+            return decode(tokens, page_table, seq_lens)
+
+        sch._admit_prefill, sch._decode_step = tally_admit, tally_decode
+    with tally or contextlib.nullcontext():
+        ems, eager_s, eager_ttft = _paged_traffic(rt, prompts, max_new)
     got_tokens = {s.sid: list(s.generated) for s in sch.sessions.values()}
     out["captured_vs_eager"] = {
         "rounds": sch.decode_graph.eager_calls,
@@ -2855,15 +3049,19 @@ def phase_serve_paged(device="cuda", smoke=False):
     check(out["captured_vs_eager"]["tokens_equal"]
           and out["captured_vs_eager"]["pool_bitwise_equal"]
           and out["captured_vs_eager"]["rounds"] == rounds,
-          f"paged rounds captured against eager from one state: "
+          f"{name}: paged rounds captured against eager from one state: "
           f"{out['captured_vs_eager']}")
+    if tally is not None:
+        del sch._admit_prefill, sch._decode_step
+        out["capacity_drop"] = tally.tally_summary()
+        for v in out["capacity_drop"].values():
+            check(v["dropped_share"] is None
+                  or 0.0 <= v["dropped_share"] <= 1.0,
+                  f"{name}: drop shares {out['capacity_drop']}")
     if rt.device.type == "cuda":
         out["warm_decode_round_eager"] = _warm_round(rt, prompts, max_new)
     set_counts(saved)
-    emit("serve_paged", **out)
-    # each session's tokens, for the control phase (not printed)
-    out["session_tokens"] = want_tokens
-    return out
+    return out, want_tokens
 
 
 def _paged_traffic(rt, prompts, max_new):
@@ -2888,10 +3086,11 @@ def _paged_traffic(rt, prompts, max_new):
 
 
 def _warm_round(rt, prompts, max_new):
-    """A warm decode round with all 8 slots busy (after their
-    admission)."""
+    """A warm decode round with all 8 slots busy (after their admission):
+    the sessions outlast the admission's feed and ``profile_steps``' 7
+    (at least 9 tokens each)."""
     for p in prompts[:8]:
-        rt.start_session(p, max_new_tokens=max_new)
+        rt.start_session(p, max_new_tokens=max(max_new, 9))
     rt.feed()
     return profile_steps(rt.feed, 3)
 
@@ -3100,7 +3299,9 @@ def moe_reads(rt, batch, args, out):
     capacity: C = 96 for 2048 prefill tokens, C = 1 for a decode step's 4),
     and the experts the decode step's tokens chose; the decode bound, the
     weights' bytes over the memory rate (the expert products read every
-    expert, even at C = 1), beside the bytes of the chosen experts alone;
+    expert, even at C = 1), beside the bytes of the chosen experts alone
+    and beside the weights' bytes with only the looked-up rows of the
+    embedding table;
     on the card, the decode step's idle share and the expert products'
     share of the warm prefill (three batched products of one layer timed
     alone, times the layers, over the prefill's device time).  The
@@ -3144,22 +3345,30 @@ def moe_reads(rt, batch, args, out):
                 "dropped_share": n / total,
                 "dropped_by_layer": [r[0] for r in rows]}
 
-    elem = params["layers"]["moe"]["w_gate"].element_size()
+    # the MoE params: a group's own (deepseek_v2) or its moe sublayer's
+    # (llama4's {dense, moe} groups)
+    lp = params["layers"]["moe"]
+    lp = lp if "router" in lp else lp["moe"]
+    elem = lp["w_gate"].element_size()
     expert_bytes = 3 * cfg.d_model * m.d_ff_expert * elem
     weights = tree_bytes(params)
+    # the embedding table but the B rows looked up
+    embed = params["embed"]
+    read = weights - tree_bytes(embed) + B * embed[0].numel() * elem
     chosen = [r[3] for r in dec]
-    active = weights - expert_bytes * (cfg.n_layers * m.n_experts
+    active = weights - expert_bytes * (len(dec) * m.n_experts
                                        - sum(chosen))
     res = {"logits_digests": digests,
            "capacity_drop": {"prefill": drops(pre), "decode": drops(dec)},
            "decode_bound": {
                "weights_gb": weights / 1e9,
                "bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+               "read_gb": read / 1e9,
+               "embedding_rows_bound_ms": read / HBM_BYTES_PER_S * 1e3,
                "experts_chosen_by_layer": chosen,
                "chosen_experts_bound_ms": active / HBM_BYTES_PER_S * 1e3}}
     if rt.device.type == "cuda":
         res["decode_idle_share"] = out["warm_decode_step"]["idle_share"]
-        lp = params["layers"]["moe"]
         E, C, d = m.n_experts, pre[0][2], cfg.d_model
         ebuf = _randn((E, C, d), _gen(6))
         wg, wu, wd = (lp[k][0] for k in ("w_gate", "w_up", "w_down"))
@@ -3171,7 +3380,7 @@ def moe_reads(rt, batch, args, out):
         ms = time_ms(experts, iters=10)
         res["expert_products"] = {
             "ms_per_layer": ms, "shape": [E, C, d, m.d_ff_expert],
-            "prefill_share": ms * cfg.n_layers
+            "prefill_share": ms * len(pre)
             / out["warm_prefill"]["device_ms"]}
         del ebuf
     return res
@@ -3218,6 +3427,143 @@ def phase_serve_moe(device="cuda", smoke=False):
                n_shared=cfg.moe.n_shared,
                reduced={"n_layers": [full.n_layers, cfg.n_layers]})
     emit("serve_moe", **out)
+    return out
+
+
+#: llama4_maverick_400b's layers in ``serve_llama4`` and
+#: ``serve_llama4_paged``: one group of its 48, a dense layer and a MoE
+#: layer of 128 experts (18.57e9 params, 37.1 GB of bf16 weights with the
+#: untied embedding and head)
+LLAMA4_LAYERS = 2
+
+
+def _llama4(smoke):
+    """llama4_maverick_400b's config and its cut (the smoke config
+    whole)."""
+    import repro_torch.configs as configs
+    arch = "llama4_maverick_400b"
+    if smoke:
+        return configs.get_smoke(arch), configs.get_smoke(arch)
+    full = configs.get(arch)
+    return full, full.replace(n_layers=LLAMA4_LAYERS)
+
+
+def paged_gc(G: int) -> int:
+    """The paged kernel's query heads a block for a group of G: the largest
+    divisor of G at most 8 (``csrc/paged_attention.cu``'s dispatch)."""
+    return max(c for c in range(1, 9) if G % c == 0)
+
+
+def _gqa(cfg) -> dict:
+    """A GQA config's heads, group and the paged kernel's GC."""
+    a = cfg.attention
+    G = a.n_heads // a.n_kv_heads
+    return {"n_heads": a.n_heads, "n_kv_heads": a.n_kv_heads, "group": G,
+            "paged_gc": paged_gc(G)}
+
+
+def phase_serve_llama4(device="cuda", smoke=False):
+    """llama4_maverick_400b (the moe family with GQA 40 / 8: dense and MoE
+    layers alternating, 128 routed experts top-1 and a shared one) at full
+    width, cut in depth to ``LLAMA4_LAYERS`` of its 48 layers (one group),
+    random bf16 weights from seed 0, through the launcher's entry point
+    (``dense_plane`` handed the cut config): 4 prompts of 512 tokens, 32
+    generated, the decode steps as graph replays, the launches exact (per
+    layer 1 flash and 2 RMSNorms a prefill, 2 RMSNorms a decode step), the
+    prefill logits against ``impl="torch"`` with the plain run's routing
+    replayed (``moe_prefill_pair``).  Besides: ``moe_reads`` (C = 20 for
+    the prefill's 2048 tokens, C = 1 for a decode step's 4)."""
+    full, cfg = _llama4(smoke)
+    argv = ["--arch", full.name.replace("_smoke", ""), "--batch", "4",
+            "--prompt-len", "512", "--gen", "32", "--seed", "0", "--device",
+            device]
+    if smoke:
+        argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len", "24",
+                           "--gen", "6", "--device", device]
+    out = dense_plane("serve_llama4", argv, device, cfg=cfg, extra=moe_reads,
+                      logits_pair=moe_prefill_pair)
+    out.update(d_model=cfg.d_model, **_gqa(cfg), d_ff=cfg.d_ff,
+               n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+               n_shared=cfg.moe.n_shared, d_ff_expert=cfg.moe.d_ff_expert,
+               reduced={"n_layers": [full.n_layers, cfg.n_layers]})
+    emit("serve_llama4", **out)
+    return out
+
+
+def phase_serve_llama4_paged(device="cuda", smoke=False):
+    """serve_llama4's cut on the paged plane (``paged_plane``): serve_paged's
+    traffic, 12 sessions of 17 to 700 prompt tokens through 8 slots, 32
+    tokens each, the rounds captured over the nested {dense, moe} pool;
+    the admission and first-round logits held with the plain run's routing
+    replayed; the eager replay's tokens and pool bit for bit; the paged
+    kernel at the group of 5 (GC = 5) on its split route (no scalar-route
+    launch); the choices the capacity dropped (at C = 1 a round's idle
+    slots take capacity, and an admission's page padding, as in the
+    reference); the warm round's replay against its bound (the weights'
+    bytes but the embedding table's over the memory rate)."""
+    from repro_torch.models import model
+    full, cfg = _llama4(smoke)
+    job = _paged_job(smoke, cfg=cfg)
+    out, _ = paged_plane(
+        "serve_llama4_paged", job, _paged_prompts(cfg, smoke),
+        PAGED_NEW_TOKENS_SMOKE if smoke else PAGED_NEW_TOKENS, device)
+    weights = model.abstract_params(cfg)
+    read = tree_bytes(weights) - tree_bytes(weights["embed"])
+    out.update(**_gqa(cfg), n_experts=cfg.moe.n_experts,
+               top_k=cfg.moe.top_k,
+               reduced={"n_layers": [full.n_layers, cfg.n_layers]},
+               round_bound={"read_gb": read / 1e9,
+                            "bound_ms": read / HBM_BYTES_PER_S * 1e3})
+    if "warm_decode_round" in out:
+        out["round_bound"]["replay_over_bound"] = (
+            out["warm_decode_round"]["wall_ms"]
+            / out["round_bound"]["bound_ms"])
+    emit("serve_llama4_paged", **out)
+    return out
+
+
+#: the dense configs ``serve_dense_groups`` serves whole, each on both
+#: planes, and each paged session's new tokens (the second at smoke size)
+DENSE_GROUP_ARCHS = ("starcoder2_15b", "yi_34b")
+DENSE_GROUP_NEW_TOKENS, DENSE_GROUP_NEW_TOKENS_SMOKE = 8, 4
+
+
+def phase_serve_dense_groups(device="cuda", smoke=False):
+    """starcoder2_15b (LayerNorm and a non-gated GELU MLP, plain PyTorch as
+    in the reference: no RMSNorm launch; GQA 48 / 4) and yi_34b (GQA
+    56 / 8; 68.8 GB of bf16 weights, the largest dense model one card
+    holds whole) at full size, random bf16 weights from seed 0, each on
+    the dense plane through the launcher (``dense_plane``: 4 x 512 prompt
+    tokens, 16 generated) and then on the paged plane (``paged_plane``:
+    serve_paged's 12 prompts through 8 slots, ``DENSE_GROUP_NEW_TOKENS``
+    each), each block freed before the next is built.  The flash kernel
+    runs their groups of 12 and 7, the paged kernel G = 12 as two blocks
+    of 6 heads a kv head and G = 7 as one."""
+    import repro_torch.configs as configs
+    from repro_torch.models import model
+    out = {}
+    for arch in DENSE_GROUP_ARCHS:
+        cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+        progress(f"serve_dense_groups: {arch}, dense plane")
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "512",
+                "--gen", "16", "--seed", "0", "--device", device]
+        if smoke:
+            argv = argv[:2] + ["--smoke", "--batch", "2", "--prompt-len",
+                               "24", "--gen", "6", "--device", device]
+        dense = dense_plane(f"serve_dense_groups {arch}", argv, device)
+        _free(device)
+        progress(f"serve_dense_groups: {arch}, paged plane")
+        paged, _ = paged_plane(
+            f"serve_dense_groups {arch} paged", _paged_job(smoke, cfg=cfg),
+            _paged_prompts(cfg, smoke),
+            DENSE_GROUP_NEW_TOKENS_SMOKE if smoke
+            else DENSE_GROUP_NEW_TOKENS, device)
+        _free(device)
+        out[arch] = {"norm": cfg.norm, "mlp_gated": cfg.mlp_gated,
+                     **_gqa(cfg), "params": model.count_params(
+                         model.abstract_params(cfg)),
+                     "dense": dense, "paged": paged}
+    emit("serve_dense_groups", **out)
     return out
 
 
@@ -3525,7 +3871,8 @@ def step0_check(params, cfg, batch):
 BF16_STEP0_MARGIN = 1.25
 
 
-def step0_upcast_check(params, cfg, batch, hold_bf16=True):
+def step0_upcast_check(params, cfg, batch, hold_bf16=True,
+                       consume=False):
     """The hybrid's step 0 with the weights upcast to fp32, every kernel on
     its fp32 instantiation and TF32 off, against ``impl="torch"`` on the
     same weights: held under STEP0_RTOL.  The random-weight bf16 stack
@@ -3538,16 +3885,31 @@ def step0_upcast_check(params, cfg, batch, hold_bf16=True):
     leaf's two bf16 distances read 0.4-13 times each other); those past
     STEP0_RTOL are recorded with both distances.  ``hold_bf16=False``
     reads the bf16 step 0 against its limit and does not hold it (the
-    xlstm's: ``xlstm_step0_check``)."""
+    xlstm's: ``xlstm_step0_check``).  ``consume=True`` reads the bf16
+    step 0 first, then upcasts ``params`` in place, leaf by leaf, so the
+    bf16 and the fp32 weights never lie on the card together (pixtral's
+    20-layer cut: 13.6 GB beside 27.2 GB of fp32 weights and 27.2 of
+    their grads); the caller's params are fp32 after it."""
     from repro_torch.models.transformer import flatten, unflatten
+
+    def bf16_reads():
+        return {impl: step0_reads(params, cfg, batch, impl)
+                for impl in ("auto", "torch")}
+
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    params32 = unflatten((k, v.detach().float().requires_grad_(True))
-                         for k, v in flatten(params))
+    if consume:
+        bf16 = bf16_reads()
+        for _, v in flatten(params):
+            v.data = v.data.float()
+        params32 = params
+    else:
+        params32 = unflatten((k, v.detach().float().requires_grad_(True))
+                             for k, v in flatten(params))
     f32 = {impl: step0_reads(params32, cfg32, batch, impl)
            for impl in ("auto", "torch")}
     del params32
-    bf16 = {impl: step0_reads(params, cfg, batch, impl)
-            for impl in ("auto", "torch")}
+    if not consume:
+        bf16 = bf16_reads()
     plain = step0_distance(bf16["torch"], f32["torch"], "f32")
     rtol = dict(STEP0_RTOL, leaf_rms=STEP0_RTOL["worst_leaf_grad_norm"])
     limit = {k: max(r, BF16_STEP0_MARGIN * plain[f"{k}_rel_err"])
@@ -3749,6 +4111,72 @@ def phase_train_encoder(device="cuda", smoke=False):
     return _train_phase("train_encoder", cfg, shape, opt_cfg, device,
                         n_steps=2 if smoke else 5, profile=True,
                         step0=step0_upcast_check)
+
+
+#: pixtral_12b's layers in ``train_vlm``: 20 of its 40 (6.79e9 params with
+#: the embedding, head and patch projection, ~41 GB of train state with
+#: int8 moments; the whole model's ~74 GB would leave no room for a step)
+VLM_TRAIN_LAYERS = 20
+
+
+def phase_train_vlm(device="cuda", smoke=False):
+    """pixtral_12b (the VLM: mistral_nemo_12b's backbone, GQA 32 / 8, behind
+    the patch stub) at full width, cut in depth to ``VLM_TRAIN_LAYERS`` of
+    its 40 layers, random bf16 weights from seed 0, int8 AdamW moments,
+    2 x 2048 positions a step (the pipeline's 256 stub patches, then 1792
+    text tokens), one microbatch, remat.  Step 0 first, before the block
+    and its optimizer state exist (its fp32 upcast's params and grads
+    would not fit beside them), on the block's params and first batch
+    (``step0_upcast_check``, the params upcast in place: in fp32 against ``impl="torch"`` under
+    STEP0_RTOL, the bf16 step 0 against the fp32 one within
+    BF16_STEP0_MARGIN of the plain bf16 step 0's distance); then 5 steps
+    through ``BlockRuntime(kind="train")``, their launches per step held
+    exactly (``train_launches``: per layer 2 flash forward with the
+    recompute and 1 backward, the backward's dk and dv summed over the
+    group of 4 on the tensor cores, none on a CUDA-core route; 81 / 41
+    RMSNorms; one int8 AdamW a leaf), tok/s, MFU, peak memory and what it
+    leaves free, and a profiled step."""
+    import repro_torch.configs as configs
+    from repro_torch.data import pipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optimizer import OptConfig
+    full = (configs.get_smoke("pixtral_12b") if smoke
+            else configs.get("pixtral_12b"))
+    cfg = full if smoke else full.replace(n_layers=VLM_TRAIN_LAYERS)
+    shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
+                        global_batch=2, microbatch=1)
+    opt_cfg = OptConfig(state_bits=8, warmup_steps=2, total_steps=100)
+    progress("train_vlm: step-0 check")
+    t0 = time.perf_counter()
+    params = model_lib.Transformer(cfg, None, seed=0, device=device,
+                                   requires_grad=True).params
+    batch = pipeline.DataIterator(cfg, shape, seed=0, device=device).batch(0)
+    n_patches = batch["patches"].shape[1]
+    chk = step0_upcast_check(params, cfg, batch, consume=True)
+    chk["seconds"] = time.perf_counter() - t0
+    if torch.device(device).type == "cuda":
+        chk["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, batch
+    _free(device)
+
+    def after(rt, out):
+        out["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers]}
+        out.update(**_gqa(cfg), n_patches=n_patches,
+                   params=model_lib.count_params(rt.state["params"]))
+        out["step0_loss_equals_check"] = (
+            out["losses"][0] == chk["bf16"]["loss"])
+        check(out["step0_loss_equals_check"],
+              f"train_vlm: the block's first loss {out['losses'][0]} is not "
+              f"the checked bf16 step 0's {chk['bf16']['loss']}")
+        if rt.device.type == "cuda":
+            total = torch.cuda.get_device_properties(0).total_memory / 1e9
+            out["free_at_peak_gb"] = total - out["peak_mem_gb"]
+        return rt
+
+    return _train_phase("train_vlm", cfg, shape, opt_cfg, device,
+                        n_steps=2 if smoke else 5, profile=True,
+                        step0=lambda *_: chk, after=after)
 
 
 def phase_train(device="cuda", smoke=False):
@@ -5290,14 +5718,24 @@ def xlstm_step0_check(params, cfg, batch):
     return step0_upcast_check(params, cfg, batch, hold_bf16=False)
 
 
+#: xlstm_350m's layers in ``train_xlstm`` (and ``xlstm_sharded``'s train
+#: block): one group of its three, 7 mLSTM blocks and 1 sLSTM, at full
+#: width.  The sLSTM's loop of one step a position paces the step from
+#: the host (17-30 s a step whole): the whole model's 3 loops made the
+#: two phases ~410 s of a run that must end within 1200 s
+XLSTM_TRAIN_LAYERS = 8
+
+
 def _train_xlstm_setup(smoke):
-    """train_xlstm's job: xlstm_350m whole (24 layers), 4 x 2048 tokens a
-    step (2 x 32 at smoke size), one microbatch, fp32 moments."""
+    """train_xlstm's job: xlstm_350m at full width cut to
+    ``XLSTM_TRAIN_LAYERS`` of its 24 layers, 4 x 2048 tokens a step (the
+    smoke config whole, 2 x 32), one microbatch, fp32 moments."""
     import repro_torch.configs as configs
     from repro_torch.models.config import ShapeConfig
     from repro_torch.train.optimizer import OptConfig
     cfg = (configs.get_smoke("xlstm_350m") if smoke
-           else configs.get("xlstm_350m"))
+           else configs.get("xlstm_350m").replace(
+               n_layers=XLSTM_TRAIN_LAYERS))
     shape = ShapeConfig("chip", "train", seq_len=32 if smoke else 2048,
                         global_batch=2 if smoke else 4, microbatch=1)
     opt_cfg = OptConfig(state_bits=None, warmup_steps=2, total_steps=100)
@@ -5305,25 +5743,31 @@ def _train_xlstm_setup(smoke):
 
 
 def phase_train_xlstm(device="cuda", smoke=False):
-    """xlstm_350m at full size (24 layers, random bf16 weights from seed
-    0), fp32 AdamW moments, 4 x 2048 tokens a step, one microbatch,
-    remat: step 0 in fp32 (the weights upcast) against ``impl="torch"``
-    under STEP0_RTOL and the bf16 step 0 beside it
-    (``xlstm_step0_check``); 3 steps, their launches per step held
-    exactly (``train_launches``: 97 RMSNorms forward with the recompute,
-    49 backward, 18 fp32 AdamW of which 3 on the scalar route, no
-    flash), the last of them profiled (a step takes ~17 s, the host
-    launching ~500k small kernels, most of them the sLSTM's); tok/s,
+    """xlstm_350m at full width cut to ``XLSTM_TRAIN_LAYERS`` of its 24
+    layers (random bf16 weights from seed 0), fp32 AdamW moments, 4 x
+    2048 tokens a step, one microbatch, remat: step 0 in fp32 (the
+    weights upcast) against ``impl="torch"`` under STEP0_RTOL and the
+    bf16 step 0 beside it (``xlstm_step0_check``); 3 steps, their
+    launches per step held exactly (``train_launches``: 33 RMSNorms
+    forward with the recompute, 17 backward, 18 fp32 AdamW of which 3 on
+    the scalar route, no flash), the last of them profiled (the host
+    launches the sLSTM's loop, most of the step's small kernels); tok/s,
     MFU and peak memory."""
+    import repro_torch.configs as configs
     cfg, shape, opt_cfg = _train_xlstm_setup(smoke)
+    full = cfg if smoke else configs.get("xlstm_350m")
+
+    def after(rt, out):
+        out["reduced"] = {"n_layers": [full.n_layers, cfg.n_layers]}
+        return rt
+
     return _train_phase("train_xlstm", cfg, shape, opt_cfg, device,
                         n_steps=2 if smoke else 3, profile="last",
-                        step0=xlstm_step0_check)
+                        step0=xlstm_step0_check, after=after)
 
 
-#: xlstm_sharded's train steps before its ``host_probe`` step (a step
-#: takes 17-30 s on the card, the host launching the sLSTM's loop): with
-#: the probe, train_xlstm's first two, and the phase stays under 90 s
+#: xlstm_sharded's train steps before its ``host_probe`` step (the host
+#: launches the sLSTM's loop): with the probe, train_xlstm's first two
 XLSTM_SHARDED_STEPS = 1
 
 
@@ -5335,8 +5779,8 @@ def phase_xlstm_sharded(device="cuda", smoke=False, train=None,
     DeviceMesh with every param a DTensor and the tensor-parallel path
     of its mLSTM and sLSTM heads, the sLSTM's feed-forward and the tied
     vocabulary at M = 1 (every join a no-op, every leaf's model shard
-    the leaf).  The train block: train_xlstm's job (``train``: 24 layers,
-    fp32 moments, 4 x 2048 tokens), XLSTM_SHARDED_STEPS steps, their
+    the leaf).  The train block: train_xlstm's job (``train``: 8 of 24
+    layers, fp32 moments, 4 x 2048 tokens), XLSTM_SHARDED_STEPS steps, their
     launches per step exactly train_xlstm's, then one ``host_probe``
     step (its enqueue against its wall time, a warm step); every step's
     loss and grad norm train_xlstm's bit for bit.  The serve block:
@@ -5628,12 +6072,15 @@ def _preempt_train(device, smoke, root, train):
 PAGED_NEW_TOKENS, PAGED_NEW_TOKENS_SMOKE = 32, 6
 
 
-def _paged_job(smoke, ns=None):
+def _paged_job(smoke, ns=None, cfg=None):
+    """serve_paged's job (8 slots, page 16, 1024 positions), on deepseek_7b
+    or ``cfg``."""
     import repro_torch.configs as configs
     from repro_torch.core.runtime import JobSpec
     from repro_torch.models.config import ShapeConfig
-    cfg = (configs.get_smoke("deepseek_7b") if smoke
-           else configs.get("deepseek_7b"))
+    if cfg is None:
+        cfg = (configs.get_smoke("deepseek_7b") if smoke
+               else configs.get("deepseek_7b"))
     max_seq = 64 if smoke else 1024
     return JobSpec(cfg, ShapeConfig("smoke", "serve", seq_len=max_seq,
                                     global_batch=1), kind="serve", seed=0,
@@ -7396,18 +7843,15 @@ def _free(device="cuda") -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
-def emit_capture_summary(info, dense, paged, hybrid, vlm, moe,
-                         xlstm) -> None:
+def emit_capture_summary(info, runs) -> None:
     """One line: each decode path's step wall time, idle share and tok/s
     run eagerly and as graph replays (the same run, the same card), its
-    capture time and graph pool."""
+    capture time and graph pool.  ``runs``: (name, a dense-plane or
+    paged-plane record)."""
     paths = {}
-    for name, run, key in (("serve_dense", dense, "warm_decode_step"),
-                           ("serve_paged", paged, "warm_decode_round"),
-                           ("serve_hybrid", hybrid, "warm_decode_step"),
-                           ("serve_vlm", vlm, "warm_decode_step"),
-                           ("serve_moe", moe, "warm_decode_step"),
-                           ("serve_xlstm", xlstm, "warm_decode_step")):
+    for name, run in runs:
+        key = ("warm_decode_round" if "warm_decode_round" in run
+               else "warm_decode_step")
         eager, captured = run[key + "_eager"], run[key]
         vs = run["captured_vs_eager"]
         paths[name] = {
@@ -7450,6 +7894,15 @@ def _run_all() -> int:
     progress("serve_moe")
     moe = phase_serve_moe()
     _free()
+    progress("serve_llama4")
+    llama4 = phase_serve_llama4()
+    _free()
+    progress("serve_llama4_paged")
+    llama4_paged = phase_serve_llama4_paged()
+    _free()
+    progress("serve_dense_groups")
+    groups = phase_serve_dense_groups()
+    _free()
     progress("serve_xlstm")
     xlstm = phase_serve_xlstm()
     _free()
@@ -7477,6 +7930,8 @@ def _run_all() -> int:
     serve_long = phase_serve_long()
     _free()
     train_encoder = phase_train_encoder()
+    _free()
+    train_vlm = phase_train_vlm()
     _free()
     train_moe = phase_train_moe()
     _free()
@@ -7517,6 +7972,11 @@ def _run_all() -> int:
             "serve_sharded": serve_sharded["launches"],
             "hybrid": hybrid["launches"],
             "vlm": vlm["launches"], "moe": moe["launches"],
+            "llama4": llama4["launches"],
+            "llama4_paged": llama4_paged["launches"],
+            **{f"{arch}_{plane}": groups[arch][plane]["launches"]
+               for arch in DENSE_GROUP_ARCHS
+               for plane in ("dense", "paged")},
             "xlstm": xlstm["launches"],
             "train": train["launches"],
             "train_sharded": train_sharded["launches"],
@@ -7527,6 +7987,7 @@ def _run_all() -> int:
             "hybrid_sharded": hybrid_sharded["launches"],
             "serve_long": serve_long["launches"],
             "train_encoder": train_encoder["launches"],
+            "train_vlm": train_vlm["launches"],
             "train_moe": train_moe["launches"],
             "moe_sharded": moe_sharded["launches"],
             "serve_long_mla": serve_long_mla["launches"],
@@ -7547,6 +8008,11 @@ def _run_all() -> int:
               "hybrid": [hybrid["decode_graph"]],
               "vlm": [vlm["decode_graph"]],
               "moe": [moe["decode_graph"]],
+              "llama4": [llama4["decode_graph"]],
+              "llama4_paged": [llama4_paged["decode_graph"]],
+              **{f"{arch}_{plane}": [groups[arch][plane]["decode_graph"]]
+                 for arch in DENSE_GROUP_ARCHS
+                 for plane in ("dense", "paged")},
               "xlstm": [xlstm["decode_graph"]],
               "hybrid_sharded": [hybrid_sharded["serve"]["decode_graph"]],
               "serve_long": [serve_long[k]["decode_graph"]
@@ -7570,7 +8036,13 @@ def _run_all() -> int:
                         for g in gs) for run, gs in graphs.items()}
         return {run: n for run, n in got.items() if n}
 
-    emit_capture_summary(info, dense, paged, hybrid, vlm, moe, xlstm)
+    emit_capture_summary(info, [
+        ("serve_dense", dense), ("serve_paged", paged),
+        ("serve_hybrid", hybrid), ("serve_vlm", vlm), ("serve_moe", moe),
+        ("serve_llama4", llama4), ("serve_llama4_paged", llama4_paged),
+        *((f"{arch} {plane}", groups[arch][plane])
+          for arch in DENSE_GROUP_ARCHS for plane in ("dense", "paged")),
+        ("serve_xlstm", xlstm)])
 
     rows = []
     for name, meta in KERNEL_META.items():
@@ -7590,6 +8062,7 @@ def _run_all() -> int:
                            hybrid_sharded["launches"]["fused_adamw_f32"],
                        "train_encoder":
                            train_encoder["launches"]["fused_adamw_f32"],
+                       "train_vlm": train_vlm["launches"]["fused_adamw_i8"],
                        "train_moe": train_moe["launches"]["fused_adamw_i8"],
                        "moe_sharded":
                            moe_sharded["train"]["launches"]["fused_adamw_i8"],
@@ -7635,7 +8108,27 @@ def _run_all() -> int:
                 "library_ms": mla["library_ms"],
                 "was_ms": mla["was_route"]["kernel_ms"],
                 "routes": mla["routes"]}
+        if name == "flash_attention":
+            # the other GQA groups' prefills, each run's launches
+            row["gqa_prefill"] = {
+                key: {f: kern[f"flash_attention_{key}"][f] for f in (
+                    "shape", "kv_heads", "max_err", "kernel_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")}
+                for key, _, _ in GQA_PREFILLS}
+        if name == "paged_attention":
+            # the other GQA groups' rounds (GC = 4 and 8 beside them)
+            row["gqa_groups"] = {key: k[key] for key in (
+                *(g[0] for g in GQA_PREFILLS), "g4", "g8")}
         if name == "flash_attention_bwd":
+            # pixtral_12b's GQA train shape and its train_vlm launches
+            vt = k["vlm_train_shape"]
+            row["vlm_train"] = {
+                "shape": vt["shape"], "kv_heads": 8,
+                "launches": train_vlm["launches"]["flash_attention_bwd"],
+                "max_abs_err": vt["max_err"], "ms": vt["kernel_ms"],
+                "plain_ms": vt["plain_ms"], "bound_ms": vt["bound_ms"],
+                "bound_by": vt["bound_by"], "library_ms": vt["library_ms"],
+                "routes": vt["routes"]}
             # MLA's train shape (head dims 192 | 128), its train_moe
             # launches and the route each check launch took
             mla = k["mla_train_shape"]
@@ -7655,6 +8148,16 @@ def _run_all() -> int:
                 "plain_ms": leaf["plain_ms"], "bound_ms": leaf["bound_ms"],
                 "bound_by": leaf["bound_by"], "library_ms": None,
                 "p_ulp": leaf["p_ulp"]}
+            # pixtral_12b's largest int8 leaves, each launched once a
+            # train_vlm step
+            row["vlm_i8_leaves"] = {
+                leaf: {"shape": r["shape"], "launches": train_vlm["steps"],
+                       "max_abs_err": r["p_max_abs_err"],
+                       "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                       "library_ms": None,
+                       "was_ms": r["was_route"]["kernel_ms"]}
+                for leaf, r in k["vlm_i8_leaves"].items()}
         row["bound_share"] = k["bound_ms"] / k["kernel_ms"]
         rows.append(row)
     line = json.dumps({"kernels": rows})

@@ -502,18 +502,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     if device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-    # one group at a time into preallocated stacked leaves: neither the
-    # fp32 draw of the whole stack nor a second copy of it ever exists
+    # one group at a time into stacked leaves: neither the fp32 draw of
+    # the whole stack nor a second copy of it ever exists; the leaves of a
+    # single group, kept whole, are their own stack (llama4's one-group cut
+    # is 33 GB)
     ng = n_groups(cfg)
-    shapes = flatten(group_init(None, cfg, dtype, "meta"))
-    stack = {path: torch.empty((ng,) + tuple(keep("layers/" + path,
-                                                  leaf).shape),
-                               dtype=leaf.dtype, device=device)
-             for path, leaf in shapes}
-    if device.type != "meta":
-        for g in range(ng):
-            for path, leaf in flatten(group_init(gen, cfg, dtype, device)):
-                stack[path][g].copy_(keep("layers/" + path, leaf))
+    stack: Dict[str, torch.Tensor] = {}
+    for g in range(ng):
+        for path, leaf in flatten(group_init(gen, cfg, dtype, device)):
+            kept = keep("layers/" + path, leaf)
+            if ng == 1 and kept is leaf:
+                stack[path] = leaf.unsqueeze(0)
+                continue
+            if g == 0:
+                stack[path] = torch.empty((ng,) + tuple(kept.shape),
+                                          dtype=kept.dtype, device=device)
+            stack[path][g].copy_(kept)
     params: Dict[str, Any] = {"layers": unflatten(stack.items())}
     if cfg.frontend == "frame":
         params["frame_proj"] = _he(gen, (cfg.frontend_dim, cfg.d_model),
