@@ -41,7 +41,14 @@ never JAX.  Phases, each printing one JSON line:
                      fused AdamW, the paged decode kernel, the SSD scan,
                      its backward and the RMSNorm backward), on a copy of
                      its input one element off alignment, held by the same
-                     check; the flash backward, the paged kernel, the SSD
+                     check (the RMSNorm forward's scalar route on the same
+                     inputs, at every main-path shape, MLA's kv_a[..., :512]
+                     slice read in place among them, each also timed with
+                     the L2 flushed clean, and its decode rows in a
+                     captured graph beside the floor of its smallest call;
+                     its edge cases' routes checked, its vector route's
+                     ptxas lines free of spills); the flash backward, the
+                     paged kernel, the SSD
                      scan, its backward and the RMSNorm backward twice,
                      bit for bit; the SSD scan's, its backward's and the
                      RMSNorm backward's kernels timed apart
@@ -482,6 +489,7 @@ COUNTERS = {
     "fused_adamw_scalar": ("fused_adamw", "LAUNCHES_SCALAR"),
     "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
     "ssd_scan_scalar": ("ssd_scan", "LAUNCHES_SCALAR"),
+    "rmsnorm_scalar": ("rmsnorm", "LAUNCHES_SCALAR"),
     "rmsnorm_bwd_scalar": ("rmsnorm", "BWD_LAUNCHES_SCALAR"),
     "ssd_scan_bwd_scalar": ("ssd_scan", "BWD_LAUNCHES_SCALAR"),
 }
@@ -493,8 +501,24 @@ GQA_PREFILLS = (("llama4", 40, 8), ("starcoder2", 48, 4), ("yi", 56, 8))
 
 # guard limits, in ms at the main path's shape: a redesigned kernel slower
 # than this has lost its redesign (the routes before read 1.23, 0.0795 and
-# 2.155; NVIDIA H100 80GB HBM3, 700 W)
-GUARD_MS = {"ssd_scan": 0.6, "rmsnorm_bwd": 0.07, "ssd_scan_bwd": 1.0}
+# 2.155; NVIDIA H100 80GB HBM3, 700 W).  The RMSNorm forward's two: at
+# (2048, 4096) under ``time_ms``, where both routes read 0.0179-0.0186 (a
+# 0.0060 floor and the flush's write-backs in every reading), a gross
+# loss only; a (8, 7168) decode call in a captured graph, where the
+# redesign reads 0.00205-0.00209 and the scalar route 0.00322-0.00329
+GUARD_MS = {"ssd_scan": 0.6, "rmsnorm_bwd": 0.07, "ssd_scan_bwd": 1.0,
+            "rmsnorm": 0.020, "rmsnorm_graph_8x7168": 0.0026}
+
+# each kernel's counter of the calls that took its route before (the
+# kernels line gives their main-path sums beside the launches)
+SCALAR_COUNTERS = {"flash_attention": "flash_attention_cuda_core",
+                   "flash_attention_bwd": "flash_attention_bwd_cuda_core",
+                   "rmsnorm": "rmsnorm_scalar",
+                   "rmsnorm_bwd": "rmsnorm_bwd_scalar",
+                   "paged_attention": "paged_attention_scalar",
+                   "fused_adamw": "fused_adamw_scalar",
+                   "ssd_scan": "ssd_scan_scalar",
+                   "ssd_scan_bwd": "ssd_scan_bwd_scalar"}
 
 
 _RECORD = None     # main() opens build/chip_smoke.jsonl here
@@ -568,27 +592,35 @@ def route_of(counter, fn, routes):
 _FLUSH = None
 
 
-def flush_l2() -> None:
+def flush_l2(clean: bool = False) -> None:
     """Overwrite the 50 MB L2 so the next launch reads its inputs cold,
     as it does on the serving path where the other layers' weights pass
-    through the cache in between."""
+    through the cache in between.  By writing 64 MB, which leaves the L2
+    full of dirty lines that the next launch writes back as it evicts
+    them (as a layer finds the last one's outputs), or, ``clean``, by
+    reading them (its lines clean: the launch's own traffic alone)."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    _FLUSH.zero_()
+    if clean:
+        _FLUSH.max()
+    else:
+        _FLUSH.zero_()
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3,
+            clean: bool = False) -> float:
     """Median device time of ``fn`` over ``iters`` launches, each between
-    its own CUDA events with a cold L2.  A spin kernel queued before the
-    first event keeps the card busy while the host enqueues the event,
-    ``fn`` and the second event, so the host's launch overhead (the
-    ctypes call, PyTorch's dispatch) falls outside the measured span."""
+    its own CUDA events with a cold L2 (``flush_l2(clean)``).  A spin
+    kernel queued before the first event keeps the card busy while the
+    host enqueues the event, ``fn`` and the second event, so the host's
+    launch overhead (the ctypes call, PyTorch's dispatch) falls outside
+    the measured span."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
-        flush_l2()
+        flush_l2(clean)
         torch.cuda._sleep(2_000_000)      # ~1 ms at the H100's clocks
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -915,24 +947,27 @@ def phase_build():
     emit("build", seconds=build_s, library=os.path.relpath(path, ROOT),
          ptxas=ptxas, ptxas_by_kernel=per_kernel,
          sass_instructions=sass_counts(path))
-    # the SSD backward's six tensor-core kernels keep their registers: no
-    # spills
-    tc = {k: v for k, v in per_kernel.items()
-          if "ssd_bwd" in k and "tc_" in k}
-    check(len(tc) == 6 and all(
-        any("0 bytes spill stores, 0 bytes spill loads" in ln for ln in v)
-        for v in tc.values()),
-        f"ssd_scan_bwd tensor-core kernels' ptxas lines: {tc}")
+    # the SSD backward's six tensor-core kernels and the RMSNorm forward's
+    # fifteen vector-route instances (bf16 and f32: a warp a row at 1, 2,
+    # 4, 6, 8 vectors a lane, a block a row at 1, 2, and f32's at 4) keep
+    # their registers: no spills
+    for family, n, sub in (("ssd_bwd", 6, "tc_"), ("rmsnorm_fwd", 15, "")):
+        got = {k: v for k, v in per_kernel.items()
+               if family in k and sub in k}
+        check(len(got) == n and all(
+            any("0 bytes spill stores, 0 bytes spill loads" in ln
+                for ln in v) for v in got.values()),
+            f"{family} kernels' ptxas lines: {got}")
     return build_s
 
 
 SASS_FAMILIES = ("fused_adamw", "paged_decode")
 # kernels whose registers, shared memory and spills the build line gives
 # by name (ptxas -v): the SSD scan's, its backward's, the RMSNorm
-# backward's, the flash backward's and the paged decode's (an instance a
-# head chunk GC)
-PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_bwd", "rmsnorm_dscale",
-                 "flash_bwd", "paged_decode")
+# forward's vector route and its backward's, the flash backward's and the
+# paged decode's (an instance a head chunk GC)
+PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
+                 "rmsnorm_dscale", "flash_bwd", "paged_decode")
 
 
 def sass_counts(lib: str) -> dict:
@@ -1006,16 +1041,56 @@ def sdpa(q, k, v, causal):
         q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])
 
 
-def rms_case(rows, d, dtype=torch.bfloat16, seed=1, offset=0):
+def rms_case(rows, d, dtype=torch.bfloat16, seed=1, offset=0, width=None):
+    """x: (rows, d) from ``seed``, ``offset`` elements off 16-byte
+    alignment (the scalar route), or the first d columns of (rows, width)
+    rows (a strided view, as MLA's kv_a[..., :R]); returns (x, s), the
+    kernel's output, the plain version's and the route the kernel took."""
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
     g = _gen(seed)
-    # ``offset`` shifts x off 16-byte alignment: the kernel's scalar path
-    x = _randn((rows * d + offset,), g, dtype)[offset:].view(rows, d)
+    w = width or d
+    x = _randn((rows * w + offset,), g, dtype)[offset:].view(rows, w)[:, :d]
     s = _randn((d,), g, dtype)
-    got = rmsnorm_cuda(x, s)
+    got, route = route_of("rmsnorm_scalar", lambda: rmsnorm_cuda(x, s),
+                          ("vector", "scalar"))
     want = rmsnorm_torch(x, s)
     torch.cuda.synchronize()
-    return (x, s), got, want
+    return (x, s), got, want, route
+
+
+def rms_scalar(x, s):
+    """The RMSNorm forward's scalar route (the design before the vector
+    route) on the same inputs, for ``was_ms``: the wrapper's own launch
+    with the route named."""
+    from repro_torch.kernels import rmsnorm as rn
+    return rn._launch(x, s, 1e-6, "scalar")
+
+
+def graph_ms(fn, n: int = 100, replays: int = 11) -> float:
+    """Device ms a call of ``fn`` over ``n`` back-to-back calls captured in
+    one CUDA graph (as a decode step's kernels run): the median replay
+    over ``n``.  The inputs stay in L2 from replay to replay (warm)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return float(np.median(times))
 
 
 def paged_case(lens, Hq, Hkv, D, Dv, page=16, maxp=64, dtype=torch.bfloat16,
@@ -2272,16 +2347,9 @@ def check_mla_flash(row, edge):
     row["routes"] = routes
 
 
-def phase_kernels():
-    """Every kernel vs its plain version at full width (timed) and at edge
-    cases.  Launches made here are checks, not the main path's."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_torch)
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
-    out = {}
-    edges = []
-
+def edge_check(edges):
+    """``edge(name, case, got, want, rtol)``: hold an edge case within
+    ``rtol`` (``close``), finite, and record it in ``edges``."""
     def edge(name, case, got, want, rtol):
         err, ratio = close(got, want, rtol)
         ok = bool(torch.isfinite(got).all()) and ratio <= 1.0
@@ -2289,6 +2357,163 @@ def phase_kernels():
                       "rtol": rtol, "err_over_tol": ratio, "passed": ok})
         check(ok, f"{name} {case}: max_abs_err {err}, {ratio} x its "
               f"tolerance (rtol {rtol})")
+    return edge
+
+
+# the RMSNorm forward at the main paths' rows, bf16: deepseek_7b's prefill
+# (2048, 4096), decode (4, 4096) and train step (4096, 4096); pixtral's
+# prefill (8192, 5120) and decode; zamba2_2p7b's prefill (4000 rows) and
+# decode (4 rows) at d_model 2560 and at the Mamba2 gated norm's 5120;
+# deepseek_v2_236b's prefill (2048 rows) and decode (4) at d_model 5120
+# and MLA's q_norm (1536) and kv_norm (512, a slice of kv_a's 576-wide
+# rows, read in place); xlstm_350m's prefill (8192 rows) and decode (4) at
+# d_model 1024 and the mLSTM out_norm's 2048; yi_34b's prefill, decode and
+# paged round (8 slots) at d_model 7168, and llama4's paged round at 5120:
+# (rows, d, width of the rows x is a slice of or None, key)
+RMSNORM_SHAPES = (
+    (2048, 4096, None, "rmsnorm"), (4, 4096, None, "rmsnorm_decode"),
+    (4096, 4096, None, "rmsnorm_train"), (8192, 5120, None, "rmsnorm_vlm"),
+    (4, 5120, None, "rmsnorm_vlm_decode"),
+    (4000, 2560, None, "rmsnorm_hybrid_d2560"),
+    (4000, 5120, None, "rmsnorm_hybrid_d5120"),
+    (4, 2560, None, "rmsnorm_hybrid_decode_d2560"),
+    (4, 5120, None, "rmsnorm_hybrid_decode_d5120"),
+    (2048, 5120, None, "rmsnorm_moe_d5120"),
+    (2048, 1536, None, "rmsnorm_moe_q_norm"),
+    (2048, 512, None, "rmsnorm_moe_kv_norm"),
+    (2048, 512, 576, "rmsnorm_moe_kv_norm_strided"),
+    (4, 1536, None, "rmsnorm_moe_decode_q_norm"),
+    (4, 512, None, "rmsnorm_moe_decode_kv_norm"),
+    (4, 512, 576, "rmsnorm_moe_decode_kv_norm_strided"),
+    (8192, 1024, None, "rmsnorm_xlstm_d1024"),
+    (8192, 2048, None, "rmsnorm_xlstm_d2048"),
+    (4, 1024, None, "rmsnorm_xlstm_decode_d1024"),
+    (4, 2048, None, "rmsnorm_xlstm_decode_d2048"),
+    (2048, 7168, None, "rmsnorm_yi_d7168"),
+    (4, 7168, None, "rmsnorm_yi_decode_d7168"),
+    (8, 7168, None, "rmsnorm_yi_round_d7168"),
+    (8, 5120, None, "rmsnorm_llama4_round_d5120"))
+
+# edge cases: (name, rms_case arguments, keywords, the route it must take);
+# together with the shapes above they launch every vector-route instance
+RMSNORM_EDGES = (
+    ("d8_f32", (3, 8), dict(dtype=torch.float32), "vector"),
+    ("d8", (3, 8), {}, "vector"),
+    ("d512_3_rows", (3, 512), {}, "vector"),
+    ("d512_33000_rows", (33000, 512), {}, "vector"),
+    ("d1024_f32", (5, 1024), dict(dtype=torch.float32), "vector"),
+    ("d2000", (9, 2000), {}, "vector"),
+    ("d6000", (3, 6000), {}, "vector"),
+    ("d4096_f32", (3, 4096), dict(dtype=torch.float32), "vector"),
+    ("d8192_f32", (3, 8192), dict(dtype=torch.float32), "vector"),
+    ("d8192", (7, 8192), {}, "vector"),
+    ("d4100_scalar_path", (5, 4100), {}, "scalar"),
+    ("d6_f32", (3, 6), dict(dtype=torch.float32), "scalar"),
+    ("misaligned", (6, 4096), dict(offset=3), "scalar"),
+    ("stride_4100", (6, 4096), dict(width=4100), "scalar"))
+
+RMSNORM_KEYS = tuple(key for *_, key in RMSNORM_SHAPES)
+
+# the decode rows timed inside a captured graph, beside the floor
+RMSNORM_GRAPH_SHAPES = ((4, 4096), (4, 512), (8, 7168))
+
+
+def check_rmsnorm_kernel(out, edge):
+    """The RMSNorm forward at ``RMSNORM_SHAPES``, each held against its
+    plain version by both routes (the vector route the wrapper takes, the
+    scalar route on the same inputs) and timed beside ``F.rms_norm``;
+    the (2048, 4096) time under ``GUARD_MS``; ``RMSNORM_EDGES`` held with
+    their routes; the decode rows in a captured graph beside the floor
+    (N launches of the port's smallest call, (1, 8) f32)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
+    for rows, d, width, key in RMSNORM_SHAPES:
+        (x, s), got, want, route = rms_case(rows, d, width=width)
+        check(route == "vector", f"rmsnorm ({rows}, {d}) width {width}: "
+              f"{route} route")
+        err, ratio = close(got, want, 2e-2)
+        check(ratio <= 1.0, f"rmsnorm ({rows}, {d}) width {width}: "
+              f"max_abs_err {err}, {ratio} x tol")
+        sgot = rms_scalar(x, s)
+        serr, sratio = close(sgot, want, 2e-2)
+        check(sratio <= 1.0, f"rmsnorm scalar route ({rows}, {d}) width "
+              f"{width}: max_abs_err {serr}, {sratio} x tol")
+        b_ms, b_by = bound(2 * (2 * x.numel() + s.numel()), 4 * x.numel(),
+                           F32_FLOPS)
+        row = {
+            "shape": [rows, d], "row_stride": width or d, "route": route,
+            "max_err": err, "rtol": 2e-2, "err_over_tol": ratio,
+            "kernel_ms": time_ms(lambda: rmsnorm_cuda(x, s)),
+            "was_route": {
+                "route": "scalar", "max_err": serr, "err_over_tol": sratio,
+                "kernel_ms": time_ms(lambda: rms_scalar(x, s))},
+            "plain_ms": time_ms(lambda: rmsnorm_torch(x, s)),
+            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        row["bound_share"] = b_ms / row["kernel_ms"]
+        row["was_ms"] = row["was_route"]["kernel_ms"]
+        # the same three with the L2 flushed clean: the call's own bytes
+        # alone, without the write-back of the lines a flush left dirty
+        row["clean_l2"] = {
+            "kernel_ms": time_ms(lambda: rmsnorm_cuda(x, s), clean=True),
+            "was_ms": time_ms(lambda: rms_scalar(x, s), clean=True),
+            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), s, 1e-6),
+                                  clean=True)}
+        row["clean_l2"]["bound_share"] = b_ms / row["clean_l2"]["kernel_ms"]
+        out[key] = row
+    kernel_ms = out["rmsnorm"]["kernel_ms"]
+    check(kernel_ms <= GUARD_MS["rmsnorm"],
+          f"rmsnorm (2048, 4096): {kernel_ms} ms, above its "
+          f"{GUARD_MS['rmsnorm']} ms guard")
+    # the kernels line's error is the worst over the main paths' shapes
+    out["rmsnorm"]["max_err"] = max(out[k]["max_err"] for k in out
+                                    if k.startswith("rmsnorm"))
+    for name, args, kw2, expect in RMSNORM_EDGES:
+        _, got, want, route = rms_case(*args, **kw2)
+        check(route == expect, f"rmsnorm {name}: {route} route, want "
+              f"{expect}")
+        rel = 1e-5 if kw2.get("dtype") == torch.float32 else 2e-2
+        edge("rmsnorm", name, got, want, rel)
+    graphs = {}
+    for rows, d in RMSNORM_GRAPH_SHAPES:
+        (x, s), _, _, _ = rms_case(rows, d)
+        graphs[f"{rows}x{d}"] = {
+            "vector_ms": graph_ms(lambda: rmsnorm_cuda(x, s)),
+            "scalar_ms": graph_ms(lambda: rms_scalar(x, s))}
+    in_graph = graphs["8x7168"]["vector_ms"]
+    check(in_graph <= GUARD_MS["rmsnorm_graph_8x7168"],
+          f"rmsnorm (8, 7168) in a graph: {in_graph} ms a call, above its "
+          f"{GUARD_MS['rmsnorm_graph_8x7168']} ms guard")
+    (x, s), _, _, _ = rms_case(1, 8, dtype=torch.float32)
+    graphs["floor_ms"] = graph_ms(lambda: rmsnorm_cuda(x, s))
+    # the same call alone between events (``time_ms``): what a shape's
+    # kernel_ms holds beside its bytes
+    graphs["floor_time_ms"] = time_ms(lambda: rmsnorm_cuda(x, s))
+    graphs["floor_time_ms_clean_l2"] = time_ms(lambda: rmsnorm_cuda(x, s),
+                                               clean=True)
+    graphs["floor"] = "rmsnorm_cuda (1, 8) f32, vector route: one warp"
+    graphs["launches_a_replay"] = 100
+    out["rmsnorm"]["decode_in_graph"] = graphs
+
+
+def phase_rmsnorm():
+    """``check_rmsnorm_kernel`` alone, as the kernels phase runs it (to
+    iterate on the RMSNorm forward: ``benchmarks/config_phases.py
+    rmsnorm``)."""
+    out, edges = {}, []
+    check_rmsnorm_kernel(out, edge_check(edges))
+    emit("rmsnorm_kernel", full_width=out, edge_cases=edges)
+    return out
+
+
+def phase_kernels():
+    """Every kernel vs its plain version at full width (timed) and at edge
+    cases.  Launches made here are checks, not the main path's."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_torch)
+    out = {}
+    edges = []
+    edge = edge_check(edges)
 
     def flash_row(*shape, causal=True):
         """A bf16 prefill (or, ``causal=False``, encoder) shape, held and
@@ -2374,59 +2599,7 @@ def phase_kernels():
             check(bool((got[:, :, :10] == 0).all()),
                   "flash_attention: fully masked rows are not 0")
 
-    # ---- rmsnorm at the main paths' rows: deepseek_7b's prefill (2048,
-    # 4096), decode (4, 4096) and train step (4096, 4096); zamba2_2p7b's
-    # prefill (4000 rows) and decode (4 rows) at d_model 2560 and at the
-    # Mamba2 gated norm's 5120; deepseek_v2_236b's prefill (2048 rows) and
-    # decode (4) at d_model 5120 and MLA's q_norm (1536) and kv_norm (512);
-    # xlstm_350m's prefill (8192 rows) and decode (4) at d_model 1024 and
-    # the mLSTM out_norm's 2048; yi_34b's prefill, decode and paged round
-    # (8 slots) at d_model 7168, and llama4's paged round at 5120
-    for rows, d, key in ((2048, 4096, "rmsnorm"), (4, 4096, "rmsnorm_decode"),
-                         (4096, 4096, "rmsnorm_train"),
-                         (8192, 5120, "rmsnorm_vlm"),
-                         (4, 5120, "rmsnorm_vlm_decode"),
-                         (4000, 2560, "rmsnorm_hybrid_d2560"),
-                         (4000, 5120, "rmsnorm_hybrid_d5120"),
-                         (4, 2560, "rmsnorm_hybrid_decode_d2560"),
-                         (4, 5120, "rmsnorm_hybrid_decode_d5120"),
-                         (2048, 5120, "rmsnorm_moe_d5120"),
-                         (2048, 1536, "rmsnorm_moe_q_norm"),
-                         (2048, 512, "rmsnorm_moe_kv_norm"),
-                         (4, 1536, "rmsnorm_moe_decode_q_norm"),
-                         (4, 512, "rmsnorm_moe_decode_kv_norm"),
-                         (8192, 1024, "rmsnorm_xlstm_d1024"),
-                         (8192, 2048, "rmsnorm_xlstm_d2048"),
-                         (4, 1024, "rmsnorm_xlstm_decode_d1024"),
-                         (4, 2048, "rmsnorm_xlstm_decode_d2048"),
-                         (2048, 7168, "rmsnorm_yi_d7168"),
-                         (4, 7168, "rmsnorm_yi_decode_d7168"),
-                         (8, 7168, "rmsnorm_yi_round_d7168"),
-                         (8, 5120, "rmsnorm_llama4_round_d5120")):
-        (x, s), got, want = rms_case(rows, d)
-        err, ratio = close(got, want, 2e-2)
-        check(ratio <= 1.0, f"rmsnorm ({rows}, {d}): max_abs_err {err}, "
-              f"{ratio} x tol")
-        b_ms, b_by = bound(2 * (2 * x.numel() + s.numel()), 4 * x.numel(),
-                           F32_FLOPS)
-        out[key] = {
-            "shape": [rows, d], "max_err": err, "rtol": 2e-2,
-            "err_over_tol": ratio,
-            "kernel_ms": time_ms(lambda: rmsnorm_cuda(x, s)),
-            "plain_ms": time_ms(lambda: rmsnorm_torch(x, s)),
-            "library_ms": time_ms(lambda: F.rms_norm(x, (d,), s, 1e-6)),
-            "bound_ms": b_ms, "bound_by": b_by}
-    # the kernels line's error is the worst over the main paths' shapes
-    out["rmsnorm"]["max_err"] = max(out[k]["max_err"] for k in out
-                                    if k.startswith("rmsnorm"))
-    for name, args, kw2 in [("d8_f32", (3, 8), dict(dtype=torch.float32)),
-                            ("d4100_scalar_path", (5, 4100), {}),
-                            ("d8192", (7, 8192), {}),
-                            ("misaligned", (6, 4096), dict(offset=3))]:
-        _, got, want = rms_case(*args, **kw2)
-        rel = 1e-5 if kw2.get("dtype") == torch.float32 else 2e-2
-        edge("rmsnorm", name, got, want, rel)
-
+    check_rmsnorm_kernel(out, edge)
     check_paged_kernel(out, edge, edges)
     check_ssd_kernel(out, edge, edges)
     check_ssd_bwd_kernel(out, edge, edges)
@@ -7999,6 +8172,10 @@ def _run_all() -> int:
     def launched(counter):
         return {run: c[counter] for run, c in runs.items()}
 
+    scalar_norms = launched("rmsnorm_scalar")
+    check(not any(scalar_norms.values()),
+          f"main-path rmsnorm calls took the scalar route: {scalar_norms}")
+
     # the launches that ran inside decode graphs, run by run: each graph's
     # replays times its launches per replay
     graphs = {"dense": [dense["decode_graph"]],
@@ -8085,12 +8262,28 @@ def _run_all() -> int:
                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                "bound_by": k["bound_by"],
                "library_ms": k["library_ms"], "shape": k["shape"]}
+        if name in SCALAR_COUNTERS:
+            # the main path's calls that took the route before
+            row["scalar_counter"] = SCALAR_COUNTERS[name]
+            row["scalar_launches"] = sum(
+                launched(SCALAR_COUNTERS[name]).values())
         if "was_route" in k:
             # a redesigned kernel: the route its main path took before
             # (flash's CUDA-core kernels, the scalar routes of the fused
             # AdamW and the paged decode kernel), timed in this run on the
-            # same inputs one element off alignment
+            # same inputs one element off alignment (the RMSNorm forward's
+            # on the same inputs, by the route named)
             row["was_ms"] = k["was_route"]["kernel_ms"]
+        if name == "rmsnorm":
+            # every main-path shape, both routes, and the decode rows in a
+            # captured graph beside the floor
+            row["shapes"] = {
+                key: {f: r[f] for f in (
+                    "shape", "row_stride", "max_err", "kernel_ms", "was_ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_share",
+                    "clean_l2")}
+                for key, r in kern.items() if key in RMSNORM_KEYS}
+            row["decode_in_graph"] = k["decode_in_graph"]
         if "f32" in k:
             row["f32"] = k["f32"]
         if "passes_ms" in k:

@@ -33,8 +33,9 @@ _L = ctypes.c_longlong
 #: C entry point -> argtypes (every entry point returns a cudaError_t but
 #: the flash_attention*_route functions, which return the route they name)
 SIGNATURES = {
-    # x, scale, y, rows, d, eps, dtype code, stream
-    "rmsnorm_launch": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # x, scale, y, rows, d, x's row stride, eps, dtype code, vector route,
+    # stream
+    "rmsnorm_launch": [_P, _P, _P, _I, _I, _L, _F, _I, _I, _P],
     # x, scale, g, dx, dscale, partial, rows, d, eps, max blocks,
     # dtype code, vector route, stream
     "rmsnorm_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I,

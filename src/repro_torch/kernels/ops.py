@@ -233,9 +233,15 @@ def rmsnorm(x, scale, *, eps: float = 1e-6, impl: str = "auto"):
     if _is_fake(x):
         return _FakeRMSNorm.apply(x, scale)
     if _use_kernel(impl, x):
-        x, scale = x.contiguous(), scale.contiguous()
+        scale = scale.contiguous()
         if _needs_grad(x, scale):
-            return _RMSNorm.apply(x, scale, eps)
+            # the backward kernel reads contiguous rows: the x saved is
+            # the contiguous one it reads
+            return _RMSNorm.apply(x.contiguous(), scale, eps)
+        # the kernel reads rows at a stride: a slice of wider rows goes
+        # as it is, and only rows at no one stride are copied
+        if _rn.row_stride(x) is None:
+            x = x.contiguous()
         return _rn.rmsnorm_cuda(x, scale, eps)
     return _rn.rmsnorm_torch(x, scale, eps)
 

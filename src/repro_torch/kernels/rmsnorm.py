@@ -6,11 +6,20 @@ versions.
 tensors and as the kernel's yardstick on the card.  ``rmsnorm_bwd_cuda``
 is the backward, the counterpart of autodiff of ``repro.kernels.ops.
 rmsnorm``; its plain version ``rmsnorm_bwd_torch`` is autograd of
-``rmsnorm_torch``.  The backward has two routes, chosen from the width and
-the alignment (``bwd_vector_route``), never by the caller: the vector
-route (rows held in registers, 16-byte loads, the next row in flight, a
-wide ordered sum of the dscale partials) and, for anything else, the
-scalar route (one element a thread at a time, the design before).
+``rmsnorm_torch``.
+
+Each direction has two routes, chosen from dtype, width, alignment and
+(forward) row stride, never by the caller, with no fallback from one to
+the other.  The forward (``fwd_route``): the vector route (each row read
+once into registers, a warp per row up to 256 16-byte vectors and a block
+per row past that, the next row in flight) and the scalar route (the first
+design: a block per row, two passes).  Both read x's rows at a stride
+(``row_stride``), so a slice of wider rows needs no copy.  The backward
+(``bwd_vector_route``): the vector route (rows held in registers, 16-byte
+loads, the next row in flight, a wide ordered sum of the dscale partials)
+and the scalar route (one element a thread at a time, the design before).
+``LAUNCHES_SCALAR`` and ``BWD_LAUNCHES_SCALAR`` count the calls that took
+a scalar route.
 """
 from __future__ import annotations
 
@@ -22,7 +31,8 @@ from repro_torch.kernels import _build
 #: and reads them afterwards)
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-#: the backward calls that took the scalar route
+#: the forward and backward calls that took the scalar route
+LAUNCHES_SCALAR = 0
 BWD_LAUNCHES_SCALAR = 0
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,11 +49,45 @@ def rmsnorm_torch(x: torch.Tensor, scale: torch.Tensor,
     return ((xf * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
 
 
+def row_stride(x: torch.Tensor):
+    """The stride, in elements, between consecutive rows of x's (..., d)
+    rows taken as one run, or None when there is none: the last dimension
+    not contiguous, or leading dimensions that do not collapse into one
+    (a slice ``kv_a[..., :R]`` of contiguous rows has one, ``x[:, :k]`` of
+    a (B, S, d) tensor with 1 < k < S and B > 1 has none)."""
+    if x.dim() == 0 or (x.shape[-1] > 1 and x.stride(-1) != 1):
+        return None
+    stride = span = None
+    for size, st in zip(reversed(x.shape[:-1]), reversed(x.stride()[:-1])):
+        if size == 1:
+            continue
+        if stride is None:
+            stride = st
+        elif st != span:
+            return None
+        span = st * size
+    return x.shape[-1] if stride is None else stride
+
+
+def fwd_route(x: torch.Tensor, scale: torch.Tensor) -> str:
+    """The route the forward kernel takes: ``"vector"`` for rows of whole
+    16-byte words (d a multiple of 8 bf16 or 4 f32, up to ``MAX_D``) at a
+    row stride of whole 16-byte words, on 16-byte aligned x and scale (y
+    is allocated aligned); ``"scalar"`` for anything else."""
+    vec = 16 // x.element_size()
+    stride = row_stride(x)
+    ok = (x.shape[-1] % vec == 0 and x.shape[-1] <= MAX_D
+          and stride is not None and stride % vec == 0
+          and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+    return "vector" if ok else "scalar"
+
+
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
                  eps: float = 1e-6) -> torch.Tensor:
-    """x: (..., d) contiguous bf16/f32 on the card; scale: (d,), same
-    dtype.  Returns a new tensor of x's shape and dtype."""
-    global LAUNCHES
+    """x: (..., d) bf16/f32 on the card, its rows at one stride
+    (``row_stride``: contiguous, or a slice of wider contiguous rows);
+    scale: (d,), same dtype, contiguous.  Returns a new contiguous tensor
+    of x's shape and dtype, by the route ``fwd_route`` names."""
     d = x.shape[-1]
     if not (x.is_cuda and scale.is_cuda and x.device == scale.device):
         raise ValueError("rmsnorm_cuda needs x and scale on one CUDA device")
@@ -53,17 +97,28 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor,
     if scale.shape != (d,) or not 1 <= d <= MAX_D:
         raise ValueError(f"rmsnorm_cuda: scale {tuple(scale.shape)} must be "
                          f"({d},) with 1 <= d <= {MAX_D}")
-    if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm_cuda needs contiguous x and scale")
+    if row_stride(x) is None or not scale.is_contiguous():
+        raise ValueError("rmsnorm_cuda needs x's rows at one stride (its "
+                         "last dimension contiguous) and a contiguous scale")
+    return _launch(x, scale, eps, fwd_route(x, scale))
+
+
+def _launch(x, scale, eps, route):
+    """One launch of the forward kernel by ``route`` on checked inputs.
+    ``rmsnorm_cuda`` passes ``fwd_route``'s choice; the vector route
+    refuses (raises on) inputs it does not take."""
+    global LAUNCHES, LAUNCHES_SCALAR
+    d = x.shape[-1]
     lib = _build.load()
-    y = torch.empty_like(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.rmsnorm_launch(
             x.data_ptr(), scale.data_ptr(), y.data_ptr(), x.numel() // d, d,
-            float(eps), DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            row_stride(x), float(eps), DTYPE_CODES[x.dtype],
+            int(route == "vector"), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "rmsnorm_launch")
     LAUNCHES += 1
+    LAUNCHES_SCALAR += route == "scalar"
     return y
 
 

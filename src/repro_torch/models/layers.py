@@ -293,9 +293,8 @@ def mla_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
                         a.rope_theta)                          # (B,H,S,Dr)
 
     kv_a = x @ p["wkv_a"]
-    # the kernel takes contiguous rows; the slice is a strided view
-    c_kv = ops.rmsnorm(kv_a[..., :R].contiguous(), p["kv_norm"],
-                       impl=impl)                              # (B,S,R)
+    # a strided view: the kernel reads its rows in place
+    c_kv = ops.rmsnorm(kv_a[..., :R], p["kv_norm"], impl=impl)  # (B,S,R)
     k_rope = apply_rope(kv_a[..., None, R:].transpose(1, 2), positions,
                         a.rope_theta)                          # (B,1,S,Dr)
 

@@ -39,9 +39,10 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_cuda, paged_attention_split_torch, paged_attention_torch,
     partition_pages, split_route)
 from repro_torch.train import quantized_state as tqs  # noqa: E402
+from repro_torch.kernels import rmsnorm as trn  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
-    bwd_vector_route, rmsnorm_bwd_cuda, rmsnorm_bwd_torch, rmsnorm_cuda,
-    rmsnorm_torch)
+    bwd_vector_route, fwd_route, rmsnorm_bwd_cuda, rmsnorm_bwd_torch,
+    rmsnorm_cuda, rmsnorm_torch, row_stride)
 from repro_torch.kernels import ssd_scan as tssd  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     chunked_route, ssd_scan_bwd_cuda, ssd_scan_bwd_torch, ssd_scan_cuda,
@@ -309,6 +310,108 @@ def test_rmsnorm_bwd_route_choice():
     assert route(2, 8192) and route(5, 2560)
     assert not route(5, 4100) and not route(3, 6, torch.float32)
     assert not route(6, 4096, misalign=True)
+
+
+def test_rmsnorm_fwd_route_choice():
+    """The forward's vector route takes rows of whole 16-byte words (d a
+    multiple of 8 bf16 or 4 f32, up to 8192) at a row stride of whole
+    16-byte words on 16-byte aligned x and scale: every main-path norm,
+    MLA's kv_a[..., :512] slice of 576-wide rows among them; the scalar
+    route the rest: odd widths, a copy one element off alignment
+    (``chip_smoke.misaligned``), a stride of 4100 bf16."""
+    smoke = _chip_smoke()
+
+    def route(x):
+        return fwd_route(x, torch.ones(x.shape[-1], dtype=x.dtype))
+
+    def rows(n, d, dtype=torch.bfloat16):
+        return torch.zeros(n, d, dtype=dtype)
+
+    assert route(rows(4096, 4096)) == "vector"
+    assert route(rows(1, 64)) == "vector"
+    assert route(rows(3, 8, torch.float32)) == "vector"
+    assert route(rows(2, 8192)) == "vector"
+    kv_a = torch.zeros(2, 5, 576, dtype=torch.bfloat16)
+    assert not kv_a[..., :512].is_contiguous()
+    assert route(kv_a[..., :512]) == "vector"
+    assert route(rows(5, 4100)) == "scalar"
+    assert route(rows(3, 6, torch.float32)) == "scalar"
+    assert route(smoke.misaligned(rows(6, 4096))) == "scalar"
+    assert route(torch.zeros(6, 4100, dtype=torch.bfloat16)[:, :4096]) \
+        == "scalar"
+
+
+def test_rmsnorm_row_stride():
+    """``row_stride``: the one stride between x's rows, in elements, where
+    its leading dimensions collapse (size-1 dimensions skipped), else
+    None."""
+    x = torch.zeros(2, 5, 576)
+    assert row_stride(x) == 576
+    assert row_stride(x[..., :512]) == 576
+    assert row_stride(x[:, -1:, :512]) == 5 * 576
+    assert row_stride(x[:1, :, 64:]) == 576
+    assert row_stride(torch.zeros(7)) == 7
+    assert row_stride(x[:, 1:3]) is None          # 2 of 5 rows a batch
+    assert row_stride(x.transpose(1, 2)) is None  # last dim not contiguous
+    assert row_stride(torch.zeros(4, 1).expand(4, 3)) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_strided_slice_vs_contiguous_and_jax(dtype):
+    """``ops.rmsnorm`` on a slice of wider rows (MLA's kv_a[..., :R]) gives
+    the values it gives on the slice's contiguous copy, bit for bit, and
+    the JAX ``ops.rmsnorm`` (``impl="jnp"``) on the same numpy input."""
+    rng = np.random.default_rng(11)
+    kv_a = rng.standard_normal((2, 7, 24), dtype=np.float32)
+    scale = rng.standard_normal((16,), dtype=np.float32)
+    _, xt = both(kv_a, dtype)
+    sj, st = both(scale, dtype)
+    xj, _ = both(np.ascontiguousarray(kv_a[..., :16]), dtype)
+    view = xt[..., :16]
+    assert not view.is_contiguous() and row_stride(view) == 24
+    got = ops.rmsnorm(view, st)
+    assert got.shape == (2, 7, 16) and got.dtype == xt.dtype
+    assert torch.equal(got, ops.rmsnorm(view.contiguous(), st))
+    close(got, jops.rmsnorm(xj, sj, impl="jnp"), dtype)
+
+
+def test_rmsnorm_kernel_path_reads_strided_rows_in_place(monkeypatch):
+    """With the kernel taken (its plain versions standing in on the CPU):
+    without a gradient, a slice of wider rows reaches the forward kernel
+    as the view itself and rows at no one stride as a contiguous copy;
+    under autograd x reaches it contiguous, and the backward kernel reads
+    that same saved x."""
+    seen = {}
+
+    def fwd(x, scale, eps=1e-6):
+        seen.setdefault("fwd", []).append(x)
+        return rmsnorm_torch(x, scale, eps)
+
+    def bwd(x, scale, g, eps=1e-6):
+        seen["bwd"] = x
+        return rmsnorm_bwd_torch(x, scale, g, eps)
+
+    monkeypatch.setattr(ops, "_use_kernel", lambda impl, x: True)
+    monkeypatch.setattr(trn, "rmsnorm_cuda", fwd)
+    monkeypatch.setattr(trn, "rmsnorm_bwd_cuda", bwd)
+    kv_a = torch.randn(2, 5, 24)
+    s = torch.randn(16)
+    view = kv_a[..., :16]
+    ops.rmsnorm(view, s)
+    assert seen["fwd"][-1] is view
+    gappy = kv_a[:, 1:3, :16]
+    want = rmsnorm_torch(gappy, s)
+    assert torch.equal(ops.rmsnorm(gappy, s), want)
+    assert seen["fwd"][-1].is_contiguous()
+    xg = view.clone().requires_grad_(True)
+    sg = s.clone().requires_grad_(True)
+    ops.rmsnorm(xg[..., :12], sg[:12]).sum().backward()
+    saved = seen["fwd"][-1]
+    assert saved.is_contiguous() and seen["bwd"] is saved
+    wx, ws = torch.autograd.grad(rmsnorm_torch(
+        xg[..., :12], sg[:12]).sum(), (xg, sg))
+    torch.testing.assert_close(xg.grad, wx)
+    torch.testing.assert_close(sg.grad, ws)
 
 
 # ------------------------------------------------------------ fused AdamW

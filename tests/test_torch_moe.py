@@ -166,6 +166,44 @@ def test_mla_prefill_vs_reference():
     assert_close(got, want)
 
 
+def test_mla_kv_norm_reads_kv_a_in_place_vs_reference(monkeypatch):
+    """MLA's prefill hands kv_norm the slice kv_a[..., :R] of its
+    (R + Dr)-wide rows as a view, with no copy, and its output and
+    compressed cache still match the reference's."""
+    from repro_torch.kernels import ops
+    jcfg, cfg, jp, p = mla_setup()
+    a = cfg.attention
+    R, width = a.kv_lora_rank, a.kv_lora_rank + a.qk_rope_head_dim
+    seen = []
+    plain = ops.rmsnorm
+
+    def rmsnorm(x, scale, **kw):
+        seen.append(x)
+        return plain(x, scale, **kw)
+
+    monkeypatch.setattr(ops, "rmsnorm", rmsnorm)
+    rng = np.random.default_rng(12)
+    S, smax = 5, 8
+    x = rng.standard_normal((2, S, cfg.d_model), dtype=np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    jcache = {"c_kv": jnp.zeros((2, smax, R)),
+              "k_rope": jnp.zeros((2, smax, a.qk_rope_head_dim))}
+    cache = {"c_kv": torch.zeros((2, smax, R)),
+             "k_rope": torch.zeros((2, smax, a.qk_rope_head_dim))}
+    want, wc = jlayers.mla_fwd(jp, jnp.asarray(x), jcfg.attention,
+                               positions=jnp.asarray(pos), cache=jcache,
+                               cache_len=0)
+    got, gc = layers.mla_fwd(p, torch.from_numpy(x), a,
+                             positions=torch.from_numpy(pos), cache=cache,
+                             cache_len=0)
+    kv = [t for t in seen if t.shape[-1] == R]
+    assert len(kv) == 1 and not kv[0].is_contiguous()
+    assert kv[0].stride()[-2] == width
+    assert_close(got, want)
+    for k in ("c_kv", "k_rope"):
+        assert_close(gc[k], wc[k])
+
+
 def test_mla_absorbed_decode_steps_vs_reference():
     """Five absorbed decode steps after a prefill: each step's output and
     the compressed cache, the position a 0-d device tensor (the captured
