@@ -4405,6 +4405,29 @@ def tp_summary(tp, measured, planned, tp_leaves):
             "group_gb_whole": tp.group_bytes_whole / 1e9}
 
 
+def exchange_figures(arch, M):
+    """Computed, not measured (``hlo_analysis.tp_traffic``, no card):
+    ``arch`` at full width on a (1, M) mesh, the GB the rank that
+    receives the most gets over ``model`` in a decode step of 4 rows and
+    a 2 x 2048 train step, with the columns' exchange
+    (``TPLayout.exchange``) and with the exchanged leaves gathered whole
+    (``exchange=False``); checked below the whole gather's."""
+    import repro_torch.configs as configs
+    from repro_torch.launch.hlo_analysis import tp_traffic
+    from repro_torch.models.config import ShapeConfig
+    cfg, mesh = configs.get(arch), {"data": 1, "model": M}
+    out = {"arch": arch, "mesh": [1, M], "computed": True}
+    for name, shape in (("decode_4_rows", ShapeConfig("d", "decode", 1, 4)),
+                        ("train_2x2048",
+                         ShapeConfig("t", "train", 2048, 2, 1))):
+        out[f"{name}_gb"] = tp_traffic(cfg, shape, mesh)["8d"] / 1e9
+        out[f"{name}_gb_whole_gather"] = tp_traffic(
+            cfg, shape, mesh, exchange=False)["8d"] / 1e9
+        check(out[f"{name}_gb"] < out[f"{name}_gb_whole_gather"],
+              f"{arch} at (1, {M}): the exchange brings {out}")
+    return out
+
+
 def phase_train_sharded(device="cuda", smoke=False, train=None):
     """``train``'s job through the sharded runtime (item 8a): deepseek_7b
     at full width, 30 layers, int8 moments, 2 x 2048 tokens, seed 0, on a
@@ -4449,7 +4472,8 @@ def phase_train_sharded(device="cuda", smoke=False, train=None):
         out["mesh"] = list(rt.mesh.mesh.shape)
         out["tp"] = tp_summary(
             rt.tp, shard_ctx.GATHERED["model_bytes"] / len(out["losses"]),
-            rt.tp.step_bytes(shape.microbatch, remat=cfg.remat != "none"),
+            rt.tp.step_bytes(shape.microbatch, remat=cfg.remat != "none",
+                             backward=True),
             shard_ctx.GATHERED["tp_leaves"] / len(out["losses"]))
         check(out["tp"]["model"] == 1 and rt.tp.computes("attn")
               and out["tp"]["model_bytes_a_step"] == 0
@@ -5156,11 +5180,13 @@ def phase_hybrid_sharded(device="cuda", smoke=False, train=None,
             sharded(rt, "train")
             o["tp"] = tp_summary(
                 rt.tp, shard_ctx.GATHERED["model_bytes"] / len(o["losses"]),
-                rt.tp.step_bytes(shape.microbatch, remat=True),
+                rt.tp.step_bytes(shape.microbatch, remat=True,
+                                 backward=True),
                 shard_ctx.GATHERED["tp_leaves"] / len(o["losses"]))
             check(o["tp"]["model_bytes_a_step"] == 0
                   and o["tp"]["tp_leaves"] > 0,
                   f"hybrid_sharded train: {o['tp']}")
+            o["tp"]["over_model"] = exchange_figures("zamba2_2p7b", 16)
             for key in ("losses", "grad_norms", "launches_per_step"):
                 o[f"{key}_equal_train_hybrid"] = o[key] == train[key]
                 check(o[f"{key}_equal_train_hybrid"],
@@ -5852,7 +5878,7 @@ def phase_moe_sharded(device="cuda", smoke=False, serve=None, train=None):
              "launches_per_step": {k: c / n for k, c in tl.items()},
              "tp": tp_summary(
                  trt.tp, shard_ctx.GATHERED["model_bytes"] / n,
-                 trt.tp.step_bytes(1, remat=True),
+                 trt.tp.step_bytes(1, remat=True, backward=True),
                  shard_ctx.GATHERED["tp_leaves"] / n)}
         check(t["tp"]["model_bytes_a_step"] == 0
               and t["tp"]["tp_leaves"] > 0, f"moe_sharded train: {t['tp']}")
@@ -5995,11 +6021,13 @@ def phase_xlstm_sharded(device="cuda", smoke=False, train=None,
             sharded(rt, "train")
             o["tp"] = tp_summary(
                 rt.tp, shard_ctx.GATHERED["model_bytes"] / len(o["losses"]),
-                rt.tp.step_bytes(shape.microbatch, remat=True),
+                rt.tp.step_bytes(shape.microbatch, remat=True,
+                                 backward=True),
                 shard_ctx.GATHERED["tp_leaves"] / len(o["losses"]))
             check(o["tp"]["model_bytes_a_step"] == 0
                   and o["tp"]["tp_leaves"] > 0,
                   f"xlstm_sharded train: {o['tp']}")
+            o["tp"]["over_model"] = exchange_figures("xlstm_350m", 4)
             key = "launches_per_step"
             o[f"{key}_equal_train_xlstm"] = o[key] == train[key]
             check(o[f"{key}_equal_train_xlstm"],

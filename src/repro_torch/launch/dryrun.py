@@ -41,7 +41,10 @@ as the reference's ``cache_specs`` (``ShardCtx.seq_split``); a Mamba2
 channels and the whole B and C, where the reference's spec cuts the
 channels into contiguous chunks; the xLSTM's recurrent states hold a
 rank's heads and its mLSTM ``conv`` tail is whole (its line's ``cache``
-gives the bytes, ``_DEPARTS`` the reasons).
+gives the bytes, ``_DEPARTS`` the reasons).  ``model_traffic``: a rank's
+bytes over ``model`` a step under 8a's and 8d's layouts, and 8d's had
+the exchanged leaves been gathered whole (``hlo_analysis.tp_traffic``,
+computed beside the step, not counted from it).
 
 Usage (on the CPU; nothing is set at import):
   python -m repro_torch.launch.dryrun --arch deepseek_7b --shape train_4k --mesh single
@@ -431,6 +434,11 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "microbatch": shape.microbatch if shape.kind == "train" else None,
         "rows_per_rank": rows,
     }
+    if tp is not None:
+        sizes = plans.axis_sizes(mesh)
+        meta["model_traffic"] = hlo_analysis.tp_traffic(cfg, shape, sizes)
+        meta["model_traffic"]["8d_whole"] = hlo_analysis.tp_traffic(
+            cfg, shape, sizes, exchange=False)["8d"]
     if shape.kind != "train":
         meta["cache"] = cache_meta
     return Cell(run, state, meta, gaps), meta

@@ -291,7 +291,7 @@ def dryrun_roofline(arch: Optional[str],
     return best
 
 
-def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
+def tp_traffic(cfg, shape, mesh, exchange: bool = True) -> Dict[str, int]:
     """Computed, not measured: the bytes one rank receives over the
     ``model`` axis in one step of ``shape`` on ``mesh`` (``{axis: size}``)
     under 8a's layout (every leaf the plan shards over ``model`` gathered
@@ -307,22 +307,35 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     exponentials, its gold logit) in fp32; the data axes' traffic is
     left out.  A hybrid's Mamba2 sublayers each join as a region and
     gather their column's ``y`` for the gated norm (its gradient summed
-    back); their ``w_in``, ``conv_w`` and ``norm`` are gathered whole
-    (``plans.MAMBA_SLICED``, in ``TPLayout.step_bytes``).  An MLA
+    back); of their ``w_in`` and ``conv_w`` a rank brings the columns
+    its heads compute with that its chunk lacks (``TPLayout.exchange``),
+    and their ``norm`` whole (``plans.MAMBA_SLICED``, in
+    ``TPLayout.step_bytes``).  An MLA
     attention joins as one region, its H / M heads' ``wq_b``, ``wk_b``,
     ``wv_b`` and ``wo`` the rank's shards; its ``plans.MLA_WHOLE``
-    leaves, replicated over ``model`` by the plan, bring nothing.  The
-    An xLSTM group's mLSTM sublayers each join as a region (entered with
+    leaves, replicated over ``model`` by the plan, bring nothing.  An
+    xLSTM group's mLSTM sublayers each join as a region (entered with
     ``copy_in``, left with ``reduce_out``) and gather their column's
     ``h`` (``inner`` wide, ``gather_sum``) for the output norm; its
     sLSTM enters with ``copy_in`` and gathers its column's ``h``
     (``d_model`` wide, ``gather_out``: no backward collective), and its
     feed-forward, where it computes sharded, joins as a region of its
-    own, the group's last join.  The gradients of ``TPLayout.partial``'s
-    leaves, summed over the column by DTensor in the backward, are left
-    out with the data axes' traffic.  The joins' part is what
-    ``shard_ctx.JOINED`` counts as
-    they run, the gathers' what ``shard_ctx.GATHERED`` counts."""
+    own, the group's last join; its mLSTM's ``w_up`` and sLSTM's
+    ``w_gates`` are exchanged as Mamba2's ``w_in``.  Of the param
+    gradients a train step counts those the exchange sends back to the
+    ranks owning the columns (once a microbatch, ``TPLayout.step_bytes``
+    with ``backward``); the gradients of the other leaves of
+    ``TPLayout.partial``, summed over the column by DTensor's
+    reduce-scatter over all the mesh's axes, are left out with the data
+    axes' traffic.  An exchange brings each rank another count of bytes:
+    "8d" is the rank that receives the most.  Without ``exchange``, "8d"
+    has the exchanged leaves gathered whole
+    (``TPLayout.step_bytes_whole``), as the port gathered them before
+    the exchange, a train step counting their gradients' reduce-scatter
+    over the model column in place of the exchange's return.  The
+    joins' part is what ``shard_ctx.JOINED``
+    counts as they run, the gathers' and the exchange's what
+    ``shard_ctx.GATHERED`` counts."""
     from repro_torch.models import transformer
     from repro_torch.models.moe import capacity
     from repro_torch.sharding import plans
@@ -395,8 +408,10 @@ def tp_traffic(cfg, shape, mesh) -> Dict[str, int]:
     else:
         d8 = fwd + top_fwd + (rows * cfg.vocab_size * item * ag
                               if vocab else 0)
+    gathered = (tp.step_bytes(1, remat, backward=train) if exchange
+                else tp.step_bytes_whole(1, remat, backward=train))
     return {"8a": int(n_micro * whole.step_bytes(1, remat)),
-            "8d": int(n_micro * (d8 + tp.step_bytes(1, remat)))}
+            "8d": int(n_micro * (d8 + gathered))}
 
 
 def pod_traffic(cfg, shape, mesh) -> Dict:
@@ -451,58 +466,45 @@ def pod_traffic(cfg, shape, mesh) -> Dict:
 
 def main() -> None:
     """Print the computed figures ``PERF.md`` quotes (no card, no
-    process group: meta tensors only)."""
+    process group: meta tensors only).  ``gb_8d_whole``: 8d with the
+    exchanged leaves gathered whole (``tp_traffic(exchange=False)``),
+    where the layout exchanges any."""
     import json
     import repro_torch.configs as configs
     from repro_torch.models.config import ShapeConfig
     from repro_torch.sharding import plans
-    ds = configs.get("deepseek_7b")
     shapes = {"train 2 x 2048": ShapeConfig("t", "train", 2048, 2, 1),
               "prefill 4 x 512": ShapeConfig("p", "prefill", 512, 4),
               "decode 4 rows": ShapeConfig("d", "decode", 1, 4)}
-    for m in (2, 4):
+
+    def steps(arch, cfg, m):
         for name, shape in shapes.items():
-            got = tp_traffic(ds, shape, {"data": 1, "model": m})
-            print(json.dumps({"deepseek_7b": f"(1, {m})", "step": name,
-                              "gb_8a": got["8a"] / 1e9,
-                              "gb_8d": got["8d"] / 1e9}))
-    zb = configs.get("zamba2_2p7b")
-    for m in (2, 16):
-        for name, shape in shapes.items():
-            got = tp_traffic(zb, shape, {"data": 1, "model": m})
-            print(json.dumps({"zamba2_2p7b": f"(1, {m})", "step": name,
-                              "gb_8a": got["8a"] / 1e9,
-                              "gb_8d": got["8d"] / 1e9}))
-    v2 = configs.get("deepseek_v2_236b")
-    for m in (2, 16):
-        for name, shape in shapes.items():
-            got = tp_traffic(v2, shape, {"data": 1, "model": m})
-            print(json.dumps({"deepseek_v2_236b": f"(1, {m})",
-                              "step": name, "gb_8a": got["8a"] / 1e9,
-                              "gb_8d": got["8d"] / 1e9}))
-        lay = plans.tp_layout(v2, {"data": 1, "model": m})
-        print(json.dumps({"deepseek_v2_236b": f"(1, {m})",
+            mesh = {"data": 1, "model": m}
+            got = tp_traffic(cfg, shape, mesh)
+            line = {arch: f"(1, {m})", "step": name,
+                    "gb_8a": got["8a"] / 1e9, "gb_8d": got["8d"] / 1e9}
+            whole = tp_traffic(cfg, shape, mesh, exchange=False)["8d"]
+            if whole != got["8d"]:
+                line["gb_8d_whole"] = whole / 1e9
+            print(json.dumps(line))
+
+    def group(arch, cfg, m):
+        lay = plans.tp_layout(cfg, {"data": 1, "model": m})
+        print(json.dumps({arch: f"(1, {m})",
                           "group_gb_8d": lay.group_bytes / 1e9,
                           "group_gb_8a": lay.group_bytes_whole / 1e9,
                           **lay.summary()}))
-    xl = configs.get("xlstm_350m")
-    for m in (2, 4):
-        for name, shape in shapes.items():
-            got = tp_traffic(xl, shape, {"data": 1, "model": m})
-            print(json.dumps({"xlstm_350m": f"(1, {m})", "step": name,
-                              "gb_8a": got["8a"] / 1e9,
-                              "gb_8d": got["8d"] / 1e9}))
-        lay = plans.tp_layout(xl, {"data": 1, "model": m})
-        print(json.dumps({"xlstm_350m": f"(1, {m})",
-                          "group_gb_8d": lay.group_bytes / 1e9,
-                          "group_gb_8a": lay.group_bytes_whole / 1e9,
-                          **lay.summary()}))
-    lay = plans.tp_layout(configs.get("llama4_maverick_400b"),
-                          {"data": 1, "model": 8})
-    print(json.dumps({"llama4_maverick_400b": "(1, 8)",
-                      "group_gb_8d": lay.group_bytes / 1e9,
-                      "group_gb_8a": lay.group_bytes_whole / 1e9,
-                      **lay.summary()}))
+
+    for arch, ms, groups in (("deepseek_7b", (2, 4), False),
+                             ("zamba2_2p7b", (2, 4, 8, 16), True),
+                             ("deepseek_v2_236b", (2, 16), True),
+                             ("xlstm_350m", (2, 4), True)):
+        cfg = configs.get(arch)
+        for m in ms:
+            steps(arch, cfg, m)
+            if groups:
+                group(arch, cfg, m)
+    group("llama4_maverick_400b", configs.get("llama4_maverick_400b"), 8)
 
 
 if __name__ == "__main__":

@@ -86,15 +86,27 @@ def mamba_columns(cfg: SSMConfig, d_model: int, M: int, r: int):
     return z + x + bc + dt, [i - di for i in x + bc]
 
 
+def _take(w, cols):
+    """The columns ``cols`` (the last dim) of a leaf a rank computes its
+    heads with: a leaf ``shard_ctx.full`` exchanged comes as them
+    already (``plans.TPLayout.exchange``); one the plan replicates over
+    ``model`` comes whole and is cut here."""
+    if w.shape[-1] == len(cols):
+        return w
+    return w.index_select(-1, torch.tensor(cols, device=w.device))
+
+
 def mamba2_fwd(p, x, cfg: SSMConfig, d_model: int, *, state=None,
                impl: str = "auto"):
     """Under tensor parallelism over ``model`` (the context's layout
     computes "mamba"; ``plans.MAMBA_SLICED``) a
     rank computes its H / M heads: ``x`` enters the sharded region
-    (``copy_in``), the rank takes its columns of the whole ``w_in`` and
-    ``conv_w`` and its heads' ``A_log``, ``D`` and ``dt_bias``
-    (``mamba_columns``), runs the conv and the scan on its heads (a
-    decode state of its heads' conv channels and ``ssm`` rows), and
+    (``copy_in``), the rank has its columns of ``w_in`` and ``conv_w``
+    (``mamba_columns``: brought as them by ``shard_ctx.full``, or cut
+    from a leaf the plan replicates, ``_take``) and takes its heads'
+    ``A_log``, ``D`` and ``dt_bias``, runs the conv and the scan on its
+    heads (a decode state of its heads' conv channels and ``ssm`` rows),
+    and
     ``w_out``'s rows are its heads'.  The gated norm is over all of
     ``d_inner``: the column's ``y`` is gathered (``gather_sum``; its
     gradient summed back), normalised whole by the ``rmsnorm`` kernel
@@ -113,9 +125,7 @@ def mamba2_fwd(p, x, cfg: SSMConfig, d_model: int, *, state=None,
         x = shard_ctx.copy_in(x)
     if M > 1:
         cols, chans = mamba_columns(cfg, d_model, M, r)
-        dev = w_in.device
-        w_in = w_in.index_select(1, torch.tensor(cols, device=dev))
-        conv_w = conv_w.index_select(1, torch.tensor(chans, device=dev))
+        w_in, conv_w = _take(w_in, cols), _take(conv_w, chans)
         heads = slice(r * Hl, (r + 1) * Hl)
         A_log, D, dt_bias = A_log[heads], D[heads], dt_bias[heads]
     zxbcdt = x @ w_in
@@ -218,11 +228,12 @@ def mlstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
               impl: str = "auto"):
     """Under tensor parallelism over ``model`` (the context's layout
     computes "mlstm"; ``plans.MLSTM_SLICED``) a rank computes its H / M
-    heads: ``x`` enters the sharded region (``copy_in``), the rank takes
-    its columns of the whole ``w_up`` and ``w_if``
-    (``mlstm_columns``), computes ``xm`` and the conv whole (a decode
-    state of the whole conv tail), and ``wq``, ``wk``, ``wv`` (columns)
-    and ``w_down`` (rows) are its heads'.  The scan and the decode step
+    heads: ``x`` enters the sharded region (``copy_in``), the rank has
+    its columns of ``w_up`` (brought as them by ``shard_ctx.full``) and
+    takes its columns of the whole ``w_if`` (replicated by the plan;
+    ``mlstm_columns``, ``_take``), computes ``xm`` and the conv whole (a
+    decode state of the whole conv tail), and ``wq``, ``wk``, ``wv``
+    (columns) and ``w_down`` (rows) are its heads'.  The scan and the decode step
     run on its heads (a decode state of its heads' ``(C, n, m)``).  The
     output norm is over all of ``inner``: the column's ``h`` is gathered
     (``gather_sum``; its gradient summed back), normalised whole by the
@@ -240,9 +251,7 @@ def mlstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
         x = shard_ctx.copy_in(x)
     if M > 1:
         up_cols, if_cols = mlstm_columns(d_model, cfg, M, r)
-        dev = w_up.device
-        w_up = w_up.index_select(1, torch.tensor(up_cols, device=dev))
-        w_if = w_if.index_select(1, torch.tensor(if_cols, device=dev))
+        w_up, w_if = _take(w_up, up_cols), _take(w_if, if_cols)
     up = x @ w_up
     xm, z = up[..., :inner], up[..., inner:]
     conv_tail = None if state is None else state["conv"]
@@ -344,9 +353,10 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
 
     Under tensor parallelism over ``model`` (the context's layout
     computes "slstm"; ``plans.SLSTM_SLICED``) a rank computes its H / M
-    heads: ``x`` enters the sharded region (``copy_in``), the rank takes
-    its heads' columns of the whole ``w_gates`` (``slstm_columns``) and
-    its heads of ``r_gates``, and runs the recurrence on them (a decode
+    heads: ``x`` enters the sharded region (``copy_in``), the rank has
+    its heads' columns of ``w_gates`` (``slstm_columns``: brought as
+    them by ``shard_ctx.full``, ``_take``) and takes its heads of
+    ``r_gates``, and runs the recurrence on them (a decode
     state of its heads' ``(h, c, n, m)``) with no collective inside the
     loop: ``r_gates`` is block-diagonal by head.  The column's ``h`` is
     then joined whole (``gather_out``: what follows is computed whole
@@ -366,9 +376,7 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
     if tp:
         x = shard_ctx.copy_in(x)
     if M > 1:
-        cols = slstm_columns(d_model, cfg, M, rk)
-        w_gates = w_gates.index_select(
-            1, torch.tensor(cols, device=w_gates.device))
+        w_gates = _take(w_gates, slstm_columns(d_model, cfg, M, rk))
         r_gates = r_gates[rk * H:(rk + 1) * H]
     # S steps of (4, H, B, Dh) gates, each contiguous
     gates_x = (x @ w_gates).reshape(B, S, 4, H, Dh).float().permute(

@@ -21,9 +21,15 @@ experts and for serve logits (all-gather forward, the local slice
 backward).  Outside those regions every rank of a model column holds
 and computes the same activations.  Every leaf the layout keeps in 8a's
 layout (``TPLayout.kept``), and every leaf under a context without a
-layout, is gathered whole over both axes.  With M = 1 the three
-Functions return their input.  They are the reference's ``constrain_*``
-layout hints made explicit: GSPMD inserts the same collectives there.
+layout, is gathered whole over both axes.  A leaf of which each rank
+computes only its heads' columns, where the plan's contiguous chunks of
+its columns do not line up with heads (``TPLayout.exchange``: Mamba2's
+``w_in`` and ``conv_w``, the mLSTM's ``w_up``, the sLSTM's
+``w_gates``), is gathered over the data axes and its columns exchanged
+over the model column, each rank receiving only those it lacks.  With
+M = 1 the three Functions return their input.  They are the
+reference's ``constrain_*`` layout hints made explicit: GSPMD inserts
+the same collectives there.
 
 A serve step gathers forward only: ``full`` of a DTensor with no
 gradient to place (grad off, or no context installed, as the paged
@@ -38,6 +44,7 @@ whole batch).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import threading
 from typing import Optional, Tuple
@@ -113,10 +120,11 @@ class ShardCtx:
         collective touches it: the values differ until the compressed
         pod reduce); over ``model`` the same on every rank, whose ranks
         compute the same activations outside the sharded regions, or,
-        for a leaf computed sharded (its DTensor ``placements`` given),
-        the rank's own shard, or, for a leaf gathered whole of which each
-        rank computes its share (``model_partial``: a Mamba2 sublayer's
-        ``plans.MAMBA_SLICED``), each rank's part of a sum."""
+        for a leaf computed sharded or exchanged (its DTensor
+        ``placements`` given), the rank's own shard, or, for a leaf
+        gathered whole of which each rank computes its share
+        (``model_partial``: the paths of ``TPLayout.partial`` that are
+        not exchanged), each rank's part of a sum."""
         out = []
         for i, a in enumerate(self.sizes):
             if a in self.dp:
@@ -171,11 +179,14 @@ def use(ctx: Optional[ShardCtx]):
         _STATE.ctx = prev
 
 
-#: ``model_bytes``: bytes ``full`` brought over ``model``: of each leaf
-#: gathered whole over a model axis of M > 1, the (M - 1) / M other
-#: ranks hold (``plans.TPLayout.step_bytes`` counts the same; 0 at
-#: M = 1, where there is nothing to bring); ``tp_leaves``: the leaves
-#: ``full`` handed back as their ``model`` shard, at any M
+#: ``model_bytes``: bytes ``full`` brought this rank over ``model``: of
+#: each leaf gathered whole over a model axis of M > 1, the (M - 1) / M
+#: other ranks hold; of each exchanged leaf (``TPLayout.exchange``), the
+#: columns it needs that other ranks hold, and in the backward the
+#: gradients of its own columns that other ranks computed with
+#: (``plans.TPLayout.step_bytes`` counts the same; 0 at M = 1, where
+#: there is nothing to bring); ``tp_leaves``: the leaves ``full`` handed
+#: back as their ``model`` shard, at any M
 GATHERED = {"model_bytes": 0, "tp_leaves": 0}
 #: bytes the model column's joins brought to this rank: a ring
 #: all-reduce of an n-byte tensor 2 (M - 1) / M n, an all-gather of
@@ -201,9 +212,12 @@ def full(x, path: Optional[str] = None):
     returned as it is.  Where the context's layout computes the leaf at
     ``path`` sharded over a model axis of M > 1 (``TPLayout.leaves``),
     only the data axes are gathered and the rank's ``model`` shard comes
-    back (at M = 1 the shard is the leaf); every other leaf comes back
-    whole, its gradient a sum over the model column where the layout
-    says each rank computes only its share of it (``TPLayout.partial``).
+    back (at M = 1 the shard is the leaf); where it exchanges the leaf's
+    columns (``TPLayout.exchange``), the data axes are gathered and the
+    rank gets the columns its heads compute with (``_Exchange``); every
+    other leaf comes back whole, its gradient a sum over the model
+    column where the layout says each rank computes only its share of it
+    (``TPLayout.partial``).
     """
     if not isinstance(x, DTensor):
         return x
@@ -212,12 +226,19 @@ def full(x, path: Optional[str] = None):
     mesh, pl = x.device_mesh, x.placements
     m = _model_dim(mesh)
     tp = None if ctx is None else ctx.tp
-    if tp is not None and path in tp.leaves:
-        GATHERED["tp_leaves"] += 1
+    cols = None if tp is None else tp.exchange.get(path)
+    if tp is not None and (path in tp.leaves or cols is not None):
         keep = tuple(p if i == m else Replicate() for i, p in enumerate(pl))
         y = x.redistribute(mesh, keep)
-        return (y.to_local(grad_placements=ctx.grad_placements(keep))
-                if grad else y.to_local())
+        local = (y.to_local(grad_placements=ctx.grad_placements(keep))
+                 if grad else y.to_local())
+        if cols is None:
+            GATHERED["tp_leaves"] += 1
+            return local
+        assert pl[m] == Shard(x.ndim - 1), (path, pl)
+        r = mesh.get_coordinate()[m]
+        return _Exchange.apply(local, mesh.get_group(m),
+                               _exchange_plan(cols, local.shape[-1], r))
     if m is not None and isinstance(pl[m], Shard) and mesh.size(m) > 1:
         n = mesh.size(m)
         GATHERED["model_bytes"] += x.numel() * x.element_size() * (n - 1) \
@@ -226,6 +247,91 @@ def full(x, path: Optional[str] = None):
         return x.full_tensor()
     return x.full_tensor(grad_placements=ctx.grad_placements(
         model_partial=tp is not None and path in tp.partial))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """One rank's part in exchanging a leaf's columns over its model
+    column: ``send``, for each rank, the columns of this rank's chunk
+    that the rank wants (indices into the chunk, in the wanted order);
+    ``recv_counts``, how many of this rank's wanted columns each rank
+    holds.  Columns are wanted in ascending order, so the parts received
+    in rank order are the wanted columns in order."""
+    send: Tuple[Tuple[int, ...], ...]
+    recv_counts: Tuple[int, ...]
+    rank: int
+
+    @property
+    def send_counts(self) -> Tuple[int, ...]:
+        return tuple(len(s) for s in self.send)
+
+
+_PLANS = {}
+
+
+def _exchange_plan(cols, chunk: int, r: int) -> _Plan:
+    """Rank ``r``'s ``_Plan`` for columns ``cols`` (one ascending tuple a
+    rank, ``TPLayout.exchange``) of a leaf cut into chunks of ``chunk``
+    columns; made once a layout."""
+    key = (id(cols), chunk, r)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0] is cols:
+        return hit[1]
+    lo = r * chunk
+    recv = [0] * len(cols)
+    for c in cols[r]:
+        recv[c // chunk] += 1
+    plan = _Plan(tuple(tuple(c - lo for c in want if lo <= c < lo + chunk)
+                       for want in cols), tuple(recv), r)
+    _PLANS[key] = (cols, plan)
+    return plan
+
+
+class _Exchange(torch.autograd.Function):
+    """A leaf's wanted columns (its last dim) from the model column's
+    chunks: forward, each rank sends every rank the columns of its chunk
+    that the other wants, in one ``all_to_all_single`` over the column,
+    and the parts received in rank order are the wanted columns;
+    backward, the reverse exchange of the gradient columns, each rank
+    adding those of its own chunk into its chunk's gradient rank by rank
+    in rank order (the columns every rank wants, Mamba2's B and C or the
+    mLSTM's ``xm``, are summed so)."""
+
+    @staticmethod
+    def forward(ctx, local, group, plan):
+        ctx.group, ctx.plan, ctx.chunk = group, plan, local.shape[-1]
+        x = local.movedim(-1, 0)
+        index = torch.tensor(sum(plan.send, ()), dtype=torch.long,
+                             device=x.device)
+        out = x.new_empty((sum(plan.recv_counts),) + x.shape[1:])
+        dist.all_to_all_single(out, x.index_select(0, index),
+                               list(plan.recv_counts),
+                               list(plan.send_counts), group=group)
+        GATHERED["model_bytes"] += _others(out, plan.recv_counts,
+                                           plan.rank)
+        return out.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        g = g.movedim(-1, 0).contiguous()
+        back = g.new_empty((sum(plan.send_counts),) + g.shape[1:])
+        dist.all_to_all_single(back, g, list(plan.send_counts),
+                               list(plan.recv_counts), group=ctx.group)
+        GATHERED["model_bytes"] += _others(back, plan.send_counts,
+                                           plan.rank)
+        grad = g.new_zeros((ctx.chunk,) + g.shape[1:])
+        for idx, part in zip(plan.send, back.split(plan.send_counts)):
+            grad.index_add_(0, torch.tensor(idx, dtype=torch.long,
+                                            device=g.device), part)
+        return grad.movedim(0, -1).contiguous(), None, None
+
+
+def _others(t, counts, rank: int) -> int:
+    """The bytes of ``t``'s rows, cut into ``counts``, that came from
+    ranks other than ``rank``."""
+    row = math.prod(t.shape[1:]) * t.element_size()
+    return (sum(counts) - counts[rank]) * row
 
 
 def full_tree(tree, prefix: str = ""):

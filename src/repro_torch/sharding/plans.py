@@ -30,6 +30,7 @@ replicates them.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
@@ -200,15 +201,16 @@ def param_specs(params_abstract, mesh, axes: Optional[MeshAxes] = None,
 
 # ------------------------------------------ tensor and expert parallelism
 
-#: the leaves of a Mamba2 sublayer whose heads compute sharded that are
-#: gathered whole, each rank taking its heads' share: ``w_in``'s fused
-#: columns ``[z, x, B, C, dt]`` and ``conv_w``'s channels ``[x, B, C]``
-#: are cut by the plan into contiguous chunks that do not line up with
-#: heads, and B and C are needed whole by every head; the gated norm's
-#: ``norm`` is for the norm over all of ``d_inner`` (``models.ssm``);
-#: ``A_log``, ``D`` and ``dt_bias`` are replicated by the plan.  Its
-#: ``w_out``, whose rows are head-aligned, comes back as the rank's
-#: model shard.
+#: the leaves of a Mamba2 sublayer whose heads compute sharded of which a
+#: rank computes only its share: ``w_in``'s fused columns ``[z, x, B, C,
+#: dt]`` and ``conv_w``'s channels ``[x, B, C]`` are cut by the plan into
+#: contiguous chunks that do not line up with heads, and B and C are
+#: needed whole by every head, so a rank brings only its heads' columns
+#: and the whole B and C (``EXCHANGED``); the gated norm's ``norm`` is
+#: gathered whole, for the norm over all of ``d_inner``
+#: (``models.ssm``); ``A_log``, ``D`` and ``dt_bias`` are replicated by
+#: the plan.  Its ``w_out``, whose rows are head-aligned, comes back as
+#: the rank's model shard.
 MAMBA_SLICED = ("w_in", "conv_w", "norm", "A_log", "D", "dt_bias")
 
 #: the leaves of an MLA attention whose heads compute sharded that every
@@ -222,25 +224,35 @@ MAMBA_SLICED = ("w_in", "conv_w", "norm", "A_log", "D", "dt_bias")
 #: rank's model shard: the plan's contiguous chunks are whole heads.
 MLA_WHOLE = ("wq_a", "q_norm", "wkv_a", "kv_norm")
 
-#: the leaves of an mLSTM sublayer whose heads compute sharded that are
-#: gathered whole, each rank taking its heads' share
-#: (``ssm.mlstm_columns``): ``w_up``'s columns ``[xm, z]`` (every head
-#: reads all of ``xm``, so a rank computes it and the conv whole, and
-#: takes its heads' ``z``), ``conv_w``, ``w_if`` (replicated by the
-#: plan; the rank takes its heads' ``i`` and ``f`` columns) and the
-#: output norm's ``out_norm``, for the norm over all of ``inner``.  Its
-#: ``wq``, ``wk`` and ``wv``, whose columns are head-major, and
-#: ``w_down``, whose rows are, come back as the rank's model shard.
+#: the leaves of an mLSTM sublayer whose heads compute sharded of which a
+#: rank computes only its share (``ssm.mlstm_columns``): ``w_up``'s
+#: columns ``[xm, z]`` (every head reads all of ``xm``, so a rank
+#: computes it and the conv whole, and brings all of ``xm`` and its
+#: heads' ``z``, ``EXCHANGED``), ``conv_w`` and the output norm's
+#: ``out_norm``, gathered whole for the conv and the norm over all of
+#: ``inner``, and ``w_if`` (replicated by the plan; the rank takes its
+#: heads' ``i`` and ``f`` columns).  Its ``wq``, ``wk`` and ``wv``, whose
+#: columns are head-major, and ``w_down``, whose rows are, come back as
+#: the rank's model shard.
 MLSTM_SLICED = ("w_up", "conv_w", "w_if", "out_norm")
 
-#: the leaves of an sLSTM sublayer whose heads compute sharded that are
-#: gathered whole, each rank taking its heads' share
-#: (``ssm.slstm_columns``): ``w_gates``, whose columns ``[z, i, f, o]``
-#: the plan cuts by gate and not by head, and ``r_gates`` (replicated by
-#: the plan, block-diagonal by head).  Its ``out_norm`` is gathered
-#: whole and used whole and alike on every rank, after the heads' ``h``
-#: is joined (``shard_ctx.gather_out``).
+#: the leaves of an sLSTM sublayer whose heads compute sharded of which a
+#: rank computes only its share (``ssm.slstm_columns``): ``w_gates``,
+#: whose columns ``[z, i, f, o]`` the plan cuts by gate and not by head
+#: (a rank brings its heads' columns of each gate, ``EXCHANGED``), and
+#: ``r_gates`` (replicated by the plan, block-diagonal by head).  Its
+#: ``out_norm`` is gathered whole and used whole and alike on every
+#: rank, after the heads' ``h`` is joined (``shard_ctx.gather_out``).
 SLSTM_SLICED = ("w_gates", "r_gates")
+
+#: the leaves of ``MAMBA_SLICED``, ``MLSTM_SLICED`` and ``SLSTM_SLICED``
+#: that a rank brings only the columns of (their last dim) that its heads
+#: compute with, by (sublayer, name), where the plan shards them over
+#: ``model``: ``shard_ctx.full`` exchanges the columns between the ranks
+#: of the model column (``TPLayout.exchange``) instead of gathering the
+#: leaf whole
+EXCHANGED = (("mamba", "w_in"), ("mamba", "conv_w"), ("mlstm", "w_up"),
+             ("slstm", "w_gates"))
 
 #: the sLSTM's feed-forward leaves: they compute sharded (kind
 #: "slstm_ff") where the plan shards them, the feed-forward width
@@ -258,6 +270,36 @@ def _sliced(keys, kinds) -> bool:
                 and name in MLSTM_SLICED)
             or ("slstm" in kinds and "slstm" in keys
                 and name in SLSTM_SLICED))
+
+
+def _exchanged(keys) -> Optional[Tuple[str, str]]:
+    """The (sublayer, name) of ``EXCHANGED`` the param leaf at path
+    ``keys`` is, or None."""
+    name = _leaf_name(keys)
+    for sub, n in EXCHANGED:
+        if sub in keys and name == n:
+            return sub, n
+    return None
+
+
+def exchange_columns(cfg, sub: str, name: str, M: int):
+    """For each rank of a model column of M, the columns of the
+    ``EXCHANGED`` leaf (``sub``, ``name``) that its heads compute with,
+    ascending (``ssm.mamba_columns``, ``mlstm_columns``,
+    ``slstm_columns``, the one definition of them)."""
+    from repro_torch.models import ssm
+
+    def of(r):
+        if sub == "mamba":
+            cols, chans = ssm.mamba_columns(cfg.ssm, cfg.d_model, M, r)
+            return cols if name == "w_in" else chans
+        if sub == "mlstm":
+            return ssm.mlstm_columns(cfg.d_model, cfg.xlstm, M, r)[0]
+        return ssm.slstm_columns(cfg.d_model, cfg.xlstm, M, r)
+
+    out = tuple(tuple(of(r)) for r in range(M))
+    assert all(list(c) == sorted(c) for c in out), (sub, name)
+    return out
 
 
 def _tp_kind(keys) -> Optional[str]:
@@ -302,22 +344,33 @@ class TPLayout:
     of.  ``leaves``: the param paths of those kinds (``flatten``'s, the
     stack dims dropped) that ``shard_ctx.full`` gathers over the data
     axes only, handing each rank its ``model`` shard.  ``partial``: the
-    paths gathered whole of which a rank computes only its share (a
-    Mamba2 sublayer's ``MAMBA_SLICED``, an MLA attention's
-    ``MLA_WHOLE``, the xLSTM's ``MLSTM_SLICED`` and ``SLSTM_SLICED``),
-    so their gradients are each rank's part, summed over
-    the model column.  ``heads``: the (query,
-    kv) heads a rank's attention computes (the xLSTM's: its mLSTM and
-    sLSTM heads, twice).  ``kept``: the rules that
-    kept a part in 8a's layout (gathered whole over ``model``, every
+    paths of which a rank computes only its share (a Mamba2 sublayer's
+    ``MAMBA_SLICED``, an MLA attention's ``MLA_WHOLE``, the xLSTM's
+    ``MLSTM_SLICED`` and ``SLSTM_SLICED``).  ``exchange``: those of them
+    (``EXCHANGED``, at M > 1, where the plan shards them over ``model``)
+    whose columns ``full`` brings a rank only as its heads compute with,
+    each path's columns for every rank of the model column
+    (``exchange_columns``); their gradients go back to the ranks owning
+    the columns.  The other paths of ``partial`` are gathered whole, so
+    their gradients are each rank's part, summed over the model column.
+    ``heads``: the (query, kv) heads a rank's attention computes (the
+    xLSTM's: its mLSTM and sLSTM heads, twice).  ``kept``: the rules
+    that kept a part in 8a's layout (gathered whole over ``model``, every
     rank of a model column computing it whole).  ``bytes_top`` and
     ``bytes_groups``: the bytes ``full`` brings over ``model`` in one
     forward, for the leaves outside the stack and the groups' leaves
     (the hybrid's shared block once a group): a leaf gathered whole over
     ``model`` (kept, or in ``partial``) brings the (M - 1) / M of it the
-    other ranks hold.
-    ``group_bytes``: the bytes of one group's leaves a rank holds once
-    ``full`` has gathered them (the hybrid's shared block among them),
+    other ranks hold, an exchanged one the columns a rank needs that
+    its own chunk lacks, for the rank that receives the most.
+    ``exchange_in`` and ``exchange_back``: for each rank of the model
+    column, the bytes the exchange brings it in one forward (its needed
+    columns held by the other ranks) and in one backward (the gradients
+    of its own columns that the other ranks computed with);
+    ``exchange_whole``: what one forward would bring had the exchanged
+    leaves been gathered whole.  ``group_bytes``: the bytes of one
+    group's leaves a rank holds once ``full`` has brought them (the
+    hybrid's shared block among them; the rank that holds the most),
     beside ``group_bytes_whole``, the group whole, as 8a gathers it."""
     model: int
     kinds: frozenset
@@ -329,17 +382,41 @@ class TPLayout:
     group_bytes: int
     group_bytes_whole: int
     partial: frozenset
+    exchange: Dict[str, Tuple[Tuple[int, ...], ...]]
+    exchange_in: Tuple[int, ...]
+    exchange_back: Tuple[int, ...]
+    exchange_whole: int
 
     def computes(self, kind: str) -> bool:
         return kind in self.kinds
 
-    def step_bytes(self, n_micro: int = 1, remat: bool = False) -> int:
+    def step_bytes(self, n_micro: int = 1, remat: bool = False,
+                   backward: bool = False, rank: Optional[int] = None) -> int:
         """The bytes ``full`` brings over ``model`` in a step of
         ``n_micro`` forwards (a train step's microbatches; 1 for a
-        prefill or a decode step); with ``remat`` the groups are gathered
-        again in the backward."""
-        return n_micro * (self.bytes_top
-                          + self.bytes_groups * (2 if remat else 1))
+        prefill or a decode step) to rank ``rank`` of the model column,
+        by default to the rank that receives the most; with ``remat``
+        the groups are brought again in the backward; with ``backward``
+        each microbatch's backward sends the exchanged leaves' gradient
+        columns back to their owners."""
+        if rank is None:
+            return max(self.step_bytes(n_micro, remat, backward, r)
+                       for r in range(self.model))
+        groups = (self.bytes_groups - max(self.exchange_in)
+                  + self.exchange_in[rank])
+        return n_micro * (self.bytes_top + groups * (2 if remat else 1)
+                          + (self.exchange_back[rank] if backward else 0))
+
+    def step_bytes_whole(self, n_micro: int = 1, remat: bool = False,
+                         backward: bool = False) -> int:
+        """``step_bytes`` had the exchanged leaves been gathered whole, as
+        the port gathered them before the exchange; with ``backward``
+        their gradients reduce-scattered over the model column once a
+        microbatch, (M - 1) / M of each coming to a rank."""
+        groups = (self.bytes_groups - max(self.exchange_in)
+                  + self.exchange_whole)
+        return n_micro * (self.bytes_top + groups * (2 if remat else 1)
+                          + (self.exchange_whole if backward else 0))
 
     def summary(self) -> Dict[str, Any]:
         """The layout as the launchers and ``chip_smoke.py`` print it."""
@@ -363,13 +440,18 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
       heads", naming H and M);
     * a Mamba2 sublayer computes sharded where its head count H =
       ``d_inner / head_dim`` divides by M, each rank its H / M heads
-      (``MAMBA_SLICED`` says which leaves it gathers whole); else every
-      rank computes all of it (rule "mamba", naming H and M);
+      (``MAMBA_SLICED`` says which leaves it brings whole and which only
+      as its heads' columns); else every rank computes all of it (rule
+      "mamba", naming H and M);
     * the xLSTM's mLSTM and sLSTM sublayers compute sharded where its
       ``n_heads`` H divides by M, each rank its H / M heads
-      (``MLSTM_SLICED`` and ``SLSTM_SLICED`` say which leaves it
-      gathers whole); else every rank computes all of them (rule
-      "xlstm: heads", naming H and M).  The sLSTM's feed-forward is a
+      (``MLSTM_SLICED`` and ``SLSTM_SLICED`` say which leaves it brings
+      whole and which only as its heads' columns); else every rank
+      computes all of them (rule "xlstm: heads", naming H and M).  A
+      leaf of ``EXCHANGED`` whose columns do not divide by M is
+      replicated by the plan (``_roles_to_spec``): every rank holds it
+      whole, brings nothing over ``model`` and takes its columns.  The
+      sLSTM's feed-forward is a
       region of its own, sharded where its width divides by M (rule
       "slstm_ff" where it does not);
     * the MLP, a MoE layer's shared expert, the vocabulary (embedding
@@ -437,8 +519,9 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
     params = model_lib.abstract_params(cfg)
     specs = dict(_dict_leaves(param_specs(params, mesh)))
     ng = n_groups(cfg)
-    leaves, partial = set(), set()
-    top, groups, group, whole = 0, 0, 0, 0
+    leaves, partial, exchange = set(), set(), {}
+    top, groups, group, whole = 0, 0, [0] * M, 0
+    ex_in, ex_back, ex_whole = [0] * M, [0] * M, 0
     for keys, leaf in _dict_leaves(params):
         path = "/".join(keys)
         on_model = "model" in [x for e in specs[keys] for x in _axes_of(e)]
@@ -447,10 +530,29 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
         sliced = _sliced(keys, kinds)
         if sliced:
             partial.add(path)
+        ex = _exchanged(keys) if sliced and on_model and M > 1 else None
+        if ex is not None:
+            assert keys[0] == "layers", path
+            cols = exchange[path] = exchange_columns(cfg, *ex, M)
+            chunk = leaf.shape[-1] // M
+            col = nbytes // leaf.shape[-1]      # a column, every group's
+            for r, need in enumerate(cols):
+                # the columns r needs that rank s holds, and their
+                # gradients back to s
+                owners = collections.Counter(c // chunk for c in need)
+                for s, n in owners.items():
+                    if s != r:
+                        ex_in[r] += n * col
+                        ex_back[s] += n * col
+                group[r] += len(need) * col // ng
+            ex_whole += nbytes * (M - 1) // M
+            whole += nbytes // ng
+            continue
         if keys[0] in ("layers", "extra"):
             one = nbytes // ng if keys[0] == "layers" else nbytes
             whole += one
-            group += one // M if kind in kinds and not sliced else one
+            group = [g + (one // M if kind in kinds and not sliced else one)
+                     for g in group]
         if kind in kinds and not sliced:
             assert on_model, (path, specs[keys])
             leaves.add(path)
@@ -467,8 +569,11 @@ def tp_layout(cfg, mesh, paged: bool = False) -> TPLayout:
                               else 1)
     return TPLayout(model=M, kinds=frozenset(kinds),
                     leaves=frozenset(leaves), heads=heads, kept=tuple(kept),
-                    bytes_top=top, bytes_groups=groups, group_bytes=group,
-                    group_bytes_whole=whole, partial=frozenset(partial))
+                    bytes_top=top, bytes_groups=groups + max(ex_in),
+                    group_bytes=max(group), group_bytes_whole=whole,
+                    partial=frozenset(partial), exchange=exchange,
+                    exchange_in=tuple(ex_in), exchange_back=tuple(ex_back),
+                    exchange_whole=ex_whole)
 
 
 def batch_specs(batch_abstract, mesh, axes: Optional[MeshAxes] = None):

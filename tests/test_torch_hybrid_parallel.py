@@ -231,7 +231,7 @@ from torch.distributed.tensor import DTensor
 
 res = {}
 SEEN = {"heads": set(), "mamba_heads": set(), "vocab": set(),
-        "conv": set(), "ssm": set()}
+        "conv": set(), "ssm": set(), "cut": set()}
 
 
 def tapped(fn, note):
@@ -255,6 +255,10 @@ ops.ssd_decode_step = tapped(ops.ssd_decode_step, lambda x, *a: (
 from repro_torch.models import ssm as ssm_lib
 ssm_lib.causal_conv = tapped(ssm_lib.causal_conv, lambda x, w, tail=None: (
     SEEN["conv"].add(x.shape[-1])))
+# the leaves a forward cuts to the rank's columns itself (an exchanged
+# leaf comes as them)
+ssm_lib._take = tapped(ssm_lib._take, lambda w, cols: (
+    w.shape[-1] != len(cols) and SEEN["cut"].add(w.shape[-1])))
 model_lib._xent = tapped(
     model_lib._xent, lambda logits, *_: SEEN["vocab"].add(logits.shape[-1]))
 # every decode step's logits (the serve step calls the module's function)
@@ -280,8 +284,17 @@ def observe():
 
 def observed():
     return {**{k: sorted(v) for k, v in SEEN.items()},
-            "model_bytes": shard_ctx.GATHERED["model_bytes"],
             "joined_bytes": shard_ctx.JOINED["model_bytes"]}
+
+
+def brought(rt, **kw):
+    """The bytes ``full`` brought this rank over ``model`` since
+    ``observe`` beside the layout's count for its place in the model
+    column: they differ from rank to rank, as the exchanged columns a
+    rank lacks do."""
+    return {"got": shard_ctx.GATHERED["model_bytes"],
+            "want": rt.tp.step_bytes(rank=rt.mesh.get_coordinate()[-1],
+                                     **kw)}
 
 
 def traffic(cfg, shape, mesh):
@@ -319,8 +332,10 @@ def train(mesh):
     observe()
     m = rt.step()
     free = [[m["loss"], m["grad_norm"]]]
+    kw = dict(n_micro=shape.microbatch, remat=True, backward=True)
+    res[f"brought_{ns}"] = brought(rt, **kw)
     out = {"tp": rt.tp.summary(), "seen": observed(),
-           "want_bytes": rt.tp.step_bytes(shape.microbatch, remat=True),
+           "want_bytes": rt.tp.step_bytes(**kw),
            "want_traffic": traffic(rt.job.cfg, shape, mesh)}
     for _ in range(2):
         m = rt.step()
@@ -374,6 +389,7 @@ def serve(job, mesh, B, P, tag, gen=GEN, keep=False):
     rt._prefill_fn = fn
     observe()
     rt.prefill(prompt(C, ShapeConfig, pipeline, B, P))
+    res[f"brought_{tag}"] = {"prefill": brought(rt)}
     out = {"prefill_seen": observed(), "want_bytes": rt.tp.step_bytes(1),
            "want_traffic": {
                "prefill": traffic(rt.job.cfg, ShapeConfig(
@@ -389,6 +405,7 @@ def serve(job, mesh, B, P, tag, gen=GEN, keep=False):
         rt.step()
         if i == 0:
             out["decode_seen"] = observed()
+            res[f"brought_{tag}"]["decode"] = brought(rt)
         toks.append(tokens(rt))
     rows += LOGITS          # the whole batch: its rows do not split here
     if rank == 0:
@@ -552,14 +569,28 @@ def test_train_steps_match_the_reference_on_the_same_mesh(runs, mesh,
                                    err_msg=name)
 
 
+def _brought(lines, key):
+    """Each rank's ``brought`` line (its own bytes over ``model`` and
+    the layout's count for its place in the model column), checked
+    equal, and the most any rank received."""
+    got = [r[key] for r in lines if key in r]
+    assert got, key
+    for b in got:
+        assert b["got"] == b["want"], (key, got)
+    return max(b["got"] for b in got)
+
+
 @pytest.mark.parametrize("mesh,world", TRAIN_CASES,
                          ids=[m for m, _ in TRAIN_CASES])
 def test_each_rank_computes_its_share_of_the_hybrid(runs, mesh, world):
     """The SSD scan sees H / M Mamba2 heads, flash Hq / M and Hkv / M
     attention heads, the loss V / M of the vocabulary, the conv the
-    rank's heads' channels and B and C; ``full`` brings over ``model``
-    exactly the bytes of the leaves gathered whole (``w_in``, ``conv_w``,
-    ``norm``), and the joins what ``tp_traffic`` computes beside them."""
+    rank's heads' channels and B and C; no forward cuts a leaf to its
+    columns itself (``w_in`` and ``conv_w`` come exchanged); ``full``
+    brings each rank over ``model`` exactly the columns of ``w_in`` and
+    ``conv_w`` it lacks, their gradients back and the gathered ``norm``
+    (``_exchange_count``), less than gathering them whole, and the joins
+    what ``tp_traffic`` computes beside them."""
     got = _first(runs[world], f"train_{mesh}")
     lay = _layout(mesh)
     cfg = _fp32()
@@ -574,20 +605,52 @@ def test_each_rank_computes_its_share_of_the_hybrid(runs, mesh, world):
     assert seen["vocab"] == [cfg.vocab_size // M]
     di, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
     assert seen["conv"] == [di // M + 2 * N]
-    assert seen["model_bytes"] == got["want_bytes"] == lay.step_bytes(
-        2, remat=True) > 0
+    assert seen["cut"] == []
+    most = _brought(runs[world], f"brought_train_{mesh}")
+    assert most == got["want_bytes"] == lay.step_bytes(
+        2, remat=True, backward=True) > 0
+    fwd, back = _exchange_count(cfg, M)
+    norm = sum(t.numel() * t.element_size() for p, t in _flat_meta(cfg)
+               if p.endswith("/mamba/blk/norm")) * (M - 1) // M
+    for r in range(M):
+        assert lay.step_bytes(2, remat=True, backward=True, rank=r) == \
+            2 * (2 * (fwd[r] + norm) + back[r])
     whole = sum(t.numel() * t.element_size() for p, t in _flat_meta(cfg)
                 if p.split("/")[-1] in ("w_in", "conv_w", "norm")
                 and "/mamba/" in p)
-    assert got["want_bytes"] == 2 * 2 * whole * (M - 1) // M
+    assert lay.step_bytes_whole(2, remat=True) == \
+        2 * 2 * whole * (M - 1) // M
+    assert most < lay.step_bytes_whole(2, remat=True)
     assert seen["joined_bytes"] > 0
-    assert seen["model_bytes"] + seen["joined_bytes"] == got["want_traffic"]
+    assert most + seen["joined_bytes"] == got["want_traffic"]
 
 
 def _flat_meta(cfg):
     from repro_torch.models import model
     from repro_torch.models.transformer import flatten
     return flatten(model.abstract_params(cfg))
+
+
+def _exchange_count(cfg, M):
+    """For each rank of a model column of M, the bytes of ``w_in`` and
+    ``conv_w`` that a forward's exchange brings it and that a backward's
+    brings back to it, counted from ``ssm.mamba_columns`` and the plan's
+    contiguous chunks: the columns it needs that another rank's chunk
+    holds, and the columns of its chunk that another rank needs."""
+    from repro_torch.models import ssm
+    leaves = dict(_flat_meta(cfg))
+    fwd, back = [0] * M, [0] * M
+    for name, which in (("w_in", 0), ("conv_w", 1)):
+        leaf = leaves[f"layers/mamba/blk/{name}"]
+        C = leaf.shape[-1]
+        col = leaf.numel() * leaf.element_size() // C
+        for r in range(M):
+            need = ssm.mamba_columns(cfg.ssm, cfg.d_model, M, r)[which]
+            for c in need:
+                if c // (C // M) != r:
+                    fwd[r] += col
+                    back[c // (C // M)] += col
+    return fwd, back
 
 
 def _logits_held(runs, world, tag):
@@ -608,9 +671,10 @@ def test_dense_plane_at_12_matches_the_reference(runs):
     for phase in ("prefill", "decode"):
         seen = got[f"{phase}_seen"]
         assert seen["heads"] == [[2, 2]] and seen["mamba_heads"] == [4]
-        assert seen["model_bytes"] == got["want_bytes"] > 0
-        assert seen["model_bytes"] + seen["joined_bytes"] == \
-            got["want_traffic"][phase]
+        assert seen["cut"] == []
+        most = _brought([r["brought_dense_12"] for r in runs[2]], phase)
+        assert most == got["want_bytes"] == lay.step_bytes(1) > 0
+        assert most + seen["joined_bytes"] == got["want_traffic"][phase]
     di, N = cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim
     P = cfg.ssm.head_dim
     assert got["cache"]["ssm"][-3] == 4 and got["cache"]["k"][-2] == 2
@@ -779,6 +843,205 @@ def test_mamba_columns_are_a_ranks_heads():
         assert sorted(seen) == [c for c in range(2 * di + 2 * N + H)
                                 if not 2 * di <= c < 2 * di + 2 * N]
         assert P * (H // M) == di // M
+
+
+# ------------------------------------------------ the columns' exchange
+
+#: a world of gloo ranks on a (1, M) mesh: each ``EXCHANGED`` leaf of
+#: the smoke config's layout brought by ``full`` (the exchange) and,
+#: from the same whole leaf, gathered whole and cut to the rank's
+#: columns (the port's path before the exchange), each given the same
+#: cotangent; one JSON line a rank
+EXCHANGE = r'''
+import dataclasses, json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+rank, world, store, arch = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                            sys.argv[4])
+dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                        rank=rank, world_size=world)
+import repro_torch.configs as C
+from repro_torch.launch.mesh import make_block_mesh
+from repro_torch.models import model as model_lib
+from repro_torch.sharding import ctx as shard_ctx, plans
+
+over = json.loads(sys.argv[5])         # the smoke config's overrides
+heads = over.pop("n_heads", None)
+cfg = dataclasses.replace(C.get_smoke(arch), param_dtype="float32", **over)
+if heads:
+    cfg = dataclasses.replace(cfg, xlstm=dataclasses.replace(
+        cfg.xlstm, n_heads=heads))
+sizes = {"data": 1, "model": world}
+mesh = make_block_mesh(list(range(world)), (1, world), ("data", "model"))
+tp = plans.tp_layout(cfg, sizes)
+ctx = shard_ctx.ShardCtx(mesh, ("data",), "model", tp=tp)
+params = model_lib.abstract_params(cfg)
+shapes = dict(plans._dict_leaves(params))
+specs = dict(plans._dict_leaves(plans.param_specs(params, sizes)))
+out = {"rank": rank}
+for path, cols in sorted(tp.exchange.items()):
+    keys = tuple(path.split("/"))
+    shape = tuple(shapes[keys].shape[1:])           # one group's leaf
+    lay = plans.Layout(mesh, plans.to_placements(specs[keys][1:], mesh))
+    W = torch.tensor(np.random.default_rng(0).standard_normal(shape),
+                     dtype=torch.float32)
+    G = torch.tensor(np.random.default_rng(1 + rank).standard_normal(
+        shape[:-1] + (len(cols[rank]),)), dtype=torch.float32)
+    new, old = (lay.shard(W).requires_grad_(True) for _ in range(2))
+    shard_ctx.GATHERED["model_bytes"] = 0
+    with shard_ctx.use(ctx):
+        got = shard_ctx.full(new, path)
+        fwd = shard_ctx.GATHERED["model_bytes"]
+        (got * G).sum().backward()
+        back = shard_ctx.GATHERED["model_bytes"] - fwd
+        want = old.full_tensor(grad_placements=ctx.grad_placements(
+            model_partial=True)).index_select(-1, torch.tensor(cols[rank]))
+        (want * G).sum().backward()
+    chunk = shape[-1] // world
+    shared = [c - rank * chunk for c in range(rank * chunk,
+                                              (rank + 1) * chunk)
+              if sum(c in want_r for want_r in cols) > 1]
+    one = [c for c in range(chunk) if c not in shared]
+    gn, go = new.grad.to_local(), old.grad.to_local()
+    out[path] = {
+        "forward_equal": torch.equal(got, want),
+        "grad_equal_unshared": torch.equal(gn[..., one], go[..., one]),
+        "grad_shared_err": float((gn[..., shared] - go[..., shared]).abs()
+                                 .max()) if shared else 0.0,
+        "grad_shared_scale": float(go.abs().max()),
+        "n_shared": len(shared), "brought": fwd, "brought_back": back,
+        "chunk": chunk, "col_bytes": W[..., 0].numel() * W.element_size()}
+print("RESULT " + json.dumps(out))
+dist.destroy_process_group()
+'''
+
+
+def exchange_world(tmp, world, arch, over=None):
+    """``EXCHANGE`` on ``world`` gloo ranks, the smoke config of
+    ``arch`` in fp32 with ``over``'s fields (``n_heads``: the xLSTM's):
+    each rank's line."""
+    script = tmp / "exchange.py"
+    script.write_text(EXCHANGE)
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(r), str(world),
+         str(tmp / f"store{world}"), arch, json.dumps(over or {})],
+        cwd=str(tmp),
+        env=ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    return _collect(procs, time.time() + 120)
+
+
+def held_exchange(lines, cfg, M):
+    """The exchange's forward bit for bit the whole gather's columns;
+    its gradient the whole leaf's summed over the column, on the rank's
+    chunk: bit for bit where one rank computes with a column, within
+    fp32 roundoff (M ulp of the largest) where the M ranks do; the bytes
+    it brought each rank, forward and back, the columns counted from
+    the layout's lists."""
+    from repro_torch.sharding import plans
+    lay = plans.tp_layout(cfg, {"data": 1, "model": M})
+    assert lay.exchange and len(lines) == M
+    for line in lines:
+        r = line["rank"]
+        for path, cols in lay.exchange.items():
+            got = line[path]
+            assert got["forward_equal"] and got["grad_equal_unshared"], path
+            assert got["grad_shared_err"] <= M * 2 ** -23 * \
+                got["grad_shared_scale"], (path, got)
+            chunk = got["chunk"]
+            lack = sum(1 for c in cols[r] if c // chunk != r)
+            owed = sum(1 for s, want in enumerate(cols) if s != r
+                       for c in want if c // chunk == r)
+            assert got["brought"] == lack * got["col_bytes"], path
+            assert got["brought_back"] == owed * got["col_bytes"], path
+    return lay
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_the_exchange_is_the_whole_gathers_columns(tmp_path, world):
+    """On 2 and 4 gloo ranks, zamba2's smoke ``w_in`` and ``conv_w``
+    through the exchange against gathered whole and cut: forward bit
+    for bit, the gradient on each rank's chunk bit for bit for z, x and
+    dt, within fp32 roundoff for B and C, which every rank reads."""
+    cfg = _fp32()
+    lines = exchange_world(tmp_path, world, "zamba2_2p7b")
+    lay = held_exchange(lines, cfg, world)
+    assert set(lay.exchange) == {"layers/mamba/blk/w_in",
+                                 "layers/mamba/blk/conv_w"}
+    # B and C are the columns every rank reads, held by the last rank(s)
+    N = cfg.ssm.state_dim
+    assert sum(line["layers/mamba/blk/w_in"]["n_shared"]
+               for line in lines) == 2 * N
+
+
+def test_a_leaf_whose_columns_do_not_divide_is_not_exchanged():
+    """With a state width N of 1, ``w_in``'s 2 d_inner + 2 + H columns
+    and ``conv_w``'s d_inner + 2 channels do not divide by M = 4, so the
+    plan replicates them over ``model``: the layout exchanges neither,
+    nothing of them comes over ``model`` (only the gated norm's
+    ``norm``), and the forward cuts the rank's columns from the whole
+    leaf itself (``ssm._take``)."""
+    from repro_torch.models import ssm
+    from repro_torch.sharding import plans
+    base = _fp32()
+    cfg = dataclasses.replace(base, ssm=dataclasses.replace(base.ssm,
+                                                            state_dim=1))
+    M = 4
+    lay = plans.tp_layout(cfg, {"data": 1, "model": M})
+    assert "mamba" in lay.kinds and not lay.exchange
+    names = {"layers/mamba/blk/w_in", "layers/mamba/blk/conv_w"}
+    assert names <= lay.partial
+    from repro_torch.models import model
+    specs = dict(plans._dict_leaves(plans.param_specs(
+        model.abstract_params(cfg), {"data": 1, "model": M})))
+    assert all("model" not in specs[tuple(n.split("/"))] for n in names)
+    norm = sum(t.numel() * t.element_size() for p, t in _flat_meta(cfg)
+               if p.endswith("/mamba/blk/norm")) * (M - 1) // M
+    assert lay.step_bytes(1) == lay.step_bytes_whole(1) == norm
+    di = cfg.ssm.expand * cfg.d_model
+    cols, _ = ssm.mamba_columns(cfg.ssm, cfg.d_model, M, 1)
+    whole = torch.randn(cfg.d_model, 2 * di + 2 + di // cfg.ssm.head_dim,
+                        generator=torch.Generator().manual_seed(0))
+    assert torch.equal(ssm._take(whole, cols), whole[:, cols])
+    mine = whole[:, cols]
+    assert ssm._take(mine, cols) is mine    # an exchanged leaf, as it came
+
+
+ZAMBA_MESHES = [2, 4, 8, 16]
+
+
+@pytest.mark.parametrize("M", ZAMBA_MESHES)
+def test_zamba2_full_width_exchange_bytes(M):
+    """zamba2_2p7b at full width on a (1, M) mesh, abstract params: the
+    bytes the layout counts over ``model``, forward and back, are a
+    direct count from ``ssm.mamba_columns`` and the plan's chunks (and
+    the gathered ``norm``), below the whole gather's; a rank holds its
+    columns of a group, not the whole; at (1, 16) a decode step of 4
+    rows brings at most 0.25 GB over ``model`` (computed)."""
+    import repro_torch.configs as C
+    from repro_torch.launch.hlo_analysis import tp_traffic
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding import plans
+    cfg = C.get("zamba2_2p7b")
+    lay = plans.tp_layout(cfg, {"data": 1, "model": M})
+    fwd, back = _exchange_count(cfg, M)
+    assert list(lay.exchange_in) == fwd and list(lay.exchange_back) == back
+    norm = sum(t.numel() * t.element_size() for p, t in _flat_meta(cfg)
+               if p.endswith("/mamba/blk/norm")) * (M - 1) // M
+    assert lay.bytes_top == 0
+    assert lay.step_bytes(1) == max(fwd) + norm < lay.step_bytes_whole(1)
+    assert lay.step_bytes(2, remat=True, backward=True) == max(
+        2 * (2 * (f + norm) + b) for f, b in zip(fwd, back))
+    assert lay.group_bytes < lay.group_bytes_whole
+    shape, mesh = ShapeConfig("d", "decode", 1, 4), {"data": 1, "model": M}
+    decode = tp_traffic(cfg, shape, mesh)["8d"]
+    whole = tp_traffic(cfg, shape, mesh, exchange=False)["8d"]
+    assert decode < whole
+    if M == 16:
+        assert 0.15e9 < decode <= 0.25e9 < 2.2e9 < whole
 
 
 # ------------------------------------------------------------ chip_smoke

@@ -265,7 +265,7 @@ ssm_lib.SLSTM_STACK_DTYPE = torch.float32
 res = {}
 SEEN = {"mlstm_heads": set(), "slstm_heads": set(), "up_cols": set(),
         "if_cols": set(), "gate_cols": set(), "conv": set(),
-        "vocab": set()}
+        "vocab": set(), "cut": set()}
 
 
 def tapped(fn, note):
@@ -295,6 +295,10 @@ ssm_lib.slstm_columns = noted(ssm_lib.slstm_columns, lambda o: (
     SEEN["gate_cols"].add(len(o))))
 ssm_lib.slstm_fwd = noted(ssm_lib.slstm_fwd, lambda o: (
     SEEN["slstm_heads"].add(o[1]["slstm"][0].shape[1])))
+# the leaves a forward cuts to the rank's columns itself (an exchanged
+# leaf comes as them)
+ssm_lib._take = tapped(ssm_lib._take, lambda w, cols: (
+    w.shape[-1] != len(cols) and SEEN["cut"].add(w.shape[-1])))
 model_lib._xent = tapped(
     model_lib._xent, lambda logits, *_: SEEN["vocab"].add(logits.shape[-1]))
 # every decode step's logits, the whole batch's rows (the serve step
@@ -321,8 +325,17 @@ def observe():
 
 def observed():
     return {**{k: sorted(v) for k, v in SEEN.items()},
-            "model_bytes": shard_ctx.GATHERED["model_bytes"],
             "joined_bytes": shard_ctx.JOINED["model_bytes"]}
+
+
+def brought(rt, **kw):
+    """The bytes ``full`` brought this rank over ``model`` since
+    ``observe`` beside the layout's count for its place in the model
+    column: they differ from rank to rank, as the exchanged columns a
+    rank lacks do."""
+    return {"got": shard_ctx.GATHERED["model_bytes"],
+            "want": rt.tp.step_bytes(rank=rt.mesh.get_coordinate()[-1],
+                                     **kw)}
 
 
 def traffic(cfg, shape, mesh):
@@ -360,8 +373,10 @@ def train(name, mesh):
     observe()
     m = rt.step()
     free = [[m["loss"], m["grad_norm"]]]
+    kw = dict(n_micro=shape.microbatch, remat=True, backward=True)
+    res[f"brought_{ns}"] = brought(rt, **kw)
     out = {"tp": rt.tp.summary(), "seen": observed(),
-           "want_bytes": rt.tp.step_bytes(shape.microbatch, remat=True),
+           "want_bytes": rt.tp.step_bytes(**kw),
            "want_traffic": traffic(rt.job.cfg, shape, mesh)}
     for _ in range(2):
         m = rt.step()
@@ -416,6 +431,8 @@ def serve(name, mesh, ns=None, gen=GEN, keep=False):
     rt._prefill_fn = fn
     observe()
     rt.prefill(prompt(C, ShapeConfig, pipeline, name))
+    key = f"brought_{ns or tag(name, mesh)}"
+    res[key] = {"prefill": brought(rt)}
     out = {"prefill_seen": observed(), "want_bytes": rt.tp.step_bytes(1),
            "want_traffic": {
                "prefill": traffic(rt.job.cfg, ShapeConfig(
@@ -431,6 +448,7 @@ def serve(name, mesh, ns=None, gen=GEN, keep=False):
         rt.step()
         if i == 0:
             out["decode_seen"] = observed()
+            res[key]["decode"] = brought(rt)
         toks.append(tokens(rt))
     rows += LOGITS
     if rank == 0:
@@ -621,20 +639,69 @@ def _held_shares(seen, name, M):
         assert seen["up_cols"] == [inner + inner // M]
         assert seen["if_cols"] == [2 * H // M]
         assert seen["gate_cols"] == [4 * d // M]
+        # only ``w_if``, which the plan replicates, is cut by the
+        # forward: ``w_up`` and ``w_gates`` come exchanged
+        assert seen["cut"] == [2 * H]
     else:
         assert seen["up_cols"] == seen["if_cols"] == seen["gate_cols"] == []
+        assert seen["cut"] == []
     return cfg
+
+
+def _brought(lines, key):
+    """Each rank's ``brought`` line (its own bytes over ``model`` and
+    the layout's count for its place in the model column), checked
+    equal, and the most any rank received."""
+    got = [r[key] for r in lines if key in r]
+    assert got, key
+    for b in got:
+        assert b["got"] == b["want"], (key, got)
+    return max(b["got"] for b in got)
+
+
+def _flat_meta(cfg):
+    from repro_torch.models import model
+    from repro_torch.models.transformer import flatten
+    return flatten(model.abstract_params(cfg))
+
+
+def _exchange_count(cfg, M):
+    """For each rank of a model column of M, the bytes of ``w_up`` and
+    ``w_gates`` that a forward's exchange brings it and that a
+    backward's brings back to it, counted from ``ssm.mlstm_columns``,
+    ``ssm.slstm_columns`` and the plan's contiguous chunks: the columns
+    it needs that another rank's chunk holds, and the columns of its
+    chunk that another rank needs."""
+    from repro_torch.models import ssm
+    leaves = dict(_flat_meta(cfg))
+    fwd, back = [0] * M, [0] * M
+    for path, cols in (
+            ("layers/mlstm/blk/w_up", lambda r: ssm.mlstm_columns(
+                cfg.d_model, cfg.xlstm, M, r)[0]),
+            ("layers/slstm/blk/w_gates", lambda r: ssm.slstm_columns(
+                cfg.d_model, cfg.xlstm, M, r))):
+        leaf = leaves[path]
+        C = leaf.shape[-1]
+        col = leaf.numel() * leaf.element_size() // C
+        for r in range(M):
+            for c in cols(r):
+                if c // (C // M) != r:
+                    fwd[r] += col
+                    back[c // (C // M)] += col
+    return fwd, back
 
 
 @pytest.mark.parametrize("case,world", TRAIN_CASES,
                          ids=[m for m, _ in TRAIN_CASES])
 def test_each_rank_computes_its_share_of_the_xlstm(runs, case, world):
     """The mLSTM's scan and the sLSTM's recurrence see H / M heads (H
-    where the layout keeps them whole), a rank takes its columns of
+    where the layout keeps them whole), a rank has its columns of
     ``w_up``, ``w_if`` and ``w_gates``, the loss sees V / M of the
-    vocabulary; ``full`` brings over ``model`` exactly the bytes of the
-    leaves gathered whole, and the joins what ``tp_traffic`` computes
-    beside them."""
+    vocabulary; ``full`` brings each rank over ``model`` exactly the
+    bytes of the leaves gathered whole and the columns of ``w_up`` and
+    ``w_gates`` it lacks, their gradients back (``_exchange_count``),
+    less than gathering those whole, and the joins what ``tp_traffic``
+    computes beside them."""
     got = _first(runs[world], f"train_{case}")
     name, M = case[0], int(case[2])
     lay = _layout(name, case[1:])
@@ -643,10 +710,18 @@ def test_each_rank_computes_its_share_of_the_xlstm(runs, case, world):
     seen = got["seen"]
     cfg = _held_shares(seen, name, M)
     assert seen["vocab"] == [cfg.vocab_size // M]
-    assert seen["model_bytes"] == got["want_bytes"] == lay.step_bytes(
-        2, remat=True) > 0
+    most = _brought(runs[world], f"brought_train_{case}")
+    assert most == got["want_bytes"] == lay.step_bytes(
+        2, remat=True, backward=True) > 0
+    if lay.computes("mlstm") and M > 1:
+        fwd, back = _exchange_count(cfg, M)
+        assert list(lay.exchange_in) == fwd
+        assert list(lay.exchange_back) == back
+        assert most < lay.step_bytes_whole(2, remat=True, backward=True)
+    else:
+        assert not lay.exchange
     assert seen["joined_bytes"] > 0
-    assert seen["model_bytes"] + seen["joined_bytes"] == got["want_traffic"]
+    assert most + seen["joined_bytes"] == got["want_traffic"]
 
 
 def _logits_held(runs, world, case):
@@ -677,9 +752,9 @@ def test_dense_plane_matches_the_reference_on_the_same_mesh(runs, case,
     for phase in ("prefill", "decode"):
         seen = got[f"{phase}_seen"]
         _held_shares(seen, name, M)
-        assert seen["model_bytes"] == got["want_bytes"]
-        assert seen["model_bytes"] + seen["joined_bytes"] == \
-            got["want_traffic"][phase]
+        most = _brought([r[f"brought_{case}"] for r in runs[world]], phase)
+        assert most == got["want_bytes"] == lay.step_bytes(1)
+        assert most + seen["joined_bytes"] == got["want_traffic"][phase]
     rows = 4 // dp
     cache = got["cache"]
     assert cache["mlstm/conv"] == [2, 1, rows, 3, 2 * d]
@@ -778,6 +853,53 @@ def test_the_layout_rule_on_xlstm_350m():
     assert two.group_bytes < two.group_bytes_whole
     assert plans.tp_layout(cfg, {"data": 1, "model": 2}, paged=True).kept \
         == ("paged",)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_the_exchange_is_the_whole_gathers_columns(tmp_path, world):
+    """On 2 and 4 gloo ranks, config "a"'s ``w_up`` and ``w_gates``
+    through the exchange against gathered whole and cut
+    (``tests/test_torch_hybrid_parallel.py``'s ``EXCHANGE``): forward
+    bit for bit, the gradient on each rank's chunk bit for bit for
+    ``z`` and the gates, within fp32 roundoff for ``xm``, which every
+    rank reads."""
+    from test_torch_hybrid_parallel import exchange_world, held_exchange
+    d, H = CFGS["a"]
+    lines = exchange_world(tmp_path, world, "xlstm_350m",
+                           {"d_model": d, "n_heads": H})
+    lay = held_exchange(lines, _cfg("a"), world)
+    assert set(lay.exchange) == {"layers/mlstm/blk/w_up",
+                                 "layers/slstm/blk/w_gates"}
+    assert sum(line["layers/mlstm/blk/w_up"]["n_shared"]
+               for line in lines) == 2 * d          # all of xm
+    assert all(line["layers/slstm/blk/w_gates"]["n_shared"] == 0
+               for line in lines)
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_xlstm_350m_full_width_exchange_bytes(M):
+    """xlstm_350m at full width on a (1, M) mesh, abstract params: the
+    bytes the layout counts over ``model``, forward and back, are a
+    direct count from the column lists and the plan's chunks, below the
+    whole gather's; at (1, 4) a rank needs 1024 of ``w_gates``' 4096
+    columns, and brings the 768 its chunk lacks where the whole gather
+    brings 3072."""
+    import repro_torch.configs as C
+    from repro_torch.sharding import plans
+    cfg = C.get("xlstm_350m")
+    lay = plans.tp_layout(cfg, {"data": 1, "model": M})
+    fwd, back = _exchange_count(cfg, M)
+    assert list(lay.exchange_in) == fwd and list(lay.exchange_back) == back
+    assert lay.step_bytes(1) < lay.step_bytes_whole(1)
+    assert lay.step_bytes(2, remat=True, backward=True) < \
+        lay.step_bytes_whole(2, remat=True, backward=True)
+    gates = lay.exchange["layers/slstm/blk/w_gates"]
+    chunk = 4 * cfg.d_model // M
+    for r, cols in enumerate(gates):
+        assert len(cols) == 4 * cfg.d_model // M
+        if M == 4:
+            assert len(cols) == 1024
+            assert sum(1 for c in cols if c // chunk != r) == 768
 
 
 @pytest.mark.parametrize("name", ["a", "b"])
