@@ -13,11 +13,14 @@
 # on a machine with one card.  Each run's stdout and stderr go to
 # OUT/ab_<run>.out and .err (OUT: build/ab by default).  A fourth
 # argument runs that script of each tree instead of chip_smoke.py (one
-# that prints progress stamps alike: benchmarks/sharded_phases.py).
+# that prints progress stamps alike: benchmarks/sharded_phases.py), and
+# any after it are that script's arguments (benchmarks/config_phases.py
+# serve_xlstm: one phase of each tree).
 set -u
 parent=$1
 change=$2
 script=${4:-chip_smoke.py}
+args=("${@:5}")
 mkdir -p "${3:-build/ab}"
 out=$(cd "${3:-build/ab}" && pwd)
 python3 -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
@@ -26,7 +29,7 @@ for run in parent1 change1 change2 parent2; do
   case $run in parent*) d=$parent;; *) d=$change;; esac
   rm -rf "$d/build"
   t0=$(date +%s.%N)
-  (cd "$d" && timeout 1200 python3 "$script" > "$out/ab_$run.out" \
+  (cd "$d" && timeout 1200 python3 "$script" "${args[@]}" > "$out/ab_$run.out" \
      2> "$out/ab_$run.err")
   rc=$?
   t1=$(date +%s.%N)

@@ -32,7 +32,12 @@ never JAX.  Phases, each printing one JSON line:
                      w_up, embedding and head; the RMSNorm and its
                      backward at xlstm_350m's 8192 rows of 1024 and
                      2048, the fp32 AdamW on its leaves of last dims 8
-                     and 1365), with its time, the
+                     and 1365; the sLSTM recurrence forward and backward
+                     at its 4 x 2048 positions of 4 heads of 256, bf16
+                     and fp32, the states and cotangents element by
+                     element, bit for bit over two calls, and at one
+                     head, S = 1, strided gates, fp32 from a state), with
+                     its time, the
                      plain version's, one PyTorch library call's where one
                      computes the same function, and the least time the
                      card could take; each redesigned kernel also beside
@@ -137,7 +142,8 @@ never JAX.  Phases, each printing one JSON line:
                      2048 prompt tokens, 32 generated, the decode steps as
                      graph replays held against eager ones; the launches
                      of one prefill and one decode step exactly (49
-                     RMSNorms each); the prefill logits and the first
+                     RMSNorms and 3 sLSTM recurrences each); the prefill
+                     logits and the first
                      decode step's against ``impl="torch"`` in fp32 (the
                      weights upcast, the sLSTM's bf16 stacking taken out)
                      within 0.5% of their range, in bf16 each sublayer,
@@ -309,9 +315,8 @@ never JAX.  Phases, each printing one JSON line:
                      compressed cache; the decode step against its
                      bound, the peak memory against the dry run's, each
                      kernel's largest tensor against 2^31 elements;
-16. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full width,
-                     cut to one group (8 of its 24 layers: its sLSTM
-                     loop paces the step from the host), fp32 moments,
+16. ``train_xlstm`` — a train ``BlockRuntime`` on xlstm_350m at full size,
+                     all 24 layers, fp32 moments,
                      4 x 2048 tokens a step, remat: step 0
                      in fp32 (the weights upcast) against ``impl="torch"``
                      under the train phases' limits, the bf16 step 0 read
@@ -463,11 +468,19 @@ KERNEL_META = {
     "ssd_scan_bwd": {
         "source": _CSRC + "ssd_scan_bwd.cu",
         "replaces": "src/repro/kernels/ops.py:319"},
+    # not TPU kernels: the reference's sLSTM recurrence is a lax.scan of
+    # its step (ssm.py:203), and its backward autodiff of that scan (:223)
+    "slstm_scan": {
+        "source": _CSRC + "slstm.cu",
+        "replaces": "src/repro/models/ssm.py:203"},
+    "slstm_scan_bwd": {
+        "source": _CSRC + "slstm.cu",
+        "replaces": "src/repro/models/ssm.py:223"},
 }
 
 # kernel-name substrings that ``profile_steps`` sums device time over
 KERNEL_FAMILIES = ("flash_", "rmsnorm", "paged_decode", "fused_adamw",
-                   "ssd_scan", "ssd_bwd")
+                   "ssd_scan", "ssd_bwd", "slstm")
 
 # launch counter -> (kernel module, counter attribute)
 COUNTERS = {
@@ -485,6 +498,8 @@ COUNTERS = {
     "fused_adamw_f32": ("fused_adamw", "LAUNCHES_F32"),
     "ssd_scan": ("ssd_scan", "LAUNCHES"),
     "ssd_scan_bwd": ("ssd_scan", "BWD_LAUNCHES"),
+    "slstm_scan": ("slstm", "LAUNCHES"),
+    "slstm_scan_bwd": ("slstm", "BWD_LAUNCHES"),
     # the calls of the kernels above that took their scalar route
     "fused_adamw_scalar": ("fused_adamw", "LAUNCHES_SCALAR"),
     "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
@@ -947,11 +962,13 @@ def phase_build():
     emit("build", seconds=build_s, library=os.path.relpath(path, ROOT),
          ptxas=ptxas, ptxas_by_kernel=per_kernel,
          sass_instructions=sass_counts(path))
-    # the SSD backward's six tensor-core kernels and the RMSNorm forward's
+    # the SSD backward's six tensor-core kernels, the RMSNorm forward's
     # fifteen vector-route instances (bf16 and f32: a warp a row at 1, 2,
-    # 4, 6, 8 vectors a lane, a block a row at 1, 2, and f32's at 4) keep
-    # their registers: no spills
-    for family, n, sub in (("ssd_bwd", 6, "tc_"), ("rmsnorm_fwd", 15, "")):
+    # 4, 6, 8 vectors a lane, a block a row at 1, 2, and f32's at 4) and
+    # the sLSTM kernels' 8 (forward and backward, bf16 and f32 gates, bf16
+    # and f32 stacking) keep their registers: no spills
+    for family, n, sub in (("ssd_bwd", 6, "tc_"), ("rmsnorm_fwd", 15, ""),
+                           ("slstm", 8, "")):
         got = {k: v for k, v in per_kernel.items()
                if family in k and sub in k}
         check(len(got) == n and all(
@@ -967,7 +984,7 @@ SASS_FAMILIES = ("fused_adamw", "paged_decode")
 # forward's vector route and its backward's, the flash backward's and the
 # paged decode's (an instance a head chunk GC)
 PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
-                 "rmsnorm_dscale", "flash_bwd", "paged_decode")
+                 "rmsnorm_dscale", "flash_bwd", "paged_decode", "slstm")
 
 
 def sass_counts(lib: str) -> dict:
@@ -1482,6 +1499,237 @@ def check_ssd_kernel(out, edge, edges):
         edges[-1]["route"] = route
         if name in ("h0_random", "dt_max_20"):
             vs_oracle(name, args, chunk, h0, y, hf)
+
+
+# the sLSTM kernels' tolerances (``close``): the fp32 states and
+# cotangents, and what the kernels write in bf16
+SLSTM_RTOL = {"state": 1e-4, "bf16": 2e-2, "cotangent": 1e-3}
+SLSTM_STATES = ("h", "c", "n", "m")
+
+
+def slstm_inputs(B, S, H, Dh, dtype=torch.bfloat16, state=False, seed=11,
+                 layout="contiguous"):
+    """gates_x (B, S, 4, H, Dh) ~ N(0, 1), as ``x @ w_gates`` of a
+    normalised x and a He-initialised ``w_gates``; r (H, Dh, 4 Dh) at
+    ``r_gates``' He scale, in the gates' dtype (the model's); a random
+    state (|n| >= 1) or None.
+    ``layout="strided"``: the gates a transposed view of a (S, B, ...)
+    buffer, read through its strides."""
+    g = _gen(seed)
+    if layout == "strided":
+        gx = _randn((S, B, 4, H, Dh), g, dtype).transpose(0, 1)
+    else:
+        gx = _randn((B, S, 4, H, Dh), g, dtype)
+    r = _randn((H, Dh, 4 * Dh), g, dtype, 1.0 / Dh ** 0.5)
+    st = None
+    if state:
+        st = [_randn((B, H, Dh), g, torch.float32) for _ in range(4)]
+        st[2] = st[2].abs() + 1.0
+        st = tuple(st)
+    return gx, r, st
+
+
+def slstm_held(got, want, stack_dtype):
+    """hs (``stack_dtype``) and the four fp32 final states element by
+    element (``SLSTM_RTOL``): {name: max_err, rtol, err_over_tol}."""
+    res = {}
+    hs_rtol = SLSTM_RTOL["bf16" if stack_dtype == torch.bfloat16
+                         else "state"]
+    for name, g, w, rtol in [("hs", got[0], want[0], hs_rtol)] + [
+            (n, a, b, SLSTM_RTOL["state"])
+            for n, a, b in zip(SLSTM_STATES, got[1], want[1])]:
+        err, ratio = close(g, w, rtol)
+        res[name] = {"max_err": err, "rtol": rtol, "err_over_tol": ratio,
+                     "finite": bool(torch.isfinite(g).all())}
+    return res
+
+
+def slstm_gap_by_position(got_hs, want_hs, n: int = 8) -> list:
+    """The hs gap between the kernel and the plain loop along the
+    sequence: for each of ``n`` equal spans of positions, the worst
+    |got - want| / (|want| + rms(want)) in it (rms over the whole)."""
+    g, w = got_hs.float(), want_hs.float()
+    scale = w.abs() + rms(w)
+    rel = ((g - w).abs() / scale).amax(dim=(0, 2, 3))
+    return [float(x.max()) for x in rel.chunk(n)]
+
+
+def slstm_cost(gx, r, stack_dtype):
+    """The forward's bytes from the zero state (the gates and r read
+    once, hs and the final state written once) and FLOPs
+    (``ops.slstm_flops``)."""
+    from repro_torch.kernels import ops
+    B, S, _, H, Dh = gx.shape
+    nbytes = (gx.numel() * gx.element_size() + r.numel() * r.element_size()
+              + B * S * H * Dh * torch.finfo(stack_dtype).bits // 8
+              + 4 * B * H * Dh * 4)
+    return nbytes, ops.slstm_flops(B, S, H, Dh)
+
+
+def slstm_bwd_cost(r, saved, dhs, dgx_dtype):
+    """The backward's bytes (the saved gates and states, dhs and r read
+    once, the gates' cotangent, the fp32 dR and the initial state's
+    written once) and FLOPs (dg R^T in the kernel, dR after it: twice
+    the forward's)."""
+    from repro_torch.kernels import ops
+    G, states = saved
+    B, S, H, Dh = dhs.shape
+    nbytes = (G.numel() * 4 + states.numel() * 4
+              + dhs.numel() * dhs.element_size()
+              + r.numel() * (r.element_size() + 4)
+              + B * S * 4 * H * Dh * torch.finfo(dgx_dtype).bits // 8
+              + 4 * B * H * Dh * 4)
+    return nbytes, 2 * ops.slstm_flops(B, S, H, Dh)
+
+
+def check_slstm_kernel(out, edge):
+    """The sLSTM forward and backward kernels against their plain
+    versions, element by element (``SLSTM_RTOL``): at xlstm_350m's train
+    and prefill shape (4 rows x 2048 positions, 4 heads of 256, bf16
+    gates and stacking: the main path's), timed, twice on the same inputs
+    bit for bit; there with fp32 gates and stacking (``f32``), the hs gap
+    along the sequence read (``gap_by_position``); at edge cases (one
+    head with a state, as a rank of four under tensor parallelism; S = 1
+    from a state, the decode step; gates read through other strides;
+    fp32 from a state).  The backward is held on the forward kernel's saved
+    gates and states (the same inputs for both).  The plain versions are
+    timed over two calls (~0.5 s and ~2 s each)."""
+    from repro_torch.kernels.slstm import (slstm_scan_bwd_cuda,
+                                           slstm_scan_bwd_torch,
+                                           slstm_scan_cuda, slstm_scan_torch)
+    progress("kernels: slstm_scan")
+    # the plain loop's bmm in full fp32, as the kernel's FMAs
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "slstm_scan: TF32 is on for fp32 matmuls")
+    B, S, H, Dh = 4, 2048, 4, 256
+    bf16 = torch.bfloat16
+    rows = {}
+    for name, dtype in (("bf16", bf16), ("f32", torch.float32)):
+        gx, r, _ = slstm_inputs(B, S, H, Dh, dtype)
+        got = slstm_scan_cuda(gx, r, None, stack_dtype=dtype)[:2]
+        want = slstm_scan_torch(gx, r, None, stack_dtype=dtype)
+        res = slstm_held(got, want, dtype)
+        again = slstm_scan_cuda(gx, r, None, stack_dtype=dtype)[:2]
+        bitwise = (torch.equal(got[0], again[0])
+                   and all(torch.equal(a, b)
+                           for a, b in zip(got[1], again[1])))
+        check(bitwise, f"slstm_scan {name}: two calls on the same inputs "
+              f"differ")
+        row = {"shape": [B, S, H, Dh], "gates": str(dtype),
+               "outputs": res,
+               "gap_by_position": slstm_gap_by_position(got[0], want[0]),
+               "bitwise_reproducible": bitwise}
+        check(all(v["err_over_tol"] <= 1.0 and v["finite"]
+                  for v in res.values()), f"slstm_scan {name}: {row}")
+        if name == "bf16":
+            nbytes, flops = slstm_cost(gx, r, dtype)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+            # one step from a state: the decode call
+            g1, r1, st1 = slstm_inputs(B, 1, H, Dh, dtype, state=True)
+            row["s1_ms"] = time_ms(lambda: slstm_scan_cuda(
+                g1, r1, st1, stack_dtype=dtype))
+            row.update(
+                kernel_ms=time_ms(lambda: slstm_scan_cuda(
+                    gx, r, None, stack_dtype=dtype)),
+                plain_ms=time_ms(lambda: slstm_scan_torch(
+                    gx, r, None, stack_dtype=dtype), iters=2, warmup=0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=flops)
+            row["step_us"] = row["kernel_ms"] / S * 1e3
+            row["max_err"] = max(v["max_err"] for v in res.values())
+        rows[name] = row
+        del gx, r, got, want, again
+    out["slstm_scan"] = rows.pop("bf16")
+    out["slstm_scan"]["f32"] = rows["f32"]
+
+    # the backward at the same shape, bf16 gates and stacking; the final
+    # state's cotangents None, as in training
+    progress("kernels: slstm_scan_bwd")
+    rows = {}
+    for name, dtype in (("bf16", bf16), ("f32", torch.float32)):
+        gx, r, _ = slstm_inputs(B, S, H, Dh, dtype, seed=12)
+        dhs = _randn((B, S, H, Dh), _gen(13), dtype)
+        _, _, saved = slstm_scan_cuda(gx, r, None, stack_dtype=dtype,
+                                      save=True)
+        got = slstm_scan_bwd_cuda(r, saved, dhs, dtype=dtype)
+        want = slstm_scan_bwd_torch(gx, r, None, dhs, saved=saved)
+        again = slstm_scan_bwd_cuda(r, saved, dhs, dtype=dtype)
+        bitwise = (torch.equal(got[0], again[0])
+                   and torch.equal(got[1], again[1])
+                   and all(torch.equal(a, b)
+                           for a, b in zip(got[2], again[2])))
+        check(bitwise, f"slstm_scan_bwd {name}: two calls on the same "
+              f"inputs differ")
+        res = {}
+        named = [("dgates", got[0], want[0],
+                  SLSTM_RTOL["bf16" if dtype == bf16 else "cotangent"]),
+                 ("dr", got[1], want[1], SLSTM_RTOL["cotangent"])] + [
+                     (f"d{n}0", a, b, SLSTM_RTOL["cotangent"])
+                     for n, a, b in zip(SLSTM_STATES, got[2], want[2])]
+        for oname, g, w, rtol in named:
+            err, ratio = close(g, w, rtol)
+            res[oname] = {"max_err": err, "rtol": rtol,
+                          "err_over_tol": ratio}
+            check(ratio <= 1.0 and bool(torch.isfinite(g).all()),
+                  f"slstm_scan_bwd {name} {oname}: max_abs_err {err}, "
+                  f"{ratio} x its tolerance (rtol {rtol})")
+        row = {"shape": [B, S, H, Dh], "gates": str(dtype), "outputs": res,
+               "bitwise_reproducible": bitwise}
+        if name == "bf16":
+            nbytes, flops = slstm_bwd_cost(r, saved, dhs, dtype)
+            b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+            row.update(
+                kernel_ms=time_ms(lambda: slstm_scan_bwd_cuda(
+                    r, saved, dhs, dtype=dtype)),
+                plain_ms=time_ms(lambda: slstm_scan_bwd_torch(
+                    gx, r, None, dhs, saved=saved), iters=2, warmup=0),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=flops,
+                max_err=max(v["max_err"] for v in res.values()))
+            row["step_us"] = row["kernel_ms"] / S * 1e3
+        rows[name] = row
+        del gx, r, dhs, saved, got, want, again
+    out["slstm_scan_bwd"] = rows.pop("bf16")
+    out["slstm_scan_bwd"]["f32"] = rows["f32"]
+
+    # edge cases, forward and backward, each held as above
+    for name, shape, kw in [
+            ("H1_state", (4, 300, 1, 256), dict(state=True)),
+            ("S1_state_decode", (4, 1, 4, 256), dict(state=True)),
+            ("strided_gates", (2, 200, 4, 256),
+             dict(state=True, layout="strided")),
+            ("f32_state", (3, 100, 2, 256),
+             dict(dtype=torch.float32, state=True))]:
+        gx, r, st = slstm_inputs(*shape, seed=len(name), **kw)
+        dtype = gx.dtype
+        got = slstm_scan_cuda(gx, r, st, stack_dtype=dtype, save=True)
+        want = slstm_scan_torch(gx, r, st, stack_dtype=dtype)
+        edge("slstm_scan", f"{name}_hs", got[0], want[0],
+             SLSTM_RTOL["bf16" if dtype == bf16 else "state"])
+        for n, a, b in zip(SLSTM_STATES, got[1], want[1]):
+            edge("slstm_scan", f"{name}_{n}", a, b, SLSTM_RTOL["state"])
+        dhs = _randn(tuple(want[0].shape), _gen(14), dtype)
+        dfin = tuple(_randn(tuple(t.shape), _gen(15 + i), torch.float32)
+                     for i, t in enumerate(want[1]))
+        bgot = slstm_scan_bwd_cuda(r, got[2], dhs, dfin, dtype=dtype)
+        bwant = slstm_scan_bwd_torch(gx, r, st, dhs, dfin, saved=got[2])
+        edge("slstm_scan_bwd", f"{name}_dgates", bgot[0], bwant[0],
+             SLSTM_RTOL["bf16" if dtype == bf16 else "cotangent"])
+        edge("slstm_scan_bwd", f"{name}_dr", bgot[1], bwant[1],
+             SLSTM_RTOL["cotangent"])
+        for n, a, b in zip(SLSTM_STATES, bgot[2], bwant[2]):
+            edge("slstm_scan_bwd", f"{name}_d{n}0", a, b,
+                 SLSTM_RTOL["cotangent"])
+
+
+def phase_slstm():
+    """``check_slstm_kernel`` alone, as the kernels phase runs it (to
+    iterate on the sLSTM kernels: ``benchmarks/config_phases.py
+    slstm``)."""
+    out, edges = {}, []
+    check_slstm_kernel(out, edge_check(edges))
+    emit("slstm_kernel", full_width=out, edge_cases=edges)
+    return out
 
 
 def flash_bwd_case(B, Hq, Hkv, Sq, Sk, D, Dv, causal=True, window=0,
@@ -2604,6 +2852,7 @@ def phase_kernels():
     check_ssd_kernel(out, edge, edges)
     check_ssd_bwd_kernel(out, edge, edges)
     check_train_kernels(out, edge, edges)
+    check_slstm_kernel(out, edge)
     emit("kernels", launches=counts(), full_width=out, edge_cases=edges)
     return out
 
@@ -3743,13 +3992,15 @@ def phase_serve_dense_groups(device="cuda", smoke=False):
 def xlstm_launches(cfg):
     """The kernels' launches in one xlstm prefill and one decode step: a
     group's k-1 mLSTM sublayers and its sLSTM run two RMSNorms each (the
-    pre-norm and the block's out_norm), the final norm one.  The mLSTM
-    scan and the sLSTM recurrence are plain PyTorch: the reference has no
-    TPU kernel for either."""
+    pre-norm and the block's out_norm), the final norm one; each group's
+    sLSTM one ``slstm_scan`` (its recurrence over the prompt, or the one
+    step).  The mLSTM scan is plain PyTorch: the reference has no TPU
+    kernel for it."""
     from repro_torch.models.transformer import n_groups
     norms = n_groups(cfg) * 2 * cfg.xlstm.slstm_every + 1
-    zero = {n: 0 for n in COUNTERS}
-    return {**zero, "rmsnorm": norms}, {**zero, "rmsnorm": norms}
+    each = {**{n: 0 for n in COUNTERS}, "rmsnorm": norms,
+            "slstm_scan": n_groups(cfg)}
+    return each, dict(each)
 
 
 @contextlib.contextmanager
@@ -4119,7 +4370,9 @@ def train_launches(cfg, shape, opt_cfg, params):
     moe]) or two (llama4's dense and moe halves), each with 2 norms and,
     with MLA, its q_norm and kv_norm, an xlstm group k-1 mLSTM layers and
     an sLSTM (2 norms each, no attention: the pre-norm and the block's
-    out_norm); one AdamW launch a leaf, int8 or fp32 as the moments, on
+    out_norm; the sLSTM's recurrence an ``slstm_scan`` forward and an
+    ``slstm_scan_bwd``); one AdamW launch a leaf, int8 or fp32 as the
+    moments, on
     its scalar route for a leaf whose last dim is no multiple of 16 (the
     vector route's 16-element loads: hubert_xlarge's LM head, 504 wide;
     xlstm_350m's ``w_if``, 8 wide, and its sLSTM's ``w_ff_gate`` and
@@ -4140,6 +4393,8 @@ def train_launches(cfg, shape, opt_cfg, params):
         "fused_adamw_f32"
     return {**{n: 0 for n in COUNTERS},
             "ssd_scan": mb * fwd * ng * m, "ssd_scan_bwd": mb * ng * m,
+            "slstm_scan": mb * fwd * ng * (xl > 0),
+            "slstm_scan_bwd": mb * ng * (xl > 0),
             "flash_attention": mb * fwd * ng * attn,
             "flash_attention_bwd": mb * ng * attn,
             "rmsnorm": mb * (fwd * (norms - 1) + 1) if norms else 0,
@@ -5918,11 +6173,10 @@ def xlstm_step0_check(params, cfg, batch):
 
 
 #: xlstm_350m's layers in ``train_xlstm`` (and ``xlstm_sharded``'s train
-#: block): one group of its three, 7 mLSTM blocks and 1 sLSTM, at full
-#: width.  The sLSTM's loop of one step a position paces the step from
-#: the host (17-30 s a step whole): the whole model's 3 loops made the
-#: two phases ~410 s of a run that must end within 1200 s
-XLSTM_TRAIN_LAYERS = 8
+#: block): all 24, its three groups of 7 mLSTM blocks and 1 sLSTM, since
+#: the sLSTM recurrence is one kernel launch a layer (it was cut to one
+#: group while a Python loop of one step a position paced the step)
+XLSTM_TRAIN_LAYERS = 24
 
 
 def _train_xlstm_setup(smoke):
@@ -5942,16 +6196,15 @@ def _train_xlstm_setup(smoke):
 
 
 def phase_train_xlstm(device="cuda", smoke=False):
-    """xlstm_350m at full width cut to ``XLSTM_TRAIN_LAYERS`` of its 24
-    layers (random bf16 weights from seed 0), fp32 AdamW moments, 4 x
-    2048 tokens a step, one microbatch, remat: step 0 in fp32 (the
-    weights upcast) against ``impl="torch"`` under STEP0_RTOL and the
-    bf16 step 0 beside it (``xlstm_step0_check``); 3 steps, their
-    launches per step held exactly (``train_launches``: 33 RMSNorms
-    forward with the recompute, 17 backward, 18 fp32 AdamW of which 3 on
-    the scalar route, no flash), the last of them profiled (the host
-    launches the sLSTM's loop, most of the step's small kernels); tok/s,
-    MFU and peak memory."""
+    """xlstm_350m at full size, ``XLSTM_TRAIN_LAYERS`` (all 24) layers
+    (random bf16 weights from seed 0), fp32 AdamW moments, 4 x 2048
+    tokens a step, one microbatch, remat: step 0 in fp32 (the weights
+    upcast) against ``impl="torch"`` under STEP0_RTOL and the bf16 step
+    0 beside it (``xlstm_step0_check``); 3 steps, their launches per
+    step held exactly (``train_launches``: 97 RMSNorms forward with the
+    recompute, 49 backward, 6 sLSTM recurrences forward and 3 backward,
+    18 fp32 AdamW of which 3 on the scalar route, no flash), the last of
+    them profiled; tok/s, MFU and peak memory."""
     import repro_torch.configs as configs
     cfg, shape, opt_cfg = _train_xlstm_setup(smoke)
     full = cfg if smoke else configs.get("xlstm_350m")
@@ -5965,8 +6218,8 @@ def phase_train_xlstm(device="cuda", smoke=False):
                         step0=xlstm_step0_check, after=after)
 
 
-#: xlstm_sharded's train steps before its ``host_probe`` step (the host
-#: launches the sLSTM's loop): with the probe, train_xlstm's first two
+#: xlstm_sharded's train steps before its ``host_probe`` step: with the
+#: probe, train_xlstm's first two
 XLSTM_SHARDED_STEPS = 1
 
 
@@ -5978,7 +6231,7 @@ def phase_xlstm_sharded(device="cuda", smoke=False, train=None,
     DeviceMesh with every param a DTensor and the tensor-parallel path
     of its mLSTM and sLSTM heads, the sLSTM's feed-forward and the tied
     vocabulary at M = 1 (every join a no-op, every leaf's model shard
-    the leaf).  The train block: train_xlstm's job (``train``: 8 of 24
+    the leaf).  The train block: train_xlstm's job (``train``: 24
     layers, fp32 moments, 4 x 2048 tokens), XLSTM_SHARDED_STEPS steps, their
     launches per step exactly train_xlstm's, then one ``host_probe``
     step (its enqueue against its wall time, a warm step); every step's
@@ -8316,6 +8569,12 @@ def _run_all() -> int:
             row["f32"] = k["f32"]
         if "passes_ms" in k:
             row["passes_ms"] = k["passes_ms"]
+        if name.startswith("slstm"):
+            # the dependent chain: device time a position, and (forward)
+            # one decode step's call
+            row["step_us"] = k["step_us"]
+            if "s1_ms" in k:
+                row["s1_ms"] = k["s1_ms"]
         if name == "flash_attention":
             # MLA's prefill shape (head dims 192 | 128), its serve_moe
             # launches and the route each check launch took

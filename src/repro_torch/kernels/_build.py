@@ -74,6 +74,16 @@ SIGNATURES = {
     # the same arguments but the dtype code (bf16 only): the tensor-core
     # route
     "ssd_scan_bwd_tc_launch": [_P] * 17 + [_I] * 6 + [_L] * 6 + [_P],
+    # gates_x, its (batch, position, gate, head) strides, r, r's dtype
+    # code, h0, c0, n0, m0 (all null for the zero state), hs, the final h,
+    # c, n, m, the saved gates and states (both null without), B, S, H, Dh,
+    # dtype code, stack dtype code, stream
+    "slstm_fwd_launch": [_P] + [_L] * 4 + [_P, _I] + [_P] * 11 + [_I] * 6
+    + [_P],
+    # r, r's dtype code, the saved gates and states, dhs, the final state's
+    # cotangents (each null for zero), dgx, dG, the initial state's
+    # cotangents, B, S, H, Dh, dtype code, stack dtype code, stream
+    "slstm_bwd_launch": [_P, _I] + [_P] * 13 + [_I] * 6 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -4,7 +4,7 @@ port of ``repro.kernels.ops`` for the serve and train paths).
 Each op with a kernel has two implementations:
   * ``kernel`` — the hand-written CUDA kernel (``flash_attention.py``,
                  ``paged_attention.py``, ``rmsnorm.py``, ``fused_adamw.py``,
-                 ``ssd_scan.py`` and ``csrc/``);
+                 ``ssd_scan.py``, ``slstm.py`` and ``csrc/``);
   * ``torch``  — its plain PyTorch version, beside the kernel.
 
 ``impl="auto"`` mirrors ``repro.kernels.ops._use_pallas``: the kernel for a
@@ -22,8 +22,11 @@ CPU tensors or ``impl="torch"``.  ``rmsnorm`` is one for CUDA tensors, with
 the backward kernel; its plain version is differentiated by autograd.
 ``ssd_scan`` is one for CUDA tensors, whose backward is the SSD backward
 kernel (the counterpart of autodiff of ``ops._ssd_jnp``); its plain
-version is differentiated by autograd.  A call that needs no gradient runs
-the forward alone.
+version is differentiated by autograd.  ``slstm_scan`` (the sLSTM
+recurrence, which the reference runs as a ``lax.scan`` and not a TPU
+kernel) is one for CUDA tensors, whose backward is the sLSTM backward
+kernel; its plain loop is differentiated by autograd.  A call that needs
+no gradient runs the forward alone.
 
 Fake tensors (``torch._subclasses.fake_tensor``, the dry run's,
 ``launch.dryrun``): a kernel's call on them is counted as the kernel
@@ -49,6 +52,7 @@ from repro_torch.kernels import fused_adamw as _fo
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.train import quantized_state as qs
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import slstm as _sl
 from repro_torch.kernels import ssd_scan as _ssd
 
 NEG_INF = -1.0e30
@@ -341,6 +345,71 @@ def ssd_decode_step(x, dt, A, B, C, D, h):
 
 
 # ===========================================================================
+# sLSTM recurrence (xLSTM scalar memory)
+# ===========================================================================
+
+class _SLSTMScan(torch.autograd.Function):
+    """(hs, h, c, n, m) = the sLSTM forward kernel; saves the gates of
+    every step and the states around it (``slstm.slstm_saved_torch``'s
+    layout, fp32), from which the backward kernel recomputes each step
+    (under ``torch.utils.checkpoint`` the forward runs twice, saving only
+    in the recompute).  The final state's cotangents may be None
+    (training discards the state)."""
+
+    @staticmethod
+    def forward(ctx, gates_x, r, h0, c0, n0, m0, stack_dtype):
+        ctx.set_materialize_grads(False)
+        state = None if h0 is None else (h0, c0, n0, m0)
+        hs, fin, saved = _sl.slstm_scan_cuda(gates_x, r, state,
+                                             stack_dtype=stack_dtype,
+                                             save=True)
+        ctx.save_for_backward(r, *saved)
+        ctx.dtype = gates_x.dtype
+        return (hs, *fin)
+
+    @staticmethod
+    def backward(ctx, dhs, dh, dc, dn, dm):
+        r, G, states = ctx.saved_tensors
+        if dhs is None:
+            B, H, Dh = G.shape[2], G.shape[0], G.shape[3] // 4
+            dhs = torch.zeros((B, G.shape[1], H, Dh), dtype=torch.float32,
+                              device=G.device)
+        dgx, dr, d0 = _sl.slstm_scan_bwd_cuda(r, (G, states), dhs,
+                                              (dh, dc, dn, dm),
+                                              dtype=ctx.dtype)
+        need = ctx.needs_input_grad
+        return (dgx if need[0] else None,
+                dr.to(r.dtype) if need[1] else None,
+                *(d if n else None for d, n in zip(d0, need[2:6])), None)
+
+
+def slstm_scan(gates_x, r, state, *, stack_dtype, impl: str = "auto"):
+    """The sLSTM recurrence over a sequence.  gates_x (B, S, 4, H, Dh),
+    ``x @ w_gates`` viewed by gate [z, i, f, o] and head; r (H, Dh, 4 Dh)
+    (``r_gates``, any float dtype); state (h, c, n, m), each (B, H, Dh),
+    or None (zeros, n = 1).  Returns (hs (B, S, H, Dh) in
+    ``stack_dtype``, the fp32 final (h, c, n, m), each (B, H, Dh))."""
+    if _is_fake(gates_x):
+        hs, *fin = _FakeSLSTMScan.apply(
+            gates_x, r, *(state or (None,) * 4), stack_dtype,
+            _needs_grad(gates_x, r, *(state or ())))
+        return hs, tuple(fin)
+    if not _use_kernel(impl, gates_x):
+        return _sl.slstm_scan_torch(gates_x, r, state,
+                                    stack_dtype=stack_dtype)
+    r = r.contiguous()
+    if state is not None:
+        state = tuple(t.float().contiguous() for t in state)
+    if _needs_grad(gates_x, r, *(state or ())):
+        hs, *fin = _SLSTMScan.apply(gates_x, r, *(state or (None,) * 4),
+                                    stack_dtype)
+        return hs, tuple(fin)
+    hs, fin, _ = _sl.slstm_scan_cuda(gates_x, r, state,
+                                     stack_dtype=stack_dtype)
+    return hs, fin
+
+
+# ===========================================================================
 # mLSTM chunked scan (xLSTM matrix memory)
 # ===========================================================================
 
@@ -577,6 +646,49 @@ class _FakeSSDScan(torch.autograd.Function):
         _cost("ssd_scan_bwd", flops,
               _nbytes(x, dt, A, B, C, D, h0, dy, dh, *grads))
         return grads + (None,)
+
+
+def slstm_flops(B: int, S: int, H: int, Dh: int) -> int:
+    """The sLSTM forward's recurrent products: h_{t-1} (1, Dh) by R (Dh,
+    4 Dh) for every (row, head, step), 2 FLOPs a multiply-add (the cell's
+    elementwise work, ~30 FLOPs a dim against 8 Dh, left out)."""
+    return 2 * S * B * H * Dh * 4 * Dh
+
+
+class _FakeSLSTMScan(torch.autograd.Function):
+    """The sLSTM kernels on fake tensors: forward ``slstm_flops``, the
+    gates, r and the state read, hs and the final state written (and,
+    with a gradient, the fp32 gates and states saved); backward twice
+    that, dg R^T in the kernel and dR = sum_t h^T dg after it (the
+    kernel does not redo the forward's product: it reads the saved
+    gates), the saved tensors, dhs, r and the final state's cotangents
+    read and the cotangents written."""
+
+    @staticmethod
+    def forward(ctx, gates_x, r, h0, c0, n0, m0, stack_dtype, grad):
+        B, S, _, H, Dh = gates_x.shape
+        f32 = dict(dtype=torch.float32)
+        hs = gates_x.new_empty((B, S, H, Dh), dtype=stack_dtype)
+        fin = [gates_x.new_empty((B, H, Dh), **f32) for _ in range(4)]
+        saved = (4 * S * B * H * Dh + 4 * (S + 1) * B * H * Dh) * 4 \
+            if grad else 0
+        _cost("slstm_scan", slstm_flops(B, S, H, Dh),
+              _nbytes(gates_x, r, h0, c0, n0, m0, hs, *fin) + saved)
+        ctx.save_for_backward(gates_x, r, h0)
+        ctx.saved_bytes = saved
+        return (hs, *fin)
+
+    @staticmethod
+    def backward(ctx, dhs, dh, dc, dn, dm):
+        gates_x, r, h0 = ctx.saved_tensors
+        B, S, _, H, Dh = gates_x.shape
+        dgx, dr = torch.empty_like(gates_x), torch.empty_like(r)
+        d0 = [None if h0 is None else torch.empty_like(h0)
+              for _ in range(4)]
+        _cost("slstm_scan_bwd", 2 * slstm_flops(B, S, H, Dh),
+              ctx.saved_bytes + _nbytes(dhs, r, dh, dc, dn, dm, dgx, dr,
+                                        *d0))
+        return (dgx, dr, *d0, None, None)
 
 
 def _fake_adamw(p, g, m) -> None:

@@ -343,13 +343,11 @@ def slstm_columns(d_model: int, cfg: XLSTMConfig, M: int, r: int):
 
 def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
               impl: str = "auto"):
-    """The recurrence runs one position at a time, as the reference's
-    ``lax.scan``, with the heads leading ((H, B, Dh)) so the recurrent
-    product is one ``bmm`` a step.  Each step's h is kept in
-    ``SLSTM_STACK_DTYPE`` (bf16, as the reference stacks it).  The
-    steps' gates are ``unbind`` views, whose backward stacks the steps'
-    gradients once (indexing ``gates_x[t]`` would write a zero tensor of
-    every step's gates for each step).
+    """The recurrence is ``ops.slstm_scan``: the sLSTM kernels for CUDA
+    tensors (one launch a layer forward, one backward), the port's loop
+    of one position at a time, as the reference's ``lax.scan``, on the
+    CPU.  Each step's h is kept in ``SLSTM_STACK_DTYPE`` (bf16, as the
+    reference stacks it).
 
     Under tensor parallelism over ``model`` (the context's layout
     computes "slstm"; ``plans.SLSTM_SLICED``) a rank computes its H / M
@@ -371,46 +369,18 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
     M, rk = (shard_ctx.model_size(), shard_ctx.model_rank()) if tp else (1, 0)
     H = cfg.n_heads // M
     Dh = d_model // cfg.n_heads
-    f32 = torch.float32
     w_gates, r_gates = p["w_gates"], p["r_gates"]
     if tp:
         x = shard_ctx.copy_in(x)
     if M > 1:
         w_gates = _take(w_gates, slstm_columns(d_model, cfg, M, rk))
         r_gates = r_gates[rk * H:(rk + 1) * H]
-    # S steps of (4, H, B, Dh) gates, each contiguous
-    gates_x = (x @ w_gates).reshape(B, S, 4, H, Dh).float().permute(
-        1, 2, 3, 0, 4).contiguous().unbind(0)
-    if state is None:
-        h = torch.zeros((H, B, Dh), dtype=f32, device=x.device)
-        c = torch.zeros_like(h)
-        n = torch.ones_like(h)
-        m = torch.zeros_like(h)
-    else:
-        h, c, n, m = (t.float().transpose(0, 1) for t in state["slstm"])
-    r = r_gates.float()                                 # (H, Dh, 4 Dh)
-    # torch.maximum against a tensor splits the gradient at a tie, as
-    # jnp.maximum does (clamp_min would give it all to |n|)
-    one = torch.ones((), dtype=f32, device=x.device)
-    hs = []
-    for gx in gates_x:
-        rec = torch.bmm(h, r).view(H, B, 4, Dh).permute(2, 0, 1, 3)
-        g = gx + rec                                    # (4, H, B, Dh)
-        z_t = torch.tanh(g[0])
-        i_t = g[1]
-        o_t = torch.sigmoid(g[3])
-        logf_m = F.logsigmoid(g[2]) + m
-        m_new = torch.maximum(logf_m, i_t)
-        i_p = torch.exp(i_t - m_new)
-        f_p = torch.exp(logf_m - m_new)
-        c = f_p * c + i_p * z_t
-        n = f_p * n + i_p
-        h = o_t * c / torch.maximum(torch.abs(n), one)
-        m = m_new
-        hs.append(h.to(SLSTM_STACK_DTYPE))
-    # (S, H, B, Dh) -> (B, S, H * Dh)
-    y = torch.stack(hs).permute(2, 0, 1, 3).reshape(B, S, H * Dh).to(
-        x.dtype)
+    gates_x = (x @ w_gates).reshape(B, S, 4, H, Dh)
+    hs, new = ops.slstm_scan(
+        gates_x, r_gates, None if state is None else state["slstm"],
+        stack_dtype=SLSTM_STACK_DTYPE, impl=impl)
+    # (B, S, H, Dh) -> (B, S, H * Dh)
+    y = hs.reshape(B, S, H * Dh).to(x.dtype)
     if tp:
         y = shard_ctx.gather_out(y, -1)
     y = ops.rmsnorm(y, p["out_norm"], impl=impl)
@@ -422,7 +392,6 @@ def slstm_fwd(p, x, cfg: XLSTMConfig, d_model: int, *, state=None,
     out = ff @ w_down
     if ff_tp:
         out = shard_ctx.reduce_out(out)
-    new = tuple(t.transpose(0, 1) for t in (h, c, n, m))
     if state is None:
         return out, {"slstm": new}
     for dst, src in zip(state["slstm"], new):

@@ -37,7 +37,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import (flash_attention, fused_adamw,
-                                 paged_attention, rmsnorm, ssd_scan)
+                                 paged_attention, rmsnorm, slstm, ssd_scan)
 
 
 def freeze(obj) -> Any:
@@ -136,7 +136,8 @@ GLOBAL = CompileCache()
 
 #: the kernel modules whose launch counters (every module-level int named
 #: ``*LAUNCHES*``) a replay advances as the captured step's Python did
-COUNTED = (flash_attention, fused_adamw, paged_attention, rmsnorm, ssd_scan)
+COUNTED = (flash_attention, fused_adamw, paged_attention, rmsnorm, slstm,
+           ssd_scan)
 
 #: a capture's error mode: ``thread_local`` refuses an unsafe CUDA call
 #: from the capturing thread and lets other threads (a checkpoint's I/O

@@ -372,6 +372,88 @@ def test_kernels_on_fake_tensors_are_counted_not_run(monkeypatch):
     assert ops.FAKE_COST["calls"] == {}
 
 
+def test_slstm_on_fake_tensors_is_counted_not_run(monkeypatch):
+    """The sLSTM block on fake tensors, forward and backward, from the
+    initial state and from a given one: ``ops.slstm_scan`` goes through
+    ``_FakeSLSTMScan``, which charges the forward 2 S B H Dh 4 Dh FLOPs
+    and the backward twice that (dg R^T in the kernel, dR after it) and
+    never runs the plain loop or a kernel; outputs and cotangents have
+    their real shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import slstm as sl
+    from repro_torch.models import ssm
+
+    def boom(*a, **k):
+        raise AssertionError("the sLSTM loop or a kernel ran")
+    for n in ("slstm_scan_torch", "slstm_scan_cuda", "slstm_scan_bwd_cuda",
+              "slstm_scan_bwd_torch"):
+        monkeypatch.setattr(sl, n, boom)
+    cfg = C.get_smoke("xlstm_350m").xlstm
+    d, B, S = 64, 2, 24
+    H, Dh = cfg.n_heads, d // cfg.n_heads
+    ops.reset_fake_cost()
+    with FakeTensorMode():
+        p = ssm.slstm_init(torch.Generator().manual_seed(0), d, cfg,
+                           torch.float32, "cpu")
+        p = {k: v.requires_grad_() for k, v in p.items()}
+        x = torch.empty(B, S, d, requires_grad=True)
+        out, st = ssm.slstm_fwd(p, x, cfg, d)
+        assert out.shape == (B, S, d)
+        assert all(t.shape == (B, H, Dh) for t in st["slstm"])
+        out.sum().backward()
+        assert x.grad.shape == x.shape
+        assert p["r_gates"].grad.shape == (H, Dh, 4 * Dh)
+        state = {"slstm": tuple(torch.empty(B, H, Dh) for _ in range(4))}
+        ssm.slstm_fwd({k: v.detach() for k, v in p.items()},
+                      torch.empty(B, 1, d), cfg, d, state=state)
+    calls = ops.FAKE_COST["calls"]
+    assert calls == {"slstm_scan": 2, "slstm_scan_bwd": 1, "rmsnorm": 2,
+                     "rmsnorm_bwd": 1}
+    f = 2 * S * B * H * Dh * 4 * Dh
+    assert ops.slstm_flops(B, S, H, Dh) == f
+    norms = 4 * B * S * d + 10 * B * S * d + 4 * B * d
+    assert ops.FAKE_COST["flops"] == f + 2 * f + f // S + norms
+
+
+DRY_XLSTM = r"""
+import sys
+from repro_torch.launch import dryrun
+rc = 0
+for kind in ("train", "prefill"):
+    rc |= dryrun.main(["--arch", "xlstm_350m", "--smoke", "--kind", kind,
+                       "--shape", f"smoke_{kind}", "--seq-len", "16",
+                       "--global-batch", "2", "--mesh-shape", "1,1",
+                       "--out", sys.argv[1]])
+print("DRY_RC", rc)
+"""
+
+
+def test_dryrun_xlstm_counts_the_slstm_kernels(tmp_path):
+    """An xlstm dry run (the smoke config, a (1, 1) fake mesh) counts the
+    sLSTM kernels as the card launches them (a train step: 2 forward a
+    sLSTM layer with remat's recompute, 1 backward, as
+    ``chip_smoke.train_launches``; a prefill: 1) and their FLOPs in the
+    step's: never the loop's S steps of small products."""
+    out = tmp_path / "x.jsonl"
+    r = subprocess.run([sys.executable, "-c", DRY_XLSTM, str(out)],
+                       env=ENV, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "DRY_RC 0" in r.stdout, r.stderr[-4000:]
+    lines = {d["entry"]: d for d in map(json.loads,
+                                        out.read_text().splitlines())}
+    cfg = C.get_smoke("xlstm_350m")
+    n_slstm = cfg.n_layers // cfg.xlstm.slstm_every
+    H, Dh = cfg.xlstm.n_heads, cfg.d_model // cfg.xlstm.n_heads
+    f = ops.slstm_flops(2, 16, H, Dh)
+    train, pre = lines["train_step"], lines["prefill_step"]
+    assert train["status"] == pre["status"] == "ok"
+    assert train["kernels"]["slstm_scan"] == 2 * n_slstm
+    assert train["kernels"]["slstm_scan_bwd"] == n_slstm
+    assert pre["kernels"]["slstm_scan"] == n_slstm
+    assert "slstm_scan_bwd" not in pre["kernels"]
+    assert train["roofline"]["hlo_flops"] > 4 * n_slstm * f
+    assert pre["roofline"]["hlo_flops"] > n_slstm * f
+
+
 # --------------------------------------------------- the fake-group runs
 
 DRY = r'''

@@ -46,6 +46,39 @@ def test_no_source_imports_jax_or_repro():
         assert not bad.search(f.read_text()), f
 
 
+ROOT = SRC.parent
+#: the port's scripts that drive it on the card
+CARD_SCRIPTS = ["chip_smoke.py"] + sorted(
+    p.relative_to(ROOT).as_posix()
+    for p in (ROOT / "benchmarks").glob("*_phases.py"))
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
+def test_card_scripts_import_no_jax_or_repro(script):
+    """``chip_smoke.py`` and the ``benchmarks/*_phases.py`` that run its
+    phases import neither JAX nor the JAX package: no such import line,
+    and the script imports with both unimportable."""
+    bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    assert not bad.search((ROOT / script).read_text())
+    code = textwrap.dedent(f"""
+        import importlib.util, os, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        os.chdir({str(ROOT)!r})
+        sys.path.insert(0, {str(ROOT)!r})
+        spec = importlib.util.spec_from_file_location(
+            "card_script", {str(ROOT / script)!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("IMPORTED")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env)
+    assert r.returncode == 0 and "IMPORTED" in r.stdout, r.stderr[-3000:]
+
+
 def test_entry_points_default_to_cuda_and_refuse_the_host():
     """Without a card, the default device raises instead of quietly
     running the plain PyTorch path on the CPU."""
@@ -182,6 +215,9 @@ def test_every_ctypes_signature_matches_its_c_prototype():
 #: ranks (one JAX process needs none), and the ``__init__.py`` of the seven
 #: packages that the JAX package keeps as namespace packages
 PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
+             # the sLSTM recurrence's kernels: the reference's is a
+             # lax.scan inside models/ssm.py, not a kernel module
+             "kernels/slstm.py",
              "core/service.py",
              "checkpoint/__init__.py", "data/__init__.py",
              "launch/__init__.py", "models/__init__.py", "serve/__init__.py",

@@ -922,7 +922,7 @@ def test_chip_smoke_serve_xlstm_rehearses_on_cpu():
     plain versions run on both sides, so every distance is 0; no kernel
     launches), and the launches it holds the card to at full size: 49
     RMSNorms a prefill and a decode step (3 groups of 8 sublayers, 2
-    each, and the final norm)."""
+    each, and the final norm) and 3 sLSTM recurrences (one a group)."""
     smoke = _chip_smoke()
     out = smoke.phase_serve_xlstm(device="cpu", smoke=True)
     assert out["arch"] == "xlstm_350m_smoke"
@@ -937,8 +937,9 @@ def test_chip_smoke_serve_xlstm_rehearses_on_cpu():
     assert out["captured_vs_eager"]["tokens_equal"]
     assert set(out["launches"].values()) == {0}
     pre, dec = smoke.xlstm_launches(configs.get(ARCH))
-    assert pre == dec and {k for k, v in pre.items() if v} == {"rmsnorm"}
-    assert pre["rmsnorm"] == 49
+    assert pre == dec and {k for k, v in pre.items() if v} == {
+        "rmsnorm", "slstm_scan"}
+    assert pre["rmsnorm"] == 49 and pre["slstm_scan"] == 3
 
 
 def test_chip_smoke_xlstm_sublayer_check_catches_a_bf16_fault(monkeypatch):
@@ -965,7 +966,8 @@ def test_chip_smoke_train_xlstm_rehearses_on_cpu():
     0 in fp32 against ``impl="torch"`` (the same plain path here) and the
     bf16 step 0 read beside it, 2 steps, no kernel launched; at full size
     the card is held to 97 RMSNorms forward (with remat's recompute), 49
-    backward and 18 fp32 AdamW updates a step, 3 of them on the scalar
+    backward, 6 sLSTM recurrences forward (with the recompute) and 3
+    backward, and 18 fp32 AdamW updates a step, 3 of them on the scalar
     route (``w_if``, 8 wide, ``w_ff_gate`` and ``w_ff_up``, 1365)."""
     smoke = _chip_smoke()
     out = smoke.phase_train_xlstm(device="cpu", smoke=True)
@@ -980,5 +982,6 @@ def test_chip_smoke_train_xlstm_rehearses_on_cpu():
         cfg, ShapeConfig("c", "train", 2048, 4, 1),
         opt.OptConfig(state_bits=None), model.abstract_params(cfg))
     assert {k: v for k, v in want.items() if v} == {
-        "rmsnorm": 97, "rmsnorm_bwd": 49, "fused_adamw_f32": 18,
+        "rmsnorm": 97, "rmsnorm_bwd": 49, "slstm_scan": 6,
+        "slstm_scan_bwd": 3, "fused_adamw_f32": 18,
         "fused_adamw_scalar": 3}
