@@ -476,11 +476,20 @@ KERNEL_META = {
     "slstm_scan_bwd": {
         "source": _CSRC + "slstm.cu",
         "replaces": "src/repro/models/ssm.py:223"},
+    # not TPU kernels: the reference's mLSTM chunk recurrence is a lax.scan
+    # of its chunk_step (ops.py:439), and its backward autodiff of that
+    # scan (:473)
+    "mlstm_scan": {
+        "source": _CSRC + "mlstm.cu",
+        "replaces": "src/repro/kernels/ops.py:439"},
+    "mlstm_scan_bwd": {
+        "source": _CSRC + "mlstm.cu",
+        "replaces": "src/repro/kernels/ops.py:473"},
 }
 
 # kernel-name substrings that ``profile_steps`` sums device time over
 KERNEL_FAMILIES = ("flash_", "rmsnorm", "paged_decode", "fused_adamw",
-                   "ssd_scan", "ssd_bwd", "slstm")
+                   "ssd_scan", "ssd_bwd", "slstm", "mlstm")
 
 # launch counter -> (kernel module, counter attribute)
 COUNTERS = {
@@ -500,6 +509,8 @@ COUNTERS = {
     "ssd_scan_bwd": ("ssd_scan", "BWD_LAUNCHES"),
     "slstm_scan": ("slstm", "LAUNCHES"),
     "slstm_scan_bwd": ("slstm", "BWD_LAUNCHES"),
+    "mlstm_scan": ("mlstm", "LAUNCHES"),
+    "mlstm_scan_bwd": ("mlstm", "BWD_LAUNCHES"),
     # the calls of the kernels above that took their scalar route
     "fused_adamw_scalar": ("fused_adamw", "LAUNCHES_SCALAR"),
     "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
@@ -981,10 +992,12 @@ def phase_build():
 SASS_FAMILIES = ("fused_adamw", "paged_decode")
 # kernels whose registers, shared memory and spills the build line gives
 # by name (ptxas -v): the SSD scan's, its backward's, the RMSNorm
-# forward's vector route and its backward's, the flash backward's and the
-# paged decode's (an instance a head chunk GC)
+# forward's vector route and its backward's, the flash backward's, the
+# paged decode's (an instance a head chunk GC), the sLSTM's and the
+# mLSTM's
 PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
-                 "rmsnorm_dscale", "flash_bwd", "paged_decode", "slstm")
+                 "rmsnorm_dscale", "flash_bwd", "paged_decode", "slstm",
+                 "mlstm")
 
 
 def sass_counts(lib: str) -> dict:
@@ -1729,6 +1742,199 @@ def phase_slstm():
     out, edges = {}, []
     check_slstm_kernel(out, edge_check(edges))
     emit("slstm_kernel", full_width=out, edge_cases=edges)
+    return out
+
+
+# the mLSTM kernels' tolerances (``close``): the fp32 carry (and an fp32
+# h), what the kernels write in bf16, and the fp32 cotangents
+MLSTM_RTOL = {"state": 1e-4, "bf16": 2e-2, "cotangent": 1e-3}
+MLSTM_CARRY = ("C", "n", "m")
+MLSTM_GRADS = ("dq", "dk", "dv", "di", "df")
+
+
+def mlstm_inputs(B, H, S, Dk, Dv, dtype=torch.bfloat16, carry=False,
+                 seed=21):
+    """q, k, v and the two gates as the block makes them: (B, H, S, D)
+    views of (B, S, H, D) projections, the gates views of one (B, S, 2,
+    H) product; q, k, v and i ~ N(0, 1), f ~ N(2, 1) (forget gates near
+    0.88); a random fp32 carry (m ~ N(0, 1)) or None."""
+    g = _gen(seed)
+    q = _randn((B, S, H, Dk), g, dtype).transpose(1, 2)
+    k = _randn((B, S, H, Dk), g, dtype).transpose(1, 2)
+    v = _randn((B, S, H, Dv), g, dtype).transpose(1, 2)
+    gates = _randn((B, S, 2, H), g, torch.float32)
+    gates[:, :, 1] += 2.0
+    gates = gates.to(dtype)
+    ig, fg = gates[:, :, 0].transpose(1, 2), gates[:, :, 1].transpose(1, 2)
+    c0 = None
+    if carry:
+        c0 = (_randn((B, H, Dk, Dv), g, torch.float32),
+              _randn((B, H, Dk), g, torch.float32),
+              _randn((B, H), g, torch.float32))
+    return (q, k, v, ig, fg), c0
+
+
+def mlstm_cost(xs, c0, chunk, grad=False):
+    """The forward's bytes (q, k, v, the gates and the carry read once, h
+    and the final carry written once) and FLOPs (``ops.mlstm_flops``);
+    ``grad``: the backward's with no cotangent of the final carry (the
+    forward's saved tensors, the inputs and dh read, the cotangents
+    written) and twice the forward's FLOPs, as the dry run counts
+    them."""
+    from repro_torch.kernels import ops
+    q, k, v = xs[:3]
+    B, H, S, Dk = q.shape
+    Dv = v.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    inputs = sum(t.numel() * t.element_size() for t in xs)
+    carry = 4 * B * H * (Dk * Dv + Dk + 1)
+    flops = ops.mlstm_flops(B, H, S, Dk, Dv, chunk)
+    if not grad:
+        return (inputs + B * H * S * Dv * q.element_size() + carry
+                * (2 if c0 is not None else 1)), flops
+    saved = 4 * (nc * B * H * (Dk * Dv + Dk + 1) + 3 * B * H * nc * Q
+                 + B * H * nc * Q * Dv + B * H * (Dk * Dv + Dk))
+    return (saved + 2 * inputs + B * H * S * Dv * q.element_size()
+            + carry * 2 * (c0 is not None)), 2 * flops
+
+
+def mlstm_gap_by_position(got_h, want_h, n: int = 8) -> list:
+    """The h gap between the kernels and the plain loop along the
+    sequence: for each of ``n`` equal spans of positions, the worst
+    |got - want| / (|want| + rms(want)) in it (rms over the whole)."""
+    g, w = got_h.float(), want_h.float()
+    rel = ((g - w).abs() / (w.abs() + rms(w))).amax(dim=(0, 1, 3))
+    return [float(x.max()) for x in rel.chunk(n)]
+
+
+def mlstm_held(what, got, want, names, rtols):
+    """Each of ``names`` element by element within its rtol (``close``)
+    and finite: {name: {max_err, rtol, err_over_tol}}."""
+    res = {}
+    for name, g, w, rtol in zip(names, got, want, rtols):
+        err, ratio = close(g, w, rtol)
+        res[name] = {"max_err": err, "rtol": rtol, "err_over_tol": ratio}
+        check(ratio <= 1.0 and bool(torch.isfinite(g).all()),
+              f"{what} {name}: max_abs_err {err}, {ratio} x its tolerance "
+              f"(rtol {rtol})")
+    return res
+
+
+def check_mlstm_kernel(out, edge):
+    """The mLSTM forward and backward kernels against their plain
+    versions, element by element (``MLSTM_RTOL``): at xlstm_350m's train
+    and prefill shape (B 4, H 4, S 2048, Dk 256, Dv 512, chunk 256, bf16,
+    strided as the block makes them; the main path's) from the zero
+    carry and, backward, without the final carry's cotangents (as in
+    training), timed, twice on the same inputs bit for bit, the h gap
+    along the sequence read (``gap_by_position``); at edge cases (S 2000
+    from a given carry with the final carry's cotangents, the last chunk
+    padded; one head, as a rank of four under tensor parallelism; the
+    smoke config's (2, 2, 32, 32, 64) at chunk 16 in fp32, from a carry,
+    its fp32 h and cotangents held at the state and cotangent
+    tolerances).  The backward is held on the forward kernels' saved
+    tensors (the same inputs for both)."""
+    from repro_torch.kernels.mlstm import (mlstm_scan_bwd_cuda,
+                                           mlstm_scan_bwd_torch,
+                                           mlstm_scan_cuda, mlstm_scan_torch)
+    progress("kernels: mlstm_scan")
+    # the plain loop's matmuls in full fp32, as the kernels' FMAs
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "mlstm_scan: TF32 is on for fp32 matmuls")
+    B, H, S, Dk, Dv, chunk = 4, 4, 2048, 256, 512, 256
+    bf16, f32 = torch.bfloat16, torch.float32
+    xs, _ = mlstm_inputs(B, H, S, Dk, Dv)
+    got = mlstm_scan_cuda(*xs, chunk=chunk, save=True)
+    want = mlstm_scan_torch(*xs, chunk=chunk)
+    res = mlstm_held("mlstm_scan", (got[0], *got[1]), (want[0], *want[1]),
+                     ("h",) + MLSTM_CARRY,
+                     (MLSTM_RTOL["bf16"],) + (MLSTM_RTOL["state"],) * 3)
+    again = mlstm_scan_cuda(*xs, chunk=chunk)
+    bitwise = (torch.equal(got[0], again[0])
+               and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
+    check(bitwise, "mlstm_scan: two calls on the same inputs differ")
+    nbytes, flops = mlstm_cost(xs, None, chunk)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"shape": [B, H, S, Dk, Dv], "chunk": chunk, "dtype": str(bf16),
+           "outputs": res,
+           "gap_by_position": mlstm_gap_by_position(got[0], want[0]),
+           "bitwise_reproducible": bitwise,
+           "kernel_ms": time_ms(lambda: mlstm_scan_cuda(*xs, chunk=chunk)),
+           "plain_ms": time_ms(lambda: mlstm_scan_torch(*xs, chunk=chunk),
+                               iters=3, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops,
+           "max_err": max(v["max_err"] for v in res.values()),
+           "card": _CARD}
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    out["mlstm_scan"] = row
+    saved = got[2]
+    del got, want, again
+
+    progress("kernels: mlstm_scan_bwd")
+    dh = _randn((B, H, S, Dv), _gen(23), bf16)
+    bgot = mlstm_scan_bwd_cuda(*xs, dh, chunk=chunk, saved=saved)[0]
+    bwant = mlstm_scan_bwd_torch(*xs, dh, chunk=chunk, saved=saved)[0]
+    res = mlstm_held("mlstm_scan_bwd", bgot, bwant, MLSTM_GRADS,
+                     (MLSTM_RTOL["bf16"],) * 5)
+    again = mlstm_scan_bwd_cuda(*xs, dh, chunk=chunk, saved=saved)[0]
+    bitwise = all(torch.equal(a, b) for a, b in zip(bgot, again))
+    check(bitwise, "mlstm_scan_bwd: two calls on the same inputs differ")
+    nbytes, flops = mlstm_cost(xs, None, chunk, grad=True)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    row = {"shape": [B, H, S, Dk, Dv], "chunk": chunk, "dtype": str(bf16),
+           "outputs": res, "bitwise_reproducible": bitwise,
+           "kernel_ms": time_ms(lambda: mlstm_scan_bwd_cuda(
+               *xs, dh, chunk=chunk, saved=saved)),
+           "plain_ms": time_ms(lambda: mlstm_scan_bwd_torch(
+               *xs, dh, chunk=chunk, saved=saved), iters=3, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": nbytes, "flops": flops,
+           "max_err": max(v["max_err"] for v in res.values()),
+           "card": _CARD}
+    row["tflops"] = flops / row["kernel_ms"] / 1e9
+    out["mlstm_scan_bwd"] = row
+    del xs, dh, saved, bgot, bwant, again
+
+    # edge cases, forward and backward, each held as above
+    for name, shape, c, dtype, carry, final in [
+            ("S2000_carry_final", (4, 4, 2000, 256, 512), 256, bf16, True,
+             True),
+            ("H1", (4, 1, 300, 256, 512), 256, bf16, False, False),
+            ("smoke_f32_carry_final", (2, 2, 32, 32, 64), 16, f32, True,
+             True)]:
+        xs, c0 = mlstm_inputs(*shape, dtype=dtype, carry=carry,
+                              seed=len(name))
+        got = mlstm_scan_cuda(*xs, chunk=c, carry=c0, save=True)
+        want = mlstm_scan_torch(*xs, chunk=c, carry=c0)
+        edge("mlstm_scan", f"{name}_h", got[0], want[0],
+             MLSTM_RTOL["bf16" if dtype == bf16 else "state"])
+        for n, a, b in zip(MLSTM_CARRY, got[1], want[1]):
+            edge("mlstm_scan", f"{name}_{n}", a, b, MLSTM_RTOL["state"])
+        dh = _randn(tuple(want[0].shape), _gen(24), dtype)
+        dfin = (tuple(_randn(tuple(t.shape), _gen(25 + i), f32)
+                      for i, t in enumerate(want[1])) if final else None)
+        bg, bd = mlstm_scan_bwd_cuda(*xs, dh, dfin, chunk=c, saved=got[2],
+                                     carry=c0)
+        wg, wd = mlstm_scan_bwd_torch(*xs, dh, dfin, chunk=c, carry=c0,
+                                      saved=got[2])
+        for n, a, b in zip(MLSTM_GRADS, bg, wg):
+            edge("mlstm_scan_bwd", f"{name}_{n}", a, b,
+                 MLSTM_RTOL["bf16" if dtype == bf16 else "cotangent"])
+        for n, a, b in zip(MLSTM_CARRY, bd or (), wd or ()):
+            edge("mlstm_scan_bwd", f"{name}_d{n}0", a, b,
+                 MLSTM_RTOL["cotangent"])
+        del xs, c0, got, want, dh, dfin, bg, bd, wg, wd
+
+
+def phase_mlstm():
+    """``check_mlstm_kernel`` alone, as the kernels phase runs it (to
+    iterate on the mLSTM kernels: ``benchmarks/config_phases.py
+    mlstm``)."""
+    out, edges = {}, []
+    check_mlstm_kernel(out, edge_check(edges))
+    emit("mlstm_kernel", full_width=out, edge_cases=edges)
     return out
 
 
@@ -2853,6 +3059,7 @@ def phase_kernels():
     check_ssd_bwd_kernel(out, edge, edges)
     check_train_kernels(out, edge, edges)
     check_slstm_kernel(out, edge)
+    check_mlstm_kernel(out, edge)
     emit("kernels", launches=counts(), full_width=out, edge_cases=edges)
     return out
 
@@ -3994,13 +4201,16 @@ def xlstm_launches(cfg):
     group's k-1 mLSTM sublayers and its sLSTM run two RMSNorms each (the
     pre-norm and the block's out_norm), the final norm one; each group's
     sLSTM one ``slstm_scan`` (its recurrence over the prompt, or the one
-    step).  The mLSTM scan is plain PyTorch: the reference has no TPU
-    kernel for it."""
+    step); each mLSTM sublayer one ``mlstm_scan`` in a prefill (the
+    chunked scan's three kernels, counted as one call) and none in a
+    decode step, whose one-token update ``ops.mlstm_decode_step`` is
+    plain PyTorch in the captured graph (the reference has no kernel for
+    it)."""
     from repro_torch.models.transformer import n_groups
-    norms = n_groups(cfg) * 2 * cfg.xlstm.slstm_every + 1
-    each = {**{n: 0 for n in COUNTERS}, "rmsnorm": norms,
-            "slstm_scan": n_groups(cfg)}
-    return each, dict(each)
+    ng, k = n_groups(cfg), cfg.xlstm.slstm_every
+    each = {**{n: 0 for n in COUNTERS}, "rmsnorm": ng * 2 * k + 1,
+            "slstm_scan": ng}
+    return {**each, "mlstm_scan": ng * (k - 1)}, each
 
 
 @contextlib.contextmanager
@@ -4020,13 +4230,16 @@ def slstm_stacking(dtype):
         ssm.SLSTM_STACK_DTYPE = saved
 
 
-def slstm_share(fn) -> dict:
+def block_share(fn, block: str) -> dict:
     """One call of ``fn`` (a prefill) timed between device syncs, and the
-    part of it spent in ``ssm.slstm_fwd`` (each sLSTM block: its input
-    projection, the step-by-step recurrence, its norm and feed-forward),
-    every call of it timed between device syncs."""
+    part of it spent in ``ssm.<block>_fwd`` (``block`` "slstm": each sLSTM
+    block, its input projection, the recurrence, its norm and
+    feed-forward; "mlstm": each mLSTM block, its projections, conv, the
+    chunked scan, its norm and gate), every call of it timed between
+    device syncs."""
     from repro_torch.models import ssm
-    spans, orig = [], ssm.slstm_fwd
+    name = f"{block}_fwd"
+    spans, orig = [], getattr(ssm, name)
 
     def timed(*a, **kw):
         torch.cuda.synchronize()
@@ -4036,7 +4249,7 @@ def slstm_share(fn) -> dict:
         spans.append(time.perf_counter() - t0)
         return out
 
-    ssm.slstm_fwd = timed
+    setattr(ssm, name, timed)
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4044,10 +4257,10 @@ def slstm_share(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        ssm.slstm_fwd = orig
-    return {"wall_ms": wall * 1e3, "slstm_ms": sum(spans) * 1e3,
-            "slstm_calls": len(spans), "slstm_share": sum(spans) / wall,
-            "card": _CARD}
+        setattr(ssm, name, orig)
+    return {"wall_ms": wall * 1e3, f"{block}_ms": sum(spans) * 1e3,
+            f"{block}_calls": len(spans),
+            f"{block}_share": sum(spans) / wall, "card": _CARD}
 
 
 def serve_xlstm_argv(device, smoke):
@@ -4074,7 +4287,8 @@ def phase_serve_xlstm(device="cuda", smoke=False):
     stacking taken out of both runs (``slstm_stacking``) and read with it
     kept; in bf16 sublayer by sublayer (``xlstm_sublayer_check``) within
     HYBRID_GROUP_RTOL, the whole stack read (see XLSTM_F32_RTOL); the
-    sLSTM blocks' share of a warm prefill (``slstm_share``)."""
+    sLSTM blocks' and the mLSTM blocks' shares of a warm prefill
+    (``block_share``)."""
     from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.models.transformer import flatten, unflatten
@@ -4199,8 +4413,10 @@ def phase_serve_xlstm(device="cuda", smoke=False):
         cache = model.init_cache(cfg, B, P, rt.device)
         out["warm_prefill"] = profile_steps(
             lambda: model.prefill(params, cfg, {"tokens": tokens}, cache), 1)
-        out["prefill_slstm_share"] = slstm_share(
-            lambda: model.prefill(params, cfg, {"tokens": tokens}, cache))
+        for block in ("slstm", "mlstm"):
+            out[f"prefill_{block}_share"] = block_share(
+                lambda: model.prefill(params, cfg, {"tokens": tokens},
+                                      cache), block)
         del cache
         # a fresh decode context, in the graph's own cache (the states
         # back to their initial values) and cache_len back to P
@@ -4370,8 +4586,9 @@ def train_launches(cfg, shape, opt_cfg, params):
     moe]) or two (llama4's dense and moe halves), each with 2 norms and,
     with MLA, its q_norm and kv_norm, an xlstm group k-1 mLSTM layers and
     an sLSTM (2 norms each, no attention: the pre-norm and the block's
-    out_norm; the sLSTM's recurrence an ``slstm_scan`` forward and an
-    ``slstm_scan_bwd``); one AdamW launch a leaf, int8 or fp32 as the
+    out_norm; each mLSTM's chunked scan an ``mlstm_scan`` forward and an
+    ``mlstm_scan_bwd``; the sLSTM's recurrence an ``slstm_scan`` forward
+    and an ``slstm_scan_bwd``); one AdamW launch a leaf, int8 or fp32 as the
     moments, on
     its scalar route for a leaf whose last dim is no multiple of 16 (the
     vector route's 16-element loads: hubert_xlarge's LM head, 504 wide;
@@ -4395,6 +4612,8 @@ def train_launches(cfg, shape, opt_cfg, params):
             "ssd_scan": mb * fwd * ng * m, "ssd_scan_bwd": mb * ng * m,
             "slstm_scan": mb * fwd * ng * (xl > 0),
             "slstm_scan_bwd": mb * ng * (xl > 0),
+            "mlstm_scan": mb * fwd * ng * max(xl - 1, 0),
+            "mlstm_scan_bwd": mb * ng * max(xl - 1, 0),
             "flash_attention": mb * fwd * ng * attn,
             "flash_attention_bwd": mb * ng * attn,
             "rmsnorm": mb * (fwd * (norms - 1) + 1) if norms else 0,
@@ -6202,9 +6421,10 @@ def phase_train_xlstm(device="cuda", smoke=False):
     upcast) against ``impl="torch"`` under STEP0_RTOL and the bf16 step
     0 beside it (``xlstm_step0_check``); 3 steps, their launches per
     step held exactly (``train_launches``: 97 RMSNorms forward with the
-    recompute, 49 backward, 6 sLSTM recurrences forward and 3 backward,
-    18 fp32 AdamW of which 3 on the scalar route, no flash), the last of
-    them profiled; tok/s, MFU and peak memory."""
+    recompute, 49 backward, 42 mLSTM chunked scans forward and 21
+    backward, 6 sLSTM recurrences forward and 3 backward, 18 fp32 AdamW
+    of which 3 on the scalar route, no flash), the last of them
+    profiled; tok/s, MFU and peak memory."""
     import repro_torch.configs as configs
     cfg, shape, opt_cfg = _train_xlstm_setup(smoke)
     full = cfg if smoke else configs.get("xlstm_350m")
@@ -8569,6 +8789,12 @@ def _run_all() -> int:
             row["f32"] = k["f32"]
         if "passes_ms" in k:
             row["passes_ms"] = k["passes_ms"]
+        if name.startswith("mlstm"):
+            # the chunked scan's FLOP rate, and (forward) the h gap along
+            # the sequence
+            row["tflops"] = k["tflops"]
+            if "gap_by_position" in k:
+                row["gap_by_position"] = k["gap_by_position"]
         if name.startswith("slstm"):
             # the dependent chain: device time a position, and (forward)
             # one decode step's call

@@ -84,6 +84,20 @@ SIGNATURES = {
     # cotangents (each null for zero), dgx, dG, the initial state's
     # cotangents, B, S, H, Dh, dtype code, stack dtype code, stream
     "slstm_bwd_launch": [_P, _I] + [_P] * 13 + [_I] * 6 + [_P],
+    # q, k, v, i_gate, f_gate, their (batch, head, position) strides, C0,
+    # n0, m0 (all null for the zero carry), h and its strides, the carries
+    # entering each chunk (C, n, m), G, mloc, the final C, n, m, D' and the
+    # fp32 h (both null without), B, H, S, Dk, Dv, chunk, dtype code,
+    # stream
+    "mlstm_fwd_launch": [_P] * 5 + [_L] * 15 + [_P] * 4 + [_L] * 3
+    + [_P] * 10 + [_I] * 7 + [_P],
+    # q .. f_gate and their strides, dh and its strides, the final carry's
+    # cotangents (each null for zero), C0 and n0 (null without a carry),
+    # the forward's nine saved tensors, dq, dk, dv, di, df, the carry's
+    # cotangents (null without), the workspace, B, H, S, Dk, Dv, chunk,
+    # dtype code, stream
+    "mlstm_bwd_launch": [_P] * 5 + [_L] * 15 + [_P] + [_L] * 3
+    + [_P] * 23 + [_I] * 7 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -177,6 +191,10 @@ def load(nvcc: Optional[str] = None) -> ctypes.CDLL:
                          "ssd_scan_bwd_tc_workspace"):
                 getattr(lib, name).argtypes = [_I] * 6
                 getattr(lib, name).restype = _L
+            # B, H, Dk, Dv, chunk, chunks -> fp32 elements of the mLSTM
+            # backward's workspace
+            lib.mlstm_bwd_workspace.argtypes = [_I] * 6
+            lib.mlstm_bwd_workspace.restype = _L
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib

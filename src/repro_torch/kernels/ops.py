@@ -4,16 +4,17 @@ port of ``repro.kernels.ops`` for the serve and train paths).
 Each op with a kernel has two implementations:
   * ``kernel`` — the hand-written CUDA kernel (``flash_attention.py``,
                  ``paged_attention.py``, ``rmsnorm.py``, ``fused_adamw.py``,
-                 ``ssd_scan.py``, ``slstm.py`` and ``csrc/``);
+                 ``ssd_scan.py``, ``slstm.py``, ``mlstm.py`` and
+                 ``csrc/``);
   * ``torch``  — its plain PyTorch version, beside the kernel.
 
 ``impl="auto"`` mirrors ``repro.kernels.ops._use_pallas``: the kernel for a
 CUDA tensor, the plain version for a CPU tensor.  ``impl="kernel"`` on a
 CPU tensor raises.  ``impl="torch"`` is the plain version on any device;
 the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``,
-``ssd_decode_step``, ``mlstm_scan`` and ``mlstm_decode_step`` never had a
-TPU kernel and are plain PyTorch only (``decode_attention`` in chunks of
-positions, merged as a sequence-split cache's ranks merge theirs).
+``ssd_decode_step`` and ``mlstm_decode_step`` never had a TPU kernel and
+are plain PyTorch only (``decode_attention`` in chunks of positions,
+merged as a sequence-split cache's ranks merge theirs).
 
 Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
 backward is the flash backward (the counterpart of the custom VJP
@@ -25,8 +26,13 @@ kernel (the counterpart of autodiff of ``ops._ssd_jnp``); its plain
 version is differentiated by autograd.  ``slstm_scan`` (the sLSTM
 recurrence, which the reference runs as a ``lax.scan`` and not a TPU
 kernel) is one for CUDA tensors, whose backward is the sLSTM backward
-kernel; its plain loop is differentiated by autograd.  A call that needs
-no gradient runs the forward alone.
+kernel; its plain loop is differentiated by autograd.  ``mlstm_scan``
+(the mLSTM chunk recurrence, which the reference runs as a ``lax.scan``
+of its ``chunk_step`` and not a TPU kernel) is one for CUDA tensors: the
+forward kernels of ``kernels/mlstm.py`` and ``csrc/mlstm.cu``, whose
+backward is the mLSTM backward kernels; its plain loop of one chunk at a
+time is differentiated by autograd.  A call that needs no gradient runs
+the forward alone.
 
 Fake tensors (``torch._subclasses.fake_tensor``, the dry run's,
 ``launch.dryrun``): a kernel's call on them is counted as the kernel
@@ -49,6 +55,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adamw as _fo
+from repro_torch.kernels import mlstm as _ml
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.train import quantized_state as qs
 from repro_torch.kernels import rmsnorm as _rn
@@ -413,86 +420,69 @@ def slstm_scan(gates_x, r, state, *, stack_dtype, impl: str = "auto"):
 # mLSTM chunked scan (xLSTM matrix memory)
 # ===========================================================================
 
+class _MLSTMScan(torch.autograd.Function):
+    """(h, C, n, m) = the mLSTM forward kernels; saves the inputs, the
+    carry given and the kernels' saved tensors (``mlstm.SAVED``: the
+    carries entering each chunk, each row's G, row maximum, normaliser
+    and fp32 h), from which the backward kernels recompute the rest
+    (under ``torch.utils.checkpoint`` the forward runs twice, saving only
+    in the recompute).  The final carry's cotangents may be None
+    (training discards the carry)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_gate, f_gate, C0, n0, m0, chunk):
+        ctx.set_materialize_grads(False)
+        carry = None if C0 is None else (C0, n0, m0)
+        h, fin, saved = _ml.mlstm_scan_cuda(q, k, v, i_gate, f_gate,
+                                            chunk=chunk, carry=carry,
+                                            save=True)
+        ctx.save_for_backward(q, k, v, i_gate, f_gate, C0, n0, *saved)
+        ctx.chunk = chunk
+        return (h, *fin)
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, i_gate, f_gate, C0, n0, *saved = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros(q.shape[:3] + v.shape[-1:], dtype=q.dtype,
+                             device=q.device)
+        carry = None if C0 is None else (C0, n0)
+        grads, d0 = _ml.mlstm_scan_bwd_cuda(
+            q, k, v, i_gate, f_gate, dh, (dC, dn, dm), chunk=ctx.chunk,
+            saved=saved, carry=carry)
+        return tuple(g if need else None for g, need in
+                     zip(grads + tuple(d0 or (None,) * 3),
+                         ctx.needs_input_grad)) + (None,)
+
+
 def mlstm_scan(q, k, v, i_gate, f_gate, *, chunk: int = 256, carry=None,
                impl: str = "auto"):
     """Chunkwise-parallel stabilized mLSTM.  Shapes as in
     ``ref.mlstm_scan``; ``carry`` is (C, n, m) or None (zeros, m = -inf).
 
     Returns (h in q's dtype, the fp32 (C, n, m)).  Matches the sequential
-    reference (the same running-max stabilizer).  The reference has no
-    TPU kernel for it (a single ``jnp`` implementation), so neither does
-    the port: ``impl`` is taken for the other ops' signature and
-    ignored."""
-    del impl
-    return _mlstm_scan_body(q, k, v, i_gate, f_gate, chunk=chunk,
-                            carry=carry)
-
-
-def _mlstm_scan_body(q, k, v, i_gate, f_gate, *, chunk, carry):
-    B, H, S, Dk = q.shape
-    Dv = v.shape[-1]
-    scale = 1.0 / math.sqrt(Dk)
-    Q = min(chunk, S)
-    Sp = -(-S // Q) * Q
-    pad = Sp - S
-    f32, dev = torch.float32, q.device
-
-    def pad_s(t):
-        return F.pad(t.float(), (0, 0, 0, pad))
-
-    qf, kf, vf = pad_s(q), pad_s(k), pad_s(v)
-    # padded positions write nothing (i = NEG_INF) and decay nothing
-    # (f = 80: log f ~ 0), so the running max and the carry pass through
-    igf = F.pad(i_gate.float(), (0, pad), value=NEG_INF)
-    fgf = F.pad(f_gate.float(), (0, pad), value=80.0)
-
-    if carry is None:
-        C = torch.zeros((B, H, Dk, Dv), dtype=f32, device=dev)
-        n = torch.zeros((B, H, Dk), dtype=f32, device=dev)
-        m = torch.full((B, H), float("-inf"), dtype=f32, device=dev)
-    else:
-        C, n, m = (c.float() for c in carry)
-
-    tri = torch.ones((Q, Q), dtype=torch.bool, device=dev).tril()
-    # the chunks as ``split`` views: their backward concatenates the
-    # chunks' gradients once (a slice's writes a zero tensor of the whole
-    # sequence for each chunk)
-    chunks = zip(*(t.split(Q, dim=2) for t in (qf, kf, vf, igf, fgf)))
-    hs = []
-    for q_c, k_c, v_c, i_c, f_c in chunks:               # gates (B, H, Q)
-        logf = F.logsigmoid(f_c)
-        G = torch.cumsum(logf, dim=-1)     # local cumulative log forget
-        # D_local[t, j] = G_t - G_j + i_j for j <= t
-        d_loc = G[..., :, None] - G[..., None, :] + i_c[..., None, :]
-        d_loc = torch.where(tri, d_loc, float("-inf"))
-        # running max m_t = max(m_prev + G_t, max_{j<=t} d_loc[t, j]): row
-        # t already holds every j <= t with its decay, so the row max is
-        # the whole local running max (a cummax over rows would mix in
-        # stale, undecayed values).  torch.maximum and amax split the
-        # gradient at ties as jnp.maximum and jnp.max do.
-        m_t = torch.maximum(m[..., None] + G, d_loc.amax(dim=-1))
-        # intra-chunk scores
-        s = torch.einsum("bhqd,bhjd->bhqj", q_c, k_c) * scale
-        w = torch.where(tri, torch.exp(d_loc - m_t[..., None]), 0.0)
-        sw = s * w
-        num_i = sw @ v_c
-        den_i = sw.sum(-1)
-        # inter-chunk: decay from the carry
-        inter_w = torch.exp(m[..., None] + G - m_t)            # (B, H, Q)
-        num_x = (q_c @ C) * scale * inter_w[..., None]
-        den_x = torch.einsum("bhk,bhqk->bhq", n, q_c) * scale * inter_w
-        den = torch.maximum(torch.abs(den_i + den_x), torch.exp(-m_t))
-        hs.append((num_i + num_x) / den[..., None])
-        # carry update at the chunk's end, with m_end
-        m_end = m_t[..., -1]
-        cw = torch.exp(G[..., -1:] - G + i_c - m_end[..., None])  # (B,H,Q)
-        decay = torch.exp(m + G[..., -1] - m_end)
-        C = (C * decay[..., None, None]
-             + (k_c * cw[..., None]).transpose(-1, -2) @ v_c)
-        n = n * decay[..., None] + torch.einsum("bhq,bhqk->bhk", cw, k_c)
-        m = m_end
-    h = torch.cat(hs, dim=2)[:, :, :S]
-    return h.to(q.dtype), (C, n, m)
+    reference (the same running-max stabilizer).  The reference runs the
+    chunk recurrence as a ``lax.scan`` on the device, not a TPU kernel;
+    here a CUDA tensor takes the kernels of ``kernels/mlstm.py`` (h a
+    (B, H, S, Dv) view of a (B, S, H, Dv) buffer) and a CPU tensor the
+    plain loop."""
+    if _is_fake(q):
+        h, *fin = _FakeMLSTMScan.apply(
+            q, k, v, i_gate, f_gate, *(carry or (None,) * 3), chunk,
+            _needs_grad(q, k, v, i_gate, f_gate, *(carry or ())))
+        return h, tuple(fin)
+    if not _use_kernel(impl, q):
+        return _ml.mlstm_scan_torch(q, k, v, i_gate, f_gate, chunk=chunk,
+                                    carry=carry)
+    if carry is not None:
+        carry = tuple(t.float().contiguous() for t in carry)
+    if _needs_grad(q, k, v, i_gate, f_gate, *(carry or ())):
+        h, *fin = _MLSTMScan.apply(q, k, v, i_gate, f_gate,
+                                   *(carry or (None,) * 3), chunk)
+        return h, tuple(fin)
+    h, fin, _ = _ml.mlstm_scan_cuda(q, k, v, i_gate, f_gate, chunk=chunk,
+                                    carry=carry)
+    return h, fin
 
 
 def mlstm_decode_step(q, k, v, i_gate, f_gate, carry):
@@ -689,6 +679,55 @@ class _FakeSLSTMScan(torch.autograd.Function):
               ctx.saved_bytes + _nbytes(dhs, r, dh, dc, dn, dm, dgx, dr,
                                         *d0))
         return (dgx, dr, *d0, None, None)
+
+
+def mlstm_flops(B: int, H: int, S: int, Dk: int, Dv: int,
+                chunk: int) -> int:
+    """The mLSTM forward's products over the chunks the kernels run (the
+    last one padded to a whole chunk): within a chunk the causal pairs
+    of q k^T and of the weighted scores by v, Q (Q + 1) (Dk + Dv), and
+    the carry's two, q C and the chunk's k^T v, 4 Q Dk Dv, 2 FLOPs a
+    multiply-add."""
+    Q = min(chunk, S)
+    return -(-S // Q) * B * H * (Q * (Q + 1) * (Dk + Dv) + 4 * Q * Dk * Dv)
+
+
+class _FakeMLSTMScan(torch.autograd.Function):
+    """The mLSTM kernels on fake tensors: forward ``mlstm_flops``, q, k,
+    v, the gates and the carry read, h and the final carry written (and,
+    with a gradient, the saved carries entering each chunk, each row's
+    G, row maximum and normaliser and its fp32 h); backward twice that,
+    the saved tensors, the inputs, dh and the final carry's cotangents
+    read and the cotangents written."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i_gate, f_gate, C0, n0, m0, chunk, grad):
+        B, H, S, Dk = q.shape
+        Dv = v.shape[-1]
+        Q = min(chunk, S)
+        nc = -(-S // Q)
+        f32 = dict(dtype=torch.float32)
+        h = q.new_empty((B, H, S, Dv))
+        fin = (q.new_empty((B, H, Dk, Dv), **f32),
+               q.new_empty((B, H, Dk), **f32), q.new_empty((B, H), **f32))
+        saved = (nc * B * H * (Dk * Dv + Dk + 1) + 3 * B * H * nc * Q
+                 + B * H * nc * Q * Dv) * 4 if grad else 0
+        flops = mlstm_flops(B, H, S, Dk, Dv, chunk)
+        _cost("mlstm_scan", flops,
+              _nbytes(q, k, v, i_gate, f_gate, C0, n0, m0, h, *fin) + saved)
+        ctx.save_for_backward(q, k, v, i_gate, f_gate, C0, n0, m0)
+        ctx.flops, ctx.saved_bytes = flops, saved
+        return (h, *fin)
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, i_gate, f_gate, C0, n0, m0 = ctx.saved_tensors
+        grads = tuple(None if t is None else torch.empty_like(t)
+                      for t in (q, k, v, i_gate, f_gate, C0, n0, m0))
+        _cost("mlstm_scan_bwd", 2 * ctx.flops,
+              ctx.saved_bytes + _nbytes(q, k, v, i_gate, f_gate, dh, dC,
+                                        dn, dm, *grads))
+        return grads + (None, None)
 
 
 def _fake_adamw(p, g, m) -> None:

@@ -415,6 +415,60 @@ def test_slstm_on_fake_tensors_is_counted_not_run(monkeypatch):
     assert ops.FAKE_COST["flops"] == f + 2 * f + f // S + norms
 
 
+def test_mlstm_on_fake_tensors_is_counted_not_run(monkeypatch):
+    """The mLSTM block on fake tensors, forward and backward from no
+    state, then a prefill from a given state: ``ops.mlstm_scan`` goes
+    through ``_FakeMLSTMScan``, which charges the forward
+    ``ops.mlstm_flops`` (the causal pairs of q k^T and of the weighted
+    scores by v, Q (Q + 1) (Dk + Dv), and the carry's two products, 4 Q
+    Dk Dv, over the chunks) and the backward twice that, the saved
+    carries and rows in the forward's bytes when a gradient is needed,
+    and never runs the plain loop or a kernel; outputs and cotangents
+    have their real shapes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import mlstm as ml
+    from repro_torch.models import ssm
+
+    def boom(*a, **k):
+        raise AssertionError("the mLSTM loop or a kernel ran")
+    for n in ("mlstm_scan_torch", "mlstm_scan_cuda", "mlstm_scan_bwd_cuda",
+              "mlstm_scan_bwd_torch", "mlstm_saved_torch"):
+        monkeypatch.setattr(ml, n, boom)
+    cfg = C.get_smoke("xlstm_350m").xlstm
+    d, B, S = 64, 2, 24
+    inner, Dk, Dv, H = ssm._mlstm_dims(d, cfg)
+    Q, nc = cfg.chunk, -(-S // cfg.chunk)
+    ops.reset_fake_cost()
+    with FakeTensorMode():
+        p = ssm.mlstm_init(torch.Generator().manual_seed(0), d, cfg,
+                           torch.float32, "cpu")
+        p = {k: v.requires_grad_() for k, v in p.items()}
+        x = torch.empty(B, S, d, requires_grad=True)
+        out, st = ssm.mlstm_fwd(p, x, cfg, d)
+        assert out.shape == (B, S, d)
+        assert [tuple(t.shape) for t in st["mlstm"]] == [
+            (B, H, Dk, Dv), (B, H, Dk), (B, H)]
+        out.sum().backward()
+        assert x.grad.shape == x.shape
+        assert p["wq"].grad.shape == p["wq"].shape
+        state = ssm.mlstm_state_spec(cfg, d, B, torch.float32)
+        state = {"conv": torch.empty(state["conv"][0]),
+                 "mlstm": tuple(torch.empty(s) for s, _ in state["mlstm"])}
+        ssm.mlstm_fwd({k: v.detach() for k, v in p.items()},
+                      torch.empty(B, S, d), cfg, d, state=state)
+    calls = ops.FAKE_COST["calls"]
+    assert calls == {"mlstm_scan": 2, "mlstm_scan_bwd": 1, "rmsnorm": 2,
+                     "rmsnorm_bwd": 1}
+    f = nc * B * H * (Q * (Q + 1) * (Dk + Dv) + 4 * Q * Dk * Dv)
+    assert ops.mlstm_flops(B, H, S, Dk, Dv, Q) == f
+    norms = 4 * B * S * inner + 10 * B * S * inner + 4 * B * S * inner
+    assert ops.FAKE_COST["flops"] == f + 2 * f + f + norms
+    # the forward with a gradient wrote the saved carries and rows
+    saved = 4 * (nc * B * H * (Dk * Dv + Dk + 1) + 3 * B * H * nc * Q
+                 + B * H * nc * Q * Dv)
+    assert ops.FAKE_COST["bytes"] > saved + 2 * 4 * B * S * inner
+
+
 DRY_XLSTM = r"""
 import sys
 from repro_torch.launch import dryrun
@@ -430,10 +484,11 @@ print("DRY_RC", rc)
 
 def test_dryrun_xlstm_counts_the_slstm_kernels(tmp_path):
     """An xlstm dry run (the smoke config, a (1, 1) fake mesh) counts the
-    sLSTM kernels as the card launches them (a train step: 2 forward a
-    sLSTM layer with remat's recompute, 1 backward, as
+    sLSTM and mLSTM kernels as the card launches them (a train step: 2
+    forward a layer with remat's recompute, 1 backward, as
     ``chip_smoke.train_launches``; a prefill: 1) and their FLOPs in the
-    step's: never the loop's S steps of small products."""
+    step's: never the sLSTM loop's S steps of small products nor the
+    mLSTM loop's chunks."""
     out = tmp_path / "x.jsonl"
     r = subprocess.run([sys.executable, "-c", DRY_XLSTM, str(out)],
                        env=ENV, capture_output=True, text=True, timeout=300)
@@ -452,6 +507,17 @@ def test_dryrun_xlstm_counts_the_slstm_kernels(tmp_path):
     assert "slstm_scan_bwd" not in pre["kernels"]
     assert train["roofline"]["hlo_flops"] > 4 * n_slstm * f
     assert pre["roofline"]["hlo_flops"] > n_slstm * f
+    n_mlstm = cfg.n_layers - n_slstm
+    xc = cfg.xlstm
+    inner = int(xc.proj_factor * cfg.d_model)
+    fm = ops.mlstm_flops(2, xc.n_heads, 16, int(xc.qk_factor * inner)
+                         // xc.n_heads, inner // xc.n_heads, xc.chunk)
+    assert train["kernels"]["mlstm_scan"] == 2 * n_mlstm
+    assert train["kernels"]["mlstm_scan_bwd"] == n_mlstm
+    assert pre["kernels"]["mlstm_scan"] == n_mlstm
+    assert "mlstm_scan_bwd" not in pre["kernels"]
+    assert train["roofline"]["hlo_flops"] > 4 * (n_slstm * f + n_mlstm * fm)
+    assert pre["roofline"]["hlo_flops"] > n_slstm * f + n_mlstm * fm
 
 
 # --------------------------------------------------- the fake-group runs

@@ -215,9 +215,10 @@ def test_every_ctypes_signature_matches_its_c_prototype():
 #: ranks (one JAX process needs none), and the ``__init__.py`` of the seven
 #: packages that the JAX package keeps as namespace packages
 PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
-             # the sLSTM recurrence's kernels: the reference's is a
-             # lax.scan inside models/ssm.py, not a kernel module
-             "kernels/slstm.py",
+             # the sLSTM recurrence's and the mLSTM chunked scan's
+             # kernels: the reference's are lax.scans inside
+             # models/ssm.py and kernels/ops.py, not kernel modules
+             "kernels/slstm.py", "kernels/mlstm.py",
              "core/service.py",
              "checkpoint/__init__.py", "data/__init__.py",
              "launch/__init__.py", "models/__init__.py", "serve/__init__.py",

@@ -922,7 +922,9 @@ def test_chip_smoke_serve_xlstm_rehearses_on_cpu():
     plain versions run on both sides, so every distance is 0; no kernel
     launches), and the launches it holds the card to at full size: 49
     RMSNorms a prefill and a decode step (3 groups of 8 sublayers, 2
-    each, and the final norm) and 3 sLSTM recurrences (one a group)."""
+    each, and the final norm), 3 sLSTM recurrences (one a group) and 21
+    mLSTM chunked scans a prefill (none a decode step, whose update is
+    plain PyTorch)."""
     smoke = _chip_smoke()
     out = smoke.phase_serve_xlstm(device="cpu", smoke=True)
     assert out["arch"] == "xlstm_350m_smoke"
@@ -937,9 +939,11 @@ def test_chip_smoke_serve_xlstm_rehearses_on_cpu():
     assert out["captured_vs_eager"]["tokens_equal"]
     assert set(out["launches"].values()) == {0}
     pre, dec = smoke.xlstm_launches(configs.get(ARCH))
-    assert pre == dec and {k for k, v in pre.items() if v} == {
-        "rmsnorm", "slstm_scan"}
+    assert {k for k, v in pre.items() if v} == {
+        "rmsnorm", "slstm_scan", "mlstm_scan"}
     assert pre["rmsnorm"] == 49 and pre["slstm_scan"] == 3
+    assert pre["mlstm_scan"] == 21
+    assert dec == {**pre, "mlstm_scan": 0}
 
 
 def test_chip_smoke_xlstm_sublayer_check_catches_a_bf16_fault(monkeypatch):
@@ -966,9 +970,10 @@ def test_chip_smoke_train_xlstm_rehearses_on_cpu():
     0 in fp32 against ``impl="torch"`` (the same plain path here) and the
     bf16 step 0 read beside it, 2 steps, no kernel launched; at full size
     the card is held to 97 RMSNorms forward (with remat's recompute), 49
-    backward, 6 sLSTM recurrences forward (with the recompute) and 3
-    backward, and 18 fp32 AdamW updates a step, 3 of them on the scalar
-    route (``w_if``, 8 wide, ``w_ff_gate`` and ``w_ff_up``, 1365)."""
+    backward, 42 mLSTM chunked scans forward (with the recompute) and 21
+    backward, 6 sLSTM recurrences forward and 3 backward, and 18 fp32
+    AdamW updates a step, 3 of them on the scalar route (``w_if``, 8
+    wide, ``w_ff_gate`` and ``w_ff_up``, 1365)."""
     smoke = _chip_smoke()
     out = smoke.phase_train_xlstm(device="cpu", smoke=True)
     assert out["arch"] == "xlstm_350m_smoke" and out["steps"] == 2
@@ -983,5 +988,5 @@ def test_chip_smoke_train_xlstm_rehearses_on_cpu():
         opt.OptConfig(state_bits=None), model.abstract_params(cfg))
     assert {k: v for k, v in want.items() if v} == {
         "rmsnorm": 97, "rmsnorm_bwd": 49, "slstm_scan": 6,
-        "slstm_scan_bwd": 3, "fused_adamw_f32": 18,
-        "fused_adamw_scalar": 3}
+        "slstm_scan_bwd": 3, "mlstm_scan": 42, "mlstm_scan_bwd": 21,
+        "fused_adamw_f32": 18, "fused_adamw_scalar": 3}
