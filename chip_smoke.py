@@ -62,6 +62,13 @@ never JAX.  Phases, each printing one JSON line:
                      each element by element at zamba2_2p7b's train shape
                      and at edge cases, each case's route checked, and
                      its tensor-core kernels' ptxas lines free of spills;
+                     the dense decode attention at every dense-plane
+                     config's decode shape (bf16 output and fp32
+                     partials, bit for bit over two calls, a captured
+                     graph replayed at two cache_len values against
+                     eager calls), each beside the plain version,
+                     SDPA over the valid prefix and its bound,
+                     and at edge cases (``check_decode_kernel``);
 4. ``serve_dense`` — ``repro_torch.launch.serve`` on deepseek_7b at full
                      width (random bf16 weights from the seed): batched
                      prefill + greedy decode, the decode steps as CUDA
@@ -249,9 +256,12 @@ never JAX.  Phases, each printing one JSON line:
                      own context (``seq_split_forced``: the runtime's
                      rule keeps a batch that splits over one data rank
                      whole) and printed (``seq_split``), tokens and
-                     logits bit for bit; the chunked decode
+                     logits bit for bit; the plain chunked decode
                      attention against the whole softmax on one layer's
-                     full-size cache; the decode step against its bound,
+                     full-size cache, and the decode attention kernel on
+                     it at cache_len 32784 and 524288, timed; the decode
+                     step against its floor (the params and the K/V
+                     rows below cache_len) and the whole cache's figure,
                      the peak memory against the dry run's for the same
                      cell, each kernel's largest tensor against 2^31
                      elements;
@@ -485,11 +495,16 @@ KERNEL_META = {
     "mlstm_scan_bwd": {
         "source": _CSRC + "mlstm.cu",
         "replaces": "src/repro/kernels/ops.py:473"},
+    # not a TPU kernel: the reference's dense decode attention is plain
+    # jnp (ops.py:179), which XLA fuses with the cache's upcast
+    "decode_attention": {
+        "source": _CSRC + "decode_attention.cu",
+        "replaces": "src/repro/kernels/ops.py:179"},
 }
 
 # kernel-name substrings that ``profile_steps`` sums device time over
 KERNEL_FAMILIES = ("flash_", "rmsnorm", "paged_decode", "fused_adamw",
-                   "ssd_scan", "ssd_bwd", "slstm", "mlstm")
+                   "ssd_scan", "ssd_bwd", "slstm", "mlstm", "dense_decode")
 
 # launch counter -> (kernel module, counter attribute)
 COUNTERS = {
@@ -511,6 +526,7 @@ COUNTERS = {
     "slstm_scan_bwd": ("slstm", "BWD_LAUNCHES"),
     "mlstm_scan": ("mlstm", "LAUNCHES"),
     "mlstm_scan_bwd": ("mlstm", "BWD_LAUNCHES"),
+    "decode_attention": ("decode_attention", "LAUNCHES"),
     # the calls of the kernels above that took their scalar route
     "fused_adamw_scalar": ("fused_adamw", "LAUNCHES_SCALAR"),
     "paged_attention_scalar": ("paged_attention", "LAUNCHES_SCALAR"),
@@ -518,6 +534,7 @@ COUNTERS = {
     "rmsnorm_scalar": ("rmsnorm", "LAUNCHES_SCALAR"),
     "rmsnorm_bwd_scalar": ("rmsnorm", "BWD_LAUNCHES_SCALAR"),
     "ssd_scan_bwd_scalar": ("ssd_scan", "BWD_LAUNCHES_SCALAR"),
+    "decode_attention_scalar": ("decode_attention", "LAUNCHES_SCALAR"),
 }
 
 # the GQA prefills the kernels phase times beside deepseek_7b's (4 x 512,
@@ -544,7 +561,8 @@ SCALAR_COUNTERS = {"flash_attention": "flash_attention_cuda_core",
                    "paged_attention": "paged_attention_scalar",
                    "fused_adamw": "fused_adamw_scalar",
                    "ssd_scan": "ssd_scan_scalar",
-                   "ssd_scan_bwd": "ssd_scan_bwd_scalar"}
+                   "ssd_scan_bwd": "ssd_scan_bwd_scalar",
+                   "decode_attention": "decode_attention_scalar"}
 
 
 _RECORD = None     # main() opens build/chip_smoke.jsonl here
@@ -975,11 +993,14 @@ def phase_build():
          sass_instructions=sass_counts(path))
     # the SSD backward's six tensor-core kernels, the RMSNorm forward's
     # fifteen vector-route instances (bf16 and f32: a warp a row at 1, 2,
-    # 4, 6, 8 vectors a lane, a block a row at 1, 2, and f32's at 4) and
-    # the sLSTM kernels' 8 (forward and backward, bf16 and f32 gates, bf16
-    # and f32 stacking) keep their registers: no spills
+    # 4, 6, 8 vectors a lane, a block a row at 1, 2, and f32's at 4), the
+    # sLSTM kernels' 8 (forward and backward, bf16 and f32 gates, bf16
+    # and f32 stacking) and the dense decode attention's 10 vector-route
+    # instances at 16 lanes a row (every main path's: bf16 and f32 at
+    # 1, 2, 4, 8 and 12 heads) keep their registers: no spills
     for family, n, sub in (("ssd_bwd", 6, "tc_"), ("rmsnorm_fwd", 15, ""),
-                           ("slstm", 8, "")):
+                           ("slstm", 8, ""),
+                           ("dense_decode", 10, "Li16ELb1E")):
         got = {k: v for k, v in per_kernel.items()
                if family in k and sub in k}
         check(len(got) == n and all(
@@ -993,11 +1014,12 @@ SASS_FAMILIES = ("fused_adamw", "paged_decode")
 # kernels whose registers, shared memory and spills the build line gives
 # by name (ptxas -v): the SSD scan's, its backward's, the RMSNorm
 # forward's vector route and its backward's, the flash backward's, the
-# paged decode's (an instance a head chunk GC), the sLSTM's and the
-# mLSTM's
+# paged decode's (an instance a head chunk GC), the sLSTM's, the mLSTM's
+# and the dense decode attention's (an instance a head count, lanes a row
+# and route, and its merge)
 PTXAS_KERNELS = ("ssd_scan", "ssd_bwd", "rmsnorm_fwd", "rmsnorm_bwd",
                  "rmsnorm_dscale", "flash_bwd", "paged_decode", "slstm",
-                 "mlstm")
+                 "mlstm", "dense_decode")
 
 
 def sass_counts(lib: str) -> dict:
@@ -2021,7 +2043,8 @@ def adamw_case(shape, quant, p_dtype=torch.bfloat16, g_dtype=torch.bfloat16,
 
 
 def same_bits(a, b) -> bool:
-    """Two updates (p, m, v), moments fp32 or {"q", "s"}, bit for bit."""
+    """Two tuples of tensors bit for bit: an update's (p, m, v), moments
+    fp32 or {"q", "s"}, or a decode attention's outputs."""
     flat = [(x, y) for x, y in zip(a, b) if not isinstance(x, dict)]
     flat += [(x[k], y[k]) for x, y in zip(a, b) if isinstance(x, dict)
              for k in x]
@@ -2763,6 +2786,232 @@ def check_paged_kernel(out, edge, edges):
             check(bool((got[0] == 0).all()), "paged: empty slot is not 0")
 
 
+# the dense plane's decode attention at the main paths' shapes, a step
+# halfway through each decode: (key, B, Hq, Hkv, Smax, cache_len, D):
+# deepseek_7b's (4 x 512 prompt tokens + 32 generated), zamba2_2p7b's
+# shared attention (4 x 1000 + 32, D 80), pixtral_12b's (4 x 2048 + 32,
+# GQA 32 / 8), llama4's (40 / 8, 4 x 512 + 32), starcoder2_15b's (48 / 4)
+# and yi_34b's (56 / 8) at 4 x 512 + 16
+DECODE_SHAPES = (
+    ("deepseek_7b", 4, 32, 32, 544, 528, 128),
+    ("zamba2_2p7b", 4, 32, 32, 1032, 1016, 80),
+    ("pixtral_12b", 4, 32, 8, 2080, 2064, 128),
+    ("llama4", 4, 40, 8, 544, 528, 128),
+    ("starcoder2", 4, 48, 4, 528, 520, 128),
+    ("yi", 4, 56, 8, 528, 520, 128))
+#: the decode attention's tolerances (``close``): its bf16 output and its
+#: fp32 partials (o, lse)
+DECODE_RTOL = {"bf16": 2e-2, "partials": 1e-5}
+
+
+def decode_case(B, Hq, Hkv, smax, D, Dv=None, dtype=torch.bfloat16, seed=3,
+                misalign=False):
+    """q (B, Hq, 1, D) and the caches as the model holds them: transposed
+    views of (B, Smax, Hkv, D | Dv) buffers (``misalign``: one element off
+    16-byte alignment)."""
+    g = _gen(seed)
+    q = _randn((B, Hq, 1, D), g, dtype)
+    k = _randn((B, smax, Hkv, D), g, dtype)
+    v = _randn((B, smax, Hkv, Dv or D), g, dtype)
+    if misalign:
+        k, v = misaligned(k), misaligned(v)
+    return q, k.transpose(1, 2), v.transpose(1, 2)
+
+
+def decode_bound(q, k, v, n, partials=False):
+    """The least time of a decode attention over ``n`` valid positions: q,
+    those positions' K/V rows and the outputs moved once, 2 (D + Dv) fp32
+    FLOPs a (query head, position) on the CUDA cores."""
+    B, Hq, _, D = q.shape
+    Hkv, Dv = k.shape[1], v.shape[-1]
+    outs = B * Hq * (4 * (Dv + 1) if partials else Dv * q.element_size())
+    nbytes = (q.numel() * q.element_size() + outs
+              + B * n * Hkv * (D + Dv) * k.element_size())
+    return bound(nbytes, B * Hq * n * 2 * (D + Dv), F32_FLOPS)
+
+
+def check_decode_kernel(out, edge, edges):
+    """The dense decode attention (``kernels/decode_attention.py``) at the
+    main paths' shapes (``DECODE_SHAPES``, cache_len a 0-d int64 tensor
+    on the card as ``layers.py`` gives it): the bf16 output against the
+    plain version within ``DECODE_RTOL["bf16"]``, the fp32 partials
+    within ``DECODE_RTOL["partials"]``, twice bit for bit, the partials'
+    o cast the output's bits; each timed beside the plain version, SDPA
+    over the valid prefix (a yardstick the port never calls) and its
+    bound.  Then a captured graph of the kernel replayed
+    at two cache_len values against eager calls, bit for bit, and the
+    edge cases: a window, a slice with no valid position among four
+    merged, head dims 72 (nine 16-byte words), 16 (the smoke configs'),
+    256 and Dv 64, fp32, G = 16 (two head chunks), one position,
+    cache_len on and one past the edge of a 128-position span, and the
+    scalar route (D = 100, a base one element off alignment), each
+    launch's route checked."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    progress("kernels: decode_attention")
+    rt_b, rt_p = DECODE_RTOL["bf16"], DECODE_RTOL["partials"]
+    routes = ("vector", "scalar")
+    rows = {}
+    for key, B, Hq, Hkv, smax, n, D in DECODE_SHAPES:
+        q, k, v = decode_case(B, Hq, Hkv, smax, D)
+        cl = torch.tensor(n - 1, device="cuda") + 1
+        got, route = route_of("decode_attention_scalar", lambda: (
+            da.decode_attention_cuda(q, k, v, cl)), routes)
+        want = da.decode_attention_torch(q, k, v, cl)
+        err, ratio = close(got, want, rt_b)
+        o, lse = da.decode_attention_cuda(q, k, v, cl, partials=True)
+        wo, wl = da.decode_attention_torch(q, k, v, cl, partials=True)
+        (e_o, r_o), (e_l, r_l) = close(o, wo, rt_p), close(lse, wl, rt_p)
+        same = same_bits(
+            (got, o.reshape(got.shape).to(got.dtype)),
+            (da.decode_attention_cuda(q, k, v, cl), got))
+        check(route == "vector" and max(ratio, r_o, r_l) <= 1 and same,
+              f"decode_attention {key}: {route} route, bf16 {err} "
+              f"({ratio} x tol), partials {max(e_o, e_l)} "
+              f"({max(r_o, r_l)} x tol), bit for bit {same}")
+        b_ms, b_by = decode_bound(q, k, v, n)
+        G = Hq // Hkv
+        rows[key] = {
+            "shape": [B, Hq, Hkv, smax, D], "cache_len": n, "group": G,
+            "head_chunk": da.head_chunk(G),
+            "n_split": da.split_plan(B, Hkv, G, smax), "route": route,
+            "max_err": err, "rtol": rt_b, "err_over_tol": ratio,
+            "partials": {"max_err": max(e_o, e_l), "rtol": rt_p,
+                         "err_over_tol": max(r_o, r_l)},
+            "bitwise_reproducible": True,
+            "kernel_ms": time_ms(lambda: da.decode_attention_cuda(
+                q, k, v, cl)),
+            "plain_ms": time_ms(lambda: da.decode_attention_torch(
+                q, k, v, cl)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k[:, :, :n], v[:, :, :n], enable_gqa=G > 1)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if key == "deepseek_7b":
+            # the two kernels apart
+            rows[key]["kernels_ms"] = {
+                t["kernel"]: t["ms_per_call"] for t in profile_steps(
+                    lambda: da.decode_attention_cuda(q, k, v, cl), 20)["top"]
+                if "dense_decode" in t["kernel"]}
+        del q, k, v, got, want, o, lse, wo, wl
+    main = rows["deepseek_7b"]
+    out["decode_attention"] = {
+        **main, "shapes": rows,
+        "max_err": max(r["max_err"] for r in rows.values()),
+        "graph": decode_graph_check(da)}
+
+    for name, args, kw2, expect in [
+            ("window_100", (1, 8, 2, 300, 128), dict(n=257, window=100),
+             "vector"),
+            ("d72_nine_words", (1, 8, 2, 300, 72), dict(n=200), "vector"),
+            ("smoke_d16", (2, 4, 4, 64, 16), dict(n=40), "vector"),
+            ("d256", (1, 4, 2, 200, 256), dict(n=150), "vector"),
+            ("dv64_ne_d", (1, 8, 2, 300, 128, 64), dict(n=200), "vector"),
+            ("f32", (2, 8, 2, 300, 64), dict(n=211, dtype=torch.float32),
+             "vector"),
+            ("g16_two_chunks", (1, 32, 2, 300, 128), dict(n=250), "vector"),
+            ("one_position", (2, 8, 8, 300, 128), dict(n=1), "vector"),
+            ("span_edge_128", (1, 8, 2, 300, 128), dict(n=128), "vector"),
+            ("span_edge_129", (1, 8, 2, 300, 128), dict(n=129), "vector"),
+            ("all_1000", (1, 8, 8, 1000, 128), dict(n=1000), "vector"),
+            ("d100_scalar_route", (1, 8, 2, 300, 100), dict(n=200),
+             "scalar"),
+            ("misaligned_scalar_route", (1, 8, 2, 300, 128),
+             dict(n=200, misalign=True), "scalar")]:
+        n, window = kw2.pop("n"), kw2.pop("window", 0)
+        q, k, v = decode_case(*args, **kw2)
+        kw = dict(sliding_window=window)
+        got, route = route_of("decode_attention_scalar", lambda: (
+            da.decode_attention_cuda(q, k, v, n, **kw)), routes)
+        check(route == expect, f"decode_attention {name}: {route} route, "
+              f"want {expect}")
+        f32 = q.dtype == torch.float32
+        edge("decode_attention", name, got,
+             da.decode_attention_torch(q, k, v, n, **kw), rt_p if f32
+             else rt_b)
+        edges[-1]["route"] = route
+        o, lse = da.decode_attention_cuda(q, k, v, n, partials=True, **kw)
+        wo, wl = da.decode_attention_torch(q, k, v, n, partials=True, **kw)
+        edge("decode_attention", name + "_partials_o", o, wo, rt_p)
+        edge("decode_attention", name + "_partials_lse", lse, wl, rt_p)
+        del q, k, v, got, o, lse, wo, wl
+
+    # four slices of 75 positions at their offsets, as data ranks hold a
+    # sequence-split cache; those past cache_len have lse NEG_INF, o 0
+    q, k, v = decode_case(1, 8, 2, 300, 128)
+    n = 131
+    wo, wl = da.decode_attention_torch(q, k, v, n, partials=True)
+    parts = [da.decode_attention_cuda(
+        q, k[:, :, lo:lo + 75], v[:, :, lo:lo + 75], n,
+        offset=torch.tensor(lo, device="cuda"), partials=True)
+        for lo in range(0, 300, 75)]
+    empty = all(bool((p[1] == da.NEG_INF).all()) and bool(
+        (p[0] == 0).all()) for p in parts[2:])
+    check(empty, "decode_attention: a slice past cache_len is not "
+          "(0, NEG_INF)")
+    o, lse = ops.merge_attention(torch.stack([p[0] for p in parts]),
+                                 torch.stack([p[1] for p in parts]))
+    edge("decode_attention", "four_slices_o", o, wo, rt_p)
+    edge("decode_attention", "four_slices_lse", lse, wl, rt_p)
+    del q, k, v, wo, wl, parts
+
+
+def decode_graph_check(da) -> dict:
+    """The kernel captured in a CUDA graph (output and partials) at one
+    cache_len, replayed at two others (the tensor it reads refilled),
+    against eager calls at those values (one passing it as an int, one as
+    an int32 tensor), bit for bit."""
+    q, k, v = decode_case(4, 32, 32, 544, 128)
+    cl = torch.tensor(100, device="cuda")
+
+    def call():
+        return (da.decode_attention_cuda(q, k, v, cl),
+                da.decode_attention_cuda(q, k, v, cl, partials=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_o, (g_po, g_pl) = call()
+    res = {}
+    for n in (129, 544):
+        cl.fill_(n)
+        graph.replay()
+        e_o = da.decode_attention_cuda(q, k, v, n)
+        e_po, e_pl = da.decode_attention_cuda(
+            q, k, v, torch.tensor(n, dtype=torch.int32, device="cuda"),
+            partials=True)
+        torch.cuda.synchronize()
+        res[str(n)] = same_bits((g_o, g_po, g_pl), (e_o, e_po, e_pl))
+    del graph
+    check(all(res.values()), f"decode_attention: graph replays against "
+          f"eager calls {res}")
+    return {"captured_at": 100, "replayed_bitwise": res}
+
+
+def phase_decode_attention():
+    """``check_decode_kernel`` alone, as the kernels phase runs it (to
+    iterate on the decode attention: ``benchmarks/config_phases.py
+    decode_attention``)."""
+    out, edges = {}, []
+    check_decode_kernel(out, edge_check(edges), edges)
+    emit("decode_attention_kernel", full_width=out, edge_cases=edges)
+    return out
+
+
+def phase_decode_long():
+    """serve_long's attention check alone (``_long_attention_check`` on
+    zamba2_2p7b's one-layer cache of ``LONG_POSITIONS``), without the
+    model (``benchmarks/config_phases.py decode_long``)."""
+    import repro_torch.configs as configs
+    out = _long_attention_check(configs.get("zamba2_2p7b"), LONG_POSITIONS,
+                                torch.device("cuda"))
+    emit("decode_long", **out)
+    return out
+
+
 def check_mla_flash(row, edge):
     """The flash forward at MLA's head dims past the main shape (held and
     timed in ``row`` by ``flash_row``): f32 at D = 192 (the CUDA-core
@@ -3055,6 +3304,7 @@ def phase_kernels():
 
     check_rmsnorm_kernel(out, edge)
     check_paged_kernel(out, edge, edges)
+    check_decode_kernel(out, edge, edges)
     check_ssd_kernel(out, edge, edges)
     check_ssd_bwd_kernel(out, edge, edges)
     check_train_kernels(out, edge, edges)
@@ -3067,18 +3317,44 @@ def phase_kernels():
 def dense_launches(cfg):
     """The kernels' launches in one dense prefill (or paged admission),
     one decode step and one paged round: a layer (a moe family's dense or
-    MoE sublayer alike) runs one flash attention (prefill only) or one
-    paged attention (a paged round) and two RMSNorms, four with MLA (its
-    q_norm and kv_norm too; its absorbed decode is plain einsums), the
-    final norm one; a LayerNorm config none."""
+    MoE sublayer alike) runs one flash attention (prefill only), one
+    dense decode attention (a decode step; MLA's absorbed decode is plain
+    einsums) or one paged attention (a paged round) and two RMSNorms,
+    four with MLA (its q_norm and kv_norm too), the final norm one; a
+    LayerNorm config none."""
     zero = {n: 0 for n in COUNTERS}
     per = 4 if cfg.attention.is_mla else 2
     # LayerNorm (starcoder2_15b's) is plain PyTorch: no RMSNorm launch
     per = per if cfg.norm == "rms" else 0
     L, norms = cfg.n_layers, per * cfg.n_layers + int(cfg.norm == "rms")
+    dec = 0 if cfg.attention.is_mla else L
     return ({**zero, "flash_attention": L, "rmsnorm": norms},
-            {**zero, "rmsnorm": norms},
+            {**zero, "decode_attention": dec, "rmsnorm": norms},
             {**zero, "paged_attention": L, "rmsnorm": norms})
+
+
+def decode_floor(cfg, B: int, positions: int, step=None) -> dict:
+    """The least time a decode step of ``B`` rows could take at
+    ``positions`` cache positions: the weights it reads once (every param
+    but the patch stub's projection, and of an untied embedding table
+    only the B rows looked up) and the cache it reads (each layer's K/V
+    rows below cache_len, the recurrent states whole) over the memory
+    rate; beside ``step``'s device ms (a ``profile_steps`` record) where
+    given."""
+    from repro_torch.models import model
+    params = model.abstract_params(cfg)
+    weights = tree_bytes(params) - tree_bytes(params.get("patch_proj"))
+    if not cfg.tie_embeddings:
+        e = params["embed"]
+        weights -= (e.shape[0] - B) * e[0].numel() * e.element_size()
+    cache = tree_bytes(model.init_cache(cfg, B, positions, "meta"))
+    out = {"positions": positions, "weights_gb": weights / 1e9,
+           "cache_gb": cache / 1e9,
+           "floor_ms": (weights + cache) / HBM_BYTES_PER_S * 1e3}
+    if step is not None:
+        out["device_ms"] = step["device_ms"]
+        out["device_over_floor"] = step["device_ms"] / out["floor_ms"]
+    return out
 
 
 def digest(t) -> str:
@@ -3372,7 +3648,8 @@ def dense_plane(name, argv, device, positions=None, cfg=None, extra=None,
     the decode steps as graph replays, each kernel's launches exact, the
     tokens in range, the prefill logits against ``impl="torch"`` and the
     first token their argmax, then the captured decode against the eager
-    one from one state, and the warm prefill and decode steps profiled.
+    one from one state, and the warm prefill and decode steps profiled,
+    the decode step beside its floor (``decode_floor``).
     ``positions(rt, batch, args)``, if given, reads the cache the
     launcher's decode left before anything else touches it;
     ``extra(rt, batch, args, out)``, if given, adds its keys to the
@@ -3432,6 +3709,9 @@ def dense_plane(name, argv, device, positions=None, cfg=None, extra=None,
         del cache
         rt.prefill(batch)                      # cache_len back to P
         out["warm_decode_step"] = profile_steps(rt.step, 3)
+        # its floor at the first profiled step's positions
+        out["decode_floor"] = decode_floor(cfg, B, P + 1,
+                                           out["warm_decode_step"])
         # the same step eagerly, on the check's copy of the cache
         pos.fill_(P)
         out["warm_decode_step_eager"] = profile_steps(
@@ -3728,13 +4008,15 @@ def hybrid_launches(cfg):
     """The kernels' launches in one hybrid prefill and one decode step:
     a Mamba2 sublayer runs one SSD scan (prefill only) and two RMSNorms
     (its pre-norm and the gated norm), a shared attention block one flash
-    attention (prefill only) and two RMSNorms, and the final norm one."""
+    attention (prefill) or one dense decode attention (a decode step) and
+    two RMSNorms, and the final norm one."""
     from repro_torch.models.transformer import n_groups
     ng, m = n_groups(cfg), cfg.hybrid.mamba_per_group
     norms = ng * (2 * m + 2) + 1
     zero = {n: 0 for n in COUNTERS}
     return ({**zero, "ssd_scan": ng * m, "flash_attention": ng,
-             "rmsnorm": norms}, {**zero, "rmsnorm": norms})
+             "rmsnorm": norms},
+            {**zero, "decode_attention": ng, "rmsnorm": norms})
 
 
 def serve_hybrid_argv(device, smoke):
@@ -3872,6 +4154,8 @@ def phase_serve_hybrid(device="cuda", smoke=False):
         restart(rt)
         rt.prefill({"tokens": tokens})
         out["warm_decode_step"] = profile_steps(rt.step, 3)
+        out["decode_floor"] = decode_floor(cfg, B, P + 1,
+                                           out["warm_decode_step"])
         pos.fill_(P)
         out["warm_decode_step_eager"] = profile_steps(
             lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
@@ -4423,6 +4707,8 @@ def phase_serve_xlstm(device="cuda", smoke=False):
         restart(rt)
         rt.prefill({"tokens": tokens})
         out["warm_decode_step"] = profile_steps(rt.step, 3)
+        out["decode_floor"] = decode_floor(cfg, B, P + 1,
+                                           out["warm_decode_step"])
         pos.fill_(P)
         out["warm_decode_step_eager"] = profile_steps(
             lambda: rt.decode_graph.fn(params, first, eager_cache, pos,
@@ -5840,13 +6126,15 @@ def _long_phase(name, cfg, device, smoke, *, P, steps, smax, workspace,
     for bit the unsharded run's, the launches exactly one prefill's and
     the captured steps' (``launches``: one prefill's and one decode
     step's).  Then ``attention_check(cfg, smax, dev)``.  Printed: the
-    decode step's wall and device ms against its bound (the params and
-    the whole cache read once at the memory rate: the step masks, not
-    skips, the positions past ``cache_len``), the peak memory against
-    the dry run's computed state and peak for the same cell at (1, 1)
-    (``python -m repro_torch.launch.dryrun`` with ``dry_args`` in a CPU
-    subprocess started first), and the largest tensor each kernel of
-    the path takes against 2^31 elements (``int32(cfg, P)``)."""
+    decode step's wall and device ms against its floor
+    (``decode_floor``: the params and the cache rows below cache_len
+    read once at the memory rate, the positions counted beside it; the
+    params and the whole cache as ``decode_bound_whole_cache_ms``), the
+    peak memory against the dry run's computed state and peak for the
+    same cell at (1, 1) (``python -m repro_torch.launch.dryrun`` with
+    ``dry_args`` in a CPU subprocess started first), and the largest
+    tensor each kernel of the path takes against 2^31 elements
+    (``int32(cfg, P, smax)``)."""
     import torch.distributed as dist
     from repro_torch import device as device_lib
     from repro_torch.core.runtime import JobSpec
@@ -5913,16 +6201,23 @@ def _long_phase(name, cfg, device, smoke, *, P, steps, smax, workspace,
         out["unsharded"], out["sharded"] = plain, mesh
         out["launches"] = {n: plain["launches"][n] + mesh["launches"][n]
                            for n in COUNTERS}
-        # the decode step's bound: the params and the whole cache read
-        nbytes = params_b + cache_b(smax)
-        out["decode_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        out["decode_bytes"] = nbytes
+        # the decode step's floor (``decode_floor``): the params and the
+        # cache rows below cache_len at the profiled step's position, the
+        # recurrent states whole; the whole cache's figure beside it
+        floor = decode_floor(cfg, 1, plain["cache_len"] + 1)
+        out["decode_bound_ms"] = floor["floor_ms"]
+        out["decode_bound_positions"] = floor["positions"]
+        out["decode_bytes"] = (floor["weights_gb"] + floor["cache_gb"]) * 1e9
+        out["decode_bound_whole_cache_ms"] = ((params_b + cache_b(smax))
+                                              / HBM_BYTES_PER_S * 1e3)
         if dev.type == "cuda":
             w = mesh["warm_decode_step"]
             out["decode_wall_ms"], out["decode_device_ms"] = (
                 w["wall_ms"], w["device_ms"])
+            out["decode_device_over_bound"] = (w["device_ms"]
+                                               / out["decode_bound_ms"])
         out["attention_check"] = attention_check(cfg, smax, dev)
-        out["int32"] = int32(cfg, P)
+        out["int32"] = int32(cfg, P, smax)
         check(all(v["elements"] < 2 ** 31 for v in out["int32"].values()),
               f"{name}: a kernel's tensor past 2^31 elements "
               f"{out['int32']}")
@@ -6001,10 +6296,20 @@ LONG_RTOL = 1e-5
 
 
 def _long_attention_check(cfg, smax, dev):
-    """``ops.decode_attention`` over one layer's full-size cache, every
-    position valid, in chunks of ``ops.DECODE_CHUNK`` against one chunk
-    (the whole softmax), on the same bf16 inputs: the fp32 partial
-    results (normalised output and log-sum-exp) within ``LONG_RTOL``."""
+    """``ops.decode_attention``'s plain version over one layer's
+    full-size cache, every position valid, in chunks of
+    ``ops.DECODE_CHUNK`` against one chunk (the whole softmax), on the
+    same bf16 inputs: the fp32 partial results (normalised output and
+    log-sum-exp) within ``LONG_RTOL``.  On the card besides, the kernel
+    (``kernels/decode_attention.py``) on the same tensors at the decode
+    steps' cache_len (the prompt and ``LONG_STEPS`` steps) and at every
+    position, against the whole softmax at the same cache_len: its fp32
+    partials within ``LONG_RTOL``, its bf16 output within 2e-2
+    (``close``); its time, the plain chunked version's, SDPA's
+    over the valid prefix and the bound of the rows below cache_len
+    (``decode_bound``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops
     a = cfg.attention
     g = torch.Generator(device=dev)
@@ -6019,8 +6324,9 @@ def _long_attention_check(cfg, smax, dev):
     kt, vt = k.transpose(1, 2), v.transpose(1, 2)
     chunk = min(ops.DECODE_CHUNK, smax // 4)
 
-    def run(c):
-        return ops.decode_attention(q, kt, vt, smax, chunk=c, partials=True)
+    def run(c, n=smax, partials=True):
+        return ops.decode_attention(q, kt, vt, n, chunk=c, partials=partials,
+                                    impl="torch")
     got, want = run(chunk), run(smax)
     (e_o, r_o), (e_l, r_l) = (close(got[0], want[0], LONG_RTOL),
                               close(got[1], want[1], LONG_RTOL))
@@ -6030,26 +6336,58 @@ def _long_attention_check(cfg, smax, dev):
            "worst_over_tol": max(r_o, r_l)}
     out["passed"] = out["worst_over_tol"] <= 1
     check(out["passed"], f"serve_long: chunked decode attention {out}")
+    del got, want
     if dev.type == "cuda":
         out["ms"] = time_ms(lambda: run(chunk), iters=3, warmup=1)
         out["whole_ms"] = time_ms(lambda: run(smax), iters=3, warmup=1)
         out["bound_ms"] = ((k.numel() + v.numel()) * 2
                            / HBM_BYTES_PER_S * 1e3)
-    del k, v, kt, vt, got, want
+        out["kernel"] = {}
+        for n in (min(LONG_PROMPT + LONG_STEPS, smax), smax):
+            cl = torch.tensor(n, device=dev)
+            o, lse = da.decode_attention_cuda(q, kt, vt, cl, partials=True)
+            wo, wl = run(smax, n)
+            (e_o, r_o), (e_l, r_l) = (close(o, wo, LONG_RTOL),
+                                      close(lse, wl, LONG_RTOL))
+            del wo, wl
+            got = da.decode_attention_cuda(q, kt, vt, cl)
+            e_b, r_b = close(got, run(smax, n, partials=False), 2e-2)
+            row = {"cache_len": n, "max_err_partials": max(e_o, e_l),
+                   "err_over_tol_partials": max(r_o, r_l),
+                   "max_err": e_b, "err_over_tol": r_b,
+                   "same_bits_as_partials_cast": same_bits(
+                       (got,), (o.reshape(got.shape).to(got.dtype),))}
+            check(max(r_o, r_l, r_b) <= 1
+                  and row["same_bits_as_partials_cast"],
+                  f"serve_long: decode attention kernel {row}")
+            row["kernel_ms"] = time_ms(
+                lambda: da.decode_attention_cuda(q, kt, vt, cl))
+            row["plain_ms"] = out["ms"]
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, kt[:, :, :n], vt[:, :, :n],
+                    enable_gqa=a.n_heads != a.n_kv_heads), iters=5)
+            row["bound_ms"], row["bound_by"] = decode_bound(q, kt, vt, n)
+            out["kernel"][str(n)] = row
+            del o, lse, got
+    del k, v, kt, vt
     return out
 
 
-def _long_int32(cfg, P):
+def _long_int32(cfg, P, smax):
     """The largest tensor, in elements, each kernel of serve_long's path
     takes (B = 1): the SSD scan's x (P, H, head_dim), flash attention's q
     (H, P, head_dim), the RMSNorm's rows (P, d_inner): each kernel
-    indexes its inputs with 32-bit offsets (``csrc/``)."""
+    indexes its inputs with 32-bit offsets (``csrc/``); and the dense
+    decode attention's view of a layer's cache (Hkv, smax, head_dim),
+    which it indexes in 64 bits."""
     di = cfg.ssm.expand * cfg.d_model
     H = di // cfg.ssm.head_dim
     a = cfg.attention
     sizes = {"ssd_scan": P * H * cfg.ssm.head_dim,
              "flash_attention": P * a.n_heads * a.head_dim,
-             "rmsnorm": P * di}
+             "rmsnorm": P * di,
+             "decode_attention": smax * a.n_kv_heads * a.head_dim}
     return {k: {"elements": n, "share_of_2_31": n / 2 ** 31}
             for k, n in sizes.items()}
 
@@ -6109,7 +6447,7 @@ def _long_mla_attention_check(cfg, smax, dev):
     return out
 
 
-def _long_mla_int32(cfg, P):
+def _long_mla_int32(cfg, P, smax):
     """The largest tensor, in elements, each kernel of serve_long_mla's
     path takes (B = 1): flash attention's q and K (H, P, Dn + Dr), the
     RMSNorm's rows (P, d_model); and the expert buffer the three batched
@@ -8676,6 +9014,10 @@ def _run_all() -> int:
     scalar_norms = launched("rmsnorm_scalar")
     check(not any(scalar_norms.values()),
           f"main-path rmsnorm calls took the scalar route: {scalar_norms}")
+    scalar_decode = launched("decode_attention_scalar")
+    check(not any(scalar_decode.values()),
+          f"main-path decode attention calls took the scalar route: "
+          f"{scalar_decode}")
 
     # the launches that ran inside decode graphs, run by run: each graph's
     # replays times its launches per replay
@@ -8821,6 +9163,16 @@ def _run_all() -> int:
                     "shape", "kv_heads", "max_err", "kernel_ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")}
                 for key, _, _ in GQA_PREFILLS}
+        if name == "decode_attention":
+            # every main path's decode shape, the B = 1 cache's at two
+            # cache_len values, and the graph replays' bits
+            row["shapes"] = {key: {f: r[f] for f in (
+                "shape", "cache_len", "group", "route", "max_err",
+                "partials", "kernel_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}
+                for key, r in k["shapes"].items()}
+            row["serve_long"] = serve_long["attention_check"].get("kernel")
+            row["graph"] = k["graph"]
         if name == "paged_attention":
             # the other GQA groups' rounds (GC = 4 and 8 beside them)
             row["gqa_groups"] = {key: k[key] for key in (

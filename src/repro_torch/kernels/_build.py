@@ -61,6 +61,13 @@ SIGNATURES = {
     # B, Hq, Hkv, D, Dv, page, maxp, partition pages, scale, dtype code,
     # split route, stream
     "paged_attention_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k, v, cache_len and offset (each null when passed by value), o,
+    # lse (or null), workspace, q's (batch, head) strides, k's and v's
+    # (batch, head, position) strides, cache_len's and offset's values,
+    # their int64 flags, B, Hq, Hkv, Smax, D, Dv, window, n_split, scale,
+    # dtype code, vector route, partials, stream
+    "decode_attention_launch": [_P] * 8 + [_L] * 10 + [_I] * 10
+    + [_F, _I, _I, _I, _P],
     # x, dt, A, B, C, D, h0 (or null), y, h_final, Bt, S, H, P, N, Q,
     # (batch, sequence) strides of x, B and C, dtype code, stream
     "ssd_scan_launch": [_P] * 9 + [_I] * 6 + [_L] * 6 + [_I, _P],

@@ -36,7 +36,10 @@
 // Dv + 2).  A second kernel merges a
 // slot's live partitions in partition order, with no atomics, so the
 // result is the same bits on every call; it writes o in q's dtype and
-// zeros for seq_lens[b] == 0.
+// zeros for seq_lens[b] == 0.  The row loads, the online softmax, the
+// warps' merge and the partitions' merge are flash_decode.cuh's, shared
+// with decode_attention.cu; the page table's addressing, the live
+// partitions and the half-warps' merge are this file's.
 //
 // Scalar route (anything else: odd head dims, unaligned bases; the design
 // before the split route): one thread block (8 warps) per (kv head h, head
@@ -59,6 +62,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "flash_decode.cuh"
 
 namespace {
 
@@ -211,59 +215,12 @@ namespace split {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int LE = 8;                  // elements of a row a lane owns
+constexpr int LE = fd::LE;             // elements of a row a lane owns
 constexpr int MAX_PART_PAGES = 128;    // page ids of one partition
 constexpr int MERGE_THREADS = MAX_D;
 
-// A lane's 8 elements of a row, c0 .. c0 + 7: one (bf16) or two (f32)
-// 16-byte words; words at or past the row's width are 0 and not read.
 template <typename T>
-struct Row8 {
-  static constexpr int VEC = 16 / sizeof(T);   // elements a word
-  static constexpr int W = LE / VEC;           // words
-  uint4 w[W];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < W; ++i) w[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  __device__ __forceinline__ void load(const T* row, int c0, int width) {
-#pragma unroll
-    for (int i = 0; i < W; ++i)
-      w[i] = c0 + i * VEC < width
-                 ? *reinterpret_cast<const uint4*>(row + c0 + i * VEC)
-                 : make_uint4(0u, 0u, 0u, 0u);
-  }
-  __device__ __forceinline__ void to_f32(float (&f)[LE]) const;
-};
-
-template <>
-__device__ __forceinline__ void Row8<float>::to_f32(float (&f)[LE]) const {
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    f[4 * i] = __uint_as_float(w[i].x);
-    f[4 * i + 1] = __uint_as_float(w[i].y);
-    f[4 * i + 2] = __uint_as_float(w[i].z);
-    f[4 * i + 3] = __uint_as_float(w[i].w);
-  }
-}
-
-template <>
-__device__ __forceinline__ void Row8<__nv_bfloat16>::to_f32(
-    float (&f)[LE]) const {
-  const uint32_t u[4] = {w[0].x, w[0].y, w[0].z, w[0].w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(u[i] << 16);
-    f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using Row8 = fd::Row8<T>;
 
 // positions a half-warp loads at once: 8 K and 8 V words in flight a lane,
 // fewer as the GC heads' registers grow
@@ -342,39 +299,9 @@ paged_decode_split_kernel(const T* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int g = 0; g < GC; ++g) {
-      float s[U];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float kf[LE];
-        kr[u].to_f32(kf);
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < LE; ++e) dot = fmaf(qf[g][e], kf[e], dot);
-        s[u] = half_sum(dot) * scale;
-        if (base + 2 * u + half < t1) mx = fmaxf(mx, s[u]);
-      }
-      const float m_new = fmaxf(m[g], mx);
-      const float corr = expf(m[g] - m_new);
-      float p[U], ps = 0.f;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        p[u] = base + 2 * u + half < t1 ? expf(s[u] - m_new) : 0.f;
-        ps += p[u];
-      }
-      l[g] = l[g] * corr + ps;
-      m[g] = m_new;
-#pragma unroll
-      for (int e = 0; e < LE; ++e) acc[g][e] *= corr;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float vf[LE];
-        vr[u].to_f32(vf);
-#pragma unroll
-        for (int e = 0; e < LE; ++e) acc[g][e] = fmaf(p[u], vf[e], acc[g][e]);
-      }
-    }
+    for (int g = 0; g < GC; ++g)
+      fd::online_step<16, U>(qf[g], kr, vr, base + half, 2, t1, scale, m[g],
+                             l[g], acc[g]);
   }
 
   // the warp's two half-warps, then the 8 warps in order
@@ -403,16 +330,10 @@ paged_decode_split_kernel(const T* __restrict__ q,
 
   for (int idx = threadIdx.x; idx < GC * Dv; idx += THREADS) {
     const int g = idx / Dv, c = idx - g * Dv;
-    float M = NEG_INF;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, s_m[w][g]);
-    float L = 0.f, O = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = expf(s_m[w][g] - M);
-      L = fmaf(s_l[w][g], f, L);
-      O = fmaf(s_acc[w][g][c], f, O);
-    }
+    float M, L;
+    const float O = fd::merge_warps<WARPS>(&s_m[0][g], &s_l[0][g],
+                                           &s_acc[0][g][c], GC, GC * MAX_D,
+                                           M, L);
     float* out =
         ws + ((static_cast<size_t>(b) * Hq + hq0 + g) * n_part + j) * (Dv + 2);
     out[c] = O;
@@ -434,17 +355,9 @@ paged_decode_merge_kernel(const float* __restrict__ ws,
   const int live = (len + P - 1) / P;
   const float* w = ws + static_cast<size_t>(bh) * n_part * (Dv + 2);
   for (int c = threadIdx.x; c < Dv; c += MERGE_THREADS) {
-    float M = NEG_INF;
-    for (int i = 0; i < live; ++i) M = fmaxf(M, w[i * (Dv + 2) + Dv]);
-    float L = 0.f, O = 0.f;
-    for (int i = 0; i < live; ++i) {
-      const float* wi = w + i * (Dv + 2);
-      const float f = expf(wi[Dv] - M);
-      L = fmaf(wi[Dv + 1], f, L);
-      O = fmaf(wi[c], f, O);
-    }
+    float M, L;
     o[static_cast<size_t>(bh) * Dv + c] =
-        from_f32<T>(O / (L == 0.f ? 1.f : L));
+        from_f32<T>(fd::merge_spans(w, 0, live, Dv, c, M, L));
   }
 }
 

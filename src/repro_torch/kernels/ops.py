@@ -3,18 +3,21 @@ port of ``repro.kernels.ops`` for the serve and train paths).
 
 Each op with a kernel has two implementations:
   * ``kernel`` — the hand-written CUDA kernel (``flash_attention.py``,
-                 ``paged_attention.py``, ``rmsnorm.py``, ``fused_adamw.py``,
-                 ``ssd_scan.py``, ``slstm.py``, ``mlstm.py`` and
-                 ``csrc/``);
+                 ``paged_attention.py``, ``decode_attention.py``,
+                 ``rmsnorm.py``, ``fused_adamw.py``, ``ssd_scan.py``,
+                 ``slstm.py``, ``mlstm.py`` and ``csrc/``);
   * ``torch``  — its plain PyTorch version, beside the kernel.
 
 ``impl="auto"`` mirrors ``repro.kernels.ops._use_pallas``: the kernel for a
 CUDA tensor, the plain version for a CPU tensor.  ``impl="kernel"`` on a
 CPU tensor raises.  ``impl="torch"`` is the plain version on any device;
-the tests and ``chip_smoke.py`` compare against it.  ``decode_attention``,
+the tests and ``chip_smoke.py`` compare against it.
 ``ssd_decode_step`` and ``mlstm_decode_step`` never had a TPU kernel and
-are plain PyTorch only (``decode_attention`` in chunks of positions,
-merged as a sequence-split cache's ranks merge theirs).
+are plain PyTorch only.  ``decode_attention`` never had one either (the
+reference's is plain jnp): on a CUDA tensor it is the kernel of
+``kernels/decode_attention.py``, which reads only the valid positions'
+K/V rows; its plain version scores the cache in chunks of positions,
+merged as a sequence-split cache's ranks merge theirs.
 
 Gradients: ``flash_attention`` is a ``torch.autograd.Function`` whose
 backward is the flash backward (the counterpart of the custom VJP
@@ -53,6 +56,7 @@ import torch.nn.functional as F
 
 from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_adamw as _fo
 from repro_torch.kernels import mlstm as _ml
@@ -131,70 +135,44 @@ def flash_attention(q, k, v, *, causal: bool = True, sliding_window: int = 0,
 # Decode attention (single new token vs. a dense cache)
 # ===========================================================================
 
-#: positions of a dense decode cache scored at a time (``decode_attention``)
-DECODE_CHUNK = 32768
+#: positions of a dense decode cache the plain version scores at a time
+DECODE_CHUNK = _da.DECODE_CHUNK
+merge_attention = _da.merge_attention
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
                      sliding_window: int = 0, offset=0,
-                     chunk: int = DECODE_CHUNK, partials: bool = False):
-    """q: (B, Hq, 1, D); caches: (B, Hkv, Smax, D|Dv).  Attends over the
+                     chunk: int = DECODE_CHUNK, partials: bool = False,
+                     impl: str = "auto"):
+    """q: (B, Hq, 1, D); caches: (B, Hkv, Smax, D|Dv), any strides but a
+    unit one on the head dim (``layers.py`` hands over transposed views
+    of the (B, Smax, Hkv, D) buffers, never copied).  Attends over the
     first ``cache_len`` entries (the new token's K/V already written at
     ``cache_len - 1``); ``cache_len`` an int or a 0-d tensor on q's
-    device (the mask is a comparison, so no host sync).
+    device, read there (no host sync).  ``offset``: the cache holds the
+    positions from ``offset`` on (a rank's slice of a sequence-split
+    cache; an int or a 0-d tensor).  ``partials``: return the (o, lse)
+    ``merge_attention`` takes, o (B, Hkv, G, Dv) and lse (B, Hkv, G) in
+    fp32, for the merge over the ranks that hold the other slices;
+    without it the fp32 o cast to q's dtype, the same bits as the
+    partials' o cast.
 
-    The cache is scored ``chunk`` positions at a time, each chunk's
-    softmax taken whole in fp32 as the reference's, and the chunks'
-    partial results merged (``merge_attention``): a chunk's K and V are
-    upcast alone, so a long cache's fp32 temporaries stay a chunk's.
-    With one chunk the result is the whole softmax's bit for bit.  Every
-    position is scored and masked, as the reference's: a captured step
-    reads ``cache_len`` on the device, so the chunks past it cannot be
-    skipped.  ``offset``: the cache holds the positions from ``offset``
-    on (a rank's slice of a sequence-split cache; an int or a 0-d
-    tensor).  ``partials``: return the (o, lse) ``merge_attention``
-    takes, o (B, Hkv, G, Dv) and lse (B, Hkv, G) in fp32, for the merge
-    over the ranks that hold the other slices."""
-    B, Hq, _, D = q.shape
-    _, Hkv, Smax, Dv = v_cache.shape
-    G = Hq // Hkv
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qf = q.float().reshape(B, Hkv, G, D)
-    os_, lses = [], []
-    for lo in range(0, Smax, chunk):
-        hi = min(lo + chunk, Smax)
-        s = torch.einsum("bhgd,bhkd->bhgk", qf,
-                         k_cache[:, :, lo:hi].float()) * scale
-        pos = torch.arange(lo, hi, device=q.device) + offset
-        mask = pos < cache_len
-        if sliding_window > 0:
-            mask &= pos >= (cache_len - sliding_window)
-        s = torch.where(mask, s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        os_.append(torch.einsum("bhgk,bhkd->bhgd", p,
-                                v_cache[:, :, lo:hi].float()))
-        lses.append(torch.logsumexp(s, dim=-1))
-        del s, p
-    o, lse = merge_attention(torch.stack(os_), torch.stack(lses))
-    if partials:
-        return o, lse
-    return o.reshape(B, Hq, 1, Dv).to(q.dtype)
-
-
-def merge_attention(o, lse):
-    """Partial attention results over disjoint sets of positions merged
-    into the result over all of them: o (n, ..., Dv) each normalised over
-    its own positions, lse (n, ...) each one's log-sum-exp of the
-    scores.  A set whose every position is masked has lse ~ ``NEG_INF``
-    and weight 0.  One set is returned as it is.  The decode's chunks
-    and the data ranks' slices of a sequence-split cache merge here."""
-    if o.shape[0] == 1:
-        return o[0], lse[0]
-    m = lse.amax(0)
-    w = torch.exp(lse - m)
-    tot = w.sum(0)
-    return ((o * w[..., None]).sum(0) / tot[..., None],
-            m + torch.log(tot))
+    A CUDA tensor takes the kernel (``kernels/decode_attention.py``),
+    which reads only the K/V rows of the valid positions: a masked
+    position's weight is an exact 0, so the positions past ``cache_len``
+    are skipped, not scored, and a captured step's work follows
+    ``cache_len``.  The plain version (a CPU tensor or ``impl="torch"``)
+    scores every position ``chunk`` at a time, each chunk upcast alone,
+    the chunks merged (``merge_attention``); with one chunk it is the
+    reference's whole softmax bit for bit."""
+    kw = dict(scale=scale, sliding_window=sliding_window, offset=offset,
+              partials=partials)
+    if _is_fake(q):
+        return _fake_decode(q, k_cache, v_cache, cache_len, **kw)
+    if _use_kernel(impl, q):
+        return _da.decode_attention_cuda(q, k_cache, v_cache, cache_len, **kw)
+    return _da.decode_attention_torch(q, k_cache, v_cache, cache_len,
+                                      chunk=chunk, **kw)
 
 
 # ===========================================================================
@@ -740,6 +718,34 @@ def _fake_adamw(p, g, m) -> None:
     else:
         mom = 2 * 2 * _nbytes(m)
     _cost("fused_adamw", 20 * n, 2 * _nbytes(p) + _nbytes(g) + mom)
+
+
+def _fake_decode(q, k_cache, v_cache, cache_len, *, scale, sliding_window,
+                 offset, partials):
+    """Dense decode attention on fake tensors: the kernel's work, 2 (D +
+    Dv) FLOPs a (query head, position), every K/V row of the positions
+    it attends over read once, q read and the outputs written once.  The
+    positions are the valid ones where ``cache_len`` and ``offset`` are
+    ints; a tensor (fake: it carries no value) counts all Smax, the most
+    a step can read (the dry run's decode cells sit at cache_len = Smax -
+    1, so one position more than the kernel reads)."""
+    B, Hq, _, D = q.shape
+    _, Hkv, Smax, Dv = v_cache.shape
+    G = Hq // Hkv
+    if isinstance(cache_len, int) and isinstance(offset, int):
+        lo, hi = _da.valid_span(cache_len, offset, sliding_window, Smax)
+        n = hi - lo
+    else:
+        n = Smax
+    if partials:
+        out = (q.new_empty((B, Hkv, G, Dv), dtype=torch.float32),
+               q.new_empty((B, Hkv, G), dtype=torch.float32))
+    else:
+        out = (q.new_empty((B, Hq, 1, Dv)),)
+    _cost("decode_attention", B * Hq * n * 2 * (D + Dv),
+          _nbytes(q, *out) + B * n * Hkv * (D + Dv)
+          * k_cache.element_size())
+    return out if partials else out[0]
 
 
 def _fake_paged(q, k_pages, v_pages, page_table):

@@ -164,14 +164,14 @@ def attention_fwd(p, x, a: AttentionConfig, *, positions, cache=None,
                 cache["v"].dtype))
             o = ops.decode_attention(
                 q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
-                cache_len + 1, sliding_window=a.sliding_window)
+                cache_len + 1, sliding_window=a.sliding_window, impl=impl)
         else:
             _write_owned(cache, {"k": k.transpose(1, 2),
                                  "v": v.transpose(1, 2)}, cache_len - lo)
             o, lse = ops.decode_attention(
                 q, cache["k"].transpose(1, 2), cache["v"].transpose(1, 2),
                 cache_len + 1, sliding_window=a.sliding_window, offset=lo,
-                partials=True)
+                partials=True, impl=impl)
             o, _ = ops.merge_attention(shard_ctx.gather_data(o),
                                        shard_ctx.gather_data(lse))
             o = o.reshape(B, H, 1, a.v_dim).to(q.dtype)

@@ -647,6 +647,7 @@ def test_dryrun_cells_reach_ok(runs):
     assert lines["train_step"]["kernels"]["fused_adamw"] > 0
     assert lines["prefill_step"]["kernels"]["flash_attention"] > 0
     assert "flash_attention" not in lines["decode_step"]["kernels"]
+    assert lines["decode_step"]["kernels"]["decode_attention"] > 0
 
 
 def test_dryrun_collectives_equal_real_gloo_ranks(runs):

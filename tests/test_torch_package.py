@@ -217,8 +217,11 @@ def test_every_ctypes_signature_matches_its_c_prototype():
 PORT_ONLY = {"device.py", "interop.py", "kernels/_build.py", "__init__.py",
              # the sLSTM recurrence's and the mLSTM chunked scan's
              # kernels: the reference's are lax.scans inside
-             # models/ssm.py and kernels/ops.py, not kernel modules
+             # models/ssm.py and kernels/ops.py, not kernel modules; the
+             # dense decode attention's: the reference's is plain jnp in
+             # kernels/ops.py
              "kernels/slstm.py", "kernels/mlstm.py",
+             "kernels/decode_attention.py",
              "core/service.py",
              "checkpoint/__init__.py", "data/__init__.py",
              "launch/__init__.py", "models/__init__.py", "serve/__init__.py",
